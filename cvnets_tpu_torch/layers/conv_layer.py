@@ -1,0 +1,53 @@
+"""Conv + Norm + Act (counterpart of cvnets_tpu/layers/conv_layer.py:27-115).
+
+NCHW layout; padding ``((kernel - 1) // 2) * dilation`` on each side, as in the JAX
+package and the reference.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn as nn
+
+from cvnets_tpu_torch.layers.activation import build_act_layer
+from cvnets_tpu_torch.layers.normalization import LayerNorm2d, get_normalization_layer
+
+
+class ConvLayer2d(nn.Module):
+    def __init__(self, opts, in_channels: int, out_channels: int,
+                 kernel_size: int = 3, stride: int = 1, dilation: int = 1,
+                 groups: int = 1, bias: bool = False, use_norm: bool = True,
+                 use_act: bool = True, act_name: Optional[str] = None,
+                 norm_name: Optional[str] = None) -> None:
+        super().__init__()
+        self.conv = nn.Conv2d(
+            in_channels, out_channels, kernel_size, stride=stride,
+            padding=((kernel_size - 1) // 2) * dilation, dilation=dilation,
+            groups=groups,
+            bias=self._effective_bias(opts, bias, use_norm, norm_name))
+        self.norm = (get_normalization_layer(opts, out_channels, norm_name)
+                     if use_norm else None)
+        self.act = build_act_layer(opts, act_name) if use_act else None
+
+    @staticmethod
+    def _effective_bias(opts, bias: bool, use_norm: bool,
+                        norm_name: Optional[str]) -> bool:
+        """Reference quirk (conv_layer.py:47-55 in the JAX package): a conv
+        followed by a LayerNorm-family norm keeps its bias even if ``bias=False``."""
+        if not use_norm or bias:
+            return bias
+        nt = (norm_name or getattr(opts, "model.normalization.name", "batch_norm")
+              or "batch_norm").lower()
+        return nt in ("layer_norm", "layer_norm_2d", "layer_norm_fp32")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = self.conv(x)
+        if isinstance(self.norm, LayerNorm2d):
+            x = self.norm(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
+        elif self.norm is not None:
+            x = self.norm(x)
+        if self.act is not None:
+            x = self.act(x)
+        return x

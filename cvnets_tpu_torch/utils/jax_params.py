@@ -1,0 +1,79 @@
+"""Fill a port model from a flax variable tree (numpy leaves).
+
+Port module attributes are named after the flax scopes, so a flax path maps to a
+``state_dict`` key by rule: ``/`` becomes ``.``, a list stage ``layer_3_0`` is the
+``nn.Sequential`` entry ``layer_3.0``, and the leaf names change as
+``kernel``/``scale`` → ``weight`` and ``mean``/``var`` → ``running_mean``/
+``running_var``. Layouts change as conv HWIO → OIHW (a depthwise (kh, kw, 1, O)
+becomes (O, 1, kh, kw)) and Dense (in, out) → Linear (out, in).
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Iterator, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+_LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
+         "mean": "running_mean", "var": "running_var"}
+_STAGE = re.compile(r"^(layer_\d+)_(\d+)$")
+
+
+def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v)
+
+
+def torch_key(flax_path: Tuple[str, ...]) -> str:
+    *scopes, leaf = flax_path
+    parts = []
+    for s in scopes:
+        m = _STAGE.match(s)
+        parts.extend(m.groups() if m else (s,))
+    if leaf not in _LEAF:
+        raise KeyError(f"no torch name for flax leaf {'/'.join(flax_path)}")
+    return ".".join(parts + [_LEAF[leaf]])
+
+
+def _to_torch_layout(value: np.ndarray) -> np.ndarray:
+    if value.ndim == 4:  # conv HWIO -> OIHW
+        return value.transpose(3, 2, 0, 1)
+    if value.ndim == 2:  # Dense (in, out) -> Linear (out, in)
+        return value.T
+    return value
+
+
+@torch.no_grad()
+def load_jax_params(model: nn.Module, params: Mapping,
+                    batch_stats: Optional[Mapping] = None) -> None:
+    """Copy every flax leaf into ``model``. Raises unless each flax leaf is used
+    exactly once and every parameter and buffer of ``model`` is filled (BN's
+    ``num_batches_tracked`` counter has no flax leaf and is left as it is)."""
+    targets: Dict[str, torch.Tensor] = {
+        k: v for k, v in model.state_dict().items()
+        if not k.endswith("num_batches_tracked")}
+    filled = set()
+    for tree in (params, batch_stats or {}):
+        for path, value in _flatten(tree):
+            key = torch_key(path)
+            if key not in targets:
+                raise KeyError(f"flax leaf {'/'.join(path)} -> {key}: no such "
+                               "parameter or buffer in the model")
+            if key in filled:
+                raise KeyError(f"two flax leaves map to {key}")
+            value = _to_torch_layout(value)
+            dst = targets[key]
+            if tuple(value.shape) != tuple(dst.shape):
+                raise ValueError(f"{'/'.join(path)}: shape {value.shape} vs "
+                                 f"{key} {tuple(dst.shape)}")
+            dst.copy_(torch.from_numpy(np.array(value)))  # a writable copy
+            filled.add(key)
+    missing = sorted(set(targets) - filled)
+    if missing:
+        raise KeyError(f"{len(missing)} model tensors have no flax leaf: {missing[:8]}")
