@@ -1,5 +1,7 @@
 """Activations (counterpart of cvnets_tpu/layers/activation.py). Only the
-default (relu) and MobileViTv2's swish are ported."""
+default (relu), MobileViTv2's swish and ViT's gelu are ported. gelu is the exact
+erf form, as the JAX package's ``partial(jax.nn.gelu, approximate=False)``
+(activation.py:33), which is ``F.gelu``'s default."""
 
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ from cvnets_tpu.utils import logger
 SUPPORTED_ACT_FNS = {
     "relu": F.relu,
     "swish": F.silu,
+    "gelu": F.gelu,
 }
 
 

@@ -44,7 +44,7 @@ class ConvLayer2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.conv(x)
-        if isinstance(self.norm, LayerNorm2d):
+        if isinstance(self.norm, (LayerNorm2d, nn.LayerNorm)):  # channels-last norms
             x = self.norm(x.permute(0, 2, 3, 1)).permute(0, 3, 1, 2)
         elif self.norm is not None:
             x = self.norm(x)

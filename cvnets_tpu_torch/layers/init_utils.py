@@ -5,6 +5,9 @@ picks for it (``kaiming_normal`` is flax ``he_normal``: a normal truncated at tw
 standard deviations and rescaled to variance 2/fan_in). Draws come from an explicit
 ``torch.Generator``. Fans follow flax: a conv's fan-in is kh·kw·in/groups and a
 linear layer's is its input width, which torch's (out, in, ...) layouts give too.
+Learnable positional tables and ViT's ``cls_token`` draw from flax
+``truncated_normal`` (positional_embedding.py:66-69, vit.py:105-107), which is the
+``trunc_normal`` rule here.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch.nn as nn
 from cvnets_tpu.utils import logger
 from cvnets_tpu_torch.layers.linear_layer import LinearLayer
 from cvnets_tpu_torch.layers.normalization import LayerNorm2d
+from cvnets_tpu_torch.layers.positional_embedding import PositionalEmbedding
 
 SUPPORTED_INIT = ("kaiming_normal", "normal", "trunc_normal")
 
@@ -47,7 +51,8 @@ def init_weights(model: nn.Module, opts, generator: Optional[torch.Generator]) -
 
     Convs and the ``LinearLayer``s built with ``weight_init="conv"`` take
     ``model.layer.conv_init``; other ``LinearLayer``s take
-    ``model.layer.linear_init``. Biases are zero, norm scales one."""
+    ``model.layer.linear_init``. Biases are zero, norm scales one; positional
+    tables and a module's ``cls_token`` are truncated normals at std 0.02."""
     conv = (getattr(opts, "model.layer.conv_init", "kaiming_normal"),
             getattr(opts, "model.layer.conv_init_std_dev", 0.01) or 0.01)
     linear = (getattr(opts, "model.layer.linear_init", "normal"),
@@ -58,9 +63,13 @@ def init_weights(model: nn.Module, opts, generator: Optional[torch.Generator]) -
         elif isinstance(m, LinearLayer):
             init_tensor(m.weight, *(conv if m.weight_init == "conv" else linear),
                         generator)
-        elif isinstance(m, (nn.BatchNorm2d, LayerNorm2d)):
+        elif isinstance(m, (nn.BatchNorm2d, LayerNorm2d, nn.LayerNorm)):
             nn.init.ones_(m.weight)
         else:
+            if isinstance(m, PositionalEmbedding) and m.pos_embed is not None:
+                init_tensor(m.pos_embed, "trunc_normal", 0.02, generator)
+            if isinstance(getattr(m, "cls_token", None), nn.Parameter):
+                init_tensor(m.cls_token, "trunc_normal", 0.02, generator)
             continue
         if m.bias is not None:
             nn.init.zeros_(m.bias)

@@ -6,6 +6,8 @@
 * ``layer_norm_2d`` is GroupNorm with ONE group (normalization.py:190-193):
   statistics over channels and space jointly, affine per channel. It is applied to
   channels-last tensors, the layout of MobileViTv2's (B, P, N, C) patches.
+* ``layer_norm`` is ``nn.LayerNorm`` over the trailing axis only, with the
+  caller's eps (normalization.py:185-188); ViT's (B, S, E) tokens take it.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import torch.nn.functional as F
 from cvnets_tpu.utils import logger
 
 BATCH_NORMS = ("batch_norm", "batch_norm_2d", "sync_batch_norm")
-SUPPORTED_NORM_FNS = BATCH_NORMS + ("layer_norm_2d", "identity")
+SUPPORTED_NORM_FNS = BATCH_NORMS + ("layer_norm", "layer_norm_2d", "identity")
 
 
 class LayerNorm2d(nn.Module):
@@ -48,6 +50,8 @@ def get_normalization_layer(opts, num_features: int,
         # on one device sync-BN is plain BN, as under GSPMD in the JAX package
         return nn.BatchNorm2d(num_features, eps=eps,
                               momentum=0.1 if momentum is None else momentum)
+    if norm_type == "layer_norm":
+        return nn.LayerNorm(num_features, eps=eps)
     if norm_type == "layer_norm_2d":
         return LayerNorm2d(num_features, eps=eps)
     if norm_type == "identity":

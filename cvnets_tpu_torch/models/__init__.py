@@ -45,4 +45,4 @@ def modeling_arguments(parser: argparse.ArgumentParser) -> argparse.ArgumentPars
 
 
 # registers the ported models (after MODEL_REGISTRY exists)
-from cvnets_tpu_torch.models.classification import mobilevit_v2  # noqa: E402,F401
+from cvnets_tpu_torch.models.classification import mobilevit_v2, vit  # noqa: E402,F401

@@ -4,8 +4,10 @@ Port module attributes are named after the flax scopes, so a flax path maps to a
 ``state_dict`` key by rule: ``/`` becomes ``.``, a list stage ``layer_3_0`` is the
 ``nn.Sequential`` entry ``layer_3.0``, and the leaf names change as
 ``kernel``/``scale`` → ``weight`` and ``mean``/``var`` → ``running_mean``/
-``running_var``. Layouts change as conv HWIO → OIHW (a depthwise (kh, kw, 1, O)
-becomes (O, 1, kh, kw)) and Dense (in, out) → Linear (out, in).
+``running_var``; ViT's ``pos_embed`` table and top-level ``cls_token`` keep their
+names. Only leaves named ``kernel`` change layout, by rank: a conv HWIO → OIHW (a
+depthwise (kh, kw, 1, O) becomes (O, 1, kh, kw)) and a Dense (in, out) → Linear
+(out, in). Every other leaf, a 2-D positional table included, keeps its layout.
 """
 
 from __future__ import annotations
@@ -18,7 +20,8 @@ import torch
 import torch.nn as nn
 
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
-         "mean": "running_mean", "var": "running_var"}
+         "mean": "running_mean", "var": "running_var",
+         "pos_embed": "pos_embed", "cls_token": "cls_token"}
 _STAGE = re.compile(r"^(layer_\d+)_(\d+)$")
 
 
@@ -41,7 +44,10 @@ def torch_key(flax_path: Tuple[str, ...]) -> str:
     return ".".join(parts + [_LEAF[leaf]])
 
 
-def _to_torch_layout(value: np.ndarray) -> np.ndarray:
+def to_torch_layout(flax_path: Tuple[str, ...], value: np.ndarray) -> np.ndarray:
+    """A flax leaf in the layout of its torch tensor."""
+    if flax_path[-1] != "kernel":
+        return value
     if value.ndim == 4:  # conv HWIO -> OIHW
         return value.transpose(3, 2, 0, 1)
     if value.ndim == 2:  # Dense (in, out) -> Linear (out, in)
@@ -67,7 +73,7 @@ def load_jax_params(model: nn.Module, params: Mapping,
                                "parameter or buffer in the model")
             if key in filled:
                 raise KeyError(f"two flax leaves map to {key}")
-            value = _to_torch_layout(value)
+            value = to_torch_layout(path, value)
             dst = targets[key]
             if tuple(value.shape) != tuple(dst.shape):
                 raise ValueError(f"{'/'.join(path)}: shape {value.shape} vs "

@@ -1,8 +1,8 @@
 """The PyTorch port stands without JAX, and keeps the JAX package's flags.
 
-* ``cvnets_tpu_torch`` imports and runs a CPU forward with ``jax``, ``flax``,
-  ``optax``, ``yaml`` and ``PIL`` blocked (a subprocess: tests/conftest.py has
-  imported jax into this one).
+* ``cvnets_tpu_torch`` imports and runs CPU train steps of MobileViTv2 and ViT
+  with ``jax``, ``flax``, ``optax``, ``yaml`` and ``PIL`` blocked (a subprocess:
+  tests/conftest.py has imported jax into this one).
 * Every flag of the port's parser exists in the JAX parser with the same dest and
   default, and the flagship yaml parses to the same values in both.
 * The scheduler copy gives the JAX scheduler's LRs.
@@ -46,6 +46,15 @@ _BLOCKED_RUN = textwrap.dedent("""
     step = make_train_step(model, build_loss_fn(opts), opts)
     state, metrics = step(state, {"samples": x, "targets": torch.tensor([1, 2])},
                           build_scheduler(opts).retrieve_lr(0, 0))
+    assert bool(torch.isfinite(metrics["loss"]))
+    vit_opts = get_training_arguments(args=[
+        "--model.classification.name", "vit", "--model.classification.vit.mode", "micro",
+        "--model.classification.n-classes", "10", "--model.activation.name", "gelu",
+        "--optim.name", "adamw"])
+    vit = get_model(vit_opts)
+    state = create_train_state(vit, build_optimizer(vit_opts, vit))
+    state, metrics = make_train_step(vit, build_loss_fn(vit_opts), vit_opts)(
+        state, {"samples": x, "targets": torch.tensor([1, 2])}, 1e-3)
     assert bool(torch.isfinite(metrics["loss"]))
     leaked = sorted(m for m in sys.modules if sys.modules[m] is not None
                     and m.split(".")[0] in ("jax", "flax", "optax", "yaml", "PIL"))

@@ -1,0 +1,214 @@
+"""The port's fused multi-head attention against the JAX package: the autograd
+Function on CPU tensors (plain forward and plain backward) against the JAX
+``fused_mha_attention`` run through its Pallas kernels in interpret mode and
+through its off-TPU reference, forward and the grads of q, k and v; and — on a
+CUDA card only — the hand-written kernels against the plain versions at the
+ViT shapes.
+
+JAX is imported inside the tests that use it, so that on a machine with a card
+and no JAX the kernel tests run alone:
+``python -m pytest --noconftest -m cuda tests/test_torch_mha_attention.py``."""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from cvnets_tpu_torch.ops.mha_attention import (
+    MHAAttention,
+    fused_attention_eligible,
+    fused_mha_attention,
+    mha_attention_backward_plain,
+    mha_attention_plain,
+    mha_bwd_kernel,
+    mha_fwd_kernel,
+)
+
+torch.set_float32_matmul_precision("highest")  # as tests/conftest.py pins JAX
+
+# float32 on both sides, same formula; the JAX tests of these kernels use the
+# same bounds (tests/test_pallas_kernels.py:132-141)
+FWD_ATOL = 1e-5
+GRAD_ATOL = 1e-4
+
+# (B, S, H, D): the JAX interpret-mode shape (odd S, 64-wide heads) and S = 1
+CPU_CASES = [(2, 53, 3, 64), (2, 1, 3, 64)]
+
+
+def _inputs(b, s, h, d, masked, seed=0):
+    """q (already scaled), k, v, the loss weights w and an additive key mask in
+    which batch element 0 has every key masked (its rows attend uniformly)."""
+    rng = np.random.default_rng(seed)
+    e = h * d
+    q, k = ((rng.standard_normal((b, s, e)) * 0.3).astype(np.float32) for _ in range(2))
+    v, w = (rng.standard_normal((b, s, e)).astype(np.float32) for _ in range(2))
+    mask = None
+    if masked:
+        mask = np.where(rng.random((b, s)) < 0.2, -1e30, 0.0).astype(np.float32)
+        mask[0] = -1e30
+    return q, k, v, w, mask
+
+
+def _port(q, k, v, w, mask, heads):
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    tm = None if mask is None else torch.from_numpy(mask)
+    out = fused_mha_attention(tq, tk, tv, heads, tm)
+    (out * torch.from_numpy(w)).sum().backward()
+    return out.detach().numpy(), [t.grad.numpy() for t in (tq, tk, tv)]
+
+
+def _jax(q, k, v, w, mask, heads, interpret):
+    import jax
+    import jax.numpy as jnp
+
+    import cvnets_tpu.ops.pallas.mha_attn as M
+
+    km = None if mask is None else jnp.asarray(mask)
+
+    def loss(q, k, v):
+        return jnp.sum(M.fused_mha_attention(q, k, v, heads, km) * w)
+
+    try:
+        M._INTERPRET = interpret
+        args = tuple(map(jnp.asarray, (q, k, v)))
+        out = M.fused_mha_attention(*args, heads, km)
+        grads = jax.grad(loss, argnums=(0, 1, 2))(*args)
+    finally:
+        M._INTERPRET = False
+    return np.asarray(out), [np.asarray(g) for g in grads]
+
+
+@pytest.mark.parametrize("interpret", [True, False], ids=["pallas_interpret", "reference"])
+@pytest.mark.parametrize("masked", [False, True], ids=["no_mask", "key_mask"])
+@pytest.mark.parametrize("b,s,h,d", CPU_CASES)
+def test_function_matches_jax(b, s, h, d, masked, interpret):
+    q, k, v, w, mask = _inputs(b, s, h, d, masked)
+    ref, ref_grads = _jax(q, k, v, w, mask, h, interpret)
+    out, grads = _port(q, k, v, w, mask, h)
+    np.testing.assert_allclose(out, ref, atol=FWD_ATOL, rtol=0)
+    for name, got, want in zip("qkv", grads, ref_grads):
+        np.testing.assert_allclose(got, want, atol=GRAD_ATOL, rtol=0, err_msg=name)
+
+
+def test_fully_masked_keys_attend_uniformly():
+    """With every key at -1e30 each logit is -1e30 exactly in float32, so the
+    softmax is uniform and the output is the mean of v, as in JAX."""
+    q, k, v, _, mask = _inputs(2, 9, 2, 16, masked=True, seed=3)
+    out = mha_attention_plain(*map(torch.from_numpy, (q, k, v)), 2, torch.from_numpy(mask))
+    want = np.broadcast_to(v[0].mean(axis=0), v[0].shape)
+    np.testing.assert_allclose(out[0].numpy(), want, atol=FWD_ATOL, rtol=0)
+
+
+def test_plain_backward_matches_autograd_of_plain():
+    """The hand-written VJP against torch autograd through the plain forward, on
+    q, k, v that are column slices of one qkv tensor as the layer makes them."""
+    rng = np.random.default_rng(4)
+    h, d = 2, 16
+    qkv = torch.from_numpy(rng.standard_normal((3, 11, 3 * h * d)).astype(np.float32))
+    mask = torch.from_numpy(np.where(rng.random((3, 11)) < 0.3, -1e30, 0.0).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((3, 11, h * d)).astype(np.float32))
+    grads = []
+    for fn in (MHAAttention.apply, mha_attention_plain):
+        x = qkv.clone().requires_grad_()
+        (fn(*x.chunk(3, dim=-1), h, mask) * w).sum().backward()
+        grads.append(x.grad)
+    torch.testing.assert_close(grads[0], grads[1], atol=1e-5, rtol=0)
+    # and the function itself on the same residuals
+    q, k, v = qkv.chunk(3, dim=-1)
+    out = mha_attention_plain(q, k, v, h, mask)
+    dq, dk, dv = mha_attention_backward_plain(q, k, v, mask, out, w, h)
+    torch.testing.assert_close(torch.cat([dq, dk, dv], dim=-1), grads[1], atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("seq,embed", [(197, 768), (512, 1024), (513, 768), (1024, 768),
+                                       (1000, 64), (4096, 1024), (8192, 256), (64, 2048)])
+def test_eligibility_is_the_jax_rule(seq, embed):
+    from cvnets_tpu.ops.pallas.mha_attn import fused_attention_eligible as jax_rule
+
+    assert fused_attention_eligible(seq, embed) == jax_rule(seq, embed)
+
+
+def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
+    q, k, v, w, mask = _inputs(2, 8, 2, 16, masked=False)
+    q, k, v = map(torch.from_numpy, (q, k, v))
+    fwd, bwd = mha_fwd_kernel.launches, mha_bwd_kernel.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        mha_fwd_kernel(q, k, v, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        mha_bwd_kernel(q, k, v, None, q, q, torch.zeros(2, 2, 2, 8), 2)
+    assert (mha_fwd_kernel.launches, mha_bwd_kernel.launches) == (fwd, bwd)
+
+
+def test_long_sequences_off_the_cpu_raise_instead_of_running_plain():
+    """S > 512 belongs to the unported long-sequence kernels: a tensor that is
+    not on the CPU raises and names them (a meta tensor stands in for a card)."""
+    q = torch.empty((1, 513, 64), device="meta")
+    with pytest.raises(NotImplementedError, match="mha_attn_long.py"):
+        fused_mha_attention(q, q, q, 4)
+
+
+# ---------------------------------------------------------------- on a card
+
+# (B, S, H, D): ViT-B/16 at 224² (batch cut to 16 for the test's time), the
+# micro ViT's D = 16, and the single-tile kernel's longest sequence
+CUDA_CASES = [(16, 197, 12, 64), (16, 17, 4, 16), (4, 512, 12, 64)]
+
+
+def _cuda_inputs(b, s, h, d, dtype, masked, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    e = h * d
+    qkv = torch.randn((b, s, 3 * e), generator=g, device="cuda").to(dtype)
+    q, k, v = qkv.chunk(3, dim=-1)  # column slices, as MultiHeadAttention makes them
+    q = q * d ** -0.5
+    mask = None
+    if masked:
+        mask = torch.where(torch.rand((b, s), generator=g, device="cuda") < 0.2, -1e30, 0.0)
+        mask[0] = -1e30
+    dout = torch.randn((b, s, e), generator=g, device="cuda").to(dtype)
+    return q, k, v, mask, dout
+
+
+def _tol(ref, dtype):
+    # float32: the same float32 math in another order. bfloat16: P and dS are
+    # rounded to bf16 before their products (2^-9 relative each) and the
+    # outputs to bf16, against a float32 reference from the same bf16 inputs.
+    return 1e-5 if dtype == torch.float32 else 2e-2 * ref.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True], ids=["no_mask", "key_mask"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,s,h,d", CUDA_CASES)
+def test_kernels_match_plain_on_cuda(b, s, h, d, dtype, masked):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU or interpret mode)")
+    q, k, v, mask, dout = _cuda_inputs(b, s, h, d, dtype, masked)
+    launches = mha_fwd_kernel.launches, mha_bwd_kernel.launches
+    out, stats = mha_fwd_kernel(q, k, v, h, mask)
+    dq, dk, dv = mha_bwd_kernel(q, k, v, mask, out, dout, stats, h)
+    torch.cuda.synchronize()
+    assert (mha_fwd_kernel.launches, mha_bwd_kernel.launches) == (launches[0] + 1,
+                                                                  launches[1] + 1)
+    ref = mha_attention_plain(q, k, v, h, mask)
+    torch.testing.assert_close(out.float(), ref.float(), atol=_tol(ref, dtype), rtol=0)
+    # the backward from the reference output, as JAX's VJP takes it
+    ref_grads = mha_attention_backward_plain(q, k, v, mask, ref, dout, h)
+    for name, got, want in zip("qkv", (dq, dk, dv), ref_grads):
+        torch.testing.assert_close(got.float(), want.float(), atol=_tol(want, dtype),
+                                   rtol=0, msg=lambda m: f"d{name}: {m}")
+
+
+@pytest.mark.cuda
+def test_function_on_cuda_runs_the_kernels_and_never_the_plain_version():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU or interpret mode)")
+    q, k, v, _, dout = _cuda_inputs(2, 197, 12, 64, torch.bfloat16, masked=False)
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    launches = mha_fwd_kernel.launches, mha_bwd_kernel.launches
+    fused_mha_attention(q, k, v, 12).backward(dout)
+    torch.cuda.synchronize()
+    assert (mha_fwd_kernel.launches, mha_bwd_kernel.launches) == (launches[0] + 1,
+                                                                  launches[1] + 1)
+    with pytest.raises(NotImplementedError, match="mha_attn_long.py"):
+        fused_mha_attention(*(torch.zeros((1, 1024, 768), device="cuda"),) * 3, 12)

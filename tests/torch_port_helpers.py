@@ -1,6 +1,7 @@
 """Shared set-up for the tests that hold the PyTorch port against the JAX package:
-one flag list parsed by both parsers, a flax MobileViTv2 initialised and perturbed
-from a numpy seed, and its weights copied into the port's model."""
+one flag list parsed by both parsers, a flax model (MobileViTv2 or ViT)
+initialised and perturbed from a numpy seed, and its weights copied into the
+port's model."""
 
 from __future__ import annotations
 
@@ -12,6 +13,20 @@ SMALL_MODEL_ARGS = [
     "--model.classification.n-classes", "13",
     "--model.classification.mitv2.width-multiplier", "0.5",
     "--model.activation.name", "swish",
+    "--model.layer.conv-init", "kaiming_normal",
+    "--model.layer.linear-init", "trunc_normal",
+    "--model.layer.linear-init-std-dev", "0.02",
+    "--dataset.category", "classification",
+]
+
+# the micro ViT (E = 64, 2 blocks, 4 heads of 16) with vit.yaml's layer settings,
+# 13 classes; at 64×64 the stem gives 16 tokens, so the 196-entry positional
+# table is resampled
+VIT_MICRO_ARGS = [
+    "--model.classification.name", "vit",
+    "--model.classification.n-classes", "13",
+    "--model.classification.vit.mode", "micro",
+    "--model.activation.name", "gelu",
     "--model.layer.conv-init", "kaiming_normal",
     "--model.layer.linear-init", "trunc_normal",
     "--model.layer.linear-init-std-dev", "0.02",
