@@ -6,35 +6,56 @@
 Phases, one line each or more (any failure exits non-zero):
 
 1. device: the card's name and ``nvidia-smi`` name and power limit;
-2. build: compiles csrc/separable_attention.cu and csrc/mha_attention.cu for
-   sm_90a, one nvcc each, started together;
+2. build: compiles csrc/separable_attention.cu, csrc/mha_attention.cu and
+   csrc/seg_ce.cu for sm_90a, one nvcc each, started together;
 3. kernel: the separable-attention kernel against its plain torch version at the
-   flagship's shapes (BP = 128·4, (N, C) of each MobileViTv2 stage), bfloat16 and
-   float32, forward and grads, and both timed with CUDA events;
+   flagship's shapes (BP = 128·4, (N, C) of each MobileViTv2 stage) and at
+   DeepLabv3's (BP = 8·4 at 512² and output stride 16), bfloat16 and float32,
+   forward and grads, and both timed with CUDA events;
 4. mha kernel: the fused multi-head attention forward and backward kernels
    against their plain versions at ViT-B/16's shapes (B = 128, S = 197, H = 12,
    D = 64; q, k, v column slices of one qkv tensor), the micro ViT's D = 16 and
    S = 512; bfloat16 and float32, with and without a key mask (one batch element
-   fully masked); output, dq, dk and dv; kernels and plain versions timed at
-   ViT-B. TF32 is off for the comparisons;
-5. train: MobileViTv2-1.0 train steps at batch 128 × 256² with the flagship yaml's
+   fully masked); output, dq, dk and dv; kernels, plain versions and
+   ``F.scaled_dot_product_attention`` (the library yardstick) timed at ViT-B.
+   TF32 is off for the comparisons;
+5. seg ce kernel: the fused resize + pixel CE forward and backward kernels
+   against the plain unfused version at DeepLabv3's shapes (head logits
+   (8, 32, 32, 150) → labels (8, 512, 512)), 5% ignored pixels and one fully
+   ignored image, label smoothing 0 and 0.1, class weights off and on, float32
+   and bfloat16 logits: loss and dlogits; kernels and plain versions timed;
+6. train: MobileViTv2-1.0 train steps at batch 128 × 256² with the flagship yaml's
    settings passed as flags (bf16 autocast, AdamW, EMA, clip 10, label smoothing
    0.1) on random weights and uint8 batches from a seeded generator on the card;
    checks 9 kernel launches a step, finite losses, that params and EMA moved, and
    that the kernel path's logits match the plain attention path's;
-6. vit train: the same for ViT-B/16 at batch 128 × 224² with vit.yaml's settings
+7. vit train: the same for ViT-B/16 at batch 128 × 224² with vit.yaml's settings
    (AdamW with weight decay 0.2, clip 1.0, EMA 0.0005, GELU, BN in the stem);
    checks 12 forward and 12 backward MHA launches a step;
-7. vit a/b: whole ViT-B steps through the kernels against the plain (einsum)
-   attention path, in alternating blocks in this one run; both medians;
-8. profile: ``torch.profiler`` over 3 ViT-B steps: device time a step, busy
-   share, the top kernels; the whole table goes to results/vit_profile.txt.
+8. vit a/b: whole ViT-B steps through the kernels against the plain (einsum)
+   attention path, in alternating blocks in this one run; both medians, and
+   the host's time to enqueue a step;
+9. vit profile: ``torch.profiler`` over 3 ViT-B steps: device time a step, busy
+   share, the top kernels; the whole table goes to results/vit_profile.txt;
+10. deeplab train: DeepLabv3-MobileViTv2-1.0 at batch 8 × 512² with
+   deeplabv3_mobilevitv2.yaml's settings (150 classes, OS 16, aux head, ASPP
+   512 at rates 6/12/18, dropouts 0.1, BN for SyncBN, SGD 0.9 with weight decay
+   1e-4 and the head's LR ×10, clip 10, EMA 0.0005, bf16) and labels with 5%
+   ignored pixels; checks 2 seg-CE forward, 2 backward and 9 separable-attention
+   launches a step, finite losses (total, seg, aux), that params and EMA moved,
+   the kernel path's loss against the plain path's on the same outputs, and the
+   eval logits through the kernels against the plain attention path;
+11. deeplab a/b and deeplab profile, as for ViT-B (results/deeplab_profile.txt).
 
-The second-to-last line is the kernels' JSON record (``ms``/``plain_ms``: a
-kernel's and its plain version's time for one train step's launches at bf16:
-the separable attention's 9 from the per-shape medians, each MHA kernel's 12 at
-ViT-B); the last line is ``{"ok": true, "device": {...}}``. Without a CUDA card
-it exits 2 before any result.
+The second-to-last line is the kernels' JSON record: ``ms``/``plain_ms`` are a
+kernel's and its plain version's time for one train step's launches (the
+separable attention's 9 at the flagship from the per-shape bf16 medians, each
+MHA kernel's 12 at ViT-B, each seg-CE kernel's 2 at DeepLabv3), ``bound_ms`` the
+least time the card could take for the same work (bytes over the HBM rate or
+operations over their unit's peak, whichever is larger) and ``library_ms`` one
+PyTorch call that computes the same function, where there is one. The last line
+is ``{"ok": true, "device": {...}}``. Without a CUDA card it exits 2 before any
+result.
 """
 
 from __future__ import annotations
@@ -48,15 +69,27 @@ import subprocess
 import sys
 import time
 
-SHAPES = [(256, 128), (64, 192), (16, 256)]  # (N, C) of layer_3, layer_4, layer_5
-BLOCKS = {(256, 128): 2, (64, 192): 4, (16, 256): 3}  # attention blocks a step
-BP = 128 * 4  # batch 128 × patch area 2·2
+# separable attention: (BP, {(N, C) of layer_3, layer_4, layer_5: attention blocks})
+SEP_FLAGSHIP = (128 * 4, {(256, 128): 2, (64, 192): 4, (16, 256): 3})  # 128 × 256²
+SEP_DEEPLAB = (8 * 4, {(1024, 128): 2, (256, 192): 4, (256, 256): 3})  # 8 × 512², OS 16
 WARMUP_STEPS, TIMED_STEPS = 2, 5
 VIT_BLOCKS = 12  # ViT-B/16's transformer blocks, one MHA each
 # (label, B, S, H, D) for the MHA kernel checks; the first is ViT-B/16 at 224²
 MHA_CASES = [("vit_base", 128, 197, 12, 64), ("vit_micro", 128, 197, 4, 16),
              ("seq512", 32, 512, 12, 64)]
 AB_BLOCKS, AB_STEPS = ("plain", "kernel", "kernel", "plain"), 8
+# seg CE at DeepLabv3's shapes: head logits (B, h, w, C) → labels (B, H, W)
+SEG_B, SEG_HEAD, SEG_FULL, SEG_C = 8, 32, 512, 150
+SEG_CALLS = 2  # main head and aux head, each one forward and one backward a step
+
+# card peaks for the bounds (H100 SXM data sheet);
+# the SFU rate is 16 exponentials a clock per SM (CUDA C++ programming guide,
+# arithmetic instruction throughput, compute capability 9.0) at the 1,980 MHz
+# boost clock of the 700 W part
+HBM_BYTES_S = 3.35e12
+FP32_FLOP_S = 67e12
+BF16_TC_FLOP_S = 989e12
+SFU_EXP_S = 132 * 16 * 1.98e9
 
 FLAGSHIP_ARGS = [  # config/classification/imagenet/mobilevit_v2.yaml, as flags
     "--model.classification.name", "mobilevit_v2",
@@ -93,6 +126,56 @@ FLAGSHIP_ARGS = [  # config/classification/imagenet/mobilevit_v2.yaml, as flags
     "--dataset.train-batch-size0", "128",
     "--sampler.bs.crop-size-width", "256",
     "--sampler.bs.crop-size-height", "256",
+    "--common.seed", "0",
+]
+
+DEEPLAB_ARGS = [  # config/segmentation/ade20k/deeplabv3_mobilevitv2.yaml, as flags
+    "--dataset.category", "segmentation",
+    "--model.segmentation.name", "encoder_decoder",
+    "--model.segmentation.n-classes", "150",
+    "--model.segmentation.lr-multiplier", "10",
+    "--model.segmentation.seg-head", "deeplabv3",
+    "--model.segmentation.output-stride", "16",
+    "--model.segmentation.use-aux-head",
+    "--model.segmentation.classifier-dropout", "0.1",
+    "--model.segmentation.aux-dropout", "0.1",
+    "--model.segmentation.deeplabv3.aspp-dropout", "0.1",
+    "--model.segmentation.deeplabv3.aspp-out-channels", "512",
+    "--model.segmentation.deeplabv3.aspp-rates", "6", "12", "18",
+    "--model.classification.name", "mobilevit_v2",
+    "--model.classification.mitv2.width-multiplier", "1.0",
+    "--model.classification.mitv2.attn-norm-layer", "layer_norm_2d",
+    # as bench_tasks.py:115 runs it: BN for SyncBN on one card; the JAX package
+    # builds every layer with model.activation.name (relu), its
+    # model.classification.activation.name (swish) is read by no layer
+    "--model.normalization.name", "batch_norm",
+    "--model.normalization.momentum", "0.1",
+    "--model.activation.name", "relu",
+    "--model.layer.global-pool", "mean",
+    "--model.layer.conv-init", "kaiming_normal",
+    "--model.layer.linear-init", "normal",
+    "--loss.category", "segmentation",
+    "--loss.segmentation.name", "cross_entropy",
+    "--loss.segmentation.cross-entropy.aux-weight", "0.4",
+    "--loss.segmentation.cross-entropy.ignore-index", "255",
+    "--optim.name", "sgd",
+    "--optim.weight-decay", "1e-4",
+    "--optim.no-decay-bn-filter-bias",
+    "--optim.sgd.momentum", "0.9",
+    "--scheduler.name", "cosine",
+    "--scheduler.max-epochs", "120",
+    "--scheduler.warmup-iterations", "500",
+    "--scheduler.warmup-init-lr", "0.0009",
+    "--scheduler.cosine.max-lr", "0.02",
+    "--scheduler.cosine.min-lr", "0.0002",
+    "--ema.enable",
+    "--ema.momentum", "0.0005",
+    "--common.mixed-precision",
+    "--common.mixed-precision-dtype", "bfloat16",
+    "--common.grad-clip", "10.0",
+    "--dataset.train-batch-size0", "8",  # bench_tasks.py:115 (the yaml: 4 a GPU × 8)
+    "--sampler.bs.crop-size-width", "512",
+    "--sampler.bs.crop-size-height", "512",
     "--common.seed", "0",
 ]
 
@@ -176,10 +259,22 @@ class no_tf32:
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = self.saved
 
 
-def set_use_kernel(model, on: bool) -> None:
+def set_use_kernel(model, on: bool, criteria=None) -> None:
+    """Route every attention layer of ``model`` (and the loss, if it has a
+    switch) through the kernels or through the plain versions."""
     for m in model.modules():
         if hasattr(m, "use_kernel"):
             m.use_kernel = on
+    if hasattr(criteria, "use_kernel"):
+        criteria.use_kernel = on
+
+
+def bound(n_bytes: float, *ops) -> tuple:
+    """(ms, "bytes" or "operations"): the larger of the bytes over the HBM rate
+    and each (count, peak rate a second) of ``ops`` over its rate."""
+    t_bytes = n_bytes / HBM_BYTES_S
+    t_ops = max((count / rate for count, rate in ops), default=0.0)
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def phase_device() -> str:
@@ -199,6 +294,7 @@ def phase_build() -> None:
 
     from cvnets_tpu_torch.ops.cuda_build import BUILD_DIR, build_library
     from cvnets_tpu_torch.ops.mha_attention import mha_bwd_kernel, mha_fwd_kernel
+    from cvnets_tpu_torch.ops.seg_ce_kernel import seg_ce_bwd_kernel, seg_ce_fwd_kernel
     from cvnets_tpu_torch.ops.separable_attention import separable_attention_kernel
 
     def build(source: str) -> str:
@@ -209,16 +305,19 @@ def phase_build() -> None:
         return (f"{source} in {time.perf_counter() - t0:.2f} s"
                 f"{' (library found from an earlier build)' if before else ''}")
 
-    sources = ("separable_attention.cu", "mha_attention.cu")
+    sources = ("separable_attention.cu", "mha_attention.cu", "seg_ce.cu")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, together
         done = list(pool.map(build, sources))
     print(f"build: {'; '.join(done)}; {time.perf_counter() - t0:.2f} s in all", flush=True)
-    for kernel in (separable_attention_kernel, mha_fwd_kernel, mha_bwd_kernel):
+    for kernel in (separable_attention_kernel, mha_fwd_kernel, mha_bwd_kernel,
+                   seg_ce_fwd_kernel, seg_ce_bwd_kernel):
         kernel.load()
 
 
 def phase_kernel(card: str) -> dict:
+    """The separable-attention kernel at the flagship's and DeepLabv3's shapes;
+    returns the flagship's record for the JSON line."""
     import torch
 
     from cvnets_tpu_torch.ops.separable_attention import (
@@ -228,46 +327,55 @@ def phase_kernel(card: str) -> dict:
     )
 
     g = torch.Generator(device="cuda").manual_seed(0)
-    record = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0}
-    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
-        for n, c in SHAPES:
-            # q, k, v as column slices of one qkv projection, as on the main path
-            qkv = torch.randn((BP, n, 1 + 2 * c), generator=g, device="cuda").to(dtype)
-            q, k, v = qkv.split([1, c, c], dim=-1)
-            out = separable_attention_kernel(q, k, v)
-            ref = separable_attention_plain(q, k, v)
-            torch.cuda.synchronize()
-            err = (out.float() - ref.float()).abs()
-            abs_err = err.max().item()
-            # relative to |ref| + 1e-5: where ctx cancels to ~0 the two f32 sum
-            # orders differ by ~1e-7 absolute but not relatively
-            rel_err = (err / (ref.float().abs() + 1e-5)).max().item()
-            if dtype == torch.float32:
-                check(abs_err <= 1e-5, f"f32 ({n},{c}) max abs err {abs_err}")
-            else:
-                # bf16 output rounding of nearly the same f32 value: 2^-8 relative
-                check(rel_err <= 2e-2, f"bf16 ({n},{c}) max rel err {rel_err}")
-                record["max_abs_err"] = max(record["max_abs_err"], abs_err)
+    record = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+              "bound_by": "bytes", "library_ms": None}
+    for label, (bp, blocks) in (("flagship", SEP_FLAGSHIP), ("deeplab", SEP_DEEPLAB)):
+        for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            for n, c in blocks:
+                # q, k, v as column slices of one qkv projection, as on the main path
+                qkv = torch.randn((bp, n, 1 + 2 * c), generator=g, device="cuda").to(dtype)
+                q, k, v = qkv.split([1, c, c], dim=-1)
+                out = separable_attention_kernel(q, k, v)
+                ref = separable_attention_plain(q, k, v)
+                torch.cuda.synchronize()
+                err = (out.float() - ref.float()).abs()
+                abs_err = err.max().item()
+                # relative to |ref| + 1e-5: where ctx cancels to ~0 the two f32 sum
+                # orders differ by ~1e-7 absolute but not relatively
+                rel_err = (err / (ref.float().abs() + 1e-5)).max().item()
+                if dtype == torch.float32:
+                    check(abs_err <= 1e-5, f"f32 ({n},{c}) max abs err {abs_err}")
+                else:
+                    # bf16 output rounding of nearly the same f32 value: 2^-8 relative
+                    check(rel_err <= 2e-2, f"bf16 ({n},{c}) max rel err {rel_err}")
 
-            # grads: the Function's hand-written backward against autograd of plain
-            w = torch.randn((BP, n, c), generator=g, device="cuda").to(dtype)
-            grads = []
-            for fn in (SeparableAttention.apply, separable_attention_plain):
-                x = qkv.detach().clone().requires_grad_()
-                (fn(*x.split([1, c, c], dim=-1)).float() * w.float()).sum().backward()
-                grads.append(x.grad.float())
-            gerr = (grads[0] - grads[1]).abs().max().item()
-            gtol = 1e-4 if dtype == torch.float32 else 2e-2 * grads[1].abs().max().item()
-            check(gerr <= gtol, f"{name} ({n},{c}) grad err {gerr} > {gtol}")
+                # grads: the Function's hand-written backward against autograd of plain
+                w = torch.randn((bp, n, c), generator=g, device="cuda").to(dtype)
+                grads = []
+                for fn in (SeparableAttention.apply, separable_attention_plain):
+                    x = qkv.detach().clone().requires_grad_()
+                    (fn(*x.split([1, c, c], dim=-1)).float() * w.float()).sum().backward()
+                    grads.append(x.grad.float())
+                gerr = (grads[0] - grads[1]).abs().max().item()
+                gtol = 1e-4 if dtype == torch.float32 else 2e-2 * grads[1].abs().max().item()
+                check(gerr <= gtol, f"{name} ({n},{c}) grad err {gerr} > {gtol}")
 
-            k_ms = time_ms(lambda: separable_attention_kernel(q, k, v))
-            p_ms = time_ms(lambda: separable_attention_plain(q, k, v))
-            if dtype == torch.bfloat16:
-                record["ms"] += BLOCKS[(n, c)] * k_ms
-                record["plain_ms"] += BLOCKS[(n, c)] * p_ms
-            print(f"kernel: {name} BP={BP} N={n} C={c} max_abs_err={abs_err:.3e} "
-                  f"max_rel_err={rel_err:.3e} grad_err={gerr:.3e} kernel_ms={k_ms:.4f} "
-                  f"plain_ms={p_ms:.4f} | {card}", flush=True)
+                k_ms = time_ms(lambda: separable_attention_kernel(q, k, v))
+                p_ms = time_ms(lambda: separable_attention_plain(q, k, v))
+                # reads q, k, v (the qkv columns) once, writes the output; 4 flops
+                # an element of k/v (ctx, relu·ctx) and one exp a token
+                b_ms, b_by = bound(qkv.numel() * qkv.element_size() + out.numel()
+                                   * out.element_size(), (4 * bp * n * c, FP32_FLOP_S),
+                                   (bp * n, SFU_EXP_S))
+                if dtype == torch.bfloat16 and label == "flagship":
+                    record["max_abs_err"] = max(record["max_abs_err"], abs_err)
+                    record["ms"] += blocks[(n, c)] * k_ms
+                    record["plain_ms"] += blocks[(n, c)] * p_ms
+                    record["bound_ms"] += blocks[(n, c)] * b_ms
+                    record["bound_by"] = b_by
+                print(f"kernel: {label} {name} BP={bp} N={n} C={c} max_abs_err={abs_err:.3e} "
+                      f"max_rel_err={rel_err:.3e} grad_err={gerr:.3e} kernel_ms={k_ms:.4f} "
+                      f"plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) | {card}", flush=True)
     return record
 
 
@@ -282,8 +390,11 @@ def phase_mha_kernel(card: str) -> dict:
         mha_fwd_kernel,
     )
 
+    import torch.nn.functional as F
+
     g = torch.Generator(device="cuda").manual_seed(1)
-    records = {p: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0} for p in ("fwd", "bwd")}
+    records = {p: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                   "bound_by": "bytes", "library_ms": None} for p in ("fwd", "bwd")}
     with no_tf32():
         for label, b, s, h, d in MHA_CASES:
             e = h * d
@@ -330,19 +441,141 @@ def phase_mha_kernel(card: str) -> dict:
                                                                    stats, h)),
                              "bwd_plain": time_ms(lambda: mha_attention_backward_plain(
                                  q, k, v, mask, ref, dout, h))}
+                        flops = 4 * b * s * s * e  # QK^T and PV; the backward does 2.5x
+                        # bytes: each input read once, each output written once
+                        act = b * s * e * q.element_size()
+                        stat_bytes = 2 * b * h * s * 4
+                        exps = (b * h * s * s, SFU_EXP_S)
+                        tc = BF16_TC_FLOP_S if dtype == torch.bfloat16 else FP32_FLOP_S
+                        bounds = {"fwd": bound(4 * act + stat_bytes, (flops, tc), exps),
+                                  "bwd": bound(8 * act + stat_bytes, (2.5 * flops, tc), exps)}
                         if dtype == torch.bfloat16 and not masked:
+                            # the library yardstick: cuDNN/flash attention through
+                            # F.scaled_dot_product_attention on (B, H, S, D) copies
+                            qh, kh, vh, dh = (t_.detach().reshape(b, s, h, d).transpose(1, 2)
+                                              .contiguous().requires_grad_()
+                                              for t_ in (q, k, v, dout))
+                            lib_out = F.scaled_dot_product_attention(qh, kh, vh, scale=1.0)
+                            t["lib_fwd"] = time_ms(lambda: F.scaled_dot_product_attention(
+                                qh, kh, vh, scale=1.0))
+                            t["lib_bwd"] = time_ms(lambda: torch.autograd.grad(
+                                lib_out, (qh, kh, vh), dh, retain_graph=True))
                             for p in ("fwd", "bwd"):
                                 records[p]["ms"] = VIT_BLOCKS * t[p]
                                 records[p]["plain_ms"] = VIT_BLOCKS * t[f"{p}_plain"]
-                        flops = 4 * b * s * s * e  # QK^T and PV; the backward does 2.5x
+                                records[p]["bound_ms"] = VIT_BLOCKS * bounds[p][0]
+                                records[p]["bound_by"] = bounds[p][1]
+                                records[p]["library_ms"] = VIT_BLOCKS * t[f"lib_{p}"]
                         times = (f" fwd_ms={t['fwd']:.4f} fwd_plain_ms={t['fwd_plain']:.4f} "
                                  f"bwd_ms={t['bwd']:.4f} bwd_plain_ms={t['bwd_plain']:.4f} "
+                                 f"fwd_bound_ms={bounds['fwd'][0]:.4f} ({bounds['fwd'][1]}) "
+                                 f"bwd_bound_ms={bounds['bwd'][0]:.4f} ({bounds['bwd'][1]}) "
                                  f"fwd_tflops={flops / t['fwd'] / 1e9:.1f} "
-                                 f"bwd_tflops={2.5 * flops / t['bwd'] / 1e9:.1f}")
+                                 f"bwd_tflops={2.5 * flops / t['bwd'] / 1e9:.1f}"
+                                 + "".join(f" {k_}_ms={t[k_]:.4f}" for k_ in ("lib_fwd", "lib_bwd")
+                                           if k_ in t))
                     print(f"mha kernel: {label} {name} B={b} S={s} H={h} D={d} "
                           f"mask={masked} " + " ".join(f"{w}_err={x:.3e}"
                                                        for w, x in errs.items())
                           + times + f" | {card}", flush=True)
+    return records
+
+
+def phase_seg_ce_kernel(card: str) -> dict:
+    """The fused resize + CE kernels against the plain unfused version at
+    DeepLabv3's shapes; returns {"fwd": record, "bwd": record}."""
+    import torch
+
+    from cvnets_tpu_torch.loss.base_criteria import BaseCriteria
+    from cvnets_tpu_torch.ops.seg_ce import (
+        fused_resize_ce,
+        resize_ce_plain,
+        resize_matrix,
+        resize_taps,
+    )
+    from cvnets_tpu_torch.ops.seg_ce_kernel import (
+        h_interp,
+        seg_ce_bwd_kernel,
+        seg_ce_bwd_plain,
+        seg_ce_fwd_kernel,
+        seg_ce_fwd_plain,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(2)
+    logits32 = 2.0 * torch.randn((SEG_B, SEG_HEAD, SEG_HEAD, SEG_C), generator=g,
+                                 device="cuda")
+    target = torch.randint(0, SEG_C, (SEG_B, SEG_FULL, SEG_FULL), generator=g, device="cuda")
+    target[torch.rand(target.shape, generator=g, device="cuda") < 0.05] = 255
+    target[SEG_B - 1] = 255  # one fully ignored image
+    wts = BaseCriteria._class_weights(torch.where(target == 255, 0, target), SEG_C)
+    records = {p: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                   "bound_by": "bytes", "library_ms": None} for p in ("fwd", "bwd")}
+    with no_tf32():
+        for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            for ls in (0.0, 0.1):
+                for cw in (None, wts):
+                    errs = {}
+                    losses, grads = [], []
+                    for fn in (fused_resize_ce, resize_ce_plain):
+                        x = logits32.to(dtype).requires_grad_()
+                        loss = fn(x, target, label_smoothing=ls, class_wts=cw)
+                        loss.backward()
+                        losses.append(loss.detach().float())
+                        grads.append(x.grad.float())
+                    torch.cuda.synchronize()
+                    check(all(bool(torch.isfinite(t).all()) for t in losses + grads),
+                          f"seg ce {name} ls={ls} finite")
+                    errs["loss"] = (losses[0] - losses[1]).abs().item()
+                    errs["dlogits"] = (grads[0] - grads[1]).abs().max().item()
+                    gmax = grads[1].abs().max().item()
+                    # float32: sums over 1.9 M pixels and over C in other orders;
+                    # bfloat16: both grads rounded to bf16 from nearly equal floats
+                    check(errs["loss"] <= 1e-5 * losses[1].abs().item(),
+                          f"seg ce {name} ls={ls} wts={cw is not None} loss err {errs['loss']}")
+                    gtol = (1e-4 if dtype == torch.float32 else 2 ** -7) * gmax
+                    check(errs["dlogits"] <= gtol, f"seg ce {name} ls={ls} "
+                          f"wts={cw is not None} dlogits err {errs['dlogits']} > {gtol}")
+                    records["fwd"]["max_abs_err"] = max(records["fwd"]["max_abs_err"],
+                                                        errs["loss"])
+                    records["bwd"]["max_abs_err"] = max(records["bwd"]["max_abs_err"],
+                                                        errs["dlogits"])
+                    times = ""
+                    if dtype == torch.float32 and ls == 0.0 and cw is None:  # the yaml's case
+                        dev = logits32.device
+                        ah = resize_matrix(SEG_FULL, SEG_HEAD, dev)
+                        aw = resize_matrix(SEG_FULL, SEG_HEAD, dev)
+                        taps = resize_taps(SEG_FULL, SEG_HEAD, dev)
+                        hmid = h_interp(logits32, ah)
+                        scale = torch.full((1,), 1e-6, device=dev)
+                        t = {"fwd": time_ms(lambda: seg_ce_fwd_kernel(hmid, target, taps, None,
+                                                                      255, 0.0)),
+                             "fwd_plain": time_ms(lambda: seg_ce_fwd_plain(hmid, aw, target,
+                                                                           None, 255, 0.0)),
+                             "bwd": time_ms(lambda: seg_ce_bwd_kernel(hmid, target, taps, None,
+                                                                      scale, 255, 0.0)),
+                             "bwd_plain": time_ms(lambda: seg_ce_bwd_plain(
+                                 hmid, aw, target, None, scale, 255, 0.0))}
+                        # each input read once, each output written once; per
+                        # logit one exp, 2 taps (4 flops) and the max/sum/sub (3)
+                        # forward, and the softmax, G and 2 taps back (7 more)
+                        n = SEG_B * SEG_FULL * SEG_FULL * SEG_C
+                        in_bytes = hmid.numel() * 4 + target.numel() * target.element_size()
+                        bounds = {"fwd": bound(in_bytes + 8, (7 * n, FP32_FLOP_S),
+                                               (n, SFU_EXP_S)),
+                                  "bwd": bound(in_bytes + hmid.numel() * 4,
+                                               (14 * n, FP32_FLOP_S), (n, SFU_EXP_S))}
+                        for p in ("fwd", "bwd"):
+                            records[p]["ms"] = SEG_CALLS * t[p]
+                            records[p]["plain_ms"] = SEG_CALLS * t[f"{p}_plain"]
+                            records[p]["bound_ms"] = SEG_CALLS * bounds[p][0]
+                            records[p]["bound_by"] = bounds[p][1]
+                        times = "".join(f" {k}_ms={v:.4f}" for k, v in t.items()) + "".join(
+                            f" {p}_bound_ms={bounds[p][0]:.4f} ({bounds[p][1]})"
+                            for p in ("fwd", "bwd"))
+                    print(f"seg ce kernel: {name} B={SEG_B} h=w={SEG_HEAD} H=W={SEG_FULL} "
+                          f"C={SEG_C} ls={ls} class_wts={cw is not None} loss_err="
+                          f"{errs['loss']:.3e} dlogits_err={errs['dlogits']:.3e} "
+                          f"(max |dlogits| {gmax:.3e}){times} | {card}", flush=True)
     return records
 
 
@@ -361,20 +594,31 @@ def phase_train(card: str, label: str, args, kernels: dict, per_step: dict):
 
     opts = get_training_arguments(args=args)
     device = torch.device("cuda:0")
+    category = getattr(opts, "dataset.category")
     batch = getattr(opts, "dataset.train_batch_size0")
     hw = (getattr(opts, "sampler.bs.crop_size_height"),
           getattr(opts, "sampler.bs.crop_size_width"))
     model = get_model(opts).to(device)
-    state = create_train_state(model, build_optimizer(opts, model),
-                               ema_enabled=getattr(opts, "ema.enable"))
-    train_step = make_train_step(model, build_loss_fn(opts), opts)
+    state = create_train_state(
+        model, build_optimizer(opts, model, model.get_lr_multipliers(opts)),
+        ema_enabled=getattr(opts, "ema.enable"))
+    criteria = build_loss_fn(opts)
+    train_step = make_train_step(model, criteria, opts)
     scheduler = build_scheduler(opts)
-    n_classes = getattr(opts, "model.classification.n_classes")
+    n_classes = getattr(opts, f"model.{category}.n_classes")
     g = torch.Generator(device=device).manual_seed(getattr(opts, "common.seed"))
+
+    def targets():
+        if category == "classification":
+            return torch.randint(0, n_classes, (batch,), generator=g, device=device)
+        # per-pixel labels with 5% ignored, as bench_tasks.py:128-130 makes them
+        t = torch.randint(0, n_classes, (batch, *hw), generator=g, device=device)
+        t[torch.rand(t.shape, generator=g, device=device) < 0.05] = 255
+        return t
+
     batches = [{"samples": torch.randint(0, 256, (batch, 3, *hw), generator=g,
                                          device=device, dtype=torch.uint8),
-                "targets": torch.randint(0, n_classes, (batch,), generator=g,
-                                         device=device)}
+                "targets": targets()}
                for _ in range(WARMUP_STEPS + TIMED_STEPS)]
     params0 = [p.detach().clone() for p in model.parameters()]
     ema0 = [t.detach().clone() for t in state.ema.model.state_dict().values()]
@@ -389,7 +633,7 @@ def phase_train(card: str, label: str, args, kernels: dict, per_step: dict):
         state, metrics = train_step(state, b, scheduler.retrieve_lr(0, state.step))
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
-        losses.append(metrics["loss"].item())
+        losses.append({k: v.item() for k, v in metrics.items()})
     launches = {name: kernel.launches for name, kernel in kernels.items()}
 
     n_steps = len(batches)
@@ -397,7 +641,10 @@ def phase_train(card: str, label: str, args, kernels: dict, per_step: dict):
         check(count == per_step[name] * n_steps,
               f"{label}: {count} {name} launches in {n_steps} steps, "
               f"want {per_step[name]} a step")
-    check(all(map(math.isfinite, losses)), f"{label}: losses not finite: {losses}")
+    # the loss and, for segmentation, its seg and aux parts, and the grad norm
+    check(all(math.isfinite(v) for m in losses for v in m.values()),
+          f"{label}: losses not finite: {losses}")
+    parts = {k: [round(m[k], 4) for m in losses] for k in losses[0] if k != "total_loss"}
     check(any(not torch.equal(a, b) for a, b in zip(params0, model.parameters())),
           f"{label}: params did not change")
     check(any(not torch.equal(a, b) for a, b in zip(
@@ -407,13 +654,13 @@ def phase_train(card: str, label: str, args, kernels: dict, per_step: dict):
     img_s = batch * len(timed) / sum(timed)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     print(f"train: {label} batch={batch} {hw[0]}x{hw[1]} bf16 steps={n_steps} "
-          f"losses={[round(x, 4) for x in losses]} step_s={[round(x, 4) for x in step_s]} "
+          f"losses={parts} step_s={[round(x, 4) for x in step_s]} "
           f"img_s={img_s:.1f} peak_mem_gib={peak_gib:.2f} launches={launches} "
           f"| {card}", flush=True)
 
     # reference: the trained model's logits through the kernels and through the
     # plain attention path (float32, eval mode, TF32 off), on a small batch
-    x = batches[0]["samples"][:8].float() / 255.0
+    x = batches[0]["samples"][:8 if category == "classification" else 2].float() / 255.0
     model.eval()
     with no_tf32(), torch.no_grad():
         with_kernel = model(x)
@@ -422,44 +669,69 @@ def phase_train(card: str, label: str, args, kernels: dict, per_step: dict):
     set_use_kernel(model, True)
     diff = (with_kernel - plain).abs().max().item()
     scale = plain.abs().max().item()
-    check(with_kernel.shape == (x.shape[0], n_classes) and bool(torch.isfinite(with_kernel).all()),
+    want = (x.shape[0], n_classes) + (() if category == "classification" else hw)
+    check(with_kernel.shape == want and bool(torch.isfinite(with_kernel).all()),
           f"{label}: logits shape or finiteness")
     check(diff <= 1e-4 * max(1.0, scale), f"{label}: kernel vs plain logits differ by {diff}")
     print(f"reference: {label} kernel-path vs plain-path logits max diff {diff:.3e} "
           f"(max |logit| {scale:.3e})", flush=True)
-    return launches, (state, train_step, scheduler, batches)
+    if category == "segmentation":
+        # the loss through the seg-CE kernels and through the plain unfused CE, on
+        # the same train-mode (head-resolution) outputs of the whole batch
+        model.train()
+        with no_tf32(), torch.no_grad():
+            out = model(batches[0]["samples"].float() / 255.0)
+            both = []
+            for on in (True, False):
+                set_use_kernel(model, on, criteria)
+                both.append(criteria(None, out, batches[0]["targets"]))
+        set_use_kernel(model, True, criteria)
+        for key in both[0]:
+            got, ref = both[0][key].item(), both[1][key].item()
+            check(abs(got - ref) <= 1e-5 * abs(ref), f"{label}: {key} kernel {got} vs "
+                                                     f"plain {ref}")
+        print(f"reference: {label} kernel-path vs plain-path loss " + " ".join(
+            f"{k}={both[0][k].item():.7f}/{both[1][k].item():.7f}" for k in both[0]),
+            flush=True)
+    return launches, (state, train_step, scheduler, batches, criteria)
 
 
 def phase_ab(card: str, label: str, run) -> None:
-    """Whole train steps with the kernels against the plain attention path, in
-    alternating blocks (plain, kernel, kernel, plain) in this one run."""
+    """Whole train steps through the kernels against the plain path (attention
+    and, for segmentation, the unfused CE), in alternating blocks (plain,
+    kernel, kernel, plain) in this one run. Beside each median step time, the
+    median time until ``train_step`` returns: where it nears the step time,
+    the host's launches, not the card, set the pace."""
     import torch
 
-    state, train_step, scheduler, batches = run
+    state, train_step, scheduler, batches, criteria = run
     model = state.model
     times = {"plain": [], "kernel": []}
+    host = {"plain": [], "kernel": []}  # until train_step returns: the host's enqueue
     peak = {"plain": 0, "kernel": 0}
-    set_use_kernel(model, False)
+    set_use_kernel(model, False, criteria)
     train_step(state, batches[0], scheduler.retrieve_lr(0, state.step))  # plain warm-up
     for mode in AB_BLOCKS:
-        set_use_kernel(model, mode == "kernel")
+        set_use_kernel(model, mode == "kernel", criteria)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for i in range(AB_STEPS):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             train_step(state, batches[i % len(batches)], scheduler.retrieve_lr(0, state.step))
+            host[mode].append(time.perf_counter() - t0)
             torch.cuda.synchronize()
             times[mode].append(time.perf_counter() - t0)
         peak[mode] = max(peak[mode], torch.cuda.max_memory_allocated())
-    set_use_kernel(model, True)
+    set_use_kernel(model, True, criteria)
     batch = batches[0]["samples"].shape[0]
     parts = []
     for mode, ts in times.items():
         ms = 1e3 * statistics.median(ts)
         q1, _, q3 = statistics.quantiles(ts, n=4)
         parts.append(f"{mode}_ms={ms:.3f} (q1 {1e3 * q1:.3f}, q3 {1e3 * q3:.3f}; "
-                     f"{batch / ms * 1e3:.1f} img/s; peak {peak[mode] / 2**30:.2f} GiB)")
+                     f"{batch / ms * 1e3:.1f} img/s; peak {peak[mode] / 2**30:.2f} GiB; "
+                     f"host enqueue {1e3 * statistics.median(host[mode]):.3f} ms)")
     print(f"a/b: {label} {len(AB_BLOCKS)} blocks of {AB_STEPS} steps, "
           f"medians: {'; '.join(parts)} | {card}", flush=True)
 
@@ -469,7 +741,7 @@ def phase_profile(card: str, label: str, run, path: str) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    state, train_step, scheduler, batches = run
+    state, train_step, scheduler, batches, _ = run
     n = 3
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -509,29 +781,46 @@ def main() -> int:
         return 2
     import cvnets_tpu_torch  # noqa: F401  (fails here, before any output, outside the repo)
     from cvnets_tpu_torch.ops.mha_attention import mha_bwd_kernel, mha_fwd_kernel
+    from cvnets_tpu_torch.ops.seg_ce_kernel import seg_ce_bwd_kernel, seg_ce_fwd_kernel
     from cvnets_tpu_torch.ops.separable_attention import separable_attention_kernel
+
+    def release() -> None:  # each phase's peak memory is its own
+        gc.collect()
+        torch.cuda.empty_cache()
 
     card = phase_device()
     phase_build()
     sep_record = phase_kernel(card)
     mha_records = phase_mha_kernel(card)
-    sep_launches, sep_run = phase_train(card, "MobileViTv2-1.0", FLAGSHIP_ARGS,
-                                        {"separable_attention": separable_attention_kernel},
-                                        {"separable_attention": sum(BLOCKS.values())})
-    del sep_run  # the ViT phase's peak memory is its own
-    gc.collect()
-    torch.cuda.empty_cache()
-    vit_launches, vit_run = phase_train(
+    seg_records = phase_seg_ce_kernel(card)
+    sep_launches, run = phase_train(card, "MobileViTv2-1.0", FLAGSHIP_ARGS,
+                                    {"separable_attention": separable_attention_kernel},
+                                    {"separable_attention": sum(SEP_FLAGSHIP[1].values())})
+    run = None
+    release()
+    vit_launches, run = phase_train(
         card, "ViT-B/16", VIT_ARGS,
         {"mha_attention_fwd": mha_fwd_kernel, "mha_attention_bwd": mha_bwd_kernel},
         {"mha_attention_fwd": VIT_BLOCKS, "mha_attention_bwd": VIT_BLOCKS})
-    phase_ab(card, "ViT-B/16", vit_run)
-    phase_profile(card, "ViT-B/16", vit_run, os.path.join("results", "vit_profile.txt"))
+    phase_ab(card, "ViT-B/16", run)
+    phase_profile(card, "ViT-B/16", run, os.path.join("results", "vit_profile.txt"))
+    run = None
+    release()
+    seg_launches, run = phase_train(
+        card, "DeepLabv3-MobileViTv2-1.0", DEEPLAB_ARGS,
+        {"seg_ce_fwd": seg_ce_fwd_kernel, "seg_ce_bwd": seg_ce_bwd_kernel,
+         "separable_attention": separable_attention_kernel},
+        {"seg_ce_fwd": SEG_CALLS, "seg_ce_bwd": SEG_CALLS,
+         "separable_attention": sum(SEP_DEEPLAB[1].values())})
+    phase_ab(card, "DeepLabv3-MobileViTv2-1.0", run)
+    phase_profile(card, "DeepLabv3-MobileViTv2-1.0", run,
+                  os.path.join("results", "deeplab_profile.txt"))
+    run = None
+    release()
 
     def entry(name, source, replaces, launches, record):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches, "max_abs_err": record["max_abs_err"],
-                "ms": record["ms"], "plain_ms": record["plain_ms"]}
+                "launches": launches, **record}
 
     print(json.dumps({"kernels": [
         entry("separable_attention", "cvnets_tpu_torch/csrc/separable_attention.cu",
@@ -543,6 +832,12 @@ def main() -> int:
         entry("mha_attention_bwd", "cvnets_tpu_torch/csrc/mha_attention.cu",
               "cvnets_tpu/ops/pallas/mha_attn.py:153",
               vit_launches["mha_attention_bwd"], mha_records["bwd"]),
+        entry("seg_ce_fwd", "cvnets_tpu_torch/csrc/seg_ce.cu",
+              "cvnets_tpu/ops/pallas/seg_ce_kernel.py:159",
+              seg_launches["seg_ce_fwd"], seg_records["fwd"]),
+        entry("seg_ce_bwd", "cvnets_tpu_torch/csrc/seg_ce.cu",
+              "cvnets_tpu/ops/pallas/seg_ce_kernel.py:200",
+              seg_launches["seg_ce_bwd"], seg_records["bwd"]),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -2,9 +2,10 @@
 
 The JAX step is one pure compiled program; this one runs eagerly and updates the
 model, optimizer and EMA in place (no second copy of the state is made). Each step:
-uint8 → [0, 1] on the device, autocast forward, backward, global-norm clip
-``min(1, clip / (norm + 1e-6))``, AdamW at the scheduler's LR, EMA of params and BN
-statistics, ``step += 1``.
+uint8 → [0, 1] on the device, autocast forward, backward of the loss (of its
+``total_loss`` when the loss is a dict), global-norm clip
+``min(1, clip / (norm + 1e-6))``, the optimizer at the scheduler's LR times each
+param group's ``lr_mult``, EMA of params and BN statistics, ``step += 1``.
 
 Not ported yet: grad accumulation, BN-momentum annealing, device augmentation,
 mixup/cutmix and the metric objects.
@@ -63,15 +64,18 @@ def make_train_step(model: nn.Module, criteria: Callable, opts
         with autocast(opts, samples.device):
             prediction = model(samples)
             loss = criteria(samples, prediction, targets, training=True)
+        total = loss["total_loss"] if isinstance(loss, dict) else loss
         state.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        total.backward()
         grad_norm = clip_grad_norm_(params, grad_clip)
         for group in state.optimizer.param_groups:
-            group["lr"] = lr
+            group["lr"] = lr * group.get("lr_mult", 1.0)
         state.optimizer.step()
         if state.ema is not None:
             state.ema.update(model, ema_momentum)
         state.step += 1
-        return state, {"loss": loss.detach(), "grad_norm": grad_norm.detach()}
+        metrics = {k: v.detach() for k, v in loss.items()} if isinstance(loss, dict) else {}
+        metrics.update(loss=total.detach(), grad_norm=grad_norm.detach())
+        return state, metrics
 
     return train_step

@@ -10,7 +10,7 @@ from typing import Callable, Optional
 
 import torch.nn.functional as F
 
-from cvnets_tpu.utils import logger
+from cvnets_tpu_torch.utils import logger
 
 SUPPORTED_ACT_FNS = {
     "relu": F.relu,

@@ -19,7 +19,7 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from cvnets_tpu.utils import logger
+from cvnets_tpu_torch.utils import logger
 from cvnets_tpu_torch.layers.linear_layer import LinearLayer
 from cvnets_tpu_torch.layers.normalization import LayerNorm2d
 from cvnets_tpu_torch.layers.positional_embedding import PositionalEmbedding

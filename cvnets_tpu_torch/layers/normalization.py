@@ -19,7 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from cvnets_tpu.utils import logger
+from cvnets_tpu_torch.utils import logger
 
 BATCH_NORMS = ("batch_norm", "batch_norm_2d", "sync_batch_norm")
 SUPPORTED_NORM_FNS = BATCH_NORMS + ("layer_norm", "layer_norm_2d", "identity")

@@ -4,8 +4,8 @@ from __future__ import annotations
 
 import argparse
 
-from cvnets_tpu.utils import logger
-from cvnets_tpu.utils.registry import Registry
+from cvnets_tpu_torch.utils import logger
+from cvnets_tpu_torch.utils.registry import Registry
 from cvnets_tpu_torch.loss.base_criteria import BaseCriteria
 
 LOSS_REGISTRY = Registry(registry_name="torch_loss", base_class=BaseCriteria)
@@ -31,4 +31,4 @@ def build_loss_fn(opts, category: str = "") -> BaseCriteria:
 
 
 # registers the ported losses (after LOSS_REGISTRY exists)
-from cvnets_tpu_torch.loss import classification  # noqa: E402,F401
+from cvnets_tpu_torch.loss import classification, segmentation  # noqa: E402,F401

@@ -8,8 +8,8 @@ from typing import Optional
 import torch
 import torch.nn as nn
 
-from cvnets_tpu.utils import logger
-from cvnets_tpu.utils.registry import Registry
+from cvnets_tpu_torch.utils import logger
+from cvnets_tpu_torch.utils.registry import Registry
 
 MODEL_REGISTRY = Registry(registry_name="torch_model_registry", base_class=nn.Module)
 
@@ -46,3 +46,5 @@ def modeling_arguments(parser: argparse.ArgumentParser) -> argparse.ArgumentPars
 
 # registers the ported models (after MODEL_REGISTRY exists)
 from cvnets_tpu_torch.models.classification import mobilevit_v2, vit  # noqa: E402,F401
+from cvnets_tpu_torch.models.segmentation import enc_dec  # noqa: E402,F401
+from cvnets_tpu_torch.models.segmentation.heads import seg_heads  # noqa: E402,F401

@@ -1,14 +1,15 @@
 """Base of the classification backbones (counterpart of
 cvnets_tpu/models/classification/base_image_encoder.py).
 
-NCHW input; the five-stage skeleton ``conv_1, layer_1..layer_5, classifier``. The
-tap points, gradient checkpointing, dilation and the neural augmentor are not
-ported yet.
+NCHW input; the five-stage skeleton ``conv_1, layer_1..layer_5, classifier``, and
+the tap points that the segmentation heads read (``extract_end_points_all``).
+Gradient checkpointing and the neural augmentor are not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
+from typing import Dict
 
 import torch
 import torch.nn as nn
@@ -34,13 +35,38 @@ class BaseImageEncoder(nn.Module):
         return parser
 
     @classmethod
-    def build_model(cls, opts) -> "BaseImageEncoder":
-        return cls(opts)
+    def build_model(cls, opts, **kwargs) -> "BaseImageEncoder":
+        """``kwargs``: e.g. ``output_stride`` for a segmentation encoder."""
+        return cls(opts, **kwargs)
+
+    @staticmethod
+    def get_lr_multipliers(opts) -> Dict[str, float]:
+        """No per-parameter LR multipliers (layer-wise LR decay, the JAX
+        encoders' only multiplier, is not ported)."""
+        return {}
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         for name in self.STAGES:
             x = getattr(self, name)(x)
         return self.classifier(x)
+
+    def extract_end_points_all(self, x: torch.Tensor, use_l5: bool = True,
+                               use_l5_exp: bool = False) -> Dict[str, torch.Tensor]:
+        """Features after layer_1..layer_5 as ``out_l1``..``out_l5``
+        (base_image_encoder.py:167-191); ``out_l5_exp`` after ``conv_1x1_exp``,
+        which a model without one passes through."""
+        out: Dict[str, torch.Tensor] = {}
+        x = self.conv_1(x)
+        for i in range(1, 6 if use_l5 else 5):
+            x = getattr(self, f"layer_{i}")(x)
+            out[f"out_l{i}"] = x
+        if use_l5 and use_l5_exp:
+            exp = getattr(self, "conv_1x1_exp", None)
+            out["out_l5_exp"] = x if exp is None else exp(x)
+        return out
+
+    def extract_end_points_l4(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        return self.extract_end_points_all(x, use_l5=False)
 
 
 class Classifier(nn.Module):

@@ -4,7 +4,7 @@ without flax (importing it runs cvnets_tpu/models/__init__.py)."""
 
 from typing import Dict
 
-from cvnets_tpu.utils.math_utils import bound_fn, make_divisible
+from cvnets_tpu_torch.utils.math_utils import bound_fn, make_divisible
 
 
 def get_configuration(opts) -> Dict:

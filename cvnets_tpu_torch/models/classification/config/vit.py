@@ -4,7 +4,7 @@ cvnets_tpu/models/__init__.py)."""
 
 from typing import Dict
 
-from cvnets_tpu.utils import logger
+from cvnets_tpu_torch.utils import logger
 
 # mode: (embed_dim, n_transformer_layers, n_attn_heads, pos_emb_drop_p);
 # "micro" is the JAX package's small test variant

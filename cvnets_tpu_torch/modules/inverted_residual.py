@@ -7,7 +7,7 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 
-from cvnets_tpu.utils.math_utils import make_divisible
+from cvnets_tpu_torch.utils.math_utils import make_divisible
 from cvnets_tpu_torch.layers.conv_layer import ConvLayer2d
 
 

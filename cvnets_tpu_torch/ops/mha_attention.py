@@ -19,7 +19,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from cvnets_tpu_torch.ops.cuda_build import load_library
+from cvnets_tpu_torch.ops.cuda_build import KernelEntry
 
 # the single-tile TPU kernel's limits (mha_attn.py:55-56); longer sequences
 # belong to the KV-blocked kernels of mha_attn_long.py
@@ -129,32 +129,17 @@ def _strides(*tensors) -> ctypes.Array:
     return (ctypes.c_longlong * len(flat))(*flat)
 
 
-class _MHAKernel:
-    """ctypes binding of one entry point of csrc/mha_attention.cu. Builds the
-    library at first call and counts launches in ``launches``."""
+class _MHAKernel(KernelEntry):
+    """An entry point of csrc/mha_attention.cu: ``n_ptrs`` pointers, then B, S,
+    H, D, the strides array and the dtype code."""
 
     def __init__(self, symbol: str, n_ptrs: int) -> None:
-        self.launches = 0
-        self._symbol = symbol
-        self._n_ptrs = n_ptrs
-        self._fn = None
-
-    def load(self) -> None:
-        if self._fn is None:
-            fn = getattr(load_library("mha_attention.cu"), self._symbol)
-            fn.argtypes = ([ctypes.c_void_p] * self._n_ptrs + [ctypes.c_int] * 4
-                           + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            self._fn = fn
+        super().__init__("mha_attention.cu", symbol,
+                         [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4
+                         + [ctypes.c_void_p, ctypes.c_int])
 
     def _launch(self, ptrs, b, s, h, d, strides, dtype, device) -> None:
-        self.load()
-        with torch.cuda.device(device):
-            err = self._fn(*ptrs, b, s, h, d, strides, _DTYPE_CODE[dtype],
-                           torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"{self._symbol} launch failed: cudaError {err}")
-        self.launches += 1
+        self.launch(device, *ptrs, b, s, h, d, strides, _DTYPE_CODE[dtype])
 
 
 class MHAForwardKernel(_MHAKernel):

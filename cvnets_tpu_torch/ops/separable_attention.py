@@ -20,7 +20,7 @@ from typing import Tuple
 
 import torch
 
-from cvnets_tpu_torch.ops.cuda_build import load_library
+from cvnets_tpu_torch.ops.cuda_build import KernelEntry
 
 # bytes of shared memory a block may use without opting in to more
 _DEFAULT_SMEM = 48 * 1024
@@ -52,21 +52,13 @@ def separable_attention_backward(q, k, v, g) -> Tuple[torch.Tensor, ...]:
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
-class SeparableAttentionKernel:
-    """ctypes binding of the CUDA kernel. Builds the library at first call and
-    counts launches in ``launches``."""
+class SeparableAttentionKernel(KernelEntry):
+    """The CUDA kernel's wrapper: checks its inputs, then launches it."""
 
     def __init__(self) -> None:
-        self.launches = 0
-        self._fn = None
-
-    def load(self) -> None:
-        if self._fn is None:
-            fn = load_library("separable_attention.cu").separable_attention_forward
-            fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                           + [ctypes.c_longlong] * 6 + [ctypes.c_int, ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-            self._fn = fn
+        super().__init__("separable_attention.cu", "separable_attention_forward",
+                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                         + [ctypes.c_longlong] * 6 + [ctypes.c_int])
 
     def __call__(self, q: torch.Tensor, k: torch.Tensor,
                  v: torch.Tensor) -> torch.Tensor:
@@ -87,17 +79,9 @@ class SeparableAttentionKernel:
         out = torch.empty((bp, n, c), dtype=v.dtype, device=v.device)
         if out.numel() == 0:
             return out
-        self.load()
-        with torch.cuda.device(k.device):
-            err = self._fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                           bp, n, c, q.stride(0), q.stride(1), k.stride(0),
-                           k.stride(1), v.stride(0), v.stride(1),
-                           _DTYPE_CODE[k.dtype],
-                           torch.cuda.current_stream().cuda_stream)
-        if err != 0:
-            raise RuntimeError(f"separable_attention kernel launch failed: "
-                               f"cudaError {err}")
-        self.launches += 1
+        self.launch(k.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                    bp, n, c, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
+                    v.stride(0), v.stride(1), _DTYPE_CODE[k.dtype])
         return out
 
 

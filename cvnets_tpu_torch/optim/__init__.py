@@ -1,25 +1,33 @@
 """Optimizer construction on torch.optim (counterpart of
-cvnets_tpu/optim/__init__.py). Only AdamW is ported.
+cvnets_tpu/optim/__init__.py). SGD and AdamW are ported.
 
 ``optim.no_decay_bn_filter_bias`` decays only tensors of rank > 1 (the JAX
-``_decay_mask``, optim/__init__.py:41): biases and norm affines are rank 1. The
-train step writes the scheduler's LR into every param group each iteration, as the
-JAX step writes it into ``inject_hyperparams`` state.
+``_decay_mask``, optim/__init__.py:41): biases and norm affines are rank 1.
+``lr_multipliers`` (a model's ``get_lr_multipliers``: regex → multiplier) scale
+the update of every parameter whose name matches, as the JAX masked
+``optax.scale`` does (optim/__init__.py:247-278); the regex is searched in the
+parameter's name with ``/`` for ``.``, the flax path's separator. There is one
+param group per (decay, multiplier) pair; each carries its ``lr_mult``, and the
+train step writes ``lr · lr_mult`` into it every iteration, as the JAX step
+writes the LR into ``inject_hyperparams`` state.
 
-torch's AdamW and optax's adamw agree: both apply
+torch's SGD and optax's ``add_decayed_weights`` → ``sgd`` agree: the coupled
+decay ``g + wd·p`` enters the momentum buffer, which starts at ``g`` on the
+first step in both. torch's AdamW and optax's adamw agree too:
 p ← p − lr·(m̂/(√v̂ + eps) + wd·p), the decay term only where the mask allows.
 """
 
 from __future__ import annotations
 
 import argparse
-from typing import List
+import re
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn as nn
 
-from cvnets_tpu.utils import logger
-from cvnets_tpu.utils.registry import Registry
+from cvnets_tpu_torch.utils import logger
+from cvnets_tpu_torch.utils.registry import Registry
 
 OPTIM_REGISTRY = Registry(registry_name="torch_optimizer")
 
@@ -34,13 +42,39 @@ def arguments_optimizer(parser: argparse.ArgumentParser) -> argparse.ArgumentPar
     return OPTIM_REGISTRY.all_arguments(parser)
 
 
-def param_groups(model: nn.Module, weight_decay: float, no_decay_bn_filter_bias: bool
-                 ) -> List[dict]:
-    params = [p for p in model.parameters() if p.requires_grad]
-    if not no_decay_bn_filter_bias:
-        return [{"params": params, "weight_decay": weight_decay}]
-    return [{"params": [p for p in params if p.dim() > 1], "weight_decay": weight_decay},
-            {"params": [p for p in params if p.dim() <= 1], "weight_decay": 0.0}]
+def param_groups(model: nn.Module, weight_decay: float, no_decay_bn_filter_bias: bool,
+                 lr_multipliers: Optional[Dict[str, float]] = None) -> List[dict]:
+    patterns = [(re.compile(p), m) for p, m in (lr_multipliers or {}).items() if m != 1.0]
+    groups: Dict[tuple, dict] = {}
+    for name, p in model.named_parameters():
+        if not p.requires_grad:
+            continue
+        decay = weight_decay if (p.dim() > 1 or not no_decay_bn_filter_bias) else 0.0
+        mult = 1.0
+        for rx, m in patterns:
+            if rx.search(name.replace(".", "/")):
+                mult *= m
+        group = groups.setdefault((decay, mult), {"params": [], "weight_decay": decay,
+                                                  "lr_mult": mult})
+        group["params"].append(p)
+    return list(groups.values())
+
+
+@OPTIM_REGISTRY.register("sgd")
+class SGDOptimizer:
+    @classmethod
+    def add_arguments(cls, parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
+        group = parser.add_argument_group(title="SGD arguments")
+        group.add_argument("--optim.sgd.momentum", type=float, default=0.9)
+        group.add_argument("--optim.sgd.nesterov", action="store_true", default=False)
+        return parser
+
+    @staticmethod
+    def make(opts, groups: List[dict]) -> torch.optim.Optimizer:
+        # lr is set by the train step before every update
+        return torch.optim.SGD(groups, lr=0.0,
+                               momentum=getattr(opts, "optim.sgd.momentum", 0.9),
+                               nesterov=getattr(opts, "optim.sgd.nesterov", False))
 
 
 @OPTIM_REGISTRY.register("adamw")
@@ -63,11 +97,14 @@ class AdamWOptimizer:
         return torch.optim.AdamW(groups, lr=0.0, betas=betas, eps=eps)
 
 
-def build_optimizer(opts, model: nn.Module) -> torch.optim.Optimizer:
+def build_optimizer(opts, model: nn.Module,
+                    lr_multipliers: Optional[Dict[str, float]] = None
+                    ) -> torch.optim.Optimizer:
     optim_name = (getattr(opts, "optim.name", "sgd") or "sgd").lower()
     if optim_name not in OPTIM_REGISTRY:
         logger.error(f"Unsupported optimizer {optim_name}; "
                      f"supported: {list(OPTIM_REGISTRY.keys())}")
     groups = param_groups(model, getattr(opts, "optim.weight_decay", 0.0) or 0.0,
-                          getattr(opts, "optim.no_decay_bn_filter_bias", False))
+                          getattr(opts, "optim.no_decay_bn_filter_bias", False),
+                          lr_multipliers)
     return OPTIM_REGISTRY[optim_name].make(opts, groups)

@@ -11,8 +11,8 @@ from __future__ import annotations
 import argparse
 import math
 
-from cvnets_tpu.utils import logger
-from cvnets_tpu.utils.registry import Registry
+from cvnets_tpu_torch.utils import logger
+from cvnets_tpu_torch.utils.registry import Registry
 
 SCHEDULER_REGISTRY = Registry(registry_name="torch_scheduler")
 

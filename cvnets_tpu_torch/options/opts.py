@@ -11,7 +11,7 @@ from __future__ import annotations
 import argparse
 from typing import List, Optional
 
-from cvnets_tpu.options.parse_args import ParseKwargs
+from cvnets_tpu_torch.options.parse_args import ParseKwargs
 from cvnets_tpu_torch.options.utils import load_config_file
 
 

@@ -10,7 +10,7 @@ import os
 import re
 from typing import Any, Dict
 
-from cvnets_tpu.utils import logger
+from cvnets_tpu_torch.utils import logger
 
 DEFAULT_CONFIG_DIR = "config"
 META_PARAMS_REGEX = r"tasks|include_configs"

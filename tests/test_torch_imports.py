@@ -1,8 +1,11 @@
 """The PyTorch port stands without JAX, and keeps the JAX package's flags.
 
-* ``cvnets_tpu_torch`` imports and runs CPU train steps of MobileViTv2 and ViT
-  with ``jax``, ``flax``, ``optax``, ``yaml`` and ``PIL`` blocked (a subprocess:
-  tests/conftest.py has imported jax into this one).
+* ``cvnets_tpu_torch`` imports and runs CPU train steps of MobileViTv2, ViT and
+  DeepLabv3 with ``jax``, ``flax``, ``optax``, ``yaml``, ``PIL`` and the JAX
+  package ``cvnets_tpu`` blocked (a subprocess: tests/conftest.py has imported
+  jax into this one).
+* No module of the port, and not ``chip_smoke.py``, imports ``cvnets_tpu``, not
+  even a module of it that imports no JAX (checked on the source's syntax tree).
 * Every flag of the port's parser exists in the JAX parser with the same dest and
   default, and the flagship yaml parses to the same values in both.
 * The scheduler copy gives the JAX scheduler's LRs.
@@ -22,7 +25,7 @@ FLAGSHIP_YAML = os.path.join(REPO, "config/classification/imagenet/mobilevit_v2.
 
 _BLOCKED_RUN = textwrap.dedent("""
     import sys
-    for name in ("jax", "flax", "optax", "yaml", "PIL"):
+    for name in ("jax", "flax", "optax", "yaml", "PIL", "cvnets_tpu"):
         sys.modules[name] = None  # any import of them now raises ImportError
     import torch
     from cvnets_tpu_torch.engine.train_state import create_train_state, make_train_step
@@ -56,8 +59,27 @@ _BLOCKED_RUN = textwrap.dedent("""
     state, metrics = make_train_step(vit, build_loss_fn(vit_opts), vit_opts)(
         state, {"samples": x, "targets": torch.tensor([1, 2])}, 1e-3)
     assert bool(torch.isfinite(metrics["loss"]))
+    seg_opts = get_training_arguments(args=[
+        "--dataset.category", "segmentation", "--model.segmentation.name", "encoder_decoder",
+        "--model.segmentation.n-classes", "5", "--model.segmentation.output-stride", "16",
+        "--model.segmentation.use-aux-head", "--model.segmentation.lr-multiplier", "10",
+        "--model.segmentation.deeplabv3.aspp-out-channels", "16",
+        "--model.classification.name", "mobilevit_v2",
+        "--model.classification.mitv2.width-multiplier", "0.5",
+        "--loss.category", "segmentation", "--optim.name", "sgd", "--ema.enable"])
+    seg = get_model(seg_opts)
+    state = create_train_state(
+        seg, build_optimizer(seg_opts, seg, seg.get_lr_multipliers(seg_opts)),
+        ema_enabled=True)
+    y = torch.randint(0, 5, (2, 64, 64), generator=torch.Generator().manual_seed(1))
+    y[0, :8] = 255
+    state, metrics = make_train_step(seg, build_loss_fn(seg_opts), seg_opts)(
+        state, {"samples": x, "targets": y}, 1e-3)
+    assert {"seg_loss", "aux_loss", "total_loss"} <= set(metrics)
+    assert bool(torch.isfinite(metrics["loss"]))
     leaked = sorted(m for m in sys.modules if sys.modules[m] is not None
-                    and m.split(".")[0] in ("jax", "flax", "optax", "yaml", "PIL"))
+                    and m.split(".")[0] in ("jax", "flax", "optax", "yaml", "PIL",
+                                            "cvnets_tpu"))
     assert not leaked, leaked
     print("ok")
 """)
@@ -69,6 +91,34 @@ def test_port_imports_and_runs_without_jax_yaml_or_pil():
                           env={**os.environ, "PYTHONPATH": REPO})
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("ok")
+
+
+def _port_sources():
+    yield os.path.join(REPO, "chip_smoke.py")
+    for root, _, files in os.walk(os.path.join(REPO, "cvnets_tpu_torch")):
+        yield from (os.path.join(root, f) for f in sorted(files) if f.endswith(".py"))
+
+
+def test_no_port_module_imports_the_jax_package():
+    """``import cvnets_tpu…`` or ``from cvnets_tpu… import`` anywhere in a module
+    of the port or in chip_smoke.py, at any depth (inside functions too)."""
+    import ast
+
+    found, checked = [], 0
+    for path in _port_sources():
+        tree = ast.parse(open(path).read(), filename=path)
+        checked += 1
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            found += [f"{os.path.relpath(path, REPO)}:{node.lineno} {n}" for n in names
+                      if n.split(".")[0] == "cvnets_tpu"]
+    assert checked > 40
+    assert not found, found
 
 
 def _parsers():

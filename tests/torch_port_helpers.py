@@ -1,7 +1,7 @@
 """Shared set-up for the tests that hold the PyTorch port against the JAX package:
-one flag list parsed by both parsers, a flax model (MobileViTv2 or ViT)
-initialised and perturbed from a numpy seed, and its weights copied into the
-port's model."""
+one flag list parsed by both parsers, a flax model (MobileViTv2, ViT or
+DeepLabv3) initialised and perturbed from a numpy seed, and its weights copied
+into the port's model."""
 
 from __future__ import annotations
 
@@ -32,6 +32,38 @@ VIT_MICRO_ARGS = [
     "--model.layer.linear-init-std-dev", "0.02",
     "--dataset.category", "classification",
 ]
+
+
+# DeepLabv3 on MobileViTv2 at width 0.5 with deeplabv3_mobilevitv2.yaml's head and
+# loss settings, cut to 13 classes and a 32-channel ASPP, dropouts 0; append
+# "--model.segmentation.output-stride" and 8 or 16
+DEEPLAB_MICRO_ARGS = [
+    "--dataset.category", "segmentation",
+    "--model.segmentation.name", "encoder_decoder",
+    "--model.segmentation.n-classes", "13",
+    "--model.segmentation.seg-head", "deeplabv3",
+    "--model.segmentation.use-aux-head",
+    "--model.segmentation.deeplabv3.aspp-out-channels", "32",
+    "--model.segmentation.deeplabv3.aspp-dropout", "0",
+    "--model.segmentation.classifier-dropout", "0",
+    "--model.segmentation.aux-dropout", "0",
+    "--model.classification.name", "mobilevit_v2",
+    "--model.classification.mitv2.width-multiplier", "0.5",
+    "--model.activation.name", "relu",
+    "--model.layer.conv-init", "kaiming_normal",
+    "--loss.category", "segmentation",
+    "--loss.segmentation.name", "cross_entropy",
+    "--loss.segmentation.cross-entropy.aux-weight", "0.4",
+    "--loss.segmentation.cross-entropy.ignore-index", "255",
+]
+
+
+def seg_targets(rng: np.random.Generator, batch: int, size: int, n_classes: int = 13
+                ) -> np.ndarray:
+    """Random labels with 5% of the pixels ignored (255), as bench_tasks.py makes
+    them."""
+    y = rng.integers(0, n_classes, (batch, size, size))
+    return np.where(rng.random((batch, size, size)) < 0.05, 255, y)
 
 
 def both_opts(args):
