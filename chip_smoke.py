@@ -6,8 +6,9 @@
 Phases, one line each or more (any failure exits non-zero):
 
 1. device: the card's name and ``nvidia-smi`` name and power limit;
-2. build: compiles csrc/separable_attention.cu, csrc/mha_attention.cu and
-   csrc/seg_ce.cu for sm_90a, one nvcc each, started together;
+2. build: compiles csrc/separable_attention.cu, csrc/mha_attention.cu,
+   csrc/seg_ce.cu and csrc/window_attention.cu for sm_90a, one nvcc each,
+   started together;
 3. kernel: the separable-attention kernel against its plain torch version at the
    flagship's shapes (BP = 128·4, (N, C) of each MobileViTv2 stage) and at
    DeepLabv3's (BP = 8·4 at 512² and output stride 16), bfloat16 and float32,
@@ -45,17 +46,39 @@ Phases, one line each or more (any failure exits non-zero):
    launches a step, finite losses (total, seg, aux), that params and EMA moved,
    the kernel path's loss against the plain path's on the same outputs, and the
    eval logits through the kernels against the plain attention path;
-11. deeplab a/b and deeplab profile, as for ViT-B (results/deeplab_profile.txt).
+11. deeplab a/b and deeplab profile, as for ViT-B (results/deeplab_profile.txt);
+12. window kernel: the window-attention forward and backward kernels against
+   their plain versions at Swin-T's four stage shapes at batch 128 (S = 49,
+   D = 32; B·nW, H = 8192, 3 / 2048, 6 / 512, 12 / 128, 24; q, k, v column
+   thirds of one qkv tensor), with the stage's real shift mask and without,
+   bfloat16 and float32: output, dq, dk, dv and dbias, and dbias the same bit
+   for bit on a second run; kernels, plain versions and
+   ``F.scaled_dot_product_attention`` with the bias as a float mask timed;
+13. mha long kernel: the MHA kernels against the plain version at S = 1024
+   (ViT-B/16 at 512² without the CLS token, B = 32) and S = 4096 (B = 2),
+   H = 12, D = 64, with and without a key mask (one batch element fully
+   masked), bfloat16 and float32; timed at S = 1024, the backward's time split
+   between its dQ and dK/dV kernels by ``torch.profiler``;
+14. swin train, swin a/b, swin profile: Swin-T steps at batch 128 × 224² with
+   swin.yaml's settings (AdamW with weight decay 0.05, cosine LR, clip 5,
+   label smoothing 0.1, EMA 0.0005, GELU, LayerNorm, stochastic depth 0.2);
+   checks 12 forward and 12 backward window-attention launches a step, then as
+   for ViT-B (results/swin_profile.txt);
+15. vit long train, a/b and profile: ViT-B/16 steps at batch 32 × 512² without
+   the CLS token (S = 1024), vit.yaml's settings otherwise; checks 12 forward
+   and 12 backward MHA launches a step at S = 1024 and the logits against the
+   einsum path, then as for ViT-B (results/vit_long_profile.txt).
 
-The second-to-last line is the kernels' JSON record: ``ms``/``plain_ms`` are a
-kernel's and its plain version's time for one train step's launches (the
-separable attention's 9 at the flagship from the per-shape bf16 medians, each
-MHA kernel's 12 at ViT-B, each seg-CE kernel's 2 at DeepLabv3), ``bound_ms`` the
-least time the card could take for the same work (bytes over the HBM rate or
-operations over their unit's peak, whichever is larger) and ``library_ms`` one
-PyTorch call that computes the same function, where there is one. The last line
-is ``{"ok": true, "device": {...}}``. Without a CUDA card it exits 2 before any
-result.
+The second-to-last line is the kernels' JSON record, one entry for each TPU
+kernel's counterpart: ``ms``/``plain_ms`` are a kernel's and its plain
+version's time for one train step's launches (the separable attention's 9 at
+the flagship from the per-shape bf16 medians, each MHA kernel's 12 at ViT-B and
+at ViT-B 512², each seg-CE kernel's 2 at DeepLabv3, each window kernel's 12 at
+Swin-T from the per-stage medians), ``bound_ms`` the least time the card could
+take for the same work (bytes over the HBM rate or operations over their unit's
+peak, whichever is larger) and ``library_ms`` one PyTorch call that computes the
+same function, where there is one. The last line is ``{"ok": true, "device":
+{...}}``. Without a CUDA card it exits 2 before any result.
 """
 
 from __future__ import annotations
@@ -81,6 +104,14 @@ AB_BLOCKS, AB_STEPS = ("plain", "kernel", "kernel", "plain"), 8
 # seg CE at DeepLabv3's shapes: head logits (B, h, w, C) → labels (B, H, W)
 SEG_B, SEG_HEAD, SEG_FULL, SEG_C = 8, 32, 512, 150
 SEG_CALLS = 2  # main head and aux head, each one forward and one backward a step
+# Swin-T at batch 128 × 224²: (label, map side, heads, unshifted and shifted
+# blocks a step); windows of 7 × 7 = 49 tokens, D = 32, stage 4 never shifts
+SWIN_BATCH, WIN, WIN_D = 128, 7, 32
+SWIN_STAGES = [("stage1", 56, 3, 1, 1), ("stage2", 28, 6, 1, 1),
+               ("stage3", 14, 12, 3, 3), ("stage4", 7, 24, 2, 0)]
+SWIN_BLOCKS = 12
+# the MHA kernels past S = 512: (label, B, S, H, D); the first is the main path's
+MHA_LONG_CASES = [("vit_base_512", 32, 1024, 12, 64), ("vit_base_1024", 2, 4096, 12, 64)]
 
 # card peaks for the bounds (H100 SXM data sheet);
 # the SFU rate is 16 exponentials a clock per SM (CUDA C++ programming guide,
@@ -216,6 +247,52 @@ VIT_ARGS = [  # config/classification/imagenet/vit.yaml, as flags
     "--common.seed", "0",
 ]
 
+SWIN_ARGS = [  # config/classification/imagenet/swin.yaml, as flags
+    "--model.classification.name", "swin",
+    "--model.classification.n-classes", "1000",
+    "--model.classification.swin.mode", "tiny",
+    "--model.classification.swin.stochastic-depth-prob", "0.2",
+    "--model.normalization.name", "layer_norm",
+    "--model.activation.name", "gelu",
+    "--model.layer.global-pool", "mean",
+    "--model.layer.conv-init", "kaiming_normal",
+    "--model.layer.linear-init", "trunc_normal",
+    "--model.layer.linear-init-std-dev", "0.02",
+    "--loss.category", "classification",
+    "--loss.classification.name", "cross_entropy",
+    "--loss.classification.cross-entropy.label-smoothing", "0.1",
+    "--optim.name", "adamw",
+    "--optim.weight-decay", "0.05",
+    "--optim.no-decay-bn-filter-bias",
+    "--optim.adamw.beta1", "0.9",
+    "--optim.adamw.beta2", "0.999",
+    "--scheduler.name", "cosine",
+    "--scheduler.max-epochs", "300",
+    "--scheduler.warmup-iterations", "20000",
+    "--scheduler.warmup-init-lr", "1e-6",
+    "--scheduler.cosine.max-lr", "0.001",
+    "--scheduler.cosine.min-lr", "1e-5",
+    "--ema.enable",
+    "--ema.momentum", "0.0005",
+    "--common.mixed-precision",
+    "--common.mixed-precision-dtype", "bfloat16",
+    "--common.grad-clip", "5.0",
+    "--dataset.train-batch-size0", str(SWIN_BATCH),
+    "--sampler.bs.crop-size-width", "224",
+    "--sampler.bs.crop-size-height", "224",
+    "--common.seed", "0",
+]
+
+# ViT-B/16 at 512² without the CLS token: S = 32² = 1024 tokens, the
+# long-sequence kernels' range; the batch is vit.yaml's 128 at 224² scaled by
+# the area and rounded up (128 · 224² / 512² = 24.5 → 32)
+VIT_LONG_ARGS = VIT_ARGS + [
+    "--model.classification.vit.no-cls-token",
+    "--dataset.train-batch-size0", "32",
+    "--sampler.bs.crop-size-width", "512",
+    "--sampler.bs.crop-size-height", "512",
+]
+
 
 def check(cond: bool, msg: str) -> None:
     if not cond:
@@ -277,6 +354,12 @@ def bound(n_bytes: float, *ops) -> tuple:
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def _records(*parts) -> dict:
+    """An empty kernel record for the JSON line, for each of ``parts``."""
+    return {p: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                "bound_by": "bytes", "library_ms": None} for p in parts}
+
+
 def phase_device() -> str:
     import torch
 
@@ -296,6 +379,7 @@ def phase_build() -> None:
     from cvnets_tpu_torch.ops.mha_attention import mha_bwd_kernel, mha_fwd_kernel
     from cvnets_tpu_torch.ops.seg_ce_kernel import seg_ce_bwd_kernel, seg_ce_fwd_kernel
     from cvnets_tpu_torch.ops.separable_attention import separable_attention_kernel
+    from cvnets_tpu_torch.ops.window_attention import window_bwd_kernel, window_fwd_kernel
 
     def build(source: str) -> str:
         lib = os.path.join(BUILD_DIR, os.path.splitext(source)[0] + ".so")
@@ -305,13 +389,15 @@ def phase_build() -> None:
         return (f"{source} in {time.perf_counter() - t0:.2f} s"
                 f"{' (library found from an earlier build)' if before else ''}")
 
-    sources = ("separable_attention.cu", "mha_attention.cu", "seg_ce.cu")
+    sources = ("separable_attention.cu", "mha_attention.cu", "seg_ce.cu",
+               "window_attention.cu")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, together
         done = list(pool.map(build, sources))
     print(f"build: {'; '.join(done)}; {time.perf_counter() - t0:.2f} s in all", flush=True)
     for kernel in (separable_attention_kernel, mha_fwd_kernel, mha_bwd_kernel,
-                   seg_ce_fwd_kernel, seg_ce_bwd_kernel):
+                   seg_ce_fwd_kernel, seg_ce_bwd_kernel, window_fwd_kernel,
+                   window_bwd_kernel):
         kernel.load()
 
 
@@ -327,8 +413,7 @@ def phase_kernel(card: str) -> dict:
     )
 
     g = torch.Generator(device="cuda").manual_seed(0)
-    record = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-              "bound_by": "bytes", "library_ms": None}
+    record = _records("sep")["sep"]
     for label, (bp, blocks) in (("flagship", SEP_FLAGSHIP), ("deeplab", SEP_DEEPLAB)):
         for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
             for n, c in blocks:
@@ -379,6 +464,48 @@ def phase_kernel(card: str) -> dict:
     return record
 
 
+def _mha_case(g, label: str, b: int, s: int, h: int, d: int, dtype, masked: bool):
+    """The MHA kernels forward and backward against the plain versions on one
+    seeded input; raises on a non-finite or wrong output. Returns the inputs,
+    the kernel's output and statistics, the plain output and the errors."""
+    import torch
+
+    from cvnets_tpu_torch.ops.mha_attention import (
+        mha_attention_backward_plain,
+        mha_attention_plain,
+        mha_bwd_kernel,
+        mha_fwd_kernel,
+    )
+
+    e = h * d
+    # q, k, v as column slices of one qkv projection, q scaled, as
+    # MultiHeadAttention hands them over
+    qkv = torch.randn((b, s, 3 * e), generator=g, device="cuda").to(dtype)
+    q, k, v = qkv.chunk(3, dim=-1)
+    q = q * d ** -0.5
+    mask = None
+    if masked:  # -1e30 as the layer makes it; batch element 0 fully masked
+        mask = torch.where(torch.rand((b, s), generator=g, device="cuda") < 0.2, -1e30, 0.0)
+        mask[0] = -1e30
+    dout = torch.randn((b, s, e), generator=g, device="cuda").to(dtype)
+    out, stats = mha_fwd_kernel(q, k, v, h, mask)
+    grads = mha_bwd_kernel(q, k, v, mask, out, dout, stats, h)
+    torch.cuda.synchronize()
+    ref = mha_attention_plain(q, k, v, h, mask)
+    ref_grads = mha_attention_backward_plain(q, k, v, mask, ref, dout, h)
+    errs = {}
+    for what, got, want in zip(("out", "dq", "dk", "dv"), (out, *grads), (ref, *ref_grads)):
+        check(bool(torch.isfinite(got).all()), f"{label} {what} finite")
+        err = (got.float() - want.float()).abs().max().item()
+        # float32: the same math in another order; bf16: P and dS rounded to
+        # bf16 before their products, outputs rounded
+        tol = ((1e-5 if what == "out" else 1e-4) if dtype == torch.float32
+               else 2e-2 * want.float().abs().max().item())
+        check(err <= tol, f"{label} {what} err {err} > {tol}")
+        errs[what] = err
+    return q, k, v, mask, dout, out, stats, ref, errs
+
+
 def phase_mha_kernel(card: str) -> dict:
     """Returns {"fwd": record, "bwd": record} for the JSON line."""
     import torch
@@ -393,41 +520,14 @@ def phase_mha_kernel(card: str) -> dict:
     import torch.nn.functional as F
 
     g = torch.Generator(device="cuda").manual_seed(1)
-    records = {p: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                   "bound_by": "bytes", "library_ms": None} for p in ("fwd", "bwd")}
+    records = _records("fwd", "bwd")
     with no_tf32():
         for label, b, s, h, d in MHA_CASES:
             e = h * d
             for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
                 for masked in (False, True):
-                    # q, k, v as column slices of one qkv projection, q scaled,
-                    # as MultiHeadAttention hands them over
-                    qkv = torch.randn((b, s, 3 * e), generator=g, device="cuda").to(dtype)
-                    q, k, v = qkv.chunk(3, dim=-1)
-                    q = q * d ** -0.5
-                    mask = None
-                    if masked:  # -1e30 as the layer makes it; batch element 0 fully masked
-                        mask = torch.where(torch.rand((b, s), generator=g, device="cuda")
-                                           < 0.2, -1e30, 0.0)
-                        mask[0] = -1e30
-                    dout = torch.randn((b, s, e), generator=g, device="cuda").to(dtype)
-                    out, stats = mha_fwd_kernel(q, k, v, h, mask)
-                    grads = mha_bwd_kernel(q, k, v, mask, out, dout, stats, h)
-                    torch.cuda.synchronize()
-                    ref = mha_attention_plain(q, k, v, h, mask)
-                    ref_grads = mha_attention_backward_plain(q, k, v, mask, ref, dout, h)
-                    errs = {}
-                    for what, got, want in zip(("out", "dq", "dk", "dv"), (out, *grads),
-                                               (ref, *ref_grads)):
-                        check(bool(torch.isfinite(got).all()), f"{label} {name} {what} finite")
-                        err = (got.float() - want.float()).abs().max().item()
-                        # float32: the same math in another order; bf16: P and dS
-                        # rounded to bf16 before their products, outputs rounded
-                        tol = ((1e-5 if what == "out" else 1e-4) if dtype == torch.float32
-                               else 2e-2 * want.float().abs().max().item())
-                        check(err <= tol, f"{label} {name} mask={masked} {what} err "
-                                          f"{err} > {tol}")
-                        errs[what] = err
+                    q, k, v, mask, dout, out, stats, ref, errs = _mha_case(
+                        g, f"{label} {name} mask={masked}", b, s, h, d, dtype, masked)
                     if dtype == torch.bfloat16:
                         records["fwd"]["max_abs_err"] = max(records["fwd"]["max_abs_err"],
                                                             errs["out"])
@@ -508,8 +608,7 @@ def phase_seg_ce_kernel(card: str) -> dict:
     target[torch.rand(target.shape, generator=g, device="cuda") < 0.05] = 255
     target[SEG_B - 1] = 255  # one fully ignored image
     wts = BaseCriteria._class_weights(torch.where(target == 255, 0, target), SEG_C)
-    records = {p: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
-                   "bound_by": "bytes", "library_ms": None} for p in ("fwd", "bwd")}
+    records = _records("fwd", "bwd")
     with no_tf32():
         for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
             for ls in (0.0, 0.1):
@@ -579,6 +678,225 @@ def phase_seg_ce_kernel(card: str) -> dict:
     return records
 
 
+def phase_window_kernel(card: str) -> dict:
+    """The window-attention kernels against their plain versions at Swin-T's
+    stage shapes; returns {"fwd": record, "bwd": record} summed over one step's
+    12 blocks (bf16, unshifted and shifted blocks at their own times)."""
+    import torch
+    import torch.nn.functional as F
+
+    from cvnets_tpu_torch.modules.swin_transformer_block import shifted_window_mask
+    from cvnets_tpu_torch.ops.window_attention import (
+        window_attention_backward_plain,
+        window_attention_plain,
+        window_bwd_kernel,
+        window_fwd_kernel,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    records = _records("fwd", "bwd")
+    records["fwd"]["library_ms"] = records["bwd"]["library_ms"] = 0.0
+    s = WIN * WIN
+    with no_tf32():
+        for label, side, h, n_plain, n_shift in SWIN_STAGES:
+            nw = (side // WIN) ** 2
+            bnw, e = SWIN_BATCH * nw, h * WIN_D
+            for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+                for shifted in (False, True):
+                    if shifted and not n_shift:
+                        continue
+                    qkv = torch.randn((bnw, s, 3 * e), generator=g, device="cuda").to(dtype)
+                    q, k, v = qkv.chunk(3, dim=-1)  # column thirds, as WindowAttention
+                    q = q * WIN_D ** -0.5
+                    bias = 0.5 * torch.randn((h, s, s), generator=g, device="cuda")
+                    mask = (torch.from_numpy(shifted_window_mask(side, side, WIN, WIN // 2))
+                            .cuda() if shifted else None)
+                    dout = torch.randn((bnw, s, e), generator=g, device="cuda").to(dtype)
+                    out = window_fwd_kernel(q, k, v, h, bias, mask)
+                    grads = window_bwd_kernel(q, k, v, h, bias, mask, dout)
+                    again = window_bwd_kernel(q, k, v, h, bias, mask, dout)[3]
+                    torch.cuda.synchronize()
+                    check(torch.equal(grads[3], again), f"window {label} {name} dbias differs "
+                                                        f"between two runs")
+                    ref = window_attention_plain(q, k, v, h, bias, mask)
+                    ref_grads = window_attention_backward_plain(q, k, v, h, bias, mask, ref,
+                                                                dout)
+                    errs = {}
+                    for what, got, want in zip(("out", "dq", "dk", "dv", "dbias"),
+                                               (out, *grads), (ref, *ref_grads)):
+                        check(bool(torch.isfinite(got).all()), f"window {label} {what} finite")
+                        err = (got.float() - want.float()).abs().max().item()
+                        big = want.float().abs().max().item()
+                        # float32: the same math in another order (dbias sums
+                        # B·nW windows, so relative to its size); bf16: P and dS
+                        # rounded to bf16 before their products, outputs rounded
+                        if dtype == torch.float32:
+                            tol = {"out": 1e-5, "dbias": 1e-5 * max(1.0, big)}.get(what, 1e-4)
+                        else:
+                            tol = 2e-2 * big
+                        check(err <= tol, f"window {label} {name} shift={shifted} {what} "
+                                          f"err {err} > {tol}")
+                        errs[what] = err
+                    if dtype == torch.bfloat16:
+                        records["fwd"]["max_abs_err"] = max(records["fwd"]["max_abs_err"],
+                                                            errs["out"])
+                        records["bwd"]["max_abs_err"] = max(
+                            records["bwd"]["max_abs_err"],
+                            *(errs[w] for w in ("dq", "dk", "dv", "dbias")))
+                    times = ""
+                    if dtype == torch.bfloat16:
+                        t = {"fwd": time_ms(lambda: window_fwd_kernel(q, k, v, h, bias, mask)),
+                             "fwd_plain": time_ms(lambda: window_attention_plain(
+                                 q, k, v, h, bias, mask)),
+                             "bwd": time_ms(lambda: window_bwd_kernel(q, k, v, h, bias, mask,
+                                                                      dout)),
+                             "bwd_plain": time_ms(lambda: window_attention_backward_plain(
+                                 q, k, v, h, bias, mask, ref, dout))}
+                        # the library yardstick: SDPA on (B·nW, H, S, D) copies with
+                        # the bias (plus the mask) as a float attn_mask; its
+                        # backward gives dq, dk and dv, not dbias
+                        qh, kh, vh, dh = (t_.detach().reshape(bnw, s, h, WIN_D).transpose(1, 2)
+                                          .contiguous().requires_grad_()
+                                          for t_ in (q, k, v, dout))
+                        am = bias[None] if mask is None else (
+                            bias[None, None] + mask[None, :, None]).expand(
+                                SWIN_BATCH, nw, h, s, s).reshape(bnw, h, s, s)
+                        am = am.to(dtype)
+                        lib_out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=am,
+                                                                 scale=1.0)
+                        t["lib_fwd"] = time_ms(lambda: F.scaled_dot_product_attention(
+                            qh, kh, vh, attn_mask=am, scale=1.0))
+                        t["lib_bwd"] = time_ms(lambda: torch.autograd.grad(
+                            lib_out, (qh, kh, vh), dh, retain_graph=True))
+                        # each input read once, each output written once; 2
+                        # products forward, 5 backward, one exp a logit
+                        act = bnw * s * e * q.element_size()
+                        small = (h + (nw if shifted else 0)) * s * s * 4
+                        flops = 4 * bnw * s * s * e
+                        exps = (bnw * h * s * s, SFU_EXP_S)
+                        bounds = {"fwd": bound(4 * act + small, (flops, BF16_TC_FLOP_S), exps),
+                                  "bwd": bound(7 * act + small + h * s * s * 4,
+                                               (2.5 * flops, BF16_TC_FLOP_S), exps)}
+                        n_blocks = n_shift if shifted else n_plain
+                        for p in ("fwd", "bwd"):
+                            records[p]["ms"] += n_blocks * t[p]
+                            records[p]["plain_ms"] += n_blocks * t[f"{p}_plain"]
+                            records[p]["bound_ms"] += n_blocks * bounds[p][0]
+                            records[p]["bound_by"] = bounds[p][1]
+                            records[p]["library_ms"] += n_blocks * t[f"lib_{p}"]
+                        times = "".join(f" {k_}_ms={v_:.4f}" for k_, v_ in t.items()) + "".join(
+                            f" {p}_bound_ms={bounds[p][0]:.4f} ({bounds[p][1]})"
+                            for p in ("fwd", "bwd"))
+                        del lib_out, qh, kh, vh, dh, am
+                    print(f"window kernel: {label} {name} BnW={bnw} S={s} H={h} D={WIN_D} "
+                          f"shift={shifted} " + " ".join(f"{w}_err={x:.3e}"
+                                                         for w, x in errs.items())
+                          + times + f" | {card}", flush=True)
+    return records
+
+
+def phase_mha_long_kernel(card: str) -> dict:
+    """The MHA kernels at S = 1024 and 4096; returns {"fwd", "dq", "dkdv"}
+    records for one ViT-B 512² step's 12 launches. The wrapper's backward runs
+    a dQ kernel and then a dK/dV kernel: its event-timed total is split between
+    them by their device times in ``torch.profiler``; the plain and library
+    backward compute dq, dk and dv together, and their times stand in both
+    rows."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+
+    from cvnets_tpu_torch.ops.mha_attention import (
+        mha_attention_backward_plain,
+        mha_attention_plain,
+        mha_bwd_kernel,
+        mha_fwd_kernel,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(4)
+    records = _records("fwd", "dq", "dkdv")
+    with no_tf32():
+        for label, b, s, h, d in MHA_LONG_CASES:
+            e = h * d
+            for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+                for masked in (False, True):
+                    q, k, v, mask, dout, out, stats, ref, errs = _mha_case(
+                        g, f"{label} {name} mask={masked}", b, s, h, d, dtype, masked)
+                    if dtype == torch.bfloat16:
+                        records["fwd"]["max_abs_err"] = max(records["fwd"]["max_abs_err"],
+                                                            errs["out"])
+                        for p in ("dq", "dkdv"):
+                            records[p]["max_abs_err"] = max(
+                                records[p]["max_abs_err"],
+                                *(errs[w] for w in (("dq",) if p == "dq" else ("dk", "dv"))))
+                    times = ""
+                    if label == MHA_LONG_CASES[0][0] and dtype == torch.bfloat16 and not masked:
+                        t = {"fwd": time_ms(lambda: mha_fwd_kernel(q, k, v, h, mask)),
+                             "fwd_plain": time_ms(lambda: mha_attention_plain(q, k, v, h, mask)),
+                             "bwd": time_ms(lambda: mha_bwd_kernel(q, k, v, mask, out, dout,
+                                                                   stats, h)),
+                             "bwd_plain": time_ms(lambda: mha_attention_backward_plain(
+                                 q, k, v, mask, ref, dout, h))}
+                        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                            for _ in range(5):
+                                mha_bwd_kernel(q, k, v, mask, out, dout, stats, h)
+                            torch.cuda.synchronize()
+                        dev = {"dq": 0.0, "dkdv": 0.0}
+                        for ev in prof.key_averages():
+                            for p in dev:
+                                if f"mha_bwd_{p}_" in ev.key:
+                                    dev[p] += ev.self_device_time_total
+                        check(all(v_ > 0 for v_ in dev.values()),
+                              f"profiler saw the backward kernels: {dev}")
+                        share = {p: dev[p] / sum(dev.values()) for p in dev}
+                        qh, kh, vh, dh = (t_.detach().reshape(b, s, h, d).transpose(1, 2)
+                                          .contiguous().requires_grad_()
+                                          for t_ in (q, k, v, dout))
+                        lib_out = F.scaled_dot_product_attention(qh, kh, vh, scale=1.0)
+                        t["lib_fwd"] = time_ms(lambda: F.scaled_dot_product_attention(
+                            qh, kh, vh, scale=1.0))
+                        t["lib_bwd"] = time_ms(lambda: torch.autograd.grad(
+                            lib_out, (qh, kh, vh), dh, retain_graph=True))
+                        # each input read once, each output written once: the
+                        # forward reads q, k, v and writes O and the statistics;
+                        # dQ reads q, k, v, dO, O and the statistics and writes dq
+                        # and delta; dK/dV reads q, k, v, dO, the statistics and
+                        # delta and writes dk, dv. Products: 2, 3 and 4 of 2·S²·D
+                        # a head; one exp a logit in each
+                        act = b * s * e * q.element_size()
+                        row = b * h * s * 4
+                        flops = 2 * b * s * s * e
+                        exps = (b * h * s * s, SFU_EXP_S)
+                        bounds = {"fwd": bound(4 * act + 2 * row, (2 * flops, BF16_TC_FLOP_S),
+                                               exps),
+                                  "dq": bound(6 * act + 3 * row, (3 * flops, BF16_TC_FLOP_S),
+                                              exps),
+                                  "dkdv": bound(6 * act + 3 * row,
+                                                (4 * flops, BF16_TC_FLOP_S), exps)}
+                        kernel_ms = {"fwd": t["fwd"], "dq": share["dq"] * t["bwd"],
+                                     "dkdv": share["dkdv"] * t["bwd"]}
+                        for p in ("fwd", "dq", "dkdv"):
+                            src = "fwd" if p == "fwd" else "bwd"
+                            records[p]["ms"] = VIT_BLOCKS * kernel_ms[p]
+                            records[p]["plain_ms"] = VIT_BLOCKS * t[f"{src}_plain"]
+                            records[p]["bound_ms"] = VIT_BLOCKS * bounds[p][0]
+                            records[p]["bound_by"] = bounds[p][1]
+                            records[p]["library_ms"] = VIT_BLOCKS * t[f"lib_{src}"]
+                        times = ("".join(f" {k_}_ms={v_:.4f}" for k_, v_ in t.items())
+                                 + f" dq_ms={kernel_ms['dq']:.4f} dkdv_ms={kernel_ms['dkdv']:.4f}"
+                                 + "".join(f" {p}_bound_ms={bounds[p][0]:.4f} ({bounds[p][1]})"
+                                           for p in bounds)
+                                 + f" fwd_tflops={2 * flops / t['fwd'] / 1e9:.1f}"
+                                 f" bwd_tflops={5 * flops / t['bwd'] / 1e9:.1f}")
+                        del lib_out, qh, kh, vh, dh
+                    print(f"mha long kernel: {label} {name} B={b} S={s} H={h} D={d} "
+                          f"mask={masked} " + " ".join(f"{w}_err={x:.3e}"
+                                                       for w, x in errs.items())
+                          + times + f" | {card}", flush=True)
+                    del out, stats, ref
+    return records
+
+
 def phase_train(card: str, label: str, args, kernels: dict, per_step: dict):
     """Train steps of the model of ``args``; ``kernels`` are the wrappers of the
     path, whose counts are set to 0 just before the steps and read just after.
@@ -598,7 +916,7 @@ def phase_train(card: str, label: str, args, kernels: dict, per_step: dict):
     batch = getattr(opts, "dataset.train_batch_size0")
     hw = (getattr(opts, "sampler.bs.crop_size_height"),
           getattr(opts, "sampler.bs.crop_size_width"))
-    model = get_model(opts).to(device)
+    model = get_model(opts)  # on the card
     state = create_train_state(
         model, build_optimizer(opts, model, model.get_lr_multipliers(opts)),
         ema_enabled=getattr(opts, "ema.enable"))
@@ -783,6 +1101,7 @@ def main() -> int:
     from cvnets_tpu_torch.ops.mha_attention import mha_bwd_kernel, mha_fwd_kernel
     from cvnets_tpu_torch.ops.seg_ce_kernel import seg_ce_bwd_kernel, seg_ce_fwd_kernel
     from cvnets_tpu_torch.ops.separable_attention import separable_attention_kernel
+    from cvnets_tpu_torch.ops.window_attention import window_bwd_kernel, window_fwd_kernel
 
     def release() -> None:  # each phase's peak memory is its own
         gc.collect()
@@ -793,6 +1112,10 @@ def main() -> int:
     sep_record = phase_kernel(card)
     mha_records = phase_mha_kernel(card)
     seg_records = phase_seg_ce_kernel(card)
+    win_records = phase_window_kernel(card)
+    release()
+    mha_long_records = phase_mha_long_kernel(card)
+    release()
     sep_launches, run = phase_train(card, "MobileViTv2-1.0", FLAGSHIP_ARGS,
                                     {"separable_attention": separable_attention_kernel},
                                     {"separable_attention": sum(SEP_FLAGSHIP[1].values())})
@@ -817,6 +1140,29 @@ def main() -> int:
                   os.path.join("results", "deeplab_profile.txt"))
     run = None
     release()
+    win_kernels = {"window_attention_fwd": window_fwd_kernel,
+                   "window_attention_bwd": window_bwd_kernel}
+    swin_launches, run = phase_train(card, "Swin-T", SWIN_ARGS, win_kernels,
+                                     {name: SWIN_BLOCKS for name in win_kernels})
+    phase_ab(card, "Swin-T", run)
+    phase_profile(card, "Swin-T", run, os.path.join("results", "swin_profile.txt"))
+    run = None
+    release()
+    vit_long_launches, run = phase_train(
+        card, "ViT-B/16 512² no CLS", VIT_LONG_ARGS,
+        {"mha_attention_fwd": mha_fwd_kernel, "mha_attention_bwd": mha_bwd_kernel},
+        {"mha_attention_fwd": VIT_BLOCKS, "mha_attention_bwd": VIT_BLOCKS})
+    vit = run[0].model
+    with torch.no_grad():  # every one of those launches saw S = 1024 tokens
+        stem = vit.patch_emb_2(vit.patch_emb_1(vit.patch_emb_0(
+            torch.zeros((1, 3, 512, 512), device="cuda"))))
+    check(stem.shape[-2] * stem.shape[-1] == 1024 and not vit.use_cls_token,
+          f"ViT-B/16 512²: {stem.shape[-2] * stem.shape[-1]} tokens")
+    phase_ab(card, "ViT-B/16 512² no CLS", run)
+    phase_profile(card, "ViT-B/16 512² no CLS", run,
+                  os.path.join("results", "vit_long_profile.txt"))
+    run = vit = None
+    release()
 
     def entry(name, source, replaces, launches, record):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -838,6 +1184,21 @@ def main() -> int:
         entry("seg_ce_bwd", "cvnets_tpu_torch/csrc/seg_ce.cu",
               "cvnets_tpu/ops/pallas/seg_ce_kernel.py:200",
               seg_launches["seg_ce_bwd"], seg_records["bwd"]),
+        entry("mha_attention_fwd_long", "cvnets_tpu_torch/csrc/mha_attention.cu",
+              "cvnets_tpu/ops/pallas/mha_attn_long.py:142",
+              vit_long_launches["mha_attention_fwd"], mha_long_records["fwd"]),
+        entry("mha_attention_bwd_long_dq", "cvnets_tpu_torch/csrc/mha_attention.cu",
+              "cvnets_tpu/ops/pallas/mha_attn_long.py:257",
+              vit_long_launches["mha_attention_bwd"], mha_long_records["dq"]),
+        entry("mha_attention_bwd_long_dkdv", "cvnets_tpu_torch/csrc/mha_attention.cu",
+              "cvnets_tpu/ops/pallas/mha_attn_long.py:279",
+              vit_long_launches["mha_attention_bwd"], mha_long_records["dkdv"]),
+        entry("window_attention_fwd", "cvnets_tpu_torch/csrc/window_attention.cu",
+              "cvnets_tpu/ops/pallas/window_attn.py:279",
+              swin_launches["window_attention_fwd"], win_records["fwd"]),
+        entry("window_attention_bwd", "cvnets_tpu_torch/csrc/window_attention.cu",
+              "cvnets_tpu/ops/pallas/window_attn.py:300",
+              swin_launches["window_attention_bwd"], win_records["bwd"]),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,0 +1,265 @@
+// Tiles, fragments and warp products shared by the attention kernels of this
+// directory (mha_attention.cu, window_attention.cu). A block is four warps over
+// a 64-row tile, each warp owning 16 rows; bfloat16 products run on the tensor
+// cores through mma.sync m16n8k16, float32 ones on FMAs over shared memory.
+// Everything is in an anonymous namespace: each source that includes this is
+// built into a library of its own.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cmath>
+#include <cstdint>
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kTile = 64;               // query rows and key rows of a tile
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kRows = kTile / kWarps;   // rows of a tile owned by one warp (16)
+
+// Batch and token strides (in elements) of each (B, S, H*D) tensor argument.
+struct Strides {
+  long long b[8];
+  long long s[8];
+};
+
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float x) { return __float2bfloat16(x); }
+
+__device__ __forceinline__ float warp_max(float x) {
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float warp_sum(float x) {
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Copy rows [0, rows) of one head's (64 x D) tile into shared memory (leading
+// dimension ld) and zero the rest. src points at the tile's first element and
+// ss is the token stride. vec: 16-byte loads (pointers and strides aligned).
+template <typename T, int D>
+__device__ void load_tile(T* dst, int ld, const T* src, long long ss, int rows, bool vec) {
+  if (vec) {
+    constexpr int kVec = 16 / sizeof(T);
+    constexpr int kPerRow = D / kVec;
+    for (int i = threadIdx.x; i < kTile * kPerRow; i += kThreads) {
+      const int r = i / kPerRow, c = (i % kPerRow) * kVec;
+      uint4 val = make_uint4(0u, 0u, 0u, 0u);
+      if (r < rows) val = *reinterpret_cast<const uint4*>(src + r * ss + c);
+      *reinterpret_cast<uint4*>(dst + r * ld + c) = val;
+    }
+  } else {
+    for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
+      const int r = i / D, c = i % D;
+      dst[r * ld + c] = r < rows ? src[r * ss + c] : from_f32<T>(0.f);
+    }
+  }
+}
+
+// ============================================================ bfloat16: mma.sync
+//
+// Fragments of mma.m16n8k16 (PTX ISA), with g = lane / 4 and t = lane % 4:
+//   A (16 x 16): a[0] (row g, cols 2t, 2t+1), a[1] (row g+8, same cols),
+//                a[2] (row g, cols 2t+8, 2t+9), a[3] (row g+8, cols 2t+8, 2t+9);
+//   B (16 x 8):  b[0] (rows k = 2t, 2t+1, col n = g), b[1] (rows 2t+8, 2t+9);
+//   C (16 x 8):  c[0], c[1] (row g, cols 2t, 2t+1), c[2], c[3] (row g+8, same).
+// A warp's 16 x 64 tile is 8 C fragments, c[j] covering columns 8j .. 8j+7, so
+// its element e sits at row g + 8 (e / 2), column 8j + 2t + e % 2.
+
+__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+__device__ __forceinline__ uint32_t ld32(const bf16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// two bf16 from two addresses into one register, the first in the low half
+__device__ __forceinline__ uint32_t ld_pair(const bf16* lo, const bf16* hi) {
+  return static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(lo)) |
+         (static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(hi)) << 16);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// acc (16 x 64) = A . B^T: A is 16 x D (the warp's rows), B is 64 x D, both
+// row-major bf16 in shared memory with leading dimension ld. Columns from
+// n_valid on (rows of B past S) are left 0 and cost no products.
+template <int D>
+__device__ __forceinline__ void mm_abt(float (&acc)[8][4], const bf16* A, const bf16* B, int ld,
+                                       int n_valid, int g, int t) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const bf16* a_row = A + g * ld + 16 * kk + 2 * t;
+    const uint32_t a[4] = {ld32(a_row), ld32(a_row + 8 * ld), ld32(a_row + 8),
+                           ld32(a_row + 8 * ld + 8)};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (8 * j >= n_valid) break;
+      const bf16* b_row = B + (8 * j + g) * ld + 16 * kk + 2 * t;
+      const uint32_t b[2] = {ld32(b_row), ld32(b_row + 8)};
+      mma(acc[j], a, b);
+    }
+  }
+}
+
+// acc (16 x D) += P . M: P is a 16 x 64 tile in C fragments (rounded to bf16
+// here), M is 64 x D, row-major bf16 in shared memory with leading dimension ld.
+// P's columns from k_valid on must be 0; their 16-wide steps are skipped.
+template <int D>
+__device__ __forceinline__ void mm_pm(float (&acc)[D / 8][4], const float (&p)[8][4],
+                                      const bf16* M, int ld, int k_valid, int g, int t) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    if (16 * kk >= k_valid) break;
+    const uint32_t a[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
+                           pack_bf16(p[2 * kk][2], p[2 * kk][3]),
+                           pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+                           pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+    const bf16* m_col = M + (16 * kk + 2 * t) * ld + g;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const bf16* p0 = m_col + 8 * j;
+      const uint32_t b[2] = {ld_pair(p0, p0 + ld), ld_pair(p0 + 8 * ld, p0 + 9 * ld)};
+      mma(acc[j], a, b);
+    }
+  }
+}
+
+// Write the warp's 16 x D accumulator rows (scaled by 1 / div per row) to a
+// (B, S, H*D) bf16 tensor; rows at or past `rows` are skipped.
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* dst, long long ss, int r0, int rows,
+                                           const float (&acc)[D / 8][4], const float (&div)[2],
+                                           int g, int t) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + g + 8 * i;
+    if (r >= rows) continue;
+    bf16* row = dst + r * ss + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(row + 8 * j) =
+          pack_bf16(acc[j][2 * i] / div[i], acc[j][2 * i + 1] / div[i]);
+  }
+}
+
+template <int D>
+struct Bf16Tiles {
+  static constexpr int kLd = D + 8;  // staggers rows across banks; fragment loads are conflict-free
+  static constexpr int kBytes = kTile * kLd * 2;
+};
+
+// ============================================================ float32: FMAs
+
+// C (16 x 64, ldc) = A (16 x D) . B^T, with B (64 x D); A points at the warp's rows.
+template <int D>
+__device__ void f32_abt(float* C, int ldc, const float* A, int lda, const float* B, int ldb) {
+  const int lane = threadIdx.x % 32;
+  for (int r = 0; r < kRows; ++r) {
+    for (int n = lane; n < kTile; n += 32) {
+      float acc = 0.f;
+#pragma unroll 8
+      for (int k = 0; k < D; ++k) acc = fmaf(A[r * lda + k], B[n * ldb + k], acc);
+      C[r * ldc + n] = acc;
+    }
+  }
+}
+
+// A 16 x D float32 accumulator of one warp: acc += A (16 x 64) . B (64 x D).
+// Lane holds elements e = 32 i + lane of the row-major block.
+template <int D>
+struct F32Acc {
+  float v[kRows * D / 32];
+
+  __device__ void zero() {
+#pragma unroll
+    for (int i = 0; i < kRows * D / 32; ++i) v[i] = 0.f;
+  }
+  __device__ void load(const float* C, int ldc) {
+    const int lane = threadIdx.x % 32;
+#pragma unroll
+    for (int i = 0; i < kRows * D / 32; ++i) {
+      const int e = 32 * i + lane;
+      v[i] = C[(e / D) * ldc + e % D];
+    }
+  }
+  __device__ void store(float* C, int ldc) const {
+    const int lane = threadIdx.x % 32;
+#pragma unroll
+    for (int i = 0; i < kRows * D / 32; ++i) {
+      const int e = 32 * i + lane;
+      C[(e / D) * ldc + e % D] = v[i];
+    }
+  }
+  __device__ void mma(const float* A, int lda, const float* B, int ldb) {
+    const int lane = threadIdx.x % 32;
+#pragma unroll
+    for (int i = 0; i < kRows * D / 32; ++i) {
+      const int e = 32 * i + lane, r = e / D, d = e % D;
+      float acc = v[i];
+#pragma unroll 8
+      for (int k = 0; k < kTile; ++k) acc = fmaf(A[r * lda + k], B[k * ldb + d], acc);
+      v[i] = acc;
+    }
+  }
+  // acc += A . B with A given transposed: At is 64 x 16, A[r][k] = At[k * ldat + r]
+  __device__ void mma_at(const float* At, int ldat, const float* B, int ldb) {
+    const int lane = threadIdx.x % 32;
+#pragma unroll
+    for (int i = 0; i < kRows * D / 32; ++i) {
+      const int e = 32 * i + lane, r = e / D, d = e % D;
+      float acc = v[i];
+#pragma unroll 8
+      for (int k = 0; k < kTile; ++k) acc = fmaf(At[k * ldat + r], B[k * ldb + d], acc);
+      v[i] = acc;
+    }
+  }
+};
+
+// ------------------------------------------------------------------ host side
+
+// 16-byte loads when every tensor's base and strides allow them (the head
+// offset h*D is a multiple of 8 elements for every supported D).
+template <typename T>
+bool aligned(const void* const* ptrs, const Strides& st, int n) {
+  for (int i = 0; i < n; ++i) {
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16 != 0) return false;
+    if ((st.b[i] * static_cast<long long>(sizeof(T))) % 16 != 0) return false;
+    if ((st.s[i] * static_cast<long long>(sizeof(T))) % 16 != 0) return false;
+  }
+  return true;
+}
+
+Strides read_strides(const long long* strides, int n) {
+  Strides st{};
+  for (int i = 0; i < n; ++i) {
+    st.b[i] = strides[2 * i];
+    st.s[i] = strides[2 * i + 1];
+  }
+  return st;
+}
+
+}  // namespace

@@ -3,7 +3,7 @@
 from __future__ import annotations
 
 import argparse
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 import torch.nn as nn
@@ -15,12 +15,19 @@ MODEL_REGISTRY = Registry(registry_name="torch_model_registry", base_class=nn.Mo
 
 
 def get_model(opts, category: Optional[str] = None, model_name: Optional[str] = None,
-              generator: Optional[torch.Generator] = None) -> nn.Module:
+              generator: Optional[torch.Generator] = None,
+              device: Union[str, torch.device] = "cuda") -> nn.Module:
     """Build the model selected by ``dataset.category`` / ``model.<cat>.name`` on
-    the CPU, initialised from ``generator`` (default: seeded with
-    ``common.seed``)."""
+    ``device`` (the CUDA card unless the caller asks for the CPU), initialised
+    from ``generator`` (default: a CPU generator seeded with ``common.seed``, so
+    one seed gives the same weights on every device). Raises when the device
+    is a CUDA one and no card is present."""
     from cvnets_tpu_torch.layers.init_utils import init_weights
 
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("get_model: no CUDA device is available; pass "
+                           "device='cpu' to build the model on the CPU")
     if category is None:
         category = getattr(opts, "dataset.category")
     if model_name is None:
@@ -31,7 +38,7 @@ def get_model(opts, category: Optional[str] = None, model_name: Optional[str] = 
     if generator is None:
         generator = torch.Generator().manual_seed(getattr(opts, "common.seed", 0) or 0)
     init_weights(model, opts, generator)
-    return model
+    return model.to(device)
 
 
 def modeling_arguments(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
@@ -45,6 +52,10 @@ def modeling_arguments(parser: argparse.ArgumentParser) -> argparse.ArgumentPars
 
 
 # registers the ported models (after MODEL_REGISTRY exists)
-from cvnets_tpu_torch.models.classification import mobilevit_v2, vit  # noqa: E402,F401
+from cvnets_tpu_torch.models.classification import (  # noqa: E402,F401
+    mobilevit_v2,
+    swin_transformer,
+    vit,
+)
 from cvnets_tpu_torch.models.segmentation import enc_dec  # noqa: E402,F401
 from cvnets_tpu_torch.models.segmentation.heads import seg_heads  # noqa: E402,F401

@@ -9,8 +9,10 @@ JAX layout. Attributes carry the flax scope names (``patch_emb_0``,
 ``transformer_{i}``, ``post_transformer_norm``, ...), so
 ``utils.jax_params.load_jax_params`` fills the model from a flax tree.
 
-Not ported yet, and raising if asked for: MoE blocks, the simple FPN and image
-embeddings, gradient checkpointing, layer-wise LR decay, stochastic depth.
+Stochastic depth grows linearly over the blocks to ``stochastic_dropout``, as
+in JAX. Not ported yet, and raising if asked for: MoE blocks and the simple
+FPN; not ported and without a flag here: image embeddings, gradient
+checkpointing and layer-wise LR decay.
 """
 
 from __future__ import annotations

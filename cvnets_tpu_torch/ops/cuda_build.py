@@ -2,7 +2,8 @@
 plain C interface and load it with ``ctypes``.
 
 ``nvcc`` compiles for ``sm_90a`` (Hopper) at first use, into
-``<repo>/build/cvnets_tpu_torch/``; a library newer than its source is reused.
+``<repo>/build/cvnets_tpu_torch/``; a library newer than its source and the
+shared headers (``csrc/*.cuh``) is reused.
 Nothing here runs at import time, so the package imports on machines without
 CUDA. ``KernelEntry`` binds one C entry point of such a library; every kernel
 wrapper of the port launches through one.
@@ -40,7 +41,10 @@ def build_library(source: str) -> str:
     """Compile ``csrc/<source>`` (if stale) and return the library's path."""
     src = os.path.join(CSRC_DIR, source)
     lib = os.path.join(BUILD_DIR, os.path.splitext(source)[0] + ".so")
-    if os.path.isfile(lib) and os.path.getmtime(lib) >= os.path.getmtime(src):
+    # the source or any shared header of csrc/ newer than the library: rebuild
+    newest = max(os.path.getmtime(os.path.join(CSRC_DIR, f)) for f in os.listdir(CSRC_DIR)
+                 if f == source or f.endswith(".cuh"))
+    if os.path.isfile(lib) and os.path.getmtime(lib) >= newest:
         return lib
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"

@@ -1,11 +1,18 @@
-"""Fused multi-head softmax attention (counterpart of cvnets_tpu/ops/pallas/mha_attn.py).
+"""Fused multi-head softmax attention (counterpart of cvnets_tpu/ops/pallas/mha_attn.py
+and, for S > 512, of cvnets_tpu/ops/pallas/mha_attn_long.py).
 
 Shapes: q, k and v are (B, S, H·D), the layer's projection layout, with q
 already scaled; ``key_mask`` is an additive (B, S) float32 mask or None.
 
 * ``mha_fwd_kernel`` / ``mha_bwd_kernel``: the hand-written CUDA kernels
   (csrc/mha_attention.cu) that replace the Pallas ``_pallas_fwd`` and
-  ``_pallas_bwd``. They take CUDA tensors only and count their launches.
+  ``_pallas_bwd`` of both files. Their flash tiling (64-row query and key
+  tiles, online softmax with saved row statistics, a dQ kernel over key tiles
+  and a dK/dV kernel over query tiles with delta precomputed) is the
+  long-sequence kernels' KV-blocked design already, so one pair serves every
+  S the JAX dispatch sends to a kernel: S ≤ 512, or S > 512 where
+  ``mha_attn_long.choose_block`` finds a block. They take CUDA tensors only
+  and count their launches.
 * ``mha_attention_plain`` / ``mha_attention_backward_plain``: the same
   functions in plain torch ops (the JAX ``_reference`` and its einsum VJP), for
   CPU tensors and as the kernels' references.
@@ -22,13 +29,11 @@ import torch
 from cvnets_tpu_torch.ops.cuda_build import KernelEntry
 
 # the single-tile TPU kernel's limits (mha_attn.py:55-56); longer sequences
-# belong to the KV-blocked kernels of mha_attn_long.py
+# take the KV-blocked kernels of mha_attn_long.py where they can be blocked
 _MAX_SEQ = 512
 _MAX_EMBED = 1024
 _HEAD_DIMS = (16, 32, 64, 128)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_LONG_KERNELS = ("cvnets_tpu/ops/pallas/mha_attn_long.py (_pallas_fwd, _pallas_dq, "
-                 "_pallas_dkv)")
 
 
 def _choose_long_block(seq: int, embed: int, itemsize: int) -> Optional[int]:
@@ -44,12 +49,13 @@ def _choose_long_block(seq: int, embed: int, itemsize: int) -> Optional[int]:
     return None
 
 
-def fused_attention_eligible(seq: int, embed: int) -> bool:
-    """The JAX rule (mha_attn.py:279-287): the single-tile kernel takes
-    S ≤ 512 and H·D ≤ 1024; the long-sequence kernel takes S it can block."""
+def fused_attention_eligible(seq: int, embed: int, itemsize: int = 4) -> bool:
+    """The JAX rule (mha_attn.py:279-287 and :303-308): the single-tile kernel
+    takes S ≤ 512 and H·D ≤ 1024; the long-sequence kernel takes an S it can
+    block with elements of ``itemsize`` bytes."""
     if seq <= _MAX_SEQ and embed <= _MAX_EMBED:
         return True
-    return embed <= _MAX_EMBED and _choose_long_block(seq, embed, 4) is not None
+    return embed <= _MAX_EMBED and _choose_long_block(seq, embed, itemsize) is not None
 
 
 def _split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -91,11 +97,12 @@ def mha_attention_backward_plain(q, k, v, key_mask, out, g, heads: int
 def _check(tensors, shape, heads: int) -> int:
     """Validate what the kernels take; return the head dim."""
     b, s, e = shape
-    if s > _MAX_SEQ:
-        raise NotImplementedError(
-            f"S={s} > {_MAX_SEQ}: sequences this long take the KV-blocked kernels of "
-            f"{_LONG_KERNELS}, which are not ported to CUDA yet")
     ref = tensors[0][1]
+    if not fused_attention_eligible(s, e, ref.element_size()):
+        raise NotImplementedError(
+            f"S={s}, H·D={e}: neither TPU kernel tiles this shape (mha_attn.py takes "
+            f"S ≤ {_MAX_SEQ}, mha_attn_long.py an S divisible by 128, 256 or 512), so "
+            f"no kernel takes it; MultiHeadAttention sends it to the einsum route")
     for name, t in tensors:
         if t.device.type != "cuda" or t.device != ref.device:
             raise ValueError(f"{name} must be on q's CUDA device; got {t.device}")
@@ -230,7 +237,7 @@ class MHAAttention(torch.autograd.Function):
 def fused_mha_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
                         key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Fused softmax attention (mha_attn.py:290); returns the (B, S, H·D)
-    context. On a CUDA tensor it runs the kernels or raises (S > 512 included:
-    that is the unported long-sequence kernels' range); on the CPU it is the
-    plain version at any S, as the JAX package is off the TPU."""
+    context. On a CUDA tensor it runs the kernels or raises (on a shape that
+    neither TPU kernel tiles, such as S = 4097); on the CPU it is the plain
+    version at any S, as the JAX package is off the TPU."""
     return MHAAttention.apply(q, k, v, heads, key_mask)

@@ -211,7 +211,7 @@ def test_unported_options_raise_and_name_themselves():
     args = DEEPLAB_MICRO_ARGS + ["--model.segmentation.output-stride", "16"]
     _, opts = both_opts(args + ["--model.segmentation.deeplabv3.aspp-sep-conv"])
     with pytest.raises(NotImplementedError, match="aspp-sep-conv"):
-        get_model(opts)
+        get_model(opts, device="cpu")
     _, opts = both_opts(args + ["--model.segmentation.seg-head", "pspnet"])
     with pytest.raises(LoggerError, match="pspnet"):
-        get_model(opts)
+        get_model(opts, device="cpu")

@@ -1,7 +1,7 @@
 """The PyTorch port stands without JAX, and keeps the JAX package's flags.
 
-* ``cvnets_tpu_torch`` imports and runs CPU train steps of MobileViTv2, ViT and
-  DeepLabv3 with ``jax``, ``flax``, ``optax``, ``yaml``, ``PIL`` and the JAX
+* ``cvnets_tpu_torch`` imports and runs CPU train steps of MobileViTv2, ViT,
+  DeepLabv3 and Swin with ``jax``, ``flax``, ``optax``, ``yaml``, ``PIL`` and the JAX
   package ``cvnets_tpu`` blocked (a subprocess: tests/conftest.py has imported
   jax into this one).
 * No module of the port, and not ``chip_smoke.py``, imports ``cvnets_tpu``, not
@@ -40,7 +40,7 @@ _BLOCKED_RUN = textwrap.dedent("""
         "--model.classification.mitv2.width-multiplier", "0.5",
         "--model.classification.n-classes", "10",
         "--optim.name", "adamw", "--ema.enable"])
-    model = get_model(opts).eval()
+    model = get_model(opts, device="cpu").eval()
     x = torch.rand(2, 3, 64, 64, generator=torch.Generator().manual_seed(0))
     with torch.no_grad():
         logits = model(x)
@@ -54,7 +54,7 @@ _BLOCKED_RUN = textwrap.dedent("""
         "--model.classification.name", "vit", "--model.classification.vit.mode", "micro",
         "--model.classification.n-classes", "10", "--model.activation.name", "gelu",
         "--optim.name", "adamw"])
-    vit = get_model(vit_opts)
+    vit = get_model(vit_opts, device="cpu")
     state = create_train_state(vit, build_optimizer(vit_opts, vit))
     state, metrics = make_train_step(vit, build_loss_fn(vit_opts), vit_opts)(
         state, {"samples": x, "targets": torch.tensor([1, 2])}, 1e-3)
@@ -67,7 +67,7 @@ _BLOCKED_RUN = textwrap.dedent("""
         "--model.classification.name", "mobilevit_v2",
         "--model.classification.mitv2.width-multiplier", "0.5",
         "--loss.category", "segmentation", "--optim.name", "sgd", "--ema.enable"])
-    seg = get_model(seg_opts)
+    seg = get_model(seg_opts, device="cpu")
     state = create_train_state(
         seg, build_optimizer(seg_opts, seg, seg.get_lr_multipliers(seg_opts)),
         ema_enabled=True)
@@ -76,6 +76,18 @@ _BLOCKED_RUN = textwrap.dedent("""
     state, metrics = make_train_step(seg, build_loss_fn(seg_opts), seg_opts)(
         state, {"samples": x, "targets": y}, 1e-3)
     assert {"seg_loss", "aux_loss", "total_loss"} <= set(metrics)
+    assert bool(torch.isfinite(metrics["loss"]))
+    from cvnets_tpu_torch.models.classification import swin_transformer
+    swin_transformer._MODES["micro"] = (24, [2, 2, 2, 2], [3, 6, 12, 24])
+    swin_opts = get_training_arguments(args=[
+        "--model.classification.name", "swin", "--model.classification.swin.mode", "micro",
+        "--model.classification.n-classes", "10", "--model.activation.name", "gelu",
+        "--optim.name", "adamw", "--optim.no-decay-bn-filter-bias",
+        "--common.grad-clip", "5", "--ema.enable"])
+    swin = get_model(swin_opts, device="cpu")
+    state = create_train_state(swin, build_optimizer(swin_opts, swin), ema_enabled=True)
+    state, metrics = make_train_step(swin, build_loss_fn(swin_opts), swin_opts)(
+        state, {"samples": x, "targets": torch.tensor([1, 2])}, 1e-3)
     assert bool(torch.isfinite(metrics["loss"]))
     leaked = sorted(m for m in sys.modules if sys.modules[m] is not None
                     and m.split(".")[0] in ("jax", "flax", "optax", "yaml", "PIL",

@@ -1,9 +1,10 @@
 """The port's fused multi-head attention against the JAX package: the autograd
 Function on CPU tensors (plain forward and plain backward) against the JAX
 ``fused_mha_attention`` run through its Pallas kernels in interpret mode and
-through its off-TPU reference, forward and the grads of q, k and v; and — on a
-CUDA card only — the hand-written kernels against the plain versions at the
-ViT shapes.
+through its off-TPU reference, forward and the grads of q, k and v, and for
+S > 512 against the long-sequence ``attn_core_long`` in interpret mode; and — on
+a CUDA card only — the hand-written kernels against the plain versions at the
+ViT shapes and at S = 640, 1024 and 4096.
 
 JAX is imported inside the tests that use it, so that on a machine with a card
 and no JAX the kernel tests run alone:
@@ -125,8 +126,71 @@ def test_plain_backward_matches_autograd_of_plain():
                                        (1000, 64), (4096, 1024), (8192, 256), (64, 2048)])
 def test_eligibility_is_the_jax_rule(seq, embed):
     from cvnets_tpu.ops.pallas.mha_attn import fused_attention_eligible as jax_rule
+    from cvnets_tpu.ops.pallas.mha_attn_long import long_attention_eligible
 
     assert fused_attention_eligible(seq, embed) == jax_rule(seq, embed)
+    if seq > 512:  # fused_mha_attention's second test, at the input's itemsize
+        for itemsize in (2, 4):
+            assert (fused_attention_eligible(seq, embed, itemsize)
+                    == long_attention_eligible(seq, embed, itemsize))
+
+
+def _jax_long(q, k, v, w, mask, heads):
+    """``attn_core_long`` through its Pallas kernels in interpret mode."""
+    import jax
+    import jax.numpy as jnp
+
+    import cvnets_tpu.ops.pallas.mha_attn as M
+    from cvnets_tpu.ops.pallas.mha_attn_long import attn_core_long
+
+    b, s, _ = q.shape
+    m = (jnp.zeros((b, 1, s), jnp.float32) if mask is None
+         else jnp.asarray(mask).reshape(b, 1, s))
+    args = tuple(map(jnp.asarray, (q, k, v)))
+    try:
+        M._INTERPRET = True
+        out = attn_core_long(*args, m, heads)
+        grads = jax.grad(lambda *t: jnp.sum(attn_core_long(*t, m, heads) * w),
+                         argnums=(0, 1, 2))(*args)
+    finally:
+        M._INTERPRET = False
+    return np.asarray(out), [np.asarray(g) for g in grads]
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["no_mask", "key_mask"])
+@pytest.mark.parametrize("s", [384, 640])
+def test_function_matches_jax_long_kernels(s, masked):
+    """S = 384 (3 kv blocks of 128) and 640 (5 of 128, the JAX dispatch test's
+    S), B = 2, H = 2, D = 64; keys masked at random but no row fully masked."""
+    q, k, v, w, mask = _inputs(2, s, 2, 64, masked)
+    if mask is not None:
+        mask[0] = np.where(np.random.default_rng(1).random(s) < 0.2, -1e30, 0.0)
+    ref, ref_grads = _jax_long(q, k, v, w, mask, 2)
+    out, grads = _port(q, k, v, w, mask, 2)
+    np.testing.assert_allclose(out, ref, atol=FWD_ATOL, rtol=0)
+    for name, got, want in zip("qkv", grads, ref_grads):
+        np.testing.assert_allclose(got, want, atol=GRAD_ATOL, rtol=GRAD_ATOL, err_msg=name)
+
+
+def test_fully_masked_row_follows_the_einsum_reference_not_the_long_kernel():
+    """Batch element 0 has every key at -1e30. The port's grads equal the JAX
+    einsum reference's there. The JAX long kernel saves lse = m + log(S), which
+    rounds to m = -1e30 in float32, so its backward recomputes p = 1 and not
+    1/S: its dv for that element comes out S times the reference's (recorded
+    here; the forward, uniform attention, agrees)."""
+    s = 384
+    q, k, v, w, mask = _inputs(2, s, 2, 64, masked=True, seed=5)
+    ref, ref_grads = _jax(q, k, v, w, mask, 2, interpret=False)
+    out, grads = _port(q, k, v, w, mask, 2)
+    np.testing.assert_allclose(out, ref, atol=FWD_ATOL, rtol=0)
+    for name, got, want in zip("qkv", grads, ref_grads):
+        np.testing.assert_allclose(got, want, atol=GRAD_ATOL, rtol=GRAD_ATOL, err_msg=name)
+    long_out, long_grads = _jax_long(q, k, v, w, mask, 2)
+    np.testing.assert_allclose(long_out[0], ref[0], atol=FWD_ATOL, rtol=0)
+    np.testing.assert_allclose(long_grads[2][0], s * ref_grads[2][0], rtol=1e-3,
+                               atol=1e-3)
+    np.testing.assert_allclose(long_grads[2][1], ref_grads[2][1], atol=GRAD_ATOL,
+                               rtol=GRAD_ATOL)
 
 
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
@@ -141,9 +205,14 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
 
 
 def test_long_sequences_off_the_cpu_raise_instead_of_running_plain():
-    """S > 512 belongs to the unported long-sequence kernels: a tensor that is
-    not on the CPU raises and names them (a meta tensor stands in for a card)."""
-    q = torch.empty((1, 513, 64), device="meta")
+    """Off the CPU there is no plain version: an S > 512 that the long-sequence
+    rule blocks reaches the kernel wrapper, which asks for a CUDA device (a
+    meta tensor stands in for a card), and an S that neither TPU kernel tiles
+    raises and names both."""
+    q = torch.empty((1, 1024, 64), device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        fused_mha_attention(q, q, q, 4)
+    q = torch.empty((1, 4097, 64), device="meta")
     with pytest.raises(NotImplementedError, match="mha_attn_long.py"):
         fused_mha_attention(q, q, q, 4)
 
@@ -151,8 +220,11 @@ def test_long_sequences_off_the_cpu_raise_instead_of_running_plain():
 # ---------------------------------------------------------------- on a card
 
 # (B, S, H, D): ViT-B/16 at 224² (batch cut to 16 for the test's time), the
-# micro ViT's D = 16, and the single-tile kernel's longest sequence
-CUDA_CASES = [(16, 197, 12, 64), (16, 17, 4, 16), (4, 512, 12, 64)]
+# micro ViT's D = 16, the single-tile kernel's longest sequence, and the
+# long-sequence range: ViT-B/16 at 512² without the CLS token, ViT-B at 1024²
+# without it, and an S of 10 key tiles at D = 16
+CUDA_CASES = [(16, 197, 12, 64), (16, 17, 4, 16), (4, 512, 12, 64),
+              (32, 1024, 12, 64), (2, 4096, 12, 64), (4, 640, 4, 16)]
 
 
 def _cuda_inputs(b, s, h, d, dtype, masked, seed=0):
@@ -210,5 +282,9 @@ def test_function_on_cuda_runs_the_kernels_and_never_the_plain_version():
     torch.cuda.synchronize()
     assert (mha_fwd_kernel.launches, mha_bwd_kernel.launches) == (launches[0] + 1,
                                                                   launches[1] + 1)
+    # S = 1024 takes the same kernels; S = 4097 is tiled by neither TPU kernel
+    fused_mha_attention(*(torch.zeros((1, 1024, 768), device="cuda"),) * 3, 12)
+    torch.cuda.synchronize()
+    assert mha_fwd_kernel.launches == launches[0] + 2
     with pytest.raises(NotImplementedError, match="mha_attn_long.py"):
-        fused_mha_attention(*(torch.zeros((1, 1024, 768), device="cuda"),) * 3, 12)
+        fused_mha_attention(*(torch.zeros((1, 4097, 768), device="cuda"),) * 3, 12)

@@ -138,9 +138,9 @@ def test_init_draws_from_the_flax_distributions(pair):
     from cvnets_tpu_torch.models import get_model
     from cvnets_tpu_torch.utils.jax_params import torch_key
 
-    model = get_model(pair["opts_torch"])
+    model = get_model(pair["opts_torch"], device="cpu")
     assert torch.equal(model.conv_1.conv.weight,
-                       get_model(pair["opts_torch"]).conv_1.conv.weight)
+                       get_model(pair["opts_torch"], device="cpu").conv_1.conv.weight)
     weights = model.state_dict()
     checked = 0
     for path, leaf in jax.tree_util.tree_flatten_with_path(pair["variables"]["params"])[0]:

@@ -1,8 +1,10 @@
 """The port's ``make_train_step`` against the JAX ``make_train_step``
 (cvnets_tpu/engine/train_state.py:111): float32 on the CPU, the same perturbed init
 and the same uint8 batches, with AdamW, the no-decay mask, grad clip 10, EMA and
-label smoothing 0.1; for MobileViTv2 at width 0.5 and for the micro ViT (whose
-positional table and CLS token take weight decay, as in the JAX mask). And the
+label smoothing 0.1; for MobileViTv2 at width 0.5, for the micro ViT (whose
+positional table and CLS token take weight decay, as in the JAX mask) and for the
+micro Swin with swin.yaml's clip 5 (its relative-position tables are rank 2 and
+take weight decay too). And the
 micro DeepLabv3 with deeplabv3_mobilevitv2.yaml's SGD, the seg head's LR ×10 and
 the aux loss, whose bounds are explained above its tests.
 
@@ -35,8 +37,10 @@ sys.path.insert(0, "tests")
 from torch_port_helpers import (  # noqa: E402
     DEEPLAB_MICRO_ARGS,
     SMALL_MODEL_ARGS,
+    SWIN_MICRO_ARGS,
     VIT_MICRO_ARGS,
     both_opts,
+    micro_swin_modes,
     nchw,
     perturbed_variables,
     port_model_from,
@@ -108,7 +112,7 @@ def _trajectories(args, seg=False):
     state = create_train_state(jmodel, tx, jax.random.PRNGKey(0),
                                {"samples": jnp.zeros((1, 64, 64, 3))}, ema_enabled=True)
     params = jax.tree_util.tree_map(jnp.asarray, variables["params"])
-    stats = jax.tree_util.tree_map(jnp.asarray, variables["batch_stats"])
+    stats = jax.tree_util.tree_map(jnp.asarray, variables.get("batch_stats", {}))
     state = state.replace(params=params, batch_stats=stats, ema_params=params,
                           ema_batch_stats=stats, opt_state=tx.init(params))
     jstep = jax.jit(make_train_step(jmodel, build_loss_fn(opts_jax), tx, opts_jax,
@@ -144,6 +148,12 @@ def runs():
 @pytest.fixture(scope="module")
 def vit_runs():
     return _trajectories(VIT_MICRO_ARGS + STEP_ARGS)
+
+
+@pytest.fixture(scope="module")
+def swin_runs():
+    with micro_swin_modes():
+        return _trajectories(SWIN_MICRO_ARGS + STEP_ARGS + ["--common.grad-clip", "5"])
 
 
 # deeplabv3_mobilevitv2.yaml's optimizer and schedule: SGD with momentum 0.9,
@@ -191,6 +201,16 @@ def test_vit_first_step_matches_jax(vit_runs):
 
 def test_vit_three_steps_stay_within_adams_bounds(vit_runs):
     _check_three_steps(vit_runs)
+
+
+# The micro Swin has no BN at all, so the shared bounds hold it with more room
+# than the ViT's.
+def test_swin_first_step_matches_jax(swin_runs):
+    _check_first_step(swin_runs)
+
+
+def test_swin_three_steps_stay_within_adams_bounds(swin_runs):
+    _check_three_steps(swin_runs)
 
 
 # DeepLabv3 with SGD. An SGD step moves an element by lr·mult·(clipped g + decay),

@@ -247,11 +247,62 @@ def test_chip_smoke_vit_flags_are_the_yaml_settings():
 @pytest.mark.parametrize("flag", [
     ["--model.classification.vit.moe-num-experts", "4"],
     ["--model.classification.vit.use-simple-fpn"],
-    ["--model.classification.vit.stochastic-dropout", "0.1"],
 ])
 def test_unported_options_raise(flag):
     from cvnets_tpu_torch.models import get_model
     from cvnets_tpu_torch.options.opts import get_training_arguments
 
     with pytest.raises(NotImplementedError):
-        get_model(get_training_arguments(args=VIT_MICRO_ARGS + flag))
+        get_model(get_training_arguments(args=VIT_MICRO_ARGS + flag), device="cpu")
+
+
+def test_stochastic_depth_matches_jax_in_eval_and_drops_rows_in_train():
+    """--model.classification.vit.stochastic-dropout 0.1: each block's p grows
+    linearly to 0.1 (the second of two blocks has it), eval mode is the JAX
+    function, and train mode drops whole rows of a branch, so its output moves
+    off the eval output (the drop masks come from another generator than
+    JAX's, so train mode is not compared with JAX)."""
+    p = _pair(["--model.classification.vit.stochastic-dropout", "0.1"])
+    model = p["tmodel"]
+    assert [getattr(model, f"transformer_{i}").stochastic_depth.p for i in range(2)] == [0.0, 0.1]
+    ref = p["jmodel"].apply(p["variables"], jnp.asarray(p["x"]), training=False)
+    with torch.no_grad():
+        out = model.eval()(nchw(p["x"]))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=LOGIT_ATOL, rtol=0)
+    # BN's batch statistics also change train mode: compare two train passes
+    # with p = 0.1 and with the layers' p set to 0 on the same input
+    torch.manual_seed(3)
+    x = torch.from_numpy(np.concatenate([p["x"]] * 8))  # 16 rows: some drop
+    with torch.no_grad():
+        dropped = model.train()(nchw(x.numpy()))
+        for i in range(2):
+            getattr(model, f"transformer_{i}").stochastic_depth.p = 0.0
+        kept = model.train()(nchw(x.numpy()))
+    assert not torch.allclose(dropped, kept)
+
+
+def test_no_cls_token_above_512_tokens_matches_jax():
+    """At 512 px the stem gives S = 1024 tokens (no CLS token): the long-sequence
+    range, which the layer sends to the fused route (the plain version on the
+    CPU) and JAX to attn_core_long, here in interpret mode and through its
+    reference. The 196-entry positional table is resampled to 1024."""
+    import cvnets_tpu.ops.pallas.mha_attn as M
+    from cvnets_tpu.models import get_model
+    from cvnets_tpu_torch.ops.mha_attention import fused_attention_eligible
+
+    opts_jax, opts_torch = both_opts(VIT_MICRO_ARGS + ["--model.classification.vit.no-cls-token"])
+    x = np.random.default_rng(9).standard_normal((1, 512, 512, 3)).astype(np.float32)
+    jmodel = get_model(opts_jax)
+    variables = perturbed_variables(jmodel, x)
+    model = port_model_from(opts_torch, variables).eval()
+    assert fused_attention_eligible(1024, 64)
+    with torch.no_grad():
+        out = model(nchw(x)).numpy()
+    for interpret in (False, True):
+        try:
+            M._INTERPRET = interpret
+            ref = jmodel.apply(variables, jnp.asarray(x), training=False)
+        finally:
+            M._INTERPRET = False
+        np.testing.assert_allclose(out, np.asarray(ref), atol=LOGIT_ATOL, rtol=0,
+                                   err_msg=f"interpret={interpret}")

@@ -1,0 +1,232 @@
+"""The port's window attention against the JAX package: the autograd Function on
+CPU tensors (plain forward and plain backward) against the JAX
+``fused_window_attention`` run through its Pallas kernels in interpret mode and
+against the einsum math of its reference, forward and the grads of q, k, v and
+the bias, shifted and not, at the shapes of the JAX test (B = 3, nW = 4, S = 49,
+H = 3, D = 32); the plain VJP against autograd; the wrappers' checks; and — on a
+CUDA card only — the hand-written kernels against the plain versions at the four
+Swin-T stage shapes (batch cut), with dbias the same bit for bit on two runs.
+
+JAX is imported inside the tests that use it, so that on a machine with a card
+and no JAX the kernel tests run alone:
+``python -m pytest --noconftest -m cuda tests/test_torch_window_attention.py``."""
+
+from __future__ import annotations
+
+import numpy as np
+import pytest
+import torch
+
+from cvnets_tpu_torch.ops.window_attention import (
+    WindowAttentionFunction,
+    fused_window_attention,
+    window_attention_backward_plain,
+    window_attention_eligible,
+    window_attention_plain,
+    window_bwd_kernel,
+    window_fwd_kernel,
+)
+
+torch.set_float32_matmul_precision("highest")  # as tests/conftest.py pins JAX
+
+# float32 on both sides, same formula; the JAX test of these kernels states the
+# same bounds (tests/test_pallas_kernels.py:379-387)
+FWD_ATOL = 1e-5
+GRAD_ATOL = GRAD_RTOL = 1e-4
+
+
+def _inputs(b=3, nw=4, s=49, h=3, d=32, seed=0):
+    """As the JAX test's ``_win_qkv``: q (already scaled), k, v, the (H, S, S)
+    bias and a (nW, S, S) mask with -100 at random places."""
+    rng = np.random.default_rng(seed)
+    e, bnw = h * d, b * nw
+    q = (rng.standard_normal((bnw, s, e)) * 0.3).astype(np.float32)
+    k = (rng.standard_normal((bnw, s, e)) * 0.3).astype(np.float32)
+    v = rng.standard_normal((bnw, s, e)).astype(np.float32)
+    bias = (rng.standard_normal((h, s, s)) * 0.5).astype(np.float32)
+    mask = np.where(rng.random((nw, s, s)) < 0.3, -100.0, 0.0).astype(np.float32)
+    return q, k, v, bias, mask
+
+
+def _port(q, k, v, bias, mask, heads):
+    """Output and the grads of sum(out²) (the JAX test's loss) through the
+    Function on CPU tensors."""
+    tq, tk, tv, tb = (torch.from_numpy(a).requires_grad_() for a in (q, k, v, bias))
+    out = fused_window_attention(tq, tk, tv, heads, tb,
+                                 None if mask is None else torch.from_numpy(mask))
+    (out ** 2).sum().backward()
+    return out.detach().numpy(), [t.grad.numpy() for t in (tq, tk, tv, tb)]
+
+
+def _jax(q, k, v, bias, mask, heads, interpret):
+    """The JAX kernels in interpret mode, or the einsum reference of the JAX
+    test (``_win_gold``) under jax.grad."""
+    import jax
+    import jax.numpy as jnp
+
+    import cvnets_tpu.ops.pallas.mha_attn as M
+    from cvnets_tpu.ops.pallas.window_attn import fused_window_attention as jax_fused
+
+    m = None if mask is None else jnp.asarray(mask)
+
+    def gold(q, k, v, bias):
+        bnw, s, e = q.shape
+        qh, kh, vh = (t.reshape(bnw, s, heads, e // heads) for t in (q, k, v))
+        logits = jnp.einsum("bnhd,bmhd->bhnm", qh, kh) + bias[None]
+        if m is not None:
+            nw = m.shape[0]
+            logits = (logits.reshape(bnw // nw, nw, heads, s, s)
+                      + m[None, :, None]).reshape(bnw, heads, s, s)
+        p = jax.nn.softmax(logits, axis=-1)
+        return jnp.einsum("bhnm,bmhd->bnhd", p, vh).reshape(bnw, s, e)
+
+    fn = (lambda q, k, v, b: jax_fused(q, k, v, heads, b, m)) if interpret else gold
+    args = tuple(map(jnp.asarray, (q, k, v, bias)))
+    try:
+        M._INTERPRET = interpret
+        out = fn(*args)
+        grads = jax.grad(lambda *t: jnp.sum(fn(*t) ** 2), argnums=(0, 1, 2, 3))(*args)
+    finally:
+        M._INTERPRET = False
+    return np.asarray(out), [np.asarray(g) for g in grads]
+
+
+@pytest.mark.parametrize("interpret", [True, False], ids=["pallas_interpret", "einsum"])
+@pytest.mark.parametrize("shifted", [True, False], ids=["shift_mask", "no_mask"])
+def test_function_matches_jax(shifted, interpret):
+    q, k, v, bias, mask = _inputs()
+    mask = mask if shifted else None
+    ref, ref_grads = _jax(q, k, v, bias, mask, 3, interpret)
+    out, grads = _port(q, k, v, bias, mask, 3)
+    np.testing.assert_allclose(out, ref, atol=FWD_ATOL, rtol=0)
+    for name, got, want in zip(("q", "k", "v", "bias"), grads, ref_grads):
+        np.testing.assert_allclose(got, want, atol=GRAD_ATOL, rtol=GRAD_RTOL, err_msg=name)
+
+
+def test_plain_backward_matches_autograd_of_plain():
+    """The hand-written VJP (dbias included) against torch autograd through the
+    plain forward, on q, k, v that are column thirds of one qkv tensor, as
+    WindowAttention makes them."""
+    rng = np.random.default_rng(4)
+    h, d, nw = 2, 8, 3
+    qkv = torch.from_numpy(rng.standard_normal((2 * nw, 16, 3 * h * d)).astype(np.float32))
+    bias = torch.from_numpy(rng.standard_normal((h, 16, 16)).astype(np.float32))
+    mask = torch.from_numpy(np.where(rng.random((nw, 16, 16)) < 0.3, -100.0, 0.0)
+                            .astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((2 * nw, 16, h * d)).astype(np.float32))
+    grads = []
+    for fn in (WindowAttentionFunction.apply, window_attention_plain):
+        x, b = qkv.clone().requires_grad_(), bias.clone().requires_grad_()
+        (fn(*x.chunk(3, dim=-1), h, b, mask) * w).sum().backward()
+        grads.append((x.grad, b.grad))
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    q, k, v = qkv.chunk(3, dim=-1)
+    out = window_attention_plain(q, k, v, h, bias, mask)
+    dq, dk, dv, dbias = window_attention_backward_plain(q, k, v, h, bias, mask, out, w)
+    torch.testing.assert_close(torch.cat([dq, dk, dv], dim=-1), grads[1][0], atol=1e-5,
+                               rtol=1e-5)
+    torch.testing.assert_close(dbias, grads[1][1], atol=1e-5, rtol=1e-5)
+
+
+def test_eligibility_is_the_jax_shape_rule_without_its_tpu_switch(monkeypatch):
+    """S ≤ 512 and H·D ≤ 1024 (window_attn.py:49-50); the TPU-only environment
+    switch that keeps the JAX kernel off by default is not read."""
+    monkeypatch.setenv("CVNETS_TPU_FORCE_WINDOW_KERNEL", "0")
+    assert window_attention_eligible(49, 96) and window_attention_eligible(512, 1024)
+    assert not window_attention_eligible(513, 96)
+    assert not window_attention_eligible(49, 1025)
+
+
+def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
+    q, k, v, bias, mask = map(torch.from_numpy, _inputs(b=1, nw=2, s=16, h=2, d=16))
+    launches = window_fwd_kernel.launches, window_bwd_kernel.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        window_fwd_kernel(q, k, v, 2, bias, mask)
+    with pytest.raises(ValueError, match="CUDA"):
+        window_bwd_kernel(q, k, v, 2, bias, mask, q)
+    long = torch.empty((1, 100, 32), device="meta")  # windows of 10 x 10 tokens
+    with pytest.raises(NotImplementedError, match="64"):
+        window_fwd_kernel(long, long, long, 2, torch.zeros(2, 100, 100))
+    assert (window_fwd_kernel.launches, window_bwd_kernel.launches) == launches
+
+
+# ---------------------------------------------------------------- on a card
+
+# (B·nW, nW, H) of Swin-T's four stages at 224² with the batch cut from 128 to 4
+# (S = 49, D = 32); stage 4 is one window an image and never shifts
+CUDA_STAGES = [(4 * 64, 64, 3), (4 * 16, 16, 6), (4 * 4, 4, 12), (4, 1, 24)]
+
+
+def _cuda_inputs(bnw, nw, h, dtype, shifted, seed=0):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    s, d = 49, 32
+    e = h * d
+    qkv = torch.randn((bnw, s, 3 * e), generator=g, device="cuda").to(dtype)
+    q, k, v = qkv.chunk(3, dim=-1)  # column thirds, as WindowAttention makes them
+    q = q * d ** -0.5
+    bias = 0.5 * torch.randn((h, s, s), generator=g, device="cuda")
+    mask = None
+    if shifted:
+        mask = torch.where(torch.rand((nw, s, s), generator=g, device="cuda") < 0.3,
+                           -100.0, 0.0)
+    dout = torch.randn((bnw, s, e), generator=g, device="cuda").to(dtype)
+    return q, k, v, bias, mask, dout
+
+
+def _tol(ref, dtype):
+    # float32: the same float32 math in another order; bfloat16: P and dS are
+    # rounded to bf16 before their products and the outputs to bf16
+    return 1e-5 if dtype == torch.float32 else 2e-2 * ref.float().abs().max().item()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shifted", [False, True], ids=["no_mask", "shift_mask"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("bnw,nw,h", CUDA_STAGES, ids=["stage1", "stage2", "stage3", "stage4"])
+def test_kernels_match_plain_on_cuda(bnw, nw, h, dtype, shifted):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU or interpret mode)")
+    if shifted and nw == 1:
+        pytest.skip("stage 4 is one window an image and never shifts")
+    q, k, v, bias, mask, dout = _cuda_inputs(bnw, nw, h, dtype, shifted)
+    launches = window_fwd_kernel.launches, window_bwd_kernel.launches
+    out = window_fwd_kernel(q, k, v, h, bias, mask)
+    dq, dk, dv, dbias = window_bwd_kernel(q, k, v, h, bias, mask, dout)
+    torch.cuda.synchronize()
+    assert (window_fwd_kernel.launches, window_bwd_kernel.launches) == (launches[0] + 1,
+                                                                        launches[1] + 1)
+    ref = window_attention_plain(q, k, v, h, bias, mask)
+    torch.testing.assert_close(out.float(), ref.float(), atol=_tol(ref, dtype), rtol=0)
+    ref_grads = window_attention_backward_plain(q, k, v, h, bias, mask, ref, dout)
+    for name, got, want in zip(("dq", "dk", "dv", "dbias"), (dq, dk, dv, dbias), ref_grads):
+        # dbias sums B·nW windows' dS: its float32 error grows with the count
+        tol = _tol(want, dtype) * (1e2 if name == "dbias" and dtype == torch.float32 else 1)
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0,
+                                   msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.cuda
+def test_dbias_is_the_same_bit_for_bit_on_every_run():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU or interpret mode)")
+    q, k, v, bias, mask, dout = _cuda_inputs(128 * 64, 64, 3, torch.bfloat16, True)
+    first = window_bwd_kernel(q, k, v, 3, bias, mask, dout)
+    for _ in range(3):
+        again = window_bwd_kernel(q, k, v, 3, bias, mask, dout)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_function_on_cuda_runs_the_kernels_and_never_the_plain_version():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU or interpret mode)")
+    q, k, v, bias, mask, dout = _cuda_inputs(16, 4, 12, torch.bfloat16, True)
+    q, k, v, bias = (t.detach().requires_grad_() for t in (q, k, v, bias))
+    launches = window_fwd_kernel.launches, window_bwd_kernel.launches
+    fused_window_attention(q, k, v, 12, bias, mask).backward(dout)
+    torch.cuda.synchronize()
+    assert (window_fwd_kernel.launches, window_bwd_kernel.launches) == (launches[0] + 1,
+                                                                        launches[1] + 1)
+    assert bias.grad.dtype == torch.float32 and bias.grad.shape == (12, 49, 49)

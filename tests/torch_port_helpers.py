@@ -1,9 +1,11 @@
 """Shared set-up for the tests that hold the PyTorch port against the JAX package:
-one flag list parsed by both parsers, a flax model (MobileViTv2, ViT or
-DeepLabv3) initialised and perturbed from a numpy seed, and its weights copied
+one flag list parsed by both parsers, a flax model (MobileViTv2, ViT, DeepLabv3
+or Swin) initialised and perturbed from a numpy seed, and its weights copied
 into the port's model."""
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 
@@ -32,6 +34,38 @@ VIT_MICRO_ARGS = [
     "--model.layer.linear-init-std-dev", "0.02",
     "--dataset.category", "classification",
 ]
+
+
+# the micro Swin: embed 24, one pair of blocks a stage, heads 3/6/12/24 (D = 8),
+# window 7, with swin.yaml's layer settings, 13 classes and stochastic depth 0
+# (the two packages draw their drop masks from different generators); the
+# "micro" mode exists only inside ``micro_swin_modes``
+SWIN_MICRO_ARGS = [
+    "--model.classification.name", "swin",
+    "--model.classification.n-classes", "13",
+    "--model.classification.swin.mode", "micro",
+    "--model.classification.swin.stochastic-depth-prob", "0",
+    "--model.activation.name", "gelu",
+    "--model.layer.conv-init", "kaiming_normal",
+    "--model.layer.linear-init", "trunc_normal",
+    "--model.layer.linear-init-std-dev", "0.02",
+    "--dataset.category", "classification",
+]
+SWIN_MICRO_MODE = (24, [2, 2, 2, 2], [3, 6, 12, 24])
+
+
+@contextlib.contextmanager
+def micro_swin_modes():
+    """Both packages' Swin ``_MODES`` with a "micro" entry (no file edited)."""
+    import pytest
+
+    from cvnets_tpu.models.classification import swin_transformer as jax_swin
+    from cvnets_tpu_torch.models.classification import swin_transformer as port_swin
+
+    with pytest.MonkeyPatch.context() as mp:
+        for module in (jax_swin, port_swin):
+            mp.setitem(module._MODES, "micro", SWIN_MICRO_MODE)
+        yield
 
 
 # DeepLabv3 on MobileViTv2 at width 0.5 with deeplabv3_mobilevitv2.yaml's head and
@@ -101,7 +135,7 @@ def port_model_from(opts_torch, variables: dict):
     from cvnets_tpu_torch.models import get_model
     from cvnets_tpu_torch.utils.jax_params import load_jax_params
 
-    model = get_model(opts_torch)
+    model = get_model(opts_torch, device="cpu")
     load_jax_params(model, variables["params"], variables.get("batch_stats"))
     return model
 
