@@ -17,9 +17,11 @@ Phases, one line each or more (any failure exits non-zero):
    against their plain versions at ViT-B/16's shapes (B = 128, S = 197, H = 12,
    D = 64; q, k, v column slices of one qkv tensor), the micro ViT's D = 16 and
    S = 512; bfloat16 and float32, with and without a key mask (one batch element
-   fully masked); output, dq, dk and dv; kernels, plain versions and
-   ``F.scaled_dot_product_attention`` (the library yardstick) timed at ViT-B.
-   TF32 is off for the comparisons;
+   fully masked); output, dq, dk and dv, and the backward's dq, dk and dv the
+   same bit for bit on a second call; kernels, plain versions and
+   ``F.scaled_dot_product_attention`` (the library yardstick, under its cuDNN
+   and its flash backend, each named on the line) timed at ViT-B, with the
+   backward's ratio to each. TF32 is off for the comparisons;
 5. seg ce kernel: the fused resize + pixel CE forward and backward kernels
    against the plain unfused version at DeepLabv3's shapes (head logits
    (8, 32, 32, 150) → labels (8, 512, 512)), 5% ignored pixels and one fully
@@ -57,8 +59,9 @@ Phases, one line each or more (any failure exits non-zero):
 13. mha long kernel: the MHA kernels against the plain version at S = 1024
    (ViT-B/16 at 512² without the CLS token, B = 32) and S = 4096 (B = 2),
    H = 12, D = 64, with and without a key mask (one batch element fully
-   masked), bfloat16 and float32; timed at S = 1024, the backward's time split
-   between its dQ and dK/dV kernels by ``torch.profiler``;
+   masked), bfloat16 and float32, the backward the same bit for bit on a
+   second call; timed at S = 1024 as in phase 4, the backward's time split
+   between its pre-pass, dQ and dK/dV kernels by ``torch.profiler``;
 14. swin train, swin a/b, swin profile: Swin-T steps at batch 128 × 224² with
    swin.yaml's settings (AdamW with weight decay 0.05, cosine LR, clip 5,
    label smoothing 0.1, EMA 0.0005, GELU, LayerNorm, stochastic depth 0.2);
@@ -76,9 +79,16 @@ the flagship from the per-shape bf16 medians, each MHA kernel's 12 at ViT-B and
 at ViT-B 512², each seg-CE kernel's 2 at DeepLabv3, each window kernel's 12 at
 Swin-T from the per-stage medians), ``bound_ms`` the least time the card could
 take for the same work (bytes over the HBM rate or operations over their unit's
-peak, whichever is larger) and ``library_ms`` one PyTorch call that computes the
-same function, where there is one. The last line is ``{"ok": true, "device":
-{...}}``. Without a CUDA card it exits 2 before any result.
+peak, whichever is larger; the MHA backward's counts the function's work, 5
+products of 2·S²·D a head and one exponential a logit, whatever the design
+recomputes) and ``library_ms`` one PyTorch call that computes the same
+function, where there is one (for the MHA kernels the faster SDPA backend,
+named in ``library_backend``, every backend's time in
+``library_ms_by_backend``). The two long-sequence backward rows share the
+whole backward's bound, plain and library times by the gradients each writes
+(``BWD_ROW_SHARE``), so their sum is the whole backward's. The last line is
+``{"ok": true, "device": {...}}``. Without a CUDA card it exits 2 before any
+result.
 """
 
 from __future__ import annotations
@@ -112,6 +122,10 @@ SWIN_STAGES = [("stage1", 56, 3, 1, 1), ("stage2", 28, 6, 1, 1),
 SWIN_BLOCKS = 12
 # the MHA kernels past S = 512: (label, B, S, H, D); the first is the main path's
 MHA_LONG_CASES = [("vit_base_512", 32, 1024, 12, 64), ("vit_base_1024", 2, 4096, 12, 64)]
+# the long backward's two rows (TPU kernels _pallas_dq and _pallas_dkv) share
+# the whole backward's bound, plain and library times by the gradients each
+# writes: dq one of three, dk and dv two
+BWD_ROW_SHARE = {"dq": 1 / 3, "dkdv": 2 / 3}
 
 # card peaks for the bounds (H100 SXM data sheet);
 # the SFU rate is 16 exponentials a clock per SM (CUDA C++ programming guide,
@@ -121,6 +135,10 @@ HBM_BYTES_S = 3.35e12
 FP32_FLOP_S = 67e12
 BF16_TC_FLOP_S = 989e12
 SFU_EXP_S = 132 * 16 * 1.98e9
+# the SDPA backends the MHA kernels are timed against, by name: cuDNN's,
+# PyTorch's own choice on the H100, and flash (FlashAttention-2, the mma.sync
+# design the MHA kernels are held to); library_ms is the faster of the two
+SDPA_BACKENDS = ("CUDNN_ATTENTION", "FLASH_ATTENTION")
 
 FLAGSHIP_ARGS = [  # config/classification/imagenet/mobilevit_v2.yaml, as flags
     "--model.classification.name", "mobilevit_v2",
@@ -354,6 +372,31 @@ def bound(n_bytes: float, *ops) -> tuple:
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def sdpa_yardstick(qh, kh, vh, dh, **kwargs) -> tuple:
+    """The library yardstick: ``F.scaled_dot_product_attention`` forward and
+    backward on (B, H, S, D) tensors that require grad, timed under each of
+    ``SDPA_BACKENDS`` by name. Returns ({backend: {"fwd": ms, "bwd": ms}} of
+    those that took the inputs, {backend: why} of those that refused)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    times, refused = {}, {}
+    for name in SDPA_BACKENDS:
+        try:
+            with sdpa_kernel([getattr(SDPBackend, name)]):
+                out = F.scaled_dot_product_attention(qh, kh, vh, **kwargs)
+                fwd = time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh, **kwargs))
+                bwd = time_ms(lambda: torch.autograd.grad(out, (qh, kh, vh), dh,
+                                                          retain_graph=True))
+        except RuntimeError as err:  # no kernel of this backend takes the inputs
+            refused[name] = str(err).splitlines()[0][:80]
+            continue
+        times[name] = {"fwd": fwd, "bwd": bwd}
+    check(bool(times), f"an SDPA backend ran: {refused}")
+    return times, refused
+
+
 def _records(*parts) -> dict:
     """An empty kernel record for the JSON line, for each of ``parts``."""
     return {p: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
@@ -490,7 +533,10 @@ def _mha_case(g, label: str, b: int, s: int, h: int, d: int, dtype, masked: bool
     dout = torch.randn((b, s, e), generator=g, device="cuda").to(dtype)
     out, stats = mha_fwd_kernel(q, k, v, h, mask)
     grads = mha_bwd_kernel(q, k, v, mask, out, dout, stats, h)
+    again = mha_bwd_kernel(q, k, v, mask, out, dout, stats, h)
     torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(grads, again)),
+          f"{label} dq, dk, dv differ between two calls")
     ref = mha_attention_plain(q, k, v, h, mask)
     ref_grads = mha_attention_backward_plain(q, k, v, mask, ref, dout, h)
     errs = {}
@@ -506,8 +552,25 @@ def _mha_case(g, label: str, b: int, s: int, h: int, d: int, dtype, masked: bool
     return q, k, v, mask, dout, out, stats, ref, errs
 
 
-def phase_mha_kernel(card: str) -> dict:
-    """Returns {"fwd": record, "bwd": record} for the JSON line."""
+def mha_bounds(b: int, s: int, h: int, d: int, itemsize: int, tc_rate: float) -> dict:
+    """The least time of the MHA functions, not of a design: each input read
+    once and each output written once (forward: q, k, v in, O and the (2, B,
+    H, S) statistics out; backward: q, k, v, O, dO and the statistics in, dq,
+    dk, dv out); 2 products of 2·S²·D a head forward and 5 backward (S, dP,
+    dV, dK, dQ, however many a design recomputes); one exponential a logit."""
+    act = b * s * h * d * itemsize
+    stats = 2 * b * h * s * 4
+    prod = 2 * b * h * s * s * d
+    exps = (b * h * s * s, SFU_EXP_S)
+    return {"fwd": bound(4 * act + stats, (2 * prod, tc_rate), exps),
+            "bwd": bound(8 * act + stats, (5 * prod, tc_rate), exps)}
+
+
+def _mha_times(b, s, h, d, q, k, v, dout, out, stats, ref) -> dict:
+    """One call's time of the MHA kernels, their plain versions and SDPA
+    (each of ``SDPA_BACKENDS`` by name; ``lib_fwd`` and ``lib_bwd`` the
+    faster one's, which ``lib_fwd_backend`` and ``lib_bwd_backend`` name) at
+    a bf16 shape without a mask."""
     import torch
 
     from cvnets_tpu_torch.ops.mha_attention import (
@@ -517,7 +580,48 @@ def phase_mha_kernel(card: str) -> dict:
         mha_fwd_kernel,
     )
 
-    import torch.nn.functional as F
+    t = {"fwd": time_ms(lambda: mha_fwd_kernel(q, k, v, h, None)),
+         "fwd_plain": time_ms(lambda: mha_attention_plain(q, k, v, h, None)),
+         "bwd": time_ms(lambda: mha_bwd_kernel(q, k, v, None, out, dout, stats, h)),
+         "bwd_plain": time_ms(lambda: mha_attention_backward_plain(q, k, v, None, ref, dout,
+                                                                   h))}
+    # SDPA on (B, H, S, D) copies
+    qh, kh, vh, dh = (t_.detach().reshape(b, s, h, d).transpose(1, 2).contiguous()
+                      .requires_grad_() for t_ in (q, k, v, dout))
+    t["sdpa"], t["sdpa_refused"] = sdpa_yardstick(qh, kh, vh, dh, scale=1.0)
+    for p in ("fwd", "bwd"):
+        fastest = min(t["sdpa"], key=lambda name: t["sdpa"][name][p])
+        t[f"lib_{p}"], t[f"lib_{p}_backend"] = t["sdpa"][fastest][p], fastest
+    del qh, kh, vh, dh
+    torch.cuda.empty_cache()
+    return t
+
+
+def _mha_library(record: dict, t: dict, p: str, scale: float) -> None:
+    """``record``'s library fields from ``t``'s SDPA times of pass ``p``:
+    ``library_ms`` the faster backend's, named in ``library_backend``, and
+    every backend's in ``library_ms_by_backend``, each times ``scale``."""
+    record["library_ms"] = scale * t[f"lib_{p}"]
+    record["library_backend"] = t[f"lib_{p}_backend"]
+    record["library_ms_by_backend"] = {name: scale * ms[p] for name, ms in t["sdpa"].items()}
+
+
+def _mha_times_line(t: dict, bounds: dict, flops_fwd: float) -> str:
+    return (" ".join(f"{k_}_ms={t[k_]:.4f}" for k_ in ("fwd", "fwd_plain", "bwd", "bwd_plain"))
+            + "".join(f" {p}_bound_ms={bounds[p][0]:.4f} ({bounds[p][1]})" for p in bounds)
+            + f" fwd_tflops={flops_fwd / t['fwd'] / 1e9:.1f}"
+            f" bwd_tflops={2.5 * flops_fwd / t['bwd'] / 1e9:.1f}"
+            + "".join(f" | sdpa [{name}] fwd_ms={ms['fwd']:.4f} bwd_ms={ms['bwd']:.4f}"
+                      f" bwd/sdpa={t['bwd'] / ms['bwd']:.3f} fwd/sdpa={t['fwd'] / ms['fwd']:.3f}"
+                      for name, ms in t["sdpa"].items())
+            + "".join(f" | sdpa [{name}] refused ({why})" for name, why in t["sdpa_refused"].items())
+            + f" | library: fwd [{t['lib_fwd_backend']}] bwd [{t['lib_bwd_backend']}]"
+            f" bwd/library={t['bwd'] / t['lib_bwd']:.3f}")
+
+
+def phase_mha_kernel(card: str) -> dict:
+    """Returns {"fwd": record, "bwd": record} for the JSON line."""
+    import torch
 
     g = torch.Generator(device="cuda").manual_seed(1)
     records = _records("fwd", "bwd")
@@ -534,46 +638,16 @@ def phase_mha_kernel(card: str) -> dict:
                         records["bwd"]["max_abs_err"] = max(
                             records["bwd"]["max_abs_err"], errs["dq"], errs["dk"], errs["dv"])
                     times = ""
-                    if label == "vit_base":
-                        t = {"fwd": time_ms(lambda: mha_fwd_kernel(q, k, v, h, mask)),
-                             "fwd_plain": time_ms(lambda: mha_attention_plain(q, k, v, h, mask)),
-                             "bwd": time_ms(lambda: mha_bwd_kernel(q, k, v, mask, out, dout,
-                                                                   stats, h)),
-                             "bwd_plain": time_ms(lambda: mha_attention_backward_plain(
-                                 q, k, v, mask, ref, dout, h))}
-                        flops = 4 * b * s * s * e  # QK^T and PV; the backward does 2.5x
-                        # bytes: each input read once, each output written once
-                        act = b * s * e * q.element_size()
-                        stat_bytes = 2 * b * h * s * 4
-                        exps = (b * h * s * s, SFU_EXP_S)
-                        tc = BF16_TC_FLOP_S if dtype == torch.bfloat16 else FP32_FLOP_S
-                        bounds = {"fwd": bound(4 * act + stat_bytes, (flops, tc), exps),
-                                  "bwd": bound(8 * act + stat_bytes, (2.5 * flops, tc), exps)}
-                        if dtype == torch.bfloat16 and not masked:
-                            # the library yardstick: cuDNN/flash attention through
-                            # F.scaled_dot_product_attention on (B, H, S, D) copies
-                            qh, kh, vh, dh = (t_.detach().reshape(b, s, h, d).transpose(1, 2)
-                                              .contiguous().requires_grad_()
-                                              for t_ in (q, k, v, dout))
-                            lib_out = F.scaled_dot_product_attention(qh, kh, vh, scale=1.0)
-                            t["lib_fwd"] = time_ms(lambda: F.scaled_dot_product_attention(
-                                qh, kh, vh, scale=1.0))
-                            t["lib_bwd"] = time_ms(lambda: torch.autograd.grad(
-                                lib_out, (qh, kh, vh), dh, retain_graph=True))
-                            for p in ("fwd", "bwd"):
-                                records[p]["ms"] = VIT_BLOCKS * t[p]
-                                records[p]["plain_ms"] = VIT_BLOCKS * t[f"{p}_plain"]
-                                records[p]["bound_ms"] = VIT_BLOCKS * bounds[p][0]
-                                records[p]["bound_by"] = bounds[p][1]
-                                records[p]["library_ms"] = VIT_BLOCKS * t[f"lib_{p}"]
-                        times = (f" fwd_ms={t['fwd']:.4f} fwd_plain_ms={t['fwd_plain']:.4f} "
-                                 f"bwd_ms={t['bwd']:.4f} bwd_plain_ms={t['bwd_plain']:.4f} "
-                                 f"fwd_bound_ms={bounds['fwd'][0]:.4f} ({bounds['fwd'][1]}) "
-                                 f"bwd_bound_ms={bounds['bwd'][0]:.4f} ({bounds['bwd'][1]}) "
-                                 f"fwd_tflops={flops / t['fwd'] / 1e9:.1f} "
-                                 f"bwd_tflops={2.5 * flops / t['bwd'] / 1e9:.1f}"
-                                 + "".join(f" {k_}_ms={t[k_]:.4f}" for k_ in ("lib_fwd", "lib_bwd")
-                                           if k_ in t))
+                    if label == "vit_base" and dtype == torch.bfloat16 and not masked:
+                        bounds = mha_bounds(b, s, h, d, q.element_size(), BF16_TC_FLOP_S)
+                        t = _mha_times(b, s, h, d, q, k, v, dout, out, stats, ref)
+                        for p in ("fwd", "bwd"):
+                            records[p]["ms"] = VIT_BLOCKS * t[p]
+                            records[p]["plain_ms"] = VIT_BLOCKS * t[f"{p}_plain"]
+                            records[p]["bound_ms"] = VIT_BLOCKS * bounds[p][0]
+                            records[p]["bound_by"] = bounds[p][1]
+                            _mha_library(records[p], t, p, VIT_BLOCKS)
+                        times = " " + _mha_times_line(t, bounds, 4 * b * s * s * e)
                     print(f"mha kernel: {label} {name} B={b} S={s} H={h} D={d} "
                           f"mask={masked} " + " ".join(f"{w}_err={x:.3e}"
                                                        for w, x in errs.items())
@@ -798,20 +872,17 @@ def phase_window_kernel(card: str) -> dict:
 def phase_mha_long_kernel(card: str) -> dict:
     """The MHA kernels at S = 1024 and 4096; returns {"fwd", "dq", "dkdv"}
     records for one ViT-B 512² step's 12 launches. The wrapper's backward runs
-    a dQ kernel and then a dK/dV kernel: its event-timed total is split between
-    them by their device times in ``torch.profiler``; the plain and library
-    backward compute dq, dk and dv together, and their times stand in both
-    rows."""
+    a pre-pass (the statistics scaled and delta), a dQ kernel and a dK/dV
+    kernel: its event-timed total is split between them by their device times
+    in ``torch.profiler``, the pre-pass counting in the dQ row. The whole
+    backward's bound, plain and library times are split between the two rows
+    by the gradients each writes (``BWD_ROW_SHARE``), so that the rows add up
+    to the whole backward and nothing is counted twice; the printed line
+    carries the whole."""
     import torch
-    import torch.nn.functional as F
     from torch.profiler import ProfilerActivity, profile
 
-    from cvnets_tpu_torch.ops.mha_attention import (
-        mha_attention_backward_plain,
-        mha_attention_plain,
-        mha_bwd_kernel,
-        mha_fwd_kernel,
-    )
+    from cvnets_tpu_torch.ops.mha_attention import mha_bwd_kernel
 
     g = torch.Generator(device="cuda").manual_seed(4)
     records = _records("fwd", "dq", "dkdv")
@@ -831,17 +902,12 @@ def phase_mha_long_kernel(card: str) -> dict:
                                 *(errs[w] for w in (("dq",) if p == "dq" else ("dk", "dv"))))
                     times = ""
                     if label == MHA_LONG_CASES[0][0] and dtype == torch.bfloat16 and not masked:
-                        t = {"fwd": time_ms(lambda: mha_fwd_kernel(q, k, v, h, mask)),
-                             "fwd_plain": time_ms(lambda: mha_attention_plain(q, k, v, h, mask)),
-                             "bwd": time_ms(lambda: mha_bwd_kernel(q, k, v, mask, out, dout,
-                                                                   stats, h)),
-                             "bwd_plain": time_ms(lambda: mha_attention_backward_plain(
-                                 q, k, v, mask, ref, dout, h))}
+                        t = _mha_times(b, s, h, d, q, k, v, dout, out, stats, ref)
                         with profile(activities=[ProfilerActivity.CUDA]) as prof:
                             for _ in range(5):
-                                mha_bwd_kernel(q, k, v, mask, out, dout, stats, h)
+                                mha_bwd_kernel(q, k, v, None, out, dout, stats, h)
                             torch.cuda.synchronize()
-                        dev = {"dq": 0.0, "dkdv": 0.0}
+                        dev = {"prep": 0.0, "dq": 0.0, "dkdv": 0.0}
                         for ev in prof.key_averages():
                             for p in dev:
                                 if f"mha_bwd_{p}_" in ev.key:
@@ -849,46 +915,22 @@ def phase_mha_long_kernel(card: str) -> dict:
                         check(all(v_ > 0 for v_ in dev.values()),
                               f"profiler saw the backward kernels: {dev}")
                         share = {p: dev[p] / sum(dev.values()) for p in dev}
-                        qh, kh, vh, dh = (t_.detach().reshape(b, s, h, d).transpose(1, 2)
-                                          .contiguous().requires_grad_()
-                                          for t_ in (q, k, v, dout))
-                        lib_out = F.scaled_dot_product_attention(qh, kh, vh, scale=1.0)
-                        t["lib_fwd"] = time_ms(lambda: F.scaled_dot_product_attention(
-                            qh, kh, vh, scale=1.0))
-                        t["lib_bwd"] = time_ms(lambda: torch.autograd.grad(
-                            lib_out, (qh, kh, vh), dh, retain_graph=True))
-                        # each input read once, each output written once: the
-                        # forward reads q, k, v and writes O and the statistics;
-                        # dQ reads q, k, v, dO, O and the statistics and writes dq
-                        # and delta; dK/dV reads q, k, v, dO, the statistics and
-                        # delta and writes dk, dv. Products: 2, 3 and 4 of 2·S²·D
-                        # a head; one exp a logit in each
-                        act = b * s * e * q.element_size()
-                        row = b * h * s * 4
-                        flops = 2 * b * s * s * e
-                        exps = (b * h * s * s, SFU_EXP_S)
-                        bounds = {"fwd": bound(4 * act + 2 * row, (2 * flops, BF16_TC_FLOP_S),
-                                               exps),
-                                  "dq": bound(6 * act + 3 * row, (3 * flops, BF16_TC_FLOP_S),
-                                              exps),
-                                  "dkdv": bound(6 * act + 3 * row,
-                                                (4 * flops, BF16_TC_FLOP_S), exps)}
-                        kernel_ms = {"fwd": t["fwd"], "dq": share["dq"] * t["bwd"],
+                        bounds = mha_bounds(b, s, h, d, q.element_size(), BF16_TC_FLOP_S)
+                        kernel_ms = {"fwd": t["fwd"],
+                                     "dq": (share["prep"] + share["dq"]) * t["bwd"],
                                      "dkdv": share["dkdv"] * t["bwd"]}
                         for p in ("fwd", "dq", "dkdv"):
                             src = "fwd" if p == "fwd" else "bwd"
+                            scale = VIT_BLOCKS * BWD_ROW_SHARE.get(p, 1.0)
                             records[p]["ms"] = VIT_BLOCKS * kernel_ms[p]
-                            records[p]["plain_ms"] = VIT_BLOCKS * t[f"{src}_plain"]
-                            records[p]["bound_ms"] = VIT_BLOCKS * bounds[p][0]
-                            records[p]["bound_by"] = bounds[p][1]
-                            records[p]["library_ms"] = VIT_BLOCKS * t[f"lib_{src}"]
-                        times = ("".join(f" {k_}_ms={v_:.4f}" for k_, v_ in t.items())
-                                 + f" dq_ms={kernel_ms['dq']:.4f} dkdv_ms={kernel_ms['dkdv']:.4f}"
-                                 + "".join(f" {p}_bound_ms={bounds[p][0]:.4f} ({bounds[p][1]})"
-                                           for p in bounds)
-                                 + f" fwd_tflops={2 * flops / t['fwd'] / 1e9:.1f}"
-                                 f" bwd_tflops={5 * flops / t['bwd'] / 1e9:.1f}")
-                        del lib_out, qh, kh, vh, dh
+                            records[p]["plain_ms"] = scale * t[f"{src}_plain"]
+                            records[p]["bound_ms"] = scale * bounds[src][0]
+                            records[p]["bound_by"] = bounds[src][1]
+                            _mha_library(records[p], t, src, scale)
+                        times = (" " + _mha_times_line(t, bounds, 4 * b * s * s * e)
+                                 + " | bwd split: " + " ".join(
+                                     f"{p}_ms={share[p] * t['bwd']:.4f} ({100 * share[p]:.1f}%)"
+                                     for p in share))
                     print(f"mha long kernel: {label} {name} B={b} S={s} H={h} D={d} "
                           f"mask={masked} " + " ".join(f"{w}_err={x:.3e}"
                                                        for w, x in errs.items())

@@ -1,7 +1,10 @@
 // Tiles, fragments and warp products shared by the attention kernels of this
 // directory (mha_attention.cu, window_attention.cu). A block is four warps over
-// a 64-row tile, each warp owning 16 rows; bfloat16 products run on the tensor
-// cores through mma.sync m16n8k16, float32 ones on FMAs over shared memory.
+// a 64-row tile, each warp owning 16 rows (the MHA backward's bf16 blocks hold
+// more rows, in as many warps); bfloat16 products run on the tensor cores
+// through mma.sync m16n8k16, float32 ones on FMAs over shared memory. The
+// ldmatrix products and the cp.async loads serve the MHA backward; the MHA
+// forward and the window kernels keep the 32-bit and 16-bit fragment loads.
 // Everything is in an anonymous namespace: each source that includes this is
 // built into a library of its own.
 
@@ -37,6 +40,16 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ bf16 from_f32<bf16>(float x) { return __float2bfloat16(x); }
 
+constexpr float kLog2e = 1.4426950408889634f;
+
+// 2^x on the SFU, one instruction (exp2f without fast math adds a denormal
+// guard); -inf gives +0.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ float warp_max(float x) {
   for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
   return x;
@@ -65,6 +78,46 @@ __device__ void load_tile(T* dst, int ld, const T* src, long long ss, int rows, 
     for (int i = threadIdx.x; i < kTile * D; i += kThreads) {
       const int r = i / D, c = i % D;
       dst[r * ld + c] = r < rows ? src[r * ss + c] : from_f32<T>(0.f);
+    }
+  }
+}
+
+// cp.async: copies from device to shared memory that bypass the registers and
+// complete in the background; a thread waits for its own with cp_async_wait,
+// and a barrier after that makes every thread's copies visible to the block.
+// cp_async_16 with `bytes` 0 reads nothing and writes 16 zero bytes.
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src, int bytes) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// load_tile for a tile of kR rows and a block of kN threads, copied with
+// cp.async (zero-filled past `rows`) when vec, else loaded and stored at once.
+template <int D, int kR, int kN>
+__device__ __forceinline__ void load_rows_async(bf16* dst, int ld, const bf16* src, long long ss,
+                                                int rows, bool vec) {
+  if (vec) {
+    constexpr int kPerRow = D / 8;
+    for (int i = threadIdx.x; i < kR * kPerRow; i += kN) {
+      const int r = i / kPerRow, c = (i % kPerRow) * 8;
+      const bool ok = r < rows;
+      cp_async_16(dst + r * ld + c, src + (ok ? r : 0) * ss + c, ok ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kR * D; i += kN) {
+      const int r = i / D, c = i % D;
+      dst[r * ld + c] = r < rows ? src[r * ss + c] : from_f32<bf16>(0.f);
     }
   }
 }
@@ -144,6 +197,79 @@ __device__ __forceinline__ void mm_pm(float (&acc)[D / 8][4], const float (&p)[8
       const bf16* p0 = m_col + 8 * j;
       const uint32_t b[2] = {ld_pair(p0, p0 + ld), ld_pair(p0 + 8 * ld, p0 + 9 * ld)};
       mma(acc[j], a, b);
+    }
+  }
+}
+
+// ldmatrix: four 8 x 8 bf16 matrices from shared memory into one register
+// each. Lane l gives the address of row l % 8 of matrix l / 8; rows are 16
+// bytes, 16-byte aligned. Lane (g, t) receives elements (g, 2t) and (g, 2t + 1)
+// of each matrix, or with .trans (2t, g) and (2t + 1, g): exactly the A and B
+// fragments of mma.m16n8k16, one instruction where ld32 / ld_pair take four
+// to sixteen. A row pitch of D + 8 elements puts the 8 rows of a matrix in 8
+// different 16-byte bank groups, so the loads are free of bank conflicts.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// acc (16 x N) = A . B^T as mm_abt over N columns (a multiple of 16; the
+// default, 64, is a whole tile), fragments by ldmatrix. A (the warp's 16 rows)
+// and B (N rows) are row-major, D wide, pitch ld.
+template <int D, int N = kTile>
+__device__ __forceinline__ void mm_abt_ldsm(float (&acc)[N / 8][4], const bf16* A, const bf16* B,
+                                            int ld, int lane) {
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  // A: matrices (rows 0-7, 8-15) x (cols 0-7, 8-15), in a[0..3] order
+  const bf16* a_src = A + (lane % 16) * ld + (lane / 16) * 8;
+  // B: rows 8j + (0-7) and 8(j+1) + (0-7), each at cols 0-7 and 8-15
+  const bf16* b_src = B + ((lane / 16) * 8 + lane % 8) * ld + ((lane / 8) % 2) * 8;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t a[4];
+    ldsm_x4(a, a_src + 16 * kk);
+#pragma unroll
+    for (int j = 0; j < N / 8; j += 2) {
+      uint32_t b[4];
+      ldsm_x4(b, b_src + 8 * j * ld + 16 * kk);
+      const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+      mma(acc[j], a, b0);
+      mma(acc[j + 1], a, b1);
+    }
+  }
+}
+
+// acc (16 x D) += P . M as mm_pm over K rows of M (a multiple of 16; the
+// default, 64, is a whole tile), M's fragments by ldmatrix.trans. P is a
+// 16 x K tile in C fragments, rounded to bf16 here.
+template <int D, int K = kTile>
+__device__ __forceinline__ void mm_pm_ldsm(float (&acc)[D / 8][4], const float (&p)[K / 8][4],
+                                           const bf16* M, int ld, int lane) {
+  // matrices (rows 16kk + 0-7, 8-15) x (cols 8j + 0-7, 8(j+1) + 0-7)
+  const bf16* m_src = M + (lane % 16) * ld + (lane / 16) * 8;
+#pragma unroll
+  for (int kk = 0; kk < K / 16; ++kk) {
+    const uint32_t a[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
+                           pack_bf16(p[2 * kk][2], p[2 * kk][3]),
+                           pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
+                           pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
+#pragma unroll
+    for (int j = 0; j < D / 8; j += 2) {
+      uint32_t b[4];
+      ldsm_x4_trans(b, m_src + 16 * kk * ld + 8 * j);
+      const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+      mma(acc[j], a, b0);
+      mma(acc[j + 1], a, b1);
     }
   }
 }

@@ -9,62 +9,90 @@
 // The long-sequence TPU kernels are KV-blocked flash attention with a dq pass
 // over kv blocks and a dk/dv pass over q blocks, delta precomputed: the design
 // below at every S, so one pair of entry points serves both. Nothing here
-// depends on S beyond the grid's ceil(S/64) query or key tiles; offsets that
-// scale with S are 64-bit. One difference from mha_attn_long.py: it saves
-// lse = m + log(l) (:122), which is m again in float32 on a fully masked row
-// (m = -1e30), so its backward gives that row's gradients S times too large;
-// the (max, log sum) pair here keeps the 1/S of uniform attention.
+// depends on S beyond the grid's tile counts; offsets that scale with S are
+// 64-bit. One difference from mha_attn_long.py: it saves lse = m + log(l)
+// (:122), which is m again in float32 on a fully masked row (m = -1e30), so its
+// backward gives that row's gradients S times too large; the (max, log sum)
+// pair here keeps the 1/S of uniform attention.
 // q, k and v are (B, S, H*D) in the layer's projection layout, q already scaled;
 // head h is the column range [h*D, (h+1)*D). Each tensor is a pointer with a
 // batch stride and a token stride (channel stride 1), so q, k and v may be
 // column slices of one fused qkv projection and no copy is made. The optional
 // key mask is additive, (B, S) float32; null means no mask.
 //
-// Design. The TPU kernel holds one batch element's whole (S, H*D) tile and the
-// (S, S) float32 logits in VMEM. One Hopper block has at most 227 KB of shared
-// memory and at S = 197 the logits alone are 155 KB, so this is the flash
-// shape instead: tiles of 64 query rows and 64 key rows, four warps a block,
-// each warp owning 16 rows of every tile.
-//   * forward: grid (ceil(S/64) query tiles, H, B). A block loops over the key
-//     tiles with an online softmax (running max and sum in float32), adds the
-//     mask per key, normalises once at the end, and writes O in the input dtype
-//     plus per-row statistics (max, log of the sum) for the backward.
-//   * backward, two kernels, no atomics (the result is the same on every run):
-//     dq: one block per query tile loops over the key tiles; it first computes
-//         delta = rowsum(dO * O) for its rows and writes it for the second
-//         kernel; then P = exp(S + mask - max - log sum), dS = P (dO V^T - delta),
-//         dQ += dS K.
-//     dkdv: one block per key tile loops over the query tiles; with the same P
-//         and dS, transposed, dV += P^T dO and dK += dS^T Q.
-//   This is the math of _bwd_kernel with 1/l taken out through the statistics.
-//   The statistics are a (max, log sum) pair, not one log-sum-exp: in a row
-//   whose keys are all masked with -1e30 every logit is -1e30 exactly, the row
-//   attends uniformly, and -1e30 + log(S) rounds back to -1e30 in float32, which
-//   would lose the 1/S.
-// bfloat16 (the training path): every product runs on the tensor cores through
-// mma.sync m16n8k16 (bf16 x bf16 -> f32). A warp's 16 x 64 logits, P, dP and dS
-// and its output accumulators stay in registers in the mma fragment layout, and
-// an accumulator of logits is reused as the A operand of the next product (the
-// FlashAttention-2 arrangement); only the q, k, v and dO tiles go through shared
-// memory. P and dS are rounded to bf16 for their products.
-// float32: plain float32 FMAs on shared-memory tiles (no TF32), so that path
-// keeps float32 accuracy; it serves float32 evaluation, not training speed.
-// Softmax statistics, the mask and every accumulator are float32 on both paths,
-// as in the Pallas body. Ragged edges: S need not be a multiple of 64. Tiles are
-// zero-filled past S; keys past S get probability 0 exactly, rows past S are
-// never written, and in bf16 a warp whose 16 rows all lie past S skips the
-// tile's products (the forward also skips the products of padded key columns).
+// Forward. The TPU kernel holds one batch element's whole (S, H*D) tile and the
+// (S, S) float32 logits in VMEM; a Hopper block has at most 227 KB of shared
+// memory and at S = 197 the logits alone are 155 KB, so this is the flash shape:
+// grid (ceil(S/64) query tiles, H, B), four warps of 16 rows a block, a loop
+// over 64-row key tiles with an online softmax (running max and sum in float32),
+// the mask added per key, one normalisation at the end; it writes O in the input
+// dtype and per-row statistics (max, log of the sum) for the backward. The
+// statistics are a pair, not one log-sum-exp: in a row whose keys are all masked
+// with -1e30 every logit is -1e30 exactly, the row attends uniformly, and
+// -1e30 + log(S) rounds back to -1e30 in float32, which would lose the 1/S.
 //
-// What bounds it: at S = 197 and D = 64 one head does 4 S^2 D ~ 10 MFLOP
-// forward on 3 S D 2 ~ 76 KB of bf16 inputs, about 130 flop per byte, so with
-// tensor cores it sits near the H100's ridge (~295 flop per byte) and is bound
-// by instruction issue and shared-memory traffic, not by HBM bytes.
-// What the simple design leaves on the table: no wgmma (Hopper's warpgroup
-// products) and no TMA or cp.async pipelining of the next tile, so a block
-// waits on each tile's loads; the two backward kernels both recompute P and dP
-// (7 products a tile pair where one kernel with atomics would do 5); and at
-// S = 197 the padded rows of the last 5-row tiles still cost up to 16 of their
-// 64 rows, and in the backward their padded columns too.
+// bfloat16 backward (the training path): three launches on one stream, no
+// atomics, so dq, dk and dv are the same bit for bit on every run.
+//   pre-pass: delta = rowsum(dO * O) and the statistics times log2(e), one
+//     vectorised pass into a (3, B, H, S) float32 scratch;
+//   dQ: one block per 128 query rows (eight warps of 16) streams 64-key tiles of
+//     K, V and the mask: P = 2^(S log2 e + mask log2 e - m log2 e - log(l) log2 e),
+//     dS = P (dO V^T - delta), dQ += dS K;
+//   dK/dV: one block per 128 keys streams 64-query tiles of Q, dO and the
+//     pre-pass rows; with the same P and dS, transposed, dV += P^T dO and
+//     dK += dS^T Q.
+// This is the math of _bwd_kernel with 1/l taken out through the statistics.
+// Every product runs on the tensor cores through mma.sync m16n8k16 (bf16 x bf16
+// -> f32). A warp's logits, P and dS stay in registers in the mma fragment
+// layout, and an accumulator of logits is reused as the A operand of the next
+// product (the FlashAttention-2 arrangement); P and dS are rounded to bf16 for
+// their products. A warp takes a streamed tile in chunks of columns (64 in dQ,
+// 32 in dK/dV) so that the logits beside the D-wide accumulators fit its
+// registers at two blocks an SM.
+//
+// What bounds the backward (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py's
+// mha phases). The function
+// needs 5 products of 2 S^2 D a head and one exponential a logit, and reads
+// q, k, v, O, dO once and writes dq, dk, dv once: at ViT-B/16 224^2 (B 128,
+// S 197, H 12, D 64) that is bytes, 0.09 ms at 3.35 TB/s; at 512^2 (B 32,
+// S 1024) it is the tensor cores, 0.26 ms at 989 TFLOP/s. The design pays 7
+// products (dQ and dK/dV each recompute S and dP^T), and with mma.sync every
+// operand goes through shared memory and registers: each warp reads the whole
+// streamed tile for its own 16 rows (per warp and 64-row tile, 80 ldmatrix.x4
+// for 128 mma.sync in dK/dV, 56 for 96 in dQ); at 128 bytes a clock an SM
+// those reads alone come to nearly 60% of the 0.40 and 1.44 ms a call (a count,
+// not a measurement). The earlier design (64-row tiles, four warps, 32-bit and
+// 16-bit fragment loads, synchronous tile loads between two barriers, expf,
+// delta computed serially inside dQ) took 0.81 and 2.92 ms a call. The
+// redesign, step by step:
+//   1. ldmatrix.x4 (.trans for the B operand of P.M) builds each fragment in one
+//      instruction per four 8 x 8 matrices, where 32-bit and 16-bit loads took
+//      four to sixteen; the D + 8 pitch keeps them free of bank conflicts.
+//   2. The streamed tiles go through two stages of 16-byte cp.async.cg (zero
+//      fill past S through the src-size operand), the next tile's copy in
+//      flight while the current one's products run, one barrier a tile; the
+//      scalar path stays for unaligned strides.
+//   3. exp2 on the SFU with log2(e) folded into one FMA a logit and the
+//      statistics pre-scaled once a row; delta in its own pre-pass, so neither
+//      kernel waits on a serial row walk.
+//   4. 128 resident rows a block (eight warps; D = 128 keeps 64 rows and four
+//      warps) halve the re-streaming of the other side from global memory; the
+//      streamed tile stays at 64 rows. It left the time as it was: the
+//      shared-memory reads a warp makes do not depend on the rows a block holds.
+// What it leaves: wgmma and TMA (warpgroup products from shared memory and a
+// copy engine ring), and the 7 products of the split design against the 5 of a
+// one-pass backward whose dQ would need atomics or a deterministic reduction.
+//
+// float32 (evaluation, not training speed): the same tiling, 64-row tiles and
+// four warps, plain FMAs on shared-memory tiles (no TF32) so the path keeps
+// float32 accuracy; its dQ kernel computes delta and writes it for its dK/dV
+// kernel. Softmax statistics, the mask and every accumulator are float32 on
+// both paths, as in the Pallas body.
+// Ragged edges: S need not be a multiple of the tiles. Tiles are zero-filled
+// past S; keys past S get probability 0 exactly, rows past S are never written,
+// and a warp whose 16 rows all lie past S skips the tile's products.
+
+#include <type_traits>
 
 #include "attention_tiles.cuh"
 
@@ -171,161 +199,270 @@ __global__ void __launch_bounds__(kThreads) mha_fwd_bf16_kernel(
   }
 }
 
-// dQ, one block per query tile. Tensor order in st: q, k, v, o, dO, dq.
+// The backward's pre-pass: for every (b, h, query row) the row statistics
+// pre-scaled by log2(e) and delta = rowsum(dO * O) in float32, into `rows`
+// (3, B, H, S): m log2(e), log(l) log2(e), delta. D / 8 consecutive threads
+// take one row, 8 elements each (16-byte loads when vec), and sum by shuffles.
+// Tensor order in st: q, k, v, o, dO.
 template <int D>
-__global__ void __launch_bounds__(kThreads) mha_bwd_dq_bf16_kernel(
+__global__ void __launch_bounds__(256) mha_bwd_prep_bf16_kernel(
+    const bf16* __restrict__ o, const bf16* __restrict__ dout, const float* __restrict__ stats,
+    float* __restrict__ rows, int B, int S, int H, Strides st, bool vec) {
+  constexpr int kPer = D / 8;  // threads a row: 2 to 16, a divisor of 32
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const long long n = static_cast<long long>(B) * S * H * kPer;
+  const int c = static_cast<int>(i % kPer) * 8;
+  const long long bsh = i / kPer;
+  const int h = static_cast<int>(bsh % H);
+  const long long bs = bsh / H;
+  const int s = static_cast<int>(bs % S), b = static_cast<int>(bs / S);
+  float x = 0.f;
+  if (i < n) {
+    const bf16* orow = o + b * st.b[3] + s * st.s[3] + h * D + c;
+    const bf16* drow = dout + b * st.b[4] + s * st.s[4] + h * D + c;
+    if (vec) {
+      const uint4 ov = *reinterpret_cast<const uint4*>(orow);
+      const uint4 dv = *reinterpret_cast<const uint4*>(drow);
+      const bf16* oe = reinterpret_cast<const bf16*>(&ov);
+      const bf16* de = reinterpret_cast<const bf16*>(&dv);
+#pragma unroll
+      for (int e = 0; e < 8; ++e) x += to_f32(oe[e]) * to_f32(de[e]);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) x += to_f32(orow[e]) * to_f32(drow[e]);
+    }
+  }
+#pragma unroll
+  for (int off = kPer / 2; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
+  if (i < n && c == 0) {
+    const long long bhs = static_cast<long long>(B) * H * S;
+    const long long row = (static_cast<long long>(b) * H + h) * S + s;
+    rows[row] = stats[row] * kLog2e;
+    rows[bhs + row] = stats[bhs + row] * kLog2e;
+    rows[2 * bhs + row] = x;
+  }
+}
+
+// The bf16 backward's blocks: kRes resident rows (queries in dQ, keys in
+// dK/dV) in kWarps warps of 16 rows, against streamed tiles of kTile = 64 rows
+// of the other side in two stages; a warp takes a streamed tile kChunk columns
+// at a time, so that of the logits only a 16 x kChunk piece is live in its
+// registers beside its accumulators. kKeys: the dK/dV kernel's blocks.
+// At D = 64 (ptxas -v, CUDA 12.8): dQ 74,240 bytes of shared memory and 127
+// registers a thread, dK/dV 75,264 bytes and 128 registers (20 bytes spilled);
+// __launch_bounds__ asks for two blocks (16 warps) an SM, which both hold.
+// Eight warps with chunks of 64 in dQ and 32 in dK/dV were the fastest of the
+// four- and eight-warp, 16- to 64-column choices timed on the card.
+template <int D, bool kKeys>
+struct BwdTiles {
+  static constexpr int kWarps = D <= 64 ? 8 : 4;
+  static constexpr int kChunk = kKeys ? 32 : 64;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kRes = 16 * kWarps;
+  static constexpr int kLd = Bf16Tiles<D>::kLd;
+  // two resident tiles, two stages of two streamed tiles, then float32 rows:
+  // dQ the keys' mask, dK/dV three values of each query, two stages each
+  static constexpr int kSmem =
+      2 * kRes * kLd * 2 + 4 * kTile * kLd * 2 + (kKeys ? 6 : 2) * kTile * 4;
+};
+
+// dQ, one block per kRes query rows. Tensor order in st: q, k, v, o, dO, dq.
+// The K and V tiles (and their mask) stream through two stages of shared
+// memory: the copy of the next tile is in flight while the current one's
+// products run, and one barrier a tile both publishes the arrived stage and
+// frees the other. P = 2^((S + mask) log2(e) - m log2(e) - log(l) log2(e)),
+// in that order: on a fully masked row S + mask and m are the same -1e30
+// (times log2(e)), their difference is 0 and P keeps the 1/S that log(l)
+// carries. A key past S has mask -inf and a row past S a max of +inf, so
+// both give P = 0 without a test.
+template <int D>
+__global__ void __launch_bounds__(BwdTiles<D, false>::kThreads, 2) mha_bwd_dq_bf16_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const float* __restrict__ mask, const bf16* __restrict__ o, const bf16* __restrict__ dout,
-    const float* __restrict__ stats, float* __restrict__ delta, bf16* __restrict__ dq,
-    int S, int H, Strides st, bool vec) {
-  constexpr int ld = Bf16Tiles<D>::kLd;
+    const float* __restrict__ mask, const bf16* __restrict__ dout,
+    const float* __restrict__ rows, bf16* __restrict__ dq, int S, int H, Strides st, bool vec) {
+  using L = BwdTiles<D, false>;
+  constexpr int ld = L::kLd, kC = L::kChunk;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* dOs = Qs + kTile * ld;
-  bf16* Ks = dOs + kTile * ld;
-  bf16* Vs = Ks + kTile * ld;
-  float* row_delta = reinterpret_cast<float*>(Vs + kTile * ld);
-  float* kmask = row_delta + kTile;
+  bf16* dOs = Qs + L::kRes * ld;
+  bf16* KVs = dOs + L::kRes * ld;  // stage i: K at KVs + 2i tiles, V after it
+  float* kmask = reinterpret_cast<float*>(KVs + 4 * kTile * ld);  // stage i at + i * kTile
 
   const int h = blockIdx.y, b = blockIdx.z;
-  const int q0 = blockIdx.x * kTile;
-  const int q_rows = min(kTile, S - q0);
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int r0 = (threadIdx.x / 32) * kRows;
+  const int q0 = blockIdx.x * L::kRes;
+  const int q_rows = min(L::kRes, S - q0);
+  const int lane = threadIdx.x % 32, g = lane / 4;
+  const int r0 = (threadIdx.x / 32) * 16;
   const long long hd = static_cast<long long>(h) * D;
   const long long bhs = static_cast<long long>(gridDim.z) * H * S;
   const long long row0 = (static_cast<long long>(b) * H + h) * S + q0;
 
-  load_tile<bf16, D>(Qs, ld, q + b * st.b[0] + q0 * st.s[0] + hd, st.s[0], q_rows, vec);
-  load_tile<bf16, D>(dOs, ld, dout + b * st.b[4] + q0 * st.s[4] + hd, st.s[4], q_rows, vec);
-  __syncthreads();
-  // delta = rowsum(dO * O) in float32, written out for the dK/dV kernel
-  for (int r = r0; r < r0 + kRows; ++r) {
-    float x = 0.f;
-    if (r < q_rows) {
-      const bf16* orow = o + b * st.b[3] + (q0 + r) * st.s[3] + hd;
-      for (int d = lane; d < D; d += 32) x += to_f32(dOs[r * ld + d]) * to_f32(orow[d]);
+  auto prefetch = [&](int stage, int k0) {  // the K, V and mask tile of keys [k0, k0 + 64)
+    const int k_rows = min(kTile, S - k0);
+    bf16* Ks = KVs + 2 * stage * kTile * ld;
+    load_rows_async<D, kTile, L::kThreads>(Ks, ld, k + b * st.b[1] + k0 * st.s[1] + hd,
+                                           st.s[1], k_rows, vec);
+    load_rows_async<D, kTile, L::kThreads>(Ks + kTile * ld, ld,
+                                           v + b * st.b[2] + k0 * st.s[2] + hd, st.s[2],
+                                           k_rows, vec);
+    if (threadIdx.x < kTile) {
+      const int c = threadIdx.x;
+      float* dst = kmask + stage * kTile + c;
+      if (mask != nullptr && c < k_rows)
+        cp_async_4(dst, mask + static_cast<long long>(b) * S + k0 + c);
+      else
+        *dst = c < k_rows ? 0.f : -INFINITY;
     }
-    x = warp_sum(x);
-    if (lane == 0) {
-      row_delta[r] = x;
-      if (r < q_rows) delta[row0 + r] = x;
-    }
-  }
-  __syncwarp();
-  float rm[2], rl[2], rd[2];  // statistics of rows g and g + 8
-  bool row_ok[2];
+    cp_async_commit();
+  };
+
+  load_rows_async<D, L::kRes, L::kThreads>(Qs, ld, q + b * st.b[0] + q0 * st.s[0] + hd,
+                                           st.s[0], q_rows, vec);
+  load_rows_async<D, L::kRes, L::kThreads>(dOs, ld, dout + b * st.b[4] + q0 * st.s[4] + hd,
+                                           st.s[4], q_rows, vec);
+  prefetch(0, 0);
+  float rm[2], rl[2], rd[2];  // rows g and g + 8: m log2(e), log(l) log2(e), delta
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = r0 + g + 8 * i;
-    row_ok[i] = r < q_rows;
-    rm[i] = row_ok[i] ? stats[row0 + r] : 0.f;
-    rl[i] = row_ok[i] ? stats[bhs + row0 + r] : 0.f;
-    rd[i] = row_delta[r];
+    const bool ok = r < q_rows;
+    rm[i] = ok ? rows[row0 + r] : INFINITY;
+    rl[i] = ok ? rows[bhs + row0 + r] : 0.f;
+    rd[i] = ok ? rows[2 * bhs + row0 + r] : 0.f;
   }
 
   float acc[D / 8][4] = {};
-  for (int k0 = 0; k0 < S; k0 += kTile) {
-    const int k_rows = min(kTile, S - k0);
-    __syncthreads();
-    load_tile<bf16, D>(Ks, ld, k + b * st.b[1] + k0 * st.s[1] + hd, st.s[1], k_rows, vec);
-    load_tile<bf16, D>(Vs, ld, v + b * st.b[2] + k0 * st.s[2] + hd, st.s[2], k_rows, vec);
-    load_kmask(kmask, mask, b, S, k0, k_rows, 0.f);
-    __syncthreads();
+  for (int it = 0, k0 = 0; k0 < S; ++it, k0 += kTile) {
+    cp_async_wait();
+    __syncthreads();  // this tile has arrived; every warp is done with the other stage
+    if (k0 + kTile < S) prefetch((it + 1) % 2, k0 + kTile);
     if (r0 >= q_rows) continue;  // this warp's rows are all past S
-
-    float s[8][4], dp[8][4];
-    // full tiles here: skipping the padded columns measured slower in the
-    // backward (it did speed the forward up)
-    mm_abt<D>(s, Qs + r0 * ld, Ks, ld, kTile, g, t);    // S
-    mm_abt<D>(dp, dOs + r0 * ld, Vs, ld, kTile, g, t);  // dP
+    const bf16* Ks = KVs + 2 * (it % 2) * kTile * ld;
+    const bf16* Vs = Ks + kTile * ld;
+    const float* km = kmask + (it % 2) * kTile;
+    const int k_rows = min(kTile, S - k0);
+#pragma unroll 1
+    for (int c0 = 0; c0 < k_rows; c0 += kC) {  // keys [c0, c0 + kC) of the tile
+      float s[kC / 8][4], dp[kC / 8][4];
+      mm_abt_ldsm<D, kC>(s, Qs + r0 * ld, Ks + c0 * ld, ld, lane);    // S
+      mm_abt_ldsm<D, kC>(dp, dOs + r0 * ld, Vs + c0 * ld, ld, lane);  // dP
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < kC / 8; ++j) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * j + 2 * t + (e & 1), i = e / 2;
-        const float p = (row_ok[i] && col < k_rows)
-                            ? expf(s[j][e] + kmask[col] - rm[i] - rl[i]) : 0.f;
-        s[j][e] = p * (dp[j][e] - rd[i]);  // dS
+        for (int e = 0; e < 4; ++e) {
+          const int col = c0 + 8 * j + 2 * (lane % 4) + (e & 1), i = e / 2;
+          const float x = __fmaf_rn(s[j][e], kLog2e, km[col] * kLog2e) - rm[i];
+          s[j][e] = fast_exp2(x - rl[i]) * (dp[j][e] - rd[i]);  // dS
+        }
       }
+      mm_pm_ldsm<D, kC>(acc, s, Ks + c0 * ld, ld, lane);  // dQ += dS K
     }
-    mm_pm<D>(acc, s, Ks, ld, kTile, g, t);  // dQ += dS K
   }
   const float one[2] = {1.f, 1.f};
-  store_rows<D>(dq + b * st.b[5] + q0 * st.s[5] + hd, st.s[5], r0, q_rows, acc, one, g, t);
+  store_rows<D>(dq + b * st.b[5] + q0 * st.s[5] + hd, st.s[5], r0, q_rows, acc, one, g,
+                lane % 4);
 }
 
-// dK and dV, one block per key tile; a warp's tiles are transposed: rows are
-// keys, columns queries. Tensor order in st: q, k, v, o, dO, dq, dk, dv.
+// dK and dV, one block per kRes keys; a warp's tiles are transposed: rows are
+// keys, columns queries. Tensor order in st: q, k, v, o, dO, dq, dk, dv. The
+// Q and dO tiles and the query rows' pre-pass values stream as K and V do in
+// dQ; P as there, a query past S having a max of +inf.
 template <int D>
-__global__ void __launch_bounds__(kThreads) mha_bwd_dkdv_bf16_kernel(
+__global__ void __launch_bounds__(BwdTiles<D, true>::kThreads, 2) mha_bwd_dkdv_bf16_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const float* __restrict__ mask, const bf16* __restrict__ dout,
-    const float* __restrict__ stats, const float* __restrict__ delta,
-    bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int H, Strides st, bool vec) {
-  constexpr int ld = Bf16Tiles<D>::kLd;
+    const float* __restrict__ rows, bf16* __restrict__ dk, bf16* __restrict__ dv, int S, int H,
+    Strides st, bool vec) {
+  using L = BwdTiles<D, true>;
+  constexpr int ld = L::kLd, kC = L::kChunk;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + kTile * ld;
-  bf16* Qs = Vs + kTile * ld;
-  bf16* dOs = Qs + kTile * ld;
-  float* col_m = reinterpret_cast<float*>(dOs + kTile * ld);  // the query tile's statistics
-  float* col_logl = col_m + kTile;
-  float* col_delta = col_logl + kTile;
-  float* kmask = col_delta + kTile;  // this block's keys
+  bf16* Vs = Ks + L::kRes * ld;
+  bf16* QdOs = Vs + L::kRes * ld;  // stage i: Q at QdOs + 2i tiles, dO after it
+  // stage i's query rows: m log2(e), log(l) log2(e), delta, each kTile wide
+  float* cols = reinterpret_cast<float*>(QdOs + 4 * kTile * ld);
 
   const int h = blockIdx.y, b = blockIdx.z;
-  const int k0 = blockIdx.x * kTile;
-  const int k_rows = min(kTile, S - k0);
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int r0 = (threadIdx.x / 32) * kRows;
+  const int k0 = blockIdx.x * L::kRes;
+  const int k_rows = min(L::kRes, S - k0);
+  const int lane = threadIdx.x % 32, g = lane / 4;
+  const int r0 = (threadIdx.x / 32) * 16;
   const long long hd = static_cast<long long>(h) * D;
   const long long bhs = static_cast<long long>(gridDim.z) * H * S;
   const long long bh = (static_cast<long long>(b) * H + h) * S;
 
-  load_tile<bf16, D>(Ks, ld, k + b * st.b[1] + k0 * st.s[1] + hd, st.s[1], k_rows, vec);
-  load_tile<bf16, D>(Vs, ld, v + b * st.b[2] + k0 * st.s[2] + hd, st.s[2], k_rows, vec);
-  load_kmask(kmask, mask, b, S, k0, k_rows, 0.f);
-  bool key_ok[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) key_ok[i] = r0 + g + 8 * i < k_rows;
-
-  float dk_acc[D / 8][4] = {}, dv_acc[D / 8][4] = {};
-  for (int q0 = 0; q0 < S; q0 += kTile) {
+  auto prefetch = [&](int stage, int q0) {  // queries [q0, q0 + 64)
     const int q_rows = min(kTile, S - q0);
-    __syncthreads();
-    load_tile<bf16, D>(Qs, ld, q + b * st.b[0] + q0 * st.s[0] + hd, st.s[0], q_rows, vec);
-    load_tile<bf16, D>(dOs, ld, dout + b * st.b[4] + q0 * st.s[4] + hd, st.s[4], q_rows, vec);
+    bf16* Qs = QdOs + 2 * stage * kTile * ld;
+    load_rows_async<D, kTile, L::kThreads>(Qs, ld, q + b * st.b[0] + q0 * st.s[0] + hd,
+                                           st.s[0], q_rows, vec);
+    load_rows_async<D, kTile, L::kThreads>(Qs + kTile * ld, ld,
+                                           dout + b * st.b[4] + q0 * st.s[4] + hd, st.s[4],
+                                           q_rows, vec);
     if (threadIdx.x < kTile) {
       const int c = threadIdx.x;
-      const bool ok = c < q_rows;
-      col_m[c] = ok ? stats[bh + q0 + c] : 0.f;
-      col_logl[c] = ok ? stats[bhs + bh + q0 + c] : 0.f;
-      col_delta[c] = ok ? delta[bh + q0 + c] : 0.f;
-    }
-    __syncthreads();
-    if (r0 >= k_rows) continue;  // this warp's keys are all past S
-
-    float p[8][4], ds[8][4];
-    mm_abt<D>(p, Ks + r0 * ld, Qs, ld, kTile, g, t);    // S^T, full tiles as in dq
-    mm_abt<D>(ds, Vs + r0 * ld, dOs, ld, kTile, g, t);  // dP^T
+      float* dst = cols + 3 * stage * kTile + c;
+      if (c < q_rows) {
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 8 * j + 2 * t + (e & 1), i = e / 2;
-        const float pe = (key_ok[i] && col < q_rows)
-            ? expf(p[j][e] + kmask[r0 + g + 8 * i] - col_m[col] - col_logl[col]) : 0.f;
-        p[j][e] = pe;
-        ds[j][e] = pe * (ds[j][e] - col_delta[col]);
+        for (int w = 0; w < 3; ++w) cp_async_4(dst + w * kTile, rows + w * bhs + bh + q0 + c);
+      } else {
+        dst[0] = INFINITY;
+        dst[kTile] = dst[2 * kTile] = 0.f;
       }
     }
-    mm_pm<D>(dv_acc, p, dOs, ld, kTile, g, t);  // dV += P^T dO
-    mm_pm<D>(dk_acc, ds, Qs, ld, kTile, g, t);  // dK += dS^T Q
+    cp_async_commit();
+  };
+
+  load_rows_async<D, L::kRes, L::kThreads>(Ks, ld, k + b * st.b[1] + k0 * st.s[1] + hd,
+                                           st.s[1], k_rows, vec);
+  load_rows_async<D, L::kRes, L::kThreads>(Vs, ld, v + b * st.b[2] + k0 * st.s[2] + hd,
+                                           st.s[2], k_rows, vec);
+  prefetch(0, 0);
+  float km[2];  // the mask of keys g and g + 8, times log2(e)
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + g + 8 * i;
+    km[i] = (mask != nullptr && r < k_rows)
+                ? mask[static_cast<long long>(b) * S + k0 + r] * kLog2e : 0.f;
+  }
+
+  float dk_acc[D / 8][4] = {}, dv_acc[D / 8][4] = {};
+  for (int it = 0, q0 = 0; q0 < S; ++it, q0 += kTile) {
+    cp_async_wait();
+    __syncthreads();  // this tile has arrived; every warp is done with the other stage
+    if (q0 + kTile < S) prefetch((it + 1) % 2, q0 + kTile);
+    if (r0 >= k_rows) continue;  // this warp's keys are all past S
+    const bf16* Qs = QdOs + 2 * (it % 2) * kTile * ld;
+    const bf16* dOs = Qs + kTile * ld;
+    const float* col_m = cols + 3 * (it % 2) * kTile;
+    const float* col_l = col_m + kTile;
+    const float* col_delta = col_l + kTile;
+    const int q_rows = min(kTile, S - q0);
+#pragma unroll 1
+    for (int c0 = 0; c0 < q_rows; c0 += kC) {  // queries [c0, c0 + kC) of the tile
+      float p[kC / 8][4], ds[kC / 8][4];
+      mm_abt_ldsm<D, kC>(p, Ks + r0 * ld, Qs + c0 * ld, ld, lane);    // S^T
+      mm_abt_ldsm<D, kC>(ds, Vs + r0 * ld, dOs + c0 * ld, ld, lane);  // dP^T
+#pragma unroll
+      for (int j = 0; j < kC / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = c0 + 8 * j + 2 * (lane % 4) + (e & 1), i = e / 2;
+          const float x = __fmaf_rn(p[j][e], kLog2e, km[i]) - col_m[col];
+          const float pe = fast_exp2(x - col_l[col]);
+          p[j][e] = pe;
+          ds[j][e] = pe * (ds[j][e] - col_delta[col]);
+        }
+      }
+      mm_pm_ldsm<D, kC>(dv_acc, p, dOs + c0 * ld, ld, lane);  // dV += P^T dO
+      mm_pm_ldsm<D, kC>(dk_acc, ds, Qs + c0 * ld, ld, lane);  // dK += dS^T Q
+    }
   }
   const float one[2] = {1.f, 1.f};
-  store_rows<D>(dk + b * st.b[6] + k0 * st.s[6] + hd, st.s[6], r0, k_rows, dk_acc, one, g, t);
-  store_rows<D>(dv + b * st.b[7] + k0 * st.s[7] + hd, st.s[7], r0, k_rows, dv_acc, one, g, t);
+  store_rows<D>(dk + b * st.b[6] + k0 * st.s[6] + hd, st.s[6], r0, k_rows, dk_acc, one, g,
+                lane % 4);
+  store_rows<D>(dv + b * st.b[7] + k0 * st.s[7] + hd, st.s[7], r0, k_rows, dv_acc, one, g,
+                lane % 4);
 }
 
 // ============================================================ float32: FMAs
@@ -617,13 +754,15 @@ struct Smem;
 template <int D>
 struct Smem<bf16, D> {
   static constexpr int kFwd = 3 * Bf16Tiles<D>::kBytes + kTile * 4;
-  static constexpr int kBwd = 4 * Bf16Tiles<D>::kBytes + 4 * kTile * 4;
+  static constexpr int kDq = BwdTiles<D, false>::kSmem;
+  static constexpr int kDkdv = BwdTiles<D, true>::kSmem;
 };
 template <int D>
 struct Smem<float, D> {
   using L = F32Tiles<D>;
   static constexpr int kFwd = 3 * L::kInBytes + 2 * L::kSBytes + L::kOBytes + 3 * kTile * 4;
-  static constexpr int kBwd = 4 * L::kInBytes + 2 * L::kSBytes + 4 * kTile * 4;
+  static constexpr int kDq = 4 * L::kInBytes + 2 * L::kSBytes + 4 * kTile * 4;
+  static constexpr int kDkdv = kDq;
 };
 
 template <typename T, int D>
@@ -668,27 +807,48 @@ int launch_bwd(const void* q, const void* k, const void* v, const float* mask,
   const Strides st = read_strides(strides, 8);
   const void* ptrs[8] = {q, k, v, o, dout, dq, dk, dv};
   const bool vec = aligned<T>(ptrs, st, 8);
-  constexpr int smem = Smem<T, D>::kBwd;
+  constexpr int smem_dq = Smem<T, D>::kDq, smem_dkdv = Smem<T, D>::kDkdv;
   cudaError_t err = cudaFuncSetAttribute(Kernels<T, D>::dq,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dq);
   if (err != cudaSuccess) return static_cast<int>(err);
   err = cudaFuncSetAttribute(Kernels<T, D>::dkdv,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem_dkdv);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + kTile - 1) / kTile, H, B);
-  // delta is written by the first kernel and read by the second, in stream order
   const auto dq_kernel = Kernels<T, D>::dq;
   const auto dkdv_kernel = Kernels<T, D>::dkdv;
-  dq_kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), mask,
-      static_cast<const T*>(o), static_cast<const T*>(dout), stats, delta,
-      static_cast<T*>(dq), S, H, st, vec);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dkdv_kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), mask,
-      static_cast<const T*>(dout), stats, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-      S, H, st, vec);
+  if constexpr (std::is_same<T, bf16>::value) {
+    using Q = BwdTiles<D, false>;
+    using K = BwdTiles<D, true>;
+    // the pre-pass writes `delta` (3, B, H, S); both kernels read it
+    const long long threads = static_cast<long long>(B) * S * H * (D / 8);
+    mha_bwd_prep_bf16_kernel<D><<<static_cast<unsigned>((threads + 255) / 256), 256, 0, stream>>>(
+        static_cast<const bf16*>(o), static_cast<const bf16*>(dout), stats, delta, B, S, H, st,
+        vec);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dq_kernel<<<dim3((S + Q::kRes - 1) / Q::kRes, H, B), Q::kThreads, smem_dq, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        mask, static_cast<const bf16*>(dout), delta, static_cast<bf16*>(dq), S, H, st, vec);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dkdv_kernel<<<dim3((S + K::kRes - 1) / K::kRes, H, B), K::kThreads, smem_dkdv, stream>>>(
+        static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+        mask, static_cast<const bf16*>(dout), delta, static_cast<bf16*>(dk),
+        static_cast<bf16*>(dv), S, H, st, vec);
+  } else {
+    const dim3 grid((S + kTile - 1) / kTile, H, B);
+    // delta (B, H, S) is written by the first kernel and read by the second
+    dq_kernel<<<grid, kThreads, smem_dq, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), mask,
+        static_cast<const T*>(o), static_cast<const T*>(dout), stats, delta,
+        static_cast<T*>(dq), S, H, st, vec);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dkdv_kernel<<<grid, kThreads, smem_dkdv, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), mask,
+        static_cast<const T*>(dout), stats, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+        S, H, st, vec);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -737,7 +897,7 @@ extern "C" int mha_attention_forward(const void* q, const void* k, const void* v
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// delta is (B, H, S) float32 scratch. strides order: q, k, v, o, dout, dq, dk, dv.
+// delta is (3, B, H, S) float32 scratch. strides order: q, k, v, o, dout, dq, dk, dv.
 extern "C" int mha_attention_backward(const void* q, const void* k, const void* v,
                                       const void* mask, const void* o, const void* dout,
                                       const void* stats, void* delta, void* dq, void* dk,

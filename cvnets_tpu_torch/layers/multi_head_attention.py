@@ -55,7 +55,7 @@ class MultiHeadAttention(nn.Module):
         scale = hd ** -0.5
         if (self.use_kernel and attn_mask is None and nq == nk
                 and (self.attn_dropout.p == 0 or not self.training)
-                and fused_attention_eligible(nq, d, q.element_size())):
+                and fused_attention_eligible(nq, d, h, q.element_size())):
             km = None
             if key_padding_mask is not None:
                 km = torch.where(key_padding_mask, -1e30, 0.0)

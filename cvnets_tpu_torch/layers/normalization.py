@@ -6,8 +6,13 @@
 * ``layer_norm_2d`` is GroupNorm with ONE group (normalization.py:190-193):
   statistics over channels and space jointly, affine per channel. It is applied to
   channels-last tensors, the layout of MobileViTv2's (B, P, N, C) patches.
-* ``layer_norm`` is ``nn.LayerNorm`` over the trailing axis only, with the
-  caller's eps (normalization.py:185-188); ViT's (B, S, E) tokens take it.
+* ``layer_norm`` is a LayerNorm over the trailing axis only, with the caller's
+  eps (normalization.py:185-188); ViT's (B, S, E) tokens take it.
+
+Both compute in float32 and return the compute dtype, as JAX's do with
+``dtype=compute_dtype(opts)``: the autocast dtype under autocast, else the
+input's dtype. Swin builds plain ``nn.LayerNorm``s, which stay float32 as its
+JAX norms (no dtype) do.
 """
 
 from __future__ import annotations
@@ -25,9 +30,25 @@ BATCH_NORMS = ("batch_norm", "batch_norm_2d", "sync_batch_norm")
 SUPPORTED_NORM_FNS = BATCH_NORMS + ("layer_norm", "layer_norm_2d", "identity")
 
 
+def _output_dtype(x: torch.Tensor) -> torch.dtype:
+    """The autocast dtype of x's device type where autocast is on there, else
+    x's dtype."""
+    dev = x.device.type
+    return torch.get_autocast_dtype(dev) if torch.is_autocast_enabled(dev) else x.dtype
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` in float32 that returns the compute dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
+        return y.to(_output_dtype(x))
+
+
 class LayerNorm2d(nn.Module):
     """GroupNorm(num_groups=1) for a channels-last tensor (B, ..., C): one mean
-    and variance over every non-batch element, then a per-channel affine."""
+    and variance over every non-batch element, then a per-channel affine, in
+    float32; returns the compute dtype."""
 
     def __init__(self, num_features: int, eps: float = 1e-5) -> None:
         super().__init__()
@@ -36,7 +57,8 @@ class LayerNorm2d(nn.Module):
         self.bias = nn.Parameter(torch.zeros(num_features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.layer_norm(x, x.shape[1:], eps=self.eps) * self.weight + self.bias
+        y = F.layer_norm(x.float(), x.shape[1:], eps=self.eps) * self.weight + self.bias
+        return y.to(_output_dtype(x))
 
 
 def get_normalization_layer(opts, num_features: int,
@@ -51,7 +73,7 @@ def get_normalization_layer(opts, num_features: int,
         return nn.BatchNorm2d(num_features, eps=eps,
                               momentum=0.1 if momentum is None else momentum)
     if norm_type == "layer_norm":
-        return nn.LayerNorm(num_features, eps=eps)
+        return LayerNorm(num_features, eps=eps)
     if norm_type == "layer_norm_2d":
         return LayerNorm2d(num_features, eps=eps)
     if norm_type == "identity":

@@ -93,7 +93,7 @@ class WindowAttention(nn.Module):
         q, k, v = self.qkv(x).chunk(3, dim=-1)
         bias = self.relative_position_bias_table[self.relative_position_index]
         bias = bias.reshape(n, n, h).permute(2, 0, 1).contiguous()  # (H, S, S) float32
-        if (self.use_kernel and window_attention_eligible(n, c)
+        if (self.use_kernel and window_attention_eligible(n, c, h)
                 and (self.attn_dropout.p == 0 or not self.training)):
             out = fused_window_attention(q * hd ** -0.5, k, v, h, bias, mask)
         else:

@@ -6,13 +6,13 @@ already scaled; ``key_mask`` is an additive (B, S) float32 mask or None.
 
 * ``mha_fwd_kernel`` / ``mha_bwd_kernel``: the hand-written CUDA kernels
   (csrc/mha_attention.cu) that replace the Pallas ``_pallas_fwd`` and
-  ``_pallas_bwd`` of both files. Their flash tiling (64-row query and key
-  tiles, online softmax with saved row statistics, a dQ kernel over key tiles
-  and a dK/dV kernel over query tiles with delta precomputed) is the
-  long-sequence kernels' KV-blocked design already, so one pair serves every
-  S the JAX dispatch sends to a kernel: S ≤ 512, or S > 512 where
-  ``mha_attn_long.choose_block`` finds a block. They take CUDA tensors only
-  and count their launches.
+  ``_pallas_bwd`` of both files. Their flash tiling (online softmax with saved
+  row statistics; a backward of a pre-pass for delta, a dQ kernel over key
+  tiles and a dK/dV kernel over query tiles) is the long-sequence kernels'
+  KV-blocked design already, so one pair serves every S the JAX dispatch
+  sends to a kernel: S ≤ 512, or S > 512 where ``mha_attn_long.choose_block``
+  finds a block, at a head dim of 16, 32, 64 or 128. They take CUDA tensors
+  only and count their launches.
 * ``mha_attention_plain`` / ``mha_attention_backward_plain``: the same
   functions in plain torch ops (the JAX ``_reference`` and its einsum VJP), for
   CPU tensors and as the kernels' references.
@@ -49,13 +49,20 @@ def _choose_long_block(seq: int, embed: int, itemsize: int) -> Optional[int]:
     return None
 
 
-def fused_attention_eligible(seq: int, embed: int, itemsize: int = 4) -> bool:
+def _tiled_by_a_tpu_kernel(seq: int, embed: int, itemsize: int) -> bool:
     """The JAX rule (mha_attn.py:279-287 and :303-308): the single-tile kernel
     takes S ≤ 512 and H·D ≤ 1024; the long-sequence kernel takes an S it can
     block with elements of ``itemsize`` bytes."""
     if seq <= _MAX_SEQ and embed <= _MAX_EMBED:
         return True
     return embed <= _MAX_EMBED and _choose_long_block(seq, embed, itemsize) is not None
+
+
+def fused_attention_eligible(seq: int, embed: int, heads: int, itemsize: int = 4) -> bool:
+    """The JAX rule, and a head dim the kernels take: H | H·D and D in
+    {16, 32, 64, 128}. Every other shape takes the einsum route."""
+    return (embed % heads == 0 and embed // heads in _HEAD_DIMS
+            and _tiled_by_a_tpu_kernel(seq, embed, itemsize))
 
 
 def _split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -98,7 +105,7 @@ def _check(tensors, shape, heads: int) -> int:
     """Validate what the kernels take; return the head dim."""
     b, s, e = shape
     ref = tensors[0][1]
-    if not fused_attention_eligible(s, e, ref.element_size()):
+    if not _tiled_by_a_tpu_kernel(s, e, ref.element_size()):
         raise NotImplementedError(
             f"S={s}, H·D={e}: neither TPU kernel tiles this shape (mha_attn.py takes "
             f"S ≤ {_MAX_SEQ}, mha_attn_long.py an S divisible by 128, 256 or 512), so "
@@ -178,8 +185,10 @@ class MHABackwardKernel(_MHAKernel):
     def __call__(self, q, k, v, key_mask, out, dout, stats, heads: int
                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         """dq, dk, dv from the forward's output and row statistics: one call
-        launches the dQ kernel (which also writes delta = rowsum(dO·O)) and then
-        the dK/dV kernel on the current stream."""
+        launches, on the current stream, the kernels of one backward (bf16: a
+        pre-pass that writes delta = rowsum(dO·O) and the statistics scaled
+        by log2(e) into a (3, B, H, S) scratch, then the dQ and the dK/dV
+        kernels; float32: the dQ kernel, which writes delta, then dK/dV)."""
         d = _check((("q", q), ("k", k), ("v", v), ("out", out), ("dout", dout)),
                    q.shape, heads)
         b, s, e = q.shape
@@ -192,7 +201,7 @@ class MHABackwardKernel(_MHAKernel):
                       for _ in range(3))
         if dq.numel() == 0:
             return dq, dk, dv
-        delta = torch.empty((b, heads, s), dtype=torch.float32, device=q.device)
+        delta = torch.empty((3, b, heads, s), dtype=torch.float32, device=q.device)
         self._launch((q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       None if mask is None else mask.data_ptr(), out.data_ptr(),
                       dout.data_ptr(), stats.data_ptr(), delta.data_ptr(),

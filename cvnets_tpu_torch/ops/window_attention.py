@@ -26,9 +26,8 @@ import torch
 
 from cvnets_tpu_torch.ops.cuda_build import KernelEntry
 
-# the JAX rule (window_attn.py:49-50); the CUDA kernels tile one window of at
-# most 64 tokens (Swin's window 7 gives 49, window 8 gives 64)
-_MAX_SEQ = 512
+# the CUDA kernels tile one window of at most 64 tokens (Swin's window 7 gives
+# 49, window 8 gives 64) with H·D ≤ 1024, as the JAX rule (window_attn.py:49-50)
 _MAX_EMBED = 1024
 _KERNEL_SEQ = 64
 _HEAD_DIMS = (16, 32, 64)
@@ -36,10 +35,13 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_CHUNK = 16  # images of one window position a backward block sums dbias over
 
 
-def window_attention_eligible(seq: int, embed: int) -> bool:
-    """S ≤ 512 and H·D ≤ 1024, as window_attn.py:136-141 has it without its
-    TPU-only environment switch (the kernel is the route on the card)."""
-    return seq <= _MAX_SEQ and embed <= _MAX_EMBED
+def window_attention_eligible(seq: int, embed: int, heads: int) -> bool:
+    """What the kernels take: windows of S ≤ 64 tokens, H·D ≤ 1024 and a head
+    dim in {16, 32, 64}. The JAX rule (window_attn.py:136-141, S ≤ 512 and
+    H·D ≤ 1024 behind a TPU-only switch) admits more; every other shape takes
+    the einsum route, which the JAX package runs off its kernel."""
+    return (seq <= _KERNEL_SEQ and embed <= _MAX_EMBED and embed % heads == 0
+            and embed // heads in _HEAD_DIMS)
 
 
 def _logits(q, k, heads: int, bias, mask) -> torch.Tensor:

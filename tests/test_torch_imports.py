@@ -78,7 +78,7 @@ _BLOCKED_RUN = textwrap.dedent("""
     assert {"seg_loss", "aux_loss", "total_loss"} <= set(metrics)
     assert bool(torch.isfinite(metrics["loss"]))
     from cvnets_tpu_torch.models.classification import swin_transformer
-    swin_transformer._MODES["micro"] = (24, [2, 2, 2, 2], [3, 6, 12, 24])
+    swin_transformer._MODES["micro"] = (48, [2, 2, 2, 2], [3, 6, 12, 24])  # D = 16: fused route
     swin_opts = get_training_arguments(args=[
         "--model.classification.name", "swin", "--model.classification.swin.mode", "micro",
         "--model.classification.n-classes", "10", "--model.activation.name", "gelu",

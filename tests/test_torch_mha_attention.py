@@ -128,11 +128,53 @@ def test_eligibility_is_the_jax_rule(seq, embed):
     from cvnets_tpu.ops.pallas.mha_attn import fused_attention_eligible as jax_rule
     from cvnets_tpu.ops.pallas.mha_attn_long import long_attention_eligible
 
-    assert fused_attention_eligible(seq, embed) == jax_rule(seq, embed)
+    heads = max(1, embed // 64)  # D = 64: the head-dim test passes, the JAX rule decides
+    assert fused_attention_eligible(seq, embed, heads) == jax_rule(seq, embed)
     if seq > 512:  # fused_mha_attention's second test, at the input's itemsize
         for itemsize in (2, 4):
-            assert (fused_attention_eligible(seq, embed, itemsize)
+            assert (fused_attention_eligible(seq, embed, heads, itemsize)
                     == long_attention_eligible(seq, embed, itemsize))
+
+
+@pytest.mark.parametrize("seq,embed,heads,ok", [
+    (197, 768, 12, True), (1024, 768, 12, True),    # ViT-B/16 at 224² and 512²
+    (197, 768, 16, False), (1024, 768, 16, False),  # D = 48
+    (197, 768, 8, False),                           # D = 96
+    (197, 1024, 8, True), (197, 64, 4, True),       # D = 128 and 16
+    (197, 768, 7, False),                           # 7 heads do not divide 768
+])
+def test_eligibility_needs_a_head_dim_the_kernels_take(seq, embed, heads, ok):
+    """The JAX rule passes every one of these shapes; the kernels take
+    D in {16, 32, 64, 128} only, so the rest take the einsum route."""
+    assert fused_attention_eligible(seq, embed, heads) is ok
+
+
+@pytest.mark.parametrize("embed,heads", [(192, 4), (256, 4)], ids=["d48", "d64"])
+def test_layer_sends_a_head_dim_the_kernels_lack_to_the_einsum_route(embed, heads,
+                                                                     monkeypatch):
+    """With ``fused_mha_attention`` patched to raise, a MultiHeadAttention with
+    D = 48 still runs (the einsum route, the same output as with
+    ``use_kernel`` off) and one with D = 64 reaches the patched entry."""
+    import argparse
+
+    from cvnets_tpu_torch.layers import multi_head_attention
+    from cvnets_tpu_torch.layers.multi_head_attention import MultiHeadAttention
+
+    def refuse(*args):
+        raise AssertionError("fused_mha_attention was called")
+
+    layer = MultiHeadAttention(argparse.Namespace(), embed, heads).eval()
+    x = torch.from_numpy(np.random.default_rng(6).standard_normal((2, 17, embed))
+                         .astype(np.float32))
+    monkeypatch.setattr(multi_head_attention, "fused_mha_attention", refuse)
+    with torch.no_grad():
+        if embed // heads == 64:
+            with pytest.raises(AssertionError, match="fused_mha_attention"):
+                layer(x)
+            return
+        out = layer(x)
+        layer.use_kernel = False
+        torch.testing.assert_close(out, layer(x), atol=0, rtol=0)
 
 
 def _jax_long(q, k, v, w, mask, heads):
@@ -222,9 +264,12 @@ def test_long_sequences_off_the_cpu_raise_instead_of_running_plain():
 # (B, S, H, D): ViT-B/16 at 224² (batch cut to 16 for the test's time), the
 # micro ViT's D = 16, the single-tile kernel's longest sequence, and the
 # long-sequence range: ViT-B/16 at 512² without the CLS token, ViT-B at 1024²
-# without it, and an S of 10 key tiles at D = 16
+# without it, and an S of 10 key tiles at D = 16; then the backward's shapes:
+# ViT-B/16 at 224² at its batch, a ragged S at D = 16 (three 128-row blocks,
+# the last of 77 rows), S = 640 at D = 32, and D = 128 (64-row blocks)
 CUDA_CASES = [(16, 197, 12, 64), (16, 17, 4, 16), (4, 512, 12, 64),
-              (32, 1024, 12, 64), (2, 4096, 12, 64), (4, 640, 4, 16)]
+              (32, 1024, 12, 64), (2, 4096, 12, 64), (4, 640, 4, 16),
+              (128, 197, 12, 64), (4, 333, 4, 16), (2, 640, 8, 32), (2, 256, 6, 128)]
 
 
 def _cuda_inputs(b, s, h, d, dtype, masked, seed=0):
@@ -269,6 +314,23 @@ def test_kernels_match_plain_on_cuda(b, s, h, d, dtype, masked):
     for name, got, want in zip("qkv", (dq, dk, dv), ref_grads):
         torch.testing.assert_close(got.float(), want.float(), atol=_tol(want, dtype),
                                    rtol=0, msg=lambda m: f"d{name}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True], ids=["no_mask", "key_mask"])
+@pytest.mark.parametrize("b,s,h,d", [(32, 1024, 12, 64), (128, 197, 12, 64)])
+def test_backward_gives_the_same_bits_on_every_call(b, s, h, d, masked):
+    """No atomics: dq is summed over key tiles and dk, dv over query tiles in a
+    fixed order, so two calls on the same inputs agree bit for bit."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU or interpret mode)")
+    q, k, v, mask, dout = _cuda_inputs(b, s, h, d, torch.bfloat16, masked)
+    out, stats = mha_fwd_kernel(q, k, v, h, mask)
+    first = mha_bwd_kernel(q, k, v, mask, out, dout, stats, h)
+    for _ in range(2):
+        again = mha_bwd_kernel(q, k, v, mask, out, dout, stats, h)
+        for name, x, y in zip("qkv", first, again):
+            assert torch.equal(x, y), f"d{name}"
 
 
 @pytest.mark.cuda

@@ -1,9 +1,10 @@
 """Swin in the PyTorch port against the JAX package on the same weights: the micro
-Swin (embed 24, one pair of blocks a stage, heads 3/6/12/24, window 7, GELU),
-batch 2, 13 classes, float32 on the CPU, at 224 px (stages 1-3 shift, stage 4's
-7×7 map is one window and never shifts) and at 112 px (stage 3 is one window,
-stage 4 pads 4 → 7 and its shift is off). Logits in eval and train mode and
-every parameter gradient of the label-smoothed CE loss; the static
+Swin (embed 48, one pair of blocks a stage, heads 3/6/12/24 of D = 16, window 7,
+GELU), batch 2, 13 classes, float32 on the CPU, at 224 px (stages 1-3 shift,
+stage 4's 7×7 map is one window and never shifts) and at 112 px (stage 3 is one
+window, stage 4 pads 4 → 7 and its shift is off). Every block takes the fused
+window-attention route (its plain version on the CPU). Logits in eval and train
+mode and every parameter gradient of the label-smoothed CE loss; the static
 relative-position index and shift mask; PatchMerging's channel order; the
 window-attention layer through the fused route and the einsum route against the
 JAX layer; StochasticDepth; the flags that raise; ``get_model``'s device; and
@@ -24,6 +25,7 @@ sys.path.insert(0, "tests")
 
 from torch_port_helpers import (  # noqa: E402
     SWIN_MICRO_ARGS,
+    SWIN_MICRO_MODE,
     both_opts,
     micro_swin_modes,
     nchw,
@@ -74,14 +76,22 @@ def test_the_sizes_cover_shift_and_padding(pair):
     ep = model.extract_end_points_all(nchw(pair["x"]))
     sides = [ep[f"out_l{i}"].shape[1] for i in range(2, 6)]
     assert sides == ([56, 28, 14, 7] if pair["x"].shape[1] == 224 else [28, 14, 7, 4])
-    assert all(ep[k].shape[-1] == 24 * 2 ** (i - 2) for i, k in
+    assert all(ep[k].shape[-1] == SWIN_MICRO_MODE[0] * 2 ** (i - 2) for i, k in
                enumerate([f"out_l{j}" for j in range(2, 6)], start=2))
 
 
-def test_eval_logits_match(pair):
+def test_eval_logits_match(pair, monkeypatch):
+    """Every one of the 8 blocks reaches the fused window-attention entry."""
+    from cvnets_tpu_torch.modules import swin_transformer_block
+
+    calls = []
+    fused = swin_transformer_block.fused_window_attention
+    monkeypatch.setattr(swin_transformer_block, "fused_window_attention",
+                        lambda *args: calls.append(args) or fused(*args))
     ref = pair["jmodel"].apply(pair["variables"], jnp.asarray(pair["x"]), training=False)
     with torch.no_grad():
         out = pair["tmodel"].eval()(nchw(pair["x"]))
+    assert len(calls) == 8
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=LOGIT_ATOL, rtol=0)
 
 
@@ -180,19 +190,25 @@ def test_patch_merging_matches_jax(side):
 
 @pytest.mark.parametrize("shift", [0, 3], ids=["w_msa", "sw_msa"])
 @pytest.mark.parametrize("use_kernel", [True, False], ids=["fused_route", "einsum_route"])
-def test_block_matches_jax(use_kernel, shift):
-    """One SwinTransformerBlock at 14×14 through the port's fused route (the
-    plain window attention on the CPU) and its einsum route, against the JAX
-    block (its einsum route off the TPU): output and every parameter grad."""
+def test_block_matches_jax(use_kernel, shift, monkeypatch):
+    """One SwinTransformerBlock at 14×14, 48 channels in 3 heads of 16 (a head
+    dim the fused route takes), through the port's fused route (the plain
+    window attention on the CPU) and its einsum route, against the JAX block
+    (its einsum route off the TPU): output and every parameter grad."""
     from cvnets_tpu.modules.swin_transformer_block import SwinTransformerBlock as JaxBlock
+    from cvnets_tpu_torch.modules import swin_transformer_block
     from cvnets_tpu_torch.modules.swin_transformer_block import SwinTransformerBlock
     from cvnets_tpu_torch.utils.jax_params import load_jax_params, to_torch_layout, torch_key
 
+    calls = []
+    fused = swin_transformer_block.fused_window_attention
+    monkeypatch.setattr(swin_transformer_block, "fused_window_attention",
+                        lambda *args: calls.append(args) or fused(*args))
     opts_jax, opts_torch = both_opts(SWIN_MICRO_ARGS)
     rng = np.random.default_rng(shift)
-    x = rng.standard_normal((2, 14, 14, 24)).astype(np.float32)
-    w = rng.standard_normal((2, 14, 14, 24)).astype(np.float32)
-    jblock = JaxBlock(opts=opts_jax, dim=24, num_heads=3, window_size=7, shift_size=shift)
+    x = rng.standard_normal((2, 14, 14, 48)).astype(np.float32)
+    w = rng.standard_normal((2, 14, 14, 48)).astype(np.float32)
+    jblock = JaxBlock(opts=opts_jax, dim=48, num_heads=3, window_size=7, shift_size=shift)
     variables = perturbed_variables(jblock, x)
 
     def loss(params):
@@ -201,11 +217,12 @@ def test_block_matches_jax(use_kernel, shift):
     ref = jblock.apply(variables, jnp.asarray(x))
     jgrads = jax.grad(loss)(variables["params"])
 
-    block = SwinTransformerBlock(opts_torch, 24, 3, window_size=7, shift_size=shift)
+    block = SwinTransformerBlock(opts_torch, 48, 3, window_size=7, shift_size=shift)
     load_jax_params(block, variables["params"])
     block.attn.use_kernel = use_kernel
     out = block(torch.from_numpy(x))
     (out * torch.from_numpy(w)).sum().backward()
+    assert len(calls) == (1 if use_kernel else 0)
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), atol=1e-5, rtol=0)
     named = dict(block.named_parameters())
     for path, g in jax.tree_util.tree_flatten_with_path(jgrads)[0]:

@@ -295,7 +295,7 @@ def test_no_cls_token_above_512_tokens_matches_jax():
     jmodel = get_model(opts_jax)
     variables = perturbed_variables(jmodel, x)
     model = port_model_from(opts_torch, variables).eval()
-    assert fused_attention_eligible(1024, 64)
+    assert fused_attention_eligible(1024, 64, 4)
     with torch.no_grad():
         out = model(nchw(x)).numpy()
     for interpret in (False, True):

@@ -130,12 +130,72 @@ def test_plain_backward_matches_autograd_of_plain():
 
 
 def test_eligibility_is_the_jax_shape_rule_without_its_tpu_switch(monkeypatch):
-    """S ≤ 512 and H·D ≤ 1024 (window_attn.py:49-50); the TPU-only environment
-    switch that keeps the JAX kernel off by default is not read."""
+    """H·D ≤ 1024 as in the JAX shape rule (window_attn.py:49-50), but S ≤ 64,
+    not 512: the kernels tile one window of at most 64 tokens. The TPU-only
+    environment switch that keeps the JAX kernel off by default is not read."""
     monkeypatch.setenv("CVNETS_TPU_FORCE_WINDOW_KERNEL", "0")
-    assert window_attention_eligible(49, 96) and window_attention_eligible(512, 1024)
-    assert not window_attention_eligible(513, 96)
-    assert not window_attention_eligible(49, 1025)
+    assert window_attention_eligible(49, 96, 3) and window_attention_eligible(64, 1024, 16)
+    assert not window_attention_eligible(65, 96, 3)
+    assert not window_attention_eligible(512, 1024, 16)
+    assert not window_attention_eligible(49, 2048, 32)
+
+
+@pytest.mark.parametrize("seq,embed,heads,ok", [
+    (49, 96, 3, True), (49, 768, 24, True),   # Swin-T's stages 1 and 4 (D = 32)
+    (49, 48, 3, True),                        # D = 16
+    (81, 96, 3, False),                       # window 9
+    (49, 144, 3, False), (49, 384, 3, False),  # D = 48 and 128
+    (49, 96, 5, False),                       # 5 heads do not divide 96
+])
+def test_eligibility_matches_what_the_kernels_take(seq, embed, heads, ok):
+    """S ≤ 64, H·D ≤ 1024, H | H·D and D in {16, 32, 64}: the shapes the
+    wrappers' checks let through, and no other."""
+    assert window_attention_eligible(seq, embed, heads) is ok
+
+
+def test_micro_swin_at_window_9_takes_the_einsum_route_and_matches_jax(monkeypatch):
+    """``--model.classification.swin.window-size 9`` gives windows of 81 tokens,
+    which the kernels do not tile: with the fused entry patched to raise, the
+    micro Swin at D = 16 runs every block on the einsum route, and its eval
+    logits at 112 px (maps 28/14/7/4 padded to 36/18/9/9; stages 1-2 shift by
+    4) match the JAX model's (f32, the sums in another order: 1e-4). At window
+    7 the same model reaches the patched entry."""
+    import sys
+
+    import jax.numpy as jnp
+
+    sys.path.insert(0, "tests")
+    from torch_port_helpers import (
+        SWIN_MICRO_ARGS,
+        both_opts,
+        micro_swin_modes,
+        nchw,
+        perturbed_variables,
+        port_model_from,
+    )
+
+    from cvnets_tpu.models import get_model as jax_model
+    from cvnets_tpu_torch.models import get_model
+    from cvnets_tpu_torch.modules import swin_transformer_block
+
+    def refuse(*args):
+        raise AssertionError("fused_window_attention was called")
+
+    x = np.random.default_rng(9).standard_normal((2, 112, 112, 3)).astype(np.float32)
+    with micro_swin_modes():
+        opts_jax, opts_torch = both_opts(
+            SWIN_MICRO_ARGS + ["--model.classification.swin.window-size", "9"])
+        jmodel = jax_model(opts_jax)
+        variables = perturbed_variables(jmodel, x)
+        model = port_model_from(opts_torch, variables).eval()
+        monkeypatch.setattr(swin_transformer_block, "fused_window_attention", refuse)
+        with torch.no_grad():
+            out = model(nchw(x))
+        ref = jmodel.apply(variables, jnp.asarray(x), training=False)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4, rtol=0)
+        seven = get_model(both_opts(SWIN_MICRO_ARGS)[1], device="cpu").eval()
+        with torch.no_grad(), pytest.raises(AssertionError, match="fused_window_attention"):
+            seven(nchw(x))
 
 
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take():

@@ -36,7 +36,8 @@ VIT_MICRO_ARGS = [
 ]
 
 
-# the micro Swin: embed 24, one pair of blocks a stage, heads 3/6/12/24 (D = 8),
+# the micro Swin: embed 48, one pair of blocks a stage, heads 3/6/12/24 (D = 16,
+# a head dim the window kernels take, so its blocks reach the fused route),
 # window 7, with swin.yaml's layer settings, 13 classes and stochastic depth 0
 # (the two packages draw their drop masks from different generators); the
 # "micro" mode exists only inside ``micro_swin_modes``
@@ -51,7 +52,7 @@ SWIN_MICRO_ARGS = [
     "--model.layer.linear-init-std-dev", "0.02",
     "--dataset.category", "classification",
 ]
-SWIN_MICRO_MODE = (24, [2, 2, 2, 2], [3, 6, 12, 24])
+SWIN_MICRO_MODE = (48, [2, 2, 2, 2], [3, 6, 12, 24])
 
 
 @contextlib.contextmanager
