@@ -17,11 +17,18 @@ Phases, one line each or more (any failure exits non-zero):
    against their plain versions at ViT-B/16's shapes (B = 128, S = 197, H = 12,
    D = 64; q, k, v column slices of one qkv tensor), the micro ViT's D = 16 and
    S = 512; bfloat16 and float32, with and without a key mask (one batch element
-   fully masked); output, dq, dk and dv, and the backward's dq, dk and dv the
-   same bit for bit on a second call; kernels, plain versions and
-   ``F.scaled_dot_product_attention`` (the library yardstick, under its cuDNN
-   and its flash backend, each named on the line) timed at ViT-B, with the
-   backward's ratio to each. TF32 is off for the comparisons;
+   fully masked); output, the forward's row statistics (max and log-sum),
+   dq, dk and dv, and the backward's dq, dk and dv the same bit for bit on a
+   second call. The bf16 forward is the Hopper design: 128 query rows a block,
+   a cp.async ring of 64-key tiles with one barrier a tile, exp2 with log2 e
+   folded in, and at D = 64 and 128 wgmma products in two warpgroups (K and V
+   in the 128-byte swizzle, P from registers); D = 16 and 32 take mma.sync with
+   ldmatrix fragments in eight warps. The backward is a pre-pass, a dQ and a
+   dK/dV kernel. Kernels, plain versions
+   and ``F.scaled_dot_product_attention`` (the library yardstick, under its
+   cuDNN and its flash backend, each named on the line) timed at ViT-B, with
+   the forward's and the backward's TFLOP/s and ratio to each. TF32 is off for
+   the comparisons;
 5. seg ce kernel: the fused resize + pixel CE forward and backward kernels
    against the plain unfused version at DeepLabv3's shapes (head logits
    (8, 32, 32, 150) → labels (8, 512, 512)), 5% ignored pixels and one fully
@@ -56,10 +63,11 @@ Phases, one line each or more (any failure exits non-zero):
    bfloat16 and float32: output, dq, dk, dv and dbias, and dbias the same bit
    for bit on a second run; kernels, plain versions and
    ``F.scaled_dot_product_attention`` with the bias as a float mask timed;
-13. mha long kernel: the MHA kernels against the plain version at S = 1024
-   (ViT-B/16 at 512² without the CLS token, B = 32) and S = 4096 (B = 2),
-   H = 12, D = 64, with and without a key mask (one batch element fully
-   masked), bfloat16 and float32, the backward the same bit for bit on a
+13. mha long kernel: the same kernels (the Hopper forward of phase 4 serves
+   every S) against the plain versions at S = 1024 (ViT-B/16 at 512² without
+   the CLS token, B = 32) and S = 4096 (B = 2), H = 12, D = 64, with and
+   without a key mask (one batch element fully masked), bfloat16 and float32:
+   output, statistics and grads, the backward the same bit for bit on a
    second call; timed at S = 1024 as in phase 4, the backward's time split
    between its pre-pass, dQ and dK/dV kernels by ``torch.profiler``;
 14. swin train, swin a/b, swin profile: Swin-T steps at batch 128 × 224² with
@@ -516,6 +524,7 @@ def _mha_case(g, label: str, b: int, s: int, h: int, d: int, dtype, masked: bool
     from cvnets_tpu_torch.ops.mha_attention import (
         mha_attention_backward_plain,
         mha_attention_plain,
+        mha_attention_stats_plain,
         mha_bwd_kernel,
         mha_fwd_kernel,
     )
@@ -549,6 +558,17 @@ def _mha_case(g, label: str, b: int, s: int, h: int, d: int, dtype, masked: bool
                else 2e-2 * want.float().abs().max().item())
         check(err <= tol, f"{label} {what} err {err} > {tol}")
         errs[what] = err
+    # the statistics (row max and log-sum, which the backward reads), relative
+    # to max(|ref|, 1): the log-sum is near 0 where one key dominates.
+    # float32: the same float32 sums in another order (1e-5); bf16: the
+    # logits and sums are float32 there too, from the bf16 inputs, so 1e-2
+    # is loose; the line prints what the kernel reached
+    ref_stats = mha_attention_stats_plain(q, k, v, h, mask)
+    check(bool(torch.isfinite(stats).all()), f"{label} stats finite")
+    err = ((stats - ref_stats).abs() / ref_stats.abs().clamp(min=1.0)).max().item()
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    check(err <= tol, f"{label} stats rel err {err} > {tol}")
+    errs["stats"] = err
     return q, k, v, mask, dout, out, stats, ref, errs
 
 
@@ -612,11 +632,12 @@ def _mha_times_line(t: dict, bounds: dict, flops_fwd: float) -> str:
             + f" fwd_tflops={flops_fwd / t['fwd'] / 1e9:.1f}"
             f" bwd_tflops={2.5 * flops_fwd / t['bwd'] / 1e9:.1f}"
             + "".join(f" | sdpa [{name}] fwd_ms={ms['fwd']:.4f} bwd_ms={ms['bwd']:.4f}"
+                      f" fwd_tflops={flops_fwd / ms['fwd'] / 1e9:.1f}"
                       f" bwd/sdpa={t['bwd'] / ms['bwd']:.3f} fwd/sdpa={t['fwd'] / ms['fwd']:.3f}"
                       for name, ms in t["sdpa"].items())
             + "".join(f" | sdpa [{name}] refused ({why})" for name, why in t["sdpa_refused"].items())
             + f" | library: fwd [{t['lib_fwd_backend']}] bwd [{t['lib_bwd_backend']}]"
-            f" bwd/library={t['bwd'] / t['lib_bwd']:.3f}")
+            f" fwd/library={t['fwd'] / t['lib_fwd']:.3f} bwd/library={t['bwd'] / t['lib_bwd']:.3f}")
 
 
 def phase_mha_kernel(card: str) -> dict:

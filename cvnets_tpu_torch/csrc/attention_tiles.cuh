@@ -1,10 +1,12 @@
 // Tiles, fragments and warp products shared by the attention kernels of this
 // directory (mha_attention.cu, window_attention.cu). A block is four warps over
-// a 64-row tile, each warp owning 16 rows (the MHA backward's bf16 blocks hold
+// a 64-row tile, each warp owning 16 rows (the MHA kernels' bf16 blocks hold
 // more rows, in as many warps); bfloat16 products run on the tensor cores
 // through mma.sync m16n8k16, float32 ones on FMAs over shared memory. The
-// ldmatrix products and the cp.async loads serve the MHA backward; the MHA
-// forward and the window kernels keep the 32-bit and 16-bit fragment loads.
+// ldmatrix products (mm_abt_ldsm, ldsm_rows with mm_abt_regs, mm_pm_ldsm) and
+// the cp.async loads serve the MHA kernels, forward and backward; only the
+// window kernels still build fragments with 32-bit and 16-bit loads (mm_abt,
+// mm_pm).
 // Everything is in an anonymous namespace: each source that includes this is
 // built into a library of its own.
 
@@ -98,8 +100,10 @@ __device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
 
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 
+// wait until at most N of this thread's committed groups are still in flight
+template <int N = 0>
 __device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // load_tile for a tile of kR rows and a block of kN threads, copied with
@@ -249,16 +253,52 @@ __device__ __forceinline__ void mm_abt_ldsm(float (&acc)[N / 8][4], const bf16* 
   }
 }
 
+// The A fragments of a warp's 16 rows (row-major, D wide, pitch ld), one
+// ldmatrix.x4 per 16 columns: a[kk] is the 16 x 16 block kk.
+template <int D>
+__device__ __forceinline__ void ldsm_rows(uint32_t (&a)[D / 16][4], const bf16* A, int ld,
+                                          int lane) {
+  const bf16* src = A + (lane % 16) * ld + (lane / 16) * 8;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) ldsm_x4(a[kk], src + 16 * kk);
+}
+
+// acc (16 x 64) = A . B^T as mm_abt_ldsm, A's fragments already in registers
+// (ldsm_rows); B is 64 x D. Columns from n_valid on (rows of B past S) are
+// left 0 and cost no products.
+template <int D>
+__device__ __forceinline__ void mm_abt_regs(float (&acc)[kTile / 8][4],
+                                            const uint32_t (&a)[D / 16][4], const bf16* B, int ld,
+                                            int lane, int n_valid) {
+#pragma unroll
+  for (int j = 0; j < kTile / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  const bf16* b_src = B + ((lane / 16) * 8 + lane % 8) * ld + ((lane / 8) % 2) * 8;
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+    for (int j = 0; j < kTile / 8; j += 2) {
+      if (8 * j >= n_valid) break;
+      uint32_t b[4];
+      ldsm_x4(b, b_src + 8 * j * ld + 16 * kk);
+      const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+      mma(acc[j], a[kk], b0);
+      mma(acc[j + 1], a[kk], b1);
+    }
+  }
+}
+
 // acc (16 x D) += P . M as mm_pm over K rows of M (a multiple of 16; the
 // default, 64, is a whole tile), M's fragments by ldmatrix.trans. P is a
-// 16 x K tile in C fragments, rounded to bf16 here.
+// 16 x K tile in C fragments, rounded to bf16 here. P's columns from k_valid
+// on must be 0; their 16-wide steps are skipped.
 template <int D, int K = kTile>
 __device__ __forceinline__ void mm_pm_ldsm(float (&acc)[D / 8][4], const float (&p)[K / 8][4],
-                                           const bf16* M, int ld, int lane) {
+                                           const bf16* M, int ld, int lane, int k_valid = K) {
   // matrices (rows 16kk + 0-7, 8-15) x (cols 8j + 0-7, 8(j+1) + 0-7)
   const bf16* m_src = M + (lane % 16) * ld + (lane / 16) * 8;
 #pragma unroll
   for (int kk = 0; kk < K / 16; ++kk) {
+    if (16 * kk >= k_valid) break;
     const uint32_t a[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
                            pack_bf16(p[2 * kk][2], p[2 * kk][3]),
                            pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),

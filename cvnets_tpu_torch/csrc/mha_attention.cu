@@ -23,13 +23,50 @@
 // Forward. The TPU kernel holds one batch element's whole (S, H*D) tile and the
 // (S, S) float32 logits in VMEM; a Hopper block has at most 227 KB of shared
 // memory and at S = 197 the logits alone are 155 KB, so this is the flash shape:
-// grid (ceil(S/64) query tiles, H, B), four warps of 16 rows a block, a loop
-// over 64-row key tiles with an online softmax (running max and sum in float32),
-// the mask added per key, one normalisation at the end; it writes O in the input
-// dtype and per-row statistics (max, log of the sum) for the backward. The
-// statistics are a pair, not one log-sum-exp: in a row whose keys are all masked
-// with -1e30 every logit is -1e30 exactly, the row attends uniformly, and
-// -1e30 + log(S) rounds back to -1e30 in float32, which would lose the 1/S.
+// grid (ceil(S/128) query blocks, H, B), a loop over 64-key tiles of K, V and
+// the mask with an online softmax (running max and sum in float32), one
+// normalisation at the end; it writes O in the input dtype and per-row
+// statistics (max, log of the sum) for the backward. The statistics are a
+// pair, not one log-sum-exp: in a row whose keys are all masked with -1e30
+// every logit is -1e30 exactly, the row attends uniformly, and -1e30 + log(S)
+// rounds back to -1e30 in float32, which would lose the 1/S.
+//
+// What bounds the bf16 forward (NVIDIA H100 80GB HBM3, 700.00 W; chip_smoke.py's
+// mha phases and cvnets_tpu_torch/tools/time_mha_forward.py). The function
+// needs 2 products of 2 S^2 D a head and one exponential a logit, and reads q,
+// k, v once and writes O and the statistics once: at ViT-B/16 224^2 (B 128,
+// S 197, H 12, D 64) that is bytes, 0.047 ms at 3.35 TB/s; at 512^2 (B 32,
+// S 1024) the tensor cores, 0.104 ms at 989 TFLOP/s, with the exponentials
+// close behind (0.096 ms on the SFU). The first design (64-row blocks in four
+// warps, 32- and 16-bit fragment loads, tiles loaded synchronously between two
+// barriers, expf twice a logit, mma.sync) took 0.21 and 0.83 ms a call. The
+// redesign, step by step (ms a call at the two shapes):
+//   1. Q's A fragments by ldmatrix once a block, kept in registers (D/16 x 4),
+//      K by ldmatrix.x4 and V by ldmatrix.x4.trans on the D + 8 pitch, and
+//      no products for keys past S: 0.20 / 0.73.
+//   2. K, V and the mask through a two-stage ring of 16-byte cp.async (zero
+//      fill past S through the src-size operand), one barrier a tile; the
+//      scalar path stays for unaligned strides: 0.20 / 0.74, the loads being
+//      hidden already by the other resident blocks.
+//   3. exp2 in log2 units (softmax_tile: the backward's own rounding, a fully
+//      masked row kept exact) and 128 query rows in eight warps, so that K and
+//      V stream from L2 half as often: 0.16 / 0.60.
+//   4. D = 64 and 128 on wgmma (mha_fwd_wgmma_kernel): two warpgroups of 64
+//      rows; S = Q K^T as m64n64k16 with Q's fragments from registers and K
+//      from shared memory in the 128-byte swizzle, O += P V as m64nDk16 with P
+//      packed to bf16 in registers and V read transposed: 0.15 / 0.50. ptxas
+//      serialized every product (C7520, a warpgroup arrive it inserted on a
+//      divergent path) until the loop lost its branches: warpgroups past S,
+//      P V steps past S and exponentials past S are computed, on zero rows and
+//      -inf masks, instead of skipped: 0.13 / 0.38 (1.4 / 1.6 times cuDNN's
+//      SDPA, about flash's).
+// D = 16 and 32 keep the step-3 kernel (mha_fwd_bf16_kernel): S = Q K^T is a
+// 64-key product whatever D is, and those head dims serve only the micro
+// models. What the design leaves: a warpgroup's softmax does not overlap its
+// own products and both warpgroups meet at one barrier a tile. Issuing the
+// next tile's S before the softmax (three stages) was slower for registers,
+// one warpgroup a block and 128-key tiles for occupancy; a TMA ring with
+// mbarriers and a producer warp is untried.
 //
 // bfloat16 backward (the training path): three launches on one stream, no
 // atomics, so dq, dk and dv are the same bit for bit on every run.
@@ -90,7 +127,8 @@
 // both paths, as in the Pallas body.
 // Ragged edges: S need not be a multiple of the tiles. Tiles are zero-filled
 // past S; keys past S get probability 0 exactly, rows past S are never written,
-// and a warp whose 16 rows all lie past S skips the tile's products.
+// and a warp whose 16 rows all lie past S skips the tile's products (the wgmma
+// forward computes them on the zero rows instead).
 
 #include <type_traits>
 
@@ -109,82 +147,79 @@ __device__ __forceinline__ void load_kmask(float* kmask, const float* mask, int 
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(kThreads) mha_fwd_bf16_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const float* __restrict__ mask, bf16* __restrict__ out, float* __restrict__ stats,
-    int S, int H, Strides st, bool vec) {
-  constexpr int ld = Bf16Tiles<D>::kLd;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* Ks = Qs + kTile * ld;
-  bf16* Vs = Ks + kTile * ld;
-  float* kmask = reinterpret_cast<float*>(Vs + kTile * ld);
-
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int q0 = blockIdx.x * kTile;
-  const int q_rows = min(kTile, S - q0);
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int r0 = (threadIdx.x / 32) * kRows;
-  const long long hd = static_cast<long long>(h) * D;
-
-  load_tile<bf16, D>(Qs, ld, q + b * st.b[0] + q0 * st.s[0] + hd, st.s[0], q_rows, vec);
-  float o[D / 8][4] = {};
-  float m[2] = {-INFINITY, -INFINITY};  // running max of rows g and g + 8
-  float l[2] = {0.f, 0.f};              // this lane's part of their running sums
-
-  for (int k0 = 0; k0 < S; k0 += kTile) {
-    const int k_rows = min(kTile, S - k0);
-    __syncthreads();  // every warp is done with the previous K and V tiles
-    load_tile<bf16, D>(Ks, ld, k + b * st.b[1] + k0 * st.s[1] + hd, st.s[1], k_rows, vec);
-    load_tile<bf16, D>(Vs, ld, v + b * st.b[2] + k0 * st.s[2] + hd, st.s[2], k_rows, vec);
-    load_kmask(kmask, mask, b, S, k0, k_rows, -INFINITY);
-    __syncthreads();
-    if (r0 >= q_rows) continue;  // this warp's rows are all past S
-
-    float s[8][4];
-    mm_abt<D>(s, Qs + r0 * ld, Ks, ld, k_rows, g, t);  // keys past S: 0 - inf
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] += kmask[8 * j + 2 * t + (e & 1)];
-        mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {  // a row's 64 columns sit in the 4 lanes of its group
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);  // finite: every tile has a key
-      alpha[i] = expf(m[i] - m_new);           // 0 on the first tile
-      m[i] = m_new;
-      l[i] *= alpha[i];
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = expf(s[j][e] - m[e / 2]);  // 0 for keys past S
-        l[e / 2] += s[j][e];
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e / 2];
-    }
-    mm_pm<D>(o, s, Vs, ld, k_rows, g, t);
+// load_kmask with pad -inf, the mask copied by cp.async into the open group.
+__device__ __forceinline__ void load_kmask_async(float* kmask, const float* mask, int b, int S,
+                                                 int k0, int k_rows) {
+  if (threadIdx.x < kTile) {
+    const int c = threadIdx.x;
+    if (mask != nullptr && c < k_rows)
+      cp_async_4(kmask + c, mask + static_cast<long long>(b) * S + k0 + c);
+    else
+      kmask[c] = c < k_rows ? 0.f : -INFINITY;
   }
+}
 
+// One key tile of the bf16 forward's online softmax for a warp's 16 rows (rows
+// g and g + 8 of its lane): s holds their logits in C fragments and leaves
+// with P; km is the tile's additive mask, -inf past S, so those keys get 0
+// with no test (a branch here made ptxas serialize the wgmma kernel's
+// products). In log2 units: x = fma(S, log2 e, mask log2 e), the backward's
+// own rounding, the running max m of x, and 2^(x - m), the difference taken
+// first so that a fully masked row (every x = m = -1e30 log2 e) gets exactly
+// 1 a key and keeps its 1/S. The running sum l and the output o are rescaled
+// to the new max.
+template <int D>
+__device__ __forceinline__ void softmax_tile(float (&s)[8][4], float (&m)[2], float (&l)[2],
+                                             float (&o)[D / 8][4], const float* km, int t) {
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = __fmaf_rn(s[j][e], kLog2e, km[8 * j + 2 * t + (e & 1)] * kLog2e);
+      mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
+    }
+  }
+  float alpha[2], m_sub[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {  // a row's 64 columns sit in the 4 lanes of its group
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    // -inf only while every key so far had a mask of -inf: keep those at 0
+    m_sub[i] = mx[i] == -INFINITY ? 0.f : mx[i];
+    alpha[i] = fast_exp2(m[i] - m_sub[i]);  // 0 on the first tile
+    m[i] = mx[i];
+    l[i] *= alpha[i];
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = fast_exp2(s[j][e] - m_sub[e / 2]);
+      l[e / 2] += s[j][e];
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e / 2];
+  }
+}
+
+// The bf16 forward's end for a warp's 16 rows: O = o / l in bf16 and the
+// statistics in natural units: the max by a division that the pre-pass's
+// multiply by log2(e) undoes bit for bit, the log of the sum.
+template <int D>
+__device__ __forceinline__ void store_fwd_rows(bf16* out, float* stats, float (&o)[D / 8][4],
+                                               const float (&m)[2], float (&l)[2], int b, int h,
+                                               int H, int S, int q0, int q_rows, int r0,
+                                               long long ss, int g, int t) {
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
   }
-  store_rows<D>(out + b * st.b[3] + q0 * st.s[3] + hd, st.s[3], r0, q_rows, o, l, g, t);
+  store_rows<D>(out, ss, r0, q_rows, o, l, g, t);
   if (t == 0) {
     const long long bhs = static_cast<long long>(gridDim.z) * H * S;
     const long long row0 = (static_cast<long long>(b) * H + h) * S + q0;
@@ -192,11 +227,324 @@ __global__ void __launch_bounds__(kThreads) mha_fwd_bf16_kernel(
     for (int i = 0; i < 2; ++i) {
       const int r = r0 + g + 8 * i;
       if (r < q_rows) {
-        stats[row0 + r] = m[i];
+        stats[row0 + r] = __fdiv_rn(m[i], kLog2e);
         stats[bhs + row0 + r] = logf(l[i]);
       }
     }
   }
+}
+
+// The mma.sync forward's blocks (D = 16 and 32): kRows query rows in kWarps
+// warps of 16 rows, against 64-key tiles of K, V and the mask in a ring of
+// kStages stages. ptxas -v (CUDA 12.8): 94 registers at D = 16, 110 at
+// D = 32, two blocks an SM.
+template <int D>
+struct FwdTiles {
+  static constexpr int kWarps = 8;
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kRows = 16 * kWarps;
+  static constexpr int kStages = 2;
+  static constexpr int kLd = Bf16Tiles<D>::kLd;
+  // the Q tile, then each stage's K and V tiles, then each stage's mask
+  static constexpr int kSmem = (kRows + 2 * kStages * kTile) * kLd * 2 + kStages * kTile * 4;
+};
+
+template <int D>
+__global__ void __launch_bounds__(FwdTiles<D>::kThreads, 2) mha_fwd_bf16_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const float* __restrict__ mask, bf16* __restrict__ out, float* __restrict__ stats,
+    int S, int H, Strides st, bool vec) {
+  using L = FwdTiles<D>;
+  constexpr int ld = L::kLd;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* KVs = Qs + L::kRows * ld;  // stage i: K at KVs + 2i tiles, V after it
+  float* kmask = reinterpret_cast<float*>(KVs + 2 * L::kStages * kTile * ld);  // stage i at + i * kTile
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * L::kRows;
+  const int q_rows = min(L::kRows, S - q0);
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int r0 = (threadIdx.x / 32) * 16;
+  const long long hd = static_cast<long long>(h) * D;
+  const int n_tiles = (S + kTile - 1) / kTile;
+
+  // one commit group a tile: its K, V and mask (keys past S: zero rows, mask -inf)
+  auto prefetch = [&](int it) {
+    if (it < n_tiles) {
+      const int k0 = it * kTile, k_rows = min(kTile, S - k0), stage = it % L::kStages;
+      bf16* Ks = KVs + 2 * stage * kTile * ld;
+      load_rows_async<D, kTile, L::kThreads>(Ks, ld, k + b * st.b[1] + k0 * st.s[1] + hd,
+                                             st.s[1], k_rows, vec);
+      load_rows_async<D, kTile, L::kThreads>(Ks + kTile * ld, ld,
+                                             v + b * st.b[2] + k0 * st.s[2] + hd, st.s[2],
+                                             k_rows, vec);
+      load_kmask_async(kmask + stage * kTile, mask, b, S, k0, k_rows);
+    }
+    cp_async_commit();  // empty past the last tile, so the group count stays fixed
+  };
+
+  // Q joins the first tile's group
+  load_rows_async<D, L::kRows, L::kThreads>(Qs, ld, q + b * st.b[0] + q0 * st.s[0] + hd,
+                                            st.s[0], q_rows, vec);
+#pragma unroll
+  for (int it = 0; it < L::kStages - 1; ++it) prefetch(it);
+  uint32_t qf[D / 16][4];  // this warp's rows of Q, kept for the whole key loop
+  float o[D / 8][4] = {};
+  float m[2] = {-INFINITY, -INFINITY};  // running max of rows g and g + 8, log2 units
+  float l[2] = {0.f, 0.f};              // this lane's part of their running sums
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<L::kStages - 2>();  // tile it (and Q) has arrived
+    __syncthreads();  // for every thread; every warp is done with tile it - 1's stage
+    prefetch(it + L::kStages - 1);  // into tile it - 1's stage
+    if (it == 0) ldsm_rows<D>(qf, Qs + r0 * ld, ld, lane);
+    if (r0 >= q_rows) continue;  // this warp's rows are all past S
+    const int k_rows = min(kTile, S - it * kTile);
+    const bf16* Ks = KVs + 2 * (it % L::kStages) * kTile * ld;
+    float s[8][4];
+    mm_abt_regs<D>(s, qf, Ks, ld, lane, k_rows);  // keys past S: 0, their mask -inf
+    softmax_tile<D>(s, m, l, o, kmask + (it % L::kStages) * kTile, t);
+    mm_pm_ldsm<D>(o, s, Ks + kTile * ld, ld, lane, k_rows);
+  }
+  store_fwd_rows<D>(out + b * st.b[3] + q0 * st.s[3] + hd, stats, o, m, l, b, h, H, S, q0,
+                    q_rows, r0, st.s[3], g, t);
+}
+
+// ============================================================ bfloat16: wgmma
+//
+// The forward for D = 64 and 128 on warpgroup products: four warps issue one
+// asynchronous m64nNk16 product for 64 rows. Its float32 accumulator gives
+// warp w of the warpgroup rows 16w + g and 16w + g + 8 in exactly the
+// mma.sync C layout (element 4j + e of the N/8 x 4 array), and its A operand
+// from registers takes exactly the mma.sync A fragments; so Q's fragments,
+// the softmax and the P packing are the mma.sync kernel's. B comes from
+// shared memory through a descriptor: K and V tiles are stored in the 128-byte
+// swizzle, a row of 64 bf16 in 128 bytes with its 16-byte chunk c at chunk
+// c ^ (row % 8), 8 rows to a 1024-byte atom; D = 128 is two 64-column halves
+// of 64 rows, one after the other.
+
+// element offset of chunk c (8 bf16) of row r of a swizzled 64-row tile
+__device__ __forceinline__ int sw128(int r, int c) {
+  return (c / 8) * kTile * 64 + r * 64 + ((c % 8) ^ (r % 8)) * 8;
+}
+
+// load_rows_async into the swizzled layout (dst 1024-byte aligned), 64 rows.
+template <int D, int kN>
+__device__ __forceinline__ void load_rows_sw128(bf16* dst, const bf16* src, long long ss,
+                                                int rows, bool vec) {
+  if (vec) {
+    constexpr int kPerRow = D / 8;
+    for (int i = threadIdx.x; i < kTile * kPerRow; i += kN) {
+      const int r = i / kPerRow, c = i % kPerRow;
+      const bool ok = r < rows;
+      cp_async_16(dst + sw128(r, c), src + (ok ? r : 0) * ss + 8 * c, ok ? 16 : 0);
+    }
+  } else {
+    for (int i = threadIdx.x; i < kTile * D; i += kN) {
+      const int r = i / D, c = i % D;
+      dst[sw128(r, c / 8) + c % 8] = r < rows ? src[r * ss + c] : from_f32<bf16>(0.f);
+    }
+  }
+}
+
+// A shared-memory matrix descriptor in the 128-byte swizzle: the start
+// address, the leading and the stride byte offsets (each in 16-byte units).
+// K-major (K for S = Q K^T, rows of D): the stride offset steps 8 rows
+// (1024 bytes), the leading one is unused. MN-major (V for P V, read
+// transposed): the stride offset steps 8 keys, the leading one from the
+// first 64 columns of D to the next.
+__device__ __forceinline__ uint64_t sw128_desc(const bf16* p, uint32_t lbo, uint32_t sbo) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  return static_cast<uint64_t>((a & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
+         (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// shared-memory writes of the generic proxy (stores, cp.async) made visible to
+// the async proxy that wgmma reads through
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Keeps the compiler from touching registers that an issued wgmma still
+// reads or writes: each is an operand of an empty asm, here.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int j = 0; j < N; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(a[j][e])::"memory");
+}
+
+// d (64 x N, this thread's part) (+)= A (64 x 16, registers) . B (16 x N, shared
+// memory through desc; kTransB: MN-major); scale_d 0 overwrites d.
+template <int N, int kTransB>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 8][4], const uint32_t (&a)[4],
+                                         uint64_t desc, int scale_d) {
+  static_assert(N == 64 || N == 128, "m64n64k16 or m64n128k16");
+  if constexpr (N == 64) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d), "n"(kTransB));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+          "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+          "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+          "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+          "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+          "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+          "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+          "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+          "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+          "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+          "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+          "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+          "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+          "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+          "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+          "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d), "n"(kTransB));
+  }
+}
+
+// The wgmma forward's blocks: two warpgroups of 64 query rows, against 64-key
+// tiles of K and V (swizzled) and the mask in a ring of kStages stages. ptxas
+// -v (CUDA 12.8): 128 registers at D = 64, no spills, two blocks (four
+// warpgroups) an SM; 164 at D = 128, one block. Three stages were no faster.
+template <int D>
+struct WgTiles {
+  static constexpr int kThreads = 256;
+  static constexpr int kRows = 128;
+  static constexpr int kStages = 2;
+  static constexpr int kQLd = Bf16Tiles<D>::kLd;  // Q is read by ldmatrix
+  static constexpr int kKvElems = kTile * D;      // one swizzled K or V tile
+  // alignment slack, each stage's K and V (1024-byte aligned), Q, each stage's mask
+  static constexpr int kSmem =
+      1024 + (2 * kStages * kKvElems + kRows * kQLd) * 2 + kStages * kTile * 4;
+};
+
+template <int D>
+__global__ void __launch_bounds__(WgTiles<D>::kThreads, D == 64 ? 2 : 1) mha_fwd_wgmma_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const float* __restrict__ mask, bf16* __restrict__ out, float* __restrict__ stats,
+    int S, int H, Strides st, bool vec) {
+  using L = WgTiles<D>;
+  constexpr int qld = L::kQLd;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem =
+      smem_raw + ((1024 - (__cvta_generic_to_shared(smem_raw) & 1023)) & 1023);
+  bf16* KVs = reinterpret_cast<bf16*>(smem);  // stage i: K at KVs + 2i tiles, V after it
+  bf16* Qs = KVs + 2 * L::kStages * L::kKvElems;
+  float* kmask = reinterpret_cast<float*>(Qs + L::kRows * qld);  // stage i at + i * kTile
+
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * L::kRows;
+  const int q_rows = min(L::kRows, S - q0);
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  // this warp's rows; a warpgroup whose rows all lie past S computes on the
+  // zero rows of Q anyway (a skip would be a branch around the products)
+  const int r0 = (threadIdx.x / 32) * 16;
+  const long long hd = static_cast<long long>(h) * D;
+  const int n_tiles = (S + kTile - 1) / kTile;
+
+  auto prefetch = [&](int it) {
+    if (it < n_tiles) {
+      const int k0 = it * kTile, k_rows = min(kTile, S - k0), stage = it % L::kStages;
+      bf16* Ks = KVs + 2 * stage * L::kKvElems;
+      load_rows_sw128<D, L::kThreads>(Ks, k + b * st.b[1] + k0 * st.s[1] + hd, st.s[1], k_rows,
+                                      vec);
+      load_rows_sw128<D, L::kThreads>(Ks + L::kKvElems, v + b * st.b[2] + k0 * st.s[2] + hd,
+                                      st.s[2], k_rows, vec);
+      load_kmask_async(kmask + stage * kTile, mask, b, S, k0, k_rows);
+    }
+    cp_async_commit();
+  };
+
+  load_rows_async<D, L::kRows, L::kThreads>(Qs, qld, q + b * st.b[0] + q0 * st.s[0] + hd,
+                                            st.s[0], q_rows, vec);
+#pragma unroll
+  for (int it = 0; it < L::kStages - 1; ++it) prefetch(it);
+  uint32_t qf[D / 16][4];
+  float o[D / 8][4] = {};
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<L::kStages - 2>();
+    fence_proxy_async();
+    __syncthreads();  // tile it has arrived; every wgmma on tile it - 1's stage is done
+    prefetch(it + L::kStages - 1);
+    // Q's fragments, read again each tile: held in registers across the loop
+    // as the A operand of an asynchronous product they came out wrong at D = 64
+    ldsm_rows<D>(qf, Qs + r0 * qld, qld, lane);
+    const bf16* Ks = KVs + 2 * (it % L::kStages) * L::kKvElems;
+    const bf16* Vs = Ks + L::kKvElems;
+
+    float s[8][4];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)  // 16 columns of D: 32 bytes into a row, or the next half
+      wgmma_rs<kTile, 0>(s, qf[kk], sw128_desc(Ks + sw128(0, 2 * kk), 16, 1024), kk > 0);
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(s);
+    softmax_tile<D>(s, m, l, o, kmask + (it % L::kStages) * kTile, t);
+
+    uint32_t pa[kTile / 16][4];  // P in bf16 as the A operand, 16 keys each
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) {
+      pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    }
+    fence_regs(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk)  // 16 keys: 8 rows of 128 bytes each twice
+      wgmma_rs<D, 1>(o, pa[kk], sw128_desc(Vs + 16 * kk * 64, kTile * 64 * 2, 1024), 1);
+    wgmma_commit();
+    wgmma_wait();
+    fence_regs(o);
+    fence_regs(pa);
+  }
+  store_fwd_rows<D>(out + b * st.b[3] + q0 * st.s[3] + hd, stats, o, m, l, b, h, H, S, q0,
+                    q_rows, r0, st.s[3], g, t);
 }
 
 // The backward's pre-pass: for every (b, h, query row) the row statistics
@@ -753,7 +1101,6 @@ template <typename T, int D>
 struct Smem;
 template <int D>
 struct Smem<bf16, D> {
-  static constexpr int kFwd = 3 * Bf16Tiles<D>::kBytes + kTile * 4;
   static constexpr int kDq = BwdTiles<D, false>::kSmem;
   static constexpr int kDkdv = BwdTiles<D, true>::kSmem;
 };
@@ -769,31 +1116,53 @@ template <typename T, int D>
 struct Kernels;
 template <int D>
 struct Kernels<bf16, D> {
-  static constexpr auto fwd = mha_fwd_bf16_kernel<D>;
   static constexpr auto dq = mha_bwd_dq_bf16_kernel<D>;
   static constexpr auto dkdv = mha_bwd_dkdv_bf16_kernel<D>;
 };
 template <int D>
 struct Kernels<float, D> {
-  static constexpr auto fwd = mha_fwd_f32_kernel<D>;
   static constexpr auto dq = mha_bwd_dq_f32_kernel<D>;
   static constexpr auto dkdv = mha_bwd_dkdv_f32_kernel<D>;
 };
+
+// The forward's kernel and block for each type and head dim: bf16 at D = 64
+// and 128 the wgmma kernel, at D = 16 and 32 the mma.sync one (a warpgroup
+// product is at least 64 x 64 x 16); float32 the FMA one.
+template <int D>
+struct MmaFwd {
+  static constexpr auto fn = mha_fwd_bf16_kernel<D>;
+  static constexpr int kSmem = FwdTiles<D>::kSmem, kRows = FwdTiles<D>::kRows,
+                       kThreads = FwdTiles<D>::kThreads;
+};
+template <int D>
+struct WgFwd {
+  static constexpr auto fn = mha_fwd_wgmma_kernel<D>;
+  static constexpr int kSmem = WgTiles<D>::kSmem, kRows = WgTiles<D>::kRows,
+                       kThreads = WgTiles<D>::kThreads;
+};
+template <int D>
+struct F32Fwd {
+  static constexpr auto fn = mha_fwd_f32_kernel<D>;
+  static constexpr int kSmem = Smem<float, D>::kFwd, kRows = kTile, kThreads = ::kThreads;
+};
+template <typename T, int D>
+using Fwd = std::conditional_t<std::is_same<T, float>::value, F32Fwd<D>,
+                               std::conditional_t<(D >= 64), WgFwd<D>, MmaFwd<D>>>;
 
 template <typename T, int D>
 int launch_fwd(const void* q, const void* k, const void* v, const float* mask, void* out,
                float* stats, int B, int S, int H, const long long* strides,
                cudaStream_t stream) {
+  using F = Fwd<T, D>;
   const Strides st = read_strides(strides, 4);
   const void* ptrs[4] = {q, k, v, out};
   const bool vec = aligned<T>(ptrs, st, 4);
-  constexpr int smem = Smem<T, D>::kFwd;
-  cudaError_t err = cudaFuncSetAttribute(Kernels<T, D>::fwd,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  cudaError_t err = cudaFuncSetAttribute(F::fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         F::kSmem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + kTile - 1) / kTile, H, B);
-  const auto fwd = Kernels<T, D>::fwd;
-  fwd<<<grid, kThreads, smem, stream>>>(
+  const dim3 grid((S + F::kRows - 1) / F::kRows, H, B);
+  const auto fwd = F::fn;
+  fwd<<<grid, F::kThreads, F::kSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), mask,
       static_cast<T*>(out), stats, S, H, st, vec);
   return static_cast<int>(cudaGetLastError());

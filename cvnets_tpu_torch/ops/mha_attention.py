@@ -11,11 +11,12 @@ already scaled; ``key_mask`` is an additive (B, S) float32 mask or None.
   tiles and a dK/dV kernel over query tiles) is the long-sequence kernels'
   KV-blocked design already, so one pair serves every S the JAX dispatch
   sends to a kernel: S ≤ 512, or S > 512 where ``mha_attn_long.choose_block``
-  finds a block, at a head dim of 16, 32, 64 or 128. They take CUDA tensors
-  only and count their launches.
+  finds a block, at a head dim of 16, 32, 64 or 128 (the bf16 forward on
+  wgmma at 64 and 128). They take CUDA tensors only and count their launches.
 * ``mha_attention_plain`` / ``mha_attention_backward_plain``: the same
   functions in plain torch ops (the JAX ``_reference`` and its einsum VJP), for
-  CPU tensors and as the kernels' references.
+  CPU tensors and as the kernels' references; ``mha_attention_stats_plain``
+  the forward kernel's saved row statistics, as its reference.
 * ``MHAAttention``: the autograd Function, ``fused_mha_attention`` its entry.
 """
 
@@ -70,11 +71,15 @@ def _split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
     return x.float().reshape(b, s, heads, e // heads)
 
 
-def _softmax_probs(qh, kh, key_mask):
+def _logits(qh, kh, key_mask):
     logits = torch.einsum("bqhd,bkhd->bhqk", qh, kh)
     if key_mask is not None:
         logits = logits + key_mask.float()[:, None, None, :]
-    return torch.softmax(logits, dim=-1)
+    return logits
+
+
+def _softmax_probs(qh, kh, key_mask):
+    return torch.softmax(_logits(qh, kh, key_mask), dim=-1)
 
 
 def mha_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
@@ -84,6 +89,20 @@ def mha_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads
     qh, kh, vh = (_split_heads(t, heads) for t in (q, k, v))
     out = torch.einsum("bhqk,bkhd->bqhd", _softmax_probs(qh, kh, key_mask), vh)
     return out.reshape(q.shape).to(q.dtype)
+
+
+def mha_attention_stats_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
+                              key_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The forward kernel's saved row statistics, (2, B, H, S) float32: the
+    row max m of logit + mask, and the natural log of the row sum of
+    exp(logit + mask - m). ``v`` is unused; the arguments are the forward's.
+    On a fully masked row every logit is -1e30, so m = -1e30 and the log-sum
+    is log(S): kept apart, the pair holds the uniform row's 1/S."""
+    del v
+    logits = _logits(_split_heads(q, heads), _split_heads(k, heads), key_mask)
+    m = logits.amax(dim=-1)
+    log_sum = torch.log(torch.exp(logits - m[..., None]).sum(dim=-1))
+    return torch.stack([m, log_sum])
 
 
 def mha_attention_backward_plain(q, k, v, key_mask, out, g, heads: int

@@ -2,9 +2,10 @@
 Function on CPU tensors (plain forward and plain backward) against the JAX
 ``fused_mha_attention`` run through its Pallas kernels in interpret mode and
 through its off-TPU reference, forward and the grads of q, k and v, and for
-S > 512 against the long-sequence ``attn_core_long`` in interpret mode; and — on
-a CUDA card only — the hand-written kernels against the plain versions at the
-ViT shapes and at S = 640, 1024 and 4096.
+S > 512 against the long-sequence ``attn_core_long`` in interpret mode; the
+plain row statistics against the JAX long forward's lse and float64; and — on a
+CUDA card only — the hand-written kernels against the plain versions at the
+ViT shapes and at S = 640, 1024 and 4096, the forward's statistics with them.
 
 JAX is imported inside the tests that use it, so that on a machine with a card
 and no JAX the kernel tests run alone:
@@ -22,6 +23,7 @@ from cvnets_tpu_torch.ops.mha_attention import (
     fused_mha_attention,
     mha_attention_backward_plain,
     mha_attention_plain,
+    mha_attention_stats_plain,
     mha_bwd_kernel,
     mha_fwd_kernel,
 )
@@ -235,6 +237,75 @@ def test_fully_masked_row_follows_the_einsum_reference_not_the_long_kernel():
                                rtol=GRAD_ATOL)
 
 
+def _jax_long_lse(q, k, v, mask, heads):
+    """``mha_attn_long._pallas_fwd`` in interpret mode: its lse = m + log(l),
+    (B, S, H)."""
+    import jax.numpy as jnp
+
+    import cvnets_tpu.ops.pallas.mha_attn as M
+    from cvnets_tpu.ops.pallas.mha_attn_long import _pallas_fwd
+
+    b, s, _ = q.shape
+    m = (jnp.zeros((b, 1, s), jnp.float32) if mask is None
+         else jnp.asarray(mask).reshape(b, 1, s))
+    try:
+        M._INTERPRET = True
+        _, lse = _pallas_fwd(*map(jnp.asarray, (q, k, v)), m, heads)
+    finally:
+        M._INTERPRET = False
+    return np.asarray(lse)
+
+
+def _stats(q, k, v, mask, heads):
+    return mha_attention_stats_plain(*map(torch.from_numpy, (q, k, v)), heads,
+                                     None if mask is None else torch.from_numpy(mask)).numpy()
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["no_mask", "key_mask"])
+def test_stats_plain_matches_the_jax_long_kernels_lse(masked):
+    """S = 384 (3 kv blocks of 128), B = 2, H = 2, D = 64: max + log-sum of
+    the plain statistics against the lse that the JAX long forward saves, on
+    rows that are not fully masked (there the JAX lse rounds to -1e30 and
+    loses the log(S); see the test below). float32 on both sides, the blocked
+    online softmax against one pass: 1e-5, as FWD_ATOL."""
+    h = 2
+    q, k, v, _, mask = _inputs(2, 384, h, 64, masked, seed=7)
+    if mask is not None:
+        mask[0] = np.where(np.random.default_rng(2).random(384) < 0.2, -1e30, 0.0)
+        mask[1, :10] = -1e30
+    lse = _jax_long_lse(q, k, v, mask, h)                 # (B, S, H)
+    stats = _stats(q, k, v, mask, h)                      # (2, B, H, S)
+    got = (stats[0] + stats[1]).transpose(0, 2, 1)
+    np.testing.assert_allclose(got, lse, atol=FWD_ATOL, rtol=FWD_ATOL)
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["no_mask", "key_mask"])
+def test_stats_plain_matches_float64(masked):
+    """The pair against the same formula in float64 numpy on the same float32
+    inputs, batch element 0 fully masked where masked: float32 logits and
+    sums, so 1e-5 relative (absolute 1e-5 for a log-sum near 0)."""
+    h, d = 3, 32
+    q, k, v, _, mask = _inputs(2, 53, h, d, masked, seed=8)
+    qh, kh = (x.astype(np.float64).reshape(2, 53, h, d) for x in (q, k))
+    logits = np.einsum("bqhd,bkhd->bhqk", qh, kh)
+    if mask is not None:
+        logits = logits + mask.astype(np.float64)[:, None, None, :]
+    m = logits.max(axis=-1)
+    want = np.stack([m, np.log(np.exp(logits - m[..., None]).sum(axis=-1))])
+    np.testing.assert_allclose(_stats(q, k, v, mask, h), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("s", [9, 384])
+def test_stats_plain_of_a_fully_masked_row_are_the_mask_and_log_s(s):
+    """Every key of batch element 0 at -1e30: each logit is -1e30 exactly in
+    float32, so the max is -1e30 and the log-sum log(S) exactly, the pair that
+    keeps the uniform row's 1/S for the backward."""
+    q, k, v, _, mask = _inputs(2, s, 2, 16, masked=True, seed=9)
+    stats = _stats(q, k, v, mask, 2)
+    assert (stats[0, 0] == np.float32(-1e30)).all()
+    assert (stats[1, 0] == torch.log(torch.tensor(float(s))).item()).all()
+
+
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
     q, k, v, w, mask = _inputs(2, 8, 2, 16, masked=False)
     q, k, v = map(torch.from_numpy, (q, k, v))
@@ -350,3 +421,64 @@ def test_function_on_cuda_runs_the_kernels_and_never_the_plain_version():
     assert mha_fwd_kernel.launches == launches[0] + 2
     with pytest.raises(NotImplementedError, match="mha_attn_long.py"):
         fused_mha_attention(*(torch.zeros((1, 4097, 768), device="cuda"),) * 3, 12)
+
+
+# the new forward's shapes: ViT-B/16 at 224² and at 512² without the CLS
+# token, a ragged S at D = 16 (three 128-row blocks, the last of 77 rows),
+# S = 640 at D = 32 and D = 128 (64-row blocks)
+FWD_CUDA_CASES = [(128, 197, 12, 64), (32, 1024, 12, 64), (4, 333, 4, 16), (2, 640, 8, 32),
+                  (2, 256, 6, 128)]
+
+
+def _check_forward(q, k, v, h, mask):
+    out, stats = mha_fwd_kernel(q, k, v, h, mask)
+    torch.cuda.synchronize()
+    ref = mha_attention_plain(q, k, v, h, mask)
+    torch.testing.assert_close(out.float(), ref.float(), atol=_tol(ref, q.dtype), rtol=0)
+    # the statistics are float32 sums of float32 logits of the same inputs:
+    # 1e-2 relative (to max(|ref|, 1)) in bf16, as chip_smoke.py holds them
+    ref_stats = mha_attention_stats_plain(q, k, v, h, mask)
+    err = ((stats - ref_stats).abs() / ref_stats.abs().clamp(min=1.0)).max().item()
+    assert err <= (1e-5 if q.dtype == torch.float32 else 1e-2), err
+    return out, stats
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True], ids=["no_mask", "key_mask"])
+@pytest.mark.parametrize("b,s,h,d", FWD_CUDA_CASES)
+def test_forward_output_and_stats_match_plain_on_cuda(b, s, h, d, masked):
+    """q, k, v column slices of one qkv tensor; with the mask, batch element
+    0 fully masked (its statistics -1e30 and log S)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU or interpret mode)")
+    q, k, v, mask, _ = _cuda_inputs(b, s, h, d, torch.bfloat16, masked)
+    _check_forward(q, k, v, h, mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 64])
+def test_forward_on_an_unaligned_stride_takes_the_scalar_path(d):
+    """A qkv tensor one column wider than 3·H·D: its token stride is odd, so
+    no 16-byte copy can be used and the forward loads element by element."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU or interpret mode)")
+    b, s, h = 2, 200, 4
+    e = h * d
+    g = torch.Generator(device="cuda").manual_seed(3)
+    qkv = torch.randn((b, s, 3 * e + 1), generator=g, device="cuda").to(torch.bfloat16)
+    q, k, v = qkv[..., :e] * d ** -0.5, qkv[..., e:2 * e], qkv[..., 2 * e:3 * e]
+    assert k.stride(1) % 8 != 0
+    mask = torch.where(torch.rand((b, s), generator=g, device="cuda") < 0.2, -1e30, 0.0)
+    mask[0] = -1e30
+    _check_forward(q, k, v, h, mask)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,s,h,d", [(128, 197, 12, 64), (32, 1024, 12, 64)])
+def test_forward_gives_the_same_bits_on_every_call(b, s, h, d):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU or interpret mode)")
+    q, k, v, mask, _ = _cuda_inputs(b, s, h, d, torch.bfloat16, masked=True)
+    out, stats = mha_fwd_kernel(q, k, v, h, mask)
+    again = mha_fwd_kernel(q, k, v, h, mask)
+    assert torch.equal(out, again[0]) and torch.equal(stats, again[1])
