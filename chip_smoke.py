@@ -62,7 +62,11 @@ Phases, one line each or more (any failure exits non-zero):
    thirds of one qkv tensor), with the stage's real shift mask and without,
    bfloat16 and float32: output, dq, dk, dv and dbias, and dbias the same bit
    for bit on a second run; kernels, plain versions and
-   ``F.scaled_dot_product_attention`` with the bias as a float mask timed;
+   ``F.scaled_dot_product_attention`` with the bias as a float mask timed, the
+   backward's ratio to its bound and to SDPA on each bf16 line. The bf16
+   backward is the Hopper design: the next window's tiles copied by cp.async
+   while this one computes, ldmatrix fragments for all five products, exp2
+   with log2 e folded into the bias, held in shared memory in fragment order;
 13. mha long kernel: the same kernels (the Hopper forward of phase 4 serves
    every S) against the plain versions at S = 1024 (ViT-B/16 at 512² without
    the CLS token, B = 32) and S = 4096 (B = 2), H = 12, D = 64, with and
@@ -773,14 +777,71 @@ def phase_seg_ce_kernel(card: str) -> dict:
     return records
 
 
-def phase_window_kernel(card: str) -> dict:
-    """The window-attention kernels against their plain versions at Swin-T's
-    stage shapes; returns {"fwd": record, "bwd": record} summed over one step's
-    12 blocks (bf16, unshifted and shifted blocks at their own times)."""
+def window_inputs(g, side: int, h: int, dtype, shifted: bool) -> tuple:
+    """q, k, v (column thirds of one qkv tensor, as WindowAttention makes them,
+    q scaled), the bias, the stage's real shift mask or None, and dO, at a
+    Swin-T stage at batch SWIN_BATCH."""
+    import torch
+
+    from cvnets_tpu_torch.modules.swin_transformer_block import shifted_window_mask
+
+    s, e = WIN * WIN, h * WIN_D
+    bnw = SWIN_BATCH * (side // WIN) ** 2
+    qkv = torch.randn((bnw, s, 3 * e), generator=g, device="cuda").to(dtype)
+    q, k, v = qkv.chunk(3, dim=-1)
+    q = q * WIN_D ** -0.5
+    bias = 0.5 * torch.randn((h, s, s), generator=g, device="cuda")
+    mask = (torch.from_numpy(shifted_window_mask(side, side, WIN, WIN // 2)).cuda()
+            if shifted else None)
+    dout = torch.randn((bnw, s, e), generator=g, device="cuda").to(dtype)
+    return q, k, v, bias, mask, dout
+
+
+def window_bounds(q, h: int, mask) -> dict:
+    """{"fwd", "bwd": bound(...)} of the window kernels on these inputs: each
+    input read once, each output written once (dbias too); 2 products
+    forward, 5 backward, one exponential a logit."""
+    bnw, s, e = q.shape
+    act = bnw * s * e * q.element_size()
+    small = (h + (0 if mask is None else mask.shape[0])) * s * s * 4
+    flops = 4 * bnw * s * s * e
+    exps = (bnw * h * s * s, SFU_EXP_S)
+    return {"fwd": bound(4 * act + small, (flops, BF16_TC_FLOP_S), exps),
+            "bwd": bound(7 * act + small + h * s * s * 4, (2.5 * flops, BF16_TC_FLOP_S), exps)}
+
+
+def window_sdpa(q, k, v, dout, h: int, bias, mask) -> tuple:
+    """The library yardstick: SDPA on (B·nW, H, S, D) copies with the bias
+    (plus the mask) as a float attn_mask; (forward, backward) callables, the
+    backward giving dq, dk and dv, not dbias."""
     import torch
     import torch.nn.functional as F
 
-    from cvnets_tpu_torch.modules.swin_transformer_block import shifted_window_mask
+    bnw, s, e = q.shape
+    qh, kh, vh, dh = (t_.detach().reshape(bnw, s, h, e // h).transpose(1, 2)
+                      .contiguous().requires_grad_() for t_ in (q, k, v, dout))
+    if mask is None:
+        am = bias[None]
+    else:
+        nw = mask.shape[0]
+        am = (bias[None, None] + mask[None, :, None]).expand(
+            bnw // nw, nw, h, s, s).reshape(bnw, h, s, s)
+    am = am.to(q.dtype)
+    lib_out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=am, scale=1.0)
+    return (lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=am, scale=1.0),
+            lambda: torch.autograd.grad(lib_out, (qh, kh, vh), dh, retain_graph=True))
+
+
+def phase_window_kernel(card: str) -> dict:
+    """The window-attention kernels against their plain versions at Swin-T's
+    stage shapes; returns {"fwd": record, "bwd": record} summed over one step's
+    12 blocks (bf16, unshifted and shifted blocks at their own times). The bf16
+    backward prefetches the next window by cp.async, builds every fragment by
+    ldmatrix and takes exp2 (csrc/window_attention.cu's head comment); each
+    bf16 line ends with its time over its bound (``bwd/bound``) and over SDPA's
+    backward (``bwd/library``)."""
+    import torch
+
     from cvnets_tpu_torch.ops.window_attention import (
         window_attention_backward_plain,
         window_attention_plain,
@@ -794,19 +855,12 @@ def phase_window_kernel(card: str) -> dict:
     s = WIN * WIN
     with no_tf32():
         for label, side, h, n_plain, n_shift in SWIN_STAGES:
-            nw = (side // WIN) ** 2
-            bnw, e = SWIN_BATCH * nw, h * WIN_D
+            bnw = SWIN_BATCH * (side // WIN) ** 2
             for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
                 for shifted in (False, True):
                     if shifted and not n_shift:
                         continue
-                    qkv = torch.randn((bnw, s, 3 * e), generator=g, device="cuda").to(dtype)
-                    q, k, v = qkv.chunk(3, dim=-1)  # column thirds, as WindowAttention
-                    q = q * WIN_D ** -0.5
-                    bias = 0.5 * torch.randn((h, s, s), generator=g, device="cuda")
-                    mask = (torch.from_numpy(shifted_window_mask(side, side, WIN, WIN // 2))
-                            .cuda() if shifted else None)
-                    dout = torch.randn((bnw, s, e), generator=g, device="cuda").to(dtype)
+                    q, k, v, bias, mask, dout = window_inputs(g, side, h, dtype, shifted)
                     out = window_fwd_kernel(q, k, v, h, bias, mask)
                     grads = window_bwd_kernel(q, k, v, h, bias, mask, dout)
                     again = window_bwd_kernel(q, k, v, h, bias, mask, dout)[3]
@@ -847,31 +901,10 @@ def phase_window_kernel(card: str) -> dict:
                                                                       dout)),
                              "bwd_plain": time_ms(lambda: window_attention_backward_plain(
                                  q, k, v, h, bias, mask, ref, dout))}
-                        # the library yardstick: SDPA on (B·nW, H, S, D) copies with
-                        # the bias (plus the mask) as a float attn_mask; its
-                        # backward gives dq, dk and dv, not dbias
-                        qh, kh, vh, dh = (t_.detach().reshape(bnw, s, h, WIN_D).transpose(1, 2)
-                                          .contiguous().requires_grad_()
-                                          for t_ in (q, k, v, dout))
-                        am = bias[None] if mask is None else (
-                            bias[None, None] + mask[None, :, None]).expand(
-                                SWIN_BATCH, nw, h, s, s).reshape(bnw, h, s, s)
-                        am = am.to(dtype)
-                        lib_out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=am,
-                                                                 scale=1.0)
-                        t["lib_fwd"] = time_ms(lambda: F.scaled_dot_product_attention(
-                            qh, kh, vh, attn_mask=am, scale=1.0))
-                        t["lib_bwd"] = time_ms(lambda: torch.autograd.grad(
-                            lib_out, (qh, kh, vh), dh, retain_graph=True))
-                        # each input read once, each output written once; 2
-                        # products forward, 5 backward, one exp a logit
-                        act = bnw * s * e * q.element_size()
-                        small = (h + (nw if shifted else 0)) * s * s * 4
-                        flops = 4 * bnw * s * s * e
-                        exps = (bnw * h * s * s, SFU_EXP_S)
-                        bounds = {"fwd": bound(4 * act + small, (flops, BF16_TC_FLOP_S), exps),
-                                  "bwd": bound(7 * act + small + h * s * s * 4,
-                                               (2.5 * flops, BF16_TC_FLOP_S), exps)}
+                        lib_fwd, lib_bwd = window_sdpa(q, k, v, dout, h, bias, mask)
+                        t["lib_fwd"] = time_ms(lib_fwd)
+                        t["lib_bwd"] = time_ms(lib_bwd)
+                        bounds = window_bounds(q, h, mask)
                         n_blocks = n_shift if shifted else n_plain
                         for p in ("fwd", "bwd"):
                             records[p]["ms"] += n_blocks * t[p]
@@ -881,8 +914,10 @@ def phase_window_kernel(card: str) -> dict:
                             records[p]["library_ms"] += n_blocks * t[f"lib_{p}"]
                         times = "".join(f" {k_}_ms={v_:.4f}" for k_, v_ in t.items()) + "".join(
                             f" {p}_bound_ms={bounds[p][0]:.4f} ({bounds[p][1]})"
-                            for p in ("fwd", "bwd"))
-                        del lib_out, qh, kh, vh, dh, am
+                            for p in ("fwd", "bwd")) + (
+                            f" bwd/bound={t['bwd'] / bounds['bwd'][0]:.3f}"
+                            f" bwd/library={t['bwd'] / t['lib_bwd']:.3f}")
+                        del lib_fwd, lib_bwd
                     print(f"window kernel: {label} {name} BnW={bnw} S={s} H={h} D={WIN_D} "
                           f"shift={shifted} " + " ".join(f"{w}_err={x:.3e}"
                                                          for w, x in errs.items())

@@ -4,9 +4,9 @@
 // more rows, in as many warps); bfloat16 products run on the tensor cores
 // through mma.sync m16n8k16, float32 ones on FMAs over shared memory. The
 // ldmatrix products (mm_abt_ldsm, ldsm_rows with mm_abt_regs, mm_pm_ldsm) and
-// the cp.async loads serve the MHA kernels, forward and backward; only the
-// window kernels still build fragments with 32-bit and 16-bit loads (mm_abt,
-// mm_pm).
+// the cp.async loads serve the MHA kernels, forward and backward, and the bf16
+// window backward; only the window forward still builds fragments with 32-bit
+// and 16-bit loads (mm_abt, mm_pm).
 // Everything is in an anonymous namespace: each source that includes this is
 // built into a library of its own.
 

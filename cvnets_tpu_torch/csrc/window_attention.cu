@@ -11,8 +11,10 @@
 // head h in window w get bias[h] (the gathered relative-position table,
 // (H, S, S) float32) plus, for shifted windows, mask[w % nW] (the shift mask,
 // (nW, S, S) float32, -100 where two tokens come from different regions; null
-// when unshifted). Both are finite: -100 keeps a weight of e^-100 in the
-// softmax and its gradient, exactly as in the einsum reference.
+// when unshifted). Both are finite: the forward keeps a weight of e^-100 in the
+// softmax exactly as the einsum reference does; the bf16 backward's ex2.approx.ftz
+// flushes such a weight (3.7e-44, under float32's 2^-126) to 0, far under every
+// tolerance, as rounding P to bf16 for the tensor cores would leave it.
 //
 // Design. A window has S = ws^2 = 49 tokens at Swin's window 7: one tile of 64
 // rows padded with zeros (S <= 64 is what these kernels take). The TPU kernels
@@ -21,16 +23,16 @@
 // and the packing and the banded softmax are left out. A block is four warps,
 // each owning 16 query rows of the tile, and it owns one head h and one window
 // position p and loops over a chunk of images: windows b*nW + p for b in its
-// chunk. So the bias tile (bias[h] + mask[p], keys past S at -inf) is built in
-// shared memory once per block, and the block's share of dbias stays in
-// registers across its windows.
+// chunk. So the bias tile (bias[h] + mask[p], keys past S at -inf) is built
+// once per block, and the block's share of dbias stays in registers across its
+// windows.
 //   * forward: per window, S = Q K^T + bias, a whole-row softmax (every key of
 //     the window is in the tile, so no online rescaling), O = P V / l.
 //   * backward: per window, the forward's P is recomputed and dP = dO V^T;
 //     delta = rowsum(P * dP) (equal to rowsum(dO * O), without reading O);
-//     dS = P (dP - delta); dQ = dS K from the warp's own rows; then P^T and
-//     dS^T go through shared memory so that each warp takes 16 keys for
-//     dV = P^T dO and dK = dS^T Q.
+//     dS = P (dP - delta); dQ = dS K from the warp's own rows; then P and dS go
+//     through shared memory so that each warp takes 16 keys for dV = P^T dO
+//     and dK = dS^T Q: 5 products a window, none recomputed.
 //   * dbias = sum of dS over every window of every image (the mask takes no
 //     gradient). Without atomics: each block writes its chunk's sum as one
 //     partial (chunk, position, head, S, S) float32, and a second kernel sums
@@ -41,19 +43,50 @@
 // their products. float32: FMAs on shared-memory tiles (no TF32), for float32
 // evaluation. Softmax, bias, delta and every accumulator are float32 on both.
 //
-// What bounds it: per window and head, 4 S^2 D ~ 0.3 MFLOP forward on
+// What bounds them: per window and head, 4 S^2 D ~ 0.3 MFLOP forward on
 // 3 S D 2 ~ 9.4 KB of bf16 inputs, ~33 flop per byte, far under the H100's
-// ridge (~295): HBM bytes bound both kernels. The padding of 49 rows and keys to
-// 64 costs products (and one warp of four works on a single row), not bytes.
-// What the simple design leaves on the table: no cp.async or TMA prefetch of the
-// next window's tiles while this one computes, and 4 warps a block.
+// ridge (~295): HBM bytes bound both kernels, the backward at 7 (B*nW, S, H*D)
+// tensors moved once, 0.766 ms a Swin-T step at 3.35 TB/s. The padding of 49
+// rows and keys to 64 costs products (and one warp of four works on a single
+// row), not bytes. The first backward (3.33 ms a step; NVIDIA H100 80GB HBM3,
+// 700.00 W, cvnets_tpu_torch/tools/time_window_backward.py, every step below
+// timed in one process) was bound by latency: four blocks of four warps an SM,
+// each loading its window through registers between two barriers with nothing
+// in flight while it computed, fragments built by 32- and 16-bit loads, expf.
+// The bf16 backward now, step by step (ms a Swin-T step, 12 launches):
+//   1. The next window's Q, K, V and dO are copied by 16-byte cp.async into a
+//      second stage while this window computes (zero fill past S through the
+//      src-size operand, so every refill zeroes the padded rows again; no copy
+//      past the chunk's last image; loaded through registers when a stride is
+//      not 16-byte aligned). One barrier opens each window, a second one
+//      publishes P and dS. Two stages cost 20 KB more: with the bias tile in
+//      shared memory that leaves two blocks an SM (2.84); with it in
+//      registers, three (2.37).
+//   2. Every fragment by ldmatrix.x4 on the D + 8 pitch: S = Q K^T and
+//      dP = dO V^T (mm_abt_ldsm), dQ = dS K (mm_pm_ldsm), and dV, dK from P and
+//      dS stored row-major by 32-bit stores and read back transposed by
+//      ldmatrix.trans (mm_atm_ldsm), where P^T and dS^T took 16-bit stores and
+//      pairs of 16-bit loads: 2.05.
+//   3. exp2 on the SFU, log2 e folded into the bias once a block, so a logit
+//      is one FMA and one ex2: 1.90. The bias fragments then move from
+//      registers (168 under __launch_bounds__'s three blocks an SM, 20-80
+//      bytes spilled) to shared memory in each lane's fragment order (16 KB,
+//      no padding; three blocks an SM still, 164 registers): 1.80.
+//   4. The wrapper gives a block the fewest images that fit the launch into
+//      one wave (ops/window_attention.py _bwd_chunk: 384 blocks at every
+//      Swin-T stage, where the forward's chunk rule gave 576 to 1,536), so each
+//      block's bias gather, first copy and partial dbias serve 8-64 windows:
+//      1.62, 2.1 times the bound (1.49 by chip_smoke.py's timing).
+// What it leaves: 15 padded rows of 64 in every product, a one-window
+// prefetch (a third stage would cost a block an SM), and the partials' write
+// and second pass.
 
 #include "attention_tiles.cuh"
 
 namespace {
 
 constexpr int kBiasLd = kTile + 8;  // float32 bias tile; even, so rows take float2 loads
-constexpr int kTLd = kTile + 8;     // bf16 P^T and dS^T tiles
+constexpr int kTLd = kTile + 8;     // bf16 P and dS tiles of the backward
 constexpr int kSLd = kTile + 4;     // float32 logit tiles
 
 // Which head, window position and chunk of images this block owns.
@@ -85,22 +118,32 @@ __device__ void load_bias(float* Bs, const float* bias, const float* mask, int S
   }
 }
 
-// acc (16 x D) += A . M: A is 16 x 64 and M is 64 x D, both row-major bf16 in
-// shared memory (leading dimensions lda and ld).
+// acc (16 x D) += A^T . M by ldmatrix.trans on both operands. At is a 64 x 16
+// column slice of a row-major bf16 tile (pitch lda; A's rows are its columns),
+// M is 64 x D, row-major (pitch ld): dV = P^T dO and dK = dS^T Q from P and dS
+// as the first half of the backward wrote them, rows queries. The 16-wide
+// steps from k_valid on (queries past S, whose dO, Q and dS rows are 0) are
+// skipped.
 template <int D>
-__device__ __forceinline__ void mm_am(float (&acc)[D / 8][4], const bf16* A, int lda,
-                                      const bf16* M, int ld, int g, int t) {
+__device__ __forceinline__ void mm_atm_ldsm(float (&acc)[D / 8][4], const bf16* At, int lda,
+                                            const bf16* M, int ld, int lane, int k_valid) {
+  // A's matrices (rows 0-7, 8-15) x (cols 0-7, 8-15) are At's (rows 0-7, cols
+  // 0-7), (rows 0-7, cols 8-15), (rows 8-15, cols 0-7), (rows 8-15, cols 8-15)
+  // transposed
+  const bf16* a_src = At + ((lane / 16) * 8 + lane % 8) * lda + ((lane / 8) % 2) * 8;
+  const bf16* m_src = M + (lane % 16) * ld + (lane / 16) * 8;
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const bf16* a_row = A + g * lda + 16 * kk + 2 * t;
-    const uint32_t a[4] = {ld32(a_row), ld32(a_row + 8 * lda), ld32(a_row + 8),
-                           ld32(a_row + 8 * lda + 8)};
-    const bf16* m_col = M + (16 * kk + 2 * t) * ld + g;
+  for (int kk = 0; kk < kTile / 16; ++kk) {
+    if (16 * kk >= k_valid) break;
+    uint32_t a[4];
+    ldsm_x4_trans(a, a_src + 16 * kk * lda);
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const bf16* p0 = m_col + 8 * j;
-      const uint32_t b[2] = {ld_pair(p0, p0 + ld), ld_pair(p0 + 8 * ld, p0 + 9 * ld)};
-      mma(acc[j], a, b);
+    for (int j = 0; j < D / 8; j += 2) {
+      uint32_t b[4];
+      ldsm_x4_trans(b, m_src + 16 * kk * ld + 8 * j);
+      const uint32_t b0[2] = {b[0], b[1]}, b1[2] = {b[2], b[3]};
+      mma(acc[j], a, b0);
+      mma(acc[j + 1], a, b1);
     }
   }
 }
@@ -190,47 +233,160 @@ __global__ void __launch_bounds__(kThreads) win_fwd_bf16_kernel(
   }
 }
 
+// (bias[h] + mask[p]) * log2 e in the C-fragment order of one lane: frag[32 j]
+// holds element e of c[j] as component e (rows r0 + g + 8 (e / 2), columns
+// 8j + 2t + e % 2), keys past S at -inf, query rows past S at 0. Gathered once
+// a block from device memory into shared memory (in registers, beside dsum, it
+// left the kernel spilling at the 168 registers of three blocks an SM). Each
+// lane writes and reads only its own 8 float4, 32 lanes side by side, so the
+// 16-byte accesses are free of bank conflicts and need no barrier.
+__device__ __forceinline__ void store_bias_frag(float4* frag, const float* bias,
+                                                const float* mask, int S, int h, int p, int r0,
+                                                int g, int t) {
+  const long long ss = static_cast<long long>(S) * S;
+  const float* bh = bias + h * ss;
+  const float* mp = mask == nullptr ? nullptr : mask + p * ss;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    float b2[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int row = r0 + g + 8 * (e / 2), col = 8 * j + 2 * t + (e & 1);
+      float x = -INFINITY;
+      if (col < S) {
+        x = 0.f;
+        if (row < S) {
+          x = bh[row * S + col];
+          if (mp != nullptr) x += mp[row * S + col];
+        }
+      }
+      b2[e] = x * kLog2e;
+    }
+    frag[32 * j] = make_float4(b2[0], b2[1], b2[2], b2[3]);
+  }
+}
+
+// In place: s (16 x 64 logits in C fragments) -> softmax rows, with the bias
+// in log2 units (store_bias_frag): 2^(s log2 e + b2 - max), one FMA and one
+// ex2 a logit.
+__device__ __forceinline__ void softmax_rows_exp2(float (&s)[8][4], const float4* frag) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float4 b = frag[32 * j];
+    const float b2[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = fmaf(s[j][e], kLog2e, b2[e]);
+      mx[e / 2] = fmaxf(mx[e / 2], s[j][e]);
+    }
+  }
+  float l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = fast_exp2(s[j][e] - mx[e / 2]);  // +0 for keys past S (-inf)
+      l[e / 2] += s[j][e];
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    l[i] = 1.f / l[i];
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] *= l[e / 2];
+  }
+}
+
+// Write a warp's 16 x 64 tile (C fragments) to rows r0.. of a row-major bf16
+// tile of pitch kTLd, two columns a 32-bit store.
+__device__ __forceinline__ void store_frag_rows(bf16* dst, const float (&x)[8][4], int r0, int g,
+                                                int t) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      *reinterpret_cast<uint32_t*>(dst + (r0 + g + 8 * i) * kTLd + 8 * j + 2 * t) =
+          pack_bf16(x[j][2 * i], x[j][2 * i + 1]);
+  }
+}
+
+template <int D>
+struct WinBwdBf16 {
+  static constexpr int kLd = Bf16Tiles<D>::kLd;
+  static constexpr int kStage = 4 * kTile * kLd;  // elements of Q, K, V and dO of one window
+  // two stages, the P and dS tiles and the bias fragments: 74 KB at D = 32, so
+  // three blocks an SM (228 KB), as many as the 168 registers of
+  // __launch_bounds__ allow
+  static constexpr int kSmem = 2 * kStage * 2 + 2 * kTile * kTLd * 2 + kThreads * 32 * 4;
+  static constexpr int kMinBlocks = D == 64 ? 2 : 3;
+};
+
 // Tensor order in st: q, k, v, dO, dq, dk, dv. partial is (chunks, nW, H, S, S).
 template <int D>
-__global__ void __launch_bounds__(kThreads) win_bwd_bf16_kernel(
+__global__ void __launch_bounds__(kThreads, WinBwdBf16<D>::kMinBlocks) win_bwd_bf16_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
     const float* __restrict__ bias, const float* __restrict__ mask,
     const bf16* __restrict__ dout, bf16* __restrict__ dq, bf16* __restrict__ dk,
     bf16* __restrict__ dv, float* __restrict__ partial, int S, int H, int nW, int n_img,
     int chunk, Strides st, bool vec) {
-  constexpr int ld = Bf16Tiles<D>::kLd;
+  using L = WinBwdBf16<D>;
+  constexpr int ld = L::kLd;
   extern __shared__ __align__(128) unsigned char smem[];
-  float* Bs = reinterpret_cast<float*>(smem);
-  bf16* Qs = reinterpret_cast<bf16*>(Bs + kTile * kBiasLd);
-  bf16* Ks = Qs + kTile * ld;
-  bf16* Vs = Ks + kTile * ld;
-  bf16* dOs = Vs + kTile * ld;
-  bf16* PT = dOs + kTile * ld;   // P^T: rows keys, columns queries
-  bf16* dST = PT + kTile * kTLd;  // dS^T
+  bf16* stages = reinterpret_cast<bf16*>(smem);  // two of: Q, K, V, dO
+  bf16* Ps = stages + 2 * L::kStage;             // P, rows queries, columns keys
+  bf16* dSs = Ps + kTile * kTLd;                 // dS, the same
 
   const WinBlock wb = win_block(H, nW);
   const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
   const int r0 = (threadIdx.x / 32) * kRows;
   const long long hd = static_cast<long long>(wb.h) * D;
-  load_bias(Bs, bias, mask, S, wb.h, wb.p);
   const float one[2] = {1.f, 1.f};
+  float4* b2 = reinterpret_cast<float4*>(dSs + kTile * kTLd) + threadIdx.x / 32 * 8 * 32 + lane;
+  store_bias_frag(b2, bias, mask, S, wb.h, wb.p, r0, g, t);
   float dsum[8][4] = {};  // this block's sum of dS, in the warp's C fragments
 
-  const int b_end = min(n_img, (wb.c + 1) * chunk);
-  for (int b = wb.c * chunk; b < b_end; ++b) {
+  // Q, K, V and dO of image b's window into a stage, zero-filled past S (so
+  // every refill zeroes the padded rows again: dO's must be 0 for dS to
+  // vanish there), as one cp.async group
+  const auto fetch = [&](int b, bf16* dst) {
     const long long w = static_cast<long long>(b) * nW + wb.p;
-    __syncthreads();  // the previous window's tiles and P^T, dS^T are used
-    load_tile<bf16, D>(Qs, ld, q + w * st.b[0] + hd, st.s[0], S, vec);
-    load_tile<bf16, D>(Ks, ld, k + w * st.b[1] + hd, st.s[1], S, vec);
-    load_tile<bf16, D>(Vs, ld, v + w * st.b[2] + hd, st.s[2], S, vec);
-    load_tile<bf16, D>(dOs, ld, dout + w * st.b[3] + hd, st.s[3], S, vec);
-    __syncthreads();
+    const bf16* src[4] = {q + w * st.b[0], k + w * st.b[1], v + w * st.b[2],
+                          dout + w * st.b[3]};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      load_rows_async<D, kTile, kThreads>(dst + i * kTile * ld, ld, src[i] + hd, st.s[i], S,
+                                          vec);
+    cp_async_commit();
+  };
+  const int b_first = wb.c * chunk, b_end = min(n_img, b_first + chunk);
+  fetch(b_first, stages);
+  for (int b = b_first; b < b_end; ++b) {
+    const bf16* Qs = stages + ((b - b_first) & 1) * L::kStage;
+    const bf16* Ks = Qs + kTile * ld;
+    const bf16* Vs = Ks + kTile * ld;
+    const bf16* dOs = Vs + kTile * ld;
+    const long long w = static_cast<long long>(b) * nW + wb.p;
+    cp_async_wait<0>();
+    __syncthreads();  // window b's tiles are in; window b - 1 is done with the other stage, P, dS
+    if (b + 1 < b_end) fetch(b + 1, stages + ((b + 1 - b_first) & 1) * L::kStage);
+
     // Every warp works, rows past S included: they give P finite and dS = 0
-    // (their dO rows are 0), and their P^T and dS^T columns feed dK and dV.
+    // (their dO rows are 0), and their P and dS rows feed dK and dV.
     float s[8][4], ds[8][4];
-    mm_abt<D>(s, Qs + r0 * ld, Ks, ld, S, g, t);
-    softmax_rows(s, Bs, r0, g, t);                  // P
-    mm_abt<D>(ds, dOs + r0 * ld, Vs, ld, S, g, t);  // dP; keys past S: 0
+    mm_abt_ldsm<D>(s, Qs + r0 * ld, Ks, ld, lane);    // keys past S: 0, then -inf from b2
+    mm_abt_ldsm<D>(ds, dOs + r0 * ld, Vs, ld, lane);  // dP
+    softmax_rows_exp2(s, b2);                         // P
     float delta[2] = {0.f, 0.f};
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
@@ -246,22 +402,23 @@ __global__ void __launch_bounds__(kThreads) win_bwd_bf16_kernel(
     for (int j = 0; j < 8; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int row = r0 + g + 8 * (e / 2), col = 8 * j + 2 * t + (e & 1);
         ds[j][e] = s[j][e] * (ds[j][e] - delta[e / 2]);  // 0 for keys past S
         dsum[j][e] += ds[j][e];
-        PT[col * kTLd + row] = __float2bfloat16(s[j][e]);
-        dST[col * kTLd + row] = __float2bfloat16(ds[j][e]);
       }
     }
+    store_frag_rows(Ps, s, r0, g, t);
+    store_frag_rows(dSs, ds, r0, g, t);
     float acc[D / 8][4] = {};
-    mm_pm<D>(acc, ds, Ks, ld, S, g, t);  // dQ = dS K
+    mm_pm_ldsm<D>(acc, ds, Ks, ld, lane, S);  // dQ = dS K
     store_rows<D>(dq + w * st.b[4] + hd, st.s[4], r0, S, acc, one, g, t);
-    __syncthreads();  // P^T and dS^T complete
-    float dka[D / 8][4] = {}, dva[D / 8][4] = {};
-    mm_am<D>(dva, PT + r0 * kTLd, kTLd, dOs, ld, g, t);  // dV = P^T dO for keys r0..
-    mm_am<D>(dka, dST + r0 * kTLd, kTLd, Qs, ld, g, t);  // dK = dS^T Q
-    store_rows<D>(dk + w * st.b[5] + hd, st.s[5], r0, S, dka, one, g, t);
+    __syncthreads();  // P and dS complete
+    // each warp takes 16 keys: dV = P^T dO, dK = dS^T Q
+    float dva[D / 8][4] = {};
+    mm_atm_ldsm<D>(dva, Ps + r0, kTLd, dOs, ld, lane, S);
     store_rows<D>(dv + w * st.b[6] + hd, st.s[6], r0, S, dva, one, g, t);
+    float dka[D / 8][4] = {};
+    mm_atm_ldsm<D>(dka, dSs + r0, kTLd, Qs, ld, lane, S);
+    store_rows<D>(dk + w * st.b[5] + hd, st.s[5], r0, S, dka, one, g, t);
   }
 
   const long long ss = static_cast<long long>(S) * S;
@@ -458,7 +615,7 @@ template <int D>
 struct WinSmem<bf16, D> {
   static constexpr int kBias = kTile * kBiasLd * 4;
   static constexpr int kFwd = kBias + 3 * Bf16Tiles<D>::kBytes;
-  static constexpr int kBwd = kBias + 4 * Bf16Tiles<D>::kBytes + 2 * kTile * kTLd * 2;
+  static constexpr int kBwd = WinBwdBf16<D>::kSmem;
 };
 template <int D>
 struct WinSmem<float, D> {

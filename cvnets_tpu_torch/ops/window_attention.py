@@ -32,7 +32,11 @@ _MAX_EMBED = 1024
 _KERNEL_SEQ = 64
 _HEAD_DIMS = (16, 32, 64)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_CHUNK = 16  # images of one window position a backward block sums dbias over
+_MAX_CHUNK = 16  # images of one window position a forward or f32 backward block takes
+# blocks an SM the bf16 backward kernel holds (WinBwdBf16 in
+# csrc/window_attention.cu): its shared memory allows three at D = 16 and 32,
+# two at D = 64
+_BWD_BLOCKS_AN_SM = {16: 3, 32: 3, 64: 2}
 
 
 def window_attention_eligible(seq: int, embed: int, heads: int) -> bool:
@@ -130,6 +134,17 @@ def _chunk(bnw: int, heads: int, device: torch.device) -> int:
     return max(1, min(_MAX_CHUNK, bnw * heads // (4 * sms)))
 
 
+def _bwd_chunk(n_img: int, nw: int, heads: int, d: int, sms: int) -> int:
+    """Images of one window position a bf16 backward block takes: the fewest
+    that fit every block into one wave of the card's ``sms`` SMs, so that each
+    block's bias gather, first copy and partial dbias serve the most windows
+    (at Swin-T's batch 128: 64, 32, 16 and 8 images, 384 blocks, where
+    ``_chunk`` gives 16, 16, 11 and 5). A function of the shapes and the card,
+    so the dbias summation order is the same on every run."""
+    per_position = max(1, _BWD_BLOCKS_AN_SM[d] * sms // (nw * heads))
+    return -(-n_img // per_position)
+
+
 def _strides(*tensors) -> ctypes.Array:
     flat = [x for t in tensors for x in (t.stride(0), t.stride(1))]
     return (ctypes.c_longlong * len(flat))(*flat)
@@ -173,7 +188,11 @@ class WindowBackwardKernel(KernelEntry):
         dbias = torch.empty((heads, s, s), dtype=torch.float32, device=q.device)
         if dq.numel() == 0:
             return dq, dk, dv, dbias.zero_()
-        chunk = _chunk(bnw, heads, q.device)
+        if q.dtype == torch.bfloat16:
+            sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+            chunk = _bwd_chunk(bnw // nw, nw, heads, d, sms)
+        else:
+            chunk = _chunk(bnw, heads, q.device)
         n_part = -(-(bnw // nw) // chunk) * nw
         partial = torch.empty((n_part, heads, s, s), dtype=torch.float32, device=q.device)
         self.launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),

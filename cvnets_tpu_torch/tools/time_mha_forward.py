@@ -20,70 +20,44 @@ that it serialized a forward's wgmma products are printed as the builds end.
 
 from __future__ import annotations
 
-import os
 import re
 import statistics
-import subprocess
 import sys
-from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
-from cvnets_tpu_torch.ops.cuda_build import BUILD_DIR, CSRC_DIR, NVCC_FLAGS, _nvcc
+from cvnets_tpu_torch.ops.cuda_build import CSRC_DIR
 from cvnets_tpu_torch.ops.mha_attention import (
     MHAForwardKernel,
     mha_attention_plain,
     mha_attention_stats_plain,
 )
+from cvnets_tpu_torch.tools.kernel_variants import (
+    bind,
+    build_all,
+    build_dir,
+    registers,
+    time_once,
+)
 
 SHAPES = [(128, 197, 12, 64), (32, 1024, 12, 64)]  # (B, S, H, D)
-ROUNDS, LAUNCHES, SAMPLES = 5, 20, 3
-OUT_DIR = os.path.join(os.path.dirname(BUILD_DIR), "time_mha_forward")
+ROUNDS, SAMPLES = 5, 3
+OUT_DIR = build_dir("time_mha_forward")
 
 
-def build(label: str, csrc: str) -> tuple:
-    """nvcc of ``csrc/mha_attention.cu``; returns (library, {"kernel D": "regs (spill)"})."""
-    os.makedirs(OUT_DIR, exist_ok=True)
-    lib = os.path.join(OUT_DIR, f"{label}.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", lib,
-           os.path.join(csrc, "mha_attention.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"{label}: nvcc failed\n{proc.stderr[-4000:]}")
-    regs, name, spill = {}, "", ""
-    for line in proc.stderr.splitlines():
-        if "Performance Loss" in line and "mha_fwd_" in line:  # ptxas serialized wgmma
+def forward_registers(label: str, report: str) -> dict:
+    """{"kernel D": "regs (spill)"} of the forward kernels; prints ptxas's notes
+    that it serialized a forward's wgmma products."""
+    for line in report.splitlines():
+        if "Performance Loss" in line and "mha_fwd_" in line:
             print(f"{label}: {line.strip()[:300]}", flush=True)
-        if m := re.search(r"Compiling entry function '(\S+)'", line):
-            name = m.group(1)
-        elif m := re.search(r"(\d+) bytes spill stores", line):
-            spill = m.group(1)
-        elif (m := re.search(r"Used (\d+) registers", line)) and "mha_fwd_" in name:
+    regs = {}
+    for name, (n, spill) in registers(report).items():
+        if "mha_fwd_" in name:
             kind = "wgmma" if "wgmma" in name else ("f32" if "f32" in name else "mma")
             d = re.search(r"ILi(\d+)E", name)
-            regs[f"{kind} D{d.group(1) if d else '?'}"] = f"{m.group(1)} ({spill} spilled)"
-    return lib, regs
-
-
-def bind(lib: str) -> MHAForwardKernel:
-    import ctypes
-
-    kernel = MHAForwardKernel()
-    fn = ctypes.CDLL(lib).mha_attention_forward
-    fn.argtypes = kernel._argtypes
-    fn.restype = ctypes.c_int
-    kernel._fn = fn
-    return kernel
-
-
-def time_once(fn) -> float:
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(LAUNCHES):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / LAUNCHES
+            regs[f"{kind} D{d.group(1) if d else '?'}"] = f"{n} ({spill} spilled)"
+    return regs
 
 
 def main(argv) -> int:
@@ -94,9 +68,13 @@ def main(argv) -> int:
         print("time_mha_forward: no CUDA device", file=sys.stderr)
         return 2
     trees = dict(a.split("=", 1) for a in argv) or {"this": CSRC_DIR}
-    with ThreadPoolExecutor(len(trees)) as pool:
-        built = dict(zip(trees, pool.map(lambda kv: build(*kv), trees.items())))
-    kernels = {label: bind(lib) for label, (lib, _) in built.items()}
+    built = build_all(trees, "mha_attention.cu", OUT_DIR)
+    for result in built.values():
+        if isinstance(result, Exception):
+            raise result
+    built = {label: (lib, forward_registers(label, report))
+             for label, (lib, report) in built.items()}
+    kernels = {label: bind(lib, MHAForwardKernel()) for label, (lib, _) in built.items()}
     card = torch.cuda.get_device_name(0)
     g = torch.Generator(device="cuda").manual_seed(0)
     for b, s, h, d in SHAPES:

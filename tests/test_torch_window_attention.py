@@ -2,10 +2,13 @@
 CPU tensors (plain forward and plain backward) against the JAX
 ``fused_window_attention`` run through its Pallas kernels in interpret mode and
 against the einsum math of its reference, forward and the grads of q, k, v and
-the bias, shifted and not, at the shapes of the JAX test (B = 3, nW = 4, S = 49,
-H = 3, D = 32); the plain VJP against autograd; the wrappers' checks; and — on a
-CUDA card only — the hand-written kernels against the plain versions at the four
-Swin-T stage shapes (batch cut), with dbias the same bit for bit on two runs.
+the bias, shifted and not, at the shapes of the JAX test (B = 3, nW = 4, H = 3,
+D = 32) at windows of S = 16, 49 and 64 tokens; the plain VJP against
+autograd; the wrappers' checks; and — on a CUDA card only — the hand-written
+kernels against the plain versions at the four Swin-T stage shapes (batch cut),
+the backward at S = 16 and 64 and every head dim, at image counts that end a
+block's prefetch early and on the scalar-load path, with dbias the same bit for
+bit over repeated runs.
 
 JAX is imported inside the tests that use it, so that on a machine with a card
 and no JAX the kernel tests run alone:
@@ -19,6 +22,7 @@ import torch
 
 from cvnets_tpu_torch.ops.window_attention import (
     WindowAttentionFunction,
+    _bwd_chunk,
     fused_window_attention,
     window_attention_backward_plain,
     window_attention_eligible,
@@ -91,10 +95,20 @@ def _jax(q, k, v, bias, mask, heads, interpret):
     return np.asarray(out), [np.asarray(g) for g in grads]
 
 
-@pytest.mark.parametrize("interpret", [True, False], ids=["pallas_interpret", "einsum"])
-@pytest.mark.parametrize("shifted", [True, False], ids=["shift_mask", "no_mask"])
-def test_function_matches_jax(shifted, interpret):
-    q, k, v, bias, mask = _inputs()
+# (S, id prefix): Swin's own window 7 is the case without a prefix
+_WINDOWS = [(16, "window4-"), (49, ""), (64, "window8-")]
+
+
+@pytest.mark.parametrize("s,shifted,interpret", [
+    pytest.param(s, shifted, interpret, id=f"{prefix}{shift_id}-{route_id}")
+    for s, prefix in _WINDOWS
+    for shifted, shift_id in ((True, "shift_mask"), (False, "no_mask"))
+    for interpret, route_id in ((True, "pallas_interpret"), (False, "einsum"))])
+def test_function_matches_jax(s, shifted, interpret):
+    """At windows of 4, 7 and 8 tokens a side: S = 16, Swin's 49 (a 64-row
+    tile with 15 padded rows) and 64 (no padded row), the shapes the card
+    tests give the kernels."""
+    q, k, v, bias, mask = _inputs(s=s)
     mask = mask if shifted else None
     ref, ref_grads = _jax(q, k, v, bias, mask, 3, interpret)
     out, grads = _port(q, k, v, bias, mask, 3)
@@ -198,6 +212,27 @@ def test_micro_swin_at_window_9_takes_the_einsum_route_and_matches_jax(monkeypat
             seven(nchw(x))
 
 
+@pytest.mark.parametrize("n_img,nw,heads,d,chunk", [
+    (128, 64, 3, 32, 64), (128, 16, 6, 32, 32), (128, 4, 12, 32, 16), (128, 1, 24, 32, 8),
+    (2, 4, 2, 32, 1),      # fewer images than a wave holds: one image a block
+    (128, 64, 12, 64, 128),  # more positions × heads than a wave: all images a block
+    (101, 4, 12, 64, 21),  # two blocks an SM at D = 64; a last block of 17 images
+], ids=["swin_t_stage1", "stage2", "stage3", "stage4", "small", "wide", "d64"])
+def test_bwd_chunk_is_the_fewest_images_that_fill_one_wave(n_img, nw, heads, d, chunk):
+    """On 132 SMs (an H100), three bf16 backward blocks an SM (two at D = 64):
+    the chunk keeps every block of the launch resident at once, and one image
+    less would not (unless every block already takes one image, or every
+    image when the positions and heads alone fill the wave)."""
+    slots = (2 if d == 64 else 3) * 132
+    assert _bwd_chunk(n_img, nw, heads, d, 132) == chunk
+
+    def blocks(c):
+        return -(-n_img // c) * nw * heads
+
+    assert blocks(chunk) <= max(slots, nw * heads)
+    assert chunk == 1 or blocks(chunk - 1) > slots
+
+
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
     q, k, v, bias, mask = map(torch.from_numpy, _inputs(b=1, nw=2, s=16, h=2, d=16))
     launches = window_fwd_kernel.launches, window_bwd_kernel.launches
@@ -218,12 +253,13 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
 CUDA_STAGES = [(4 * 64, 64, 3), (4 * 16, 16, 6), (4 * 4, 4, 12), (4, 1, 24)]
 
 
-def _cuda_inputs(bnw, nw, h, dtype, shifted, seed=0):
+def _cuda_inputs(bnw, nw, h, dtype, shifted, seed=0, s=49, d=32, pad=0):
+    """q, k, v as column thirds of one qkv tensor, as WindowAttention makes
+    them; ``pad`` extra columns make the token stride 3·H·D + pad."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    s, d = 49, 32
     e = h * d
-    qkv = torch.randn((bnw, s, 3 * e), generator=g, device="cuda").to(dtype)
-    q, k, v = qkv.chunk(3, dim=-1)  # column thirds, as WindowAttention makes them
+    qkv = torch.randn((bnw, s, 3 * e + pad), generator=g, device="cuda").to(dtype)
+    q, k, v = qkv[..., :3 * e].chunk(3, dim=-1)
     q = q * d ** -0.5
     bias = 0.5 * torch.randn((h, s, s), generator=g, device="cuda")
     mask = None
@@ -290,3 +326,86 @@ def test_function_on_cuda_runs_the_kernels_and_never_the_plain_version():
     assert (window_fwd_kernel.launches, window_bwd_kernel.launches) == (launches[0] + 1,
                                                                         launches[1] + 1)
     assert bias.grad.dtype == torch.float32 and bias.grad.shape == (12, 49, 49)
+
+
+def _backward_matches_plain(q, k, v, bias, mask, dout, h):
+    """One counted launch; dq, dk, dv and dbias against the plain VJP at the
+    bf16 bound of ``_tol`` (P and dS rounded to bf16 before their products,
+    the outputs to bf16)."""
+    launches = window_bwd_kernel.launches
+    got = window_bwd_kernel(q, k, v, h, bias, mask, dout)
+    torch.cuda.synchronize()
+    assert window_bwd_kernel.launches == launches + 1
+    ref = window_attention_plain(q, k, v, h, bias, mask)
+    want = window_attention_backward_plain(q, k, v, h, bias, mask, ref, dout)
+    for name, a, b in zip(("dq", "dk", "dv", "dbias"), got, want):
+        torch.testing.assert_close(a.float(), b.float(), atol=_tol(b, q.dtype), rtol=0,
+                                   msg=lambda m: f"{name}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shifted", [False, True], ids=["no_mask", "shift_mask"])
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("s", [16, 64], ids=["window4", "window8"])
+def test_backward_matches_plain_at_other_windows_on_cuda(s, d, shifted):
+    """Windows of 4 × 4 (S = 16: three warps of four own only padded rows) and
+    8 × 8 (S = 64: no padded row), every head dim the kernels take."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU or interpret mode)")
+    q, k, v, bias, mask, dout = _cuda_inputs(3 * 4, 4, 2, torch.bfloat16, shifted, s=s, d=d)
+    _backward_matches_plain(q, k, v, bias, mask, dout, 2)
+
+
+def _images_for(chunk_of, nw, h, device):
+    """The first image count from 2 whose bf16 backward chunk (``_bwd_chunk``,
+    a function of the shapes and the card) passes ``chunk_of(n_img, chunk)``."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    for n_img in range(2, 4096):
+        if chunk_of(n_img, _bwd_chunk(n_img, nw, h, 32, sms)):
+            return n_img
+    raise AssertionError("no image count gives such a chunk")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nw,h,case", [
+    (4, 12, "ragged"), (1, 24, "ragged"),  # the last block of each position is short
+    (4, 12, "one"),                        # every block takes one image
+], ids=["ragged_nw4", "ragged_nw1", "chunk_of_one"])
+def test_backward_prefetch_ends_at_the_chunk_on_cuda(nw, h, case):
+    """A block prefetches the next image's window while it computes this one:
+    an image count that the chunk does not divide, and a chunk of one image,
+    hold the copy that must not be issued past the block's last image."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU or interpret mode)")
+    device = torch.device("cuda")
+    if case == "ragged":
+        n_img = _images_for(lambda n, c: c > 1 and n % c != 0, nw, h, device)
+    else:
+        n_img = _images_for(lambda n, c: c == 1, nw, h, device)
+    q, k, v, bias, mask, dout = _cuda_inputs(n_img * nw, nw, h, torch.bfloat16, nw > 1)
+    _backward_matches_plain(q, k, v, bias, mask, dout, h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 64])
+def test_backward_on_an_unaligned_stride_takes_the_scalar_path_on_cuda(d):
+    """A token stride of 3·H·D + 1 elements for k and v is no multiple of 16
+    bytes, so the kernel loads its tiles without cp.async."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU or interpret mode)")
+    q, k, v, bias, mask, dout = _cuda_inputs(2 * 4, 4, 2, torch.bfloat16, True, d=d, pad=1)
+    assert k.stride(1) * k.element_size() % 16 != 0
+    _backward_matches_plain(q, k, v, bias, mask, dout, 2)
+
+
+@pytest.mark.cuda
+def test_dbias_is_the_same_bit_for_bit_at_stage4():
+    """Swin-T's stage 4 at batch 128: one window an image, 24 heads."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU or interpret mode)")
+    q, k, v, bias, mask, dout = _cuda_inputs(128, 1, 24, torch.bfloat16, False)
+    first = window_bwd_kernel(q, k, v, 24, bias, mask, dout)
+    for _ in range(3):
+        again = window_bwd_kernel(q, k, v, 24, bias, mask, dout)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
