@@ -33,7 +33,10 @@ Phases, one line each or more (any failure exits non-zero):
    against the plain unfused version at DeepLabv3's shapes (head logits
    (8, 32, 32, 150) → labels (8, 512, 512)), 5% ignored pixels and one fully
    ignored image, label smoothing 0 and 0.1, class weights off and on, float32
-   and bfloat16 logits: loss and dlogits; kernels and plain versions timed;
+   and bfloat16 logits: loss and dlogits; at the yaml's case also the
+   backward kernel's dhm against ``seg_ce_bwd_plain`` and the same bits on a
+   rerun; the same checks at C 21 (the pascal_voc recipes); kernels and plain
+   versions timed;
 6. train: MobileViTv2-1.0 train steps at batch 128 × 256² with the flagship yaml's
    settings passed as flags (bf16 autocast, AdamW, EMA, clip 10, label smoothing
    0.1) on random weights and uint8 batches from a seeded generator on the card;
@@ -126,6 +129,7 @@ AB_BLOCKS, AB_STEPS = ("plain", "kernel", "kernel", "plain"), 8
 # seg CE at DeepLabv3's shapes: head logits (B, h, w, C) → labels (B, H, W)
 SEG_B, SEG_HEAD, SEG_FULL, SEG_C = 8, 32, 512, 150
 SEG_CALLS = 2  # main head and aux head, each one forward and one backward a step
+SEG_C_VOC = 21  # config/segmentation/pascal_voc/*.yaml
 # Swin-T at batch 128 × 224²: (label, map side, heads, unshifted and shifted
 # blocks a step); windows of 7 × 7 = 49 tokens, D = 32, stage 4 never shifts
 SWIN_BATCH, WIN, WIN_D = 128, 7, 32
@@ -680,9 +684,54 @@ def phase_mha_kernel(card: str) -> dict:
     return records
 
 
+def seg_ce_inputs(g, c: int) -> tuple:
+    """Head logits (SEG_B, SEG_HEAD, SEG_HEAD, c) float32 and labels (SEG_B,
+    SEG_FULL, SEG_FULL) int64 with 5% ignored pixels (255) and one fully
+    ignored image, from the generator ``g`` on the card."""
+    import torch
+
+    logits = 2.0 * torch.randn((SEG_B, SEG_HEAD, SEG_HEAD, c), generator=g, device="cuda")
+    target = torch.randint(0, c, (SEG_B, SEG_FULL, SEG_FULL), generator=g, device="cuda")
+    target[torch.rand(target.shape, generator=g, device="cuda") < 0.05] = 255
+    target[SEG_B - 1] = 255  # one fully ignored image
+    return logits, target
+
+
+def seg_ce_bounds(hmid, target) -> dict:
+    """{"fwd": (ms, by), "bwd": (ms, by)}: each input read once, each output
+    written once; per logit one exp, 2 taps (4 flops) and the max/sum/sub (3)
+    forward, and the softmax, G and 2 taps back (7 more)."""
+    n = target.numel() * hmid.shape[-1]
+    in_bytes = hmid.numel() * 4 + target.numel() * target.element_size()
+    return {"fwd": bound(in_bytes + 8, (7 * n, FP32_FLOP_S), (n, SFU_EXP_S)),
+            "bwd": bound(in_bytes + hmid.numel() * 4, (14 * n, FP32_FLOP_S), (n, SFU_EXP_S))}
+
+
+def _seg_dhm_check(label: str, hmid, target, aw, taps, cw, ls: float) -> float:
+    """The backward kernel's dhm against ``seg_ce_bwd_plain`` (1e-6 of its
+    largest value: sums of up to 32 terms in another order, as the card tests
+    hold it) and the same bits on a rerun; returns the largest error."""
+    import torch
+
+    from cvnets_tpu_torch.ops.seg_ce_kernel import seg_ce_bwd_kernel, seg_ce_bwd_plain
+
+    scale = torch.full((1,), 1.0 / target.numel(), device=hmid.device)
+    dhm = seg_ce_bwd_kernel(hmid, target, taps, cw, scale, 255, ls)
+    again = seg_ce_bwd_kernel(hmid, target, taps, cw, scale, 255, ls)
+    ref = seg_ce_bwd_plain(hmid, aw, target, cw, scale, 255, ls)
+    torch.cuda.synchronize()
+    err = (dhm - ref).abs().max().item()
+    tol = 1e-6 * ref.abs().max().item()
+    check(bool(torch.isfinite(dhm).all()) and err <= tol,
+          f"seg ce {label} dhm err {err} > {tol}")
+    check(torch.equal(dhm, again), f"seg ce {label} dhm differs between two runs")
+    return err
+
+
 def phase_seg_ce_kernel(card: str) -> dict:
     """The fused resize + CE kernels against the plain unfused version at
-    DeepLabv3's shapes; returns {"fwd": record, "bwd": record}."""
+    DeepLabv3's shapes, the backward's dhm against its plain version, and the
+    same at C 21; returns {"fwd": record, "bwd": record}."""
     import torch
 
     from cvnets_tpu_torch.loss.base_criteria import BaseCriteria
@@ -701,12 +750,12 @@ def phase_seg_ce_kernel(card: str) -> dict:
     )
 
     g = torch.Generator(device="cuda").manual_seed(2)
-    logits32 = 2.0 * torch.randn((SEG_B, SEG_HEAD, SEG_HEAD, SEG_C), generator=g,
-                                 device="cuda")
-    target = torch.randint(0, SEG_C, (SEG_B, SEG_FULL, SEG_FULL), generator=g, device="cuda")
-    target[torch.rand(target.shape, generator=g, device="cuda") < 0.05] = 255
-    target[SEG_B - 1] = 255  # one fully ignored image
+    logits32, target = seg_ce_inputs(g, SEG_C)
     wts = BaseCriteria._class_weights(torch.where(target == 255, 0, target), SEG_C)
+    dev = logits32.device
+    ah = resize_matrix(SEG_FULL, SEG_HEAD, dev)
+    aw = resize_matrix(SEG_FULL, SEG_HEAD, dev)
+    taps = resize_taps(SEG_FULL, SEG_HEAD, dev)
     records = _records("fwd", "bwd")
     with no_tf32():
         for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
@@ -739,11 +788,9 @@ def phase_seg_ce_kernel(card: str) -> dict:
                                                         errs["dlogits"])
                     times = ""
                     if dtype == torch.float32 and ls == 0.0 and cw is None:  # the yaml's case
-                        dev = logits32.device
-                        ah = resize_matrix(SEG_FULL, SEG_HEAD, dev)
-                        aw = resize_matrix(SEG_FULL, SEG_HEAD, dev)
-                        taps = resize_taps(SEG_FULL, SEG_HEAD, dev)
                         hmid = h_interp(logits32, ah)
+                        errs["dhm"] = _seg_dhm_check(f"C={SEG_C}", hmid, target, aw, taps,
+                                                     None, 0.0)
                         scale = torch.full((1,), 1e-6, device=dev)
                         t = {"fwd": time_ms(lambda: seg_ce_fwd_kernel(hmid, target, taps, None,
                                                                       255, 0.0)),
@@ -753,27 +800,45 @@ def phase_seg_ce_kernel(card: str) -> dict:
                                                                       scale, 255, 0.0)),
                              "bwd_plain": time_ms(lambda: seg_ce_bwd_plain(
                                  hmid, aw, target, None, scale, 255, 0.0))}
-                        # each input read once, each output written once; per
-                        # logit one exp, 2 taps (4 flops) and the max/sum/sub (3)
-                        # forward, and the softmax, G and 2 taps back (7 more)
-                        n = SEG_B * SEG_FULL * SEG_FULL * SEG_C
-                        in_bytes = hmid.numel() * 4 + target.numel() * target.element_size()
-                        bounds = {"fwd": bound(in_bytes + 8, (7 * n, FP32_FLOP_S),
-                                               (n, SFU_EXP_S)),
-                                  "bwd": bound(in_bytes + hmid.numel() * 4,
-                                               (14 * n, FP32_FLOP_S), (n, SFU_EXP_S))}
+                        bounds = seg_ce_bounds(hmid, target)
                         for p in ("fwd", "bwd"):
                             records[p]["ms"] = SEG_CALLS * t[p]
                             records[p]["plain_ms"] = SEG_CALLS * t[f"{p}_plain"]
                             records[p]["bound_ms"] = SEG_CALLS * bounds[p][0]
                             records[p]["bound_by"] = bounds[p][1]
-                        times = "".join(f" {k}_ms={v:.4f}" for k, v in t.items()) + "".join(
+                        times = f" dhm_err={errs['dhm']:.3e} (same bits on a rerun)" + "".join(
+                            f" {k}_ms={v:.4f}" for k, v in t.items()) + "".join(
                             f" {p}_bound_ms={bounds[p][0]:.4f} ({bounds[p][1]})"
                             for p in ("fwd", "bwd"))
                     print(f"seg ce kernel: {name} B={SEG_B} h=w={SEG_HEAD} H=W={SEG_FULL} "
                           f"C={SEG_C} ls={ls} class_wts={cw is not None} loss_err="
                           f"{errs['loss']:.3e} dlogits_err={errs['dlogits']:.3e} "
                           f"(max |dlogits| {gmax:.3e}){times} | {card}", flush=True)
+        # C 21: the loss, dlogits and dhm checks at f32, ls 0, no class weights
+        logits21, target21 = seg_ce_inputs(g, SEG_C_VOC)
+        losses, grads = [], []
+        for fn in (fused_resize_ce, resize_ce_plain):
+            x = logits21.clone().requires_grad_()
+            loss = fn(x, target21)
+            loss.backward()
+            losses.append(loss.detach())
+            grads.append(x.grad)
+        hmid21 = h_interp(logits21, ah)
+        dhm_err = _seg_dhm_check(f"C={SEG_C_VOC}", hmid21, target21, aw, taps, None, 0.0)
+        loss_err = (losses[0] - losses[1]).abs().item()
+        dl_err = (grads[0] - grads[1]).abs().max().item()
+        gmax = grads[1].abs().max().item()
+        check(loss_err <= 1e-5 * losses[1].abs().item(), f"seg ce C={SEG_C_VOC} loss err")
+        check(dl_err <= 1e-4 * gmax, f"seg ce C={SEG_C_VOC} dlogits err {dl_err}")
+        scale = torch.full((1,), 1e-6, device=dev)
+        bwd_ms = time_ms(lambda: seg_ce_bwd_kernel(hmid21, target21, taps, None, scale, 255,
+                                                   0.0))
+        bound21 = seg_ce_bounds(hmid21, target21)["bwd"]
+        print(f"seg ce kernel: f32 B={SEG_B} h=w={SEG_HEAD} H=W={SEG_FULL} C={SEG_C_VOC} "
+              f"ls=0.0 class_wts=False loss_err={loss_err:.3e} dlogits_err={dl_err:.3e} "
+              f"(max |dlogits| {gmax:.3e}) dhm_err={dhm_err:.3e} (same bits on a rerun) "
+              f"bwd_ms={bwd_ms:.4f} bwd_bound_ms={bound21[0]:.4f} ({bound21[1]}) | {card}",
+              flush=True)
     return records
 
 

@@ -15,37 +15,55 @@
 //   G[j, c] = (softmax(col)[c] - (1 - ls) * [c == target] - ls / C)
 //             * class_wt * valid * scale,   scale = dloss / n_valid.
 //
-// A_w comes as lists of its nonzeros: for the forward, per output column j up
-// to kTaps (index, weight) pairs (a bilinear upsample has 2, so a logit costs 2
-// FMAs instead of the dense product's w); for the backward, per chunk of
-// output columns and input column k, the (j, weight) pairs of A_w's column k
-// (a transposed CSR). The host builds both from the dense matrix, so any A_w
-// computes the same function exactly.
+// A_w comes as tables the host builds from the dense matrix
+// (ops/seg_ce_kernel.py interp_taps). The forward reads, per output column j,
+// up to kTaps (index, weight) pairs (a bilinear upsample has 2, so a logit
+// costs 2 FMAs instead of the dense product's w). The backward reads A_w as a
+// band: output column j's weights sit on the input columns k0[j] ..
+// k0[j] + kTaps - 1, and k0 never decreases with j (the triangle filter of
+// resize_matrix_weights is such a band, up- or downsampling); and a plan of
+// how the warps of a block split the row (below). Any band computes the same
+// function exactly.
 //
-// What bounds it: at the DeepLabv3 shape (B=8, H=W=512, w=32, C=150) the
+// What bounds them: at the DeepLabv3 shape (B=8, H=W=512, w=32, C=150) the
 // forward reads hmid once (78.6 MB) and the targets (16.8 MB int64), ~0.03 ms
 // at 3.35 TB/s, but takes B*H*W*C = 315 M exponentials, ~0.08 ms at the SFU's
-// 16 a clock per SM; the backward also writes dhm (78.6 MB). The design:
+// 16 a clock per SM; the backward also writes dhm (78.6 MB), and the same
+// exponentials bound it. The forward:
 //   * one block per full-resolution row; the row of hmid (w*C floats) is read
 //     from HBM once into shared memory and every output pixel of the row reads
 //     its taps there;
-//   * forward: one thread per output pixel, two passes over C (max and sums,
-//     then the exponentials), no shuffles;
-//   * backward: first the softmax statistics of every pixel of the row, one
-//     thread a pixel as in the forward, into shared memory; then output
-//     columns in chunks of kChunk: G of the chunk into shared memory
-//     (class-major, a warp over 32 neighbouring pixels of one class), then
-//     every dhm element of the input columns the chunk touches, owned by one
-//     thread, sums its column's taps from the chunk in a fixed order into a
-//     shared accumulator. 512 threads a block, since its shared memory leaves
-//     room for only 2 blocks an SM. Two exponentials a logit instead of one.
-//     A first version with one warp a pixel (three passes over C, shuffles)
-//     and 256 threads took twice as long (PERF.md); what is left is
-//     shared-memory traffic (three accesses per FMA of the A_w^T product) and
-//     barrier waits;
+//   * one thread per output pixel, two passes over C (max and sums, then the
+//     exponentials), no shuffles;
 //   * no float atomics anywhere: the forward writes per-row partials and a
 //     second kernel sums them in a fixed order (in double), so the loss is the
 //     same bit for bit from run to run.
+// The backward takes one exponential a logit and keeps the A_w^T product in
+// registers:
+//   * one block per row of 8 warps; the row of hmid comes into shared memory
+//     by 16-byte cp.async (a grid of one wave that prefetched the next row
+//     into a second buffer measured slower, PERF.md);
+//   * the plan gives each warp a run of output columns; a warp takes its
+//     pixels in order, kGroup at a time, kLanes = 32 / kGroup lanes a pixel
+//     over classes (lane li owns c = li + kLanes i): each lane evaluates its
+//     logits once from the shared row, the group takes the row max and the
+//     sum of exp2 by shuffles, and forms G from the kept exponentials; a
+//     pixel with no gradient (ignored, or of class weight 0) costs nothing.
+//     Four pixels of 8 lanes (C <= 24, 2 taps) quarter the shuffles, the
+//     division and the bookkeeping a pixel, and leave 3 lanes idle at C 21
+//     where one pixel of 32 lanes idles 11 (two pixels of 16 lanes at C 150
+//     took 80 registers, 3 blocks an SM, and measured slower than one);
+//   * each lane keeps, per class it owns, kTaps accumulators for the input
+//     columns from k0 on (the pixels of a step share k0); when k0 moves past
+//     a column, its dhm is complete: the groups' partial sums are added by
+//     shuffles and the column stored straight to global memory (the C floats
+//     of a column are contiguous, so the stores coalesce);
+//   * an input column that two warps' runs touch is stored, by each, to a slot
+//     of shared memory; after a barrier the block sums every such column's
+//     slots in warp order, so dhm is the same bit for bit from run to run,
+//     with no atomics; a column no pixel touches is written as 0;
+//   * C past 32 * 5 walks the run once per group of 160 classes, each pixel's
+//     softmax statistics recomputed over all C in every group.
 // Targets are int64 (torch's label dtype); a target outside [0, C) that is not
 // the ignore index picks no logit and weighs 0 with class weights, as the
 // Pallas kernel's one-hot does. Everything is float32.
@@ -53,19 +71,22 @@
 #include <cuda_runtime.h>
 
 #include <cmath>
+#include <cstdint>
+#include <type_traits>
 
 namespace {
 
 constexpr int kWarp = 32;
 constexpr int kThreads = 256;
-// the backward's shared memory allows 2 blocks an SM at DeepLabv3's shape, so
-// it takes more warps a block to hide the latency of its shared-memory passes
-constexpr int kBwdThreads = 512;
-// output columns a backward block holds in shared memory at once; the host
-// builds its transposed lists of A_w per chunk of as many (seg_ce_kernel.py)
-constexpr int kChunk = 64;
-static_assert(kBwdThreads % kChunk == 0, "a G pass covers whole chunks");
+// warps of a backward block; the host's plan splits a row among as many
+// (_BWD_WARPS in seg_ce_kernel.py)
+constexpr int kBwdWarps = 8;
+constexpr int kBwdThreads = kWarp * kBwdWarps;
+// ints of the plan per active warp: its output columns [j_lo, j_hi), its input
+// columns [k_lo, k_hi), the offset of its slot map (seg_ce_kernel.py _WALK)
+constexpr int kWalk = 5;
 constexpr int kReduceThreads = 1024;
+constexpr float kLog2e = 1.4426950408889634f;
 
 template <int kTaps>
 struct Taps {
@@ -198,124 +219,272 @@ __global__ void __launch_bounds__(kReduceThreads) seg_ce_reduce_kernel(
   }
 }
 
-template <int kTaps>
+// ------------------------------------------------------------------ backward
+
+// 2^x on the SFU, one instruction (exp2f without fast math adds a denormal
+// guard); -inf gives +0.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_4(void* dst, const void* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d), "l"(src));
+}
+
+// copy a row of n floats into shared memory and wait for it: 16 bytes a copy
+// when the row starts on 16 bytes and n is a multiple of 4, else 4
+__device__ __forceinline__ void load_row_async(float* dst, const float* src, int n) {
+  if (n % 4 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0) {
+    for (int e = 4 * threadIdx.x; e < n; e += 4 * kBwdThreads) cp_async_16(dst + e, src + e);
+  } else {
+    for (int e = threadIdx.x; e < n; e += kBwdThreads) cp_async_4(dst + e, src + e);
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// The max and the sum over the kLanes lanes of a pixel's group (lanes l and
+// l ^ o, o < kLanes, serve the same pixel).
+template <int kLanes>
+__device__ __forceinline__ float group_max(float x) {
+#pragma unroll
+  for (int o = kLanes / 2; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+template <int kLanes>
+__device__ __forceinline__ float group_sum(float x) {
+#pragma unroll
+  for (int o = kLanes / 2; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Store input column k (acc[0], summed over the warp's groups, which hold
+// partial sums of the same classes) to dhm's row, or to slot `slot` of shared
+// memory when another warp also touches the column, and shift the
+// accumulators down one column. The group sums run in one butterfly order on
+// every lane, so dhm does not depend on the run.
+template <int kTaps, int kNC, int kGroup>
+__device__ __forceinline__ void flush_column(float (&acc)[kTaps][kNC], int k, int slot,
+                                             float* drow, float* edge, int c0, bool writer,
+                                             int C) {
+  constexpr int kLanes = kWarp / kGroup;
+  float* dst = slot < 0 ? drow + static_cast<long long>(k) * C : edge + slot * C;
+#pragma unroll
+  for (int i = 0; i < kNC; ++i) {
+    float v = acc[0][i];
+#pragma unroll
+    for (int o = kLanes; o < kWarp; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    if (writer && c0 + kLanes * i < C) dst[c0 + kLanes * i] = v;
+#pragma unroll
+    for (int t = 0; t + 1 < kTaps; ++t) acc[t][i] = acc[t + 1][i];
+    acc[kTaps - 1][i] = 0.f;
+  }
+}
+
+// G of the group's pixel for the lane's classes c0 + kLanes i: its logits
+// from the taps (rows of the shared hmid row) once, the max and the sum of the
+// exponentials over the group, then g = e * factor / s - (ls / C + (1 - ls)
+// [c == tgt]) * factor. Where the classes do not all fit (C > kLanes kNC, only
+// with kGroup 1), the max and sum come from a pass over every class first.
+template <int kTaps, int kNC, int kLanes>
+__device__ __forceinline__ void pixel_grad(const float* const (&tap)[kTaps],
+                                           const float (&a)[kTaps], int c0, int li, int C,
+                                           int tgt, float factor, float smooth, float onehot,
+                                           float (&g)[kNC]) {
+  float mx = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < kNC; ++i) {
+    const int c = c0 + kLanes * i;
+    float v = -INFINITY;
+    if (c < C) {
+      v = 0.f;
+#pragma unroll
+      for (int t = 0; t < kTaps; ++t) v = fmaf(a[t], tap[t][c], v);
+    }
+    g[i] = v;  // the logit, then its exponential, then G
+    mx = fmaxf(mx, v);
+  }
+  float m, s = 0.f;
+  if (C <= kLanes * kNC) {
+    m = group_max<kLanes>(mx) * kLog2e;
+#pragma unroll
+    for (int i = 0; i < kNC; ++i) {
+      g[i] = fast_exp2(fmaf(g[i], kLog2e, -m));
+      s += g[i];
+    }
+  } else {
+    // every class of the pixel: the lane's running max and sum, in log2 units
+    float ml = -INFINITY;
+    for (int c = li; c < C; c += kLanes) {
+      float v = 0.f;
+#pragma unroll
+      for (int t = 0; t < kTaps; ++t) v = fmaf(a[t], tap[t][c], v);
+      v *= kLog2e;
+      if (v > ml) {
+        s = fmaf(s, fast_exp2(ml - v), 1.f);
+        ml = v;
+      } else {
+        s += fast_exp2(v - ml);
+      }
+    }
+    m = group_max<kLanes>(ml);
+    s *= fast_exp2(ml - m);
+#pragma unroll
+    for (int i = 0; i < kNC; ++i) g[i] = fast_exp2(fmaf(g[i], kLog2e, -m));
+  }
+  s = group_sum<kLanes>(s);
+  const float p = factor / s, shift = smooth * factor;
+  const int t_rel = tgt - c0;  // the lane's i with c == tgt is t_rel / kLanes
+#pragma unroll
+  for (int i = 0; i < kNC; ++i) {
+    float gi = fmaf(g[i], p, -shift);
+    if (t_rel == kLanes * i) gi -= onehot * factor;
+    g[i] = gi;
+  }
+}
+
+// One warp's run of output columns [walk[0], walk[1]) of a row: dhm of the
+// input columns [walk[2], walk[3]) it touches, each stored once complete.
+// The pixels with a gradient are taken in order, kGroup at a time, kLanes =
+// 32 / kGroup lanes each (a lane owns classes c = cg + li + kLanes i, li its
+// lane within the group); the pixels of a step share their first input
+// column k0, so that the groups' accumulators hold the same columns.
+template <int kTaps, int kNC, int kGroup>
+__device__ __forceinline__ void bwd_walk(const float* h, const long long* trow,
+                                         const int* __restrict__ band_k0,
+                                         const float* __restrict__ band_wt,
+                                         const int* __restrict__ walk,
+                                         const int* __restrict__ slots,
+                                         const float* __restrict__ class_wts, float scale,
+                                         float smooth, float onehot, float* drow, float* edge,
+                                         int w, int C, int ignore_idx) {
+  constexpr int kLanes = kWarp / kGroup;
+  const int lane = threadIdx.x % kWarp, li = lane % kLanes, sub = lane / kLanes;
+  const int j_lo = walk[0], j_hi = walk[1], k_lo = walk[2], k_hi = walk[3];
+  const int* slot = slots + walk[4] - k_lo;  // slot[k] for k in [k_lo, k_hi); -1: dhm
+  for (int cg = 0; cg < C; cg += kLanes * kNC) {
+    const int c0 = cg + li;
+    float acc[kTaps][kNC];
+#pragma unroll
+    for (int t = 0; t < kTaps; ++t) {
+#pragma unroll
+      for (int i = 0; i < kNC; ++i) acc[t][i] = 0.f;
+    }
+    int base = k_lo;  // acc[t] holds input column base + t
+    for (int jb = j_lo; jb < j_hi; jb += kWarp) {
+      // lane p holds pixel jb + p's factor, target, k0 and weights
+      const int jj = jb + lane;
+      float my_f = 0.f, my_a[kTaps];
+      int my_t = -1, my_k0 = 0;
+#pragma unroll
+      for (int t = 0; t < kTaps; ++t) my_a[t] = 0.f;
+      if (jj < j_hi) {
+        const long long t = trow[jj];
+        const bool in_range = t >= 0 && t < C;
+        my_f = t == ignore_idx ? 0.f : scale;
+        if (class_wts != nullptr) my_f *= in_range ? class_wts[t] : 0.f;
+        my_t = in_range ? static_cast<int>(t) : -1;
+        my_k0 = band_k0[jj];
+#pragma unroll
+        for (int t = 0; t < kTaps; ++t) my_a[t] = band_wt[jj * kTaps + t];
+      }
+      // the pixels with a gradient (not ignored, class weight not 0), in order
+      unsigned todo = __ballot_sync(0xffffffffu, my_f != 0.f);
+      while (todo != 0u) {
+        const int k_first = __shfl_sync(0xffffffffu, my_k0, __ffs(todo) - 1);
+        // this step's pixels: the first kGroup of todo with the first one's
+        // k0 (k0 never decreases, so they are a prefix of todo)
+        unsigned cand = todo;
+        if (kGroup > 1) cand &= __ballot_sync(0xffffffffu, my_k0 == k_first);
+        int p = -1;  // the group's pixel; -1: none this step
+#pragma unroll
+        for (int q = 0; q < kGroup; ++q) {
+          if (cand != 0u) {
+            if (q == sub) p = __ffs(cand) - 1;
+            todo &= todo - 1u;  // the first pixel left is this one
+            cand &= cand - 1u;
+          }
+        }
+        for (; base < k_first; ++base) {
+          flush_column<kTaps, kNC, kGroup>(acc, base, slot[base], drow, edge, c0, sub == 0, C);
+        }
+        const int src = p < 0 ? 0 : p;  // every lane takes part in each shuffle
+        const float f_src = __shfl_sync(0xffffffffu, my_f, src);
+        const float factor = p < 0 ? 0.f : f_src;
+        const int tgt = __shfl_sync(0xffffffffu, my_t, src);
+        float a[kTaps];
+        const float* tap[kTaps];
+#pragma unroll
+        for (int t = 0; t < kTaps; ++t) {
+          const float a_src = __shfl_sync(0xffffffffu, my_a[t], src);
+          a[t] = p < 0 ? 0.f : a_src;  // a group with no pixel adds nothing
+          tap[t] = h + min(k_first + t, w - 1) * C;  // past w the weight is 0
+        }
+        float g[kNC];
+        pixel_grad<kTaps, kNC, kLanes>(tap, a, c0, li, C, tgt, factor, smooth, onehot, g);
+#pragma unroll
+        for (int t = 0; t < kTaps; ++t) {
+#pragma unroll
+          for (int i = 0; i < kNC; ++i) acc[t][i] = fmaf(a[t], g[i], acc[t][i]);
+        }
+      }
+    }
+    for (; base < k_hi; ++base) {
+      flush_column<kTaps, kNC, kGroup>(acc, base, slot[base], drow, edge, c0, sub == 0, C);
+    }
+  }
+}
+
+template <int kTaps, int kNC, int kGroup>
 __global__ void __launch_bounds__(kBwdThreads) seg_ce_bwd_kernel(
     const float* __restrict__ hmid, const long long* __restrict__ target,
-    const int* __restrict__ tap_idx, const float* __restrict__ tap_wt,
-    const int* __restrict__ col_ptr, const int* __restrict__ col_j,
-    const float* __restrict__ col_wt, const float* __restrict__ class_wts,
-    const float* __restrict__ scale_ptr, float* __restrict__ dhm, int w, int W, int C,
-    int ignore_idx, float ls) {
-  extern __shared__ float smem[];
-  __shared__ int k_range[2];  // the input columns [k_lo, k_hi) the chunk touches
+    const int* __restrict__ band_k0, const float* __restrict__ band_wt,
+    const int* __restrict__ plan, int n_warps, int n_slot_map, int n_shared,
+    const float* __restrict__ class_wts, const float* __restrict__ scale_ptr,
+    float* __restrict__ dhm, int w, int W, int C, int ignore_idx, float ls) {
+  extern __shared__ __align__(16) float smem[];
   const int n = w * C;
-  const int ld = kChunk + 1;  // G is class-major (C, kChunk + 1)
-  float* h = smem;            // (w, C) row of hmid
-  float* acc = h + n;         // (w, C) dhm accumulator
-  float* g = acc + n;         // (C, ld) G of the current chunk
-  float* px_m = g + C * ld;   // per output pixel: max logit,
-  float* px_inv = px_m + W;   // 1 / sum of exponentials,
-  float* px_f = px_inv + W;   // class weight * valid * scale (0: no grad),
-  int* px_t = reinterpret_cast<int*>(px_f + W);  // target, -1 outside [0, C)
+  float* edge = smem + ((n + 3) & ~3);  // slots of the columns two warps touch
+  // the plan: per active warp its walk, then the slot map, then the shared
+  // columns' indices and the first of their slots (shared_ptr[r] ..
+  // shared_ptr[r + 1] - 1, one a warp, in warp order)
+  const int* slots = plan + kWalk * n_warps;
+  const int* shared_k = slots + n_slot_map;
+  const int* shared_ptr = shared_k + n_shared;
+  const int warp = threadIdx.x / kWarp;
   const long long row = blockIdx.x;
-  load_row(h, hmid + row * n, n);
-  for (int e = threadIdx.x; e < n; e += blockDim.x) acc[e] = 0.f;
-  __syncthreads();
-
-  // the softmax statistics, one thread per output pixel, as the forward does
-  const long long* trow = target + row * W;
-  const float scale = *scale_ptr;
-  for (int j = threadIdx.x; j < W; j += blockDim.x) {
-    const long long t = trow[j];
-    const bool in_range = t >= 0 && t < C;
-    float factor = t == ignore_idx ? 0.f : scale;
-    if (class_wts != nullptr) factor *= in_range ? class_wts[t] : 0.f;
-    float m = 0.f, inv_s = 0.f;
-    if (factor != 0.f) {
-      Taps<kTaps> taps;
-      taps.load(tap_idx, tap_wt, j);
-      float s, sum;
-      taps.softmax_stats(h, C, m, s, sum);
-      inv_s = 1.f / s;
-    }
-    px_m[j] = m;
-    px_inv[j] = inv_s;
-    px_f[j] = factor;
-    px_t[j] = in_range ? static_cast<int>(t) : -1;
-  }
-  __syncthreads();
-
-  // thread (c0, jl) fills G[c0 + i * c_step, jl] of each chunk: a warp covers 32
-  // neighbouring pixels of one class, so its G writes are contiguous and its
-  // reads of the row mostly hit one address
-  const float smooth = ls > 0.f ? ls / static_cast<float>(C) : 0.f;
-  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
-  const int jl = threadIdx.x % kChunk, c0 = threadIdx.x / kChunk;
-  const int c_step = blockDim.x / kChunk;
-  const int n_chunks = (W + kChunk - 1) / kChunk;
-  for (int ch = 0; ch < n_chunks; ++ch) {
-    const int j = ch * kChunk + jl;
-    const int* ptr = col_ptr + ch * (w + 1);
-    if (warp == 0) {  // published by the barrier after the G pass
-      int lo = w, hi = 0;
-      for (int k = lane; k < w; k += kWarp) {
-        if (ptr[k + 1] > ptr[k]) {
-          lo = min(lo, k);
-          hi = k + 1;
-        }
-      }
-      for (int o = kWarp / 2; o > 0; o >>= 1) {
-        lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
-        hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
-      }
-      if (lane == 0) {
-        k_range[0] = lo;
-        k_range[1] = hi;
-      }
-    }
-    if (j < W) {
-      const float factor = px_f[j];
-      if (factor == 0.f) {
-        for (int c = c0; c < C; c += c_step) g[c * ld + jl] = 0.f;
-      } else {
-        Taps<kTaps> taps;
-        taps.load(tap_idx, tap_wt, j);
-        const float m = px_m[j], inv_s = px_inv[j];
-        const int t = px_t[j];
-        for (int c = c0; c < C; c += c_step) {
-          float d = expf(taps.col(h, c, C) - m) * inv_s - smooth;
-          if (c == t) d -= 1.f - ls;
-          g[c * ld + jl] = d * factor;
-        }
-      }
-    }
-    __syncthreads();
-    // dhm[k, c] += sum over this chunk's j of A_w[j, k] * G[j, c], in j order,
-    // for the columns the chunk touches (a bilinear upsample's chunk of 64
-    // output columns touches w/W*64 + 2 of them); lanes over c read G with the
-    // stride kChunk + 1, so they hit distinct banks
-    for (int e = k_range[0] * C + threadIdx.x; e < k_range[1] * C; e += blockDim.x) {
-      const int k = e / C, c = e - k * C;
-      float a = acc[e];
-      for (int q = ptr[k]; q < ptr[k + 1]; ++q) a = fmaf(col_wt[q], g[c * ld + col_j[q]], a);
-      acc[e] = a;
-    }
-    __syncthreads();
-  }
   float* drow = dhm + row * n;
-  for (int e = threadIdx.x; e < n; e += blockDim.x) drow[e] = acc[e];
+  load_row_async(smem, hmid + row * n, n);
+  __syncthreads();
+  if (warp < n_warps) {
+    bwd_walk<kTaps, kNC, kGroup>(smem, target + row * W, band_k0, band_wt, plan + kWalk * warp,
+                                 slots, class_wts, *scale_ptr,
+                                 ls > 0.f ? ls / static_cast<float>(C) : 0.f, 1.f - ls, drow,
+                                 edge, w, C, ignore_idx);
+  }
+  __syncthreads();
+  // the shared columns: their slots summed in warp order
+  for (int e = threadIdx.x; e < n_shared * C; e += kBwdThreads) {
+    const int r = e / C, c = e - r * C;
+    float v = 0.f;
+    for (int q = shared_ptr[r]; q < shared_ptr[r + 1]; ++q) v += edge[q * C + c];
+    drow[static_cast<long long>(shared_k[r]) * C + c] = v;
+  }
 }
 
 size_t fwd_smem(int w, int C) {
   return (static_cast<size_t>(w) * C + kThreads / kWarp) * sizeof(float) +
          (kThreads / kWarp) * sizeof(int);
 }
-
-size_t bwd_smem(int w, int W, int C) {
-  return (2 * static_cast<size_t>(w) * C + static_cast<size_t>(C) * (kChunk + 1) +
-          4 * static_cast<size_t>(W)) * sizeof(float);
-}
-
 template <int kTaps>
 int launch_fwd(const float* hmid, const long long* target, const int* tap_idx,
                const float* tap_wt, const float* class_wts, float* partial_loss,
@@ -336,20 +505,26 @@ int launch_fwd(const float* hmid, const long long* target, const int* tap_idx,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int kTaps>
-int launch_bwd(const float* hmid, const long long* target, const int* tap_idx,
-               const float* tap_wt, const int* col_ptr, const int* col_j,
-               const float* col_wt, const float* class_wts,
-               const float* scale, float* dhm, int rows, int w, int W, int C,
-               int ignore_idx, float ls, cudaStream_t stream) {
-  const size_t smem = bwd_smem(w, W, C);
-  cudaError_t err = cudaFuncSetAttribute(seg_ce_bwd_kernel<kTaps>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+
+size_t bwd_smem(int w, int C, int n_slots) {
+  const size_t ld = (static_cast<size_t>(w) * C + 3) & ~static_cast<size_t>(3);
+  return (ld + static_cast<size_t>(n_slots) * C) * sizeof(float);
+}
+
+template <int kTaps, int kNC, int kGroup>
+int launch_bwd(const float* hmid, const long long* target, const int* band_k0,
+               const float* band_wt, const int* plan, int n_warps, int n_slot_map,
+               int n_shared, int n_slots, const float* class_wts, const float* scale,
+               float* dhm, int rows, int w, int W, int C, int ignore_idx, float ls,
+               cudaStream_t stream) {
+  const auto kernel = seg_ce_bwd_kernel<kTaps, kNC, kGroup>;
+  const size_t smem = bwd_smem(w, C, n_slots);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  seg_ce_bwd_kernel<kTaps><<<rows, kBwdThreads, smem, stream>>>(
-      hmid, target, tap_idx, tap_wt, col_ptr, col_j, col_wt, class_wts, scale,
-      dhm, w, W, C, ignore_idx, ls);
+  kernel<<<rows, kBwdThreads, smem, stream>>>(hmid, target, band_k0, band_wt, plan, n_warps,
+                                              n_slot_map, n_shared, class_wts, scale, dhm, w,
+                                              W, C, ignore_idx, ls);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -357,7 +532,8 @@ int launch_bwd(const float* hmid, const long long* target, const int* tap_idx,
 
 // Plain C entry points, bound with ctypes. `taps` is 2, 4, 8 or 16; class_wts
 // may be null. They launch on `stream` without synchronising and return
-// cudaGetLastError() (cudaErrorInvalidValue for an unsupported `taps`).
+// cudaGetLastError() (cudaErrorInvalidValue for an unsupported `taps` or
+// `classes`).
 extern "C" int seg_ce_forward(const void* hmid, const void* target, const void* tap_idx,
                               const void* tap_wt, int taps, const void* class_wts,
                               void* partial_loss, void* partial_cnt, void* out, int rows,
@@ -380,25 +556,51 @@ extern "C" int seg_ce_forward(const void* hmid, const void* target, const void* 
   }
 }
 
-extern "C" int seg_ce_backward(const void* hmid, const void* target, const void* tap_idx,
-                               const void* tap_wt, int taps, const void* col_ptr,
-                               const void* col_j, const void* col_wt, const void* class_wts,
-                               const void* scale, void* dhm, int rows, int w, int W, int C,
-                               int ignore_idx, float ls, void* stream) {
+// The backward. band_k0 (W,) and band_wt (W, taps) are A_w as a band; plan
+// holds `warps` walks, the slot map (n_slot_map ints) and the n_shared
+// columns two warps touch (seg_ce_kernel.py BandPlan); n_slots is the
+// shared-memory slots of C floats. A lane keeps `classes` classes in
+// registers; a warp takes `group` pixels at a time: (group, classes) is one of
+// (1; 1, 2, 3, 5) and, with 2 taps, (4; 1, 2, 3).
+extern "C" int seg_ce_backward(const void* hmid, const void* target, const void* band_k0,
+                               const void* band_wt, int taps, const void* plan, int warps,
+                               int n_slot_map, int n_shared, int n_slots, int group,
+                               int classes, const void* class_wts, const void* scale,
+                               void* dhm, int rows, int w, int W, int C, int ignore_idx,
+                               float ls, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   auto args = [&](auto launch) {
     return launch(static_cast<const float*>(hmid), static_cast<const long long*>(target),
-                  static_cast<const int*>(tap_idx), static_cast<const float*>(tap_wt),
-                  static_cast<const int*>(col_ptr), static_cast<const int*>(col_j),
-                  static_cast<const float*>(col_wt),
+                  static_cast<const int*>(band_k0), static_cast<const float*>(band_wt),
+                  static_cast<const int*>(plan), warps, n_slot_map, n_shared, n_slots,
                   static_cast<const float*>(class_wts), static_cast<const float*>(scale),
                   static_cast<float*>(dhm), rows, w, W, C, ignore_idx, ls, st);
   };
-  switch (taps) {
-    case 2: return args(launch_bwd<2>);
-    case 4: return args(launch_bwd<4>);
-    case 8: return args(launch_bwd<8>);
-    case 16: return args(launch_bwd<16>);
+  auto single = [&](auto taps_c) -> int {  // a pixel a warp
+    constexpr int kT = decltype(taps_c)::value;
+    switch (classes) {
+      case 1: return args(launch_bwd<kT, 1, 1>);
+      case 2: return args(launch_bwd<kT, 2, 1>);
+      case 3: return args(launch_bwd<kT, 3, 1>);
+      case 5: return args(launch_bwd<kT, 5, 1>);
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  };
+  if (warps < 1 || warps > kBwdWarps) return static_cast<int>(cudaErrorInvalidValue);
+  if (group == 1) {
+    switch (taps) {
+      case 2: return single(std::integral_constant<int, 2>());
+      case 4: return single(std::integral_constant<int, 4>());
+      case 8: return single(std::integral_constant<int, 8>());
+      case 16: return single(std::integral_constant<int, 16>());
+      default: return static_cast<int>(cudaErrorInvalidValue);
+    }
+  }
+  if (group != 4 || taps != 2) return static_cast<int>(cudaErrorInvalidValue);
+  switch (classes) {
+    case 1: return args(launch_bwd<2, 1, 4>);
+    case 2: return args(launch_bwd<2, 2, 4>);
+    case 3: return args(launch_bwd<2, 3, 4>);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -32,61 +32,130 @@ import torch
 from cvnets_tpu_torch.ops.cuda_build import KernelEntry
 
 _TAPS = (2, 4, 8, 16)  # the kernels' template instances (csrc/seg_ce.cu)
-_CHUNK = 64  # output columns a backward block holds in shared memory (kChunk in seg_ce.cu)
 _THREADS = 256  # a forward block's threads (kThreads in seg_ce.cu)
+_BWD_WARPS = 8  # warps of a backward block (kBwdWarps in seg_ce.cu)
+_WALK = 5  # ints of a backward plan per warp (kWalk in seg_ce.cu)
+# the backward's (pixels a warp takes at a time, classes a lane keeps in
+# registers) instances: a pixel over 32 lanes at any taps; with 2 taps, four
+# pixels over 8 lanes each (seg_ce.cu seg_ce_backward)
+_BWD_LANES = {1: (1, 2, 3, 5), 4: (1, 2, 3)}
 _MAX_SMEM = 232448  # bytes of shared memory a Hopper block may opt in to
 
 
 @dataclass(frozen=True)
+class BandPlan:
+    """How ``warps`` warps of a backward block split a row, as one int32
+    ``table``: per warp its walk (output columns ``[j_lo, j_hi)``, input
+    columns ``[k_lo, k_hi)``, the offset of its part of the slot map); the
+    slot map (per warp and input column of its range, the shared-memory slot
+    of its partial sum, or -1 where no other warp touches the column and it
+    stores to dhm itself); the ``n_shared`` columns two or more warps touch;
+    and per such column the first of its slots (``n_shared + 1`` ints: its
+    slots are consecutive, one a warp in warp order, and are summed in that
+    order)."""
+
+    table: torch.Tensor
+    warps: int
+    n_slot_map: int
+    n_shared: int
+    n_slots: int
+
+    def to(self, device) -> "BandPlan":
+        return BandPlan(self.table.to(device), self.warps, self.n_slot_map, self.n_shared,
+                        self.n_slots)
+
+
+def _band_plan(k0: np.ndarray, taps: int, n_in: int, warps: int) -> BandPlan:
+    """Split ``len(k0)`` output columns into ``warps`` runs (fewer if there are
+    fewer columns); a run's input columns reach from its first pixel's k0 to
+    its last pixel's k0 + taps, and on to the next run's first, so that every
+    input column of [0, n_in) lies in some run (the first run starts at 0, the
+    last ends at n_in)."""
+    n_out = k0.size
+    warps = max(1, min(warps, n_out))
+    js = [v * n_out // warps for v in range(warps + 1)]
+    k_lo = [0] + [int(k0[js[v]]) for v in range(1, warps)]
+    end = [min(int(k0[js[v + 1] - 1]) + taps, n_in) for v in range(warps)]
+    k_hi = [max(end[v], k_lo[v + 1]) for v in range(warps - 1)] + [n_in]
+    offsets = np.concatenate([[0], np.cumsum(np.subtract(k_hi, k_lo))]).astype(np.int64)
+    slot_map = np.full(int(offsets[-1]), -1, np.int64)
+    shared_k, shared_ptr = [], [0]
+    for k in range(n_in):
+        owners = [v for v in range(warps) if k_lo[v] <= k < k_hi[v]]
+        if len(owners) > 1:
+            for v in owners:
+                slot_map[offsets[v] + k - k_lo[v]] = shared_ptr[-1] + owners.index(v)
+            shared_k.append(k)
+            shared_ptr.append(shared_ptr[-1] + len(owners))
+    walks = [[js[v], js[v + 1], k_lo[v], k_hi[v], offsets[v]] for v in range(warps)]
+    table = np.concatenate([np.ravel(walks), slot_map, shared_k, shared_ptr]).astype(np.int32)
+    return BandPlan(torch.from_numpy(table), warps, slot_map.size, len(shared_k),
+                    shared_ptr[-1])
+
+
+@dataclass(frozen=True)
 class InterpTaps:
-    """The nonzeros of an (out, in) interpolation matrix as the kernels read them:
-    ``idx``/``wt`` (out, taps) per output index, zero-padded to ``taps``; and per
-    chunk of ``_CHUNK`` output indices, each input column's (output index within
-    the chunk, weight) pairs: entries ``col_ptr[ch, k] .. col_ptr[ch, k + 1]`` of
-    ``col_j``/``col_wt``. (A dataclass, not a tuple: autocast's input cast
-    would rebuild a tuple.)"""
+    """An (out, in) interpolation matrix as the kernels read it. The forward's
+    ``idx``/``wt`` (out, taps): per output index its nonzeros, zero-padded to
+    ``taps``. The backward's band: ``k0`` (out,), the first input column of
+    each output index, never decreasing, and ``band`` (out, taps), the weights
+    of input columns ``k0 .. k0 + taps - 1`` (0 past ``n_in``); and ``plans``,
+    the ``BandPlan`` of ``_BWD_WARPS`` warps, then of half as many down to one
+    (the wrapper takes the first whose shared memory fits). (A dataclass, not
+    a tuple: autocast's input cast would rebuild a tuple.)"""
 
     idx: torch.Tensor
     wt: torch.Tensor
     taps: int
-    col_ptr: torch.Tensor
-    col_j: torch.Tensor
-    col_wt: torch.Tensor
+    k0: torch.Tensor
+    band: torch.Tensor
+    n_in: int
+    plans: Tuple[BandPlan, ...]
 
     def to(self, device) -> "InterpTaps":
         return InterpTaps(self.idx.to(device), self.wt.to(device), self.taps,
-                          self.col_ptr.to(device), self.col_j.to(device),
-                          self.col_wt.to(device))
+                          self.k0.to(device), self.band.to(device), self.n_in,
+                          tuple(p.to(device) for p in self.plans))
 
 
 def interp_taps(a: torch.Tensor) -> InterpTaps:
-    """Build the kernels' tables from a dense (out, in) matrix on the CPU."""
+    """Build the kernels' tables from a dense (out, in) matrix on the CPU. The
+    matrix must be a band: the first nonzero of a row never lies left of the
+    previous row's (rows of zeros aside), as in every matrix of
+    ``resize_matrix_weights``; else this raises a ``ValueError``."""
     a = a.detach().cpu().numpy().astype(np.float32)
     n_out, n_in = a.shape
     nz = a != 0
-    most = int(nz.sum(axis=1).max(initial=0))
-    taps = next((t for t in _TAPS if t >= most), None)
+    rows = nz.any(axis=1)
+    first = nz.argmax(axis=1)
+    last = n_in - 1 - nz[:, ::-1].argmax(axis=1)
+    back = np.flatnonzero(np.diff(first[rows]) < 0)
+    if back.size:
+        j = np.flatnonzero(rows)[back[0] + 1]
+        raise ValueError(f"the interpolation matrix is not a band: the first nonzero of row "
+                         f"{j} (column {first[j]}) lies left of the previous row's; the "
+                         "backward kernel takes output columns whose first input column "
+                         "never decreases")
+    width = int((last - first + 1)[rows].max(initial=0))
+    taps = next((t for t in _TAPS if t >= width), None)
     if taps is None:
-        raise ValueError(f"an interpolation row has {most} nonzeros; the kernels take "
-                         f"at most {_TAPS[-1]}")
+        raise ValueError(f"an interpolation row spans {width} input columns; the kernels "
+                         f"take at most {_TAPS[-1]}")
     idx = np.zeros((n_out, taps), np.int32)
     wt = np.zeros((n_out, taps), np.float32)
     for j in range(n_out):
         cols = np.flatnonzero(nz[j])
         idx[j, :cols.size] = cols
         wt[j, :cols.size] = a[j, cols]
-    js, ks = np.nonzero(nz)
-    n_chunks = -(-n_out // _CHUNK)
-    order = np.lexsort((js, ks, js // _CHUNK))  # by chunk, then column, then j
-    js, ks = js[order], ks[order]
-    counts = np.bincount((js // _CHUNK) * n_in + ks, minlength=n_chunks * n_in)
-    offsets = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
-    col_ptr = np.stack([offsets[ch * n_in: ch * n_in + n_in + 1] for ch in range(n_chunks)])
-    return InterpTaps(
-        torch.from_numpy(idx), torch.from_numpy(wt), taps,
-        torch.from_numpy(np.ascontiguousarray(col_ptr)),
-        torch.from_numpy((js % _CHUNK).astype(np.int32)),
-        torch.from_numpy(a[js, ks].astype(np.float32)))
+    # a row of zeros takes the previous row's k0 (0 at the start)
+    k0 = np.maximum.accumulate(np.where(rows, first, 0)).astype(np.int32)
+    cols = k0[:, None] + np.arange(taps)
+    band = np.where(cols < n_in, a[np.arange(n_out)[:, None], np.minimum(cols, n_in - 1)],
+                    0.0).astype(np.float32)
+    warps = dict.fromkeys(min(w, n_out) for w in (_BWD_WARPS, 4, 2, 1))
+    plans = tuple(_band_plan(k0, taps, n_in, w) for w in warps) if n_out and n_in else ()
+    return InterpTaps(torch.from_numpy(idx), torch.from_numpy(wt), taps, torch.from_numpy(k0),
+                      torch.from_numpy(band), n_in, plans)
 
 
 def h_interp(logits: torch.Tensor, ah: torch.Tensor) -> torch.Tensor:
@@ -157,11 +226,11 @@ def _check_inputs(hmid: torch.Tensor, target: torch.Tensor, taps: InterpTaps,
         raise ValueError(f"target: want contiguous int64 ({b}, {big_h}, W) on {hmid.device}; "
                          f"got {target.dtype} {tuple(target.shape)} on {target.device}")
     big_w = target.shape[2]
-    if tuple(taps.idx.shape) != (big_w, taps.taps) or taps.col_ptr.shape[1] != w + 1:
-        raise ValueError(f"taps: built for ({taps.idx.shape[0]}, {taps.col_ptr.shape[1] - 1}), "
+    if tuple(taps.idx.shape) != (big_w, taps.taps) or taps.n_in != w:
+        raise ValueError(f"taps: built for ({taps.idx.shape[0]}, {taps.n_in}), "
                          f"want ({big_w}, {w})")
-    if any(t.device != hmid.device for t in (taps.idx, taps.wt, taps.col_ptr, taps.col_j,
-                                               taps.col_wt)):
+    if any(t.device != hmid.device for t in (taps.idx, taps.wt, taps.k0, taps.band,
+                                               *(p.table for p in taps.plans))):
         raise ValueError("taps must lie on hmid's device")
     if class_wts is not None and (class_wts.dtype != torch.float32 or class_wts.shape != (c,)
                                   or class_wts.device != hmid.device):
@@ -200,10 +269,36 @@ class SegCEForwardKernel(KernelEntry):
         return out[0], out[1]
 
 
+def _bwd_lanes(c: int, taps: int) -> Tuple[int, int]:
+    """(pixels a backward warp takes at a time, classes a lane keeps): four
+    pixels over 8 lanes for C ≤ 24 with 2 taps, which leaves fewer lanes idle
+    and shares each pixel's shuffles and bookkeeping over fewer classes; else
+    one pixel over 32 lanes, and past 32 · 5 classes the lanes walk the row
+    once per group of 160."""
+    if taps == 2 and c <= 8 * _BWD_LANES[4][-1]:
+        return 4, next(n for n in _BWD_LANES[4] if 8 * n >= c)
+    return 1, next((n for n in _BWD_LANES[1] if 32 * n >= c), _BWD_LANES[1][-1])
+
+
+def _bwd_smem(w: int, c: int, n_slots: int) -> int:
+    """Bytes of shared memory of a backward block (bwd_smem in seg_ce.cu): the
+    row of hmid, 16-byte aligned, and ``n_slots`` slots of C floats."""
+    return (-(-w * c // 4) * 4 + n_slots * c) * 4
+
+
+def _bwd_plan(taps: InterpTaps, w: int, c: int) -> BandPlan:
+    """The plan with the most warps whose shared memory fits a block."""
+    for plan in taps.plans:
+        if _bwd_smem(w, c, plan.n_slots) <= _MAX_SMEM:
+            return plan
+    raise ValueError(f"a row of hmid (w·C = {w * c} floats) exceeds the backward kernel's "
+                     "shared memory")
+
+
 class SegCEBackwardKernel(KernelEntry):
     def __init__(self) -> None:
         super().__init__("seg_ce.cu", "seg_ce_backward",
-                         [_P] * 4 + [_I] + [_P] * 6 + [_I] * 5 + [_F])
+                         [_P] * 4 + [_I] + [_P] + [_I] * 6 + [_P] * 3 + [_I] * 5 + [_F])
 
     def __call__(self, hmid: torch.Tensor, target: torch.Tensor, taps: InterpTaps,
                  class_wts: Optional[torch.Tensor], scale: torch.Tensor, ignore_idx: int,
@@ -211,18 +306,16 @@ class SegCEBackwardKernel(KernelEntry):
         """dhm (B, H, w, C) float32; ``scale`` is a float32 one-element tensor on
         the device (dloss / n_valid), read by the kernel, not the host."""
         b, big_h, w, big_w, c = _check_inputs(hmid, target, taps, class_wts)
-        smem = (2 * w * c + c * (_CHUNK + 1) + 4 * big_w) * 4
-        if smem > _MAX_SMEM:
-            raise ValueError(f"w·C = {w * c} and W = {big_w} exceed the backward kernel's "
-                             "shared memory")
         if scale.dtype != torch.float32 or scale.numel() != 1 or scale.device != hmid.device:
             raise ValueError("scale: want a one-element float32 tensor on hmid's device")
         dhm = torch.empty_like(hmid)
         if dhm.numel() and big_w:
+            plan = _bwd_plan(taps, w, c)
             scale = scale.contiguous()
-            self.launch(hmid.device, hmid.data_ptr(), target.data_ptr(), taps.idx.data_ptr(),
-                         taps.wt.data_ptr(), taps.taps, taps.col_ptr.data_ptr(),
-                         taps.col_j.data_ptr(), taps.col_wt.data_ptr(),
+            self.launch(hmid.device, hmid.data_ptr(), target.data_ptr(), taps.k0.data_ptr(),
+                         taps.band.data_ptr(), taps.taps, plan.table.data_ptr(), plan.warps,
+                         plan.n_slot_map, plan.n_shared, plan.n_slots,
+                         *_bwd_lanes(c, taps.taps),
                          None if class_wts is None else class_wts.data_ptr(),
                          scale.data_ptr(), dhm.data_ptr(), b * big_h, w, big_w, c,
                          ignore_idx, ls)

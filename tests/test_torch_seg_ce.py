@@ -10,9 +10,13 @@
 * The plain backward the CUDA kernel is held to against autograd through the
   unfused plain version; the kernels' host tables against the dense matrix.
 * The class-weight convention: the weighted sum over the *unweighted* count.
+* The backward's band plans walked as the kernel walks them, on the CPU: every
+  input column written once, A_wᵀ G rebuilt.
 * On a CUDA card only: the kernels against their plain versions at the
-  DeepLabv3 shapes, and the dispatcher launching the kernels, never the plain
-  versions: ``python -m pytest --noconftest -m cuda tests/test_torch_seg_ce.py``.
+  DeepLabv3 shapes (dhm the same bits on a second call), the backward at C 21,
+  W 300 from 7, 5 from 12, C 300 and 434 and under every plan, and the
+  dispatcher launching the kernels, never the plain versions:
+  ``python -m pytest --noconftest -m cuda tests/test_torch_seg_ce.py``.
 
 Tolerances. Float32: the same float32 arithmetic in another order (sums over C
 and over ~10⁴ pixels): loss within 1e-5 relative, grads within 1e-5 absolute
@@ -36,7 +40,7 @@ from cvnets_tpu_torch.ops.seg_ce import (
     resize_matrix_weights,
 )
 from cvnets_tpu_torch.ops.seg_ce_kernel import (
-    _CHUNK,
+    _WALK,
     h_interp,
     interp_taps,
     seg_ce_bwd_kernel,
@@ -218,19 +222,106 @@ def test_class_weights_match_jax():
 
 @pytest.mark.parametrize("out_size,in_size", [(512, 32), (40, 5), (5, 12), (300, 7)])
 def test_kernel_tables_rebuild_the_matrix(out_size, in_size):
-    """The taps and the per-chunk transposed lists the kernels read hold exactly
-    the dense matrix's nonzeros (with the last chunk partial at 300 = 4·64 + 44)."""
+    """The forward's taps and the backward's band the kernels read hold exactly
+    the dense matrix (5 from 12 downsamples: 5 nonzeros a row, 8 taps)."""
     a = resize_matrix_weights(out_size, in_size)
     t = interp_taps(a)
     dense = torch.zeros_like(a)
     dense.scatter_add_(1, t.idx.long(), t.wt)
     torch.testing.assert_close(dense, a, atol=0, rtol=0)
-    dense = torch.zeros_like(a)
-    for ch in range(t.col_ptr.shape[0]):
-        for k in range(in_size):
-            for q in range(t.col_ptr[ch, k], t.col_ptr[ch, k + 1]):
-                dense[ch * _CHUNK + t.col_j[q], k] += t.col_wt[q]
-    torch.testing.assert_close(dense, a, atol=0, rtol=0)
+    cols = t.k0.long()[:, None] + torch.arange(t.taps)
+    assert bool((t.band[cols >= in_size] == 0).all())
+    dense = torch.zeros((out_size, in_size + t.taps))
+    dense.scatter_add_(1, cols, t.band)
+    torch.testing.assert_close(dense[:, :in_size], a, atol=0, rtol=0)
+
+
+@pytest.mark.parametrize("out_size,in_size", [(512, 32), (512, 64), (40, 5), (5, 12), (300, 7),
+                                              (64, 8), (32, 4), (12, 5)])
+def test_resize_matrix_is_a_band(out_size, in_size):
+    """Every row's nonzeros are one run of columns, and the run's first column
+    never decreases: what the backward kernel's walk relies on, upsampling and
+    downsampling (the widened triangle of 5 from 12)."""
+    a = resize_matrix_weights(out_size, in_size).numpy()
+    nz = a != 0
+    assert nz.any(axis=1).all()
+    first = nz.argmax(axis=1)
+    last = in_size - 1 - nz[:, ::-1].argmax(axis=1)
+    assert (np.diff(first) >= 0).all()
+    assert all(nz[j, first[j]:last[j] + 1].all() for j in range(out_size))
+    np.testing.assert_array_equal(interp_taps(torch.from_numpy(a)).k0.numpy(), first)
+
+
+def test_interp_taps_rejects_a_matrix_that_is_not_a_band():
+    perm = torch.eye(6)[torch.tensor([0, 3, 1, 2, 5, 4])]
+    with pytest.raises(ValueError, match="not a band"):
+        interp_taps(perm)
+
+
+def _walk_rows(taps, plan, g):
+    """What the backward kernel's warps store for one row, in float64: each
+    warp walks its output columns in order with ``taps.taps`` accumulators,
+    stores a column once its k0 has passed, to dhm or, where another warp
+    touches the column, to its slot; then every shared column's slots are
+    summed in warp order. Also counts the writes of each column."""
+    tab = plan.table.numpy()
+    walks = tab[:_WALK * plan.warps].reshape(plan.warps, _WALK)
+    slots = tab[_WALK * plan.warps:][:plan.n_slot_map]
+    shared = tab[_WALK * plan.warps + plan.n_slot_map:]
+    shared_k, shared_ptr = shared[:plan.n_shared], shared[plan.n_shared:]
+    k0, band, c = taps.k0.numpy(), taps.band.numpy().astype(np.float64), g.shape[1]
+    dhm, writes = np.zeros((taps.n_in, c)), np.zeros(taps.n_in, int)
+    edge = np.full((plan.n_slots, c), np.nan)
+    for j_lo, j_hi, k_lo, k_hi, offset in walks:
+        acc, base = np.zeros((taps.taps, c)), k_lo
+        for j in [*range(j_lo, j_hi), None]:
+            if j is not None and not g[j].any():
+                continue  # a pixel with no gradient is skipped
+            while base < (k_hi if j is None else k0[j]):
+                slot = slots[offset + base - k_lo]
+                if slot < 0:
+                    dhm[base] = acc[0]
+                    writes[base] += 1
+                else:
+                    edge[slot] = acc[0]
+                acc, base = np.concatenate([acc[1:], np.zeros((1, c))]), base + 1
+            if j is not None:
+                acc += band[j][:, None] * g[j][None, :]
+    for r, k in enumerate(shared_k):
+        dhm[k] = edge[shared_ptr[r]:shared_ptr[r + 1]].sum(axis=0)
+        writes[k] += 1
+    return dhm, writes
+
+
+@pytest.mark.parametrize("out_size,in_size", [(512, 32), (512, 64), (300, 7), (5, 12), (40, 5),
+                                              (8, 8), (2, 3)])
+def test_band_plans_cover_every_column_once_and_rebuild_the_product(out_size, in_size):
+    """Every plan ``interp_taps`` builds (8 warps down to 1), walked as the
+    backward kernel walks it, writes each input column exactly once and
+    gives A_wᵀ G, pixels without a gradient skipped."""
+    a = resize_matrix_weights(out_size, in_size)
+    taps = interp_taps(a)
+    g = np.random.default_rng(out_size).standard_normal((out_size, 3))
+    g[np.random.default_rng(in_size).random(out_size) < 0.2] = 0.0
+    assert [p.warps for p in taps.plans][-1] == 1 and taps.plans[-1].n_slots == 0
+    for plan in taps.plans:
+        dhm, writes = _walk_rows(taps, plan, g)
+        np.testing.assert_array_equal(writes, 1)
+        np.testing.assert_allclose(dhm, a.double().numpy().T @ g, rtol=1e-12, atol=1e-12)
+
+
+@pytest.mark.parametrize("c", [1, 21, 24, 25, 97, 150, 161, 434])
+@pytest.mark.parametrize("taps", [2, 4, 8, 16])
+def test_backward_lanes_pick_an_instance_that_holds_every_class(c, taps):
+    """The backward's (pixels a warp step, classes a lane) is one of the
+    kernel's instances and its lanes hold C in one group where C ≤ 160; four
+    pixels a step at C ≤ 24 with 2 taps (C 21: 3 of 32 lanes idle, not 11)."""
+    from cvnets_tpu_torch.ops.seg_ce_kernel import _BWD_LANES, _bwd_lanes
+
+    group, classes = _bwd_lanes(c, taps)
+    assert classes in _BWD_LANES[group] and (group == 1 or taps == 2)
+    assert 32 // group * classes >= c or (group, classes) == (1, 5)
+    assert (group == 4) == (taps == 2 and c <= 24)
 
 
 def test_kernel_wrappers_reject_cpu_tensors_without_counting():
@@ -292,6 +383,75 @@ def test_kernels_match_plain_on_cuda(ls, use_wts):
                                atol=1e-6 * ref_dhm.abs().max().item())
     again = seg_ce_fwd_kernel(hmid, target, taps, wts, 255, ls)[0]
     assert torch.equal(again, loss_sum)  # no atomics: the same bits every run
+    assert torch.equal(seg_ce_bwd_kernel(hmid, target, taps, wts, scale, 255, ls), dhm)
+
+
+# (W, w, C): C 21 (the pascal_voc recipes at 512², OS 16 and OS 8), W 300 from
+# w 7 (warp runs of 37 and 38 columns), a downsampling A_w (5 from 12, 8 taps,
+# fewer pixels than warps), C 300 (two groups of classes a lane) and C 434 at
+# w 32 (the largest C the previous backward's shared memory took)
+BACKWARD_SHAPES = {"c21_w32": (512, 32, 21), "c21_w64": (512, 64, 21),
+                   "w300_from7": (300, 7, 150), "down_5_from12": (5, 12, 150),
+                   "c300": (512, 32, 300), "c434": (512, 32, 434)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ls,use_wts", [(0.0, False), (0.1, True)])
+@pytest.mark.parametrize("shape", list(BACKWARD_SHAPES))
+def test_backward_kernel_matches_plain_at_every_shape_on_cuda(shape, ls, use_wts):
+    """dhm against ``seg_ce_bwd_plain`` (1e-6 of its largest value, as above)
+    and the same bits on a second call, with targets outside [0, C) that are
+    not the ignore index, fully ignored rows and a fully ignored image."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU or interpret mode)")
+    from cvnets_tpu_torch.loss.base_criteria import BaseCriteria
+    from cvnets_tpu_torch.ops.seg_ce import resize_taps
+
+    big_w, w, c = BACKWARD_SHAPES[shape]
+    g = torch.Generator(device="cuda").manual_seed(big_w + w + c)
+    hmid = 2.0 * torch.randn((2, 512, w, c), generator=g, device="cuda")
+    target = torch.randint(0, c, (2, 512, big_w), generator=g, device="cuda")
+    target[torch.rand(target.shape, generator=g, device="cuda") < 0.05] = 255
+    target[0, 7, ::3] = c + 7  # outside [0, C), not ignored
+    target[0, 9, 1::3] = -3
+    target[0, 20:23] = 255  # fully ignored rows
+    target[1, 100:] = 255
+    wts = (BaseCriteria._class_weights(torch.where((target < 0) | (target >= c), 0, target), c)
+           if use_wts else None)
+    aw = resize_matrix(big_w, w, hmid.device)
+    taps = resize_taps(big_w, w, hmid.device)
+    scale = torch.full((1,), 1.0 / 3e5, device="cuda")
+    dhm = seg_ce_bwd_kernel(hmid, target, taps, wts, scale, 255, ls)
+    again = seg_ce_bwd_kernel(hmid, target, taps, wts, scale, 255, ls)
+    ref = seg_ce_bwd_plain(hmid, aw, target, wts, scale, 255, ls)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(dhm, ref, rtol=0, atol=1e-6 * ref.abs().max().item())
+    assert torch.equal(dhm, again)
+    assert not dhm[0, 20:23].any() and not dhm[1, 100:].any()
+
+
+@pytest.mark.cuda
+def test_backward_kernel_matches_plain_under_every_plan_on_cuda(monkeypatch):
+    """Every plan of the DeepLabv3 table (8, 4, 2 and 1 warps a row) against
+    the plain version: the slots of the columns two warps share, and the
+    fallbacks for rows too wide for 8 warps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU or interpret mode)")
+    from cvnets_tpu_torch.ops import seg_ce_kernel
+    from cvnets_tpu_torch.ops.seg_ce import resize_taps
+
+    logits, target, wts = _cuda_case(0.1, True, seed=2)
+    aw = resize_matrix(512, 32, logits.device)
+    hmid = h_interp(logits, resize_matrix(512, 32, logits.device))
+    taps = resize_taps(512, 32, logits.device)
+    scale = torch.full((1,), 1.0 / 2e6, device="cuda")
+    ref = seg_ce_bwd_plain(hmid, aw, target, wts, scale, 255, 0.1)
+    for plan in taps.plans:
+        monkeypatch.setattr(seg_ce_kernel, "_bwd_plan", lambda *a: plan)
+        dhm = seg_ce_bwd_kernel(hmid, target, taps, wts, scale, 255, 0.1)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(dhm, ref, rtol=0, atol=1e-6 * ref.abs().max().item(),
+                                   msg=lambda m: f"{plan.warps} warps: {m}")
 
 
 @pytest.mark.cuda
