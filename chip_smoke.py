@@ -66,10 +66,11 @@ Phases, one line each or more (any failure exits non-zero):
    bfloat16 and float32: output, dq, dk, dv and dbias, and dbias the same bit
    for bit on a second run; kernels, plain versions and
    ``F.scaled_dot_product_attention`` with the bias as a float mask timed, the
-   backward's ratio to its bound and to SDPA on each bf16 line. The bf16
-   backward is the Hopper design: the next window's tiles copied by cp.async
-   while this one computes, ldmatrix fragments for all five products, exp2
-   with log2 e folded into the bias, held in shared memory in fragment order;
+   forward's and the backward's ratio to its bound and to SDPA on each bf16
+   line. Both bf16 kernels are the Hopper design: the next window's tiles
+   copied by cp.async while this one computes, ldmatrix fragments for every
+   product, exp2 with log2 e folded into the bias, held in shared memory in
+   fragment order, and as few images a block as fill one wave of the card;
 13. mha long kernel: the same kernels (the Hopper forward of phase 4 serves
    every S) against the plain versions at S = 1024 (ViT-B/16 at 512² without
    the CLS token, B = 32) and S = 4096 (B = 2), H = 12, D = 64, with and
@@ -901,10 +902,11 @@ def phase_window_kernel(card: str) -> dict:
     """The window-attention kernels against their plain versions at Swin-T's
     stage shapes; returns {"fwd": record, "bwd": record} summed over one step's
     12 blocks (bf16, unshifted and shifted blocks at their own times). The bf16
-    backward prefetches the next window by cp.async, builds every fragment by
-    ldmatrix and takes exp2 (csrc/window_attention.cu's head comment); each
-    bf16 line ends with its time over its bound (``bwd/bound``) and over SDPA's
-    backward (``bwd/library``)."""
+    kernels prefetch the next window by cp.async, build every fragment by
+    ldmatrix and take exp2 (csrc/window_attention.cu's head comment); each
+    bf16 line ends with the forward's and the backward's time over its bound
+    (``fwd/bound``, ``bwd/bound``) and over SDPA's (``fwd/library``,
+    ``bwd/library``)."""
     import torch
 
     from cvnets_tpu_torch.ops.window_attention import (
@@ -979,9 +981,9 @@ def phase_window_kernel(card: str) -> dict:
                             records[p]["library_ms"] += n_blocks * t[f"lib_{p}"]
                         times = "".join(f" {k_}_ms={v_:.4f}" for k_, v_ in t.items()) + "".join(
                             f" {p}_bound_ms={bounds[p][0]:.4f} ({bounds[p][1]})"
-                            for p in ("fwd", "bwd")) + (
-                            f" bwd/bound={t['bwd'] / bounds['bwd'][0]:.3f}"
-                            f" bwd/library={t['bwd'] / t['lib_bwd']:.3f}")
+                            for p in ("fwd", "bwd")) + "".join(
+                            f" {p}/bound={t[p] / bounds[p][0]:.3f}"
+                            f" {p}/library={t[p] / t[f'lib_{p}']:.3f}" for p in ("fwd", "bwd"))
                         del lib_fwd, lib_bwd
                     print(f"window kernel: {label} {name} BnW={bnw} S={s} H={h} D={WIN_D} "
                           f"shift={shifted} " + " ".join(f"{w}_err={x:.3e}"

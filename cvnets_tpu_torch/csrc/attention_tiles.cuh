@@ -2,11 +2,10 @@
 // directory (mha_attention.cu, window_attention.cu). A block is four warps over
 // a 64-row tile, each warp owning 16 rows (the MHA kernels' bf16 blocks hold
 // more rows, in as many warps); bfloat16 products run on the tensor cores
-// through mma.sync m16n8k16, float32 ones on FMAs over shared memory. The
-// ldmatrix products (mm_abt_ldsm, ldsm_rows with mm_abt_regs, mm_pm_ldsm) and
-// the cp.async loads serve the MHA kernels, forward and backward, and the bf16
-// window backward; only the window forward still builds fragments with 32-bit
-// and 16-bit loads (mm_abt, mm_pm).
+// through mma.sync m16n8k16, float32 ones on FMAs over shared memory. Every
+// bf16 fragment comes from ldmatrix (mm_abt_ldsm, ldsm_rows with mm_abt_regs,
+// mm_pm_ldsm) and every bf16 tile from cp.async, in the MHA and the window
+// kernels, forward and backward.
 // Everything is in an anonymous namespace: each source that includes this is
 // built into a library of its own.
 
@@ -144,73 +143,17 @@ __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], const
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// two bf16 from two addresses into one register, the first in the low half
-__device__ __forceinline__ uint32_t ld_pair(const bf16* lo, const bf16* hi) {
-  return static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(lo)) |
-         (static_cast<uint32_t>(*reinterpret_cast<const uint16_t*>(hi)) << 16);
-}
-
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// acc (16 x 64) = A . B^T: A is 16 x D (the warp's rows), B is 64 x D, both
-// row-major bf16 in shared memory with leading dimension ld. Columns from
-// n_valid on (rows of B past S) are left 0 and cost no products.
-template <int D>
-__device__ __forceinline__ void mm_abt(float (&acc)[8][4], const bf16* A, const bf16* B, int ld,
-                                       int n_valid, int g, int t) {
-#pragma unroll
-  for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    const bf16* a_row = A + g * ld + 16 * kk + 2 * t;
-    const uint32_t a[4] = {ld32(a_row), ld32(a_row + 8 * ld), ld32(a_row + 8),
-                           ld32(a_row + 8 * ld + 8)};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      if (8 * j >= n_valid) break;
-      const bf16* b_row = B + (8 * j + g) * ld + 16 * kk + 2 * t;
-      const uint32_t b[2] = {ld32(b_row), ld32(b_row + 8)};
-      mma(acc[j], a, b);
-    }
-  }
-}
-
-// acc (16 x D) += P . M: P is a 16 x 64 tile in C fragments (rounded to bf16
-// here), M is 64 x D, row-major bf16 in shared memory with leading dimension ld.
-// P's columns from k_valid on must be 0; their 16-wide steps are skipped.
-template <int D>
-__device__ __forceinline__ void mm_pm(float (&acc)[D / 8][4], const float (&p)[8][4],
-                                      const bf16* M, int ld, int k_valid, int g, int t) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    if (16 * kk >= k_valid) break;
-    const uint32_t a[4] = {pack_bf16(p[2 * kk][0], p[2 * kk][1]),
-                           pack_bf16(p[2 * kk][2], p[2 * kk][3]),
-                           pack_bf16(p[2 * kk + 1][0], p[2 * kk + 1][1]),
-                           pack_bf16(p[2 * kk + 1][2], p[2 * kk + 1][3])};
-    const bf16* m_col = M + (16 * kk + 2 * t) * ld + g;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const bf16* p0 = m_col + 8 * j;
-      const uint32_t b[2] = {ld_pair(p0, p0 + ld), ld_pair(p0 + 8 * ld, p0 + 9 * ld)};
-      mma(acc[j], a, b);
-    }
-  }
 }
 
 // ldmatrix: four 8 x 8 bf16 matrices from shared memory into one register
 // each. Lane l gives the address of row l % 8 of matrix l / 8; rows are 16
 // bytes, 16-byte aligned. Lane (g, t) receives elements (g, 2t) and (g, 2t + 1)
 // of each matrix, or with .trans (2t, g) and (2t + 1, g): exactly the A and B
-// fragments of mma.m16n8k16, one instruction where ld32 / ld_pair take four
-// to sixteen. A row pitch of D + 8 elements puts the 8 rows of a matrix in 8
+// fragments of mma.m16n8k16, one instruction where 32- and 16-bit shared
+// loads take four to sixteen. A row pitch of D + 8 elements puts the 8 rows of a matrix in 8
 // different 16-byte bank groups, so the loads are free of bank conflicts.
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
   const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -226,9 +169,9 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
                : "r"(a));
 }
 
-// acc (16 x N) = A . B^T as mm_abt over N columns (a multiple of 16; the
-// default, 64, is a whole tile), fragments by ldmatrix. A (the warp's 16 rows)
-// and B (N rows) are row-major, D wide, pitch ld.
+// acc (16 x N) = A . B^T over N columns (a multiple of 16; the default, 64,
+// is a whole tile), fragments by ldmatrix. A (the warp's 16 rows) and B (N
+// rows) are row-major bf16 in shared memory, D wide, pitch ld.
 template <int D, int N = kTile>
 __device__ __forceinline__ void mm_abt_ldsm(float (&acc)[N / 8][4], const bf16* A, const bf16* B,
                                             int ld, int lane) {
@@ -287,10 +230,10 @@ __device__ __forceinline__ void mm_abt_regs(float (&acc)[kTile / 8][4],
   }
 }
 
-// acc (16 x D) += P . M as mm_pm over K rows of M (a multiple of 16; the
-// default, 64, is a whole tile), M's fragments by ldmatrix.trans. P is a
-// 16 x K tile in C fragments, rounded to bf16 here. P's columns from k_valid
-// on must be 0; their 16-wide steps are skipped.
+// acc (16 x D) += P . M over K rows of M (a multiple of 16; the default, 64,
+// is a whole tile), M's fragments by ldmatrix.trans. P is a 16 x K tile in C
+// fragments, rounded to bf16 here; M is row-major bf16 in shared memory, pitch
+// ld. P's columns from k_valid on must be 0; their 16-wide steps are skipped.
 template <int D, int K = kTile>
 __device__ __forceinline__ void mm_pm_ldsm(float (&acc)[D / 8][4], const float (&p)[K / 8][4],
                                            const bf16* M, int ld, int lane, int k_valid = K) {

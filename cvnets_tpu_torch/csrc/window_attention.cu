@@ -11,10 +11,11 @@
 // head h in window w get bias[h] (the gathered relative-position table,
 // (H, S, S) float32) plus, for shifted windows, mask[w % nW] (the shift mask,
 // (nW, S, S) float32, -100 where two tokens come from different regions; null
-// when unshifted). Both are finite: the forward keeps a weight of e^-100 in the
-// softmax exactly as the einsum reference does; the bf16 backward's ex2.approx.ftz
-// flushes such a weight (3.7e-44, under float32's 2^-126) to 0, far under every
-// tolerance, as rounding P to bf16 for the tensor cores would leave it.
+// when unshifted). Both are finite: the float32 kernels keep a weight of e^-100
+// in the softmax exactly as the einsum reference does; the bf16 kernels'
+// ex2.approx.ftz, forward and backward, flushes such a weight (3.7e-44, under
+// float32's 2^-126) to 0, far under every tolerance, as rounding P to bf16 for
+// the tensor cores would leave it.
 //
 // Design. A window has S = ws^2 = 49 tokens at Swin's window 7: one tile of 64
 // rows padded with zeros (S <= 64 is what these kernels take). The TPU kernels
@@ -23,7 +24,7 @@
 // and the packing and the banded softmax are left out. A block is four warps,
 // each owning 16 query rows of the tile, and it owns one head h and one window
 // position p and loops over a chunk of images: windows b*nW + p for b in its
-// chunk. So the bias tile (bias[h] + mask[p], keys past S at -inf) is built
+// chunk. So the bias (bias[h] + mask[p], keys past S at -inf) is gathered
 // once per block, and the block's share of dbias stays in registers across its
 // windows.
 //   * forward: per window, S = Q K^T + bias, a whole-row softmax (every key of
@@ -80,12 +81,33 @@
 // What it leaves: 15 padded rows of 64 in every product, a one-window
 // prefetch (a third stage would cost a block an SM), and the partials' write
 // and second pass.
+// The bf16 forward had the same first design (1.50 ms a step, 3.4 times its
+// bound of 4 tensors moved once, 0.438 ms; the same timer with --forward, the
+// same card) and took the same steps, each timed against the parent in one
+// process:
+//   1. The next window's Q, K and V by cp.async into a second stage, one
+//      barrier a window (the float bias tile, expf and the scalar fragment
+//      loads kept; 49 KB a block at D = 32): 1.23.
+//   2. Every fragment by ldmatrix (mm_abt_ldsm, mm_pm_ldsm): 1.10.
+//   3. exp2 with log2 e folded into the bias, the bias in shared memory in
+//      fragment order (store_bias_frag, softmax_rows_exp2; the 18 KB float tile
+//      and its element-by-element gather go, 46 KB a block): 0.93.
+//   4. The fewest images a block that fit the launch into one wave
+//      (ops/window_attention.py _fwd_chunk: 384 to 528 blocks, where _chunk
+//      gave 576 to 1,536), __launch_bounds__ holding four blocks an SM (three
+//      at D = 64, as the shared memory allows; 128 registers at D = 32, no
+//      spill): 0.85, 1.9 times the bound (0.71 of device time a Swin-T step
+//      by torch.profiler in chip_smoke.py, 1.6 times).
+// Storing O through the warp's own Q rows for 16-byte stores moved it by
+// -1.4% (0.8805 -> 0.8682, inside the noise of the timer) and was left out.
+// What it leaves: the same 15 padded rows; at Swin-T's stage 1 one wave holds
+// 384 blocks of 528 slots (two blocks a position and head).
 
 #include "attention_tiles.cuh"
 
 namespace {
 
-constexpr int kBiasLd = kTile + 8;  // float32 bias tile; even, so rows take float2 loads
+constexpr int kBiasLd = kTile + 8;  // float32 bias tile of the float32 kernels
 constexpr int kTLd = kTile + 8;     // bf16 P and dS tiles of the backward
 constexpr int kSLd = kTile + 4;     // float32 logit tiles
 
@@ -148,90 +170,7 @@ __device__ __forceinline__ void mm_atm_ldsm(float (&acc)[D / 8][4], const bf16* 
   }
 }
 
-// In place: s (16 x 64 logits in C fragments) + the bias tile -> softmax rows;
-// returns nothing, the rows are normalised. Rows g and g + 8 of the warp's 16
-// sit in the 4 lanes of one group.
-__device__ __forceinline__ void softmax_rows(float (&s)[8][4], const float* Bs, int r0, int g,
-                                             int t) {
-  float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float2 b = *reinterpret_cast<const float2*>(
-          Bs + (r0 + g + 8 * i) * kBiasLd + 8 * j + 2 * t);
-      s[j][2 * i] += b.x;
-      s[j][2 * i + 1] += b.y;
-      mx[i] = fmaxf(mx[i], fmaxf(s[j][2 * i], s[j][2 * i + 1]));
-    }
-  }
-  float l[2] = {0.f, 0.f};
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      s[j][e] = expf(s[j][e] - mx[e / 2]);  // 0 for keys past S
-      l[e / 2] += s[j][e];
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-    l[i] = 1.f / l[i];
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) s[j][e] *= l[e / 2];
-  }
-}
-
 // ============================================================ bfloat16: mma.sync
-
-// Tensor order in st: q, k, v, out.
-template <int D>
-__global__ void __launch_bounds__(kThreads) win_fwd_bf16_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    const float* __restrict__ bias, const float* __restrict__ mask, bf16* __restrict__ out,
-    int S, int H, int nW, int n_img, int chunk, Strides st, bool vec) {
-  constexpr int ld = Bf16Tiles<D>::kLd;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Bs = reinterpret_cast<float*>(smem);
-  bf16* Qs = reinterpret_cast<bf16*>(Bs + kTile * kBiasLd);
-  bf16* Ks = Qs + kTile * ld;
-  bf16* Vs = Ks + kTile * ld;
-
-  const WinBlock wb = win_block(H, nW);
-  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
-  const int r0 = (threadIdx.x / 32) * kRows;
-  const long long hd = static_cast<long long>(wb.h) * D;
-  load_bias(Bs, bias, mask, S, wb.h, wb.p);
-  const float one[2] = {1.f, 1.f};
-
-  const int b_end = min(n_img, (wb.c + 1) * chunk);
-  for (int b = wb.c * chunk; b < b_end; ++b) {
-    const long long w = static_cast<long long>(b) * nW + wb.p;
-    __syncthreads();  // the bias tile is built, the previous window's tiles are used
-    load_tile<bf16, D>(Qs, ld, q + w * st.b[0] + hd, st.s[0], S, vec);
-    load_tile<bf16, D>(Ks, ld, k + w * st.b[1] + hd, st.s[1], S, vec);
-    load_tile<bf16, D>(Vs, ld, v + w * st.b[2] + hd, st.s[2], S, vec);
-    __syncthreads();
-    if (r0 >= S) continue;  // this warp's rows are all past S
-
-    float s[8][4];
-    mm_abt<D>(s, Qs + r0 * ld, Ks, ld, S, g, t);  // keys past S: 0, then -inf from the bias
-    softmax_rows(s, Bs, r0, g, t);
-    float o[D / 8][4] = {};
-    mm_pm<D>(o, s, Vs, ld, S, g, t);
-    store_rows<D>(out + w * st.b[3] + hd, st.s[3], r0, S, o, one, g, t);
-  }
-}
 
 // (bias[h] + mask[p]) * log2 e in the C-fragment order of one lane: frag[32 j]
 // holds element e of c[j] as component e (rows r0 + g + 8 (e / 2), columns
@@ -305,6 +244,67 @@ __device__ __forceinline__ void softmax_rows_exp2(float (&s)[8][4], const float4
   for (int j = 0; j < 8; ++j) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[j][e] *= l[e / 2];
+  }
+}
+
+template <int D>
+struct WinFwdBf16 {
+  static constexpr int kLd = Bf16Tiles<D>::kLd;
+  static constexpr int kStage = 3 * kTile * kLd;  // elements of Q, K and V of one window
+  // two stages and the bias fragments: 46 KB at D = 32, so four blocks an SM
+  // (228 KB), as many as the registers of __launch_bounds__ allow
+  static constexpr int kSmem = 2 * kStage * 2 + kThreads * 32 * 4;
+  static constexpr int kMinBlocks = D == 64 ? 3 : 4;
+};
+
+// Tensor order in st: q, k, v, out.
+template <int D>
+__global__ void __launch_bounds__(kThreads, WinFwdBf16<D>::kMinBlocks) win_fwd_bf16_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+    const float* __restrict__ bias, const float* __restrict__ mask, bf16* __restrict__ out,
+    int S, int H, int nW, int n_img, int chunk, Strides st, bool vec) {
+  using L = WinFwdBf16<D>;
+  constexpr int ld = L::kLd;
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* stages = reinterpret_cast<bf16*>(smem);  // two of: Q, K, V
+
+  const WinBlock wb = win_block(H, nW);
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  const int r0 = (threadIdx.x / 32) * kRows;
+  const long long hd = static_cast<long long>(wb.h) * D;
+  const float one[2] = {1.f, 1.f};
+  float4* b2 = reinterpret_cast<float4*>(stages + 2 * L::kStage) + threadIdx.x / 32 * 8 * 32 + lane;
+  if (r0 < S) store_bias_frag(b2, bias, mask, S, wb.h, wb.p, r0, g, t);
+
+  // Q, K and V of image b's window into a stage, zero-filled past S, as one
+  // cp.async group
+  const auto fetch = [&](int b, bf16* dst) {
+    const long long w = static_cast<long long>(b) * nW + wb.p;
+    const bf16* src[3] = {q + w * st.b[0], k + w * st.b[1], v + w * st.b[2]};
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      load_rows_async<D, kTile, kThreads>(dst + i * kTile * ld, ld, src[i] + hd, st.s[i], S,
+                                          vec);
+    cp_async_commit();
+  };
+  const int b_first = wb.c * chunk, b_end = min(n_img, b_first + chunk);
+  fetch(b_first, stages);
+  for (int b = b_first; b < b_end; ++b) {
+    const bf16* Qs = stages + ((b - b_first) & 1) * L::kStage;
+    const bf16* Ks = Qs + kTile * ld;
+    const bf16* Vs = Ks + kTile * ld;
+    cp_async_wait<0>();
+    __syncthreads();  // window b's tiles are in; window b - 1 is done with the other stage
+    if (b + 1 < b_end) fetch(b + 1, stages + ((b + 1 - b_first) & 1) * L::kStage);
+    if (r0 >= S) continue;  // this warp's rows are all past S
+
+    float s[8][4];
+    mm_abt_ldsm<D>(s, Qs + r0 * ld, Ks, ld, lane);  // keys past S: 0, then -inf from b2
+    softmax_rows_exp2(s, b2);
+    float o[D / 8][4] = {};
+    mm_pm_ldsm<D>(o, s, Vs, ld, lane, S);
+    const long long w = static_cast<long long>(b) * nW + wb.p;
+    store_rows<D>(out + w * st.b[3] + hd, st.s[3], r0, S, o, one, g, t);
   }
 }
 
@@ -613,8 +613,7 @@ template <typename T, int D>
 struct WinSmem;
 template <int D>
 struct WinSmem<bf16, D> {
-  static constexpr int kBias = kTile * kBiasLd * 4;
-  static constexpr int kFwd = kBias + 3 * Bf16Tiles<D>::kBytes;
+  static constexpr int kFwd = WinFwdBf16<D>::kSmem;
   static constexpr int kBwd = WinBwdBf16<D>::kSmem;
 };
 template <int D>

@@ -3,6 +3,9 @@ cvnets_tpu/layers/linear_attention.py:25-80).
 
 Layout (B, P, N, C) as in the JAX package, so the 1×1 projections are linear
 layers over the trailing axis and the core takes the kernel's (BP, N, ·) views.
+The core runs through the kernel's autograd Function where ``use_kernel`` is
+set and the kernel takes N (``separable_attention_eligible``); every other case
+takes the plain branch, the JAX layer's non-kernel math.
 """
 
 from __future__ import annotations
@@ -12,7 +15,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from cvnets_tpu_torch.layers.linear_layer import LinearLayer
-from cvnets_tpu_torch.ops.separable_attention import separable_attention_bphw
+from cvnets_tpu_torch.ops.separable_attention import (
+    separable_attention_bphw,
+    separable_attention_eligible,
+)
 
 
 class LinearSelfAttention(nn.Module):
@@ -33,7 +39,7 @@ class LinearSelfAttention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         d = self.embed_dim
         query, key, value = self.qkv_proj(x).split([1, d, d], dim=-1)
-        if self.use_kernel:
+        if self.use_kernel and separable_attention_eligible(x.shape[-2]):
             out = separable_attention_bphw(query, key, value)
         else:
             scores = torch.softmax(query.float(), dim=-2).to(value.dtype)

@@ -5,9 +5,11 @@ optional inverse-log-frequency class weights and an aux-head weight. The
 weighted sum is divided by the *unweighted* number of valid pixels, as in the
 JAX package (``F.cross_entropy(weight=...)`` would divide by the sum of
 weights). Head-resolution NCHW logits, smaller than the labels, go through the
-fused resize + CE (``ops/seg_ce.py``); logits already at the labels' size take
-the plain CE (segmentation.py:76-91). ``use_kernel = False`` sends the fused
-case through the unfused plain version instead (the kernel/plain A/B).
+fused resize + CE (``ops/seg_ce.py``) where its kernels take the shape
+(``seg_ce_eligible``), else through the unfused plain version, as the JAX
+package falls back to its scan path; logits already at the labels' size take
+the plain CE (segmentation.py:76-91). ``use_kernel = False`` sends every resize
+through the unfused plain version (the kernel/plain A/B).
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import torch
 from cvnets_tpu_torch.loss import LOSS_REGISTRY
 from cvnets_tpu_torch.loss.base_criteria import BaseCriteria
 from cvnets_tpu_torch.ops.seg_ce import fused_resize_ce, resize_ce_plain
-from cvnets_tpu_torch.ops.seg_ce_kernel import pixel_ce
+from cvnets_tpu_torch.ops.seg_ce_kernel import pixel_ce, seg_ce_eligible
 
 
 @LOSS_REGISTRY.register(name="__base__", type="segmentation")
@@ -61,11 +63,12 @@ class SegCrossEntropy(BaseSegmentationCriteria):
 
     def _ce(self, logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
         """logits (B, C, h, w), target (B, H, W)."""
-        n_classes = logits.shape[1]
+        _, n_classes, h, w = logits.shape
         safe = torch.where(target == self.ignore_idx, 0, target)
         wts = self._class_weights(safe, n_classes) if self.use_class_wts else None
         if tuple(logits.shape[2:]) != tuple(target.shape[1:]):
-            fn = fused_resize_ce if self.use_kernel else resize_ce_plain
+            fused = self.use_kernel and seg_ce_eligible(h, w, *target.shape[1:], n_classes)
+            fn = fused_resize_ce if fused else resize_ce_plain
             return fn(logits.permute(0, 2, 3, 1), target, ignore_idx=self.ignore_idx,
                       label_smoothing=self.label_smoothing, class_wts=wts)
         loss, valid = pixel_ce(logits.permute(0, 2, 3, 1), target, wts, self.ignore_idx,

@@ -21,27 +21,8 @@ from cvnets_tpu_torch.ops.seg_ce_kernel import (
     ResizeCE,
     interp_taps,
     pixel_ce,
+    resize_matrix_weights,
 )
-
-
-def resize_matrix_weights(out_size: int, in_size: int) -> torch.Tensor:
-    """(out, in) float32 weights of ``jax.image.resize(method='bilinear')`` along
-    one axis: jax/_src/image/scale.py ``compute_weight_mat`` with scale out/in,
-    translation 0 and antialiasing, in the same float32 arithmetic."""
-    if out_size == in_size:
-        return torch.eye(in_size, dtype=torch.float32)
-    inv_scale = torch.tensor(1.0 / (out_size / in_size), dtype=torch.float32)
-    kernel_scale = torch.clamp(inv_scale, min=1.0)
-    sample = (torch.arange(out_size, dtype=torch.float32) + 0.5) * inv_scale - 0.5
-    x = (sample[None, :] - torch.arange(in_size, dtype=torch.float32)[:, None]).abs()
-    weights = torch.clamp(1.0 - x / kernel_scale, min=0.0)  # (in, out)
-    total = weights.sum(dim=0, keepdim=True)
-    eps = 1000.0 * torch.finfo(torch.float32).eps
-    weights = torch.where(total.abs() > eps,
-                          weights / torch.where(total != 0, total, torch.ones_like(total)),
-                          torch.zeros_like(weights))
-    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
-    return torch.where(inside[None, :], weights, torch.zeros_like(weights)).t().contiguous()
 
 
 @functools.lru_cache(maxsize=32)

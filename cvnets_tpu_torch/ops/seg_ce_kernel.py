@@ -17,12 +17,15 @@ without the (B, H, W, C) full-resolution logits:
 the same ``hmid``, in plain torch ops; they serve CPU tensors and are the
 kernels' references. The CE is float32 whatever the logits' dtype. A target
 outside [0, C) that is not the ignore index picks no logit and, with class
-weights, weighs 0 (the Pallas kernel's one-hot).
+weights, weighs 0 (the Pallas kernel's one-hot). ``seg_ce_eligible`` says which
+shapes both kernels take; the loss sends every other shape to the unfused
+plain version.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
@@ -40,6 +43,26 @@ _WALK = 5  # ints of a backward plan per warp (kWalk in seg_ce.cu)
 # pixels over 8 lanes each (seg_ce.cu seg_ce_backward)
 _BWD_LANES = {1: (1, 2, 3, 5), 4: (1, 2, 3)}
 _MAX_SMEM = 232448  # bytes of shared memory a Hopper block may opt in to
+
+
+def resize_matrix_weights(out_size: int, in_size: int) -> torch.Tensor:
+    """(out, in) float32 weights of ``jax.image.resize(method='bilinear')`` along
+    one axis: jax/_src/image/scale.py ``compute_weight_mat`` with scale out/in,
+    translation 0 and antialiasing, in the same float32 arithmetic."""
+    if out_size == in_size:
+        return torch.eye(in_size, dtype=torch.float32)
+    inv_scale = torch.tensor(1.0 / (out_size / in_size), dtype=torch.float32)
+    kernel_scale = torch.clamp(inv_scale, min=1.0)
+    sample = (torch.arange(out_size, dtype=torch.float32) + 0.5) * inv_scale - 0.5
+    x = (sample[None, :] - torch.arange(in_size, dtype=torch.float32)[:, None]).abs()
+    weights = torch.clamp(1.0 - x / kernel_scale, min=0.0)  # (in, out)
+    total = weights.sum(dim=0, keepdim=True)
+    eps = 1000.0 * torch.finfo(torch.float32).eps
+    weights = torch.where(total.abs() > eps,
+                          weights / torch.where(total != 0, total, torch.ones_like(total)),
+                          torch.zeros_like(weights))
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return torch.where(inside[None, :], weights, torch.zeros_like(weights)).t().contiguous()
 
 
 @dataclass(frozen=True)
@@ -118,6 +141,15 @@ class InterpTaps:
                           tuple(p.to(device) for p in self.plans))
 
 
+def band_width(a: np.ndarray) -> int:
+    """The most input columns a row of the (out, in) matrix spans, from its
+    first nonzero to its last (0 for a matrix of zeros)."""
+    nz = a != 0
+    first = nz.argmax(axis=1)
+    last = a.shape[1] - 1 - nz[:, ::-1].argmax(axis=1)
+    return int((last - first + 1)[nz.any(axis=1)].max(initial=0))
+
+
 def interp_taps(a: torch.Tensor) -> InterpTaps:
     """Build the kernels' tables from a dense (out, in) matrix on the CPU. The
     matrix must be a band: the first nonzero of a row never lies left of the
@@ -128,7 +160,6 @@ def interp_taps(a: torch.Tensor) -> InterpTaps:
     nz = a != 0
     rows = nz.any(axis=1)
     first = nz.argmax(axis=1)
-    last = n_in - 1 - nz[:, ::-1].argmax(axis=1)
     back = np.flatnonzero(np.diff(first[rows]) < 0)
     if back.size:
         j = np.flatnonzero(rows)[back[0] + 1]
@@ -136,7 +167,7 @@ def interp_taps(a: torch.Tensor) -> InterpTaps:
                          f"{j} (column {first[j]}) lies left of the previous row's; the "
                          "backward kernel takes output columns whose first input column "
                          "never decreases")
-    width = int((last - first + 1)[rows].max(initial=0))
+    width = band_width(a)
     taps = next((t for t in _TAPS if t >= width), None)
     if taps is None:
         raise ValueError(f"an interpolation row spans {width} input columns; the kernels "
@@ -252,8 +283,7 @@ class SegCEForwardKernel(KernelEntry):
         """(loss_sum, n_valid) as float32 0-d tensors on hmid's device; one call
         runs the row kernel and the fixed-order sum of its partials."""
         b, big_h, w, big_w, c = _check_inputs(hmid, target, taps, class_wts)
-        smem = (w * c + 2 * _THREADS // 32) * 4
-        if smem > _MAX_SMEM:
+        if _fwd_smem(w, c) > _MAX_SMEM:
             raise ValueError(f"a row of hmid (w·C = {w * c} floats) exceeds the forward "
                              "kernel's shared memory")
         rows = b * big_h
@@ -280,19 +310,22 @@ def _bwd_lanes(c: int, taps: int) -> Tuple[int, int]:
     return 1, next((n for n in _BWD_LANES[1] if 32 * n >= c), _BWD_LANES[1][-1])
 
 
+def _fwd_smem(w: int, c: int) -> int:
+    """Bytes of shared memory of a forward block: the row of hmid and two
+    floats a warp."""
+    return (w * c + 2 * _THREADS // 32) * 4
+
+
 def _bwd_smem(w: int, c: int, n_slots: int) -> int:
     """Bytes of shared memory of a backward block (bwd_smem in seg_ce.cu): the
     row of hmid, 16-byte aligned, and ``n_slots`` slots of C floats."""
     return (-(-w * c // 4) * 4 + n_slots * c) * 4
 
 
-def _bwd_plan(taps: InterpTaps, w: int, c: int) -> BandPlan:
-    """The plan with the most warps whose shared memory fits a block."""
-    for plan in taps.plans:
-        if _bwd_smem(w, c, plan.n_slots) <= _MAX_SMEM:
-            return plan
-    raise ValueError(f"a row of hmid (w·C = {w * c} floats) exceeds the backward kernel's "
-                     "shared memory")
+def _bwd_plan(taps: InterpTaps, w: int, c: int) -> Optional[BandPlan]:
+    """The plan with the most warps whose shared memory fits a block, or None."""
+    return next((plan for plan in taps.plans if _bwd_smem(w, c, plan.n_slots) <= _MAX_SMEM),
+                None)
 
 
 class SegCEBackwardKernel(KernelEntry):
@@ -311,6 +344,9 @@ class SegCEBackwardKernel(KernelEntry):
         dhm = torch.empty_like(hmid)
         if dhm.numel() and big_w:
             plan = _bwd_plan(taps, w, c)
+            if plan is None:
+                raise ValueError(f"a row of hmid (w·C = {w * c} floats) exceeds the backward "
+                                 "kernel's shared memory")
             scale = scale.contiguous()
             self.launch(hmid.device, hmid.data_ptr(), target.data_ptr(), taps.k0.data_ptr(),
                          taps.band.data_ptr(), taps.taps, plan.table.data_ptr(), plan.warps,
@@ -326,6 +362,28 @@ class SegCEBackwardKernel(KernelEntry):
 
 seg_ce_fwd_kernel = SegCEForwardKernel()
 seg_ce_bwd_kernel = SegCEBackwardKernel()
+
+
+@functools.lru_cache(maxsize=32)
+def _resize_band(out_size: int, in_size: int) -> Optional[InterpTaps]:
+    """The kernels' tables of ``resize_matrix_weights(out, in)`` on the CPU, or
+    None where a row spans more columns than the kernels' largest tap count."""
+    a = resize_matrix_weights(out_size, in_size)
+    return interp_taps(a) if band_width(a.numpy()) <= _TAPS[-1] else None
+
+
+def seg_ce_eligible(h: int, w: int, big_h: int, big_w: int, c: int) -> bool:
+    """Whether both kernels take the resize of (h, w) logits of C classes to
+    (H, W) labels: a row of the W-resize spans at most 16 input columns, a row
+    of hmid (w·C floats) fits the forward block's shared memory, and a
+    backward plan fits it. The H-resize (``h_interp``, a matmul) takes any h
+    and H. The JAX package falls back to its scan path for what its kernel
+    does not take (cvnets_tpu/ops/seg_ce.py:84-98); the loss here sends every
+    ineligible shape to the unfused plain version."""
+    if _fwd_smem(w, c) > _MAX_SMEM:
+        return False
+    taps = _resize_band(big_w, w)
+    return taps is not None and _bwd_plan(taps, w, c) is not None
 
 
 class ResizeCE(torch.autograd.Function):

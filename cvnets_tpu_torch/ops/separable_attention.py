@@ -8,6 +8,7 @@ Shapes: q (BP, N, 1), k and v (BP, N, C), where BP = batch·patch_area.
   takes CUDA tensors only and counts its launches.
 * ``separable_attention_plain``: the same function in plain torch ops, for CPU
   tensors and as the kernel's reference.
+* ``separable_attention_eligible``: the token counts the kernel takes.
 * ``SeparableAttention``: the autograd Function. Forward is the kernel on a
   CUDA tensor and the plain version on a CPU tensor; backward is plain torch
   ops, as the JAX package's ``_bwd`` (mobilevit_attn.py:120-134) is plain XLA.
@@ -25,6 +26,14 @@ from cvnets_tpu_torch.ops.cuda_build import KernelEntry
 # bytes of shared memory a block may use without opting in to more
 _DEFAULT_SMEM = 48 * 1024
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def separable_attention_eligible(n: int) -> bool:
+    """What the kernel takes: N tokens whose softmax row and 32 floats of
+    scratch fit the 48 KB of shared memory a block has without opting in
+    ((N + 32)·4 bytes, N ≤ 12,256). The JAX package's non-TPU route computes
+    any N; ``LinearSelfAttention`` sends every other N to its plain branch."""
+    return (n + 32) * 4 <= _DEFAULT_SMEM
 
 
 def separable_attention_plain(q: torch.Tensor, k: torch.Tensor,
@@ -74,7 +83,7 @@ class SeparableAttentionKernel(KernelEntry):
             if width > 1 and t.stride(-1) != 1:
                 raise ValueError(f"{name}: the channel dim must be contiguous; "
                                  f"strides {t.stride()}")
-        if (n + 32) * 4 > _DEFAULT_SMEM:
+        if not separable_attention_eligible(n):
             raise ValueError(f"N={n} tokens exceed the kernel's shared memory")
         out = torch.empty((bp, n, c), dtype=v.dtype, device=v.device)
         if out.numel() == 0:

@@ -32,10 +32,12 @@ _MAX_EMBED = 1024
 _KERNEL_SEQ = 64
 _HEAD_DIMS = (16, 32, 64)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_CHUNK = 16  # images of one window position a forward or f32 backward block takes
-# blocks an SM the bf16 backward kernel holds (WinBwdBf16 in
-# csrc/window_attention.cu): its shared memory allows three at D = 16 and 32,
-# two at D = 64
+_MAX_CHUNK = 16  # images of one window position a float32 block takes
+# blocks an SM the bf16 kernels hold (WinFwdBf16 and WinBwdBf16 in
+# csrc/window_attention.cu, whose __launch_bounds__ hold the registers to as
+# many): the forward's shared memory allows four at D = 32 and three at D = 64,
+# the backward's three at D = 16 and 32 and two at D = 64
+_FWD_BLOCKS_AN_SM = {16: 4, 32: 4, 64: 3}
 _BWD_BLOCKS_AN_SM = {16: 3, 32: 3, 64: 2}
 
 
@@ -127,11 +129,28 @@ def _check(tensors, heads: int, bias, mask) -> Tuple[int, int]:
 
 
 def _chunk(bnw: int, heads: int, device: torch.device) -> int:
-    """Images of one window position a block takes: as many as leave ~4 blocks
-    an SM, at most 16. A function of the shapes and the card, so the dbias
-    summation order is the same on every run."""
+    """Images of one window position a float32 block takes: as many as leave
+    ~4 blocks an SM, at most 16. A function of the shapes and the card, so the
+    dbias summation order is the same on every run."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(_MAX_CHUNK, bnw * heads // (4 * sms)))
+
+
+def _one_wave_chunk(n_img: int, nw: int, heads: int, blocks_an_sm: int, sms: int) -> int:
+    """The fewest images of one window position a block can take so that every
+    block of the launch is resident at once on ``sms`` SMs holding
+    ``blocks_an_sm`` blocks each (one image a block if even that leaves room)."""
+    per_position = max(1, blocks_an_sm * sms // (nw * heads))
+    return -(-n_img // per_position)
+
+
+def _fwd_chunk(n_img: int, nw: int, heads: int, d: int, sms: int) -> int:
+    """Images of one window position a bf16 forward block takes: the fewest
+    that fit the launch into one wave, so that each block's bias gather and
+    first copy serve the most windows (at Swin-T's batch 128: 64, 26, 12 and 6
+    images, 384 to 528 blocks, where ``_chunk`` gives 16, 16, 11 and 5 and
+    1,536 to 576 blocks)."""
+    return _one_wave_chunk(n_img, nw, heads, _FWD_BLOCKS_AN_SM[d], sms)
 
 
 def _bwd_chunk(n_img: int, nw: int, heads: int, d: int, sms: int) -> int:
@@ -141,8 +160,7 @@ def _bwd_chunk(n_img: int, nw: int, heads: int, d: int, sms: int) -> int:
     (at Swin-T's batch 128: 64, 32, 16 and 8 images, 384 blocks, where
     ``_chunk`` gives 16, 16, 11 and 5). A function of the shapes and the card,
     so the dbias summation order is the same on every run."""
-    per_position = max(1, _BWD_BLOCKS_AN_SM[d] * sms // (nw * heads))
-    return -(-n_img // per_position)
+    return _one_wave_chunk(n_img, nw, heads, _BWD_BLOCKS_AN_SM[d], sms)
 
 
 def _strides(*tensors) -> ctypes.Array:
@@ -163,10 +181,14 @@ class WindowForwardKernel(KernelEntry):
         out = torch.empty((bnw, s, e), dtype=q.dtype, device=q.device)
         if out.numel() == 0:
             return out
+        if q.dtype == torch.bfloat16:
+            sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+            chunk = _fwd_chunk(bnw // nw, nw, heads, d, sms)
+        else:
+            chunk = _chunk(bnw, heads, q.device)
         self.launch(q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
                     None if mask is None else mask.data_ptr(), out.data_ptr(),
-                    bnw, s, heads, d, nw, _chunk(bnw, heads, q.device),
-                    _strides(q, k, v, out), _DTYPE_CODE[q.dtype])
+                    bnw, s, heads, d, nw, chunk, _strides(q, k, v, out), _DTYPE_CODE[q.dtype])
         return out
 
 

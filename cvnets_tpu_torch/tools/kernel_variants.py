@@ -1,6 +1,6 @@
 """What the variant timers (``time_mha_forward``, ``time_window_backward``)
 share: build one CUDA source of several ``csrc`` trees, bind a kernel wrapper
-to each build, and time a callable with CUDA events.
+to each build, and time a callable with CUDA events and on the host.
 
 A tree is a directory holding the source and the ``attention_tiles.cuh`` it
 includes: a checkout's ``cvnets_tpu_torch/csrc``, such as the parent commit's
@@ -13,6 +13,7 @@ import ctypes
 import os
 import re
 import subprocess
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
@@ -78,6 +79,19 @@ def time_once(fn, launches: int = LAUNCHES) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / launches
+
+
+def host_once(fn, launches: int = LAUNCHES) -> float:
+    """ms of the host's time to enqueue a call: a host clock around
+    ``launches`` back-to-back calls that nothing synchronises. Where it nears
+    ``time_once``, the host's launch, not the kernel, sets the pace."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(launches):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / launches
+    torch.cuda.synchronize()
+    return ms
 
 
 def build_dir(tool: str) -> str:

@@ -12,10 +12,14 @@
 * The class-weight convention: the weighted sum over the *unweighted* count.
 * The backward's band plans walked as the kernel walks them, on the CPU: every
   input column written once, A_wᵀ G rebuilt.
+* The dispatch rule ``seg_ce_eligible`` at the edge of each kernel limit, and
+  ``SegCrossEntropy`` past a limit computing through the unfused plain
+  version (the fused entry patched to fail) against the JAX loss.
 * On a CUDA card only: the kernels against their plain versions at the
   DeepLabv3 shapes (dhm the same bits on a second call), the backward at C 21,
-  W 300 from 7, 5 from 12, C 300 and 434 and under every plan, and the
-  dispatcher launching the kernels, never the plain versions:
+  W 300 from 7, 5 from 12, C 300 and 434 and under every plan, the
+  dispatcher launching the kernels, never the plain versions, and the loss
+  past each limit launching neither kernel:
   ``python -m pytest --noconftest -m cuda tests/test_torch_seg_ce.py``.
 
 Tolerances. Float32: the same float32 arithmetic in another order (sums over C
@@ -40,11 +44,16 @@ from cvnets_tpu_torch.ops.seg_ce import (
     resize_matrix_weights,
 )
 from cvnets_tpu_torch.ops.seg_ce_kernel import (
+    _MAX_SMEM,
     _WALK,
+    _bwd_plan,
+    _fwd_smem,
+    band_width,
     h_interp,
     interp_taps,
     seg_ce_bwd_kernel,
     seg_ce_bwd_plain,
+    seg_ce_eligible,
     seg_ce_fwd_kernel,
     seg_ce_fwd_plain,
 )
@@ -338,6 +347,76 @@ def test_kernel_wrappers_reject_cpu_tensors_without_counting():
     assert (seg_ce_fwd_kernel.launches, seg_ce_bwd_kernel.launches) == before
 
 
+@pytest.mark.parametrize("w,big_w,c,ok", [
+    (32, 4, 21, True), (33, 4, 21, False),  # W-resize rows of 16 and 17 input columns
+    (16, 32, 3631, True), (13, 26, 4469, False),  # w·C = 58,096 and 58,097 floats
+    (32, 512, 150, True),  # DeepLabv3 at 512², OS 16
+], ids=["taps16", "taps17", "row_58096", "row_58097", "deeplabv3"])
+def test_seg_ce_eligible_at_the_edge_of_each_limit(w, big_w, c, ok):
+    """Eligible exactly where both kernels take the shape: the taps table is
+    built (at most 16 columns a row), the forward's row fits its shared memory
+    and a backward plan fits; the H-resize takes any size."""
+    a = resize_matrix_weights(big_w, w)
+    if band_width(a.numpy()) > 16:
+        with pytest.raises(ValueError, match="at most 16"):
+            interp_taps(a)
+        fits = False
+    else:
+        fits = _fwd_smem(w, c) <= _MAX_SMEM and _bwd_plan(interp_taps(a), w, c) is not None
+    assert fits is ok
+    assert seg_ce_eligible(8, w, 64, big_w, c) is ok
+    assert seg_ce_eligible(3, w, 1000, big_w, c) is ok
+
+
+# (B, C, h, w, H, W) past a kernel limit: a W-resize row of 17 input columns, and
+# a row of hmid of 64 × 1,817 = 116,288 floats
+PAST_LIMIT = {"taps17": (2, 5, 6, 33, 12, 4), "row_past_smem": (1, 1817, 2, 64, 4, 128)}
+
+
+@pytest.mark.parametrize("case", list(PAST_LIMIT))
+def test_seg_loss_past_a_kernel_limit_takes_the_plain_route_and_matches_jax(case, monkeypatch):
+    """With ``fused_resize_ce`` patched to fail (the dispatch is the same on the
+    CPU), ``SegCrossEntropy`` computes such a shape through the unfused plain
+    version: loss and d/dlogits against the JAX loss (its scan path), at the
+    float32 tolerances above. An eligible shape reaches the patched entry."""
+    import sys
+
+    import jax
+    import jax.numpy as jnp
+
+    sys.path.insert(0, "tests")
+    from torch_port_helpers import both_opts
+
+    from cvnets_tpu.loss.segmentation import SegCrossEntropy as JaxSegCE
+    from cvnets_tpu_torch.loss import segmentation
+
+    b, c, h, w, big_h, big_w = PAST_LIMIT[case]
+    assert not seg_ce_eligible(h, w, big_h, big_w, c)
+    rng = np.random.default_rng(11)
+    logits = (2.0 * rng.standard_normal((b, h, w, c))).astype(np.float32)
+    target = rng.integers(0, c, (b, big_h, big_w))
+    target = np.where(rng.random(target.shape) < 0.1, 255, target)
+    opts_jax, opts_torch = both_opts(["--loss.segmentation.cross-entropy.label-smoothing",
+                                      "0.1"])
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("fused_resize_ce was called")
+
+    monkeypatch.setattr(segmentation, "fused_resize_ce", refuse)
+    criterion = segmentation.SegCrossEntropy(opts_torch)
+    x = torch.from_numpy(np.ascontiguousarray(logits.transpose(0, 3, 1, 2))).requires_grad_()
+    loss = criterion(None, x, torch.from_numpy(target))
+    loss.backward()
+    jloss = JaxSegCE(opts_jax)
+    v, g = jax.value_and_grad(lambda lo: jloss(None, lo, jnp.asarray(target.astype(np.int32))))(
+        jnp.asarray(logits))
+    assert loss.item() == pytest.approx(float(v), rel=LOSS_RTOL)
+    np.testing.assert_allclose(x.grad.permute(0, 2, 3, 1).numpy(), np.asarray(g),
+                               atol=GRAD_ATOL, rtol=0)
+    with pytest.raises(AssertionError, match="fused_resize_ce"):
+        criterion(None, x[..., :2, :4], torch.from_numpy(target[:, :8, :8]))
+
+
 # ---------------------------------------------------------------- on a card
 
 def _cuda_case(ls, use_wts, seed=0):
@@ -478,3 +557,30 @@ def test_dispatcher_on_cuda_runs_the_kernels_and_never_the_plain_versions(dtype,
                                                                         before[1] + 1)
     assert x.grad.dtype == dtype and bool(torch.isfinite(x.grad).all())
     assert loss.item() == pytest.approx(want.item(), rel=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(PAST_LIMIT))
+def test_seg_loss_past_a_kernel_limit_runs_on_cuda_without_the_kernels(case):
+    """Where the kernels used to raise, the loss on the card computes through
+    the plain route: finite, equal to ``resize_ce_plain`` on the same logits,
+    and neither kernel launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU or interpret mode)")
+    from cvnets_tpu_torch.loss.segmentation import SegCrossEntropy
+    from cvnets_tpu_torch.options.opts import get_training_arguments
+
+    b, c, h, w, big_h, big_w = PAST_LIMIT[case]
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = (2.0 * torch.randn((b, c, h, w), generator=g, device="cuda")).requires_grad_()
+    target = torch.randint(0, c, (b, big_h, big_w), generator=g, device="cuda")
+    target[torch.rand(target.shape, generator=g, device="cuda") < 0.1] = 255
+    criterion = SegCrossEntropy(get_training_arguments(args=[]))
+    before = seg_ce_fwd_kernel.launches, seg_ce_bwd_kernel.launches
+    loss = criterion(None, x, target)
+    loss.backward()
+    torch.cuda.synchronize()
+    assert (seg_ce_fwd_kernel.launches, seg_ce_bwd_kernel.launches) == before
+    assert bool(torch.isfinite(loss)) and bool(torch.isfinite(x.grad).all())
+    want = resize_ce_plain(x.detach().permute(0, 2, 3, 1), target)
+    assert loss.item() == pytest.approx(want.item(), rel=1e-6)  # the same ops on one card

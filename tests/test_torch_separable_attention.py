@@ -1,7 +1,10 @@
 """The port's separable-attention core against the JAX package: the plain torch
 version against the Pallas body (interpret mode) and ``separable_attention_core``,
-the autograd Function's grads against ``jax.grad`` through the custom VJP, and —
-on a CUDA card only — the hand-written kernel against the plain version.
+the autograd Function's grads against ``jax.grad`` through the custom VJP, the
+dispatch rule ``separable_attention_eligible`` at its edge and
+``LinearSelfAttention`` past it (the kernel's entry patched to fail) against the
+JAX layer, and — on a CUDA card only — the hand-written kernel against the
+plain version and the layer past the limit launching no kernel.
 
 JAX is imported inside the tests that use it, so that on a machine with a card and
 no JAX the kernel tests run alone:
@@ -15,6 +18,7 @@ import torch
 
 from cvnets_tpu_torch.ops.separable_attention import (
     SeparableAttention,
+    separable_attention_eligible,
     separable_attention_kernel,
     separable_attention_plain,
 )
@@ -113,6 +117,85 @@ def test_kernel_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(ValueError, match="CUDA"):
         separable_attention_kernel(q, k, v)
     assert separable_attention_kernel.launches == before
+
+
+@pytest.mark.parametrize("n,ok", [(12256, True), (12257, False), (1024, True)],
+                         ids=["n12256", "n12257", "deeplabv3_layer3"])
+def test_eligibility_is_what_the_kernel_shared_memory_takes(n, ok):
+    """(N + 32)·4 bytes in the 48 KB a block has without opting in: at most
+    12,256 tokens (DeepLabv3's largest map, 1,024, far inside)."""
+    assert separable_attention_eligible(n) is ok
+
+
+def _layer_pair(embed: int, x: np.ndarray):
+    """The JAX ``LinearSelfAttention`` with perturbed weights and the port's
+    layer on the same weights."""
+    import sys
+
+    sys.path.insert(0, "tests")
+    from torch_port_helpers import both_opts, perturbed_variables
+
+    from cvnets_tpu.layers.linear_attention import LinearSelfAttention as JaxLayer
+    from cvnets_tpu_torch.layers.linear_attention import LinearSelfAttention
+    from cvnets_tpu_torch.utils.jax_params import load_jax_params
+
+    opts_jax, opts_torch = both_opts([])
+    jlayer = JaxLayer(opts=opts_jax, embed_dim=embed)
+    variables = perturbed_variables(jlayer, x)
+    layer = LinearSelfAttention(opts_torch, embed)
+    load_jax_params(layer, variables["params"])
+    return jlayer, variables, layer
+
+
+def test_layer_past_the_kernel_limit_takes_the_plain_branch_and_matches_jax(monkeypatch):
+    """N = 12,257 tokens: with ``separable_attention_bphw`` patched to fail (the
+    dispatch is the same on the CPU), the layer computes through its plain
+    branch and matches the JAX layer (its non-kernel route): f32 on both
+    sides, the context a sum of 12,257 terms in another order (1e-4, where
+    FWD_ATOL holds sums of at most 256). At N = 12,256 the same layer reaches
+    the patched entry."""
+    import jax.numpy as jnp
+
+    from cvnets_tpu_torch.layers import linear_attention
+
+    x = np.random.default_rng(5).standard_normal((1, 2, 12257, 8)).astype(np.float32)
+    jlayer, variables, layer = _layer_pair(8, x)
+    assert layer.use_kernel
+
+    def refuse(*args):
+        raise AssertionError("separable_attention_bphw was called")
+
+    monkeypatch.setattr(linear_attention, "separable_attention_bphw", refuse)
+    with torch.no_grad():
+        out = layer(torch.from_numpy(x))
+        ref = jlayer.apply(variables, jnp.asarray(x))
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4, rtol=0)
+        with pytest.raises(AssertionError, match="separable_attention_bphw"):
+            layer(torch.from_numpy(x[:, :, :12256]))
+
+
+@pytest.mark.cuda
+def test_layer_past_the_kernel_limit_runs_on_cuda_without_the_kernel():
+    """Where the kernel used to raise, the layer on the card computes through
+    its plain branch: finite, equal to the same layer with the kernel off, and
+    no kernel launched."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU or interpret mode)")
+    from cvnets_tpu_torch.layers.linear_attention import LinearSelfAttention
+    from cvnets_tpu_torch.options.opts import get_training_arguments
+
+    torch.manual_seed(0)
+    layer = LinearSelfAttention(get_training_arguments(args=[]), 64).cuda()
+    x = torch.randn((2, 4, 12257, 64), device="cuda")
+    before = separable_attention_kernel.launches
+    with torch.no_grad():
+        out = layer(x)
+        layer.use_kernel = False
+        want = layer(x)
+    torch.cuda.synchronize()
+    assert separable_attention_kernel.launches == before
+    assert bool(torch.isfinite(out).all())
+    assert torch.equal(out, want)
 
 
 @pytest.mark.cuda

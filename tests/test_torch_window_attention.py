@@ -6,9 +6,9 @@ the bias, shifted and not, at the shapes of the JAX test (B = 3, nW = 4, H = 3,
 D = 32) at windows of S = 16, 49 and 64 tokens; the plain VJP against
 autograd; the wrappers' checks; and — on a CUDA card only — the hand-written
 kernels against the plain versions at the four Swin-T stage shapes (batch cut),
-the backward at S = 16 and 64 and every head dim, at image counts that end a
-block's prefetch early and on the scalar-load path, with dbias the same bit for
-bit over repeated runs.
+the forward and the backward at S = 16 and 64 and every head dim, at image
+counts that end a block's prefetch early and on the scalar-load path, with the
+forward's output and dbias the same bit for bit over repeated runs.
 
 JAX is imported inside the tests that use it, so that on a machine with a card
 and no JAX the kernel tests run alone:
@@ -23,6 +23,7 @@ import torch
 from cvnets_tpu_torch.ops.window_attention import (
     WindowAttentionFunction,
     _bwd_chunk,
+    _fwd_chunk,
     fused_window_attention,
     window_attention_backward_plain,
     window_attention_eligible,
@@ -233,6 +234,27 @@ def test_bwd_chunk_is_the_fewest_images_that_fill_one_wave(n_img, nw, heads, d, 
     assert chunk == 1 or blocks(chunk - 1) > slots
 
 
+@pytest.mark.parametrize("n_img,nw,heads,d,chunk", [
+    (128, 64, 3, 32, 64), (128, 16, 6, 32, 26), (128, 4, 12, 32, 12), (128, 1, 24, 32, 6),
+    (2, 4, 2, 32, 1),      # fewer images than a wave holds: one image a block
+    (128, 64, 12, 64, 128),  # more positions × heads than a wave: all images a block
+    (101, 4, 12, 64, 13),  # three blocks an SM at D = 64; a last block of 10 images
+], ids=["swin_t_stage1", "stage2", "stage3", "stage4", "small", "wide", "d64"])
+def test_fwd_chunk_is_the_fewest_images_that_fill_one_wave(n_img, nw, heads, d, chunk):
+    """On 132 SMs (an H100), four bf16 forward blocks an SM (three at D = 64):
+    the chunk keeps every block of the launch resident at once, and one image
+    less would not (unless every block already takes one image, or every
+    image when the positions and heads alone fill the wave)."""
+    slots = (3 if d == 64 else 4) * 132
+    assert _fwd_chunk(n_img, nw, heads, d, 132) == chunk
+
+    def blocks(c):
+        return -(-n_img // c) * nw * heads
+
+    assert blocks(chunk) <= max(slots, nw * heads)
+    assert chunk == 1 or blocks(chunk - 1) > slots
+
+
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
     q, k, v, bias, mask = map(torch.from_numpy, _inputs(b=1, nw=2, s=16, h=2, d=16))
     launches = window_fwd_kernel.launches, window_bwd_kernel.launches
@@ -356,12 +378,13 @@ def test_backward_matches_plain_at_other_windows_on_cuda(s, d, shifted):
     _backward_matches_plain(q, k, v, bias, mask, dout, 2)
 
 
-def _images_for(chunk_of, nw, h, device):
-    """The first image count from 2 whose bf16 backward chunk (``_bwd_chunk``,
-    a function of the shapes and the card) passes ``chunk_of(n_img, chunk)``."""
+def _images_for(chunk_of, nw, h, device, rule=_bwd_chunk):
+    """The first image count from 2 whose bf16 chunk (``rule``: ``_bwd_chunk``
+    or ``_fwd_chunk``, a function of the shapes and the card) passes
+    ``chunk_of(n_img, chunk)``."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     for n_img in range(2, 4096):
-        if chunk_of(n_img, _bwd_chunk(n_img, nw, h, 32, sms)):
+        if chunk_of(n_img, rule(n_img, nw, h, 32, sms)):
             return n_img
     raise AssertionError("no image count gives such a chunk")
 
@@ -409,3 +432,73 @@ def test_dbias_is_the_same_bit_for_bit_at_stage4():
         again = window_bwd_kernel(q, k, v, 24, bias, mask, dout)
         for a, b in zip(first, again):
             assert torch.equal(a, b)
+
+
+def _forward_matches_plain(q, k, v, bias, mask, h):
+    """One counted launch; the output against the plain version at the bf16
+    bound of ``_tol`` (P rounded to bf16 before P·V, the output to bf16)."""
+    launches = window_fwd_kernel.launches
+    out = window_fwd_kernel(q, k, v, h, bias, mask)
+    torch.cuda.synchronize()
+    assert window_fwd_kernel.launches == launches + 1
+    ref = window_attention_plain(q, k, v, h, bias, mask)
+    torch.testing.assert_close(out.float(), ref.float(), atol=_tol(ref, q.dtype), rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shifted", [False, True], ids=["no_mask", "shift_mask"])
+@pytest.mark.parametrize("d", [16, 32, 64])
+@pytest.mark.parametrize("s", [16, 64], ids=["window4", "window8"])
+def test_forward_matches_plain_at_other_windows_on_cuda(s, d, shifted):
+    """Windows of 4 × 4 (S = 16: three warps of four own only padded rows and
+    skip the products) and 8 × 8 (S = 64: no padded row), every head dim."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU or interpret mode)")
+    q, k, v, bias, mask, _ = _cuda_inputs(3 * 4, 4, 2, torch.bfloat16, shifted, s=s, d=d)
+    _forward_matches_plain(q, k, v, bias, mask, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nw,h,case", [
+    (4, 12, "ragged"), (1, 24, "ragged"),  # the last block of each position is short
+    (4, 12, "one"),                        # every block takes one image
+], ids=["ragged_nw4", "ragged_nw1", "chunk_of_one"])
+def test_forward_prefetch_ends_at_the_chunk_on_cuda(nw, h, case):
+    """The forward prefetches the next image's window while it computes this
+    one: an image count that its chunk does not divide, and a chunk of one
+    image, hold the copy that must not be issued past the block's last image."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU or interpret mode)")
+    device = torch.device("cuda")
+    if case == "ragged":
+        n_img = _images_for(lambda n, c: c > 1 and n % c != 0, nw, h, device, _fwd_chunk)
+    else:
+        n_img = _images_for(lambda n, c: c == 1, nw, h, device, _fwd_chunk)
+    q, k, v, bias, mask, _ = _cuda_inputs(n_img * nw, nw, h, torch.bfloat16, nw > 1)
+    _forward_matches_plain(q, k, v, bias, mask, h)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [16, 64])
+def test_forward_on_an_unaligned_stride_takes_the_scalar_path_on_cuda(d):
+    """A token stride of 3·H·D + 1 elements for k and v is no multiple of 16
+    bytes, so the forward loads its tiles without cp.async."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU or interpret mode)")
+    q, k, v, bias, mask, _ = _cuda_inputs(2 * 4, 4, 2, torch.bfloat16, True, d=d, pad=1)
+    assert k.stride(1) * k.element_size() % 16 != 0
+    _forward_matches_plain(q, k, v, bias, mask, 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bnw,nw,h", [(128 * 64, 64, 3), (128, 1, 24)],
+                         ids=["stage1", "stage4"])
+def test_forward_gives_the_same_bits_on_every_call(bnw, nw, h):
+    """Swin-T's stages 1 (shifted) and 4 at batch 128: no atomics, so every
+    call writes the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU or interpret mode)")
+    q, k, v, bias, mask, _ = _cuda_inputs(bnw, nw, h, torch.bfloat16, nw > 1)
+    first = window_fwd_kernel(q, k, v, h, bias, mask)
+    for _ in range(3):
+        assert torch.equal(window_fwd_kernel(q, k, v, h, bias, mask), first)
