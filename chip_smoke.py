@@ -9,10 +9,13 @@ Phases, one line each or more (any failure exits non-zero):
 2. build: compiles csrc/separable_attention.cu, csrc/mha_attention.cu,
    csrc/seg_ce.cu and csrc/window_attention.cu for sm_90a, one nvcc each,
    started together;
-3. kernel: the separable-attention kernel against its plain torch version at the
-   flagship's shapes (BP = 128·4, (N, C) of each MobileViTv2 stage) and at
-   DeepLabv3's (BP = 8·4 at 512² and output stride 16), bfloat16 and float32,
-   forward and grads, and both timed with CUDA events;
+3. kernel: the separable-attention forward and backward kernels against their
+   plain torch versions at the flagship's shapes (BP = 128·4, (N, C) of each
+   MobileViTv2 stage) and at DeepLabv3's (BP = 8·4 at 512² and output stride
+   16), bfloat16 and float32: the output, the autograd Function's gradient of
+   qkv, the backward kernel's dqkv against ``separable_attention_backward``
+   and the same bits on a rerun; each kernel and its plain version timed with
+   CUDA events;
 4. mha kernel: the fused multi-head attention forward and backward kernels
    against their plain versions at ViT-B/16's shapes (B = 128, S = 197, H = 12,
    D = 64; q, k, v column slices of one qkv tensor), the micro ViT's D = 16 and
@@ -40,8 +43,10 @@ Phases, one line each or more (any failure exits non-zero):
 6. train: MobileViTv2-1.0 train steps at batch 128 × 256² with the flagship yaml's
    settings passed as flags (bf16 autocast, AdamW, EMA, clip 10, label smoothing
    0.1) on random weights and uint8 batches from a seeded generator on the card;
-   checks 9 kernel launches a step, finite losses, that params and EMA moved, and
-   that the kernel path's logits match the plain attention path's;
+   checks 9 forward and 9 backward separable-attention launches a step, finite
+   losses, that params and EMA moved, and that the kernel path's logits match
+   the plain attention path's; then its a/b and profile as for ViT-B
+   (results/mobilevit_profile.txt);
 7. vit train: the same for ViT-B/16 at batch 128 × 224² with vit.yaml's settings
    (AdamW with weight decay 0.2, clip 1.0, EMA 0.0005, GELU, BN in the stem);
    checks 12 forward and 12 backward MHA launches a step;
@@ -54,7 +59,7 @@ Phases, one line each or more (any failure exits non-zero):
    deeplabv3_mobilevitv2.yaml's settings (150 classes, OS 16, aux head, ASPP
    512 at rates 6/12/18, dropouts 0.1, BN for SyncBN, SGD 0.9 with weight decay
    1e-4 and the head's LR ×10, clip 10, EMA 0.0005, bf16) and labels with 5%
-   ignored pixels; checks 2 seg-CE forward, 2 backward and 9 separable-attention
+   ignored pixels; checks 2 seg-CE forward, 2 backward and 9 + 9 separable-attention
    launches a step, finite losses (total, seg, aux), that params and EMA moved,
    the kernel path's loss against the plain path's on the same outputs, and the
    eval logits through the kernels against the plain attention path;
@@ -90,10 +95,10 @@ Phases, one line each or more (any failure exits non-zero):
 
 The second-to-last line is the kernels' JSON record, one entry for each TPU
 kernel's counterpart: ``ms``/``plain_ms`` are a kernel's and its plain
-version's time for one train step's launches (the separable attention's 9 at
-the flagship from the per-shape bf16 medians, each MHA kernel's 12 at ViT-B and
-at ViT-B 512², each seg-CE kernel's 2 at DeepLabv3, each window kernel's 12 at
-Swin-T from the per-stage medians), ``bound_ms`` the least time the card could
+version's time for one train step's launches (the separable attention's 9
+forward and 9 backward at the flagship from the per-shape bf16 medians, each
+MHA kernel's 12 at ViT-B and at ViT-B 512², each seg-CE kernel's 2 at
+DeepLabv3, each window kernel's 12 at Swin-T from the per-stage medians), ``bound_ms`` the least time the card could
 take for the same work (bytes over the HBM rate or operations over their unit's
 peak, whichever is larger; the MHA backward's counts the function's work, 5
 products of 2·S²·D a head and one exponential a logit, whatever the design
@@ -438,7 +443,10 @@ def phase_build() -> None:
     from cvnets_tpu_torch.ops.cuda_build import BUILD_DIR, build_library
     from cvnets_tpu_torch.ops.mha_attention import mha_bwd_kernel, mha_fwd_kernel
     from cvnets_tpu_torch.ops.seg_ce_kernel import seg_ce_bwd_kernel, seg_ce_fwd_kernel
-    from cvnets_tpu_torch.ops.separable_attention import separable_attention_kernel
+    from cvnets_tpu_torch.ops.separable_attention import (
+        separable_attention_bwd_kernel,
+        separable_attention_kernel,
+    )
     from cvnets_tpu_torch.ops.window_attention import window_bwd_kernel, window_fwd_kernel
 
     def build(source: str) -> str:
@@ -455,73 +463,167 @@ def phase_build() -> None:
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, together
         done = list(pool.map(build, sources))
     print(f"build: {'; '.join(done)}; {time.perf_counter() - t0:.2f} s in all", flush=True)
-    for kernel in (separable_attention_kernel, mha_fwd_kernel, mha_bwd_kernel,
+    for kernel in (separable_attention_kernel, separable_attention_bwd_kernel,
+                   mha_fwd_kernel, mha_bwd_kernel,
                    seg_ce_fwd_kernel, seg_ce_bwd_kernel, window_fwd_kernel,
                    window_bwd_kernel):
         kernel.load()
 
 
-def phase_kernel(card: str) -> dict:
-    """The separable-attention kernel at the flagship's and DeepLabv3's shapes;
-    returns the flagship's record for the JSON line."""
+def check_qkv_grads(got, ref, c: int, dtype, what: str) -> list:
+    """Holds dq, dk and dv, the column parts of one (BP, N, 1 + 2C) gradient,
+    each to its reference: finite, and float32 within 1e-4 absolute (three
+    sums chained in another order), bfloat16 within 2e-2 of that part's
+    largest value (each rounded to bf16 once, from float32 values that
+    differ), and never under the float32 1e-4: where a part is zero in exact
+    arithmetic (dq at N = 1, where s = 1) the two sides' float32
+    cancellations leave ~1e-6. Each part has its own tolerance: dq runs about
+    100 times larger than dk and dv, so one for the whole dqkv would let a
+    wrong dk or dv pass. Returns (part, max abs err, tolerance) for each."""
+    import torch
+
+    check(bool(torch.isfinite(got).all()), f"{what} not finite")
+    errs = []
+    for part, a, b in zip(("dq", "dk", "dv"), got.float().split([1, c, c], dim=-1),
+                          ref.float().split([1, c, c], dim=-1)):
+        err = (a - b).abs().max().item()
+        tol = 1e-4 if dtype == torch.float32 else max(2e-2 * b.abs().max().item(), 1e-4)
+        check(err <= tol, f"{what} {part} err {err} > {tol}")
+        errs.append((part, err, tol))
+    return errs
+
+
+def _separable_case(g, bp: int, n: int, c: int, dtype, name: str) -> dict:
+    """The separable-attention kernels on one seeded qkv against the plain
+    versions: the forward's output; the gradient of qkv through the Function
+    (both kernels) against autograd of the plain forward; the backward kernel
+    alone against the plain backward, and the same bits on a rerun. Raises on
+    a fault; returns the inputs, the kernels' calls and the errors."""
     import torch
 
     from cvnets_tpu_torch.ops.separable_attention import (
         SeparableAttention,
+        separable_attention_backward,
+        separable_attention_bwd_kernel,
+        separable_attention_kernel,
+        separable_attention_plain,
+    )
+
+    # q, k, v as column slices of one qkv projection, as on the main path
+    qkv = torch.randn((bp, n, 1 + 2 * c), generator=g, device="cuda").to(dtype)
+    q, k, v = qkv.split([1, c, c], dim=-1)
+    out, stats, ctx = separable_attention_kernel(q, k, v)
+    ref = separable_attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    err = (out.float() - ref.float()).abs()
+    abs_err = err.max().item()
+    # relative to |ref| + 1e-5: where ctx cancels to ~0 the two f32 sum
+    # orders differ by ~1e-7 absolute but not relatively
+    rel_err = (err / (ref.float().abs() + 1e-5)).max().item()
+    if dtype == torch.float32:
+        check(abs_err <= 1e-5, f"f32 ({bp},{n},{c}) max abs err {abs_err}")
+    else:
+        # bf16 output rounding of nearly the same f32 value: 2^-8 relative
+        check(rel_err <= 2e-2, f"bf16 ({bp},{n},{c}) max rel err {rel_err}")
+
+    # grads: the Function (both kernels) against autograd of plain
+    w = torch.randn((bp, n, c), generator=g, device="cuda").to(dtype)
+    grads = []
+    for fn in (lambda x: SeparableAttention.apply(x, c),
+               lambda x: separable_attention_plain(*x.split([1, c, c], dim=-1))):
+        x = qkv.detach().clone().requires_grad_()
+        (fn(x).float() * w.float()).sum().backward()
+        grads.append(x.grad)
+    gerr = max(e for _, e, _ in check_qkv_grads(grads[0], grads[1], c, dtype,
+                                                f"{name} ({bp},{n},{c}) grad"))
+
+    # the backward kernel alone against the plain backward, and its bits
+    dqkv, again = torch.empty_like(qkv), torch.empty_like(qkv)
+
+    def bwd_kernel(dst=dqkv):
+        separable_attention_bwd_kernel(q, k, v, w, stats, ctx, *dst.split([1, c, c], dim=-1))
+
+    def bwd_plain():
+        return torch.cat(separable_attention_backward(q, k, v, w), dim=-1)
+
+    bwd_kernel()
+    bwd_kernel(again)
+    ref_grad = bwd_plain()
+    torch.cuda.synchronize()
+    errs = check_qkv_grads(dqkv, ref_grad, c, dtype, f"{name} ({bp},{n},{c}) backward kernel")
+    check(torch.equal(dqkv, again), f"{name} ({bp},{n},{c}) backward differs on a rerun")
+    return dict(qkv=qkv, q=q, k=k, v=v, out=out, abs_err=abs_err, rel_err=rel_err, gerr=gerr,
+                errs=errs, bwd_kernel=bwd_kernel, bwd_plain=bwd_plain)
+
+
+# (BP, N, C) off the main path's shapes, checked but not timed: a ragged last
+# run of each block (N not a multiple of the blocks a row times a step of
+# tokens) with, on a 132-SM card, 1, 2, 4 and 8 blocks a row; N past the old
+# 12,256 limit; a block with fewer tokens than a warp step; one token; C 512
+SEP_RAGGED = ((512, 1000, 128), (200, 1000, 128), (100, 1000, 192), (32, 1000, 128),
+              (32, 12257, 128), (4, 5, 64), (3, 1, 128), (16, 300, 512))
+
+
+def phase_kernel(card: str) -> dict:
+    """The separable-attention forward and backward kernels at the flagship's
+    and DeepLabv3's shapes, checked and timed, and at SEP_RAGGED, checked;
+    returns the flagship's records for the JSON line."""
+    import torch
+
+    from cvnets_tpu_torch.ops.separable_attention import (
         separable_attention_kernel,
         separable_attention_plain,
     )
 
     g = torch.Generator(device="cuda").manual_seed(0)
-    record = _records("sep")["sep"]
+    records = _records("fwd", "bwd")
     for label, (bp, blocks) in (("flagship", SEP_FLAGSHIP), ("deeplab", SEP_DEEPLAB)):
         for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
             for n, c in blocks:
-                # q, k, v as column slices of one qkv projection, as on the main path
-                qkv = torch.randn((bp, n, 1 + 2 * c), generator=g, device="cuda").to(dtype)
-                q, k, v = qkv.split([1, c, c], dim=-1)
-                out = separable_attention_kernel(q, k, v)
-                ref = separable_attention_plain(q, k, v)
-                torch.cuda.synchronize()
-                err = (out.float() - ref.float()).abs()
-                abs_err = err.max().item()
-                # relative to |ref| + 1e-5: where ctx cancels to ~0 the two f32 sum
-                # orders differ by ~1e-7 absolute but not relatively
-                rel_err = (err / (ref.float().abs() + 1e-5)).max().item()
-                if dtype == torch.float32:
-                    check(abs_err <= 1e-5, f"f32 ({n},{c}) max abs err {abs_err}")
-                else:
-                    # bf16 output rounding of nearly the same f32 value: 2^-8 relative
-                    check(rel_err <= 2e-2, f"bf16 ({n},{c}) max rel err {rel_err}")
-
-                # grads: the Function's hand-written backward against autograd of plain
-                w = torch.randn((bp, n, c), generator=g, device="cuda").to(dtype)
-                grads = []
-                for fn in (SeparableAttention.apply, separable_attention_plain):
-                    x = qkv.detach().clone().requires_grad_()
-                    (fn(*x.split([1, c, c], dim=-1)).float() * w.float()).sum().backward()
-                    grads.append(x.grad.float())
-                gerr = (grads[0] - grads[1]).abs().max().item()
-                gtol = 1e-4 if dtype == torch.float32 else 2e-2 * grads[1].abs().max().item()
-                check(gerr <= gtol, f"{name} ({n},{c}) grad err {gerr} > {gtol}")
-
+                r = _separable_case(g, bp, n, c, dtype, name)
+                q, k, v, qkv, out = r["q"], r["k"], r["v"], r["qkv"], r["out"]
                 k_ms = time_ms(lambda: separable_attention_kernel(q, k, v))
                 p_ms = time_ms(lambda: separable_attention_plain(q, k, v))
+                kb_ms = time_ms(r["bwd_kernel"])
+                pb_ms = time_ms(r["bwd_plain"])
                 # reads q, k, v (the qkv columns) once, writes the output; 4 flops
                 # an element of k/v (ctx, relu·ctx) and one exp a token
                 b_ms, b_by = bound(qkv.numel() * qkv.element_size() + out.numel()
                                    * out.element_size(), (4 * bp * n * c, FP32_FLOP_S),
                                    (bp * n, SFU_EXP_S))
+                # reads g, k, v and q once, writes dk, dv and dq once (10 bytes an
+                # element in bf16, plus q and dq); 7 flops an element (dv, dctx,
+                # dk, ds) and one exp a token
+                bb_ms, bb_by = bound((5 * c + 2) * bp * n * qkv.element_size(),
+                                     (7 * bp * n * c, FP32_FLOP_S), (bp * n, SFU_EXP_S))
+                berr = max(e for _, e, _ in r["errs"])
                 if dtype == torch.bfloat16 and label == "flagship":
-                    record["max_abs_err"] = max(record["max_abs_err"], abs_err)
-                    record["ms"] += blocks[(n, c)] * k_ms
-                    record["plain_ms"] += blocks[(n, c)] * p_ms
-                    record["bound_ms"] += blocks[(n, c)] * b_ms
-                    record["bound_by"] = b_by
-                print(f"kernel: {label} {name} BP={bp} N={n} C={c} max_abs_err={abs_err:.3e} "
-                      f"max_rel_err={rel_err:.3e} grad_err={gerr:.3e} kernel_ms={k_ms:.4f} "
-                      f"plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) | {card}", flush=True)
-    return record
+                    for rec, e, t, pt, bt, by in (
+                            (records["fwd"], r["abs_err"], k_ms, p_ms, b_ms, b_by),
+                            (records["bwd"], berr, kb_ms, pb_ms, bb_ms, bb_by)):
+                        rec["max_abs_err"] = max(rec["max_abs_err"], e)
+                        rec["ms"] += blocks[(n, c)] * t
+                        rec["plain_ms"] += blocks[(n, c)] * pt
+                        rec["bound_ms"] += blocks[(n, c)] * bt
+                        rec["bound_by"] = by
+                print(f"kernel: {label} {name} BP={bp} N={n} C={c} max_abs_err={r['abs_err']:.3e} "
+                      f"max_rel_err={r['rel_err']:.3e} grad_err={r['gerr']:.3e} "
+                      f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} bound_ms={b_ms:.4f} ({b_by}) | "
+                      f"bwd: {_grad_errs(r['errs'])} same_bits=True "
+                      f"bwd_ms={kb_ms:.4f} bwd_plain_ms={pb_ms:.4f} bwd_bound_ms={bb_ms:.4f} "
+                      f"({bb_by}) bwd/bound={kb_ms / bb_ms:.2f} | {card}", flush=True)
+    for bp, n, c in SEP_RAGGED:
+        for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            r = _separable_case(g, bp, n, c, dtype, name)
+            print(f"kernel: ragged {name} BP={bp} N={n} C={c} max_abs_err={r['abs_err']:.3e} "
+                  f"max_rel_err={r['rel_err']:.3e} grad_err={r['gerr']:.3e} | bwd: "
+                  f"{_grad_errs(r['errs'])} same_bits=True", flush=True)
+            del r
+    return records
+
+
+def _grad_errs(errs) -> str:
+    return " ".join(f"{part}_err={e:.3e} (tol {t:.3e})" for part, e, t in errs)
 
 
 def _mha_case(g, label: str, b: int, s: int, h: int, d: int, dtype, masked: bool):
@@ -1265,7 +1367,10 @@ def main() -> int:
     import cvnets_tpu_torch  # noqa: F401  (fails here, before any output, outside the repo)
     from cvnets_tpu_torch.ops.mha_attention import mha_bwd_kernel, mha_fwd_kernel
     from cvnets_tpu_torch.ops.seg_ce_kernel import seg_ce_bwd_kernel, seg_ce_fwd_kernel
-    from cvnets_tpu_torch.ops.separable_attention import separable_attention_kernel
+    from cvnets_tpu_torch.ops.separable_attention import (
+        separable_attention_bwd_kernel,
+        separable_attention_kernel,
+    )
     from cvnets_tpu_torch.ops.window_attention import window_bwd_kernel, window_fwd_kernel
 
     def release() -> None:  # each phase's peak memory is its own
@@ -1274,16 +1379,20 @@ def main() -> int:
 
     card = phase_device()
     phase_build()
-    sep_record = phase_kernel(card)
+    sep_records = phase_kernel(card)
     mha_records = phase_mha_kernel(card)
     seg_records = phase_seg_ce_kernel(card)
     win_records = phase_window_kernel(card)
     release()
     mha_long_records = phase_mha_long_kernel(card)
     release()
-    sep_launches, run = phase_train(card, "MobileViTv2-1.0", FLAGSHIP_ARGS,
-                                    {"separable_attention": separable_attention_kernel},
-                                    {"separable_attention": sum(SEP_FLAGSHIP[1].values())})
+    sep_kernels = {"separable_attention": separable_attention_kernel,
+                   "separable_attention_bwd": separable_attention_bwd_kernel}
+    sep_launches, run = phase_train(card, "MobileViTv2-1.0", FLAGSHIP_ARGS, sep_kernels,
+                                    {name: sum(SEP_FLAGSHIP[1].values()) for name in sep_kernels})
+    phase_ab(card, "MobileViTv2-1.0", run)
+    phase_profile(card, "MobileViTv2-1.0", run,
+                  os.path.join("results", "mobilevit_profile.txt"))
     run = None
     release()
     vit_launches, run = phase_train(
@@ -1296,10 +1405,9 @@ def main() -> int:
     release()
     seg_launches, run = phase_train(
         card, "DeepLabv3-MobileViTv2-1.0", DEEPLAB_ARGS,
-        {"seg_ce_fwd": seg_ce_fwd_kernel, "seg_ce_bwd": seg_ce_bwd_kernel,
-         "separable_attention": separable_attention_kernel},
+        {"seg_ce_fwd": seg_ce_fwd_kernel, "seg_ce_bwd": seg_ce_bwd_kernel, **sep_kernels},
         {"seg_ce_fwd": SEG_CALLS, "seg_ce_bwd": SEG_CALLS,
-         "separable_attention": sum(SEP_DEEPLAB[1].values())})
+         **{name: sum(SEP_DEEPLAB[1].values()) for name in sep_kernels}})
     phase_ab(card, "DeepLabv3-MobileViTv2-1.0", run)
     phase_profile(card, "DeepLabv3-MobileViTv2-1.0", run,
                   os.path.join("results", "deeplab_profile.txt"))
@@ -1336,7 +1444,10 @@ def main() -> int:
     print(json.dumps({"kernels": [
         entry("separable_attention", "cvnets_tpu_torch/csrc/separable_attention.cu",
               "cvnets_tpu/ops/pallas/mobilevit_attn.py:44",
-              sep_launches["separable_attention"], sep_record),
+              sep_launches["separable_attention"], sep_records["fwd"]),
+        entry("separable_attention_bwd", "cvnets_tpu_torch/csrc/separable_attention.cu",
+              "cvnets_tpu/ops/pallas/mobilevit_attn.py:120",
+              sep_launches["separable_attention_bwd"], sep_records["bwd"]),
         entry("mha_attention_fwd", "cvnets_tpu_torch/csrc/mha_attention.cu",
               "cvnets_tpu/ops/pallas/mha_attn.py:134",
               vit_launches["mha_attention_fwd"], mha_records["fwd"]),

@@ -3,9 +3,10 @@ cvnets_tpu/layers/linear_attention.py:25-80).
 
 Layout (B, P, N, C) as in the JAX package, so the 1×1 projections are linear
 layers over the trailing axis and the core takes the kernel's (BP, N, ·) views.
-The core runs through the kernel's autograd Function where ``use_kernel`` is
-set and the kernel takes N (``separable_attention_eligible``); every other case
-takes the plain branch, the JAX layer's non-kernel math.
+The core runs through the kernels' autograd Function, on the qkv projection's
+output whole, where ``use_kernel`` is set and the kernels take C
+(``separable_attention_eligible``); every other case takes the plain branch,
+the JAX layer's non-kernel math.
 """
 
 from __future__ import annotations
@@ -16,8 +17,8 @@ import torch.nn.functional as F
 
 from cvnets_tpu_torch.layers.linear_layer import LinearLayer
 from cvnets_tpu_torch.ops.separable_attention import (
-    separable_attention_bphw,
     separable_attention_eligible,
+    separable_attention_qkv,
 )
 
 
@@ -38,10 +39,11 @@ class LinearSelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         d = self.embed_dim
-        query, key, value = self.qkv_proj(x).split([1, d, d], dim=-1)
-        if self.use_kernel and separable_attention_eligible(x.shape[-2]):
-            out = separable_attention_bphw(query, key, value)
+        qkv = self.qkv_proj(x)
+        if self.use_kernel and separable_attention_eligible(d):
+            out = separable_attention_qkv(qkv, d)
         else:
+            query, key, value = qkv.split([1, d, d], dim=-1)
             scores = torch.softmax(query.float(), dim=-2).to(value.dtype)
             scores = self.attn_dropout(scores)
             context = (key * scores).sum(dim=-2, keepdim=True)

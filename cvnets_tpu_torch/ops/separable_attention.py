@@ -1,39 +1,45 @@
 """MobileViTv2 separable self-attention core (counterpart of
 cvnets_tpu/ops/pallas/mobilevit_attn.py).
 
-Shapes: q (BP, N, 1), k and v (BP, N, C), where BP = batch·patch_area.
+Shapes: q (BP, N, 1), k and v (BP, N, C), where BP = batch·patch_area; on the
+main path all three are column views of one qkv tensor (BP, N, 1 + 2C).
 
-* ``separable_attention_kernel``: the hand-written CUDA kernel
-  (csrc/separable_attention.cu) that replaces the Pallas ``_attn_kernel``. It
-  takes CUDA tensors only and counts its launches.
-* ``separable_attention_plain``: the same function in plain torch ops, for CPU
-  tensors and as the kernel's reference.
-* ``separable_attention_eligible``: the token counts the kernel takes.
-* ``SeparableAttention``: the autograd Function. Forward is the kernel on a
-  CUDA tensor and the plain version on a CPU tensor; backward is plain torch
-  ops, as the JAX package's ``_bwd`` (mobilevit_attn.py:120-134) is plain XLA.
+* ``separable_attention_kernel``: the hand-written CUDA forward
+  (csrc/separable_attention.cu) that replaces the Pallas ``_attn_kernel``; it
+  also writes the softmax's max and sum and ctx in float32 for the backward.
+* ``separable_attention_bwd_kernel``: the CUDA backward, the JAX package's
+  ``_bwd`` (mobilevit_attn.py:120-134, plain XLA there) in one kernel, reading
+  the forward's statistics; it writes dq, dk and dv, column views of one dqkv
+  on the main path. Both take CUDA tensors only and count their launches.
+* ``separable_attention_plain`` and ``separable_attention_backward``: the
+  same functions in plain torch ops, for CPU tensors and as the kernels'
+  references.
+* ``separable_attention_eligible``: the widths the kernels take.
+* ``SeparableAttention``: the autograd Function on qkv: the kernels on a CUDA
+  tensor, the plain versions on a CPU tensor.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Sequence, Tuple
 
 import torch
 
 from cvnets_tpu_torch.ops.cuda_build import KernelEntry
 
-# bytes of shared memory a block may use without opting in to more
-_DEFAULT_SMEM = 48 * 1024
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# channels a lane of the kernels reads at once, and the most two such groups
+# a lane of 32 cover
+_VEC, _MAX_C = 8, 512
 
 
-def separable_attention_eligible(n: int) -> bool:
-    """What the kernel takes: N tokens whose softmax row and 32 floats of
-    scratch fit the 48 KB of shared memory a block has without opting in
-    ((N + 32)·4 bytes, N ≤ 12,256). The JAX package's non-TPU route computes
-    any N; ``LinearSelfAttention`` sends every other N to its plain branch."""
-    return (n + 32) * 4 <= _DEFAULT_SMEM
+def separable_attention_eligible(c: int) -> bool:
+    """What the kernels take: C a multiple of 8 up to 512 (every MobileViTv2
+    width up to a width multiplier of 2.0), any N. The JAX package's non-TPU
+    route computes any C; ``LinearSelfAttention`` sends every other C to its
+    plain branch."""
+    return 0 < c <= _MAX_C and c % _VEC == 0
 
 
 def separable_attention_plain(q: torch.Tensor, k: torch.Tensor,
@@ -61,62 +67,121 @@ def separable_attention_backward(q, k, v, g) -> Tuple[torch.Tensor, ...]:
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _check(names: str, views: Sequence[torch.Tensor], c: int) -> None:
+    """Raise on what the kernels do not take: every tensor on the first's CUDA
+    device, one dtype (float32 or bfloat16), shape (BP, N, 1) for the q-like
+    (names "q", "dq") and (BP, N, C) for the rest, the channel dim contiguous."""
+    bp, n = views[0].shape[:2]
+    device, dtype = views[0].device, views[0].dtype
+    for name, t in zip(names.split(), views):
+        width = 1 if name in ("q", "dq") else c
+        if t.device.type != "cuda" or t.device != device:
+            raise ValueError(f"{name} must be on one CUDA device; got {t.device}")
+        if t.dtype not in _DTYPE_CODE or t.dtype != dtype:
+            raise TypeError(f"{name}: dtype {t.dtype}; the kernels take float32 "
+                            f"or bfloat16, the same for every tensor")
+        if t.shape != (bp, n, width):
+            raise ValueError(f"{name}: shape {tuple(t.shape)}, want {(bp, n, width)}")
+        if width > 1 and t.stride(-1) != 1:
+            raise ValueError(f"{name}: the channel dim must be contiguous; "
+                             f"strides {t.stride()}")
+    if not separable_attention_eligible(c):
+        raise ValueError(f"C={c}: the kernels take a multiple of {_VEC} up to {_MAX_C}")
+
+
+def _pointers(views: Sequence[torch.Tensor]) -> tuple:
+    """The C entry points' ptrs and (row, token) strides arrays."""
+    ptrs = (ctypes.c_void_p * len(views))(*(t.data_ptr() for t in views))
+    strides = (ctypes.c_longlong * (2 * len(views)))(*(s for t in views for s in t.stride()[:2]))
+    return ptrs, strides
+
+
+_ARGTYPES = ([ctypes.POINTER(ctypes.c_void_p), ctypes.POINTER(ctypes.c_longlong),
+              ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4)
+
+
 class SeparableAttentionKernel(KernelEntry):
-    """The CUDA kernel's wrapper: checks its inputs, then launches it."""
+    """The forward kernel's wrapper: checks its inputs, then launches it.
+    Returns the output (BP, N, C) in v's dtype and, for the backward, the
+    softmax's max and sum (BP, 2) and ctx (BP, C) in float32."""
 
     def __init__(self) -> None:
-        super().__init__("separable_attention.cu", "separable_attention_forward",
-                         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                         + [ctypes.c_longlong] * 6 + [ctypes.c_int])
+        super().__init__("separable_attention.cu", "separable_attention_forward", _ARGTYPES)
 
-    def __call__(self, q: torch.Tensor, k: torch.Tensor,
-                 v: torch.Tensor) -> torch.Tensor:
+    def __call__(self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> tuple:
         bp, n, c = k.shape
-        for name, t, width in (("q", q, 1), ("k", k, c), ("v", v, c)):
-            if t.device.type != "cuda" or t.device != k.device:
-                raise ValueError(f"{name} must be on k's CUDA device; got {t.device}")
-            if t.dtype not in _DTYPE_CODE or t.dtype != k.dtype:
-                raise TypeError(f"{name}: dtype {t.dtype}; the kernel takes float32 "
-                                f"or bfloat16, the same for q, k and v")
-            if t.shape != (bp, n, width):
-                raise ValueError(f"{name}: shape {tuple(t.shape)}, want {(bp, n, width)}")
-            if width > 1 and t.stride(-1) != 1:
-                raise ValueError(f"{name}: the channel dim must be contiguous; "
-                                 f"strides {t.stride()}")
-        if not separable_attention_eligible(n):
-            raise ValueError(f"N={n} tokens exceed the kernel's shared memory")
+        _check("q k v", (q, k, v), c)
         out = torch.empty((bp, n, c), dtype=v.dtype, device=v.device)
+        stats = torch.empty((bp, 2), dtype=torch.float32, device=v.device)
+        ctx = torch.empty((bp, c), dtype=torch.float32, device=v.device)
         if out.numel() == 0:
-            return out
-        self.launch(k.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                    bp, n, c, q.stride(0), q.stride(1), k.stride(0), k.stride(1),
-                    v.stride(0), v.stride(1), _DTYPE_CODE[k.dtype])
-        return out
+            return out, stats, ctx
+        self.launch(k.device, *_pointers((q, k, v, out)), stats.data_ptr(), ctx.data_ptr(),
+                    bp, n, c, _DTYPE_CODE[k.dtype])
+        return out, stats, ctx
+
+
+class SeparableAttentionBackwardKernel(KernelEntry):
+    """The backward kernel's wrapper: checks its inputs, then launches it to
+    write dq, dk and dv from g and the forward's ``stats`` and ``ctx``."""
+
+    def __init__(self) -> None:
+        super().__init__("separable_attention.cu", "separable_attention_backward", _ARGTYPES)
+
+    def __call__(self, q, k, v, g, stats, ctx, dq, dk, dv) -> None:
+        bp, n, c = k.shape
+        views = (q, k, v, g, dq, dk, dv)
+        _check("q k v g dq dk dv", views, c)
+        for name, t, shape in (("stats", stats, (bp, 2)), ("ctx", ctx, (bp, c))):
+            if (t.dtype != torch.float32 or t.shape != shape or not t.is_contiguous()
+                    or t.device != k.device):
+                raise ValueError(f"{name}: the forward's float32 {shape} on {k.device}")
+        if k.numel() == 0:
+            return
+        self.launch(k.device, *_pointers(views), stats.data_ptr(), ctx.data_ptr(),
+                    bp, n, c, _DTYPE_CODE[k.dtype])
 
 
 separable_attention_kernel = SeparableAttentionKernel()
+separable_attention_bwd_kernel = SeparableAttentionBackwardKernel()
 
 
 class SeparableAttention(torch.autograd.Function):
+    """The core on one qkv tensor (BP, N, 1 + 2C), as the qkv projection makes
+    it; q, k and v are its column views, and the backward writes one dqkv, so
+    autograd has no dq, dk and dv to concatenate."""
+
     @staticmethod
     @torch.amp.custom_fwd(device_type="cuda")
-    def forward(ctx, q, k, v):
-        ctx.save_for_backward(q, k, v)
-        if k.device.type == "cpu":
+    def forward(ctx, qkv, c):
+        ctx.c = c
+        q, k, v = qkv.split([1, c, c], dim=-1)
+        if qkv.device.type == "cpu":
+            ctx.save_for_backward(qkv)
             return separable_attention_plain(q, k, v)
-        return separable_attention_kernel(q, k, v)
+        out, stats, context = separable_attention_kernel(q, k, v)
+        ctx.save_for_backward(qkv, stats, context)
+        return out
 
     @staticmethod
     @torch.amp.custom_bwd(device_type="cuda")
     def backward(ctx, g):
-        return separable_attention_backward(*ctx.saved_tensors, g)
+        qkv, *saved = ctx.saved_tensors
+        c = ctx.c
+        q, k, v = qkv.split([1, c, c], dim=-1)
+        if qkv.device.type == "cpu":
+            return torch.cat(separable_attention_backward(q, k, v, g), dim=-1), None
+        dqkv = torch.empty(qkv.shape, dtype=qkv.dtype, device=qkv.device)
+        # the kernel reads g with its channel dim contiguous; autograd may hand
+        # over an expanded (out.sum()) or transposed gradient
+        separable_attention_bwd_kernel(q, k, v, g.to(qkv.dtype).contiguous(), *saved,
+                                       *dqkv.split([1, c, c], dim=-1))
+        return dqkv, None
 
 
-def separable_attention_bphw(q: torch.Tensor, k: torch.Tensor,
-                             v: torch.Tensor) -> torch.Tensor:
-    """(B, P, N, ·) wrapper used by LinearSelfAttention; q, k and v may be
-    column slices of one qkv tensor (no copy is made)."""
-    b, p, n, c = v.shape
-    out = SeparableAttention.apply(
-        q.reshape(b * p, n, 1), k.reshape(b * p, n, c), v.reshape(b * p, n, c))
-    return out.reshape(b, p, n, c)
+def separable_attention_qkv(qkv: torch.Tensor, c: int) -> torch.Tensor:
+    """(B, P, N, 1 + 2C) → (B, P, N, C): the core on the qkv projection's
+    output, as LinearSelfAttention calls it."""
+    b, p, n, _ = qkv.shape
+    return SeparableAttention.apply(qkv.reshape(b * p, n, 1 + 2 * c), c).reshape(b, p, n, c)
+
