@@ -1,7 +1,12 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (cvnets_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--deeplab]
+
+``--deeplab`` runs only phases 1, 10 and 11 (DeepLabv3's train, a/b and
+profile; about a minute) and prints neither JSON line: run in turns from two
+checkouts in one call (parent, change, change, parent, ...), it compares their
+DeepLabv3 steps on one card, as the whole script does with five recipes.
 
 Phases, one line each or more (any failure exits non-zero):
 
@@ -36,10 +41,15 @@ Phases, one line each or more (any failure exits non-zero):
    against the plain unfused version at DeepLabv3's shapes (head logits
    (8, 32, 32, 150) → labels (8, 512, 512)), 5% ignored pixels and one fully
    ignored image, label smoothing 0 and 0.1, class weights off and on, float32
-   and bfloat16 logits: loss and dlogits; at the yaml's case also the
+   and bfloat16 logits: loss and dlogits; under each float32 case the forward
+   kernel's (loss_sum, n_valid) against ``seg_ce_fwd_plain`` (1e-6 relative,
+   the count exact, the same bits on a rerun), and at the yaml's case the
    backward kernel's dhm against ``seg_ce_bwd_plain`` and the same bits on a
-   rerun; the same checks at C 21 (the pascal_voc recipes); kernels and plain
-   versions timed;
+   rerun; the forward again on logits spread over ±100 with one class at 300
+   in a fifth of the head pixels, where the kernel's bound on a pixel's max
+   lies far above it (the count of pixels that take its exact fallback is
+   printed, and must not be 0); the same checks at C 21 (the pascal_voc
+   recipes); kernels and plain versions timed, at C 21 too;
 6. train: MobileViTv2-1.0 train steps at batch 128 × 256² with the flagship yaml's
    settings passed as flags (bf16 autocast, AdamW, EMA, clip 10, label smoothing
    0.1) on random weights and uint8 batches from a seeded generator on the card;
@@ -788,26 +798,64 @@ def phase_mha_kernel(card: str) -> dict:
 
 
 def seg_ce_inputs(g, c: int) -> tuple:
-    """Head logits (SEG_B, SEG_HEAD, SEG_HEAD, c) float32 and labels (SEG_B,
-    SEG_FULL, SEG_FULL) int64 with 5% ignored pixels (255) and one fully
-    ignored image, from the generator ``g`` on the card."""
+    """Head logits (SEG_B, SEG_HEAD, SEG_HEAD, c) float32, a permuted view of
+    NCHW storage as the loss passes them, and labels (SEG_B, SEG_FULL,
+    SEG_FULL) int64 with 5% ignored pixels (255) and one fully ignored image,
+    from the generator ``g`` on the card."""
     import torch
 
-    logits = 2.0 * torch.randn((SEG_B, SEG_HEAD, SEG_HEAD, c), generator=g, device="cuda")
+    logits = 2.0 * torch.randn((SEG_B, c, SEG_HEAD, SEG_HEAD), generator=g,
+                               device="cuda").permute(0, 2, 3, 1)
     target = torch.randint(0, c, (SEG_B, SEG_FULL, SEG_FULL), generator=g, device="cuda")
     target[torch.rand(target.shape, generator=g, device="cuda") < 0.05] = 255
     target[SEG_B - 1] = 255  # one fully ignored image
     return logits, target
 
 
-def seg_ce_bounds(hmid, target) -> dict:
+def seg_ce_spread(g, c: int) -> tuple:
+    """Head logits spread uniformly over ±100 with, in a fifth of the head
+    pixels, one class at 300, and labels as ``seg_ce_inputs`` makes them: an
+    output pixel beside a hot head pixel lies tens of units under the bound
+    on its max that the forward kernel shifts by (the weighted maxima of its
+    input columns), so its sum of exponentials underflows and it takes the
+    kernel's two passes with its true max."""
+    import torch
+
+    logits, target = seg_ce_inputs(g, c)
+    logits = 100.0 * (2.0 * torch.rand(logits.shape, generator=g, device="cuda") - 1.0)
+    logits = logits.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)  # as the loss's
+    hot = torch.rand(logits.shape[:3], generator=g, device="cuda") < 0.2
+    cls = torch.randint(0, c, logits.shape[:3] + (1,), generator=g, device="cuda")
+    logits.scatter_(-1, cls, torch.where(hot[..., None], 300.0, logits.gather(-1, cls)))
+    return logits, target
+
+
+def seg_ce_underflows(hmid, aw, target) -> int:
+    """The valid pixels whose sum of exponentials under the forward kernel's
+    bound falls below its 2^-60 (kTiny in seg_ce.cu): those that take its
+    two-pass fallback."""
+    import torch
+
+    col = torch.matmul(aw, hmid)
+    bound = torch.matmul(aw, hmid.amax(-1, keepdim=True))
+    s = torch.exp2((col - bound) * 1.4426950408889634).sum(-1)
+    return int(((s < 2.0 ** -60) & (target != 255)).sum())
+
+
+def seg_ce_bounds(logits, target) -> dict:
     """{"fwd": (ms, by), "bwd": (ms, by)}: each input read once, each output
-    written once; per logit one exp, 2 taps (4 flops) and the max/sum/sub (3)
-    forward, and the softmax, G and 2 taps back (7 more)."""
-    n = target.numel() * hmid.shape[-1]
-    in_bytes = hmid.numel() * 4 + target.numel() * target.element_size()
-    return {"fwd": bound(in_bytes + 8, (7 * n, FP32_FLOP_S), (n, SFU_EXP_S)),
-            "bwd": bound(in_bytes + hmid.numel() * 4, (14 * n, FP32_FLOP_S), (n, SFU_EXP_S))}
+    written once (the forward reads the head logits and the labels, the
+    backward hmid, (B, H, w, C) float32, and the labels, and writes dhm); per
+    logit of a pixel that is not ignored (both kernels skip the others) one
+    exp, 2 taps (4 flops) and the max/sum/sub (3) forward, and the softmax, G
+    and 2 taps back (7 more)."""
+    b, _, w, c = logits.shape
+    n = int((target != 255).sum()) * c
+    label_bytes = target.numel() * target.element_size()
+    hmid_bytes = b * target.shape[1] * w * c * 4
+    return {"fwd": bound(logits.numel() * 4 + label_bytes + 8, (7 * n, FP32_FLOP_S),
+                         (n, SFU_EXP_S)),
+            "bwd": bound(2 * hmid_bytes + label_bytes, (14 * n, FP32_FLOP_S), (n, SFU_EXP_S))}
 
 
 def _seg_dhm_check(label: str, hmid, target, aw, taps, cw, ls: float) -> float:
@@ -831,10 +879,38 @@ def _seg_dhm_check(label: str, hmid, target, aw, taps, cw, ls: float) -> float:
     return err
 
 
+def _seg_fwd_check(label: str, logits, target, a, taps, cw, ls: float) -> float:
+    """The forward kernel's (loss_sum, n_valid) against ``seg_ce_fwd_plain``
+    of ``h_interp``'s hmid (``a`` and ``taps`` serve A_h and A_w: the resize
+    is square): the sum within 1e-6 relative (float32 terms over up to 2 M
+    pixels summed in another order), the count exact, and the same bits on a
+    rerun; returns the error of the mean, loss_sum / n_valid."""
+    import torch
+
+    from cvnets_tpu_torch.ops.seg_ce_kernel import h_interp, seg_ce_fwd_kernel, seg_ce_fwd_plain
+
+    loss_sum, n_valid = seg_ce_fwd_kernel(logits, target, taps, taps, cw, 255, ls)
+    again = seg_ce_fwd_kernel(logits, target, taps, taps, cw, 255, ls)
+    ref_sum, ref_n = seg_ce_fwd_plain(h_interp(logits, a), a, target, cw, 255, ls)
+    err = abs(loss_sum.item() - ref_sum.item())
+    check(bool(torch.isfinite(loss_sum)) and err <= 1e-6 * abs(ref_sum.item()),
+          f"seg ce {label} loss_sum {loss_sum.item()} against {ref_sum.item()}")
+    check(n_valid.item() == ref_n.item(),
+          f"seg ce {label} n_valid {n_valid.item()} against {ref_n.item()}")
+    check(torch.equal(loss_sum, again[0]) and torch.equal(n_valid, again[1]),
+          f"seg ce {label} (loss_sum, n_valid) differ between two runs")
+    print(f"seg ce kernel: fwd {label} loss_sum {loss_sum.item():.6e} rel err "
+          f"{err / abs(ref_sum.item()):.3e}, n_valid {int(n_valid.item())} exact, same bits "
+          f"on a rerun", flush=True)
+    return err / max(ref_n.item(), 1.0)
+
+
 def phase_seg_ce_kernel(card: str) -> dict:
     """The fused resize + CE kernels against the plain unfused version at
-    DeepLabv3's shapes, the backward's dhm against its plain version, and the
-    same at C 21; returns {"fwd": record, "bwd": record}."""
+    DeepLabv3's shapes; the forward's (loss_sum, n_valid) and the backward's
+    dhm each against its plain version, under the four label-smoothing and
+    class-weight cases, on spread logits (the forward's fallback) and at C
+    21; returns {"fwd": record, "bwd": record}."""
     import torch
 
     from cvnets_tpu_torch.loss.base_criteria import BaseCriteria
@@ -867,7 +943,7 @@ def phase_seg_ce_kernel(card: str) -> dict:
                     errs = {}
                     losses, grads = [], []
                     for fn in (fused_resize_ce, resize_ce_plain):
-                        x = logits32.to(dtype).requires_grad_()
+                        x = logits32.to(dtype, copy=True).requires_grad_()
                         loss = fn(x, target, label_smoothing=ls, class_wts=cw)
                         loss.backward()
                         losses.append(loss.detach().float())
@@ -885,25 +961,28 @@ def phase_seg_ce_kernel(card: str) -> dict:
                     gtol = (1e-4 if dtype == torch.float32 else 2 ** -7) * gmax
                     check(errs["dlogits"] <= gtol, f"seg ce {name} ls={ls} "
                           f"wts={cw is not None} dlogits err {errs['dlogits']} > {gtol}")
-                    records["fwd"]["max_abs_err"] = max(records["fwd"]["max_abs_err"],
-                                                        errs["loss"])
                     records["bwd"]["max_abs_err"] = max(records["bwd"]["max_abs_err"],
                                                         errs["dlogits"])
                     times = ""
+                    if dtype == torch.float32:
+                        records["fwd"]["max_abs_err"] = max(
+                            records["fwd"]["max_abs_err"], _seg_fwd_check(
+                                f"C={SEG_C} ls={ls} class_wts={cw is not None}", logits32,
+                                target, aw, taps, cw, ls))
                     if dtype == torch.float32 and ls == 0.0 and cw is None:  # the yaml's case
                         hmid = h_interp(logits32, ah)
                         errs["dhm"] = _seg_dhm_check(f"C={SEG_C}", hmid, target, aw, taps,
                                                      None, 0.0)
                         scale = torch.full((1,), 1e-6, device=dev)
-                        t = {"fwd": time_ms(lambda: seg_ce_fwd_kernel(hmid, target, taps, None,
-                                                                      255, 0.0)),
-                             "fwd_plain": time_ms(lambda: seg_ce_fwd_plain(hmid, aw, target,
-                                                                           None, 255, 0.0)),
+                        t = {"fwd": time_ms(lambda: seg_ce_fwd_kernel(logits32, target, taps,
+                                                                      taps, None, 255, 0.0)),
+                             "fwd_plain": time_ms(lambda: seg_ce_fwd_plain(
+                                 h_interp(logits32, ah), aw, target, None, 255, 0.0)),
                              "bwd": time_ms(lambda: seg_ce_bwd_kernel(hmid, target, taps, None,
                                                                       scale, 255, 0.0)),
                              "bwd_plain": time_ms(lambda: seg_ce_bwd_plain(
                                  hmid, aw, target, None, scale, 255, 0.0))}
-                        bounds = seg_ce_bounds(hmid, target)
+                        bounds = seg_ce_bounds(logits32, target)
                         for p in ("fwd", "bwd"):
                             records[p]["ms"] = SEG_CALLS * t[p]
                             records[p]["plain_ms"] = SEG_CALLS * t[f"{p}_plain"]
@@ -917,7 +996,21 @@ def phase_seg_ce_kernel(card: str) -> dict:
                           f"C={SEG_C} ls={ls} class_wts={cw is not None} loss_err="
                           f"{errs['loss']:.3e} dlogits_err={errs['dlogits']:.3e} "
                           f"(max |dlogits| {gmax:.3e}){times} | {card}", flush=True)
-        # C 21: the loss, dlogits and dhm checks at f32, ls 0, no class weights
+        # spread logits: the forward's two-pass fallback, ls 0 and 0.1 with
+        # class weights
+        logits_sp, target_sp = seg_ce_spread(g, SEG_C)
+        hmid_sp = h_interp(logits_sp, ah)
+        n_under = seg_ce_underflows(hmid_sp, aw, target_sp)
+        check(n_under > 0, "seg ce spread logits send no pixel to the fallback")
+        print(f"seg ce kernel: spread logits C={SEG_C}: {n_under} valid pixels under the "
+              f"bound's reach (the fallback) | {card}", flush=True)
+        for ls, cw in ((0.0, None), (0.1, wts)):
+            records["fwd"]["max_abs_err"] = max(records["fwd"]["max_abs_err"], _seg_fwd_check(
+                f"spread C={SEG_C} ls={ls} class_wts={cw is not None}", logits_sp, target_sp,
+                aw, taps, cw, ls))
+        del hmid_sp
+        # C 21: the loss, dlogits, forward and dhm checks at f32, ls 0, no class
+        # weights
         logits21, target21 = seg_ce_inputs(g, SEG_C_VOC)
         losses, grads = [], []
         for fn in (fused_resize_ce, resize_ce_plain):
@@ -927,6 +1020,8 @@ def phase_seg_ce_kernel(card: str) -> dict:
             losses.append(loss.detach())
             grads.append(x.grad)
         hmid21 = h_interp(logits21, ah)
+        records["fwd"]["max_abs_err"] = max(records["fwd"]["max_abs_err"], _seg_fwd_check(
+            f"C={SEG_C_VOC}", logits21, target21, aw, taps, None, 0.0))
         dhm_err = _seg_dhm_check(f"C={SEG_C_VOC}", hmid21, target21, aw, taps, None, 0.0)
         loss_err = (losses[0] - losses[1]).abs().item()
         dl_err = (grads[0] - grads[1]).abs().max().item()
@@ -934,14 +1029,17 @@ def phase_seg_ce_kernel(card: str) -> dict:
         check(loss_err <= 1e-5 * losses[1].abs().item(), f"seg ce C={SEG_C_VOC} loss err")
         check(dl_err <= 1e-4 * gmax, f"seg ce C={SEG_C_VOC} dlogits err {dl_err}")
         scale = torch.full((1,), 1e-6, device=dev)
+        fwd_ms = time_ms(lambda: seg_ce_fwd_kernel(logits21, target21, taps, taps, None, 255,
+                                                   0.0))
         bwd_ms = time_ms(lambda: seg_ce_bwd_kernel(hmid21, target21, taps, None, scale, 255,
                                                    0.0))
-        bound21 = seg_ce_bounds(hmid21, target21)["bwd"]
+        bound21 = seg_ce_bounds(logits21, target21)
         print(f"seg ce kernel: f32 B={SEG_B} h=w={SEG_HEAD} H=W={SEG_FULL} C={SEG_C_VOC} "
               f"ls=0.0 class_wts=False loss_err={loss_err:.3e} dlogits_err={dl_err:.3e} "
               f"(max |dlogits| {gmax:.3e}) dhm_err={dhm_err:.3e} (same bits on a rerun) "
-              f"bwd_ms={bwd_ms:.4f} bwd_bound_ms={bound21[0]:.4f} ({bound21[1]}) | {card}",
-              flush=True)
+              f"fwd_ms={fwd_ms:.4f} fwd_bound_ms={bound21['fwd'][0]:.4f} "
+              f"({bound21['fwd'][1]}) bwd_ms={bwd_ms:.4f} bwd_bound_ms={bound21['bwd'][0]:.4f} "
+              f"({bound21['bwd'][1]}) | {card}", flush=True)
     return records
 
 
@@ -1317,8 +1415,9 @@ def phase_ab(card: str, label: str, run) -> None:
         parts.append(f"{mode}_ms={ms:.3f} (q1 {1e3 * q1:.3f}, q3 {1e3 * q3:.3f}; "
                      f"{batch / ms * 1e3:.1f} img/s; peak {peak[mode] / 2**30:.2f} GiB; "
                      f"host enqueue {1e3 * statistics.median(host[mode]):.3f} ms)")
+    ratio = statistics.median(times["kernel"]) / statistics.median(times["plain"])
     print(f"a/b: {label} {len(AB_BLOCKS)} blocks of {AB_STEPS} steps, "
-          f"medians: {'; '.join(parts)} | {card}", flush=True)
+          f"medians: {'; '.join(parts)}; kernel/plain={ratio:.4f} | {card}", flush=True)
 
 
 def phase_profile(card: str, label: str, run, path: str) -> None:
@@ -1358,15 +1457,39 @@ def phase_profile(card: str, label: str, run, path: str) -> None:
               f"{e.count // n:5d}x {e.key[:110]}", flush=True)
 
 
-def main() -> int:
+def phase_deeplab(card: str) -> dict:
+    """DeepLabv3's train, a/b and profile phases; returns the launch counts."""
+    from cvnets_tpu_torch.ops.seg_ce_kernel import seg_ce_bwd_kernel, seg_ce_fwd_kernel
+    from cvnets_tpu_torch.ops.separable_attention import (
+        separable_attention_bwd_kernel,
+        separable_attention_kernel,
+    )
+
+    sep = {"separable_attention": separable_attention_kernel,
+           "separable_attention_bwd": separable_attention_bwd_kernel}
+    launches, run = phase_train(
+        card, "DeepLabv3-MobileViTv2-1.0", DEEPLAB_ARGS,
+        {"seg_ce_fwd": seg_ce_fwd_kernel, "seg_ce_bwd": seg_ce_bwd_kernel, **sep},
+        {"seg_ce_fwd": SEG_CALLS, "seg_ce_bwd": SEG_CALLS,
+         **{name: sum(SEP_DEEPLAB[1].values()) for name in sep}})
+    phase_ab(card, "DeepLabv3-MobileViTv2-1.0", run)
+    phase_profile(card, "DeepLabv3-MobileViTv2-1.0", run,
+                  os.path.join("results", "deeplab_profile.txt"))
+    return launches
+
+
+def main(argv) -> int:
     import torch
 
+    if argv not in ([], ["--deeplab"]):
+        print(f"chip_smoke: unknown arguments {argv}; usage: chip_smoke.py [--deeplab]",
+              file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     import cvnets_tpu_torch  # noqa: F401  (fails here, before any output, outside the repo)
     from cvnets_tpu_torch.ops.mha_attention import mha_bwd_kernel, mha_fwd_kernel
-    from cvnets_tpu_torch.ops.seg_ce_kernel import seg_ce_bwd_kernel, seg_ce_fwd_kernel
     from cvnets_tpu_torch.ops.separable_attention import (
         separable_attention_bwd_kernel,
         separable_attention_kernel,
@@ -1378,6 +1501,9 @@ def main() -> int:
         torch.cuda.empty_cache()
 
     card = phase_device()
+    if argv:
+        phase_deeplab(card)
+        return 0
     phase_build()
     sep_records = phase_kernel(card)
     mha_records = phase_mha_kernel(card)
@@ -1403,15 +1529,7 @@ def main() -> int:
     phase_profile(card, "ViT-B/16", run, os.path.join("results", "vit_profile.txt"))
     run = None
     release()
-    seg_launches, run = phase_train(
-        card, "DeepLabv3-MobileViTv2-1.0", DEEPLAB_ARGS,
-        {"seg_ce_fwd": seg_ce_fwd_kernel, "seg_ce_bwd": seg_ce_bwd_kernel, **sep_kernels},
-        {"seg_ce_fwd": SEG_CALLS, "seg_ce_bwd": SEG_CALLS,
-         **{name: sum(SEP_DEEPLAB[1].values()) for name in sep_kernels}})
-    phase_ab(card, "DeepLabv3-MobileViTv2-1.0", run)
-    phase_profile(card, "DeepLabv3-MobileViTv2-1.0", run,
-                  os.path.join("results", "deeplab_profile.txt"))
-    run = None
+    seg_launches = phase_deeplab(card)
     release()
     win_kernels = {"window_attention_fwd": window_fwd_kernel,
                    "window_attention_bwd": window_bwd_kernel}
@@ -1483,4 +1601,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

@@ -3,8 +3,9 @@
 //
 // Replaces the Pallas TPU kernels of cvnets_tpu/ops/pallas/seg_ce_kernel.py:
 // _fwd_kernel (launched by _run_fwd) and _bwd_kernel (launched by _run_bwd).
-// The row interpolation hmid = A_h @ logits, (B, H, w, C) float32, is computed
-// outside (a torch matmul, as the JAX package leaves it to XLA). For each
+// The row interpolation hmid = A_h @ logits, (B, H, w, C) float32, which the
+// JAX package leaves to XLA, is formed a row at a time inside the forward, and
+// computed outside for the backward (a torch matmul). For each
 // full-resolution row (b, i) and column j:
 //   col[c] = sum_t a[j, t] * hmid[b, i, k[j, t], c]     (A_w @ hmid row)
 //   lse    = max_c col + log sum_c exp(col - max)
@@ -15,29 +16,40 @@
 //   G[j, c] = (softmax(col)[c] - (1 - ls) * [c == target] - ls / C)
 //             * class_wt * valid * scale,   scale = dloss / n_valid.
 //
-// A_w comes as tables the host builds from the dense matrix
-// (ops/seg_ce_kernel.py interp_taps). The forward reads, per output column j,
-// up to kTaps (index, weight) pairs (a bilinear upsample has 2, so a logit
-// costs 2 FMAs instead of the dense product's w). The backward reads A_w as a
-// band: output column j's weights sit on the input columns k0[j] ..
+// A_h and A_w come as tables the host builds from the dense matrices
+// (ops/seg_ce_kernel.py interp_taps). The forward reads, per output row i and
+// column j, up to kTaps (index, weight) pairs (a bilinear upsample has 2, so
+// a logit costs 2 FMAs instead of the dense product's w). The backward reads
+// A_w as a band: output column j's weights sit on the input columns k0[j] ..
 // k0[j] + kTaps - 1, and k0 never decreases with j (the triangle filter of
 // resize_matrix_weights is such a band, up- or downsampling); and a plan of
 // how the warps of a block split the row (below). Any band computes the same
 // function exactly.
 //
 // What bounds them: at the DeepLabv3 shape (B=8, H=W=512, w=32, C=150) the
-// forward reads hmid once (78.6 MB) and the targets (16.8 MB int64), ~0.03 ms
-// at 3.35 TB/s, but takes B*H*W*C = 315 M exponentials, ~0.08 ms at the SFU's
-// 16 a clock per SM; the backward also writes dhm (78.6 MB), and the same
-// exponentials bound it. The forward:
-//   * one block per full-resolution row; the row of hmid (w*C floats) is read
-//     from HBM once into shared memory and every output pixel of the row reads
-//     its taps there;
-//   * one thread per output pixel, two passes over C (max and sums, then the
-//     exponentials), no shuffles;
-//   * no float atomics anywhere: the forward writes per-row partials and a
-//     second kernel sums them in a fixed order (in double), so the loss is the
-//     same bit for bit from run to run.
+// forward reads the head logits (4.9 MB) and the targets (16.8 MB int64), but
+// takes B*H*W*C = 315 M exponentials, ~0.075 ms at the SFU's 16 a clock per
+// SM; the backward reads hmid (78.6 MB) and writes dhm (78.6 MB), and the
+// same exponentials bound it. The forward takes one exponential a logit in
+// one pass, and one launch:
+//   * one block per full-resolution row, which forms its row of hmid (w*C
+//     floats) in shared memory from the kTaps rows of head logits that A_h
+//     names (read from L2 as the loss passes them, a permuted view of NCHW
+//     logits, and transposed into the row; 16 output rows share a pair of
+//     head rows at DeepLabv3's shape); every output pixel of the row reads
+//     its taps there, two classes a load where C is even;
+//   * the block takes the largest logit of each of the row's w input columns
+//     (a warp a column); A_w's weights are nonnegative, so a pixel's
+//     mb = sum_t a_t colmax[k_t] is at least each of its logits, and stands
+//     in for the max: one pass over C, one thread per output pixel, forms
+//     sum exp2((col - mb) log2 e) (one ex2.approx a logit) and sum col, with
+//     no shuffles and no recomputed taps. Where mb lies so far above the max
+//     that the sum underflows (wide-spread logits), the pixel takes two more
+//     passes with its true max;
+//   * no float atomics anywhere: each block writes its row's partial; the
+//     last block to take a ticket (an int atomic after a fence) sums the
+//     partials in row order in double, so the loss is the same bit for bit
+//     from run to run, and resets the ticket.
 // The backward takes one exponential a logit and keeps the A_w^T product in
 // registers:
 //   * one block per row of 8 warps; the row of hmid comes into shared memory
@@ -70,6 +82,7 @@
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cmath>
 #include <cstdint>
 #include <type_traits>
@@ -85,8 +98,28 @@ constexpr int kBwdThreads = kWarp * kBwdWarps;
 // ints of the plan per active warp: its output columns [j_lo, j_hi), its input
 // columns [k_lo, k_hi), the offset of its slot map (seg_ce_kernel.py _WALK)
 constexpr int kWalk = 5;
-constexpr int kReduceThreads = 1024;
 constexpr float kLog2e = 1.4426950408889634f;
+// a forward pixel whose sum of exponentials under its bound falls below this
+// recomputes with its true max
+constexpr float kTiny = 0x1p-60f;
+// floats of a forward block's shared memory past the row and its column
+// maxima never fall under this: the last block's sum reuses them
+constexpr int kFwdMinSmem = 32;
+// classes a forward tap load reads at once where C is a multiple of it (the
+// loads then stay aligned); else a class at a time
+constexpr int kVec = 2;
+
+struct alignas(4 * kVec) Vec {
+  float x[kVec];
+};
+
+// 2^x on the SFU, one instruction (exp2f without fast math adds a denormal
+// guard); -inf gives +0.
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
 template <int kTaps>
 struct Taps {
@@ -101,23 +134,62 @@ struct Taps {
   }
   // col[c] from the shared row h (w, C)
   __device__ __forceinline__ float col(const float* h, int c, int C) const {
-    float v = 0.f;
+    float v = a[0] * h[k[0] * C + c];
 #pragma unroll
-    for (int t = 0; t < kTaps; ++t) v = fmaf(a[t], h[k[t] * C + c], v);
+    for (int t = 1; t < kTaps; ++t) v = fmaf(a[t], h[k[t] * C + c], v);
     return v;
   }
-  // over the C logits of the pixel: max m, sum of exp(col - m), sum of col
-  __device__ __forceinline__ void softmax_stats(const float* h, int C, float& m, float& s,
-                                                float& sum) const {
-    m = -INFINITY;
-    sum = 0.f;
-    for (int c = 0; c < C; ++c) {
-      const float v = col(h, c, C);
-      m = fmaxf(m, v);
-      sum += v;
+  // col[c .. c + kVec) for C and c multiples of kVec: one vector load a tap
+  __device__ __forceinline__ void cols(const float* h, int c, int C, float (&v)[kVec]) const {
+#pragma unroll
+    for (int t = 0; t < kTaps; ++t) {
+      const Vec x = *reinterpret_cast<const Vec*>(h + k[t] * C + c);
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) v[i] = t == 0 ? a[0] * x.x[i] : fmaf(a[t], x.x[i], v[i]);
     }
-    s = 0.f;
-    for (int c = 0; c < C; ++c) s += expf(col(h, c, C) - m);
+  }
+  // sum_t a_t colmax[k_t]: at least every logit of the pixel, as the weights
+  // are nonnegative (interp_taps refuses others)
+  __device__ __forceinline__ float bound(const float* colmax) const {
+    float m = 0.f;
+#pragma unroll
+    for (int t = 0; t < kTaps; ++t) m = fmaf(a[t], colmax[k[t]], m);
+    return m;
+  }
+  // ln sum_c exp(col[c]) and, with kSmooth, sum_c col[c]: one pass and one
+  // exponential a logit, shifted by mb >= max_c col[c]. Where the sum falls
+  // under kTiny (mb far above the max: the exponentials lose their low bits
+  // to the flush of subnormals, then all of them), the pixel takes two
+  // passes with its true max.
+  template <bool kSmooth>
+  __device__ __forceinline__ float lse(const float* h, int C, float mb, float& sum) const {
+    float s = 0.f, total = 0.f;
+    const float shift = mb * kLog2e;
+    const int c_vec = C % kVec == 0 ? C : 0;
+    for (int c = 0; c < c_vec; c += kVec) {
+      float v[kVec];
+      cols(h, c, C, v);
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) {
+        s += fast_exp2(fmaf(v[i], kLog2e, -shift));
+        if (kSmooth) total += v[i];
+      }
+    }
+    for (int c = c_vec; c < C; ++c) {
+      const float v = col(h, c, C);
+      s += fast_exp2(fmaf(v, kLog2e, -shift));
+      if (kSmooth) total += v;
+    }
+    sum = total;
+    if (s < kTiny) {
+      float m = -INFINITY;
+      for (int c = 0; c < C; ++c) m = fmaxf(m, col(h, c, C));
+      const float exact = m * kLog2e;
+      s = 0.f;
+      for (int c = 0; c < C; ++c) s += fast_exp2(fmaf(col(h, c, C), kLog2e, -exact));
+      mb = m;
+    }
+    return mb + logf(s);
   }
 };
 
@@ -129,104 +201,6 @@ __device__ __forceinline__ float warp_max(float x) {
 __device__ __forceinline__ float warp_sum(float x) {
   for (int o = kWarp / 2; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
-}
-
-__device__ __forceinline__ void load_row(float* dst, const float* src, int n) {
-  for (int e = threadIdx.x; e < n; e += blockDim.x) dst[e] = src[e];
-}
-
-template <int kTaps>
-__global__ void __launch_bounds__(kThreads) seg_ce_fwd_kernel(
-    const float* __restrict__ hmid, const long long* __restrict__ target,
-    const int* __restrict__ tap_idx, const float* __restrict__ tap_wt,
-    const float* __restrict__ class_wts, float* __restrict__ partial_loss,
-    int* __restrict__ partial_cnt, int w, int W, int C, int ignore_idx, float ls) {
-  extern __shared__ float smem[];
-  float* h = smem;                            // w*C
-  float* red_loss = smem + w * C;             // one per warp
-  int* red_cnt = reinterpret_cast<int*>(red_loss + kThreads / kWarp);
-  const long long row = blockIdx.x;
-  load_row(h, hmid + row * w * C, w * C);
-  __syncthreads();
-
-  const long long* trow = target + row * W;
-  const float inv_c = 1.f / static_cast<float>(C);
-  float loss = 0.f;
-  int cnt = 0;
-  for (int j = threadIdx.x; j < W; j += blockDim.x) {
-    const long long t = trow[j];
-    if (t == ignore_idx) continue;
-    ++cnt;
-    Taps<kTaps> taps;
-    taps.load(tap_idx, tap_wt, j);
-    float m, s, sum;
-    taps.softmax_stats(h, C, m, s, sum);
-    const bool in_range = t >= 0 && t < C;
-    const float picked = in_range ? taps.col(h, static_cast<int>(t), C) : 0.f;
-    const float lse = m + logf(s);
-    float l = lse - picked;
-    if (ls > 0.f) l = (1.f - ls) * l + ls * (lse - sum * inv_c);
-    if (class_wts != nullptr) l *= in_range ? class_wts[t] : 0.f;
-    loss += l;
-  }
-
-  // fixed-order reduction: shuffles within a warp, then warps in order
-  loss = warp_sum(loss);
-  for (int o = kWarp / 2; o > 0; o >>= 1) cnt += __shfl_xor_sync(0xffffffffu, cnt, o);
-  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
-  if (lane == 0) {
-    red_loss[warp] = loss;
-    red_cnt[warp] = cnt;
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float l = 0.f;
-    int n = 0;
-    for (int i = 0; i < static_cast<int>(blockDim.x) / kWarp; ++i) {
-      l += red_loss[i];
-      n += red_cnt[i];
-    }
-    partial_loss[row] = l;
-    partial_cnt[row] = n;
-  }
-}
-
-// Sums the per-row partials in a fixed order: out = (loss_sum, n_valid).
-__global__ void __launch_bounds__(kReduceThreads) seg_ce_reduce_kernel(
-    const float* __restrict__ partial_loss, const int* __restrict__ partial_cnt,
-    int rows, float* __restrict__ out) {
-  __shared__ double sl[kReduceThreads];
-  __shared__ long long sn[kReduceThreads];
-  double l = 0.0;
-  long long n = 0;
-  for (int r = threadIdx.x; r < rows; r += blockDim.x) {
-    l += partial_loss[r];
-    n += partial_cnt[r];
-  }
-  sl[threadIdx.x] = l;
-  sn[threadIdx.x] = n;
-  __syncthreads();
-  for (int s = blockDim.x / 2; s > 0; s >>= 1) {
-    if (static_cast<int>(threadIdx.x) < s) {
-      sl[threadIdx.x] += sl[threadIdx.x + s];
-      sn[threadIdx.x] += sn[threadIdx.x + s];
-    }
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) {
-    out[0] = static_cast<float>(sl[0]);
-    out[1] = static_cast<float>(sn[0]);
-  }
-}
-
-// ------------------------------------------------------------------ backward
-
-// 2^x on the SFU, one instruction (exp2f without fast math adds a denormal
-// guard); -inf gives +0.
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 __device__ __forceinline__ void cp_async_16(void* dst, const void* src) {
@@ -250,6 +224,155 @@ __device__ __forceinline__ void load_row_async(float* dst, const float* src, int
   asm volatile("cp.async.commit_group;\n" ::);
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
+
+// The row hmid[b, i] = sum_t A_h[i, t] logits[b, rows.k[t]] into shared
+// memory as (w, C), from the image's logits (h, w, C) at element strides
+// (sy, sx, sc). The threads walk the image along its contiguous axis: along
+// the pixels where sx is 1 (a permuted view of NCHW logits, as the loss
+// passes them), so the reads coalesce and the writes transpose into the
+// row; else along the classes.
+template <int kTaps>
+__device__ __forceinline__ void h_row(float* h, const float* __restrict__ img, int sy, int sx,
+                                      int sc, const Taps<kTaps>& rows, int w, int C) {
+  int off[kTaps];
+#pragma unroll
+  for (int t = 0; t < kTaps; ++t) off[t] = rows.k[t] * sy;
+  const bool pixels = sx == 1;
+  const int n_fast = pixels ? w : C, s_fast = pixels ? sx : sc, s_slow = pixels ? sc : sx;
+  const int h_fast = pixels ? C : 1, h_slow = pixels ? 1 : C;
+  const int d_slow = kThreads / n_fast, d_fast = kThreads - d_slow * n_fast;
+  int slow = threadIdx.x / n_fast, fast = threadIdx.x - slow * n_fast;
+#pragma unroll 4
+  for (int e = threadIdx.x; e < w * C; e += kThreads) {
+    const int at = fast * s_fast + slow * s_slow;
+    float v = rows.a[0] * img[off[0] + at];
+#pragma unroll
+    for (int t = 1; t < kTaps; ++t) v = fmaf(rows.a[t], img[off[t] + at], v);
+    h[fast * h_fast + slow * h_slow] = v;
+    fast += d_fast;
+    slow += d_slow;
+    if (fast >= n_fast) {
+      fast -= n_fast;
+      ++slow;
+    }
+  }
+}
+
+// colmax[k] = max_c h[k, c] of the shared row h (w, C), a warp a column
+__device__ __forceinline__ void column_max(const float* h, float* colmax, int w, int C) {
+  const int lane = threadIdx.x % kWarp;
+  for (int k = threadIdx.x / kWarp; k < w; k += kThreads / kWarp) {
+    float m = -INFINITY;
+    for (int c = lane; c < C; c += kWarp) m = fmaxf(m, h[k * C + c]);
+    m = warp_max(m);
+    if (lane == 0) colmax[k] = m;
+  }
+}
+
+// The last block of a forward launch: the per-row partials summed in row
+// order (a strided run a thread, the warp's shuffles, then the warps in
+// order, in double), so the loss has the same bits whichever block comes
+// last; then the ticket goes back to 0 for the next launch.
+__device__ __forceinline__ void sum_partials(const float* partial_loss, const int* partial_cnt,
+                                             int rows, float* smem, float* out, int* ticket) {
+  __threadfence();  // read the partials after the ticket that said they are all in
+  double l = 0.0;
+  long long n = 0;
+  for (int r = threadIdx.x; r < rows; r += kThreads) {
+    l += __ldcg(partial_loss + r);
+    n += __ldcg(partial_cnt + r);
+  }
+  for (int o = kWarp / 2; o > 0; o >>= 1) {
+    l += __shfl_xor_sync(0xffffffffu, l, o);
+    n += __shfl_xor_sync(0xffffffffu, n, o);
+  }
+  double* red_l = reinterpret_cast<double*>(smem);  // kFwdMinSmem floats
+  long long* red_n = reinterpret_cast<long long*>(red_l + kThreads / kWarp);
+  if (threadIdx.x % kWarp == 0) {
+    red_l[threadIdx.x / kWarp] = l;
+    red_n[threadIdx.x / kWarp] = n;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int i = 1; i < kThreads / kWarp; ++i) {
+      red_l[0] += red_l[i];
+      red_n[0] += red_n[i];
+    }
+    out[0] = static_cast<float>(red_l[0]);
+    out[1] = static_cast<float>(red_n[0]);
+    *ticket = 0;
+  }
+}
+
+template <int kTaps, bool kSmooth>
+__global__ void __launch_bounds__(kThreads) seg_ce_fwd_kernel(
+    const float* __restrict__ logits, long long sb, int sy, int sx, int sc,
+    const int* __restrict__ row_idx, const float* __restrict__ row_wt,
+    const long long* __restrict__ target, const int* __restrict__ tap_idx,
+    const float* __restrict__ tap_wt, const float* __restrict__ class_wts,
+    float* __restrict__ partial_loss, int* __restrict__ partial_cnt, int* __restrict__ ticket,
+    float* __restrict__ out, int H, int w, int W, int C, int ignore_idx, float ls) {
+  extern __shared__ __align__(16) float smem[];
+  float* h = smem;               // w*C
+  float* colmax = smem + w * C;  // w
+  const long long row = blockIdx.x, b = row / H;
+  Taps<kTaps> rows;
+  rows.load(row_idx, row_wt, static_cast<int>(row - b * H));
+  h_row(h, logits + b * sb, sy, sx, sc, rows, w, C);
+  __syncthreads();
+  column_max(h, colmax, w, C);
+  __syncthreads();
+
+  const long long* trow = target + row * W;
+  const float inv_c = 1.f / static_cast<float>(C);
+  float loss = 0.f;
+  int cnt = 0;
+  for (int j = threadIdx.x; j < W; j += kThreads) {
+    const long long t = trow[j];
+    if (t == ignore_idx) continue;
+    ++cnt;
+    Taps<kTaps> taps;
+    taps.load(tap_idx, tap_wt, j);
+    float sum;
+    const float lse = taps.template lse<kSmooth>(h, C, taps.bound(colmax), sum);
+    const bool in_range = t >= 0 && t < C;
+    const float picked = in_range ? taps.col(h, static_cast<int>(t), C) : 0.f;
+    float l = lse - picked;
+    if (kSmooth) l = (1.f - ls) * l + ls * (lse - sum * inv_c);
+    if (class_wts != nullptr) l *= in_range ? class_wts[t] : 0.f;
+    loss += l;
+  }
+
+  // the row's partial in a fixed order: shuffles within a warp, then warps in
+  // order, in the row's shared memory, which nothing reads any more
+  loss = warp_sum(loss);
+  for (int o = kWarp / 2; o > 0; o >>= 1) cnt += __shfl_xor_sync(0xffffffffu, cnt, o);
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  float* red_loss = smem;
+  int* red_cnt = reinterpret_cast<int*>(smem + kThreads / kWarp);
+  __syncthreads();
+  if (lane == 0) {
+    red_loss[warp] = loss;
+    red_cnt[warp] = cnt;
+  }
+  __syncthreads();
+  int last = 0;
+  if (threadIdx.x == 0) {
+    float l = 0.f;
+    int n = 0;
+    for (int i = 0; i < kThreads / kWarp; ++i) {
+      l += red_loss[i];
+      n += red_cnt[i];
+    }
+    partial_loss[row] = l;
+    partial_cnt[row] = n;
+    __threadfence();  // the partial is visible before the ticket is taken
+    last = atomicAdd(ticket, 1) == static_cast<int>(gridDim.x) - 1;
+  }
+  if (__syncthreads_or(last)) sum_partials(partial_loss, partial_cnt, gridDim.x, smem, out, ticket);
+}
+
+// ------------------------------------------------------------------ backward
 
 // The max and the sum over the kLanes lanes of a pixel's group (lanes l and
 // l ^ o, o < kLanes, serve the same pixel).
@@ -481,27 +604,27 @@ __global__ void __launch_bounds__(kBwdThreads) seg_ce_bwd_kernel(
   }
 }
 
+// bytes of a forward block's shared memory: the row of hmid and its column
+// maxima (_fwd_smem in seg_ce_kernel.py)
 size_t fwd_smem(int w, int C) {
-  return (static_cast<size_t>(w) * C + kThreads / kWarp) * sizeof(float) +
-         (kThreads / kWarp) * sizeof(int);
+  return std::max<size_t>(static_cast<size_t>(w) * (C + 1), kFwdMinSmem) * sizeof(float);
 }
-template <int kTaps>
-int launch_fwd(const float* hmid, const long long* target, const int* tap_idx,
+
+template <int kTaps, bool kSmooth>
+int launch_fwd(const float* logits, long long sb, int sy, int sx, int sc, const int* row_idx,
+               const float* row_wt, const long long* target, const int* tap_idx,
                const float* tap_wt, const float* class_wts, float* partial_loss,
-               int* partial_cnt, float* out, int rows, int w, int W, int C,
+               int* partial_cnt, int* ticket, float* out, int rows, int H, int w, int W, int C,
                int ignore_idx, float ls, cudaStream_t stream) {
+  const auto kernel = seg_ce_fwd_kernel<kTaps, kSmooth>;
   const size_t smem = fwd_smem(w, C);
-  cudaError_t err = cudaFuncSetAttribute(seg_ce_fwd_kernel<kTaps>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  seg_ce_fwd_kernel<kTaps><<<rows, kThreads, smem, stream>>>(
-      hmid, target, tap_idx, tap_wt, class_wts, partial_loss, partial_cnt, w, W, C,
-      ignore_idx, ls);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  seg_ce_reduce_kernel<<<1, kReduceThreads, 0, stream>>>(partial_loss, partial_cnt,
-                                                         rows, out);
+  kernel<<<rows, kThreads, smem, stream>>>(logits, sb, sy, sx, sc, row_idx, row_wt, target,
+                                           tap_idx, tap_wt, class_wts, partial_loss,
+                                           partial_cnt, ticket, out, H, w, W, C, ignore_idx,
+                                           ls);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -534,24 +657,38 @@ int launch_bwd(const float* hmid, const long long* target, const int* band_k0,
 // may be null. They launch on `stream` without synchronising and return
 // cudaGetLastError() (cudaErrorInvalidValue for an unsupported `taps` or
 // `classes`).
-extern "C" int seg_ce_forward(const void* hmid, const void* target, const void* tap_idx,
-                              const void* tap_wt, int taps, const void* class_wts,
-                              void* partial_loss, void* partial_cnt, void* out, int rows,
-                              int w, int W, int C, int ignore_idx, float ls,
-                              void* stream) {
+//
+// The forward: logits (B, h, w, C) float32 at element strides (sb, sy, sx,
+// sc), an image's offsets under 2^31; row_idx, row_wt (H, taps) A_h's
+// table and tap_idx, tap_wt (W, taps) A_w's, at one tap count; target (B, H,
+// W) int64; partial_loss, partial_cnt `rows` = B * H floats and ints of
+// scratch; ticket one int, 0 before the launch and after it; out two floats,
+// (loss_sum, n_valid).
+extern "C" int seg_ce_forward(const void* logits, long long sb, int sy, int sx, int sc,
+                              const void* row_idx, const void* row_wt, const void* target,
+                              const void* tap_idx, const void* tap_wt, int taps,
+                              const void* class_wts, void* partial_loss, void* partial_cnt,
+                              void* ticket, void* out, int rows, int H, int w, int W, int C,
+                              int ignore_idx, float ls, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   auto args = [&](auto launch) {
-    return launch(static_cast<const float*>(hmid), static_cast<const long long*>(target),
-                  static_cast<const int*>(tap_idx), static_cast<const float*>(tap_wt),
-                  static_cast<const float*>(class_wts), static_cast<float*>(partial_loss),
-                  static_cast<int*>(partial_cnt), static_cast<float*>(out), rows, w, W, C,
+    return launch(static_cast<const float*>(logits), sb, sy, sx, sc,
+                  static_cast<const int*>(row_idx), static_cast<const float*>(row_wt),
+                  static_cast<const long long*>(target), static_cast<const int*>(tap_idx),
+                  static_cast<const float*>(tap_wt), static_cast<const float*>(class_wts),
+                  static_cast<float*>(partial_loss), static_cast<int*>(partial_cnt),
+                  static_cast<int*>(ticket), static_cast<float*>(out), rows, H, w, W, C,
                   ignore_idx, ls, st);
   };
+  auto smooth = [&](auto taps_c) -> int {
+    constexpr int kT = decltype(taps_c)::value;
+    return ls > 0.f ? args(launch_fwd<kT, true>) : args(launch_fwd<kT, false>);
+  };
   switch (taps) {
-    case 2: return args(launch_fwd<2>);
-    case 4: return args(launch_fwd<4>);
-    case 8: return args(launch_fwd<8>);
-    case 16: return args(launch_fwd<16>);
+    case 2: return smooth(std::integral_constant<int, 2>());
+    case 4: return smooth(std::integral_constant<int, 4>());
+    case 8: return smooth(std::integral_constant<int, 8>());
+    case 16: return smooth(std::integral_constant<int, 16>());
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

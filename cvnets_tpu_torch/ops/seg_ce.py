@@ -61,10 +61,13 @@ def fused_resize_ce(logits: torch.Tensor, target: torch.Tensor, *, ignore_idx: i
     big_h, big_w = int(target.shape[1]), int(target.shape[2])
     ah = resize_matrix(big_h, h, logits.device)
     aw = resize_matrix(big_w, w, logits.device)
-    taps = None if logits.device.type == "cpu" else resize_taps(big_w, w, logits.device)
+    ah_taps = aw_taps = None
+    if logits.device.type != "cpu":
+        ah_taps = resize_taps(big_h, h, logits.device)
+        aw_taps = resize_taps(big_w, w, logits.device)
     if class_wts is not None:
         class_wts = class_wts.float()
-    return ResizeCE.apply(logits, target, ah, aw, taps, class_wts, ignore_idx,
+    return ResizeCE.apply(logits, target, ah, aw, ah_taps, aw_taps, class_wts, ignore_idx,
                           float(label_smoothing))
 
 

@@ -5,17 +5,18 @@ cvnets_tpu/ops/pallas/seg_ce_kernel.py).
 The mean pixel CE of ``bilinear_resize(logits)`` against the labels is computed
 without the (B, H, W, C) full-resolution logits:
 
-1. ``h_interp``: the row interpolation ``hmid = A_h @ logits``, (B, H, w, C)
-   float32, a torch matmul (the JAX package leaves it to XLA, ``_h_interp``).
-2. ``seg_ce_fwd_kernel`` (csrc/seg_ce.cu, replaces ``_run_fwd``): per
-   full-resolution row, ``A_w @ hmid_row`` and the CE; writes only
-   ``(loss_sum, n_valid)``. ``seg_ce_bwd_kernel`` (replaces ``_run_bwd``)
-   recomputes the rows and writes ``dhm = A_wᵀ @ G``, and the Function
-   contracts ``dlogits = A_hᵀ @ dhm``.
+1. ``seg_ce_fwd_kernel`` (csrc/seg_ce.cu, replaces ``_run_fwd``): per
+   full-resolution row, the row interpolation ``hmid_row = A_h @ logits``
+   (the JAX package leaves it to XLA, ``_h_interp``), ``A_w @ hmid_row`` and
+   the CE; writes only ``(loss_sum, n_valid)``.
+2. The backward: ``h_interp``, ``hmid = A_h @ logits`` (B, H, w, C) float32,
+   a torch matmul; ``seg_ce_bwd_kernel`` (replaces ``_run_bwd``) recomputes
+   the rows and writes ``dhm = A_wᵀ @ G``, and the Function contracts
+   ``dlogits = A_hᵀ @ dhm``.
 
-``seg_ce_fwd_plain`` / ``seg_ce_bwd_plain`` compute what the two kernels do from
-the same ``hmid``, in plain torch ops; they serve CPU tensors and are the
-kernels' references. The CE is float32 whatever the logits' dtype. A target
+``seg_ce_fwd_plain(h_interp(logits, A_h), …)`` / ``seg_ce_bwd_plain`` compute
+what the two kernels do, in plain torch ops; they serve CPU tensors and are
+the kernels' references. The CE is float32 whatever the logits' dtype. A target
 outside [0, C) that is not the ignore index picks no logit and, with class
 weights, weighs 0 (the Pallas kernel's one-hot). ``seg_ce_eligible`` says which
 shapes both kernels take; the loss sends every other shape to the unfused
@@ -35,7 +36,7 @@ import torch
 from cvnets_tpu_torch.ops.cuda_build import KernelEntry
 
 _TAPS = (2, 4, 8, 16)  # the kernels' template instances (csrc/seg_ce.cu)
-_THREADS = 256  # a forward block's threads (kThreads in seg_ce.cu)
+_FWD_MIN_SMEM = 32  # floats a forward block has at least (kFwdMinSmem in seg_ce.cu)
 _BWD_WARPS = 8  # warps of a backward block (kBwdWarps in seg_ce.cu)
 _WALK = 5  # ints of a backward plan per warp (kWalk in seg_ce.cu)
 # the backward's (pixels a warp takes at a time, classes a lane keeps in
@@ -154,9 +155,16 @@ def interp_taps(a: torch.Tensor) -> InterpTaps:
     """Build the kernels' tables from a dense (out, in) matrix on the CPU. The
     matrix must be a band: the first nonzero of a row never lies left of the
     previous row's (rows of zeros aside), as in every matrix of
-    ``resize_matrix_weights``; else this raises a ``ValueError``."""
+    ``resize_matrix_weights``; and its weights must be nonnegative, as there,
+    since the forward bounds a pixel's logits by the weighted column maxima.
+    Else this raises a ``ValueError``."""
     a = a.detach().cpu().numpy().astype(np.float32)
     n_out, n_in = a.shape
+    if (a < 0).any():
+        j, k = np.argwhere(a < 0)[0]
+        raise ValueError(f"the interpolation matrix has a negative weight ({a[j, k]} at "
+                         f"[{j}, {k}]); the forward kernel bounds a pixel's logits by the "
+                         "weighted maxima of its input columns, which takes weights >= 0")
     nz = a != 0
     rows = nz.any(axis=1)
     first = nz.argmax(axis=1)
@@ -244,58 +252,101 @@ def seg_ce_bwd_plain(hmid: torch.Tensor, aw: torch.Tensor, target: torch.Tensor,
     return torch.matmul(aw.t(), g * factor.unsqueeze(-1))
 
 
-def _check_inputs(hmid: torch.Tensor, target: torch.Tensor, taps: InterpTaps,
-                  class_wts: Optional[torch.Tensor]) -> Tuple[int, int, int, int, int]:
-    if hmid.device.type != "cuda":
-        raise ValueError(f"hmid must be a CUDA tensor; got {hmid.device}")
-    if hmid.dim() != 4 or hmid.dtype != torch.float32 or not hmid.is_contiguous():
-        raise ValueError(f"hmid: want contiguous float32 (B, H, w, C); got "
-                         f"{hmid.dtype} {tuple(hmid.shape)}")
-    b, big_h, w, c = hmid.shape
-    if (target.dtype != torch.int64 or target.dim() != 3 or tuple(target.shape[:2]) != (b, big_h)
-            or not target.is_contiguous() or target.device != hmid.device):
-        raise ValueError(f"target: want contiguous int64 ({b}, {big_h}, W) on {hmid.device}; "
+def _check_cuda(x: torch.Tensor, name: str, layout: str) -> None:
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor; got {x.device}")
+    if x.dim() != 4 or x.dtype != torch.float32:
+        raise ValueError(f"{name}: want float32 {layout}; got {x.dtype} {tuple(x.shape)}")
+
+
+def _check_taps(taps: InterpTaps, n_out: int, n_in: int, device: torch.device,
+                name: str) -> None:
+    if tuple(taps.idx.shape) != (n_out, taps.taps) or taps.n_in != n_in:
+        raise ValueError(f"{name}: built for ({taps.idx.shape[0]}, {taps.n_in}), "
+                         f"want ({n_out}, {n_in})")
+    if any(t.device != device for t in (taps.idx, taps.wt, taps.k0, taps.band,
+                                          *(p.table for p in taps.plans))):
+        raise ValueError(f"{name} must lie on {device}")
+
+
+def _check_labels(device: torch.device, b: int, w: int, c: int, target: torch.Tensor,
+                  taps: InterpTaps, class_wts: Optional[torch.Tensor]) -> Tuple[int, int]:
+    """Checks the labels (B, H, W), A_w's tables and the class weights; returns (H, W)."""
+    if (target.dtype != torch.int64 or target.dim() != 3 or target.shape[0] != b
+            or not target.is_contiguous() or target.device != device):
+        raise ValueError(f"target: want contiguous int64 ({b}, H, W) on {device}; "
                          f"got {target.dtype} {tuple(target.shape)} on {target.device}")
-    big_w = target.shape[2]
-    if tuple(taps.idx.shape) != (big_w, taps.taps) or taps.n_in != w:
-        raise ValueError(f"taps: built for ({taps.idx.shape[0]}, {taps.n_in}), "
-                         f"want ({big_w}, {w})")
-    if any(t.device != hmid.device for t in (taps.idx, taps.wt, taps.k0, taps.band,
-                                               *(p.table for p in taps.plans))):
-        raise ValueError("taps must lie on hmid's device")
+    big_h, big_w = target.shape[1:]
+    _check_taps(taps, big_w, w, device, "taps")
     if class_wts is not None and (class_wts.dtype != torch.float32 or class_wts.shape != (c,)
-                                  or class_wts.device != hmid.device):
-        raise ValueError(f"class_wts: want float32 ({c},) on {hmid.device}")
-    return b, big_h, w, big_w, c
+                                  or class_wts.device != device):
+        raise ValueError(f"class_wts: want float32 ({c},) on {device}")
+    return big_h, big_w
 
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+def _fwd_table(taps: InterpTaps, n: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward's (idx, wt) of ``taps`` widened with zero weights to ``n``
+    taps (the kernel reads A_h's and A_w's tables at one tap count)."""
+    if taps.taps == n:
+        return taps.idx, taps.wt
+    return (torch.nn.functional.pad(taps.idx, (0, n - taps.taps)),
+            torch.nn.functional.pad(taps.wt, (0, n - taps.taps)))
+
+
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 
 
 class SegCEForwardKernel(KernelEntry):
     def __init__(self) -> None:
         super().__init__("seg_ce.cu", "seg_ce_forward",
-                         [_P] * 4 + [_I] + [_P] * 4 + [_I] * 5 + [_F])
+                         [_P, _L, _I, _I, _I] + [_P] * 5 + [_I] + [_P] * 5 + [_I] * 6 + [_F])
+        self._tickets = {}
 
-    def __call__(self, hmid: torch.Tensor, target: torch.Tensor, taps: InterpTaps,
-                 class_wts: Optional[torch.Tensor], ignore_idx: int, ls: float
-                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(loss_sum, n_valid) as float32 0-d tensors on hmid's device; one call
-        runs the row kernel and the fixed-order sum of its partials."""
-        b, big_h, w, big_w, c = _check_inputs(hmid, target, taps, class_wts)
+    def _ticket(self, device: torch.device) -> torch.Tensor:
+        """The int32 ticket of the launches on the current stream of
+        ``device``: 0 between launches (the last block resets it), one a
+        stream, so that launches on two streams never share one."""
+        key = (device, torch.cuda.current_stream(device).cuda_stream)
+        if key not in self._tickets:
+            self._tickets[key] = torch.zeros(1, dtype=torch.int32, device=device)
+        return self._tickets[key]
+
+    def __call__(self, logits: torch.Tensor, target: torch.Tensor, ah_taps: InterpTaps,
+                 aw_taps: InterpTaps, class_wts: Optional[torch.Tensor], ignore_idx: int,
+                 ls: float) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(loss_sum, n_valid) as float32 0-d tensors on the logits' device, of
+        the CE of ``A_h @ logits @ A_wᵀ`` against ``target``, from one launch:
+        the row blocks, each forming its row of hmid from the logits rows of
+        A_h's band, and the fixed-order sum of their partials. ``logits``
+        (B, h, w, C) float32 may have any strides (a permuted view of NCHW
+        logits is read as it lies, without a copy)."""
+        _check_cuda(logits, "logits", "(B, h, w, C)")
+        b, h, w, c = logits.shape
+        big_h, big_w = _check_labels(logits.device, b, w, c, target, aw_taps, class_wts)
+        _check_taps(ah_taps, big_h, h, logits.device, "ah_taps")
+        sb, sy, sx, sc = logits.stride()
+        if (h - 1) * sy + (w - 1) * sx + (c - 1) * sc >= 2 ** 31:
+            raise ValueError(f"logits: an image's strides {(sy, sx, sc)} reach past 2^31")
         if _fwd_smem(w, c) > _MAX_SMEM:
-            raise ValueError(f"a row of hmid (w·C = {w * c} floats) exceeds the forward "
-                             "kernel's shared memory")
+            raise ValueError(f"a row of hmid and its column maxima (w·(C + 1) = "
+                             f"{w * (c + 1)} floats) exceed the forward kernel's shared memory")
         rows = b * big_h
-        partial_loss = torch.empty(rows, dtype=torch.float32, device=hmid.device)
-        partial_cnt = torch.empty(rows, dtype=torch.int32, device=hmid.device)
-        out = torch.zeros(2, dtype=torch.float32, device=hmid.device)
+        out = torch.empty(2, dtype=torch.float32, device=logits.device)
         if rows and big_w:
-            self.launch(hmid.device, hmid.data_ptr(), target.data_ptr(), taps.idx.data_ptr(),
-                         taps.wt.data_ptr(), taps.taps,
+            taps = max(ah_taps.taps, aw_taps.taps)
+            (row_idx, row_wt), (tap_idx, tap_wt) = (_fwd_table(ah_taps, taps),
+                                                    _fwd_table(aw_taps, taps))
+            partial_loss = torch.empty(rows, dtype=torch.float32, device=logits.device)
+            partial_cnt = torch.empty(rows, dtype=torch.int32, device=logits.device)
+            self.launch(logits.device, logits.data_ptr(), sb, sy, sx, sc, row_idx.data_ptr(),
+                         row_wt.data_ptr(), target.data_ptr(), tap_idx.data_ptr(),
+                         tap_wt.data_ptr(), taps,
                          None if class_wts is None else class_wts.data_ptr(),
-                         partial_loss.data_ptr(), partial_cnt.data_ptr(), out.data_ptr(),
-                         rows, w, big_w, c, ignore_idx, ls)
+                         partial_loss.data_ptr(), partial_cnt.data_ptr(),
+                         self._ticket(logits.device).data_ptr(), out.data_ptr(), rows, big_h,
+                         w, big_w, c, ignore_idx, ls)
+        else:
+            out.zero_()
         return out[0], out[1]
 
 
@@ -311,9 +362,10 @@ def _bwd_lanes(c: int, taps: int) -> Tuple[int, int]:
 
 
 def _fwd_smem(w: int, c: int) -> int:
-    """Bytes of shared memory of a forward block: the row of hmid and two
-    floats a warp."""
-    return (w * c + 2 * _THREADS // 32) * 4
+    """Bytes of shared memory of a forward block (fwd_smem in seg_ce.cu): the
+    row of hmid and its w column maxima, never under ``_FWD_MIN_SMEM``
+    floats."""
+    return max(w * (c + 1), _FWD_MIN_SMEM) * 4
 
 
 def _bwd_smem(w: int, c: int, n_slots: int) -> int:
@@ -338,7 +390,12 @@ class SegCEBackwardKernel(KernelEntry):
                  ls: float) -> torch.Tensor:
         """dhm (B, H, w, C) float32; ``scale`` is a float32 one-element tensor on
         the device (dloss / n_valid), read by the kernel, not the host."""
-        b, big_h, w, big_w, c = _check_inputs(hmid, target, taps, class_wts)
+        _check_cuda(hmid, "hmid", "contiguous (B, H, w, C)")
+        b, big_h, w, c = hmid.shape
+        labels_h, big_w = _check_labels(hmid.device, b, w, c, target, taps, class_wts)
+        if not hmid.is_contiguous() or labels_h != big_h:
+            raise ValueError(f"hmid: want contiguous ({b}, {labels_h}, w, C); got "
+                             f"{tuple(hmid.shape)} (contiguous: {hmid.is_contiguous()})")
         if scale.dtype != torch.float32 or scale.numel() != 1 or scale.device != hmid.device:
             raise ValueError("scale: want a one-element float32 tensor on hmid's device")
         dhm = torch.empty_like(hmid)
@@ -374,13 +431,13 @@ def _resize_band(out_size: int, in_size: int) -> Optional[InterpTaps]:
 
 def seg_ce_eligible(h: int, w: int, big_h: int, big_w: int, c: int) -> bool:
     """Whether both kernels take the resize of (h, w) logits of C classes to
-    (H, W) labels: a row of the W-resize spans at most 16 input columns, a row
-    of hmid (w·C floats) fits the forward block's shared memory, and a
-    backward plan fits it. The H-resize (``h_interp``, a matmul) takes any h
-    and H. The JAX package falls back to its scan path for what its kernel
-    does not take (cvnets_tpu/ops/seg_ce.py:84-98); the loss here sends every
-    ineligible shape to the unfused plain version."""
-    if _fwd_smem(w, c) > _MAX_SMEM:
+    (H, W) labels: a row of the W-resize and of the H-resize spans at most 16
+    input columns (the forward reads both as taps), a row of hmid and its
+    column maxima (w·(C + 1) floats) fit the forward block's shared memory,
+    and a backward plan fits it. The JAX package falls back to its scan path
+    for what its kernel does not take (cvnets_tpu/ops/seg_ce.py:84-98); the
+    loss here sends every ineligible shape to the unfused plain version."""
+    if _fwd_smem(w, c) > _MAX_SMEM or _resize_band(big_h, h) is None:
         return False
     taps = _resize_band(big_w, w)
     return taps is not None and _bwd_plan(taps, w, c) is not None
@@ -388,21 +445,23 @@ def seg_ce_eligible(h: int, w: int, big_h: int, big_w: int, c: int) -> bool:
 
 class ResizeCE(torch.autograd.Function):
     """Mean pixel CE of the bilinear resize of ``logits`` (B, h, w, C) to the
-    labels' (H, W), given ``ah`` (H, h) and ``aw`` (W, w) (and ``aw_taps``, the
-    kernels' form of ``aw``, on a CUDA tensor). Forward and backward are the
-    kernels on CUDA tensors and the plain versions on CPU tensors. Autocast is
-    off inside and the logits come in as float32, so ``A_h @ logits`` runs in
-    float32 as the JAX package's does; the logits' grad is in their dtype."""
+    labels' (H, W), given ``ah`` (H, h) and ``aw`` (W, w) (and ``ah_taps``,
+    ``aw_taps``, the kernels' forms of them, on a CUDA tensor). Forward and
+    backward are the kernels on CUDA tensors and the plain versions on CPU
+    tensors. Autocast is off inside and the logits come in as float32, so
+    ``A_h @ logits`` runs in float32 as the JAX package's does; the logits'
+    grad is in their dtype."""
 
     @staticmethod
     @torch.amp.custom_fwd(device_type="cuda", cast_inputs=torch.float32)
-    def forward(ctx, logits, target, ah, aw, aw_taps, class_wts, ignore_idx, ls):
-        hmid = h_interp(logits, ah)
+    def forward(ctx, logits, target, ah, aw, ah_taps, aw_taps, class_wts, ignore_idx, ls):
         if logits.device.type == "cpu":
-            loss_sum, n_valid = seg_ce_fwd_plain(hmid, aw, target, class_wts, ignore_idx, ls)
+            loss_sum, n_valid = seg_ce_fwd_plain(h_interp(logits, ah), aw, target, class_wts,
+                                                 ignore_idx, ls)
         else:
-            loss_sum, n_valid = seg_ce_fwd_kernel(hmid, target, aw_taps, class_wts,
-                                                  ignore_idx, ls)
+            # float32 as it lies (autocast's cast, or this one, keeps the strides)
+            loss_sum, n_valid = seg_ce_fwd_kernel(logits.float(), target, ah_taps, aw_taps,
+                                                  class_wts, ignore_idx, ls)
         n_valid = n_valid.clamp(min=1.0)
         ctx.save_for_backward(logits, target, ah, aw, class_wts, n_valid)
         ctx.aw_taps, ctx.ignore_idx, ctx.ls = aw_taps, ignore_idx, ls
@@ -421,4 +480,4 @@ class ResizeCE(torch.autograd.Function):
                                     ctx.ignore_idx, ctx.ls)
         b, h, w, c = logits.shape
         dlogits = torch.matmul(ah.t(), dhm.reshape(b, -1, w * c)).reshape(b, h, w, c)
-        return dlogits.to(logits.dtype), None, None, None, None, None, None, None
+        return dlogits.to(logits.dtype), None, None, None, None, None, None, None, None

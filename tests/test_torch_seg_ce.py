@@ -12,12 +12,20 @@
 * The class-weight convention: the weighted sum over the *unweighted* count.
 * The backward's band plans walked as the kernel walks them, on the CPU: every
   input column written once, A_wᵀ G rebuilt.
+* The forward kernel's algorithm, emulated here in float32 torch ops
+  (``_emulate_forward``: one pass shifted by the weighted column maxima, two
+  passes with the true max where the sum underflows), against the plain
+  version and the Pallas kernel in interpret mode, on ordinary and on spread
+  logits that take the fallback; the bound itself at every resize shape of
+  this file; the tables refusing a negative weight; ``_fwd_smem`` against
+  ``fwd_smem`` of csrc/seg_ce.cu.
 * The dispatch rule ``seg_ce_eligible`` at the edge of each kernel limit, and
   ``SegCrossEntropy`` past a limit computing through the unfused plain
   version (the fused entry patched to fail) against the JAX loss.
 * On a CUDA card only: the kernels against their plain versions at the
-  DeepLabv3 shapes (dhm the same bits on a second call), the backward at C 21,
-  W 300 from 7, 5 from 12, C 300 and 434 and under every plan, the
+  DeepLabv3 shapes (dhm the same bits on a second call), the forward and the
+  backward at C 21, W 300 from 7, 5 from 12, C 300 and 434, the forward on a
+  fully ignored image and on spread logits, the backward under every plan, the
   dispatcher launching the kernels, never the plain versions, and the loss
   past each limit launching neither kernel:
   ``python -m pytest --noconftest -m cuda tests/test_torch_seg_ce.py``.
@@ -33,6 +41,9 @@ grads, which both return in bfloat16, to 2⁻⁷ of their largest value.
 
 from __future__ import annotations
 
+import os
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -44,6 +55,7 @@ from cvnets_tpu_torch.ops.seg_ce import (
     resize_matrix_weights,
 )
 from cvnets_tpu_torch.ops.seg_ce_kernel import (
+    _FWD_MIN_SMEM,
     _MAX_SMEM,
     _WALK,
     _bwd_plan,
@@ -267,6 +279,196 @@ def test_interp_taps_rejects_a_matrix_that_is_not_a_band():
         interp_taps(perm)
 
 
+LOG2E = 1.4426950408889634
+TINY = 2.0 ** -60  # kTiny in csrc/seg_ce.cu
+
+
+def _emulate_forward(hmid, taps, target, class_wts, ignore_idx, ls, fallback=True):
+    """The forward kernel's algorithm in float32 torch ops: each pixel's logits
+    from its taps, shifted by the bound ``sum_t a_t colmax[k_t]`` (colmax: the
+    largest logit of each input column of the row), one pass for the sum of
+    ``exp2((col - bound) log2 e)`` and of the logits; where that sum falls
+    under 2^-60, the pixel's true max and two passes. Returns (loss_sum,
+    n_valid, pixels that took the fallback among the valid ones)."""
+    idx, wt = taps.idx.long(), taps.wt
+    taps_rows = hmid[:, :, idx, :]  # (B, H, W, taps, C)
+    col = (wt[None, None, :, :, None] * taps_rows).sum(3)
+    colmax = hmid.amax(-1)[:, :, idx]  # (B, H, W, taps)
+    bound = (wt[None, None] * colmax).sum(-1)
+    shift = bound * LOG2E
+    s = torch.exp2(col * LOG2E - shift[..., None]).sum(-1)
+    under = s < TINY
+    if fallback:
+        m = col.amax(-1)
+        s = torch.where(under, torch.exp2(col * LOG2E - (m * LOG2E)[..., None]).sum(-1), s)
+        bound = torch.where(under, m, bound)
+    lse = bound + torch.log(s)
+    c = hmid.shape[-1]
+    valid = target != ignore_idx
+    in_range = (target >= 0) & (target < c)
+    safe = torch.where(in_range, target, 0)
+    picked = torch.where(in_range, col.gather(-1, safe[..., None]).squeeze(-1), 0.0)
+    loss = lse - picked
+    if ls > 0.0:
+        loss = (1.0 - ls) * loss + ls * (lse - col.sum(-1) / c)
+    if class_wts is not None:
+        loss = loss * torch.where(in_range, class_wts[safe], 0.0)
+    loss = torch.where(valid, loss, 0.0)
+    return loss.double().sum().item(), int(valid.sum()), int((under & valid).sum())
+
+
+def _spread_inputs(seed, c=13):
+    """Head logits spread uniformly over ±100 with one class at 300 in a fifth
+    of the head pixels (as chip_smoke.seg_ce_spread makes them on the card):
+    beside a hot head pixel the bound lies tens of units above the max."""
+    logits, target = _inputs(2, 8, 8, c, 64, seed=seed)
+    rng = np.random.default_rng(seed + 100)
+    logits = rng.uniform(-100.0, 100.0, logits.shape).astype(np.float32)
+    hot = rng.random(logits.shape[:3]) < 0.2
+    cls = rng.integers(0, c, logits.shape[:3])
+    b, i, j = np.nonzero(hot)
+    logits[b, i, j, cls[hot]] = 300.0
+    return logits, target
+
+
+def _emulated_and_plain(logits, target, wts, ls, fallback=True):
+    big = target.shape[-1]
+    hmid = h_interp(torch.from_numpy(logits), resize_matrix(big, logits.shape[1]))
+    aw = resize_matrix(big, logits.shape[2])
+    t = torch.from_numpy(target)
+    cw = None if wts is None else torch.from_numpy(wts)
+    got = _emulate_forward(hmid, interp_taps(aw), t, cw, 255, ls, fallback)
+    ref_sum, ref_n = seg_ce_fwd_plain(hmid, aw, t, cw, 255, ls)
+    return got, (ref_sum.item(), int(ref_n.item()))
+
+
+@pytest.mark.parametrize("use_wts", [False, True], ids=["no_wts", "class_wts"])
+@pytest.mark.parametrize("ls", [0.0, 0.1], ids=["ls0", "ls0.1"])
+def test_forward_algorithm_matches_plain_and_jax_pallas_interpret(ls, use_wts):
+    """The one-pass bounded forward against ``seg_ce_fwd_plain`` (float32 sums
+    in another order: 1e-6 relative) and, as a mean, against the Pallas kernel
+    in interpret mode (LOSS_RTOL); no pixel needs the fallback here."""
+    import jax.numpy as jnp
+
+    logits, target = _inputs(2, 8, 8, 13, 64, seed=20)
+    wts = _class_wts(target, 13) if use_wts else None
+    (loss_sum, n_valid, n_under), (ref_sum, ref_n) = _emulated_and_plain(logits, target, wts, ls)
+    assert n_under == 0 and n_valid == ref_n
+    assert loss_sum == pytest.approx(ref_sum, rel=1e-6)
+    jax_loss, _ = _jax_pallas(logits, target, ls, wts, jnp.float32)
+    assert loss_sum / n_valid == pytest.approx(jax_loss, rel=LOSS_RTOL)
+
+
+@pytest.mark.parametrize("ls,use_wts", [(0.0, False), (0.1, True)])
+def test_forward_algorithm_takes_the_fallback_on_spread_logits(ls, use_wts):
+    """Logits spread over ±100 with hot classes at 300: some pixels' sums
+    under the bound underflow (without the fallback the loss is not finite);
+    with it, the loss matches the plain version within 1e-6 relative and the
+    Pallas kernel in interpret mode within LOSS_RTOL."""
+    import jax.numpy as jnp
+
+    logits, target = _spread_inputs(seed=21)
+    wts = _class_wts(target, 13) if use_wts else None
+    (loss_sum, n_valid, n_under), (ref_sum, ref_n) = _emulated_and_plain(logits, target, wts, ls)
+    assert n_under > 0 and n_valid == ref_n
+    assert loss_sum == pytest.approx(ref_sum, rel=1e-6)
+    jax_loss, _ = _jax_pallas(logits, target, ls, wts, jnp.float32)
+    assert loss_sum / n_valid == pytest.approx(jax_loss, rel=LOSS_RTOL)
+    (no_fallback, _, _), _ = _emulated_and_plain(logits, target, wts, ls, fallback=False)
+    assert not np.isfinite(no_fallback)
+
+
+@pytest.mark.parametrize("out_size,in_size", [(64, 8), (512, 32), (32, 4), (40, 5), (8, 8),
+                                              (5, 12), (7, 64), (300, 7), (512, 64), (12, 5),
+                                              (2, 3)])
+def test_weighted_column_maxima_bound_every_logit(out_size, in_size):
+    """For every resize of this file, A_w's weights are nonnegative, so for
+    each output pixel j, ``sum_k A_w[j, k] max_c hmid[k, c]`` is at least
+    ``max_c (A_w hmid)[j, c]`` (in float64, exactly); where the kernels take
+    the matrix, the taps' form of the bound is the same sum."""
+    a = resize_matrix_weights(out_size, in_size).double()
+    assert bool((a >= 0).all())
+    rng = np.random.default_rng(out_size * 100 + in_size)
+    hmid = torch.from_numpy(rng.uniform(-50.0, 50.0, (3, in_size, 17)))
+    hmid[:, rng.integers(0, in_size), rng.integers(0, 17)] = 200.0
+    bound = a @ hmid.amax(-1, keepdim=True)
+    assert bool((bound >= (a @ hmid).amax(-1, keepdim=True)).all())
+    if band_width(a.numpy()) <= 16:
+        taps = interp_taps(a.float())
+        via_taps = (taps.wt.double()[None] * hmid.amax(-1)[:, taps.idx.long()]).sum(-1)
+        torch.testing.assert_close(via_taps, bound.squeeze(-1), rtol=1e-6, atol=1e-9)
+
+
+def test_interp_taps_rejects_a_negative_weight():
+    """A band whose row has a negative lobe (a cubic filter's) would break
+    the forward's bound on a pixel's max."""
+    a = torch.zeros((6, 8))
+    for j in range(6):
+        a[j, j:j + 3] = torch.tensor([-0.1, 0.8, 0.3])
+    with pytest.raises(ValueError, match="negative weight"):
+        interp_taps(a)
+
+
+@pytest.mark.parametrize("ignored", [0.0, 0.05, 0.5, 1.0])
+def test_seg_ce_bounds_count_exponentials_of_pixels_that_are_not_ignored(ignored):
+    """``chip_smoke.seg_ce_bounds`` at DeepLabv3's shape: both kernels skip an
+    ignored pixel, so the bound counts C exponentials for each other pixel,
+    and the bytes of the whole inputs (and dhm) where that takes longer."""
+    import chip_smoke
+
+    g = torch.Generator().manual_seed(0)
+    c = 150
+    logits = torch.randn((8, 32, 32, c), generator=g)
+    target = torch.randint(0, c, (8, 512, 512), generator=g)
+    target.view(-1)[:int(ignored * target.numel())] = 255
+    exps = int((target != 255).sum()) * c
+    label_bytes = target.numel() * 8
+    hmid_bytes = 8 * 512 * 32 * c * 4
+    bounds = chip_smoke.seg_ce_bounds(logits, target)
+    for p, n_bytes in (("fwd", logits.numel() * 4 + label_bytes + 8),
+                       ("bwd", 2 * hmid_bytes + label_bytes)):
+        ms_ops = 1e3 * exps / chip_smoke.SFU_EXP_S
+        ms_bytes = 1e3 * n_bytes / chip_smoke.HBM_BYTES_S
+        assert bounds[p][0] == pytest.approx(max(ms_ops, ms_bytes), rel=1e-12)
+        assert bounds[p][1] == ("bytes" if ms_bytes >= ms_ops else "operations")
+
+
+@pytest.mark.parametrize("w,c", [(32, 150), (32, 21), (16, 3631), (41, 1417), (1, 1), (0, 0)])
+def test_fwd_smem_is_the_cuda_formula(w, c):
+    """``_fwd_smem`` against ``fwd_smem`` of csrc/seg_ce.cu, its expression
+    read from the source and evaluated (the launch and the dispatch rule must
+    agree on what fits)."""
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "cvnets_tpu_torch", "csrc", "seg_ce.cu")
+    src = open(path).read()
+    min_smem = int(re.search(r"constexpr int kFwdMinSmem = (\d+);", src).group(1))
+    assert min_smem == _FWD_MIN_SMEM
+    expr = re.search(r"size_t fwd_smem\(int w, int C\) \{\s*return (.*?);\s*\}", src,
+                     re.S).group(1)
+    expr = (expr.replace("std::max<size_t>", "max").replace("static_cast<size_t>(w)", "w")
+            .replace("sizeof(float)", "4").replace("kFwdMinSmem", str(min_smem)))
+    assert _fwd_smem(w, c) == eval(expr, {"max": max}, {"w": w, "C": c})
+
+
+@pytest.mark.parametrize("kernel", [seg_ce_fwd_kernel, seg_ce_bwd_kernel],
+                         ids=["forward", "backward"])
+def test_bindings_match_the_c_entry_points(kernel):
+    """The ctypes argument types of each wrapper, the stream last, against the
+    parameters of its ``extern "C"`` entry point in csrc/seg_ce.cu (a count or
+    type off by one shifts every later argument)."""
+    import ctypes
+
+    path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                        "cvnets_tpu_torch", "csrc", "seg_ce.cu")
+    src = open(path).read()
+    params = re.search(rf'extern "C" int {kernel._symbol}\((.*?)\)\s*\{{', src, re.S).group(1)
+    kinds = {"void*": ctypes.c_void_p, "int": ctypes.c_int, "long long": ctypes.c_longlong,
+             "float": ctypes.c_float}
+    want = [kinds[re.sub(r"^const |\s*\w+$", "", p.strip()).replace(" *", "*")]
+            for p in params.split(",")]
+    assert kernel._argtypes == want
+
+
 def _walk_rows(taps, plan, g):
     """What the backward kernel's warps store for one row, in float64: each
     warp walks its output columns in order with ``taps.taps`` accumulators,
@@ -340,7 +542,7 @@ def test_kernel_wrappers_reject_cpu_tensors_without_counting():
     t = torch.from_numpy(target)
     before = seg_ce_fwd_kernel.launches, seg_ce_bwd_kernel.launches
     with pytest.raises(ValueError, match="CUDA"):
-        seg_ce_fwd_kernel(hmid, t, taps, None, 255, 0.0)
+        seg_ce_fwd_kernel(torch.from_numpy(logits), t, taps, taps, None, 255, 0.0)
     with pytest.raises(ValueError, match="CUDA"):
         seg_ce_bwd_kernel(hmid, t, taps, None, torch.ones(1), 255, 0.0)
     fused_resize_ce(torch.from_numpy(logits).requires_grad_(), t).backward()
@@ -349,13 +551,18 @@ def test_kernel_wrappers_reject_cpu_tensors_without_counting():
 
 @pytest.mark.parametrize("w,big_w,c,ok", [
     (32, 4, 21, True), (33, 4, 21, False),  # W-resize rows of 16 and 17 input columns
-    (16, 32, 3631, True), (13, 26, 4469, False),  # w·C = 58,096 and 58,097 floats
+    # the forward's row and column maxima, w·(C + 1) floats: 58,112 (w·C =
+    # 58,096) fits, 58,138 (w·C = 58,097) and 58,113 do not; 58,110 (w·C =
+    # 58,097 at w 13) fits
+    (16, 32, 3631, True), (41, 82, 1417, False), (9, 18, 6456, False), (13, 26, 4469, True),
     (32, 512, 150, True),  # DeepLabv3 at 512², OS 16
-], ids=["taps16", "taps17", "row_58096", "row_58097", "deeplabv3"])
+], ids=["taps16", "taps17", "row_58096", "row_58097", "cols_58113", "row_58097_w13",
+        "deeplabv3"])
 def test_seg_ce_eligible_at_the_edge_of_each_limit(w, big_w, c, ok):
     """Eligible exactly where both kernels take the shape: the taps table is
-    built (at most 16 columns a row), the forward's row fits its shared memory
-    and a backward plan fits; the H-resize takes any size."""
+    built (at most 16 columns a row), the forward's row and its column maxima
+    fit its shared memory and a backward plan fits; the H-resize takes any
+    size."""
     a = resize_matrix_weights(big_w, w)
     if band_width(a.numpy()) > 16:
         with pytest.raises(ValueError, match="at most 16"):
@@ -366,6 +573,14 @@ def test_seg_ce_eligible_at_the_edge_of_each_limit(w, big_w, c, ok):
     assert fits is ok
     assert seg_ce_eligible(8, w, 64, big_w, c) is ok
     assert seg_ce_eligible(3, w, 1000, big_w, c) is ok
+
+
+@pytest.mark.parametrize("h,ok", [(32, True), (33, False)], ids=["taps16", "taps17"])
+def test_seg_ce_eligible_at_the_edge_of_the_h_resize(h, ok):
+    """The forward reads A_h as taps too: an H-resize row of 16 input rows is
+    eligible, one of 17 is not, whatever the W-resize."""
+    assert seg_ce_eligible(h, 32, 4, 512, 21) is ok
+    assert seg_ce_eligible(h, 7, 4, 300, 150) is ok
 
 
 # (B, C, h, w, H, W) past a kernel limit: a W-resize row of 17 input columns, and
@@ -448,7 +663,8 @@ def test_kernels_match_plain_on_cuda(ls, use_wts):
     hmid = h_interp(logits, ah)
     taps = resize_taps(512, 32, logits.device)
     before = seg_ce_fwd_kernel.launches, seg_ce_bwd_kernel.launches
-    loss_sum, n_valid = seg_ce_fwd_kernel(hmid, target, taps, wts, 255, ls)
+    nchw = logits.permute(0, 3, 1, 2).contiguous().permute(0, 2, 3, 1)  # as the loss passes it
+    loss_sum, n_valid = seg_ce_fwd_kernel(nchw, target, taps, taps, wts, 255, ls)
     scale = (1.0 / n_valid).reshape(1)
     dhm = seg_ce_bwd_kernel(hmid, target, taps, wts, scale, 255, ls)
     torch.cuda.synchronize()
@@ -460,7 +676,7 @@ def test_kernels_match_plain_on_cuda(ls, use_wts):
     ref_dhm = seg_ce_bwd_plain(hmid, aw, target, wts, scale, 255, ls)
     torch.testing.assert_close(dhm, ref_dhm, rtol=0,
                                atol=1e-6 * ref_dhm.abs().max().item())
-    again = seg_ce_fwd_kernel(hmid, target, taps, wts, 255, ls)[0]
+    again = seg_ce_fwd_kernel(nchw, target, taps, taps, wts, 255, ls)[0]
     assert torch.equal(again, loss_sum)  # no atomics: the same bits every run
     assert torch.equal(seg_ce_bwd_kernel(hmid, target, taps, wts, scale, 255, ls), dhm)
 
@@ -507,6 +723,111 @@ def test_backward_kernel_matches_plain_at_every_shape_on_cuda(shape, ls, use_wts
     torch.testing.assert_close(dhm, ref, rtol=0, atol=1e-6 * ref.abs().max().item())
     assert torch.equal(dhm, again)
     assert not dhm[0, 20:23].any() and not dhm[1, 100:].any()
+
+
+# (H, h, W, w, C) of the forward: BACKWARD_SHAPES' W-resizes with H 512 from
+# 32, and an H-resize of more taps than the W-resize (8 and 2: the kernel reads
+# both tables at 8)
+FORWARD_SHAPES = {**{k: (512, 32, *v) for k, v in BACKWARD_SHAPES.items()},
+                  "h_down_5_from12": (5, 12, 512, 32, 150)}
+
+
+def _forward_case(shape, nchw=True):
+    """Head logits (2, h, w, C), a permuted view of NCHW storage as the loss
+    passes them (or contiguous NHWC), and labels (2, H, W) with targets
+    outside [0, C) that are not the ignore index and fully ignored rows."""
+    big_h, h, big_w, w, c = FORWARD_SHAPES[shape]
+    g = torch.Generator(device="cuda").manual_seed(big_h + h + big_w + w + c)
+    logits = 2.0 * torch.randn((2, c, h, w) if nchw else (2, h, w, c), generator=g,
+                               device="cuda")
+    logits = logits.permute(0, 2, 3, 1) if nchw else logits
+    target = torch.randint(0, c, (2, big_h, big_w), generator=g, device="cuda")
+    target[torch.rand(target.shape, generator=g, device="cuda") < 0.05] = 255
+    target[0, 1, ::3] = c + 7
+    target[0, 2, 1::3] = -3
+    target[0, 3:4] = 255
+    return logits, target
+
+
+def _assert_forward_matches_plain(logits, target, cw, ls):
+    """(loss_sum, n_valid) against ``seg_ce_fwd_plain(h_interp(…))``: float32
+    terms summed in another order (1e-6 relative), the count exact, the same
+    bits on a second call, one launch counted a call."""
+    from cvnets_tpu_torch.ops.seg_ce import resize_taps
+
+    (big_h, big_w), (h, w) = target.shape[1:], logits.shape[1:3]
+    ah, aw = resize_matrix(big_h, h, logits.device), resize_matrix(big_w, w, logits.device)
+    ah_taps, aw_taps = resize_taps(big_h, h, logits.device), resize_taps(big_w, w, logits.device)
+    before = seg_ce_fwd_kernel.launches
+    loss_sum, n_valid = seg_ce_fwd_kernel(logits, target, ah_taps, aw_taps, cw, 255, ls)
+    again = seg_ce_fwd_kernel(logits, target, ah_taps, aw_taps, cw, 255, ls)
+    torch.cuda.synchronize()
+    assert seg_ce_fwd_kernel.launches == before + 2
+    ref_sum, ref_n = seg_ce_fwd_plain(h_interp(logits, ah), aw, target, cw, 255, ls)
+    assert n_valid.item() == ref_n.item()
+    assert loss_sum.item() == pytest.approx(ref_sum.item(), rel=1e-6, abs=1e-6)
+    assert torch.equal(loss_sum, again[0]) and torch.equal(n_valid, again[1])
+    return loss_sum, n_valid
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ls,use_wts", [(0.0, False), (0.1, True)])
+@pytest.mark.parametrize("shape", list(FORWARD_SHAPES))
+def test_forward_kernel_matches_plain_at_every_shape_on_cuda(shape, ls, use_wts):
+    """The forward at C 21, 150, 300 and 434, W 300 from 7, 5 from 12 and H 5
+    from 12, on logits laid out as the loss passes them."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU or interpret mode)")
+    from cvnets_tpu_torch.loss.base_criteria import BaseCriteria
+
+    logits, target = _forward_case(shape)
+    c = logits.shape[-1]
+    wts = (BaseCriteria._class_weights(torch.where((target < 0) | (target >= c), 0, target), c)
+           if use_wts else None)
+    _assert_forward_matches_plain(logits, target, wts, ls)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", ["c21_w32", "down_5_from12"])
+def test_forward_kernel_reads_contiguous_nhwc_logits_on_cuda(shape):
+    """Logits whose classes, not pixels, lie next to each other: the kernel
+    walks an image along its classes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU or interpret mode)")
+    logits, target = _forward_case(shape, nchw=False)
+    assert logits.is_contiguous()
+    _assert_forward_matches_plain(logits, target, None, 0.1)
+
+
+@pytest.mark.cuda
+def test_forward_kernel_on_a_fully_ignored_image_on_cuda():
+    """Every label ignored: (0, 0) exactly, one launch, the same bits."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU or interpret mode)")
+    logits, target = _forward_case("w300_from7")
+    target[:] = 255
+    loss_sum, n_valid = _assert_forward_matches_plain(logits, target, None, 0.1)
+    assert loss_sum.item() == 0.0 and n_valid.item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ls,use_wts", [(0.0, False), (0.1, True)])
+def test_forward_kernel_takes_the_fallback_on_spread_logits_on_cuda(ls, use_wts):
+    """DeepLabv3's shape with head logits spread over ±100 and a class at 300
+    in a fifth of the head pixels (``chip_smoke.seg_ce_spread``): pixels whose
+    sum under the bound underflows take the kernel's two passes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU or interpret mode)")
+    import chip_smoke
+    from cvnets_tpu_torch.loss.base_criteria import BaseCriteria
+
+    g = torch.Generator(device="cuda").manual_seed(9)
+    logits, target = chip_smoke.seg_ce_spread(g, 150)
+    wts = (BaseCriteria._class_weights(torch.where(target == 255, 0, target), 150)
+           if use_wts else None)
+    aw = resize_matrix(512, 32, logits.device)
+    assert chip_smoke.seg_ce_underflows(h_interp(logits, aw), aw, target) > 0
+    _assert_forward_matches_plain(logits, target, wts, ls)
 
 
 @pytest.mark.cuda
