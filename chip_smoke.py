@@ -57,6 +57,24 @@ Phases, one line each or more (any failure exits non-zero):
    losses, that params and EMA moved, and that the kernel path's logits match
    the plain attention path's; then its a/b and profile as for ViT-B
    (results/mobilevit_profile.txt);
+6b. trainer: the port's ``Trainer`` on the flagship's flags with the yaml's
+   stats (val loss, top-1, top-5; checkpoints ranked by top-1, highest best;
+   val batch 100), auto-resume, log-freq 2, save-interval-freq 3, k-best 2
+   and every epoch's checkpoint: 3 epochs of 4 seeded uint8 batches of 128 ×
+   256² in pinned host memory, each followed by a validation epoch and an
+   EMA one on 2 batches of 100; a second Trainer on the same directory
+   resumes (its params, AdamW moments and steps, EMA, BN buffers, epoch,
+   iterations and best metric equal the first's bit for bit) and runs a 4th.
+   Checks 9 forward and 9 backward separable launches a train step and 9
+   forward an eval forward, finite statistics, every checkpoint role on
+   disk, the ``Evaluator`` on checkpoint_ema_last.pt against the last EMA
+   validation (loss 1e-5 relative, top-k within one sample's share), and no
+   CUDA sync debug warning ("warn" mode over every train step, read-backs
+   and interval saves excluded) whose stack passes through the engine,
+   metrics or checkpoint code; prints the Trainer's img/s over epochs 1-2
+   beside phase 6's kernel-path a/b. Then one step at
+   ``--common.accum-freq 2`` (two micro-batches of 64, 18 + 18 separable
+   launches) and its peak memory beside phase 6's;
 7. vit train: the same for ViT-B/16 at batch 128 × 224² with vit.yaml's settings
    (AdamW with weight decay 0.2, clip 1.0, EMA 0.0005, GELU, BN in the stem);
    checks 12 forward and 12 backward MHA launches a step;
@@ -171,6 +189,18 @@ SFU_EXP_S = 132 * 16 * 1.98e9
 # PyTorch's own choice on the H100, and flash (FlashAttention-2, the mma.sync
 # design the MHA kernels are held to); library_ms is the faster of the two
 SDPA_BACKENDS = ("CUDNN_ATTENTION", "FLASH_ATTENTION")
+
+# the run settings the three imagenet yamls share, which only the Trainer reads
+# (the train phases take bare steps)
+IMAGENET_RUN_ARGS = [
+    "--dataset.val-batch-size0", "100",
+    "--common.run-label", "train",
+    "--common.log-freq", "500",
+    "--common.auto-resume",
+    "--stats.val", "loss", "top1", "top5",
+    "--stats.checkpoint-metric", "top1",
+    "--stats.checkpoint-metric-max",
+]
 
 FLAGSHIP_ARGS = [  # config/classification/imagenet/mobilevit_v2.yaml, as flags
     "--model.classification.name", "mobilevit_v2",
@@ -295,7 +325,7 @@ VIT_ARGS = [  # config/classification/imagenet/vit.yaml, as flags
     "--sampler.bs.crop-size-width", "224",
     "--sampler.bs.crop-size-height", "224",
     "--common.seed", "0",
-]
+] + IMAGENET_RUN_ARGS
 
 SWIN_ARGS = [  # config/classification/imagenet/swin.yaml, as flags
     "--model.classification.name", "swin",
@@ -331,7 +361,7 @@ SWIN_ARGS = [  # config/classification/imagenet/swin.yaml, as flags
     "--sampler.bs.crop-size-width", "224",
     "--sampler.bs.crop-size-height", "224",
     "--common.seed", "0",
-]
+] + IMAGENET_RUN_ARGS
 
 # ViT-B/16 at 512² without the CLS token: S = 32² = 1024 tokens, the
 # long-sequence kernels' range; the batch is vit.yaml's 128 at 224² scaled by
@@ -1270,6 +1300,7 @@ def phase_train(card: str, label: str, args, kernels: dict, per_step: dict):
 
     from cvnets_tpu_torch.engine.train_state import create_train_state, make_train_step
     from cvnets_tpu_torch.loss import build_loss_fn
+    from cvnets_tpu_torch.metrics import build_metrics
     from cvnets_tpu_torch.models import get_model
     from cvnets_tpu_torch.optim import build_optimizer
     from cvnets_tpu_torch.optim.scheduler import build_scheduler
@@ -1286,7 +1317,8 @@ def phase_train(card: str, label: str, args, kernels: dict, per_step: dict):
         model, build_optimizer(opts, model, model.get_lr_multipliers(opts)),
         ema_enabled=getattr(opts, "ema.enable"))
     criteria = build_loss_fn(opts)
-    train_step = make_train_step(model, criteria, opts)
+    train_step = make_train_step(model, criteria, opts,
+                                 build_metrics(opts, ["loss", "grad_norm"]))
     scheduler = build_scheduler(opts)
     n_classes = getattr(opts, f"model.{category}.n_classes")
     g = torch.Generator(device=device).manual_seed(getattr(opts, "common.seed"))
@@ -1316,7 +1348,7 @@ def phase_train(card: str, label: str, args, kernels: dict, per_step: dict):
         state, metrics = train_step(state, b, scheduler.retrieve_lr(0, state.step))
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
-        losses.append({k: v.item() for k, v in metrics.items()})
+        losses.append({k: s.item() for m in metrics.values() for k, (s, _) in m.items()})
     launches = {name: kernel.launches for name, kernel in kernels.items()}
 
     n_steps = len(batches)
@@ -1327,7 +1359,7 @@ def phase_train(card: str, label: str, args, kernels: dict, per_step: dict):
     # the loss and, for segmentation, its seg and aux parts, and the grad norm
     check(all(math.isfinite(v) for m in losses for v in m.values()),
           f"{label}: losses not finite: {losses}")
-    parts = {k: [round(m[k], 4) for m in losses] for k in losses[0] if k != "total_loss"}
+    parts = {k: [round(m[k], 4) for m in losses] for k in losses[0]}
     check(any(not torch.equal(a, b) for a, b in zip(params0, model.parameters())),
           f"{label}: params did not change")
     check(any(not torch.equal(a, b) for a, b in zip(
@@ -1379,12 +1411,13 @@ def phase_train(card: str, label: str, args, kernels: dict, per_step: dict):
     return launches, (state, train_step, scheduler, batches, criteria)
 
 
-def phase_ab(card: str, label: str, run) -> None:
+def phase_ab(card: str, label: str, run) -> dict:
     """Whole train steps through the kernels against the plain path (attention
     and, for segmentation, the unfused CE), in alternating blocks (plain,
     kernel, kernel, plain) in this one run. Beside each median step time, the
     median time until ``train_step`` returns: where it nears the step time,
-    the host's launches, not the card, set the pace."""
+    the host's launches, not the card, set the pace. Returns the kernel path's
+    median img/s and peak memory."""
     import torch
 
     state, train_step, scheduler, batches, criteria = run
@@ -1418,6 +1451,8 @@ def phase_ab(card: str, label: str, run) -> None:
     ratio = statistics.median(times["kernel"]) / statistics.median(times["plain"])
     print(f"a/b: {label} {len(AB_BLOCKS)} blocks of {AB_STEPS} steps, "
           f"medians: {'; '.join(parts)}; kernel/plain={ratio:.4f} | {card}", flush=True)
+    return {"img_s": batch / statistics.median(times["kernel"]),
+            "peak_gib": peak["kernel"] / 2**30}
 
 
 def phase_profile(card: str, label: str, run, path: str) -> None:
@@ -1455,6 +1490,294 @@ def phase_profile(card: str, label: str, run, path: str) -> None:
     for e in events[:12]:
         print(f"profile:   {e.self_device_time_total / 1e3 / n:9.3f} ms/step "
               f"{e.count // n:5d}x {e.key[:110]}", flush=True)
+
+
+# the Trainer on the flagship: the yaml's stats, checkpoint metric and val
+# batch, auto-resume, and the checkpoint roles at a short run's scale
+TRAINER_ARGS = FLAGSHIP_ARGS + IMAGENET_RUN_ARGS + [
+    "--common.log-freq", "2",
+    "--common.save-interval-freq", "3",
+    "--common.k-best-checkpoints", "2",
+    "--common.save-all-checkpoints",
+]
+TRAINER_TRAIN_BATCHES, TRAINER_VAL_BATCHES, TRAINER_EPOCHS = 4, 2, 3
+# a sync debug warning whose stack passes through one of these fails the phase
+ENGINE_FILES = tuple(os.path.join("cvnets_tpu_torch", part) + suffix for part, suffix in
+                     (("engine", os.sep), ("metrics", os.sep),
+                      (os.path.join("utils", "checkpoint_utils.py"), "")))
+
+
+def pinned_batches(g, n: int, batch: int, hw: tuple, n_classes: int) -> list:
+    """Seeded uint8 batches in pinned host memory, as a loader with
+    ``pin_memory`` hands them over."""
+    import torch
+
+    return [{"samples": torch.randint(0, 256, (batch, 3, *hw), generator=g,
+                                      dtype=torch.uint8).pin_memory(),
+             "targets": torch.randint(0, n_classes, (batch,), generator=g).pin_memory()}
+            for _ in range(n)]
+
+
+class SyncWatch:
+    """Collects CUDA sync debug warnings with the Python stack that raised
+    them; ``on``/``off`` switch ``torch.cuda.set_sync_debug_mode``."""
+
+    def __init__(self) -> None:
+        self.caught = []
+
+    def __enter__(self):
+        import traceback
+        import warnings
+
+        self._ctx = warnings.catch_warnings()
+        self._ctx.__enter__()
+        warnings.simplefilter("always")
+        shown = warnings.showwarning
+
+        def show(message, category, filename, lineno, file=None, line=None):
+            # "called a synchronizing CUDA operation"; not the notice, on the
+            # first switch, that the debug mode is a prototype
+            text = str(message)
+            if "synchroniz" in text and "prototype" not in text:
+                self.caught.append((str(message).splitlines()[0],
+                                    traceback.extract_stack()[:-1]))
+            else:
+                shown(message, category, filename, lineno, file, line)
+
+        warnings.showwarning = show
+        return self
+
+    def __exit__(self, *exc):
+        self.off()
+        self._ctx.__exit__(*exc)
+
+    @staticmethod
+    def on() -> None:
+        import torch
+
+        torch.cuda.set_sync_debug_mode("warn")
+
+    @staticmethod
+    def off() -> None:
+        import torch
+
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def _watch_trainer(trainer, kernels: dict, watch: SyncWatch, per_step: int, log: dict):
+    """Wrap the trainer's epochs, read-backs and interval saves: the train steps
+    run under the sync debug mode, the read-backs and saves outside it; each
+    epoch's launches are checked (``per_step`` forward and backward a train
+    step, ``per_step`` forward an eval forward, none backward) and its time,
+    statistics and interval-save time kept in ``log``."""
+    import torch
+
+    train_epoch, val_epoch = trainer.train_epoch, trainer.val_epoch
+    read_back, save_interval = trainer.read_back, trainer.ckpt_manager.save_interval
+
+    def counts():
+        return kernels["fwd"].launches, kernels["bwd"].launches
+
+    def train(epoch):
+        before, saves = counts(), log["save_s"]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        watch.on()
+        stats = train_epoch(epoch)
+        watch.off()
+        torch.cuda.synchronize()
+        log["train"].append((epoch, time.perf_counter() - t0, log["save_s"] - saves, stats))
+        fwd, bwd = (a - b for a, b in zip(counts(), before))
+        n = len(trainer.train_loader)
+        check((fwd, bwd) == (per_step * n, per_step * n),
+              f"trainer epoch {epoch}: {fwd} forward and {bwd} backward separable launches "
+              f"in {n} steps, want {per_step} and {per_step} a step")
+        return stats
+
+    def val(epoch, use_ema=False):
+        before = counts()
+        stats = val_epoch(epoch, use_ema=use_ema)
+        fwd, bwd = (a - b for a, b in zip(counts(), before))
+        n = len(trainer.val_loader)
+        check((fwd, bwd) == (per_step * n, 0),
+              f"trainer epoch {epoch} val (ema={use_ema}): {fwd} forward and {bwd} backward "
+              f"separable launches in {n} eval forwards, want {per_step} and 0 each")
+        log["ema" if use_ema else "val"].append(stats)
+        return stats
+
+    def quiet(fn, key=None):
+        def wrapped(*args):
+            watch.off()
+            if key:  # the save's own time, not the queued steps' it waits for
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            if key:
+                log[key] += time.perf_counter() - t0
+            watch.on()
+            return out
+        return wrapped
+
+    trainer.train_epoch, trainer.val_epoch = train, val
+    trainer.read_back = quiet(read_back)
+    trainer.ckpt_manager.save_interval = quiet(save_interval, "save_s")
+
+
+def _state_equal(a, b) -> list:
+    """The names of the tensors that differ between two Trainers' model, EMA
+    and optimizer states."""
+    import torch
+
+    differ = []
+    for part, x, y in (("model", a.model.state_dict(), b.model.state_dict()),
+                       ("ema", a.state.ema.model.state_dict(), b.state.ema.model.state_dict())):
+        differ += [f"{part}.{k}" for k in x if not torch.equal(x[k], y[k])]
+    oa, ob = a.state.optimizer.state_dict(), b.state.optimizer.state_dict()
+    differ += [f"optimizer.{i}.{k}" for i, st in oa["state"].items() for k in st
+               if not torch.equal(st[k].cpu(), ob["state"][i][k].cpu())]
+    return differ
+
+
+def phase_trainer(card: str, bare: dict) -> None:
+    """The port's Trainer on the flagship: 3 epochs of 4 seeded batches of 128 ×
+    256², each followed by a validation epoch and an EMA one on 2 batches of 100;
+    a second Trainer on the same directory resumes and runs a 4th; the
+    Evaluator on checkpoint_ema_last.pt; then one step at --common.accum-freq 2.
+    ``bare`` is phase 6's kernel-path a/b (img/s, peak GiB)."""
+    import shutil
+
+    import torch
+
+    from cvnets_tpu_torch.engine import Evaluator, Trainer
+    from cvnets_tpu_torch.loss import build_loss_fn
+    from cvnets_tpu_torch.models import get_model
+    from cvnets_tpu_torch.ops.separable_attention import (
+        separable_attention_bwd_kernel,
+        separable_attention_kernel,
+    )
+    from cvnets_tpu_torch.options.opts import get_training_arguments
+
+    results = os.path.join("results", "trainer_smoke")
+    shutil.rmtree(results, ignore_errors=True)
+    opts = get_training_arguments(args=TRAINER_ARGS + ["--common.results-loc", results])
+    batch, val_batch = (getattr(opts, "dataset.train_batch_size0"),
+                        getattr(opts, "dataset.val_batch_size0"))
+    hw = (getattr(opts, "sampler.bs.crop_size_height"),
+          getattr(opts, "sampler.bs.crop_size_width"))
+    n_classes = getattr(opts, "model.classification.n_classes")
+    g = torch.Generator().manual_seed(getattr(opts, "common.seed"))
+    train = pinned_batches(g, TRAINER_TRAIN_BATCHES, batch, hw, n_classes)
+    val = pinned_batches(g, TRAINER_VAL_BATCHES, val_batch, hw, n_classes)
+    kernels = {"fwd": separable_attention_kernel, "bwd": separable_attention_bwd_kernel}
+    per_step = sum(SEP_FLAGSHIP[1].values())
+    log = {"train": [], "val": [], "ema": [], "save_s": 0.0}
+
+    def build(label: str, extra=(), train=train, val=val):
+        return Trainer(get_training_arguments(args=TRAINER_ARGS + [
+            "--common.results-loc", results, "--common.run-label", label, *extra]),
+            get_model(opts), build_loss_fn(opts), train, val)
+
+    with SyncWatch() as probe:  # the watch catches a read-back under "warn"
+        probe.on()
+        torch.ones(1, device="cuda").item()
+    check(len(probe.caught) == 1, f"sync watch: {len(probe.caught)} warnings for one .item()")
+    with SyncWatch() as watch:
+        first = build("run")
+        first.max_epochs = TRAINER_EPOCHS
+        _watch_trainer(first, kernels, watch, per_step, log)
+        for kernel in kernels.values():
+            kernel.launches = 0
+        first.run()
+        resumed = build("run")
+        resumed.max_epochs = TRAINER_EPOCHS + 1
+        check((resumed.start_epoch, resumed.train_iterations, resumed.state.step)
+              == (TRAINER_EPOCHS, first.train_iterations, first.state.step),
+              f"trainer resume: epoch {resumed.start_epoch}, iterations "
+              f"{resumed.train_iterations}, step {resumed.state.step}")
+        check(resumed.ckpt_manager.best_metric == first.ckpt_manager.best_metric,
+              f"trainer resume: best {resumed.ckpt_manager.best_metric} vs "
+              f"{first.ckpt_manager.best_metric}")
+        differ = _state_equal(first, resumed)
+        check(not differ, f"trainer resume: {len(differ)} tensors differ: {differ[:5]}")
+        first = None
+        _watch_trainer(resumed, kernels, watch, per_step, log)
+        resumed.run()
+    launches = {name: k.launches for name, k in kernels.items()}
+
+    bad = [[f"{f.filename}:{f.lineno}" for f in stack
+            if any(part in f.filename for part in ENGINE_FILES)] for _, stack in watch.caught]
+    bad = [frames for frames in bad if frames]
+    where = sorted({f"{f.filename.split('cvnets_tpu_torch')[-1]}:{f.lineno}"
+                    for _, stack in watch.caught for f in stack[-3:]})
+    print(f"trainer: sync debug warnings in the train steps: {len(watch.caught)} "
+          f"(innermost frames: {where[:6]}); through the engine, metrics or "
+          f"checkpoints: {len(bad)}", flush=True)
+    check(not bad, f"trainer: the engine synchronizes between log points: {bad[:3]}")
+    for stage in ("train", "val", "ema"):
+        values = [v for entry in log[stage] for v in
+                  (entry[3] if stage == "train" else entry).values()]
+        check(values and all(math.isfinite(v) for v in values),
+              f"trainer: {stage} statistics not finite: {log[stage]}")
+    save_dir = resumed.save_dir
+    files = set(os.listdir(save_dir))
+    n_iter = resumed.train_iterations
+    roles = {"config.yaml", "training_checkpoint_last.pt", "checkpoint_last.pt",
+             "checkpoint_best.pt", "checkpoint_ema_last.pt", "checkpoint_ema_best.pt",
+             "checkpoint_avg.pt",
+             *(f"checkpoint_epoch_{e}.pt" for e in range(TRAINER_EPOCHS + 1)),
+             *(f"checkpoint_iter_{n}.pt" for n in range(3, n_iter + 1, 3))}
+    # the resumed run ranks its own epochs only (the JAX package does not
+    # restore the k-best list), so the first run's score files stay beside them
+    kept = {os.path.basename(p) for _, p in resumed.ckpt_manager.k_best_scores}
+    check(roles <= files and kept and kept <= files,
+          f"trainer: checkpoint files missing: {sorted(roles - files)}, {sorted(kept - files)}")
+
+    evaluator = Evaluator(opts, get_model(opts), val,
+                          checkpoint=os.path.join(save_dir, "checkpoint_ema_last.pt"))
+    before = kernels["fwd"].launches
+    got, want = evaluator.eval_fn_image(), log["ema"][-1]
+    share = 100.0 / (val_batch * len(val))
+    check(kernels["fwd"].launches - before == per_step * len(val),
+          f"evaluator: {kernels['fwd'].launches - before} forward launches")
+    check(abs(got["loss"] - want["loss"]) <= 1e-5 * abs(want["loss"])
+          and all(abs(got[k] - want[k]) <= share for k in ("top1", "top5")),
+          f"evaluator on checkpoint_ema_last.pt: {got} vs the last EMA validation {want}")
+    resumed = evaluator = None
+
+    timed = [e for e in log["train"] if e[0] in range(1, TRAINER_EPOCHS)]
+    n_img = batch * len(train) * len(timed)
+    epoch_s, save_s = sum(e[1] for e in timed), sum(e[2] for e in timed)
+    print(f"trainer: MobileViTv2-1.0 batch={batch} {hw[0]}x{hw[1]} bf16 epochs="
+          f"{TRAINER_EPOCHS}+1 (resumed) launches={launches} "
+          f"train={[{k: round(v, 4) for k, v in e[3].items()} for e in log['train']]} "
+          f"val={[{k: round(v, 4) for k, v in s.items()} for s in log['val']]} "
+          f"ema={[{k: round(v, 4) for k, v in s.items()} for s in log['ema']]} "
+          f"evaluator={ {k: round(v, 6) for k, v in got.items()} } "
+          f"checkpoints={len(files)} | {card}", flush=True)
+    print(f"trainer: img_s={n_img / epoch_s:.1f} over epochs 1-{TRAINER_EPOCHS - 1} "
+          f"({len(timed) * len(train)} steps, {len(timed) * 2} read-backs, interval saves "
+          f"{save_s:.3f} s), without the saves {n_img / (epoch_s - save_s):.1f}; bare step "
+          f"(phase 6 a/b, kernel path) img_s={bare['img_s']:.1f} | {card}", flush=True)
+
+    # one step at --common.accum-freq 2: two micro-batches of 64
+    gc.collect()
+    torch.cuda.empty_cache()
+    accum = build("accum", train=train[:1], val=None,
+                  extra=["--common.accum-freq", "2", "--scheduler.max-epochs", "1"])
+    for kernel in kernels.values():
+        kernel.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    accum.run()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    got = (kernels["fwd"].launches, kernels["bwd"].launches)
+    check(got == (2 * per_step, 2 * per_step),
+          f"accum-freq 2: {got} separable launches in one step, want "
+          f"{2 * per_step} forward and {2 * per_step} backward")
+    print(f"trainer: accum-freq 2 batch={batch} as 2x{batch // 2} launches={got} "
+          f"peak_mem_gib={peak:.2f} (bare step at {batch}: {bare['peak_gib']:.2f}) | {card}",
+          flush=True)
 
 
 def phase_deeplab(card: str) -> dict:
@@ -1516,10 +1839,12 @@ def main(argv) -> int:
                    "separable_attention_bwd": separable_attention_bwd_kernel}
     sep_launches, run = phase_train(card, "MobileViTv2-1.0", FLAGSHIP_ARGS, sep_kernels,
                                     {name: sum(SEP_FLAGSHIP[1].values()) for name in sep_kernels})
-    phase_ab(card, "MobileViTv2-1.0", run)
+    bare = phase_ab(card, "MobileViTv2-1.0", run)
     phase_profile(card, "MobileViTv2-1.0", run,
                   os.path.join("results", "mobilevit_profile.txt"))
     run = None
+    release()
+    phase_trainer(card, bare)
     release()
     vit_launches, run = phase_train(
         card, "ViT-B/16", VIT_ARGS,

@@ -1,32 +1,47 @@
-"""Train state and train step (counterpart of cvnets_tpu/engine/train_state.py:82-276).
+"""Train state, train step and eval step (counterpart of
+cvnets_tpu/engine/train_state.py:82-310).
 
 The JAX step is one pure compiled program; this one runs eagerly and updates the
 model, optimizer and EMA in place (no second copy of the state is made). Each step:
 uint8 → [0, 1] on the device, autocast forward, backward of the loss (of its
 ``total_loss`` when the loss is a dict), global-norm clip
 ``min(1, clip / (norm + 1e-6))``, the optimizer at the scheduler's LR times each
-param group's ``lr_mult``, EMA of params and BN statistics, ``step += 1``.
+param group's ``lr_mult``, EMA of params and BN statistics, ``step += 1``. It
+returns each metric's (sum, count) pairs with the sums on the device; nothing is
+read back to the host.
 
-Not ported yet: grad accumulation, BN-momentum annealing, device augmentation,
-mixup/cutmix and the metric objects.
+Gradient accumulation (``accum_freq`` > 1) splits the batch into that many
+contiguous micro-batches and steps once on the mean of their grads. In the JAX
+step every micro-batch is applied to the pre-step BN statistics and only the
+last one's update is kept (:195-226, :246), so the running statistics end one
+momentum update from the last micro-batch. Here every micro-batch but the last
+runs with BN momentum 0, which leaves the running statistics as they are. The
+loss and every metric of the step are the last micro-batch's.
+
+``bn_momentum`` (torch convention, from ``AdjustBatchNormMomentum``) is written
+into every BatchNorm module for the step's last forward; the JAX step re-blends
+the statistics its static momentum produced into the same value (:205-216).
+
+Not ported yet: device augmentation and mixup/cutmix.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
 from cvnets_tpu_torch.layers.dtype_utils import autocast
+from cvnets_tpu_torch.metrics.stats import Pairs
 from cvnets_tpu_torch.misc.averaging_utils import EMA
 
 
 @dataclass
 class TrainState:
     model: nn.Module
-    optimizer: torch.optim.Optimizer
+    optimizer: Optional[torch.optim.Optimizer]  # None when only evaluating
     ema: Optional[EMA] = None  # None when EMA is disabled
     step: int = 0
 
@@ -49,24 +64,55 @@ def clip_grad_norm_(params: List[torch.Tensor], grad_clip: Optional[float]
     return norm
 
 
-def make_train_step(model: nn.Module, criteria: Callable, opts
-                    ) -> Callable[[TrainState, Dict, float], Tuple[TrainState, Dict]]:
+def _to_unit(samples: torch.Tensor) -> torch.Tensor:
+    """uint8 pixels to [0, 1] floats on their device (the JAX step's
+    normalization of the native loader's batches)."""
+    return samples.float() / 255.0 if samples.dtype == torch.uint8 else samples
+
+
+def _batch_values(metric_objs: Dict[str, Any], prediction, targets, extras) -> Pairs:
+    return {name: metric.batch_values(prediction, targets, extras)
+            for name, metric in metric_objs.items()}
+
+
+def make_train_step(model: nn.Module, criteria: Callable, opts, metric_objs: Dict[str, Any],
+                    accum_freq: Optional[int] = None
+                    ) -> Callable[..., Tuple[TrainState, Pairs]]:
+    """``accum_freq`` overrides ``--common.accum-freq`` (the Trainer builds a
+    step without accumulation for the epochs before ``--common.accum-after-epoch``)."""
     grad_clip = getattr(opts, "common.grad_clip", None)
     ema_momentum = getattr(opts, "ema.momentum", 0.0001)
+    if accum_freq is None:
+        accum_freq = getattr(opts, "common.accum_freq", 1)
+    accum_freq = max(1, accum_freq or 1)
     params = list(model.parameters())
+    batch_norms = [m for m in model.modules() if isinstance(m, nn.modules.batchnorm._BatchNorm)]
+    base_momentum = [m.momentum for m in batch_norms]
 
-    def train_step(state: TrainState, batch: Dict, lr: float
-                   ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        samples, targets = batch["samples"], batch["targets"]
-        if samples.dtype == torch.uint8:
-            samples = samples.float() / 255.0
+    def train_step(state: TrainState, batch: Dict, lr: float, epoch: int = 0,
+                   bn_momentum: Optional[float] = None) -> Tuple[TrainState, Pairs]:
+        samples, targets = _to_unit(batch["samples"]), batch["targets"]
         model.train()
-        with autocast(opts, samples.device):
-            prediction = model(samples)
-            loss = criteria(samples, prediction, targets, training=True)
-        total = loss["total_loss"] if isinstance(loss, dict) else loss
         state.optimizer.zero_grad(set_to_none=True)
-        total.backward()
+        rows = samples.shape[0] // accum_freq
+        for i in range(accum_freq):
+            last = i == accum_freq - 1
+            for m, m0 in zip(batch_norms, base_momentum):
+                m.momentum = (m0 if bn_momentum is None else bn_momentum) if last else 0.0
+            if accum_freq > 1:
+                mb_samples = samples[i * rows:(i + 1) * rows]
+                mb_targets = targets[i * rows:(i + 1) * rows]
+            else:
+                mb_samples, mb_targets = samples, targets
+            with autocast(opts, samples.device):
+                prediction = model(mb_samples)
+                loss = criteria(mb_samples, prediction, mb_targets, training=True,
+                                epoch=epoch, iterations=state.step)
+            total = loss["total_loss"] if isinstance(loss, dict) else loss
+            total.backward()
+        if accum_freq > 1:
+            torch._foreach_div_([p.grad for p in params if p.grad is not None],
+                                float(accum_freq))
         grad_norm = clip_grad_norm_(params, grad_clip)
         for group in state.optimizer.param_groups:
             group["lr"] = lr * group.get("lr_mult", 1.0)
@@ -74,8 +120,26 @@ def make_train_step(model: nn.Module, criteria: Callable, opts
         if state.ema is not None:
             state.ema.update(model, ema_momentum)
         state.step += 1
-        metrics = {k: v.detach() for k, v in loss.items()} if isinstance(loss, dict) else {}
-        metrics.update(loss=total.detach(), grad_norm=grad_norm.detach())
-        return state, metrics
+        return state, _batch_values(metric_objs, prediction, mb_targets,
+                                    {"loss": loss, "grad_norm": grad_norm})
 
     return train_step
+
+
+def make_eval_step(model: nn.Module, criteria: Callable, metric_objs: Dict[str, Any],
+                   use_ema: bool = False, opts=None) -> Callable[[TrainState, Dict], Pairs]:
+    """Eval-mode forward of the model, or of its EMA copy when ``use_ema`` and
+    the state has one, under ``opts``' autocast (float32 without opts), and
+    the metrics' (sum, count) pairs on the device."""
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch: Dict) -> Pairs:
+        net = state.ema.model if use_ema and state.ema is not None else model
+        net.eval()
+        samples, targets = _to_unit(batch["samples"]), batch["targets"]
+        with autocast(opts, samples.device):
+            prediction = net(samples)
+            loss = criteria(samples, prediction, targets, training=False)
+        return _batch_values(metric_objs, prediction, targets, {"loss": loss})
+
+    return eval_step

@@ -8,6 +8,8 @@
   channels-last tensors, the layout of MobileViTv2's (B, P, N, C) patches.
 * ``layer_norm`` is a LayerNorm over the trailing axis only, with the caller's
   eps (normalization.py:185-188); ViT's (B, S, E) tokens take it.
+* ``AdjustBatchNormMomentum`` anneals the BN momentum over training; the train
+  step writes its value into every BatchNorm module before the forward.
 
 Both compute in float32 and return the compute dtype, as JAX's do with
 ``dtype=compute_dtype(opts)``: the autocast dtype under autocast, else the
@@ -18,6 +20,7 @@ JAX norms (no dtype) do.
 from __future__ import annotations
 
 import argparse
+import math
 from typing import Optional
 
 import torch
@@ -81,6 +84,41 @@ def get_normalization_layer(opts, num_features: int,
     logger.error(f"Unsupported norm layer `{norm_type}`. Supported: {SUPPORTED_NORM_FNS}")
 
 
+class AdjustBatchNormMomentum:
+    """The torch-convention BN momentum of an iteration, annealed from
+    ``model.normalization.momentum`` to ``final_momentum_value`` by a cosine or
+    a line over the epochs, or over the iterations after warmup; rounded to 6
+    places (cvnets_tpu/layers/normalization.py:209-253)."""
+
+    round_places = 6
+
+    def __init__(self, opts) -> None:
+        self.is_iteration_based = getattr(opts, "scheduler.is_iteration_based", True)
+        self.warmup_iterations = getattr(opts, "scheduler.warmup_iterations", 0) or 0
+        if self.is_iteration_based:
+            self.max_steps = getattr(opts, "scheduler.max_iterations", 10000) or 10000
+            self.max_steps -= self.warmup_iterations
+        else:
+            self.max_steps = getattr(opts, "scheduler.max_epochs", 100) or 100
+        self.momentum = getattr(opts, "model.normalization.momentum", 0.1) or 0.1
+        self.min_momentum = getattr(
+            opts, "model.normalization.adjust_bn_momentum.final_momentum_value", 1e-6)
+        self.anneal_type = getattr(
+            opts, "model.normalization.adjust_bn_momentum.anneal_type", "cosine")
+        if self.anneal_type not in ("cosine", "linear"):
+            logger.error(f"Unsupported BN momentum anneal type {self.anneal_type}")
+
+    def get_momentum(self, epoch: int, iteration: int) -> float:
+        step = iteration - self.warmup_iterations if self.is_iteration_based else epoch
+        step = max(0, min(step, self.max_steps))
+        if self.anneal_type == "cosine":
+            m = self.min_momentum + 0.5 * (self.momentum - self.min_momentum) * (
+                1 + math.cos(math.pi * step / self.max_steps))
+        else:
+            m = self.momentum - (self.momentum - self.min_momentum) * step / self.max_steps
+        return round(max(0.0, m), self.round_places)
+
+
 def arguments_norm_layers(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     group = parser.add_argument_group(title="Normalization layer arguments")
     group.add_argument("--model.normalization.name", type=str, default="batch_norm")
@@ -88,4 +126,10 @@ def arguments_norm_layers(parser: argparse.ArgumentParser) -> argparse.ArgumentP
         "--model.normalization.momentum", type=float, default=0.1,
         help="BN momentum in the torch convention (fraction of new batch statistic)",
     )
+    group.add_argument("--model.normalization.adjust-bn-momentum.enable",
+                       action="store_true")
+    group.add_argument("--model.normalization.adjust-bn-momentum.anneal-type",
+                       type=str, default="cosine")
+    group.add_argument("--model.normalization.adjust-bn-momentum.final-momentum-value",
+                       type=float, default=1e-6)
     return parser

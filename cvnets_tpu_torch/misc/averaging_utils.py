@@ -32,4 +32,5 @@ def arguments_ema(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     group = parser.add_argument_group(title="EMA")
     group.add_argument("--ema.enable", action="store_true")
     group.add_argument("--ema.momentum", type=float, default=0.0001)
+    group.add_argument("--ema.copy-at-epoch", type=int, default=-1)
     return parser

@@ -20,13 +20,25 @@ def arguments_common(parser: argparse.ArgumentParser) -> argparse.ArgumentParser
     group.add_argument("--taskname", type=str, default="", help="Task name (free-form)")
     group.add_argument("--common.seed", type=int, default=0, help="Random seed")
     group.add_argument("--common.config-file", type=str, default=None)
+    group.add_argument("--common.results-loc", type=str, default="results")
+    group.add_argument("--common.run-label", type=str, default="run_1")
+    group.add_argument("--common.resume", type=str, default=None)
+    group.add_argument("--common.finetune", type=str, default=None)
     group.add_argument("--common.mixed-precision", action="store_true")
     group.add_argument(
         "--common.mixed-precision-dtype", type=str, default="bfloat16",
         choices=["float16", "bfloat16", "float32"],
         help="Autocast dtype under mixed precision; parameters stay float32",
     )
+    group.add_argument("--common.accum-freq", type=int, default=1)
+    group.add_argument("--common.accum-after-epoch", type=int, default=0)
+    group.add_argument("--common.log-freq", type=int, default=100)
+    group.add_argument("--common.profile-trace-dir", type=str, default=None)
+    group.add_argument("--common.auto-resume", action="store_true")
     group.add_argument("--common.grad-clip", type=float, default=None)
+    group.add_argument("--common.k-best-checkpoints", type=int, default=5)
+    group.add_argument("--common.save-all-checkpoints", action="store_true", default=False)
+    group.add_argument("--common.save-interval-freq", type=int, default=0)
     group.add_argument(
         "--common.override-kwargs", nargs="*", action=ParseKwargs,
         help="Override config entries, e.g. sampler.bs.crop_size_width=512",
@@ -35,30 +47,48 @@ def arguments_common(parser: argparse.ArgumentParser) -> argparse.ArgumentParser
 
 
 def arguments_dataset(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
-    """The dataset and sampler flags the train step reads (the data pipeline
-    itself is not ported yet; cvnets_tpu/data/datasets/dataset_base.py:51-52,
-    data/sampler/batch_sampler.py:32-35)."""
+    """The dataset and sampler flags the train step and the Trainer read (the
+    data pipeline itself is not ported yet; cvnets_tpu/data/datasets/
+    dataset_base.py:51-53 and :89, data/sampler/batch_sampler.py:32-35)."""
     group = parser.add_argument_group(title="Dataset arguments")
     group.add_argument("--dataset.category", type=str, default="classification")
     group.add_argument("--dataset.train-batch-size0", type=int, default=128)
+    group.add_argument("--dataset.val-batch-size0", type=int, default=1)
+    group.add_argument("--dataset.sample-efficient-training.enable",
+                       action="store_true", default=False)
     group.add_argument("--sampler.bs.crop-size-width", type=int, default=256)
     group.add_argument("--sampler.bs.crop-size-height", type=int, default=256)
     return parser
 
 
+def arguments_augmentation(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """The switches of the device-tier augmentation and of mixup / cutmix
+    (cvnets_tpu/ops/image_ops.py:326-348, ops/mixing.py:98-103,
+    data/transforms/image_advanced.py:544): not ported yet, so the Trainer
+    refuses a run that turns one on instead of training without it."""
+    group = parser.add_argument_group(title="Augmentation switches")
+    for name in ("rand-augment", "trivial-augment-wide", "random-erase", "mixup", "cutmix"):
+        group.add_argument(f"--image-augmentation.{name}.enable", action="store_true",
+                           default=False)
+    return parser
+
+
 def get_training_arguments(parse_args: bool = True, args: Optional[List[str]] = None):
     from cvnets_tpu_torch.loss import add_loss_fn_arguments
+    from cvnets_tpu_torch.metrics import arguments_stats
     from cvnets_tpu_torch.models import modeling_arguments
     from cvnets_tpu_torch.optim import arguments_optimizer
     from cvnets_tpu_torch.optim.scheduler import arguments_scheduler
 
     parser = argparse.ArgumentParser(description="Training arguments (PyTorch port)")
     parser = arguments_dataset(parser)
+    parser = arguments_augmentation(parser)
     parser = modeling_arguments(parser)
     parser = add_loss_fn_arguments(parser)
     parser = arguments_optimizer(parser)
     parser = arguments_scheduler(parser)
     parser = arguments_common(parser)
+    parser = arguments_stats(parser)
     if parse_args:
         return load_config_file(parser.parse_args(args))
     return parser

@@ -1,0 +1,171 @@
+"""Checkpoints on ``torch.save`` with the file roles of the JAX package
+(cvnets_tpu/utils/checkpoint_utils.py:74-214), as ``.pt`` files in the run's
+directory:
+
+* ``training_checkpoint_last.pt``: what a resume needs: epoch, iterations, best
+  metric, the model's, the optimizer's and the EMA model's state dicts, the
+  Trainer's generator and the default generator of its device;
+* ``checkpoint_last.pt`` and ``checkpoint_best.pt``, and with EMA
+  ``checkpoint_ema_last.pt`` and ``checkpoint_ema_best.pt``: a model state dict
+  each (the best by the model's checkpoint metric, EMA's too);
+* ``checkpoint_score_{metric:.4f}_ep{epoch}.pt`` for the k best epochs, and
+  ``checkpoint_avg.pt``: the float64 mean of their parameters, cast back, with
+  the buffers (BN statistics) of the current model, as the JAX package takes
+  the current ``batch_stats``;
+* ``checkpoint_epoch_{e}.pt`` under ``--common.save-all-checkpoints`` and
+  ``checkpoint_iter_{n}.pt`` every ``--common.save-interval-freq`` iterations.
+
+Files hold tensors, ints, floats, None and dicts only, so ``torch.load``'s
+``weights_only`` reads them. Each is written under a temporary name and
+renamed, so a run stopped during a save keeps the previous file whole. The
+k-best list lives in the manager: a resumed run starts it empty, as the JAX
+package does.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, List, Optional, Tuple
+
+import torch
+
+from cvnets_tpu_torch.utils import logger
+
+CHECKPOINT_EXTN = "pt"
+
+
+def save_file(obj, path: str) -> None:
+    tmp = f"{path}.tmp"
+    torch.save(obj, tmp)
+    os.replace(tmp, path)
+
+
+def load_file(path: str) -> dict:
+    """A checkpoint's tensors on the CPU: ``load_state_dict`` puts each beside
+    its parameter, and AdamW's step counts stay on the CPU, where a
+    non-capturable AdamW keeps them (on the card it would read each back every
+    step)."""
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
+def average_params(state_dicts: List[Dict[str, torch.Tensor]], param_names,
+                   current: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``current`` with each parameter replaced by the float64 mean of its values
+    in ``state_dicts``, cast back to its dtype."""
+    out = dict(current)
+    for name in param_names:
+        mean = sum(sd[name].to("cpu", torch.float64) for sd in state_dicts) / len(state_dicts)
+        out[name] = mean.to(current[name].dtype)
+    return out
+
+
+def _rng_state(device: torch.device) -> torch.Tensor:
+    if device.type == "cuda":
+        return torch.cuda.get_rng_state(device)
+    return torch.get_rng_state()
+
+
+def _set_rng_state(device: torch.device, state: torch.Tensor) -> None:
+    if device.type == "cuda":
+        torch.cuda.set_rng_state(state, device)
+    else:
+        torch.set_rng_state(state)
+
+
+class CheckpointManager:
+    def __init__(self, opts, save_dir: str) -> None:
+        self.save_dir = save_dir
+        self.k_best = getattr(opts, "common.k_best_checkpoints", 5) or 0
+        self.save_all = getattr(opts, "common.save_all_checkpoints", False)
+        self.max_metric = getattr(opts, "stats.checkpoint_metric_max", False)
+        self.best_metric: float = -float("inf") if self.max_metric else float("inf")
+        self.k_best_scores: List[Tuple[float, str]] = []
+        os.makedirs(save_dir, exist_ok=True)
+
+    def path(self, name: str) -> str:
+        return os.path.join(self.save_dir, f"{name}.{CHECKPOINT_EXTN}")
+
+    def is_best(self, metric: float) -> bool:
+        return metric >= self.best_metric if self.max_metric else metric <= self.best_metric
+
+    def save(self, state, epoch: int, iterations: int, ckpt_metric: float,
+             generator: Optional[torch.Generator] = None) -> None:
+        """The epoch-end checkpoints (checkpoint_utils.py:86-134)."""
+        # settle the best before the resume state is written, so that a run
+        # resumed after its best epoch keeps it (checkpoint_utils.py:98-103)
+        new_best = self.is_best(ckpt_metric)
+        if new_best:
+            self.best_metric = ckpt_metric
+        model_sd = state.model.state_dict()
+        ema_sd = state.ema.model.state_dict() if state.ema is not None else None
+        device = next(state.model.parameters()).device
+        save_file({
+            "epoch": epoch,
+            "iterations": iterations,
+            "best_metric": self.best_metric if abs(self.best_metric) != float("inf")
+            else ckpt_metric,
+            "model": model_sd,
+            "optimizer": state.optimizer.state_dict(),
+            "ema": ema_sd,
+            "generator": generator.get_state() if generator is not None else None,
+            "rng": _rng_state(device),
+        }, self.path("training_checkpoint_last"))
+        save_file(model_sd, self.path("checkpoint_last"))
+        if ema_sd is not None:
+            save_file(ema_sd, self.path("checkpoint_ema_last"))
+        if new_best:
+            save_file(model_sd, self.path("checkpoint_best"))
+            if ema_sd is not None:
+                save_file(ema_sd, self.path("checkpoint_ema_best"))
+        if self.save_all:
+            save_file(model_sd, self.path(f"checkpoint_epoch_{epoch}"))
+        if self.k_best > 0:
+            self._update_k_best(state.model, model_sd, ckpt_metric, epoch)
+
+    def _update_k_best(self, model, model_sd, metric: float, epoch: int) -> None:
+        """Keep the k best score-named checkpoints and their average
+        (checkpoint_utils.py:136-158); the epoch in the name keeps two equal
+        scores apart."""
+        path = self.path(f"checkpoint_score_{metric:.4f}_ep{epoch}")
+        save_file(model_sd, path)
+        self.k_best_scores.append((metric, path))
+        self.k_best_scores.sort(key=lambda t: t[0], reverse=self.max_metric)
+        while len(self.k_best_scores) > self.k_best:
+            _, drop = self.k_best_scores.pop()
+            if os.path.exists(drop):
+                os.remove(drop)
+        if len(self.k_best_scores) >= 2:
+            kept = [load_file(p) for _, p in self.k_best_scores]
+            names = [name for name, _ in model.named_parameters()]
+            save_file(average_params(kept, names, model_sd), self.path("checkpoint_avg"))
+
+    def save_interval(self, state, iterations: int) -> None:
+        """The every-N-iterations checkpoint (checkpoint_utils.py:160-166)."""
+        save_file(state.model.state_dict(), self.path(f"checkpoint_iter_{iterations}"))
+
+
+def load_checkpoint(opts, state, save_dir: str,
+                    generator: Optional[torch.Generator] = None
+                    ) -> Tuple[int, int, Optional[float]]:
+    """Restore ``state`` (and ``generator``) in place from ``--common.resume`` or,
+    with ``--common.auto-resume``, from the run's ``training_checkpoint_last.pt``
+    (checkpoint_utils.py:169-214). Returns (start epoch, iterations, best
+    metric); (0, 0, None) when there is nothing to resume from."""
+    path = getattr(opts, "common.resume", None)
+    if not path and getattr(opts, "common.auto_resume", False):
+        candidate = os.path.join(save_dir, f"training_checkpoint_last.{CHECKPOINT_EXTN}")
+        path = candidate if os.path.isfile(candidate) else None
+    if not path:
+        return 0, 0, None
+    blob = load_file(path)
+    state.model.load_state_dict(blob["model"])
+    state.optimizer.load_state_dict(blob["optimizer"])
+    if state.ema is not None and blob["ema"] is not None:
+        state.ema.model.load_state_dict(blob["ema"])
+    state.step = blob["iterations"]
+    if generator is not None and blob["generator"] is not None:
+        generator.set_state(blob["generator"])
+    _set_rng_state(next(state.model.parameters()).device, blob["rng"])
+    epoch = blob["epoch"] + 1
+    logger.info(f"Resumed from {path}: epoch {epoch}, iteration {blob['iterations']}")
+    return epoch, blob["iterations"], blob["best_metric"]

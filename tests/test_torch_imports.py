@@ -1,9 +1,10 @@
 """The PyTorch port stands without JAX, and keeps the JAX package's flags.
 
 * ``cvnets_tpu_torch`` imports and runs CPU train steps of MobileViTv2, ViT,
-  DeepLabv3 and Swin with ``jax``, ``flax``, ``optax``, ``yaml``, ``PIL`` and the JAX
-  package ``cvnets_tpu`` blocked (a subprocess: tests/conftest.py has imported
-  jax into this one).
+  DeepLabv3 and Swin, and one epoch of a micro MobileViTv2 ``Trainer`` (its
+  ``config.yaml`` dump and checkpoints), with ``jax``, ``flax``, ``optax``,
+  ``orbax``, ``yaml``, ``PIL`` and the JAX package ``cvnets_tpu`` blocked (a
+  subprocess: tests/conftest.py has imported jax into this one).
 * No module of the port, and not ``chip_smoke.py``, imports ``cvnets_tpu``, not
   even a module of it that imports no JAX (checked on the source's syntax tree).
 * Every flag of the port's parser exists in the JAX parser with the same dest and
@@ -25,11 +26,15 @@ FLAGSHIP_YAML = os.path.join(REPO, "config/classification/imagenet/mobilevit_v2.
 
 _BLOCKED_RUN = textwrap.dedent("""
     import sys
-    for name in ("jax", "flax", "optax", "yaml", "PIL", "cvnets_tpu"):
+    for name in ("jax", "flax", "optax", "orbax", "yaml", "PIL", "cvnets_tpu"):
         sys.modules[name] = None  # any import of them now raises ImportError
+    import os
+    import tempfile
     import torch
+    from cvnets_tpu_torch.engine import Evaluator, Trainer
     from cvnets_tpu_torch.engine.train_state import create_train_state, make_train_step
     from cvnets_tpu_torch.loss import build_loss_fn
+    from cvnets_tpu_torch.metrics import build_metrics
     from cvnets_tpu_torch.models import get_model
     from cvnets_tpu_torch.optim import build_optimizer
     from cvnets_tpu_torch.optim.scheduler import build_scheduler
@@ -46,19 +51,39 @@ _BLOCKED_RUN = textwrap.dedent("""
         logits = model(x)
     assert logits.shape == (2, 10) and bool(torch.isfinite(logits).all())
     state = create_train_state(model, build_optimizer(opts, model), ema_enabled=True)
-    step = make_train_step(model, build_loss_fn(opts), opts)
+    metric_objs = build_metrics(opts, ["loss", "grad_norm"])
+    step = make_train_step(model, build_loss_fn(opts), opts, metric_objs)
     state, metrics = step(state, {"samples": x, "targets": torch.tensor([1, 2])},
                           build_scheduler(opts).retrieve_lr(0, 0))
-    assert bool(torch.isfinite(metrics["loss"]))
+    assert bool(torch.isfinite(metrics["loss"]["loss"][0]))
+    with tempfile.TemporaryDirectory() as results:
+        trainer_opts = get_training_arguments(args=[
+            "--model.classification.name", "mobilevit_v2",
+            "--model.classification.mitv2.width-multiplier", "0.5",
+            "--model.classification.n-classes", "10", "--optim.name", "adamw",
+            "--ema.enable", "--stats.val", "loss", "top1", "top5",
+            "--common.k-best-checkpoints", "2", "--common.save-interval-freq", "1",
+            "--scheduler.max-epochs", "1", "--common.results-loc", results])
+        batches = [{"samples": (x * 255).to(torch.uint8), "targets": torch.tensor([1, 2])}]
+        trainer = Trainer(trainer_opts, get_model(trainer_opts, device="cpu"),
+                          build_loss_fn(trainer_opts), batches, batches, device="cpu")
+        trainer.run()
+        for name in ("config.yaml", "training_checkpoint_last.pt", "checkpoint_ema_best.pt",
+                     "checkpoint_iter_1.pt"):
+            assert os.path.isfile(os.path.join(trainer.save_dir, name)), name
+        stats = Evaluator(trainer_opts, get_model(trainer_opts, device="cpu"), batches,
+                          checkpoint=os.path.join(trainer.save_dir, "checkpoint_last.pt"),
+                          device="cpu").eval_fn_image()
+        assert set(stats) == {"loss", "top1", "top5"}
     vit_opts = get_training_arguments(args=[
         "--model.classification.name", "vit", "--model.classification.vit.mode", "micro",
         "--model.classification.n-classes", "10", "--model.activation.name", "gelu",
         "--optim.name", "adamw"])
     vit = get_model(vit_opts, device="cpu")
     state = create_train_state(vit, build_optimizer(vit_opts, vit))
-    state, metrics = make_train_step(vit, build_loss_fn(vit_opts), vit_opts)(
+    state, metrics = make_train_step(vit, build_loss_fn(vit_opts), vit_opts, metric_objs)(
         state, {"samples": x, "targets": torch.tensor([1, 2])}, 1e-3)
-    assert bool(torch.isfinite(metrics["loss"]))
+    assert bool(torch.isfinite(metrics["loss"]["loss"][0]))
     seg_opts = get_training_arguments(args=[
         "--dataset.category", "segmentation", "--model.segmentation.name", "encoder_decoder",
         "--model.segmentation.n-classes", "5", "--model.segmentation.output-stride", "16",
@@ -73,10 +98,10 @@ _BLOCKED_RUN = textwrap.dedent("""
         ema_enabled=True)
     y = torch.randint(0, 5, (2, 64, 64), generator=torch.Generator().manual_seed(1))
     y[0, :8] = 255
-    state, metrics = make_train_step(seg, build_loss_fn(seg_opts), seg_opts)(
+    state, metrics = make_train_step(seg, build_loss_fn(seg_opts), seg_opts, metric_objs)(
         state, {"samples": x, "targets": y}, 1e-3)
-    assert {"seg_loss", "aux_loss", "total_loss"} <= set(metrics)
-    assert bool(torch.isfinite(metrics["loss"]))
+    assert {"loss.seg_loss", "loss.aux_loss", "loss"} <= set(metrics["loss"])
+    assert bool(torch.isfinite(metrics["loss"]["loss"][0]))
     from cvnets_tpu_torch.models.classification import swin_transformer
     swin_transformer._MODES["micro"] = (48, [2, 2, 2, 2], [3, 6, 12, 24])  # D = 16: fused route
     swin_opts = get_training_arguments(args=[
@@ -86,12 +111,12 @@ _BLOCKED_RUN = textwrap.dedent("""
         "--common.grad-clip", "5", "--ema.enable"])
     swin = get_model(swin_opts, device="cpu")
     state = create_train_state(swin, build_optimizer(swin_opts, swin), ema_enabled=True)
-    state, metrics = make_train_step(swin, build_loss_fn(swin_opts), swin_opts)(
+    state, metrics = make_train_step(swin, build_loss_fn(swin_opts), swin_opts, metric_objs)(
         state, {"samples": x, "targets": torch.tensor([1, 2])}, 1e-3)
-    assert bool(torch.isfinite(metrics["loss"]))
+    assert bool(torch.isfinite(metrics["loss"]["loss"][0]))
     leaked = sorted(m for m in sys.modules if sys.modules[m] is not None
-                    and m.split(".")[0] in ("jax", "flax", "optax", "yaml", "PIL",
-                                            "cvnets_tpu"))
+                    and m.split(".")[0] in ("jax", "flax", "optax", "orbax", "yaml",
+                                            "PIL", "cvnets_tpu"))
     assert not leaked, leaked
     print("ok")
 """)

@@ -96,6 +96,7 @@ def _trajectories(args, seg=False):
     from cvnets_tpu.optim import build_optimizer
     from cvnets_tpu_torch.engine import train_state as port
     from cvnets_tpu_torch.loss import build_loss_fn as port_loss
+    from cvnets_tpu_torch.metrics import build_metrics
     from cvnets_tpu_torch.optim import build_optimizer as port_optimizer
     from cvnets_tpu_torch.optim.scheduler import build_scheduler
 
@@ -122,7 +123,8 @@ def _trajectories(args, seg=False):
     mults = model.get_lr_multipliers(opts_torch) if seg else None
     tstate = port.create_train_state(model, port_optimizer(opts_torch, model, mults),
                                      ema_enabled=True)
-    tstep = port.make_train_step(model, port_loss(opts_torch), opts_torch)
+    tstep = port.make_train_step(model, port_loss(opts_torch), opts_torch,
+                                 build_metrics(opts_torch, ["loss", "grad_norm"]))
 
     out = {"lrs": lrs, "jax": [], "torch": []}
     for i in range(N_STEPS):
@@ -135,7 +137,7 @@ def _trajectories(args, seg=False):
         out["torch"].append((
             {k: v.clone() for k, v in model.state_dict().items()},
             {k: v.clone() for k, v in tstate.ema.model.state_dict().items()},
-            tmetrics["loss"].item(), tmetrics["grad_norm"].item()))
+            tmetrics["loss"]["loss"][0].item(), tmetrics["grad_norm"]["grad_norm"][0].item()))
     assert tstate.step == N_STEPS
     return out
 

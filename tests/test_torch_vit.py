@@ -225,7 +225,8 @@ def test_vit_yaml_parses_to_the_same_values():
 
 def test_chip_smoke_vit_flags_are_the_yaml_settings():
     """Every value chip_smoke.py's VIT_ARGS set is the one vit.yaml gives, except
-    the crop size, which the yaml sets on the variable-batch sampler (not ported)."""
+    the crop size, which the yaml sets on the variable-batch sampler (not ported),
+    and it sets all the yaml gives but the augmentation switches."""
     sys.path.insert(0, REPO)
     from chip_smoke import VIT_ARGS
     from cvnets_tpu_torch.options.opts import get_training_arguments
@@ -239,8 +240,11 @@ def test_chip_smoke_vit_flags_are_the_yaml_settings():
     for dest in sorted(set_by_flags - {"sampler.bs.crop_size_width",
                                        "sampler.bs.crop_size_height"}):
         assert flags[dest] == yaml[dest], dest
-    for dest, value in yaml.items():  # and nothing the yaml sets is left out
-        if value != default[dest] and dest not in ("common.config_file", "taskname"):
+    # and nothing the yaml sets is left out, but the augmentation switches,
+    # which the Trainer refuses until the augmentation is ported
+    for dest, value in yaml.items():
+        if (value != default[dest] and dest not in ("common.config_file", "taskname")
+                and not dest.startswith("image_augmentation.")):
             assert flags[dest] == value, dest
 
 

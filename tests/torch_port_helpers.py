@@ -145,3 +145,34 @@ def nchw(x_nhwc: np.ndarray):
     import torch
 
     return torch.from_numpy(np.ascontiguousarray(x_nhwc.transpose(0, 3, 1, 2)))
+
+
+# a micro MobileViTv2 Trainer run: the flagship's AdamW, EMA and stats
+# (val loss/top-1/top-5, checkpoints ranked by top-1, highest best) on 64×64
+TRAINER_MICRO_ARGS = SMALL_MODEL_ARGS + [
+    "--optim.name", "adamw",
+    "--optim.weight-decay", "0.05",
+    "--optim.no-decay-bn-filter-bias",
+    "--common.grad-clip", "10",
+    "--ema.enable",
+    "--ema.momentum", "0.1",
+    "--scheduler.name", "cosine",
+    "--scheduler.max-epochs", "3",
+    "--scheduler.warmup-iterations", "2",
+    "--scheduler.warmup-init-lr", "1e-4",
+    "--scheduler.cosine.max-lr", "0.002",
+    "--scheduler.cosine.min-lr", "0.0002",
+    "--stats.val", "loss", "top1", "top5",
+    "--stats.checkpoint-metric", "top1",
+    "--stats.checkpoint-metric-max",
+]
+
+
+def uint8_batches(seed: int, n: int, batch: int = 4, size: int = 64, n_classes: int = 13):
+    """``n`` loader batches of NCHW uint8 pixels and labels from a numpy seed."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    return [{"samples": nchw(rng.integers(0, 256, (batch, size, size, 3)).astype(np.uint8)),
+             "targets": torch.from_numpy(rng.integers(0, n_classes, (batch,)))}
+            for _ in range(n)]
