@@ -75,6 +75,23 @@ Phases, one line each or more (any failure exits non-zero):
    beside phase 6's kernel-path a/b. Then one step at
    ``--common.accum-freq 2`` (two micro-batches of 64, 18 + 18 separable
    launches) and its peak memory beside phase 6's;
+6c. main_train: ``cvnets_tpu_torch.main_train.main_worker`` on the flagship
+   yaml's flags as a list (``MAIN_TRAIN_ARGS``: random resized crop bicubic,
+   flip, RandAugment, random erasing 0.25, mixup 0.2, cutmix 1.0, AdamW, EMA,
+   clip 10; val through resize 288 bicubic and center crop 256) on the script's
+   own dataset (``smoke_imagenet``: seeded uint8 images of about 500 × 375, as
+   the card machine has no images and no Pillow): 2 epochs of 4 batches of 128
+   × 256² and 2 val batches of 100, through the real sampler, host transforms,
+   8 loader threads, collate, pinning, device augmentation, mixing and soft-
+   target CE. First the train loader alone for two epochs (img/s on the host)
+   and the augmentation and mixing of a step alone (device ms by
+   ``torch.profiler``). Checks finite statistics, soft targets whose rows sum
+   to 1 in every train step, 9 + 9 separable launches a step and 9 an eval
+   forward, no CUDA sync debug warning whose stack passes through the data,
+   ops, loss, engine, metrics or checkpoint code between log points, and
+   ``main_eval`` on the run's checkpoint_ema_last.pt against its last EMA
+   validation; prints main_train's img/s over epoch 2 beside the loader's, the
+   augmentation's ms and phase 6's bare-step a/b;
 7. vit train: the same for ViT-B/16 at batch 128 × 224² with vit.yaml's settings
    (AdamW with weight decay 0.2, clip 1.0, EMA 0.0005, GELU, BN in the stem);
    checks 12 forward and 12 backward MHA launches a step;
@@ -1507,6 +1524,45 @@ ENGINE_FILES = tuple(os.path.join("cvnets_tpu_torch", part) + suffix for part, s
                       (os.path.join("utils", "checkpoint_utils.py"), "")))
 
 
+# the rest of config/classification/imagenet/mobilevit_v2.yaml, as flags: its loader,
+# sampler, host transforms and augmentation (dataset.name and its roots are the
+# yaml's ImageNet on disk; main_train's phase names its own dataset instead)
+FLAGSHIP_DATA_ARGS = [
+    "--dataset.category", "classification",
+    "--dataset.eval-batch-size0", "100",
+    "--dataset.workers", "8",
+    "--dataset.prefetch-factor", "2",
+    "--sampler.name", "batch_sampler",
+    "--image-augmentation.random-resized-crop.enable",
+    "--image-augmentation.random-resized-crop.interpolation", "bicubic",
+    "--image-augmentation.random-horizontal-flip.enable",
+    "--image-augmentation.rand-augment.enable",
+    "--image-augmentation.random-erase.enable",
+    "--image-augmentation.random-erase.p", "0.25",
+    "--image-augmentation.mixup.enable",
+    "--image-augmentation.mixup.alpha", "0.2",
+    "--image-augmentation.cutmix.enable",
+    "--image-augmentation.cutmix.alpha", "1.0",
+    "--image-augmentation.resize.enable",
+    "--image-augmentation.resize.size", "288",
+    "--image-augmentation.resize.interpolation", "bicubic",
+    "--image-augmentation.center-crop.enable",
+    "--image-augmentation.center-crop.size", "256",
+]
+# main_train on the flagship yaml's flags, on the script's own dataset (the card
+# machine has no images and no Pillow): 4 train batches of 128 and 2 val
+# batches of 100 an epoch, 2 epochs
+SMOKE_DATASET = "smoke_imagenet"
+MAIN_TRAIN_ARGS = FLAGSHIP_ARGS + IMAGENET_RUN_ARGS + FLAGSHIP_DATA_ARGS + [
+    "--dataset.name", SMOKE_DATASET,
+    "--scheduler.max-epochs", "2",
+]
+SMOKE_TRAIN_SAMPLES, SMOKE_VAL_SAMPLES = 4 * 128, 2 * 100
+# a sync debug warning whose stack passes through one of these fails phase 6c
+MAIN_TRAIN_FILES = ENGINE_FILES + tuple(
+    os.path.join("cvnets_tpu_torch", part) + os.sep for part in ("data", "ops", "loss"))
+
+
 def pinned_batches(g, n: int, batch: int, hw: tuple, n_classes: int) -> list:
     """Seeded uint8 batches in pinned host memory, as a loader with
     ``pin_memory`` hands them over."""
@@ -1780,6 +1836,213 @@ def phase_trainer(card: str, bare: dict) -> None:
           flush=True)
 
 
+def register_smoke_dataset() -> None:
+    """Register ``smoke_imagenet``: ImageNet's layout without its files. Sample i
+    is a seeded uint8 HWC image of about ImageNet's 500 × 375 (either way round,
+    ±20%) made where the JAX and the port's readers decode a file, labels spread
+    over the 1,000 classes; 512 training samples and 200 validation ones. The
+    real transforms, loader, collate and pinning run on it."""
+    import numpy as np
+
+    from cvnets_tpu_torch.data.datasets import DATASET_REGISTRY
+    from cvnets_tpu_torch.data.datasets.classification.base_image_classification_dataset \
+        import BaseImageClassificationDataset
+
+    if (SMOKE_DATASET, "classification") in DATASET_REGISTRY:
+        return
+
+    @DATASET_REGISTRY.register(name=SMOKE_DATASET, type="classification")
+    class SmokeImageNet(BaseImageClassificationDataset):
+        def _find_samples(self):
+            self.classes = [f"n{c:08d}" for c in range(1000)]
+            n = SMOKE_TRAIN_SAMPLES if self.is_training else SMOKE_VAL_SAMPLES
+            return [(None, (i * 7919) % 1000) for i in range(n)]
+
+        def image_size(self, idx):
+            rng = np.random.default_rng([idx, 1])
+            h, w = int(rng.integers(300, 451)), int(rng.integers(400, 601))
+            return (w, h) if idx % 3 == 0 else (h, w)
+
+        def read_image(self, idx):
+            rng = np.random.default_rng([idx, 2])
+            return rng.integers(0, 256, (*self.image_size(idx), 3), dtype=np.uint8)
+
+
+def _augment_device_ms(opts, card: str) -> float:
+    """Device time of one step's augmentation and mixing (RandAugment, random
+    erasing, mixup or cutmix) on a uint8 batch of 128 × 256², by
+    ``torch.profiler`` over 10 draws (kernels, copies and memsets)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from cvnets_tpu_torch.engine.train_state import AUGMENT_STREAM, MIXING_STREAM, step_rng
+    from cvnets_tpu_torch.ops.image_ops import build_device_augmenter
+    from cvnets_tpu_torch.ops.mixing import build_mixing_fn
+
+    augment, mixing = build_device_augmenter(opts), build_mixing_fn(opts)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    batch = getattr(opts, "dataset.train_batch_size0")
+    x = torch.randint(0, 256, (batch, 3, 256, 256), generator=g, device="cuda",
+                      dtype=torch.uint8)
+    y = torch.randint(0, 1000, (batch,), generator=g, device="cuda")
+    n = 10
+
+    def run(step):
+        out, soft = mixing(augment(x.float() / 255.0, step_rng(0, step, AUGMENT_STREAM)), y,
+                           1000, step_rng(0, step, MIXING_STREAM))
+        return out, soft
+
+    host_ms = []
+    for step in range(3 + n):  # warm-up, then the host's time to enqueue a step's
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run(step)
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for step in range(3, 3 + n):
+            run(step)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    device_ms = sum(e.self_device_time_total for e in events) / 1e3 / n
+    launches = sum(e.count for e in events) / n
+    events.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    top = "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3 / n:.3f}" for e in events[:5])
+    print(f"main_train: augmentation + mixing device_ms_per_step={device_ms:.3f} "
+          f"kernels_per_step={launches:.0f} host_enqueue_ms={statistics.median(host_ms[3:]):.3f} "
+          f"(torch.profiler, {n} steps of {batch} x 256^2; top: {top}) | {card}", flush=True)
+    return device_ms
+
+
+def phase_main_train(card: str, bare: dict) -> None:
+    """6c: ``cvnets_tpu_torch.main_train.main_worker`` on the flagship's flags and
+    the script's dataset: the loader alone, the device augmentation's time, then
+    2 epochs of 4 batches of 128 and their validations through the entry point,
+    and ``main_eval`` on its ``checkpoint_ema_last.pt``. ``bare`` is phase 6's
+    kernel-path a/b (img/s, peak GiB)."""
+    import shutil
+
+    import torch
+
+    import cvnets_tpu_torch.main_train as main_train
+    from cvnets_tpu_torch.data.data_loaders import create_train_val_loader
+    from cvnets_tpu_torch.main_eval import main_worker as main_eval
+    from cvnets_tpu_torch.ops.separable_attention import (
+        separable_attention_bwd_kernel,
+        separable_attention_kernel,
+    )
+    from cvnets_tpu_torch.options.opts import get_training_arguments
+
+    register_smoke_dataset()
+    results = os.path.join("results", "main_train_smoke")
+    shutil.rmtree(results, ignore_errors=True)
+    args = MAIN_TRAIN_ARGS + ["--common.results-loc", results]
+    opts = get_training_arguments(args=args)
+
+    # the loader alone: two epochs of the train loader, no step on the card
+    loader, _, sampler = create_train_val_loader(opts, pin_memory=True)
+    n_img, t0, first = 0, time.perf_counter(), None
+    for epoch in range(2):
+        sampler.set_epoch(epoch)
+        for batch in loader:
+            first = first or time.perf_counter() - t0
+            check(batch["samples"].dtype == torch.uint8 and batch["samples"].is_pinned()
+                  and tuple(batch["samples"].shape) == (128, 3, 256, 256),
+                  f"main_train loader: batch {batch['samples'].shape} "
+                  f"{batch['samples'].dtype}, pinned {batch['samples'].is_pinned()}")
+            n_img += batch["samples"].shape[0]
+    loader_s = time.perf_counter() - t0
+    print(f"main_train: loader alone img_s={n_img / loader_s:.1f} ({n_img} images in "
+          f"{loader_s:.3f} s, first batch after {first:.3f} s; {loader.num_workers} threads, "
+          f"{os.cpu_count()} cores; RRC bicubic + flip from ~500x375 uint8 to 256^2) | {card}",
+          flush=True)
+    loader = sampler = batch = None
+    aug_ms = _augment_device_ms(opts, card)
+
+    kernels = {"fwd": separable_attention_kernel, "bwd": separable_attention_bwd_kernel}
+    per_step = sum(SEP_FLAGSHIP[1].values())
+    log = {"train": [], "val": [], "ema": [], "save_s": 0.0}
+    soft = {"calls": 0, "err": None}
+    watch = SyncWatch()
+    built = []
+
+    def watched_loss(criteria):
+        def loss(x, prediction, target, training=False, **kwargs):
+            if training and target.dim() == 2:  # soft rows; the error summed on the card
+                soft["calls"] += 1
+                err = (target.sum(dim=1) - 1.0).abs().max()
+                soft["err"] = err if soft["err"] is None else torch.maximum(soft["err"], err)
+            return criteria(x, prediction, target, training=training, **kwargs)
+        return loss
+
+    class WatchedTrainer(main_train.Trainer):
+        def __init__(self, opts, model, criteria, *a, **k):
+            super().__init__(opts, model, watched_loss(criteria), *a, **k)
+            _watch_trainer(self, kernels, watch, per_step, log)
+            built.append(self)
+
+    with watch:
+        main_train.Trainer = WatchedTrainer
+        try:
+            for kernel in kernels.values():
+                kernel.launches = 0
+            main_train.main_worker(args=args)
+        finally:
+            main_train.Trainer = WatchedTrainer.__bases__[0]
+    trainer = built[0]
+    launches = {name: k.launches for name, k in kernels.items()}
+    n_steps = trainer.train_iterations
+    bad = [[f"{f.filename}:{f.lineno}" for f in stack
+            if any(part in f.filename for part in MAIN_TRAIN_FILES)] for _, stack in watch.caught]
+    bad = [frames for frames in bad if frames]
+    where = sorted({f"{f.filename.split('cvnets_tpu_torch')[-1]}:{f.lineno}"
+                    for _, stack in watch.caught for f in stack[-3:]})
+    print(f"main_train: sync debug warnings in the train steps: {len(watch.caught)} "
+          f"(innermost frames: {where[:6]}); through the data, ops, loss, engine, metrics "
+          f"or checkpoints: {len(bad)}", flush=True)
+    check(not bad, f"main_train: a host sync between log points: {bad[:3]}")
+    check(n_steps == 2 * SMOKE_TRAIN_SAMPLES // 128, f"main_train: {n_steps} steps")
+    check(launches == {"fwd": per_step * (n_steps + 2 * 2 * 2), "bwd": per_step * n_steps},
+          f"main_train: separable launches {launches} in {n_steps} steps and 8 eval forwards")
+    check(soft["calls"] == n_steps and soft["err"] is not None
+          and soft["err"].item() <= 1e-5,
+          f"main_train: {soft['calls']} steps with soft targets, row sums off by "
+          f"{None if soft['err'] is None else soft['err'].item()}")
+    for stage in ("train", "val", "ema"):
+        values = [v for entry in log[stage] for v in
+                  (entry[3] if stage == "train" else entry).values()]
+        check(values and all(math.isfinite(v) for v in values),
+              f"main_train: {stage} statistics not finite: {log[stage]}")
+
+    ckpt = os.path.join(trainer.save_dir, "checkpoint_ema_last.pt")
+    trainer = None
+    built.clear()
+    gc.collect()
+    before = kernels["fwd"].launches
+    got, want = main_eval(args=args + ["--model.classification.pretrained", ckpt]), log["ema"][-1]
+    share = 100.0 / SMOKE_VAL_SAMPLES
+    check(kernels["fwd"].launches - before == per_step * 2,
+          f"main_eval: {kernels['fwd'].launches - before} forward launches")
+    check(abs(got["loss"] - want["loss"]) <= 1e-5 * abs(want["loss"])
+          and all(abs(got[k] - want[k]) <= share for k in ("top1", "top5")),
+          f"main_eval on checkpoint_ema_last.pt: {got} vs the last EMA validation {want}")
+    epoch_s = log["train"][-1][1]
+    print(f"main_train: MobileViTv2-1.0 batch=128 256x256 bf16 epochs=2 steps={n_steps} "
+          f"launches={launches} soft_target_steps={soft['calls']} "
+          f"train={[{k: round(v, 4) for k, v in e[3].items()} for e in log['train']]} "
+          f"val={[{k: round(v, 4) for k, v in s.items()} for s in log['val']]} "
+          f"ema={[{k: round(v, 4) for k, v in s.items()} for s in log['ema']]} "
+          f"main_eval={ {k: round(v, 6) for k, v in got.items()} } | {card}", flush=True)
+    print(f"main_train: img_s={SMOKE_TRAIN_SAMPLES / epoch_s:.1f} over epoch 2 "
+          f"({SMOKE_TRAIN_SAMPLES // 128} steps, {epoch_s:.3f} s, the loader's first batch "
+          f"included); loader alone img_s={n_img / loader_s:.1f}; augmentation + mixing "
+          f"{aug_ms:.3f} device ms a step; bare step (phase 6 a/b, kernel path) "
+          f"img_s={bare['img_s']:.1f} | {card}", flush=True)
+
+
 def phase_deeplab(card: str) -> dict:
     """DeepLabv3's train, a/b and profile phases; returns the launch counts."""
     from cvnets_tpu_torch.ops.seg_ce_kernel import seg_ce_bwd_kernel, seg_ce_fwd_kernel
@@ -1845,6 +2108,8 @@ def main(argv) -> int:
     run = None
     release()
     phase_trainer(card, bare)
+    release()
+    phase_main_train(card, bare)
     release()
     vit_launches, run = phase_train(
         card, "ViT-B/16", VIT_ARGS,

@@ -1,0 +1,142 @@
+"""Base datasets (counterpart of cvnets_tpu/data/datasets/dataset_base.py).
+
+A dataset is a host-side object: its items are asked for with the sampler's
+``(crop_h, crop_w, index)`` tuples and are dicts of tensors and ints. Moving
+them to the card is the Trainer's work.
+
+Images are read through Pillow, imported inside the reader: the card machine
+has no Pillow, so a dataset of image files cannot be read there until the JAX
+package's native JPEG decoder (``cvnets_tpu/native/decode.cpp``) is ported
+(ROADMAP.md queue 1 item 13).
+"""
+
+from __future__ import annotations
+
+import argparse
+from typing import Any, Dict, Optional, Tuple, Union
+
+import numpy as np
+
+from cvnets_tpu_torch.utils import logger
+
+NO_PILLOW = ("reading image files needs Pillow, which is not installed; the native "
+             "JPEG decoder is not ported yet (ROADMAP.md queue 1 item 13)")
+
+
+class BaseDataset:
+    def __init__(self, opts, is_training: bool = True, is_evaluation: bool = False,
+                 *args, **kwargs) -> None:
+        self.opts = opts
+        self.is_training = is_training
+        self.is_evaluation = is_evaluation
+        self.root = self._dataset_root()
+
+    def _dataset_root(self) -> Optional[str]:
+        if self.is_training:
+            return getattr(self.opts, "dataset.root_train", None)
+        if self.is_evaluation:
+            return (getattr(self.opts, "dataset.root_test", None)
+                    or getattr(self.opts, "dataset.root_val", None))
+        return getattr(self.opts, "dataset.root_val", None)
+
+    @classmethod
+    def add_arguments(cls, parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
+        if cls != BaseDataset:
+            return parser
+        group = parser.add_argument_group(title="Dataset arguments")
+        group.add_argument("--dataset.root-train", type=str, default="")
+        group.add_argument("--dataset.root-val", type=str, default="")
+        group.add_argument("--dataset.root-test", type=str, default="")
+        group.add_argument("--dataset.name", type=str, default=None)
+        group.add_argument("--dataset.decoder", type=str, default="native",
+                           choices=["pil", "native"],
+                           help="image decoder; until the native decoder is ported "
+                                "both read through Pillow")
+        group.add_argument("--dataset.category", type=str, default="classification")
+        group.add_argument("--dataset.train-batch-size0", type=int, default=128)
+        group.add_argument("--dataset.val-batch-size0", type=int, default=1)
+        group.add_argument("--dataset.eval-batch-size0", type=int, default=1)
+        group.add_argument("--dataset.workers", type=int, default=-1)
+        group.add_argument("--dataset.prefetch-factor", type=int, default=2)
+        group.add_argument("--dataset.collate-fn-name-train", type=str,
+                           default="default_collate_fn")
+        group.add_argument("--dataset.collate-fn-name-val", type=str,
+                           default="default_collate_fn")
+        group.add_argument("--dataset.collate-fn-name-test", type=str,
+                           default="default_collate_fn")
+        group.add_argument("--dataset.percentage-of-samples", type=float, default=100.0)
+        group.add_argument("--dataset.sample-efficient-training.enable",
+                           action="store_true", default=False)
+        group.add_argument("--dataset.disable-val", action="store_true", default=False,
+                           help="Skip building the validation dataset/loader")
+        group.add_argument("--dataset.num-samples-per-category", type=int, default=-1,
+                           help="Balanced training subset: keep this many samples per "
+                                "class (exclusive with percentage-of-samples)")
+        group.add_argument("--dataset.sample-selection-random-seed", type=int,
+                           default=None,
+                           help="Seed for subset sampling; defaults to --common.seed")
+        return parser
+
+    def share_dataset_arguments(self) -> Dict[str, Any]:
+        """Values to push back into opts (e.g. n_classes) once the dataset is built."""
+        return {}
+
+    def __len__(self) -> int:
+        raise NotImplementedError
+
+    def __getitem__(self, sample_size_and_index: Tuple[int, int, int]) -> Dict:
+        raise NotImplementedError
+
+    @staticmethod
+    def _parse_batch_tuple(sample_size_and_index: Union[Tuple[int, int, int], int]
+                           ) -> Tuple[int, int, int]:
+        """Samplers yield (crop_h, crop_w, idx); a plain int idx is taken too."""
+        if isinstance(sample_size_and_index, (tuple, list)):
+            return tuple(sample_size_and_index)
+        return (-1, -1, int(sample_size_and_index))
+
+    def __repr__(self) -> str:
+        return (f"{self.__class__.__name__}(root={self.root}, "
+                f"is_training={self.is_training}, n_samples={len(self)})")
+
+
+class BaseImageDataset(BaseDataset):
+    """Image files through Pillow: an unreadable file reads as None."""
+
+    _warned_decoder = False
+
+    def __init__(self, opts, *args, **kwargs) -> None:
+        super().__init__(opts, *args, **kwargs)
+        if (getattr(opts, "dataset.decoder", "pil") == "native"
+                and not BaseImageDataset._warned_decoder):
+            BaseImageDataset._warned_decoder = True
+            logger.log("--dataset.decoder native: the native JPEG decoder is not ported "
+                       "yet (ROADMAP.md queue 1 item 13); images are read through Pillow")
+
+    @staticmethod
+    def _pil():
+        try:
+            from PIL import Image
+        except ImportError as e:
+            raise RuntimeError(NO_PILLOW) from e
+        return Image
+
+    @classmethod
+    def image_size_pil(cls, path: str) -> Optional[Tuple[int, int]]:
+        """(height, width) from the file's header, or None if it cannot be read."""
+        image = cls._pil()
+        try:
+            with image.open(path) as img:
+                return img.height, img.width
+        except Exception:
+            return None
+
+    @classmethod
+    def read_image_pil(cls, path: str) -> Optional[np.ndarray]:
+        """The file's pixels as RGB, HWC uint8, or None if it cannot be read."""
+        image = cls._pil()
+        try:
+            with image.open(path) as img:
+                return np.array(img.convert("RGB"))
+        except Exception:
+            return None

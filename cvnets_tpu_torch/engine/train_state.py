@@ -22,7 +22,12 @@ loss and every metric of the step are the last micro-batch's.
 into every BatchNorm module for the step's last forward; the JAX step re-blends
 the statistics its static momentum produced into the same value (:205-216).
 
-Not ported yet: device augmentation and mixup/cutmix.
+The device-tier augmentation (``ops/image_ops.py``) and mixup / cutmix
+(``ops/mixing.py``) run in the JAX step's order (:165-175): to [0, 1], augment,
+mix, forward. Their host draws come from ``step_rng(seed, step, stream)``, as
+the JAX step folds the step into its key: a step's augmentation depends on
+(``common.seed``, step) alone, so a resumed run needs no generator state to
+draw what an unbroken run draws.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -70,16 +76,27 @@ def _to_unit(samples: torch.Tensor) -> torch.Tensor:
     return samples.float() / 255.0 if samples.dtype == torch.uint8 else samples
 
 
+MIXING_STREAM, AUGMENT_STREAM = 0, 1
+
+
+def step_rng(seed: int, step: int, stream: int) -> np.random.Generator:
+    """The host generator of one step's draws of one stream."""
+    return np.random.default_rng([seed, step, stream])
+
+
 def _batch_values(metric_objs: Dict[str, Any], prediction, targets, extras) -> Pairs:
     return {name: metric.batch_values(prediction, targets, extras)
             for name, metric in metric_objs.items()}
 
 
 def make_train_step(model: nn.Module, criteria: Callable, opts, metric_objs: Dict[str, Any],
-                    accum_freq: Optional[int] = None
+                    accum_freq: Optional[int] = None, augment_fn: Optional[Callable] = None,
+                    mixing_fn: Optional[Callable] = None
                     ) -> Callable[..., Tuple[TrainState, Pairs]]:
     """``accum_freq`` overrides ``--common.accum-freq`` (the Trainer builds a
-    step without accumulation for the epochs before ``--common.accum-after-epoch``)."""
+    step without accumulation for the epochs before ``--common.accum-after-epoch``).
+    ``augment_fn(images, rng)`` and ``mixing_fn(images, targets, n_classes, rng)``
+    are ``build_device_augmenter`` and ``build_mixing_fn`` of the options."""
     grad_clip = getattr(opts, "common.grad_clip", None)
     ema_momentum = getattr(opts, "ema.momentum", 0.0001)
     if accum_freq is None:
@@ -88,10 +105,17 @@ def make_train_step(model: nn.Module, criteria: Callable, opts, metric_objs: Dic
     params = list(model.parameters())
     batch_norms = [m for m in model.modules() if isinstance(m, nn.modules.batchnorm._BatchNorm)]
     base_momentum = [m.momentum for m in batch_norms]
+    seed = getattr(opts, "common.seed", 0) or 0
+    n_classes = getattr(opts, "model.classification.n_classes", None)
 
     def train_step(state: TrainState, batch: Dict, lr: float, epoch: int = 0,
                    bn_momentum: Optional[float] = None) -> Tuple[TrainState, Pairs]:
         samples, targets = _to_unit(batch["samples"]), batch["targets"]
+        if augment_fn is not None:
+            samples = augment_fn(samples, step_rng(seed, state.step, AUGMENT_STREAM))
+        if mixing_fn is not None:
+            samples, targets = mixing_fn(samples, targets, n_classes,
+                                         step_rng(seed, state.step, MIXING_STREAM))
         model.train()
         state.optimizer.zero_grad(set_to_none=True)
         rows = samples.shape[0] // accum_freq

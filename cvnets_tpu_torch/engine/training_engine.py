@@ -10,12 +10,14 @@ the epoch-end checkpoints, and auto-resume when the Trainer is built.
 
 Batches are dicts of tensors (``samples``, ``targets``), moved to the Trainer's
 device with ``non_blocking=True``: a loader that pins its host memory overlaps
-the copy with the step. The resolved options go to ``save_dir/config.yaml`` as
-JSON, which YAML reads.
+the copy with the step. Each epoch starts with the train sampler's
+``set_epoch`` and ``update_scales``. The train step runs the device-tier
+augmentation and mixup / cutmix the options enable. The resolved options go to
+``save_dir/config.yaml`` as JSON, which YAML reads.
 
 Not ported yet, and refused when asked for: sample-efficient training,
-``--common.finetune``, the profiler trace, mixup / cutmix and the device-tier
-augmentation (each error names its ROADMAP.md item).
+``--common.finetune`` and the profiler trace (each error names its ROADMAP.md
+item).
 """
 
 from __future__ import annotations
@@ -36,6 +38,8 @@ from cvnets_tpu_torch.engine.train_state import (
 from cvnets_tpu_torch.layers.normalization import AdjustBatchNormMomentum
 from cvnets_tpu_torch.metrics import build_metrics
 from cvnets_tpu_torch.metrics.stats import Statistics, add_pairs, pairs_to_host
+from cvnets_tpu_torch.ops.image_ops import build_device_augmenter
+from cvnets_tpu_torch.ops.mixing import build_mixing_fn
 from cvnets_tpu_torch.optim import build_optimizer
 from cvnets_tpu_torch.optim.scheduler import build_scheduler
 from cvnets_tpu_torch.utils import logger
@@ -46,15 +50,10 @@ DEFAULT_LOG_FREQ = 100
 # (flag dest, what it needs) of the features the Trainer refuses
 _UNPORTED = (
     ("dataset.sample_efficient_training.enable",
-     "sample-efficient training needs the samplers (ROADMAP.md queue 1 item 3)"),
-    ("common.finetune", "--common.finetune waits for main_train (ROADMAP.md queue 1 item 3)"),
+     "sample-efficient training (ROADMAP.md queue 1 item 13)"),
+    ("common.finetune", "--common.finetune (ROADMAP.md queue 1 item 13)"),
     ("common.profile_trace_dir",
      "the profiler trace waits for the port bench (ROADMAP.md queue 1 item 1)"),
-    *((f"image_augmentation.{name}.enable",
-       f"--image-augmentation.{name.replace('_', '-')}.enable waits for the device-tier "
-       "augmentation and mixing (ROADMAP.md queue 1 item 3)")
-      for name in ("rand_augment", "trivial_augment_wide", "random_erase", "mixup",
-                   "cutmix")),
 )
 
 
@@ -68,7 +67,8 @@ def to_device(batch, device: torch.device):
 
 class Trainer:
     def __init__(self, opts, model: nn.Module, criteria, train_loader, val_loader=None,
-                 device: Optional[Union[str, torch.device]] = None) -> None:
+                 device: Optional[Union[str, torch.device]] = None,
+                 train_sampler=None) -> None:
         for dest, why in _UNPORTED:
             if getattr(opts, dest, None):
                 raise NotImplementedError(f"not ported yet: {why}")
@@ -77,6 +77,7 @@ class Trainer:
         self.criteria = criteria
         self.train_loader = train_loader
         self.val_loader = val_loader
+        self.train_sampler = train_sampler
         self.device = torch.device(device if device is not None else "cuda")
         model.to(self.device)
 
@@ -119,12 +120,14 @@ class Trainer:
 
         train_metrics = build_metrics(opts, self.train_metric_names)
         val_metrics = build_metrics(opts, self.val_metric_names)
-        self._train_step = make_train_step(model, criteria, opts, train_metrics)
+        augment = {"augment_fn": build_device_augmenter(opts),
+                   "mixing_fn": build_mixing_fn(opts)}
+        self._train_step = make_train_step(model, criteria, opts, train_metrics, **augment)
         self.accum_after_epoch = getattr(opts, "common.accum_after_epoch", 0) or 0
         self._train_step_noaccum = None
         if self.accum_after_epoch > 0 and (getattr(opts, "common.accum_freq", 1) or 1) > 1:
             self._train_step_noaccum = make_train_step(model, criteria, opts, train_metrics,
-                                                       accum_freq=1)
+                                                       accum_freq=1, **augment)
         self._eval_step = make_eval_step(model, criteria, val_metrics, opts=opts)
         self._eval_step_ema = make_eval_step(model, criteria, val_metrics, use_ema=True,
                                              opts=opts)
@@ -183,6 +186,9 @@ class Trainer:
 
     def run(self) -> None:
         for epoch in range(self.start_epoch, self.max_epochs):
+            if self.train_sampler is not None:
+                self.train_sampler.set_epoch(epoch)
+                self.train_sampler.update_scales(epoch, is_master_node=True)
             train_stats = self.train_epoch(epoch)
             if train_stats:
                 summary = " || ".join(f"{k}: {v:.4f}" for k, v in train_stats.items())

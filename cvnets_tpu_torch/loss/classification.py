@@ -1,5 +1,6 @@
-"""Classification losses (counterpart of cvnets_tpu/loss/classification.py).
-Only cross-entropy with integer targets is ported."""
+"""Classification losses (counterpart of cvnets_tpu/loss/classification.py):
+cross-entropy with integer or soft targets (mixup, cutmix). Class weights are
+not ported."""
 
 from __future__ import annotations
 
@@ -26,8 +27,10 @@ class BaseClassificationCriteria(BaseCriteria):
 
 @LOSS_REGISTRY.register(name="cross_entropy", type="classification")
 class CrossEntropy(BaseClassificationCriteria):
-    """Softmax CE with label smoothing, in float32 (classification.py:53-79):
-    (1 - ls)·CE(one-hot) + ls·CE(uniform), mean over targets != ignore_index."""
+    """Softmax CE with label smoothing, in float32 (classification.py:53-79).
+    Integer targets: (1 - ls)·CE(one-hot) + ls·CE(uniform), mean over targets !=
+    ignore_index. Soft targets (a row a sample): CE against
+    ``soft·(1 - ls) + ls / C``, mean over the batch."""
 
     def __init__(self, opts) -> None:
         super().__init__(opts)
@@ -46,8 +49,9 @@ class CrossEntropy(BaseClassificationCriteria):
 
     def __call__(self, input_sample: Any, prediction: torch.Tensor,
                  target: torch.Tensor, training: bool = True, **kwargs) -> torch.Tensor:
-        if target.dim() != 1:
-            raise ValueError("the port's cross-entropy takes integer class targets")
+        ls = self.label_smoothing if training else 0.0
+        if target.dim() == prediction.dim():  # soft targets, smoothed to soft·(1 - ls) + ls / C
+            return F.cross_entropy(prediction.float(), target.float(), label_smoothing=ls)
         return F.cross_entropy(prediction.float(), target,
                                ignore_index=self.ignore_idx,
-                               label_smoothing=self.label_smoothing if training else 0.0)
+                               label_smoothing=ls)

@@ -32,6 +32,7 @@ class BaseImageEncoder(nn.Module):
                            default=0.0)
         group.add_argument("--model.classification.name", type=str, default=None)
         group.add_argument("--model.classification.n-classes", type=int, default=1000)
+        group.add_argument("--model.classification.pretrained", type=str, default=None)
         return parser
 
     @classmethod

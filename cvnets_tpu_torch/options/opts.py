@@ -46,34 +46,10 @@ def arguments_common(parser: argparse.ArgumentParser) -> argparse.ArgumentParser
     return parser
 
 
-def arguments_dataset(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
-    """The dataset and sampler flags the train step and the Trainer read (the
-    data pipeline itself is not ported yet; cvnets_tpu/data/datasets/
-    dataset_base.py:51-53 and :89, data/sampler/batch_sampler.py:32-35)."""
-    group = parser.add_argument_group(title="Dataset arguments")
-    group.add_argument("--dataset.category", type=str, default="classification")
-    group.add_argument("--dataset.train-batch-size0", type=int, default=128)
-    group.add_argument("--dataset.val-batch-size0", type=int, default=1)
-    group.add_argument("--dataset.sample-efficient-training.enable",
-                       action="store_true", default=False)
-    group.add_argument("--sampler.bs.crop-size-width", type=int, default=256)
-    group.add_argument("--sampler.bs.crop-size-height", type=int, default=256)
-    return parser
-
-
-def arguments_augmentation(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
-    """The switches of the device-tier augmentation and of mixup / cutmix
-    (cvnets_tpu/ops/image_ops.py:326-348, ops/mixing.py:98-103,
-    data/transforms/image_advanced.py:544): not ported yet, so the Trainer
-    refuses a run that turns one on instead of training without it."""
-    group = parser.add_argument_group(title="Augmentation switches")
-    for name in ("rand-augment", "trivial-augment-wide", "random-erase", "mixup", "cutmix"):
-        group.add_argument(f"--image-augmentation.{name}.enable", action="store_true",
-                           default=False)
-    return parser
-
-
 def get_training_arguments(parse_args: bool = True, args: Optional[List[str]] = None):
+    from cvnets_tpu_torch.data.datasets import arguments_dataset
+    from cvnets_tpu_torch.data.sampler import add_sampler_arguments
+    from cvnets_tpu_torch.data.transforms import arguments_augmentation
     from cvnets_tpu_torch.loss import add_loss_fn_arguments
     from cvnets_tpu_torch.metrics import arguments_stats
     from cvnets_tpu_torch.models import modeling_arguments
@@ -82,6 +58,7 @@ def get_training_arguments(parse_args: bool = True, args: Optional[List[str]] = 
 
     parser = argparse.ArgumentParser(description="Training arguments (PyTorch port)")
     parser = arguments_dataset(parser)
+    parser = add_sampler_arguments(parser)
     parser = arguments_augmentation(parser)
     parser = modeling_arguments(parser)
     parser = add_loss_fn_arguments(parser)
@@ -92,3 +69,8 @@ def get_training_arguments(parse_args: bool = True, args: Optional[List[str]] = 
     if parse_args:
         return load_config_file(parser.parse_args(args))
     return parser
+
+
+def get_eval_arguments(parse_args: bool = True, args: Optional[List[str]] = None):
+    """The evaluation flags are the training flags, as in the JAX package."""
+    return get_training_arguments(parse_args=parse_args, args=args)

@@ -48,6 +48,13 @@ def load_file(path: str) -> dict:
     return torch.load(path, map_location="cpu", weights_only=True)
 
 
+def load_model_weights(path: str) -> Dict[str, torch.Tensor]:
+    """The model state dict of ``path``: a ``checkpoint_*.pt`` file, or the
+    model part of a ``training_checkpoint_*.pt`` one."""
+    blob = load_file(path)
+    return blob["model"] if isinstance(blob.get("model"), dict) else blob
+
+
 def average_params(state_dicts: List[Dict[str, torch.Tensor]], param_names,
                    current: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """``current`` with each parameter replaced by the float64 mean of its values

@@ -1,8 +1,10 @@
 """The PyTorch port stands without JAX, and keeps the JAX package's flags.
 
 * ``cvnets_tpu_torch`` imports and runs CPU train steps of MobileViTv2, ViT,
-  DeepLabv3 and Swin, and one epoch of a micro MobileViTv2 ``Trainer`` (its
-  ``config.yaml`` dump and checkpoints), with ``jax``, ``flax``, ``optax``,
+  DeepLabv3 and Swin, one epoch of a micro MobileViTv2 ``Trainer`` (its
+  ``config.yaml`` dump and checkpoints), and ``main_train`` for 2 epochs on
+  chip_smoke.py's flagship flags at 64 px on the port's dummy dataset with
+  every augmentation, then ``main_eval``, with ``jax``, ``flax``, ``optax``,
   ``orbax``, ``yaml``, ``PIL`` and the JAX package ``cvnets_tpu`` blocked (a
   subprocess: tests/conftest.py has imported jax into this one).
 * No module of the port, and not ``chip_smoke.py``, imports ``cvnets_tpu``, not
@@ -31,6 +33,7 @@ _BLOCKED_RUN = textwrap.dedent("""
     import os
     import tempfile
     import torch
+    torch.set_num_threads(2)  # the suite's other workers share the cores
     from cvnets_tpu_torch.engine import Evaluator, Trainer
     from cvnets_tpu_torch.engine.train_state import create_train_state, make_train_step
     from cvnets_tpu_torch.loss import build_loss_fn
@@ -74,6 +77,24 @@ _BLOCKED_RUN = textwrap.dedent("""
         stats = Evaluator(trainer_opts, get_model(trainer_opts, device="cpu"), batches,
                           checkpoint=os.path.join(trainer.save_dir, "checkpoint_last.pt"),
                           device="cpu").eval_fn_image()
+        assert set(stats) == {"loss", "top1", "top5"}
+    sys.path[:0] = ["tests", "."]
+    from chip_smoke import MAIN_TRAIN_ARGS
+    from torch_port_helpers import register_port_dummy_dataset
+    from cvnets_tpu_torch.main_eval import main_worker as main_eval
+    from cvnets_tpu_torch.main_train import main_worker as main_train
+    register_port_dummy_dataset()
+    with tempfile.TemporaryDirectory() as results:  # the flagship's flags at 64 px
+        small = MAIN_TRAIN_ARGS + [
+            "--dataset.name", "dummy_classification", "--dataset.workers", "2",
+            "--dataset.train-batch-size0", "4", "--dataset.val-batch-size0", "4",
+            "--dataset.eval-batch-size0", "4", "--sampler.bs.crop-size-width", "64",
+            "--sampler.bs.crop-size-height", "64", "--image-augmentation.resize.size", "72",
+            "--image-augmentation.center-crop.size", "64", "--common.results-loc", results]
+        trainer = main_train(args=small, device="cpu")
+        assert trainer.train_iterations == 8
+        stats = main_eval(args=small + ["--model.classification.pretrained", os.path.join(
+            trainer.save_dir, "checkpoint_ema_last.pt")], device="cpu")
         assert set(stats) == {"loss", "top1", "top5"}
     vit_opts = get_training_arguments(args=[
         "--model.classification.name", "vit", "--model.classification.vit.mode", "micro",

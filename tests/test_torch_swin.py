@@ -357,9 +357,10 @@ def test_swin_yaml_parses_to_the_same_values():
 
 
 def test_chip_smoke_swin_flags_are_the_yaml_settings():
-    """Every value chip_smoke.py's SWIN_ARGS set is the one swin.yaml gives,
-    except the crop size (set on the sampler the port has not), and nothing the
-    yaml sets is left out but the augmentation switches."""
+    """Every value chip_smoke.py's SWIN_ARGS set is the one swin.yaml gives, and
+    nothing the yaml sets is left out but the data path's settings (dataset,
+    sampler, transforms and augmentation), which the bare train steps do not
+    read."""
     sys.path.insert(0, REPO)
     from chip_smoke import SWIN_ARGS
     from cvnets_tpu_torch.options.opts import get_training_arguments
@@ -373,9 +374,11 @@ def test_chip_smoke_swin_flags_are_the_yaml_settings():
     for dest in sorted(set_by_flags - {"sampler.bs.crop_size_width",
                                        "sampler.bs.crop_size_height"}):
         assert flags[dest] == yaml[dest], dest
-    # and nothing the yaml sets is left out, but the augmentation switches,
-    # which the Trainer refuses until the augmentation is ported
+    # and nothing the yaml sets is left out, but the data path's settings
+    data_path = ("image_augmentation.", "sampler.name", "sampler.vbs.", "dataset.root_",
+                 "dataset.name", "dataset.workers", "dataset.prefetch_factor",
+                 "dataset.eval_batch_size0")
     for dest, value in yaml.items():
         if (value != default[dest] and dest not in ("common.config_file", "taskname")
-                and not dest.startswith("image_augmentation.")):
+                and not dest.startswith(data_path)):
             assert flags[dest] == value, dest

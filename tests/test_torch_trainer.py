@@ -39,6 +39,8 @@ from torch_port_helpers import (  # noqa: E402
     nchw,
     perturbed_variables,
     port_model_from,
+    torch_threads,
+    uint8_batches,
 )
 
 torch.set_float32_matmul_precision("highest")  # as tests/conftest.py pins JAX
@@ -395,16 +397,50 @@ def test_ema_copy_at_epoch_puts_the_ema_weights_into_the_model(tmp_path):
     "--dataset.sample-efficient-training.enable",
     "--common.finetune=checkpoint_best.pt",
     "--common.profile-trace-dir=trace",
-    "--image-augmentation.rand-augment.enable",
-    "--image-augmentation.trivial-augment-wide.enable",
-    "--image-augmentation.random-erase.enable",
-    "--image-augmentation.mixup.enable",
-    "--image-augmentation.cutmix.enable",
 ])
 def test_trainer_refuses_what_is_not_ported_and_names_its_roadmap_item(flag):
     from cvnets_tpu_torch.engine import Trainer
     from cvnets_tpu_torch.options.opts import get_training_arguments
 
     opts = get_training_arguments(args=[flag])
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1 item [13]"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1 item (1|13)\)"):
         Trainer(opts, None, None, [], device="cpu")
+
+
+@pytest.mark.parametrize("flag", [
+    "--image-augmentation.rand-augment.enable",
+    "--image-augmentation.trivial-augment-wide.enable",
+    "--image-augmentation.random-erase.enable",
+    "--image-augmentation.mixup.enable",
+    "--image-augmentation.cutmix.enable",
+])
+def test_trainer_trains_with_each_augmentation_switch(flag, tmp_path):
+    """The switches the Trainer refused until the device-tier augmentation was
+    ported: an epoch runs with each, on augmented (and for mixup and cutmix,
+    soft) targets, and gives other weights than the same epoch without it."""
+    from cvnets_tpu_torch.engine import Trainer
+    from cvnets_tpu_torch.loss import build_loss_fn
+    from cvnets_tpu_torch.models import get_model
+    from cvnets_tpu_torch.options.opts import get_training_arguments
+
+    def one_epoch(extra):
+        opts = get_training_arguments(args=SMALL_MODEL_ARGS + [
+            "--optim.name", "adamw", "--scheduler.max-epochs", "1",
+            "--common.results-loc", str(tmp_path / str(len(extra)))] + extra)
+        targets = []
+        criteria = build_loss_fn(opts)
+
+        def loss(x, prediction, target, **kwargs):
+            targets.append(target)
+            return criteria(x, prediction, target, **kwargs)
+
+        trainer = Trainer(opts, get_model(opts, device="cpu"), loss, uint8_batches(3, 1),
+                          device="cpu")
+        trainer.run()
+        return trainer.model.state_dict(), targets[0]
+
+    with torch_threads(2):
+        with_it, targets = one_epoch([flag])
+        without, _ = one_epoch([])
+    assert targets.dim() == (2 if "mixup" in flag or "cutmix" in flag else 1)
+    assert not all(torch.equal(v, without[k]) for k, v in with_it.items())

@@ -176,3 +176,63 @@ def uint8_batches(seed: int, n: int, batch: int = 4, size: int = 64, n_classes: 
     return [{"samples": nchw(rng.integers(0, 256, (batch, size, size, 3)).astype(np.uint8)),
              "targets": torch.from_numpy(rng.integers(0, n_classes, (batch,)))}
             for _ in range(n)]
+
+
+@contextlib.contextmanager
+def torch_threads(n: int = 2):
+    """torch's CPU ops on ``n`` threads inside (restored after): the suite's
+    xdist workers share the machine's cores, and a whole Trainer or
+    ``main_train`` run on every core of each spins the others' threads
+    (measured: past 300 s against 16 s for one run beside five others)."""
+    import torch
+
+    before = torch.get_num_threads()
+    torch.set_num_threads(n)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(before)
+
+
+def register_port_dummy_dataset() -> None:
+    """Register ``dummy_classification`` in the port's dataset registry (once): the
+    port's copy of tests/dummy_datasets/classification.py. It reads no files:
+    sample i is a seeded uint8 HWC image of one of a few sizes around 64 px, so
+    the port's transforms (random resized crop, flip, resize, center crop) run on
+    it; labels cycle through the classes. 16 training samples, 8 validation ones."""
+    from cvnets_tpu_torch.data.datasets import DATASET_REGISTRY
+    from cvnets_tpu_torch.data.datasets.classification.base_image_classification_dataset \
+        import BaseImageClassificationDataset
+
+    if ("dummy_classification", "classification") in DATASET_REGISTRY:
+        return
+
+    @DATASET_REGISTRY.register(name="dummy_classification", type="classification")
+    class PortDummyClassificationDataset(BaseImageClassificationDataset):
+        def _find_samples(self):
+            n_classes = getattr(self.opts, "model.classification.n_classes", None) or 10
+            self.classes = [str(c) for c in range(n_classes)]
+            return [(None, i % n_classes) for i in range(16 if self.is_training else 8)]
+
+        def image_size(self, idx):
+            return 48 + 9 * (idx % 4), 60 + 7 * (idx % 3)
+
+        def read_image(self, idx):
+            rng = np.random.default_rng(idx)
+            return rng.integers(0, 256, (*self.image_size(idx), 3), dtype=np.uint8)
+
+
+# the flagship yaml on the port's dummy dataset at a CPU test's scale: 64 px crops
+# (72 then 64 for validation), batch 4, 2 epochs, 2 loader threads
+FLAGSHIP_DUMMY_OVERRIDES = [
+    "dataset.name=dummy_classification",
+    "dataset.train_batch_size0=4",
+    "dataset.val_batch_size0=4",
+    "dataset.eval_batch_size0=4",
+    "dataset.workers=2",
+    "sampler.bs.crop_size_width=64",
+    "sampler.bs.crop_size_height=64",
+    "image_augmentation.resize.size=72",
+    "image_augmentation.center_crop.size=64",
+    "scheduler.max_epochs=2",
+]
