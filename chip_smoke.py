@@ -136,7 +136,27 @@ Phases, one line each or more (any failure exits non-zero):
 15. vit long train, a/b and profile: ViT-B/16 steps at batch 32 × 512² without
    the CLS token (S = 1024), vit.yaml's settings otherwise; checks 12 forward
    and 12 backward MHA launches a step at S = 1024 and the logits against the
-   einsum path, then as for ViT-B (results/vit_long_profile.txt).
+   einsum path, then as for ViT-B (results/vit_long_profile.txt);
+16. conv: the conv classification families, whose paths run no port kernel
+   (cuDNN convs, ATen BN). ResNet-50 with resnet.yaml's settings as flags
+   (``RESNET_ARGS``: SGD 0.9 with weight decay 1e-4 on every tensor, cosine
+   LR to 0.4 after a warmup from 0.05, label smoothing 0.1, no EMA, bf16) at
+   batch 128 × 224²: train steps (finite losses, params moved), its f32 eval
+   logits on the card against a copy of the model on the CPU (TF32 off,
+   1e-3 of max(1, |logit|)), 24 steady steps (median step time, img/s, the
+   host's enqueue, peak memory) and a profile with device time by kernel
+   family (results/resnet_profile.txt); then ``main_train`` on resnet.yaml's
+   flags and data settings (``RESNET_MAIN_TRAIN_ARGS``) on ``smoke_imagenet``,
+   2 epochs of 4 batches of 128, no sync debug warning through the port's
+   code between log points, and ``main_eval`` on its checkpoint_last.pt
+   against its last validation; then 2 + 3 train steps of MobileNetV1-1.0,
+   MobileNetV2-1.0, MobileNetV3-large-1.0, MobileOne-s1, EfficientNet-b0
+   and RegNetY-16GF at batch 128 × 224² with their yamls' settings (the
+   RangeAugment yamls without the augmentor and composite loss), each held
+   against its copy on the CPU and then timed over 24 steady steps as
+   ResNet-50 is, and MobileOne-s1's f32 eval forward folded
+   by ``reparameterize_model`` against its branches (1e-4 of max(1,
+   |logit|)).
 
 The second-to-last line is the kernels' JSON record, one entry for each TPU
 kernel's counterpart: ``ms``/``plain_ms`` are a kernel's and its plain
@@ -224,6 +244,7 @@ FLAGSHIP_ARGS = [  # config/classification/imagenet/mobilevit_v2.yaml, as flags
     "--model.classification.n-classes", "1000",
     "--model.classification.mitv2.width-multiplier", "1.0",
     "--model.classification.mitv2.attn-norm-layer", "layer_norm_2d",
+    "--model.classification.activation.name", "swish",  # parsed, read by no layer
     "--model.activation.name", "swish",
     "--model.normalization.name", "batch_norm",
     "--model.normalization.momentum", "0.1",
@@ -276,6 +297,7 @@ DEEPLAB_ARGS = [  # config/segmentation/ade20k/deeplabv3_mobilevitv2.yaml, as fl
     # as bench_tasks.py:115 runs it: BN for SyncBN on one card; the JAX package
     # builds every layer with model.activation.name (relu), its
     # model.classification.activation.name (swish) is read by no layer
+    "--model.classification.activation.name", "swish",
     "--model.normalization.name", "batch_norm",
     "--model.normalization.momentum", "0.1",
     "--model.activation.name", "relu",
@@ -389,6 +411,103 @@ VIT_LONG_ARGS = VIT_ARGS + [
     "--sampler.bs.crop-size-width", "512",
     "--sampler.bs.crop-size-height", "512",
 ]
+
+
+RESNET_ARGS = [  # config/classification/imagenet/resnet.yaml, as flags
+    "--model.classification.name", "resnet",
+    "--model.classification.n-classes", "1000",
+    "--model.classification.resnet.depth", "50",
+    "--model.activation.name", "relu",
+    "--model.normalization.name", "batch_norm",
+    "--model.normalization.momentum", "0.1",
+    "--model.layer.global-pool", "mean",
+    "--model.layer.conv-init", "kaiming_normal",
+    "--model.layer.linear-init", "normal",
+    "--loss.category", "classification",
+    "--loss.classification.name", "cross_entropy",
+    "--loss.classification.cross-entropy.label-smoothing", "0.1",
+    "--optim.name", "sgd",
+    "--optim.weight-decay", "1e-4",
+    "--optim.sgd.momentum", "0.9",
+    "--scheduler.name", "cosine",
+    "--scheduler.max-epochs", "150",
+    "--scheduler.warmup-iterations", "7500",
+    "--scheduler.warmup-init-lr", "0.05",
+    "--scheduler.cosine.max-lr", "0.4",
+    "--scheduler.cosine.min-lr", "2e-4",
+    "--common.mixed-precision",
+    "--dataset.train-batch-size0", "128",
+    "--sampler.bs.crop-size-width", "224",
+    "--sampler.bs.crop-size-height", "224",
+    "--common.seed", "0",
+]
+
+# the settings the conv family yamls (mobilenet_v1/v2/v3, mobileone,
+# efficientnet_rangeaugment, regnet_y_16gf_rangeaugment) share, at a fixed 224²
+# where most of them take the variable-batch sampler
+_CONV_FAMILY_ARGS = [
+    "--model.classification.n-classes", "1000",
+    "--model.normalization.name", "batch_norm",
+    "--model.normalization.momentum", "0.1",
+    "--model.layer.global-pool", "mean",
+    "--model.layer.conv-init", "kaiming_normal",
+    "--model.layer.linear-init", "normal",
+    "--loss.category", "classification",
+    "--loss.classification.name", "cross_entropy",
+    "--loss.classification.cross-entropy.label-smoothing", "0.1",
+    "--optim.name", "sgd",
+    "--optim.no-decay-bn-filter-bias",
+    "--optim.sgd.momentum", "0.9",
+    "--scheduler.name", "cosine",
+    "--scheduler.max-epochs", "300",
+    "--scheduler.warmup-iterations", "7500",
+    "--scheduler.warmup-init-lr", "0.05",
+    "--scheduler.cosine.max-lr", "0.4",
+    "--scheduler.cosine.min-lr", "2e-4",
+    "--ema.enable",
+    "--ema.momentum", "0.0005",
+    "--common.mixed-precision",
+    "--dataset.train-batch-size0", "128",
+    "--sampler.bs.crop-size-width", "224",
+    "--sampler.bs.crop-size-height", "224",
+    "--common.seed", "0",
+]
+# each family at its yaml's width and mode; the two RangeAugment yamls without
+# their augmentor and composite loss (ROADMAP.md queue 1 item 12): their
+# classification CE alone
+CONV_FAMILY_ARGS = {
+    "MobileNetV1-1.0": _CONV_FAMILY_ARGS + [
+        "--model.classification.name", "mobilenetv1",
+        "--model.classification.mobilenetv1.width-multiplier", "1.0",
+        "--model.activation.name", "relu", "--optim.weight-decay", "4e-5"],
+    "MobileNetV2-1.0": _CONV_FAMILY_ARGS + [
+        "--model.classification.name", "mobilenetv2",
+        "--model.classification.mobilenetv2.width-multiplier", "1.0",
+        "--model.activation.name", "relu6", "--optim.weight-decay", "4e-5"],
+    "MobileNetV3-large-1.0": _CONV_FAMILY_ARGS + [
+        "--model.classification.name", "mobilenetv3",
+        "--model.classification.mobilenetv3.mode", "large",
+        "--model.classification.mobilenetv3.width-multiplier", "1.0",
+        "--model.activation.name", "hard_swish", "--optim.weight-decay", "4e-5",
+        "--scheduler.warmup-iterations", "3000", "--scheduler.warmup-init-lr", "0.1",
+        "--scheduler.cosine.max-lr", "0.8"],
+    "MobileOne-s1": _CONV_FAMILY_ARGS + [
+        "--model.classification.name", "mobileone",
+        "--model.classification.mobileone.variant", "s1",
+        "--model.activation.name", "relu", "--optim.weight-decay", "1e-4"],
+    "EfficientNet-b0": _CONV_FAMILY_ARGS + [
+        "--model.classification.name", "efficientnet",
+        "--model.classification.efficientnet.mode", "b0",
+        "--model.classification.activation.name", "swish",
+        "--model.activation.name", "swish", "--optim.weight-decay", "1e-5",
+        "--common.grad-clip", "10.0", "--scheduler.max-epochs", "600",
+        "--scheduler.cosine.min-lr", "4e-4"],
+    "RegNetY-16GF": _CONV_FAMILY_ARGS + [
+        "--model.classification.name", "regnet",
+        "--model.classification.regnet.mode", "y_16gf",
+        "--model.activation.name", "relu", "--optim.weight-decay", "5e-5"],
+}
+CONV_FAMILY_STEPS = (2, 3)  # warm-up and timed steps of each family's phase
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1309,10 +1428,36 @@ def phase_mha_long_kernel(card: str) -> dict:
     return records
 
 
-def phase_train(card: str, label: str, args, kernels: dict, per_step: dict):
-    """Train steps of the model of ``args``; ``kernels`` are the wrappers of the
-    path, whose counts are set to 0 just before the steps and read just after.
-    Returns the counts and what the A/B phase needs."""
+def cpu_reference(label: str, model, x, shape: tuple) -> None:
+    """The trained model's float32 eval logits on the card (TF32 off) against a
+    copy of it on the CPU, on the same small batch: finite, of ``shape``, and
+    within 1e-3 of max(1, the largest logit) (cuDNN's and the CPU's convs sum
+    in other orders)."""
+    import copy
+
+    import torch
+
+    model.eval()
+    on_cpu = copy.deepcopy(model).cpu()
+    with no_tf32(), torch.no_grad():
+        got = model(x).cpu()
+        ref = on_cpu(x.cpu())
+    diff, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+    check(tuple(got.shape) == shape and bool(torch.isfinite(got).all()),
+          f"{label}: logits shape {tuple(got.shape)} or finiteness")
+    check(diff <= 1e-3 * max(1.0, scale), f"{label}: card vs CPU logits differ by {diff}")
+    print(f"reference: {label} card vs CPU float32 eval logits max diff {diff:.3e} "
+          f"(max |logit| {scale:.3e}, {x.shape[0]} images)", flush=True)
+
+
+def phase_train(card: str, label: str, args, kernels: dict, per_step: dict,
+                steps: tuple = (WARMUP_STEPS, TIMED_STEPS)):
+    """Train steps of the model of ``args`` (``steps``: warm-up and timed
+    steps); ``kernels`` are the wrappers of the path, whose counts are set to 0
+    just before the steps and read just after. A path without a kernel holds
+    its float32 eval logits on the card against the same model's on the CPU
+    instead of against its plain path. Returns the counts and what the A/B
+    phase needs."""
     import torch
 
     from cvnets_tpu_torch.engine.train_state import create_train_state, make_train_step
@@ -1324,6 +1469,7 @@ def phase_train(card: str, label: str, args, kernels: dict, per_step: dict):
     from cvnets_tpu_torch.options.opts import get_training_arguments
 
     opts = get_training_arguments(args=args)
+    n_warmup, n_timed = steps
     device = torch.device("cuda:0")
     category = getattr(opts, "dataset.category")
     batch = getattr(opts, "dataset.train_batch_size0")
@@ -1351,9 +1497,10 @@ def phase_train(card: str, label: str, args, kernels: dict, per_step: dict):
     batches = [{"samples": torch.randint(0, 256, (batch, 3, *hw), generator=g,
                                          device=device, dtype=torch.uint8),
                 "targets": targets()}
-               for _ in range(WARMUP_STEPS + TIMED_STEPS)]
+               for _ in range(n_warmup + n_timed)]
     params0 = [p.detach().clone() for p in model.parameters()]
-    ema0 = [t.detach().clone() for t in state.ema.model.state_dict().values()]
+    ema0 = ([t.detach().clone() for t in state.ema.model.state_dict().values()]
+            if state.ema is not None else None)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
@@ -1379,10 +1526,10 @@ def phase_train(card: str, label: str, args, kernels: dict, per_step: dict):
     parts = {k: [round(m[k], 4) for m in losses] for k in losses[0]}
     check(any(not torch.equal(a, b) for a, b in zip(params0, model.parameters())),
           f"{label}: params did not change")
-    check(any(not torch.equal(a, b) for a, b in zip(
+    check(ema0 is None or any(not torch.equal(a, b) for a, b in zip(
         ema0, state.ema.model.state_dict().values())), f"{label}: EMA did not change")
     del params0, ema0
-    timed = step_s[WARMUP_STEPS:]
+    timed = step_s[n_warmup:]
     img_s = batch * len(timed) / sum(timed)
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     print(f"train: {label} batch={batch} {hw[0]}x{hw[1]} bf16 steps={n_steps} "
@@ -1390,9 +1537,12 @@ def phase_train(card: str, label: str, args, kernels: dict, per_step: dict):
           f"img_s={img_s:.1f} peak_mem_gib={peak_gib:.2f} launches={launches} "
           f"| {card}", flush=True)
 
+    x = batches[0]["samples"][:8 if category == "classification" else 2].float() / 255.0
+    if not kernels:
+        cpu_reference(label, model, x[:4], (4, n_classes))
+        return launches, (state, train_step, scheduler, batches, criteria)
     # reference: the trained model's logits through the kernels and through the
     # plain attention path (float32, eval mode, TF32 off), on a small batch
-    x = batches[0]["samples"][:8 if category == "classification" else 2].float() / 255.0
     model.eval()
     with no_tf32(), torch.no_grad():
         with_kernel = model(x)
@@ -1472,6 +1622,60 @@ def phase_ab(card: str, label: str, run) -> dict:
             "peak_gib": peak["kernel"] / 2**30}
 
 
+def phase_steady(card: str, label: str, run, blocks: int = 3, steps: int = 8) -> dict:
+    """Train steps of a path without a kernel (no a/b to make): ``blocks`` blocks
+    of ``steps`` synchronized steps; the median step time, its img/s, the
+    host's enqueue time and the peak memory. Returns img/s and peak GiB as
+    ``phase_ab`` does."""
+    import torch
+
+    state, train_step, scheduler, batches, _ = run
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, host = [], []
+    for i in range(blocks * steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(state, batches[i % len(batches)], scheduler.retrieve_lr(0, state.step))
+        host.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    batch = batches[0]["samples"].shape[0]
+    ms = 1e3 * statistics.median(times)
+    q1, _, q3 = statistics.quantiles(times, n=4)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"steady: {label} {blocks * steps} steps, median step_ms={ms:.3f} (q1 "
+          f"{1e3 * q1:.3f}, q3 {1e3 * q3:.3f}) img_s={batch / ms * 1e3:.1f} "
+          f"host_enqueue_ms={1e3 * statistics.median(host):.3f} peak_mem_gib={peak:.2f} "
+          f"| {card}", flush=True)
+    return {"img_s": batch / ms * 1e3, "peak_gib": peak}
+
+
+# device kernels by family, first match wins: cuDNN's convolution kernels name
+# their pass (fprop, dgrad, wgrad), ATen's depthwise ones theirs (backward is
+# the input grad, grad_weight the weight grad), and only then does a generic
+# conv key count as the forward; cuBLAS's GEMMs are nvjet_* and cutlass_*
+KERNEL_FAMILIES = (
+    ("conv wgrad", ("wgrad", "conv_depthwise2d_grad_weight")),
+    ("conv dgrad", ("dgrad", "conv_depthwise2d_backward")),
+    ("conv fprop", ("fprop", "conv", "implicit_gemm", "xmma")),
+    ("layout transform", ("nchwToNhwc", "nhwcToNchw", "transpose", "Transpose")),
+    ("batch norm", ("batch_norm", "batchnorm", "bn_", "welford", "Welford")),
+    ("gemm", ("gemm", "nvjet", "cutlass", "cublas")),
+    ("optimizer", ("multi_tensor", "foreach", "Foreach")),
+    ("reduction", ("reduce", "Reduce")),
+    ("elementwise", ("elementwise", "vectorized", "unrolled", "Elementwise")),
+    ("memcpy / memset", ("Memcpy", "Memset", "memcpy", "memset")),
+)
+
+
+def kernel_family(name: str) -> str:
+    for family, keys in KERNEL_FAMILIES:
+        if any(k in name for k in keys):
+            return family
+    return "other"
+
+
 def phase_profile(card: str, label: str, run, path: str) -> None:
     """torch.profiler over 3 steps: device time by kernel into ``path``."""
     import torch
@@ -1507,6 +1711,14 @@ def phase_profile(card: str, label: str, run, path: str) -> None:
     for e in events[:12]:
         print(f"profile:   {e.self_device_time_total / 1e3 / n:9.3f} ms/step "
               f"{e.count // n:5d}x {e.key[:110]}", flush=True)
+    families = {}
+    for e in events:
+        ms, count = families.get(kernel_family(e.key), (0.0, 0))
+        families[kernel_family(e.key)] = (ms + e.self_device_time_total / 1e3 / n,
+                                          count + e.count // n)
+    print(f"profile: {label} device ms a step by kernel family: " + "; ".join(
+        f"{f} {ms:.3f} ({c}x)" for f, (ms, c) in sorted(families.items(),
+                                                       key=lambda kv: -kv[1][0])), flush=True)
 
 
 # the Trainer on the flagship: the yaml's stats, checkpoint metric and val
@@ -1561,6 +1773,27 @@ SMOKE_TRAIN_SAMPLES, SMOKE_VAL_SAMPLES = 4 * 128, 2 * 100
 # a sync debug warning whose stack passes through one of these fails phase 6c
 MAIN_TRAIN_FILES = ENGINE_FILES + tuple(
     os.path.join("cvnets_tpu_torch", part) + os.sep for part in ("data", "ops", "loss"))
+
+
+# the rest of config/classification/imagenet/resnet.yaml, as flags: its loader,
+# sampler and host transforms; main_train's ResNet-50 phase runs them on the
+# script's own dataset, 2 epochs of 4 batches of 128
+RESNET_DATA_ARGS = [
+    "--dataset.category", "classification",
+    "--dataset.workers", "8",
+    "--sampler.name", "batch_sampler",
+    "--image-augmentation.random-resized-crop.enable",
+    "--image-augmentation.random-resized-crop.interpolation", "bilinear",
+    "--image-augmentation.random-horizontal-flip.enable",
+    "--image-augmentation.resize.enable",
+    "--image-augmentation.resize.size", "232",
+    "--image-augmentation.center-crop.enable",
+    "--image-augmentation.center-crop.size", "224",
+]
+RESNET_MAIN_TRAIN_ARGS = RESNET_ARGS + IMAGENET_RUN_ARGS + RESNET_DATA_ARGS + [
+    "--dataset.name", SMOKE_DATASET,
+    "--scheduler.max-epochs", "2",
+]
 
 
 def pinned_batches(g, n: int, batch: int, hw: tuple, n_classes: int) -> list:
@@ -1624,15 +1857,16 @@ def _watch_trainer(trainer, kernels: dict, watch: SyncWatch, per_step: int, log:
     """Wrap the trainer's epochs, read-backs and interval saves: the train steps
     run under the sync debug mode, the read-backs and saves outside it; each
     epoch's launches are checked (``per_step`` forward and backward a train
-    step, ``per_step`` forward an eval forward, none backward) and its time,
+    step, ``per_step`` forward an eval forward, none backward; ``kernels``
+    empty and ``per_step`` 0 for a path without one) and its time,
     statistics and interval-save time kept in ``log``."""
     import torch
 
     train_epoch, val_epoch = trainer.train_epoch, trainer.val_epoch
     read_back, save_interval = trainer.read_back, trainer.ckpt_manager.save_interval
 
-    def counts():
-        return kernels["fwd"].launches, kernels["bwd"].launches
+    def counts():  # a path without a kernel counts none
+        return ((kernels["fwd"].launches, kernels["bwd"].launches) if kernels else (0, 0))
 
     def train(epoch):
         before, saves = counts(), log["save_s"]
@@ -2043,6 +2277,137 @@ def phase_main_train(card: str, bare: dict) -> None:
           f"img_s={bare['img_s']:.1f} | {card}", flush=True)
 
 
+def phase_resnet_main_train(card: str, bare: dict) -> None:
+    """``cvnets_tpu_torch.main_train.main_worker`` on resnet.yaml's flags
+    (``RESNET_MAIN_TRAIN_ARGS``: random resized crop bilinear, flip, SGD, no
+    EMA; val through resize 232 and center crop 224) and the script's
+    dataset: 2 epochs of 4 batches of 128 × 224² and 2 val batches of 100,
+    then ``main_eval`` on the run's checkpoint_last.pt against its last
+    validation (at the val batch of 100, where the yaml leaves the eval batch
+    at 1: the same batches give the same bf16 convs). Checks finite statistics and no CUDA sync debug warning whose
+    stack passes through the data, ops, loss, engine, metrics or checkpoint
+    code between log points; prints the img/s over epoch 2 beside ``bare``,
+    the ResNet-50 steady steps' (img/s, peak GiB)."""
+    import shutil
+
+    import cvnets_tpu_torch.main_train as main_train
+    from cvnets_tpu_torch.main_eval import main_worker as main_eval
+
+    register_smoke_dataset()
+    results = os.path.join("results", "resnet_main_train_smoke")
+    shutil.rmtree(results, ignore_errors=True)
+    args = RESNET_MAIN_TRAIN_ARGS + ["--common.results-loc", results]
+    log = {"train": [], "val": [], "ema": [], "save_s": 0.0}
+    watch = SyncWatch()
+    built = []
+
+    class WatchedTrainer(main_train.Trainer):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            _watch_trainer(self, {}, watch, 0, log)
+            built.append(self)
+
+    with watch:
+        main_train.Trainer = WatchedTrainer
+        try:
+            main_train.main_worker(args=args)
+        finally:
+            main_train.Trainer = WatchedTrainer.__bases__[0]
+    trainer = built[0]
+    n_steps = trainer.train_iterations
+    bad = [[f"{f.filename}:{f.lineno}" for f in stack
+            if any(part in f.filename for part in MAIN_TRAIN_FILES)] for _, stack in watch.caught]
+    bad = [frames for frames in bad if frames]
+    print(f"main_train: ResNet-50 sync debug warnings in the train steps: "
+          f"{len(watch.caught)}; through the data, ops, loss, engine, metrics or "
+          f"checkpoints: {len(bad)}", flush=True)
+    check(not bad, f"main_train ResNet-50: a host sync between log points: {bad[:3]}")
+    check(n_steps == 2 * SMOKE_TRAIN_SAMPLES // 128, f"main_train ResNet-50: {n_steps} steps")
+    check(trainer.state.ema is None and not log["ema"], "main_train ResNet-50: an EMA ran")
+    for stage in ("train", "val"):
+        values = [v for entry in log[stage] for v in
+                  (entry[3] if stage == "train" else entry).values()]
+        check(values and all(math.isfinite(v) for v in values),
+              f"main_train ResNet-50: {stage} statistics not finite: {log[stage]}")
+    ckpt = os.path.join(trainer.save_dir, "checkpoint_last.pt")
+    trainer = None
+    built.clear()
+    gc.collect()
+    got = main_eval(args=args + ["--model.classification.pretrained", ckpt,
+                                 "--dataset.eval-batch-size0", "100"])
+    want, share = log["val"][-1], 100.0 / SMOKE_VAL_SAMPLES
+    check(abs(got["loss"] - want["loss"]) <= 1e-5 * abs(want["loss"])
+          and all(abs(got[k] - want[k]) <= share for k in ("top1", "top5")),
+          f"main_eval on checkpoint_last.pt: {got} vs the last validation {want}")
+    epoch_s = log["train"][-1][1]
+    print(f"main_train: ResNet-50 batch=128 224x224 bf16 epochs=2 steps={n_steps} "
+          f"train={[{k: round(v, 4) for k, v in e[3].items()} for e in log['train']]} "
+          f"val={[{k: round(v, 4) for k, v in s.items()} for s in log['val']]} "
+          f"main_eval={ {k: round(v, 6) for k, v in got.items()} } | {card}", flush=True)
+    print(f"main_train: ResNet-50 img_s={SMOKE_TRAIN_SAMPLES / epoch_s:.1f} over epoch 2 "
+          f"({SMOKE_TRAIN_SAMPLES // 128} steps, {epoch_s:.3f} s, the loader's first batch "
+          f"included; RRC bilinear + flip from ~500x375 uint8 to 224^2, 8 threads); "
+          f"bare step img_s={bare['img_s']:.1f} | {card}", flush=True)
+
+
+def phase_mobileone_fused(card: str, run) -> None:
+    """The trained MobileOne-s1's float32 eval forward (TF32 off) through its
+    branches and through a copy folded by ``reparameterize_model``, on 8 of its
+    images: within 1e-4 of max(1, the largest logit)."""
+    import copy
+
+    import torch
+
+    from cvnets_tpu_torch.modules.mobileone_block import MobileOneBlock
+    from cvnets_tpu_torch.utils.reparam_utils import reparameterize_model
+
+    state, _, _, batches, _ = run
+    model = state.model.eval()
+    x = batches[0]["samples"][:8].float() / 255.0
+    folded = reparameterize_model(copy.deepcopy(model))
+    blocks = [m for m in folded.modules() if isinstance(m, MobileOneBlock)]
+    check(blocks and all(b.reparam_conv is not None and b.skip_bn is None for b in blocks),
+          "MobileOne-s1: a block kept its branches")
+    with no_tf32(), torch.no_grad():
+        multi, fused = model(x), folded(x)
+    diff, scale = (multi - fused).abs().max().item(), multi.abs().max().item()
+    check(bool(torch.isfinite(fused).all()) and diff <= 1e-4 * max(1.0, scale),
+          f"MobileOne-s1: folded vs multi-branch logits differ by {diff}")
+    n_multi = sum(p.numel() for p in model.parameters())
+    n_fused = sum(p.numel() for p in folded.parameters())
+    print(f"reference: MobileOne-s1 folded vs multi-branch float32 eval logits max diff "
+          f"{diff:.3e} (max |logit| {scale:.3e}); {len(blocks)} blocks folded, params "
+          f"{n_multi} -> {n_fused} | {card}", flush=True)
+
+
+def phase_conv(card: str) -> None:
+    """The conv families: ResNet-50 at resnet.yaml's settings (train, steady
+    steps, profile, main_train and main_eval), then a short train phase of
+    each of the other families at its yaml's width and its steady steps
+    (MobileOne-s1's folded forward after them). No port kernel runs on these
+    paths."""
+    import torch
+
+    def release() -> None:
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    _, run = phase_train(card, "ResNet-50", RESNET_ARGS, {}, {})
+    bare = phase_steady(card, "ResNet-50", run)
+    phase_profile(card, "ResNet-50", run, os.path.join("results", "resnet_profile.txt"))
+    run = None
+    release()
+    phase_resnet_main_train(card, bare)
+    release()
+    for label, args in CONV_FAMILY_ARGS.items():
+        _, run = phase_train(card, label, args, {}, {}, steps=CONV_FAMILY_STEPS)
+        phase_steady(card, label, run)
+        if label == "MobileOne-s1":
+            phase_mobileone_fused(card, run)
+        run = None
+        release()
+
+
 def phase_deeplab(card: str) -> dict:
     """DeepLabv3's train, a/b and profile phases; returns the launch counts."""
     from cvnets_tpu_torch.ops.seg_ce_kernel import seg_ce_bwd_kernel, seg_ce_fwd_kernel
@@ -2068,8 +2433,8 @@ def main(argv) -> int:
     import torch
 
     if argv not in ([], ["--deeplab"]):
-        print(f"chip_smoke: unknown arguments {argv}; usage: chip_smoke.py [--deeplab]",
-              file=sys.stderr)
+        print(f"chip_smoke: unknown arguments {argv}; usage: chip_smoke.py "
+              "[--deeplab]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2087,7 +2452,7 @@ def main(argv) -> int:
         torch.cuda.empty_cache()
 
     card = phase_device()
-    if argv:
+    if argv == ["--deeplab"]:
         phase_deeplab(card)
         return 0
     phase_build()
@@ -2143,6 +2508,8 @@ def main(argv) -> int:
     phase_profile(card, "ViT-B/16 512² no CLS", run,
                   os.path.join("results", "vit_long_profile.txt"))
     run = vit = None
+    release()
+    phase_conv(card)
     release()
 
     def entry(name, source, replaces, launches, record):

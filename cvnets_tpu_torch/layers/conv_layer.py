@@ -1,4 +1,5 @@
-"""Conv + Norm + Act (counterpart of cvnets_tpu/layers/conv_layer.py:27-115).
+"""Conv + Norm + Act, and the depthwise-separable conv (counterpart of
+cvnets_tpu/layers/conv_layer.py:27-176).
 
 NCHW layout; padding ``((kernel - 1) // 2) * dilation`` on each side, as in the JAX
 package and the reference.
@@ -51,3 +52,22 @@ class ConvLayer2d(nn.Module):
         if self.act is not None:
             x = self.act(x)
         return x
+
+
+class SeparableConv2d(nn.Module):
+    """Depthwise k×k conv + norm, then a pointwise 1×1 ConvLayer2d
+    (conv_layer.py:136-176): ``dw_conv`` and ``pw_conv``."""
+
+    def __init__(self, opts, in_channels: int, out_channels: int,
+                 kernel_size: int = 3, stride: int = 1, dilation: int = 1,
+                 use_norm: bool = True, use_act: bool = True, bias: bool = False,
+                 act_name: Optional[str] = None) -> None:
+        super().__init__()
+        self.dw_conv = ConvLayer2d(opts, in_channels, in_channels, kernel_size,
+                                   stride=stride, dilation=dilation, groups=in_channels,
+                                   use_act=False)
+        self.pw_conv = ConvLayer2d(opts, in_channels, out_channels, 1, bias=bias,
+                                   use_norm=use_norm, use_act=use_act, act_name=act_name)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.pw_conv(self.dw_conv(x))

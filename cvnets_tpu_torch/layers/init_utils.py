@@ -69,7 +69,8 @@ def init_weights(model: nn.Module, opts, generator: Optional[torch.Generator]) -
         elif isinstance(m, LinearLayer):
             init_tensor(m.weight, *(conv if m.weight_init == "conv" else linear),
                         generator)
-        elif isinstance(m, (nn.BatchNorm2d, LayerNorm2d, nn.LayerNorm)):
+        elif isinstance(m, (nn.modules.batchnorm._BatchNorm, nn.GroupNorm, LayerNorm2d,
+                            nn.LayerNorm)):
             nn.init.ones_(m.weight)
         else:
             if isinstance(m, PositionalEmbedding) and m.pos_embed is not None:

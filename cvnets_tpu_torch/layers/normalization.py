@@ -8,6 +8,14 @@
   channels-last tensors, the layout of MobileViTv2's (B, P, N, C) patches.
 * ``layer_norm`` is a LayerNorm over the trailing axis only, with the caller's
   eps (normalization.py:185-188); ViT's (B, S, E) tokens take it.
+* ``batch_norm_1d`` and ``batch_norm_3d`` are ``nn.BatchNorm1d`` and
+  ``nn.BatchNorm3d`` (the JAX package's one BN over the trailing axis, for
+  torch's channels-second tensors); ``sync_batch_norm_fp32`` and
+  ``layer_norm_fp32`` compute and return float32 (JAX's ``dtype=jnp.float32``);
+  ``group_norm`` (``model.normalization.groups`` groups) and ``instance_norm``
+  / ``instance_norm_2d`` (one channel a group) are a GroupNorm in float32 that
+  returns float32, as flax's GroupNorm without a dtype promotes a bf16 input
+  with its float32 scale.
 * ``AdjustBatchNormMomentum`` anneals the BN momentum over training; the train
   step writes its value into every BatchNorm module before the forward.
 
@@ -30,7 +38,9 @@ import torch.nn.functional as F
 from cvnets_tpu_torch.utils import logger
 
 BATCH_NORMS = ("batch_norm", "batch_norm_2d", "sync_batch_norm")
-SUPPORTED_NORM_FNS = BATCH_NORMS + ("layer_norm", "layer_norm_2d", "identity")
+SUPPORTED_NORM_FNS = BATCH_NORMS + (
+    "batch_norm_1d", "batch_norm_3d", "sync_batch_norm_fp32", "layer_norm", "layer_norm_2d",
+    "layer_norm_fp32", "group_norm", "instance_norm", "instance_norm_2d", "identity")
 
 
 def _output_dtype(x: torch.Tensor) -> torch.dtype:
@@ -46,6 +56,27 @@ class LayerNorm(nn.LayerNorm):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
         return y.to(_output_dtype(x))
+
+
+class LayerNormFP32(LayerNorm):
+    """``LayerNorm`` that returns float32 whatever the compute dtype."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
+
+
+class BatchNorm2dFP32(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` on a float32 copy of its input: float32 out."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.float())
+
+
+class GroupNorm(nn.GroupNorm):
+    """``nn.GroupNorm`` in float32 that returns float32."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.group_norm(x.float(), self.num_groups, self.weight, self.bias, self.eps)
 
 
 class LayerNorm2d(nn.Module):
@@ -66,19 +97,31 @@ class LayerNorm2d(nn.Module):
 
 def get_normalization_layer(opts, num_features: int,
                             norm_type: Optional[str] = None,
-                            eps: float = 1e-5) -> Optional[nn.Module]:
+                            eps: float = 1e-5,
+                            num_groups: Optional[int] = None) -> Optional[nn.Module]:
     if norm_type is None:
         norm_type = getattr(opts, "model.normalization.name", "batch_norm")
     norm_type = (norm_type or "batch_norm").lower()
     momentum = getattr(opts, "model.normalization.momentum", 0.1)
-    if norm_type in BATCH_NORMS:
-        # on one device sync-BN is plain BN, as under GSPMD in the JAX package
-        return nn.BatchNorm2d(num_features, eps=eps,
-                              momentum=0.1 if momentum is None else momentum)
+    momentum = 0.1 if momentum is None else momentum
+    # on one device sync-BN is plain BN, as under GSPMD in the JAX package
+    batch_norm = {**dict.fromkeys(BATCH_NORMS, nn.BatchNorm2d),
+                  "batch_norm_1d": nn.BatchNorm1d, "batch_norm_3d": nn.BatchNorm3d,
+                  "sync_batch_norm_fp32": BatchNorm2dFP32}.get(norm_type)
+    if batch_norm is not None:
+        return batch_norm(num_features, eps=eps, momentum=momentum)
     if norm_type == "layer_norm":
         return LayerNorm(num_features, eps=eps)
     if norm_type == "layer_norm_2d":
         return LayerNorm2d(num_features, eps=eps)
+    if norm_type == "layer_norm_fp32":
+        return LayerNormFP32(num_features, eps=eps)
+    if norm_type == "group_norm":
+        if num_groups is None:
+            num_groups = getattr(opts, "model.normalization.groups", 32)
+        return GroupNorm(int(num_groups), num_features, eps=eps)
+    if norm_type in ("instance_norm", "instance_norm_2d"):
+        return GroupNorm(num_features, num_features, eps=eps)
     if norm_type == "identity":
         return None
     logger.error(f"Unsupported norm layer `{norm_type}`. Supported: {SUPPORTED_NORM_FNS}")
@@ -122,6 +165,7 @@ class AdjustBatchNormMomentum:
 def arguments_norm_layers(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     group = parser.add_argument_group(title="Normalization layer arguments")
     group.add_argument("--model.normalization.name", type=str, default="batch_norm")
+    group.add_argument("--model.normalization.groups", type=int, default=1)
     group.add_argument(
         "--model.normalization.momentum", type=float, default=0.1,
         help="BN momentum in the torch convention (fraction of new batch statistic)",

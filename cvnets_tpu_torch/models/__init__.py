@@ -53,7 +53,14 @@ def modeling_arguments(parser: argparse.ArgumentParser) -> argparse.ArgumentPars
 
 # registers the ported models (after MODEL_REGISTRY exists)
 from cvnets_tpu_torch.models.classification import (  # noqa: E402,F401
+    efficientnet,
+    mobilenetv1,
+    mobilenetv2,
+    mobilenetv3,
+    mobileone,
     mobilevit_v2,
+    regnet,
+    resnet,
     swin_transformer,
     vit,
 )

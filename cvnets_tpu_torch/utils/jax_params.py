@@ -5,7 +5,8 @@ Port module attributes are named after the flax scopes, so a flax path maps to a
 ``nn.Sequential`` entry ``layer_3.0``, and the leaf names change as
 ``kernel``/``scale`` → ``weight`` and ``mean``/``var`` → ``running_mean``/
 ``running_var``; ViT's ``pos_embed`` table and top-level ``cls_token`` and
-Swin's ``relative_position_bias_table`` keep their names. Only leaves named ``kernel`` change layout, by rank: a conv HWIO → OIHW (a
+Swin's ``relative_position_bias_table`` and PReLU's ``alpha`` keep their names.
+Only leaves named ``kernel`` change layout, by rank: a conv HWIO → OIHW (a
 depthwise (kh, kw, 1, O) becomes (O, 1, kh, kw)) and a Dense (in, out) → Linear
 (out, in). Every other leaf, a 2-D positional table included, keeps its layout.
 """
@@ -22,7 +23,8 @@ import torch.nn as nn
 _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
          "mean": "running_mean", "var": "running_var",
          "pos_embed": "pos_embed", "cls_token": "cls_token",
-         "relative_position_bias_table": "relative_position_bias_table"}
+         "relative_position_bias_table": "relative_position_bias_table",
+         "alpha": "alpha"}
 _STAGE = re.compile(r"^(layer_\d+)_(\d+)$")
 
 

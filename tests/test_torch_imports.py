@@ -1,7 +1,7 @@
 """The PyTorch port stands without JAX, and keeps the JAX package's flags.
 
 * ``cvnets_tpu_torch`` imports and runs CPU train steps of MobileViTv2, ViT,
-  DeepLabv3 and Swin, one epoch of a micro MobileViTv2 ``Trainer`` (its
+  DeepLabv3, Swin, SE-ResNet-18 and MobileOne-s0 (then folded), one epoch of a micro MobileViTv2 ``Trainer`` (its
   ``config.yaml`` dump and checkpoints), and ``main_train`` for 2 epochs on
   chip_smoke.py's flagship flags at 64 px on the port's dummy dataset with
   every augmentation, then ``main_eval``, with ``jax``, ``flax``, ``optax``,
@@ -135,6 +135,22 @@ _BLOCKED_RUN = textwrap.dedent("""
     state, metrics = make_train_step(swin, build_loss_fn(swin_opts), swin_opts, metric_objs)(
         state, {"samples": x, "targets": torch.tensor([1, 2])}, 1e-3)
     assert bool(torch.isfinite(metrics["loss"]["loss"][0]))
+    from cvnets_tpu_torch.utils.reparam_utils import reparameterize_model
+    for name, extra in (("resnet", ["--model.classification.resnet.depth", "18",
+                                    "--model.classification.resnet.se-resnet"]),
+                        ("mobileone", ["--model.classification.mobileone.variant", "s0"])):
+        conv_opts = get_training_arguments(args=[
+            "--model.classification.name", name, "--model.classification.n-classes", "10",
+            "--optim.name", "sgd", *extra])
+        conv = get_model(conv_opts, device="cpu")
+        state = create_train_state(conv, build_optimizer(conv_opts, conv))
+        state, metrics = make_train_step(conv, build_loss_fn(conv_opts), conv_opts,
+                                         metric_objs)(
+            state, {"samples": x, "targets": torch.tensor([1, 2])}, 1e-3)
+        assert bool(torch.isfinite(metrics["loss"]["loss"][0]))
+    with torch.no_grad():  # the trained MobileOne-s0, folded
+        before = conv.eval()(x)
+        assert torch.allclose(reparameterize_model(conv)(x), before, atol=1e-4)
     leaked = sorted(m for m in sys.modules if sys.modules[m] is not None
                     and m.split(".")[0] in ("jax", "flax", "optax", "orbax", "yaml",
                                             "PIL", "cvnets_tpu"))

@@ -108,15 +108,18 @@ def both_opts(args):
     return jax_args(args=list(args)), torch_args(args=list(args))
 
 
-def perturbed_variables(model, x_nhwc: np.ndarray, seed: int = 0) -> dict:
+def perturbed_variables(model, x_nhwc: np.ndarray, seed: int = 0,
+                        init_kwargs=None) -> dict:
     """flax variables as numpy, moved off their init values (zero biases, unit
-    scales, (0, 1) BN stats) so that a leaf landing in the wrong place shows."""
+    scales, (0, 1) BN stats) so that a leaf landing in the wrong place shows.
+    ``init_kwargs`` (default ``training=False``) go to ``model.init``."""
     import jax
     import jax.numpy as jnp
 
+    kwargs = {"training": False} if init_kwargs is None else init_kwargs
     variables = jax.jit(lambda x: model.init(
         {"params": jax.random.PRNGKey(seed), "dropout": jax.random.PRNGKey(seed)},
-        x, training=False))(jnp.asarray(x_nhwc))
+        x, **kwargs))(jnp.asarray(x_nhwc))
     rng = np.random.default_rng(seed)
 
     def perturb(path, leaf):
@@ -236,3 +239,235 @@ FLAGSHIP_DUMMY_OVERRIDES = [
     "image_augmentation.center_crop.size=64",
     "scheduler.max_epochs=2",
 ]
+
+
+# the conv families' tests: float32 on the CPU, the same perturbed weights and
+# inputs in both packages, 13 classes. Tolerances, as the existing model tests
+# state them: logits to LOGIT_ATOL of max(1, the largest logit), BN running
+# statistics to 2e-4 of each leaf's largest value, grads to 5e-4 of the largest
+# grad (batch-statistic BN amplifies the f32 noise floor layer by layer; see
+# tests/test_torch_mobilevit_v2.py)
+LOGIT_ATOL = 1e-4
+CONV_FAMILY_ARGS = [
+    "--model.classification.n-classes", "13",
+    "--model.layer.conv-init", "kaiming_normal",
+    "--model.layer.linear-init", "normal",
+    "--loss.classification.cross-entropy.label-smoothing", "0.1",
+    "--dataset.category", "classification",
+]
+
+
+def jax_outputs(jmodel, variables: dict, x: np.ndarray, y: np.ndarray, opts_jax) -> dict:
+    """The JAX model's eval logits, and in one train forward its logits, new BN
+    statistics, label-smoothed CE loss and parameter grads (numpy leaves)."""
+    import jax
+    import jax.numpy as jnp
+
+    from cvnets_tpu.loss import build_loss_fn
+
+    crit = build_loss_fn(opts_jax)
+    xj, yj = jnp.asarray(x), jnp.asarray(y)
+    eval_logits = jax.jit(lambda v: jmodel.apply(v, xj, training=False))(variables)
+
+    def loss_fn(params):
+        pred, new = jmodel.apply({**variables, "params": params}, xj, training=True,
+                                 mutable=["batch_stats"],
+                                 rngs={"dropout": jax.random.PRNGKey(0)})
+        return crit(xj, pred, yj, training=True), (pred, new)
+
+    def eval_loss_fn(params):
+        pred = jmodel.apply({**variables, "params": params}, xj, training=False)
+        return crit(xj, pred, yj, training=True)
+
+    (loss, (pred, new)), grads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
+        variables["params"])
+    as_np = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
+    return {"eval": np.asarray(eval_logits), "train": np.asarray(pred),
+            "stats": as_np(new.get("batch_stats", {})), "loss": float(loss),
+            "grads": as_np(grads),
+            "eval_grads": as_np(jax.jit(jax.grad(eval_loss_fn))(variables["params"]))}
+
+
+def port_outputs(opts_torch, variables: dict, x: np.ndarray, y: np.ndarray,
+                 prepare=None) -> dict:
+    """The same outputs of the port's model filled from ``variables``;
+    ``prepare(model)`` runs on each model after loading."""
+    import torch
+
+    from cvnets_tpu_torch.loss import build_loss_fn
+
+    crit = build_loss_fn(opts_torch)
+    out = {}
+    for mode in ("eval", "train"):
+        model = port_model_from(opts_torch, variables)
+        if prepare is not None:
+            prepare(model)
+        pred = model.train(mode == "train")(nchw(x))
+        loss = crit(None, pred, torch.from_numpy(y), training=True)
+        loss.backward()
+        grads = {k: p.grad for k, p in model.named_parameters()}
+        out.update({mode: pred.detach().numpy(),
+                    "eval_grads" if mode == "eval" else "grads": grads})
+    return {**out, "state": model.state_dict(), "loss": loss.item()}
+
+
+@contextlib.contextmanager
+def jax_in_float64(opts_jax):
+    """The JAX package's models compute in float64 while the block runs: its
+    layers take their dtype from ``compute_dtype(opts)``, float32 unless mixed
+    precision names another, so ``opts_jax`` names float64 (a name its table
+    gains for the block) and jax runs with 64-bit types."""
+    import jax
+    import jax.numpy as jnp
+
+    from cvnets_tpu.layers import dtype_utils
+
+    setattr(opts_jax, "common.mixed_precision", True)
+    setattr(opts_jax, "common.mixed_precision_dtype", "float64")
+    dtype_utils._DTYPES["float64"] = jnp.float64
+    try:
+        with jax.enable_x64(True):
+            yield
+    finally:
+        del dtype_utils._DTYPES["float64"]
+
+
+def float64_outputs(opts_jax, opts_torch, variables: dict, x: np.ndarray, y: np.ndarray,
+                    prepare=None) -> tuple[dict, dict]:
+    """``jax_outputs`` and ``port_outputs`` with every weight, input and
+    operation in float64 on both sides (``opts_jax`` is changed)."""
+    import jax
+
+    from cvnets_tpu.models import get_model
+
+    x64 = x.astype(np.float64)
+    with jax_in_float64(opts_jax):
+        v64 = jax.tree_util.tree_map(lambda a: np.asarray(a, np.float64), variables)
+        want = jax_outputs(get_model(opts_jax), v64, x64, y, opts_jax)
+
+    def to_float64(model):
+        if prepare is not None:
+            prepare(model)
+        model.double()
+
+    return want, port_outputs(opts_torch, variables, x64, y, prepare=to_float64)
+
+
+def flat_leaves(tree: dict):
+    """(flax path, numpy leaf) of every leaf of a nested dict."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            for path, leaf in flat_leaves(v):
+                yield (k,) + path, leaf
+        else:
+            yield (k,), np.asarray(v)
+
+
+def assert_logits_match(got: np.ndarray, want: np.ndarray) -> None:
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=LOGIT_ATOL * max(1.0, float(np.abs(want).max())))
+
+
+def assert_stats_match(state: dict, stats: dict) -> None:
+    from cvnets_tpu_torch.utils.jax_params import torch_key
+
+    leaves = list(flat_leaves(stats))
+    assert leaves
+    for path, leaf in leaves:
+        key = torch_key(path)
+        np.testing.assert_allclose(state[key].numpy(), leaf, rtol=0,
+                                   atol=2e-4 * float(np.abs(leaf).max()), err_msg=key)
+
+
+def assert_loss_matches(got: float, want: float, logits: np.ndarray) -> None:
+    """A CE loss moves by at most twice the largest change of a logit (its
+    gradient p - t sums to at most 2 in magnitude), so the logits' bound sets
+    the loss's."""
+    assert abs(got - want) <= 2 * LOGIT_ATOL * max(1.0, float(np.abs(logits).max()))
+
+
+def assert_grads_match(grads: dict, jgrads: dict, rel: float = 5e-4) -> None:
+    from cvnets_tpu_torch.utils.jax_params import to_torch_layout, torch_key
+
+    leaves = list(flat_leaves(jgrads))
+    assert len(leaves) == len(grads)
+    gmax = max(float(np.abs(g).max()) for _, g in leaves)
+    for path, g in leaves:
+        key = torch_key(path)
+        np.testing.assert_allclose(grads[key].numpy(), to_torch_layout(path, g), rtol=0,
+                                   atol=rel * gmax, err_msg=key)
+
+
+def assert_every_leaf_loaded(model, variables: dict) -> None:
+    """Each flax leaf sits, in torch's layout, in the tensor of its name, and
+    the model has no parameter or buffer beyond them but BN's counters."""
+    from cvnets_tpu_torch.utils.jax_params import to_torch_layout, torch_key
+
+    state = model.state_dict()
+    seen = set()
+    for col in ("params", "batch_stats"):
+        for path, leaf in flat_leaves(variables.get(col, {})):
+            key = torch_key(path)
+            np.testing.assert_array_equal(state[key].numpy(), to_torch_layout(path, leaf),
+                                          err_msg=key)
+            seen.add(key)
+    assert sorted(k for k in state if not k.endswith("num_batches_tracked")) == sorted(seen)
+
+
+def jax_leaf_shapes(jmodel) -> dict:
+    """{torch key: torch-layout shape} of every param and batch-stat leaf of a
+    JAX model, from ``jax.eval_shape`` (no weights drawn; the conv families'
+    shapes do not depend on the input's size)."""
+    import jax
+    import jax.numpy as jnp
+
+    from cvnets_tpu_torch.utils.jax_params import to_torch_layout, torch_key
+
+    shapes = jax.eval_shape(lambda: jmodel.init(jax.random.PRNGKey(0),
+                                                jnp.zeros((1, 64, 64, 3))))
+    out = {}
+    for col in ("params", "batch_stats"):
+        for path, leaf in jax.tree_util.tree_flatten_with_path(shapes.get(col, {}))[0]:
+            path = tuple(p.key for p in path)
+            out[torch_key(path)] = to_torch_layout(path, np.empty(leaf.shape)).shape
+    return out
+
+
+def port_shapes(model) -> dict:
+    """{key: shape} of every parameter and buffer but BN's counters."""
+    return {k: tuple(v.shape) for k, v in model.state_dict().items()
+            if not k.endswith("num_batches_tracked")}
+
+
+def assert_end_points_match(args, model_name: str, output_stride: int, size: int = 64):
+    """The tap points out_l1 .. out_l5 of the JAX encoder and the port's at
+    ``output_stride``, in train mode (batch statistics through every dilated
+    conv), to 1e-4 of max(1, each tap's largest value); returns the port's."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from cvnets_tpu.models import get_model as jax_model
+    from cvnets_tpu_torch.models import MODEL_REGISTRY
+    from cvnets_tpu_torch.utils.jax_params import load_jax_params
+
+    opts_jax, opts_torch = both_opts(args)
+    x = np.random.default_rng(1).standard_normal((2, size, size, 3)).astype(np.float32)
+    jmodel = jax_model(opts_jax).clone(output_stride=output_stride)
+    variables = perturbed_variables(jmodel, x, seed=1)
+    want = jax.jit(lambda v: jmodel.apply(
+        v, jnp.asarray(x), training=True, mutable=["batch_stats"],
+        method=lambda m, a, training: m.extract_end_points_all(a, training=training))[0]
+    )(variables)
+    model = MODEL_REGISTRY[model_name, "classification"].build_model(
+        opts_torch, output_stride=output_stride)
+    load_jax_params(model, variables["params"], variables["batch_stats"])
+    with torch.no_grad():
+        got = model.train().extract_end_points_all(nchw(x))
+    assert sorted(got) == sorted(want)
+    for name, ref in want.items():
+        ref = np.asarray(ref).transpose(0, 3, 1, 2)
+        np.testing.assert_allclose(got[name].numpy(), ref, rtol=0,
+                                   atol=1e-4 * max(1.0, float(np.abs(ref).max())),
+                                   err_msg=name)
+    return model, got
