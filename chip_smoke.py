@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (cvnets_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--deeplab]
+    python3 chip_smoke.py [--deeplab | --segmentation]
 
 ``--deeplab`` runs only phases 1, 10 and 11 (DeepLabv3's train, a/b and
 profile; about a minute) and prints neither JSON line: run in turns from two
 checkouts in one call (parent, change, change, parent, ...), it compares their
 DeepLabv3 steps on one card, as the whole script does with five recipes.
+``--segmentation`` runs only phases 1, 2, 11b and 11c (the build, segmentation
+through ``main_train`` and ``main_worker_segmentation``, PSPNet; about a
+minute of command time) and prints neither JSON line.
 
 Phases, one line each or more (any failure exits non-zero):
 
@@ -80,7 +83,7 @@ Phases, one line each or more (any failure exits non-zero):
    flip, RandAugment, random erasing 0.25, mixup 0.2, cutmix 1.0, AdamW, EMA,
    clip 10; val through resize 288 bicubic and center crop 256) on the script's
    own dataset (``smoke_imagenet``: seeded uint8 images of about 500 × 375, as
-   the card machine has no images and no Pillow): 2 epochs of 4 batches of 128
+   the card machine has no image files): 2 epochs of 4 batches of 128
    × 256² and 2 val batches of 100, through the real sampler, host transforms,
    8 loader threads, collate, pinning, device augmentation, mixing and soft-
    target CE. First the train loader alone for two epochs (img/s on the host)
@@ -109,6 +112,30 @@ Phases, one line each or more (any failure exits non-zero):
    the kernel path's loss against the plain path's on the same outputs, and the
    eval logits through the kernels against the plain attention path;
 11. deeplab a/b and deeplab profile, as for ViT-B (results/deeplab_profile.txt);
+11b. seg main_train: ``cvnets_tpu_torch.main_train.main_worker`` on
+   deeplabv3_mobilevitv2.yaml's flags as a list (``SEG_MAIN_TRAIN_ARGS``:
+   short side 256-768 bicubic up to 1024, flip, a 512² random crop with mask
+   fill 255, validation resized to 512², stats loss and iou, checkpoints ranked
+   by iou, highest best) on the script's own dataset (``smoke_ade20k``: seeded
+   uint8 images of about 683 × 512 and masks of raw labels 0-150 in blobs):
+   the loader alone for two epochs (img/s on the host; uint8 pinned images and
+   masks), then 2 epochs of 3 batches of 8 × 512² and 2 val batches of 8
+   (validation and EMA validation) through the real sampler, transforms, 8
+   loader threads, collate, pinning and the segmentation step. Checks 2 + 2
+   seg-CE and 9 + 9 separable launches a step (an eval forward 9 separable and
+   no seg-CE: its full-size logits take the unfused CE), finite statistics, an
+   iou in [0, 100], no CUDA sync debug warning through the data, ops, loss,
+   engine, metrics or checkpoint code between log points, and
+   ``main_worker_segmentation`` (``validation_set``, inputs resized to 512²,
+   the validation's batch) on the run's checkpoint_ema_last.pt, whose mIoU
+   must equal the last EMA validation's iou; prints main_train's img/s over
+   epoch 2 beside the loader's and phase 11's bare-step a/b;
+11c. pspnet: PSPNet-MobileViTv2-1.0 train steps at batch 8 × 512² with
+   pspnet_mobilevitv2.yaml's settings (``PSPNET_ARGS``: OS 8, pyramid pools
+   1/2/3/6, 512 channels, aux head, swish, SGD, EMA, bf16), 2 + 2 seg-CE and
+   9 + 9 separable launches a step, finite losses, its logits and loss through
+   the kernels against the plain path's, then 24 steady steps (median step
+   time, img/s, host enqueue, peak memory);
 12. window kernel: the window-attention forward and backward kernels against
    their plain versions at Swin-T's four stage shapes at batch 128 (S = 49,
    D = 32; B·nW, H = 8192, 3 / 2048, 6 / 512, 12 / 128, 24; q, k, v column
@@ -1762,7 +1789,7 @@ FLAGSHIP_DATA_ARGS = [
     "--image-augmentation.center-crop.size", "256",
 ]
 # main_train on the flagship yaml's flags, on the script's own dataset (the card
-# machine has no images and no Pillow): 4 train batches of 128 and 2 val
+# machine has no image files): 4 train batches of 128 and 2 val
 # batches of 100 an epoch, 2 epochs
 SMOKE_DATASET = "smoke_imagenet"
 MAIN_TRAIN_ARGS = FLAGSHIP_ARGS + IMAGENET_RUN_ARGS + FLAGSHIP_DATA_ARGS + [
@@ -1794,6 +1821,87 @@ RESNET_MAIN_TRAIN_ARGS = RESNET_ARGS + IMAGENET_RUN_ARGS + RESNET_DATA_ARGS + [
     "--dataset.name", SMOKE_DATASET,
     "--scheduler.max-epochs", "2",
 ]
+
+# the rest of config/segmentation/ade20k/deeplabv3_mobilevitv2.yaml, as flags: its
+# loader, sampler, host transforms and stats (dataset.name and its roots are the
+# yaml's ADE20k on disk; the segmentation phases name the script's own dataset),
+# with the batch of DEEPLAB_ARGS for validation and offline evaluation too
+SEG_DATA_ARGS = [
+    "--dataset.val-batch-size0", "8",
+    "--dataset.eval-batch-size0", "8",
+    "--dataset.workers", "8",
+    "--sampler.name", "batch_sampler",
+    "--image-augmentation.random-crop.enable",
+    "--image-augmentation.random-crop.mask-fill", "255",
+    "--image-augmentation.random-horizontal-flip.enable",
+    "--image-augmentation.random-short-size-resize.enable",
+    "--image-augmentation.random-short-size-resize.short-side-min", "256",
+    "--image-augmentation.random-short-size-resize.short-side-max", "768",
+    "--image-augmentation.random-short-size-resize.max-img-dim", "1024",
+    "--image-augmentation.random-short-size-resize.interpolation", "bicubic",
+    "--image-augmentation.resize.enable",
+    "--image-augmentation.resize.size", "512", "512",
+    "--model.normalization.name", "sync_batch_norm",  # plain BN on one card
+    "--stats.val", "loss", "iou",
+    "--stats.train", "loss",
+    "--stats.checkpoint-metric", "iou",
+    "--stats.checkpoint-metric-max",
+    "--common.run-label", "train",
+    "--common.log-freq", "200",
+    "--common.auto-resume",
+]
+# main_train on the DeepLabv3 yaml's flags, on the script's own dataset: 3 train
+# batches of 8 and 2 val batches of 8 an epoch, 2 epochs
+SEG_DATASET = "smoke_ade20k"
+SEG_MAIN_TRAIN_ARGS = DEEPLAB_ARGS + SEG_DATA_ARGS + [
+    "--dataset.name", SEG_DATASET,
+    "--scheduler.max-epochs", "2",
+]
+SEG_TRAIN_SAMPLES, SEG_VAL_SAMPLES, SEG_BATCH = 3 * 8, 2 * 8, 8
+
+PSPNET_ARGS = [  # config/segmentation/ade20k/pspnet_mobilevitv2.yaml, as flags
+    "--dataset.category", "segmentation",
+    "--model.segmentation.name", "encoder_decoder",
+    "--model.segmentation.n-classes", "150",
+    "--model.segmentation.lr-multiplier", "10",
+    "--model.segmentation.seg-head", "pspnet",
+    "--model.segmentation.output-stride", "8",
+    "--model.segmentation.use-aux-head",
+    "--model.segmentation.pspnet.psp-dropout", "0.1",
+    "--model.segmentation.pspnet.psp-out-channels", "512",
+    "--model.segmentation.pspnet.psp-pool-sizes", "1", "2", "3", "6",
+    "--model.classification.name", "mobilevit_v2",
+    "--model.classification.mitv2.width-multiplier", "1.0",
+    "--model.classification.mitv2.attn-norm-layer", "layer_norm_2d",
+    "--model.classification.activation.name", "swish",
+    "--model.normalization.momentum", "0.1",
+    "--model.activation.name", "swish",
+    "--model.layer.global-pool", "mean",
+    "--model.layer.conv-init", "kaiming_normal",
+    "--model.layer.linear-init", "normal",
+    "--loss.category", "segmentation",
+    "--loss.segmentation.name", "cross_entropy",
+    "--loss.segmentation.cross-entropy.aux-weight", "0.4",
+    "--loss.segmentation.cross-entropy.ignore-index", "255",
+    "--optim.name", "sgd",
+    "--optim.weight-decay", "1e-4",
+    "--optim.no-decay-bn-filter-bias",
+    "--optim.sgd.momentum", "0.9",
+    "--scheduler.name", "cosine",
+    "--scheduler.max-epochs", "120",
+    "--scheduler.warmup-iterations", "500",
+    "--scheduler.warmup-init-lr", "0.0009",
+    "--scheduler.cosine.max-lr", "0.02",
+    "--scheduler.cosine.min-lr", "0.0002",
+    "--ema.enable",
+    "--ema.momentum", "0.0005",
+    "--common.mixed-precision",
+    "--common.grad-clip", "10.0",
+    "--dataset.train-batch-size0", "8",
+    "--sampler.bs.crop-size-width", "512",
+    "--sampler.bs.crop-size-height", "512",
+    "--common.seed", "0",
+] + SEG_DATA_ARGS
 
 
 def pinned_batches(g, n: int, batch: int, hw: tuple, n_classes: int) -> list:
@@ -1839,6 +1947,13 @@ class SyncWatch:
     def __exit__(self, *exc):
         self.off()
         self._ctx.__exit__(*exc)
+
+    def through(self, files) -> list:
+        """The frames of ``files`` in each caught warning's stack, for the
+        warnings whose stack passes through one of them."""
+        bad = [[f"{f.filename}:{f.lineno}" for f in stack
+                if any(part in f.filename for part in files)] for _, stack in self.caught]
+        return [frames for frames in bad if frames]
 
     @staticmethod
     def on() -> None:
@@ -1994,9 +2109,7 @@ def phase_trainer(card: str, bare: dict) -> None:
         resumed.run()
     launches = {name: k.launches for name, k in kernels.items()}
 
-    bad = [[f"{f.filename}:{f.lineno}" for f in stack
-            if any(part in f.filename for part in ENGINE_FILES)] for _, stack in watch.caught]
-    bad = [frames for frames in bad if frames]
+    bad = watch.through(ENGINE_FILES)
     where = sorted({f"{f.filename.split('cvnets_tpu_torch')[-1]}:{f.lineno}"
                     for _, stack in watch.caught for f in stack[-3:]})
     print(f"trainer: sync debug warnings in the train steps: {len(watch.caught)} "
@@ -2102,6 +2215,64 @@ def register_smoke_dataset() -> None:
             return rng.integers(0, 256, (*self.image_size(idx), 3), dtype=np.uint8)
 
 
+def register_smoke_ade20k() -> None:
+    """Register ``smoke_ade20k``: ADE20k's layout without its files. Pair i is a
+    seeded uint8 HWC image of about ADE20k's 683 × 512 (either way round, ±20%)
+    and a mask of raw labels 0-150 in blobs (a seeded 6 × 8 grid of labels
+    scaled up by nearest neighbour, raw 0 read as the ignore label), made where
+    the readers decode the files; 24 training pairs and 16 validation ones. The
+    real transforms (short-side resize, flip, crop with its fit), loader,
+    collate and pinning run on it."""
+    import numpy as np
+
+    from cvnets_tpu_torch.data.datasets import DATASET_REGISTRY
+    from cvnets_tpu_torch.data.datasets.segmentation.ade20k import ADE20KDataset
+
+    if (SEG_DATASET, "segmentation") in DATASET_REGISTRY:
+        return
+
+    @DATASET_REGISTRY.register(name=SEG_DATASET, type="segmentation")
+    class SmokeADE20k(ADE20KDataset):
+        def __init__(self, opts, *args, **kwargs) -> None:
+            super().__init__(opts, *args, **kwargs)
+            n = SEG_TRAIN_SAMPLES if self.is_training else SEG_VAL_SAMPLES
+            self.images, self.masks = [None] * n, [None] * n
+
+        def _seed(self, idx, part):
+            return np.random.default_rng([idx, int(self.is_training), part])
+
+        def image_size(self, idx):
+            rng = self._seed(idx, 0)
+            h, w = int(rng.integers(410, 615)), int(rng.integers(546, 820))
+            return (w, h) if idx % 3 == 0 else (h, w)
+
+        def read_image(self, idx):
+            return self._seed(idx, 1).integers(0, 256, (*self.image_size(idx), 3),
+                                               dtype=np.uint8)
+
+        def read_mask(self, idx):
+            h, w = self.image_size(idx)
+            coarse = self._seed(idx, 2).integers(0, 151, (6, 8)).astype(np.uint8)
+            return coarse[np.arange(h) * 6 // h][:, np.arange(w) * 8 // w]
+
+
+def loader_alone(opts, check_batch) -> tuple:
+    """Two epochs of the train loader of ``opts`` with pinned batches and no
+    step on the card; ``check_batch`` checks each batch. Returns the images,
+    the seconds, the seconds to the first batch and the loader's threads."""
+    from cvnets_tpu_torch.data.data_loaders import create_train_val_loader
+
+    loader, _, sampler = create_train_val_loader(opts, pin_memory=True)
+    n_img, t0, first = 0, time.perf_counter(), None
+    for epoch in range(2):
+        sampler.set_epoch(epoch)
+        for batch in loader:
+            first = first or time.perf_counter() - t0
+            check_batch(batch)
+            n_img += batch["samples"].shape[0]
+    return n_img, time.perf_counter() - t0, first, loader.num_workers
+
+
 def _augment_device_ms(opts, card: str) -> float:
     """Device time of one step's augmentation and mixing (RandAugment, random
     erasing, mixup or cutmix) on a uint8 batch of 128 × 256², by
@@ -2162,7 +2333,6 @@ def phase_main_train(card: str, bare: dict) -> None:
     import torch
 
     import cvnets_tpu_torch.main_train as main_train
-    from cvnets_tpu_torch.data.data_loaders import create_train_val_loader
     from cvnets_tpu_torch.main_eval import main_worker as main_eval
     from cvnets_tpu_torch.ops.separable_attention import (
         separable_attention_bwd_kernel,
@@ -2176,24 +2346,16 @@ def phase_main_train(card: str, bare: dict) -> None:
     args = MAIN_TRAIN_ARGS + ["--common.results-loc", results]
     opts = get_training_arguments(args=args)
 
-    # the loader alone: two epochs of the train loader, no step on the card
-    loader, _, sampler = create_train_val_loader(opts, pin_memory=True)
-    n_img, t0, first = 0, time.perf_counter(), None
-    for epoch in range(2):
-        sampler.set_epoch(epoch)
-        for batch in loader:
-            first = first or time.perf_counter() - t0
-            check(batch["samples"].dtype == torch.uint8 and batch["samples"].is_pinned()
-                  and tuple(batch["samples"].shape) == (128, 3, 256, 256),
-                  f"main_train loader: batch {batch['samples'].shape} "
-                  f"{batch['samples'].dtype}, pinned {batch['samples'].is_pinned()}")
-            n_img += batch["samples"].shape[0]
-    loader_s = time.perf_counter() - t0
+    def check_batch(batch):
+        x = batch["samples"]
+        check(x.dtype == torch.uint8 and x.is_pinned() and tuple(x.shape) == (128, 3, 256, 256),
+              f"main_train loader: batch {x.shape} {x.dtype}, pinned {x.is_pinned()}")
+
+    n_img, loader_s, first, threads = loader_alone(opts, check_batch)
     print(f"main_train: loader alone img_s={n_img / loader_s:.1f} ({n_img} images in "
-          f"{loader_s:.3f} s, first batch after {first:.3f} s; {loader.num_workers} threads, "
+          f"{loader_s:.3f} s, first batch after {first:.3f} s; {threads} threads, "
           f"{os.cpu_count()} cores; RRC bicubic + flip from ~500x375 uint8 to 256^2) | {card}",
           flush=True)
-    loader = sampler = batch = None
     aug_ms = _augment_device_ms(opts, card)
 
     kernels = {"fwd": separable_attention_kernel, "bwd": separable_attention_bwd_kernel}
@@ -2229,9 +2391,7 @@ def phase_main_train(card: str, bare: dict) -> None:
     trainer = built[0]
     launches = {name: k.launches for name, k in kernels.items()}
     n_steps = trainer.train_iterations
-    bad = [[f"{f.filename}:{f.lineno}" for f in stack
-            if any(part in f.filename for part in MAIN_TRAIN_FILES)] for _, stack in watch.caught]
-    bad = [frames for frames in bad if frames]
+    bad = watch.through(MAIN_TRAIN_FILES)
     where = sorted({f"{f.filename.split('cvnets_tpu_torch')[-1]}:{f.lineno}"
                     for _, stack in watch.caught for f in stack[-3:]})
     print(f"main_train: sync debug warnings in the train steps: {len(watch.caught)} "
@@ -2315,9 +2475,7 @@ def phase_resnet_main_train(card: str, bare: dict) -> None:
             main_train.Trainer = WatchedTrainer.__bases__[0]
     trainer = built[0]
     n_steps = trainer.train_iterations
-    bad = [[f"{f.filename}:{f.lineno}" for f in stack
-            if any(part in f.filename for part in MAIN_TRAIN_FILES)] for _, stack in watch.caught]
-    bad = [frames for frames in bad if frames]
+    bad = watch.through(MAIN_TRAIN_FILES)
     print(f"main_train: ResNet-50 sync debug warnings in the train steps: "
           f"{len(watch.caught)}; through the data, ops, loss, engine, metrics or "
           f"checkpoints: {len(bad)}", flush=True)
@@ -2348,6 +2506,144 @@ def phase_resnet_main_train(card: str, bare: dict) -> None:
           f"({SMOKE_TRAIN_SAMPLES // 128} steps, {epoch_s:.3f} s, the loader's first batch "
           f"included; RRC bilinear + flip from ~500x375 uint8 to 224^2, 8 threads); "
           f"bare step img_s={bare['img_s']:.1f} | {card}", flush=True)
+
+
+def phase_seg_main_train(card: str, bare) -> None:
+    """``cvnets_tpu_torch.main_train.main_worker`` on the DeepLabv3 yaml's flags
+    (``SEG_MAIN_TRAIN_ARGS``) and the script's ADE20k: the loader alone, then 2
+    epochs of 3 batches of 8 × 512² and their validations (loss, iou; EMA too)
+    through the entry point, then ``main_worker_segmentation`` on the run's
+    ``checkpoint_ema_last.pt``, whose mIoU must equal the last EMA validation's
+    iou. Checks 2 + 2 seg-CE and 9 + 9 separable launches a step (9 separable
+    and no seg-CE an eval forward: full-size logits take the unfused CE), finite
+    statistics, an iou in [0, 100], uint8 pinned masks, and no CUDA sync debug
+    warning whose stack passes through the port's data, ops, loss, engine,
+    metrics or checkpoint code between log points. ``bare`` is DeepLabv3's
+    kernel-path a/b (img/s, peak GiB), or None."""
+    import shutil
+
+    import torch
+
+    import cvnets_tpu_torch.main_train as main_train
+    from cvnets_tpu_torch.main_eval import main_worker_segmentation
+    from cvnets_tpu_torch.ops.seg_ce_kernel import seg_ce_bwd_kernel, seg_ce_fwd_kernel
+    from cvnets_tpu_torch.ops.separable_attention import (
+        separable_attention_bwd_kernel,
+        separable_attention_kernel,
+    )
+    from cvnets_tpu_torch.options.opts import get_training_arguments
+
+    register_smoke_ade20k()
+    results = os.path.join("results", "seg_main_train_smoke")
+    shutil.rmtree(results, ignore_errors=True)
+    args = SEG_MAIN_TRAIN_ARGS + ["--common.results-loc", results]
+    opts = get_training_arguments(args=args)
+
+    def check_batch(batch):
+        x, y = batch["samples"], batch["targets"]
+        check(x.dtype == y.dtype == torch.uint8 and x.is_pinned() and y.is_pinned()
+              and tuple(x.shape) == (SEG_BATCH, 3, 512, 512)
+              and tuple(y.shape) == (SEG_BATCH, 512, 512),
+              f"seg main_train loader: {x.shape} {x.dtype} / {y.shape} {y.dtype}, "
+              f"pinned {x.is_pinned()} / {y.is_pinned()}")
+
+    n_img, loader_s, first, threads = loader_alone(opts, check_batch)
+    print(f"seg main_train: loader alone img_s={n_img / loader_s:.1f} ({n_img} images in "
+          f"{loader_s:.3f} s, first batch after {first:.3f} s, then "
+          f"{(n_img - SEG_BATCH) / (loader_s - first):.1f} img/s; {threads} threads, "
+          f"{os.cpu_count()} cores; short side 256-768 bicubic from ~683x512 uint8, flip, "
+          f"512^2 crop; uint8 masks) | {card}", flush=True)
+
+    sep = {"fwd": separable_attention_kernel, "bwd": separable_attention_bwd_kernel}
+    seg = {"seg_ce_fwd": seg_ce_fwd_kernel, "seg_ce_bwd": seg_ce_bwd_kernel}
+    per_step = sum(SEP_DEEPLAB[1].values())
+    log = {"train": [], "val": [], "ema": [], "save_s": 0.0}
+    watch = SyncWatch()
+    built = []
+
+    class WatchedTrainer(main_train.Trainer):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            _watch_trainer(self, sep, watch, per_step, log)
+            built.append(self)
+
+    with watch:
+        main_train.Trainer = WatchedTrainer
+        try:
+            for kernel in (*sep.values(), *seg.values()):
+                kernel.launches = 0
+            main_train.main_worker(args=args)
+        finally:
+            main_train.Trainer = WatchedTrainer.__bases__[0]
+    trainer = built[0]
+    launches = {name: k.launches for name, k in {**sep, **seg}.items()}
+    n_steps = trainer.train_iterations
+    n_eval = 2 * 2 * SEG_VAL_SAMPLES // SEG_BATCH  # 2 epochs, validation and EMA
+    bad = watch.through(MAIN_TRAIN_FILES)
+    print(f"seg main_train: sync debug warnings in the train steps: {len(watch.caught)}; "
+          f"through the data, ops, loss, engine, metrics or checkpoints: {len(bad)}",
+          flush=True)
+    check(not bad, f"seg main_train: a host sync between log points: {bad[:3]}")
+    check(n_steps == 2 * SEG_TRAIN_SAMPLES // SEG_BATCH, f"seg main_train: {n_steps} steps")
+    check(launches == {"fwd": per_step * (n_steps + n_eval), "bwd": per_step * n_steps,
+                       "seg_ce_fwd": SEG_CALLS * n_steps, "seg_ce_bwd": SEG_CALLS * n_steps},
+          f"seg main_train: launches {launches} in {n_steps} steps and {n_eval} eval forwards")
+    for stage in ("train", "val", "ema"):
+        values = [v for entry in log[stage] for v in
+                  (entry[3] if stage == "train" else entry).values()]
+        check(values and all(math.isfinite(v) for v in values),
+              f"seg main_train: {stage} statistics not finite: {log[stage]}")
+    check(all(0.0 <= s["iou"] <= 100.0 for s in log["val"] + log["ema"]),
+          f"seg main_train: iou out of [0, 100]: {log['val']} {log['ema']}")
+
+    ckpt = os.path.join(trainer.save_dir, "checkpoint_ema_last.pt")
+    trainer = None
+    built.clear()
+    gc.collect()
+    before = sep["fwd"].launches
+    miou = main_worker_segmentation(args=args + [
+        "--model.segmentation.pretrained", ckpt,
+        "--evaluation.segmentation.resize-input-images-fixed-size", "512", "512"])
+    want = log["ema"][-1]["iou"]
+    check(sep["fwd"].launches - before == per_step * SEG_VAL_SAMPLES // SEG_BATCH,
+          f"main_worker_segmentation: {sep['fwd'].launches - before} forward launches")
+    check(miou == want, f"main_worker_segmentation mIoU {miou!r} vs the last EMA "
+                        f"validation's iou {want!r}")
+    epoch_s = log["train"][-1][1]
+    rounded = lambda stats: [{k: round(v, 4) for k, v in s.items()} for s in stats]  # noqa: E731
+    print(f"seg main_train: DeepLabv3-MobileViTv2-1.0 batch={SEG_BATCH} 512x512 bf16 epochs=2 "
+          f"steps={n_steps} launches={launches} "
+          f"train={rounded([e[3] for e in log['train']])} val={rounded(log['val'])} "
+          f"ema={rounded(log['ema'])} main_worker_segmentation miou={miou!r} | {card}",
+          flush=True)
+    print(f"seg main_train: img_s={SEG_TRAIN_SAMPLES / epoch_s:.1f} over epoch 2 "
+          f"({n_steps // 2} steps, {epoch_s:.3f} s, the loader's first batch included); "
+          f"loader alone img_s={n_img / loader_s:.1f}; bare step (DeepLabv3 a/b, kernel "
+          f"path) img_s={'not run' if bare is None else format(bare['img_s'], '.1f')} "
+          f"| {card}", flush=True)
+
+
+def phase_pspnet(card: str) -> dict:
+    """PSPNet-MobileViTv2-1.0 train steps at batch 8 × 512² with
+    pspnet_mobilevitv2.yaml's settings (OS 8, pyramid 1/2/3/6, 512 channels,
+    aux head), then its steady steps; the seg-CE (2 + 2) and separable (9 +
+    9) launches a step. Returns the launch counts."""
+    from cvnets_tpu_torch.ops.seg_ce_kernel import seg_ce_bwd_kernel, seg_ce_fwd_kernel
+    from cvnets_tpu_torch.ops.separable_attention import (
+        separable_attention_bwd_kernel,
+        separable_attention_kernel,
+    )
+
+    sep = {"separable_attention": separable_attention_kernel,
+           "separable_attention_bwd": separable_attention_bwd_kernel}
+    label = "PSPNet-MobileViTv2-1.0"
+    launches, run = phase_train(
+        card, label, PSPNET_ARGS,
+        {"seg_ce_fwd": seg_ce_fwd_kernel, "seg_ce_bwd": seg_ce_bwd_kernel, **sep},
+        {"seg_ce_fwd": SEG_CALLS, "seg_ce_bwd": SEG_CALLS,
+         **{name: sum(SEP_DEEPLAB[1].values()) for name in sep}})
+    phase_steady(card, label, run)
+    return launches
 
 
 def phase_mobileone_fused(card: str, run) -> None:
@@ -2408,8 +2704,9 @@ def phase_conv(card: str) -> None:
         release()
 
 
-def phase_deeplab(card: str) -> dict:
-    """DeepLabv3's train, a/b and profile phases; returns the launch counts."""
+def phase_deeplab(card: str) -> tuple:
+    """DeepLabv3's train, a/b and profile phases; returns the launch counts and
+    the kernel path's a/b (img/s, peak GiB)."""
     from cvnets_tpu_torch.ops.seg_ce_kernel import seg_ce_bwd_kernel, seg_ce_fwd_kernel
     from cvnets_tpu_torch.ops.separable_attention import (
         separable_attention_bwd_kernel,
@@ -2423,18 +2720,18 @@ def phase_deeplab(card: str) -> dict:
         {"seg_ce_fwd": seg_ce_fwd_kernel, "seg_ce_bwd": seg_ce_bwd_kernel, **sep},
         {"seg_ce_fwd": SEG_CALLS, "seg_ce_bwd": SEG_CALLS,
          **{name: sum(SEP_DEEPLAB[1].values()) for name in sep}})
-    phase_ab(card, "DeepLabv3-MobileViTv2-1.0", run)
+    bare = phase_ab(card, "DeepLabv3-MobileViTv2-1.0", run)
     phase_profile(card, "DeepLabv3-MobileViTv2-1.0", run,
                   os.path.join("results", "deeplab_profile.txt"))
-    return launches
+    return launches, bare
 
 
 def main(argv) -> int:
     import torch
 
-    if argv not in ([], ["--deeplab"]):
+    if argv not in ([], ["--deeplab"], ["--segmentation"]):
         print(f"chip_smoke: unknown arguments {argv}; usage: chip_smoke.py "
-              "[--deeplab]", file=sys.stderr)
+              "[--deeplab | --segmentation]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2454,6 +2751,12 @@ def main(argv) -> int:
     card = phase_device()
     if argv == ["--deeplab"]:
         phase_deeplab(card)
+        return 0
+    if argv == ["--segmentation"]:
+        phase_build()
+        phase_seg_main_train(card, None)
+        release()
+        phase_pspnet(card)
         return 0
     phase_build()
     sep_records = phase_kernel(card)
@@ -2484,7 +2787,11 @@ def main(argv) -> int:
     phase_profile(card, "ViT-B/16", run, os.path.join("results", "vit_profile.txt"))
     run = None
     release()
-    seg_launches = phase_deeplab(card)
+    seg_launches, deeplab_bare = phase_deeplab(card)
+    release()
+    phase_seg_main_train(card, deeplab_bare)
+    release()
+    phase_pspnet(card)
     release()
     win_kernels = {"window_attention_fwd": window_fwd_kernel,
                    "window_attention_bwd": window_bwd_kernel}

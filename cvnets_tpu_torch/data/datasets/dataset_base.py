@@ -4,10 +4,10 @@ A dataset is a host-side object: its items are asked for with the sampler's
 ``(crop_h, crop_w, index)`` tuples and are dicts of tensors and ints. Moving
 them to the card is the Trainer's work.
 
-Images are read through Pillow, imported inside the reader: the card machine
-has no Pillow, so a dataset of image files cannot be read there until the JAX
-package's native JPEG decoder (``cvnets_tpu/native/decode.cpp``) is ported
-(ROADMAP.md queue 1 item 13).
+Images and masks are read through Pillow, imported inside the reader (a
+module of the port imports it nowhere else); the JAX package's native JPEG
+decoder (``cvnets_tpu/native/decode.cpp``) is not ported yet (ROADMAP.md queue
+1 item 13).
 """
 
 from __future__ import annotations
@@ -101,7 +101,8 @@ class BaseDataset:
 
 
 class BaseImageDataset(BaseDataset):
-    """Image files through Pillow: an unreadable file reads as None."""
+    """Image files (and segmentation masks) through Pillow: an unreadable file
+    reads as None."""
 
     _warned_decoder = False
 
@@ -128,6 +129,17 @@ class BaseImageDataset(BaseDataset):
         try:
             with image.open(path) as img:
                 return img.height, img.width
+        except Exception:
+            return None
+
+    @classmethod
+    def read_mask_pil(cls, path: str) -> Optional[np.ndarray]:
+        """The file's stored values, HW (a palette PNG's indices, not its
+        colours), or None if it cannot be read."""
+        image = cls._pil()
+        try:
+            with image.open(path) as img:
+                return np.array(img)
         except Exception:
             return None
 

@@ -19,8 +19,11 @@ def arguments_augmentation(parser: argparse.ArgumentParser) -> argparse.Argument
     from cvnets_tpu_torch.ops.image_ops import arguments_device_augmentation
     from cvnets_tpu_torch.ops.mixing import arguments_mixing
 
+    from cvnets_tpu_torch.data.transforms.image import arguments_unported_transforms
+
     parser = arguments_mixing(parser)
     parser = arguments_device_augmentation(parser)
+    parser = arguments_unported_transforms(parser)
     return TRANSFORMATIONS_REGISTRY.all_arguments(parser)
 
 

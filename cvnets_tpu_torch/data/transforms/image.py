@@ -1,22 +1,33 @@
-"""Host-tier image transforms of the classification recipes (counterpart of the
-part of cvnets_tpu/data/transforms/image.py they use): random resized crop,
-horizontal flip, resize, center crop, and ``ToFloatTensor``, which keeps uint8
-pixels (the train step divides by 255 on the card).
+"""Host-tier image transforms of the classification and segmentation recipes
+(counterpart of the part of cvnets_tpu/data/transforms/image.py they use):
+random resized crop, horizontal flip, resize, center crop, random short-side
+resize, random crop, and ``ToFloatTensor``, which keeps uint8 pixels (the train
+step divides by 255 on the card).
 
-Images are CHW uint8 tensors. The JAX transforms resample through Pillow's
-``Image.resize``; ``resize_image`` does so with two ``F.interpolate`` calls with
-``antialias=True`` (Pillow's filters, bicubic's a = -0.5), first along W, then
-along H, rounding half up and clamping to uint8 after each as Pillow does, which
-lands within 1/255 of Pillow on every pixel.
+Images are CHW uint8 tensors; a segmentation mask rides along as ``data["mask"]``,
+an (H, W) uint8 tensor, and every geometric transform moves it with the image.
+The JAX transforms resample through Pillow's ``Image.resize``; ``resize_image``
+does so with two ``F.interpolate`` calls with ``antialias=True`` (Pillow's
+filters, bicubic's a = -0.5), first along W, then along H, rounding half up and
+clamping to uint8 after each as Pillow does, which lands within 1/255 of Pillow
+on every pixel, upscaling included. Masks resize as Pillow's ``NEAREST`` does,
+bit for bit (``resize_mask``): ``F.interpolate``'s "nearest-exact" picks
+another source pixel for about half of the (in, out) size pairs.
+
+The segmentation transforms that no yaml of ``config/segmentation/`` turns on
+(photometric distortion, Gaussian blur, rotation, random order) are not ported:
+their ``enable`` flags are parsed, and a dataset asked for one raises.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import math
 import random
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -41,6 +52,33 @@ def resize_image(img: torch.Tensor, size_hw: Tuple[int, int],
                               antialias=True)
             x = x.add_(0.5).floor_().clamp_(0, 255)
     return x[0].to(torch.uint8)
+
+
+@functools.lru_cache(maxsize=256)
+def _nearest_index(out_size: int, in_size: int) -> torch.Tensor:
+    """Pillow's NEAREST source index of each output position: its scaling loop
+    starts a double at scale / 2 and adds scale = in / out once a position,
+    truncating each (an accumulated sum, not (x + 0.5) · scale)."""
+    scale = in_size / out_size
+    pos = np.cumsum(np.concatenate([[scale * 0.5], np.full(out_size - 1, scale)]))
+    return torch.from_numpy(np.minimum(pos.astype(np.int64), in_size - 1))
+
+
+def resize_mask(mask: torch.Tensor, size_hw: Tuple[int, int]) -> torch.Tensor:
+    """``mask`` (H, W) resampled to ``size_hw`` as Pillow's ``NEAREST``."""
+    h, w = size_hw
+    if tuple(mask.shape) == (h, w):
+        return mask
+    rows, cols = _nearest_index(h, mask.shape[0]), _nearest_index(w, mask.shape[1])
+    return mask.index_select(0, rows).index_select(1, cols)
+
+
+def _resize(data: Dict, size_hw: Tuple[int, int], interpolation: str) -> Dict:
+    """The image by ``interpolation``, the mask (if any) by nearest."""
+    data["image"] = resize_image(data["image"], size_hw, interpolation)
+    if data.get("mask") is not None:
+        data["mask"] = resize_mask(data["mask"], size_hw)
+    return data
 
 
 @TRANSFORMATIONS_REGISTRY.register(name="random_resized_crop", type="image_pil")
@@ -127,6 +165,8 @@ class RandomHorizontalFlip(BaseTransformation):
     def apply(self, data: Dict, params) -> Dict:
         if params:
             data["image"] = data["image"].flip(-1)
+            if data.get("mask") is not None:
+                data["mask"] = data["mask"].flip(-1)
         return data
 
 
@@ -169,10 +209,8 @@ class Resize(BaseTransformation):
         return self.size, int(round(width * scale))
 
     def apply(self, data: Dict, params) -> Dict:
-        img = data["image"]
-        data["image"] = resize_image(img, self.output_size(tuple(img.shape[-2:])),
-                                     self.interpolation)
-        return data
+        return _resize(data, self.output_size(tuple(data["image"].shape[-2:])),
+                       self.interpolation)
 
 
 @TRANSFORMATIONS_REGISTRY.register(name="center_crop", type="image_pil")
@@ -205,6 +243,151 @@ class CenterCrop(BaseTransformation):
         img = img[:, i:i + self.size, j:j + self.size]
         data["image"] = F.pad(img, (0, self.size - img.shape[-1], 0, self.size - img.shape[-2]))
         return data
+
+
+@TRANSFORMATIONS_REGISTRY.register(name="random_short_size_resize", type="image_pil")
+class RandomShortSizeResize(BaseTransformation):
+    """The shorter side to a size drawn from [min, max], the longer side at most
+    ``max_img_dim``; the new size truncated, as ``int(w * scale)``."""
+
+    def __init__(self, opts, **kwargs) -> None:
+        super().__init__(opts)
+        prefix = "image_augmentation.random_short_size_resize."
+        self.min_short = getattr(opts, prefix + "short_side_min", 256)
+        self.max_short = getattr(opts, prefix + "short_side_max", 320)
+        self.max_long = getattr(opts, prefix + "max_img_dim", 1024)
+        self.interpolation = getattr(opts, prefix + "interpolation", "bilinear")
+
+    @classmethod
+    def add_arguments(cls, parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
+        group = parser.add_argument_group(cls.__name__)
+        prefix = "--image-augmentation.random-short-size-resize."
+        group.add_argument(prefix + "enable", action="store_true", default=False)
+        group.add_argument(prefix + "short-side-min", type=int, default=256)
+        group.add_argument(prefix + "short-side-max", type=int, default=320)
+        group.add_argument(prefix + "max-img-dim", type=int, default=1024)
+        group.add_argument(prefix + "interpolation", type=str, default="bilinear")
+        return parser
+
+    def _size(self, size_hw: Tuple[int, int], short_side: int) -> Tuple[int, int]:
+        h, w = size_hw
+        scale = min(short_side / min(h, w), self.max_long / max(h, w))
+        return int(h * scale), int(w * scale)
+
+    def draw(self, rng, size_hw):
+        short_side = rng.randint(self.min_short, self.max_short)
+        return short_side, self._size(size_hw, short_side)
+
+    def apply(self, data: Dict, params) -> Dict:
+        return _resize(data, self._size(tuple(data["image"].shape[-2:]), params),
+                       self.interpolation)
+
+
+@TRANSFORMATIONS_REGISTRY.register(name="random_crop", type="image_pil")
+class RandomCrop(BaseTransformation):
+    """A crop of ``size``. An image smaller than the crop is first scaled up
+    (bilinear, its mask nearest) or, under ``pad-if-needed``, padded at the
+    bottom and right with zeros (its mask with ``mask-fill``). Under
+    ``seg-class-max-ratio`` an offset whose crop one class dominates is drawn
+    again, up to 10 times, as the JAX transform does. Which offset passes
+    depends on the mask, which is read after the draws, so ``draw`` takes all
+    11 candidate offsets up front, in the order the JAX transform draws them,
+    and ``apply`` keeps the first that passes (the last one if none does): the
+    draws never depend on a worker thread's timing."""
+
+    RETRIES = 10
+
+    def __init__(self, opts, size=None, ignore_idx: int = 255, **kwargs) -> None:
+        super().__init__(opts)
+        self.size = tuple(size)
+        self.ignore_idx = ignore_idx
+        prefix = "image_augmentation.random_crop."
+        self.max_ratio = getattr(opts, prefix + "seg_class_max_ratio", None)
+        self.pad_if_needed = getattr(opts, prefix + "pad_if_needed", False)
+        self.mask_fill = getattr(opts, prefix + "mask_fill", 255)
+
+    @classmethod
+    def add_arguments(cls, parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
+        group = parser.add_argument_group(cls.__name__)
+        prefix = "--image-augmentation.random-crop."
+        group.add_argument(prefix + "enable", action="store_true", default=False)
+        group.add_argument(prefix + "seg-class-max-ratio", type=float, default=None)
+        group.add_argument(prefix + "pad-if-needed", action="store_true", default=False)
+        group.add_argument(prefix + "mask-fill", type=int, default=255)
+        return parser
+
+    def _fit_size(self, h: int, w: int) -> Tuple[int, int]:
+        """The image's size once it is at least the crop's."""
+        ch, cw = self.size
+        if h >= ch and w >= cw:
+            return h, w
+        if self.pad_if_needed:
+            return max(h, ch), max(w, cw)
+        scale = min(h + max(0, ch - h), w + max(0, cw - w)) / min(h, w)
+        return max(ch, int(round(h * scale))), max(cw, int(round(w * scale)))
+
+    def draw(self, rng, size_hw):
+        (h, w), (ch, cw) = self._fit_size(*size_hw), self.size
+        n = 1 + self.RETRIES if self.max_ratio is not None else 1
+        return [(rng.randint(0, h - ch), rng.randint(0, w - cw)) for _ in range(n)], self.size
+
+    def output_size(self, size_hw):
+        return self.size
+
+    def _fit(self, data: Dict) -> Dict:
+        h, w = data["image"].shape[-2:]
+        fit_h, fit_w = self._fit_size(h, w)
+        if (fit_h, fit_w) == (h, w):
+            return data
+        if not self.pad_if_needed:
+            return _resize(data, (fit_h, fit_w), "bilinear")
+        pad = (0, fit_w - w, 0, fit_h - h)
+        data["image"] = F.pad(data["image"], pad)
+        if data.get("mask") is not None:
+            data["mask"] = F.pad(data["mask"], pad, value=self.mask_fill)
+        return data
+
+    def _passes(self, crop: torch.Tensor) -> bool:
+        """No class holds ``max_ratio`` or more of the crop's labelled pixels,
+        and the crop holds more than one value (the ignore label counts)."""
+        counts = torch.bincount(crop.flatten().long(), minlength=256).tolist()
+        valid = [n for label, n in enumerate(counts) if n and label != self.ignore_idx]
+        n_values = sum(1 for n in counts if n)
+        return bool(valid) and n_values > 1 and max(valid) / sum(valid) < self.max_ratio
+
+    def apply(self, data: Dict, params) -> Dict:
+        data = self._fit(data)
+        (ch, cw), mask = self.size, data.get("mask")
+        i, j = params[0]
+        if len(params) > 1 and mask is not None:
+            i, j = next(((a, b) for a, b in params[:-1]
+                         if self._passes(mask[a:a + ch, b:b + cw])), params[-1])
+        data["image"] = data["image"][:, i:i + ch, j:j + cw]
+        if mask is not None:
+            data["mask"] = mask[i:i + ch, j:j + cw]
+        return data
+
+
+# the segmentation transforms the port has not ported (no yaml of
+# config/segmentation/ turns one on): the dest of each enable flag, and its class
+# in the JAX package; a segmentation dataset asked for one raises
+UNPORTED_SEGMENTATION_TRANSFORMS = {
+    "image_augmentation.photo_metric_distort.enable":
+        "PhotometricDistort (cvnets_tpu/data/transforms/image.py:450)",
+    "image_augmentation.random_gaussian_noise.enable":
+        "RandomGaussianBlur (cvnets_tpu/data/transforms/image_advanced.py:571)",
+    "image_augmentation.random_rotate.enable":
+        "RandomRotate (cvnets_tpu/data/transforms/image_advanced.py:445)",
+    "image_augmentation.random_order.enable":
+        "RandomOrder (cvnets_tpu/data/transforms/image_advanced.py:596)",
+}
+
+
+def arguments_unported_transforms(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    group = parser.add_argument_group("Segmentation transforms not ported yet")
+    for dest in UNPORTED_SEGMENTATION_TRANSFORMS:
+        group.add_argument("--" + dest.replace("_", "-"), action="store_true", default=False)
+    return parser
 
 
 @TRANSFORMATIONS_REGISTRY.register(name="to_tensor", type="image_pil")

@@ -3,8 +3,8 @@ cvnets_tpu/engine/train_state.py:82-310).
 
 The JAX step is one pure compiled program; this one runs eagerly and updates the
 model, optimizer and EMA in place (no second copy of the state is made). Each step:
-uint8 → [0, 1] on the device, autocast forward, backward of the loss (of its
-``total_loss`` when the loss is a dict), global-norm clip
+uint8 → [0, 1] on the device (uint8 masks → int64 labels), autocast forward,
+backward of the loss (of its ``total_loss`` when the loss is a dict), global-norm clip
 ``min(1, clip / (norm + 1e-6))``, the optimizer at the scheduler's LR times each
 param group's ``lr_mult``, EMA of params and BN statistics, ``step += 1``. It
 returns each metric's (sum, count) pairs with the sums on the device; nothing is
@@ -70,6 +70,12 @@ def clip_grad_norm_(params: List[torch.Tensor], grad_clip: Optional[float]
     return norm
 
 
+def _labels(targets: torch.Tensor) -> torch.Tensor:
+    """Segmentation masks cross to the device as uint8 and are widened there to
+    the int64 labels the loss and the metrics index with."""
+    return targets.long() if targets.dtype == torch.uint8 else targets
+
+
 def _to_unit(samples: torch.Tensor) -> torch.Tensor:
     """uint8 pixels to [0, 1] floats on their device (the JAX step's
     normalization of the native loader's batches)."""
@@ -110,7 +116,7 @@ def make_train_step(model: nn.Module, criteria: Callable, opts, metric_objs: Dic
 
     def train_step(state: TrainState, batch: Dict, lr: float, epoch: int = 0,
                    bn_momentum: Optional[float] = None) -> Tuple[TrainState, Pairs]:
-        samples, targets = _to_unit(batch["samples"]), batch["targets"]
+        samples, targets = _to_unit(batch["samples"]), _labels(batch["targets"])
         if augment_fn is not None:
             samples = augment_fn(samples, step_rng(seed, state.step, AUGMENT_STREAM))
         if mixing_fn is not None:
@@ -160,7 +166,7 @@ def make_eval_step(model: nn.Module, criteria: Callable, metric_objs: Dict[str, 
     def eval_step(state: TrainState, batch: Dict) -> Pairs:
         net = state.ema.model if use_ema and state.ema is not None else model
         net.eval()
-        samples, targets = _to_unit(batch["samples"]), batch["targets"]
+        samples, targets = _to_unit(batch["samples"]), _labels(batch["targets"])
         with autocast(opts, samples.device):
             prediction = net(samples)
             loss = criteria(samples, prediction, targets, training=False)

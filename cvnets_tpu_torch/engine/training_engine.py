@@ -17,7 +17,10 @@ augmentation and mixup / cutmix the options enable. The resolved options go to
 
 Not ported yet, and refused when asked for: sample-efficient training,
 ``--common.finetune`` and the profiler trace (each error names its ROADMAP.md
-item).
+item). Also refused: an ``iou`` in ``stats.train`` of a segmentation model that
+returns head-resolution logits in training (the default, for the fused
+resize + CE); they would be compared with full-size masks (in the JAX package
+that crashes). ``--model.segmentation.upsample-train-logits`` makes it train.
 """
 
 from __future__ import annotations
@@ -36,7 +39,7 @@ from cvnets_tpu_torch.engine.train_state import (
     make_train_step,
 )
 from cvnets_tpu_torch.layers.normalization import AdjustBatchNormMomentum
-from cvnets_tpu_torch.metrics import build_metrics
+from cvnets_tpu_torch.metrics import METRICS_REGISTRY, build_metrics
 from cvnets_tpu_torch.metrics.stats import Statistics, add_pairs, pairs_to_host
 from cvnets_tpu_torch.ops.image_ops import build_device_augmenter
 from cvnets_tpu_torch.ops.mixing import build_mixing_fn
@@ -72,6 +75,15 @@ class Trainer:
         for dest, why in _UNPORTED:
             if getattr(opts, dest, None):
                 raise NotImplementedError(f"not ported yet: {why}")
+        self.train_metric_names = getattr(opts, "stats.train", ["loss"])
+        if (getattr(opts, "dataset.category", None) == "segmentation"
+                and "iou" in {METRICS_REGISTRY.parse_key(n)[0] for n in self.train_metric_names}
+                and not getattr(opts, "model.segmentation.upsample_train_logits", False)):
+            raise ValueError(
+                "stats.train has iou, but in training the segmentation model returns "
+                "head-resolution logits, smaller than the masks; pass "
+                "--model.segmentation.upsample-train-logits to upsample them, or drop iou "
+                "from stats.train")
         self.opts = opts
         self.model = model
         self.criteria = criteria
@@ -89,7 +101,6 @@ class Trainer:
         self.save_interval_freq = getattr(opts, "common.save_interval_freq", 0) or 0
         self.ema_enabled = getattr(opts, "ema.enable", False)
         self.ema_copy_at_epoch = getattr(opts, "ema.copy_at_epoch", -1)
-        self.train_metric_names = getattr(opts, "stats.train", ["loss"])
         self.val_metric_names = getattr(opts, "stats.val", ["loss"])
         self.ckpt_metric_name = getattr(opts, "stats.checkpoint_metric", "loss")
         self.generator = torch.Generator(self.device).manual_seed(

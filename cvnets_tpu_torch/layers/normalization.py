@@ -18,6 +18,11 @@
   with its float32 scale.
 * ``AdjustBatchNormMomentum`` anneals the BN momentum over training; the train
   step writes its value into every BatchNorm module before the forward.
+* Under ``model.normalization.frozen`` (set by ``get_model`` from
+  ``--model.<category>.freeze-batch-norm``) every batch norm is a frozen one
+  (normalization.py:125): it normalizes with its running statistics in train
+  mode too and never updates them; ``build_optimizer`` leaves the norms'
+  scales and biases out (``NORM_PARAM_FREEZE_REGEX``).
 
 Both compute in float32 and return the compute dtype, as JAX's do with
 ``dtype=compute_dtype(opts)``: the autocast dtype under autocast, else the
@@ -38,6 +43,11 @@ import torch.nn.functional as F
 from cvnets_tpu_torch.utils import logger
 
 BATCH_NORMS = ("batch_norm", "batch_norm_2d", "sync_batch_norm")
+
+# a normalization layer's scale or bias by its name, the JAX package's regex on
+# flax paths (normalization.py:34-37) with torch's separators and leaf names:
+# every norm attribute's name holds "norm"
+NORM_PARAM_FREEZE_REGEX = r"(^|\.)[^.]*norm[^.]*\.(weight|bias)$"
 SUPPORTED_NORM_FNS = BATCH_NORMS + (
     "batch_norm_1d", "batch_norm_3d", "sync_batch_norm_fp32", "layer_norm", "layer_norm_2d",
     "layer_norm_fp32", "group_norm", "instance_norm", "instance_norm_2d", "identity")
@@ -68,6 +78,32 @@ class LayerNormFP32(LayerNorm):
 class BatchNorm2dFP32(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` on a float32 copy of its input: float32 out."""
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.float())
+
+
+class _Frozen:
+    """Normalizes with the running statistics, in train mode too, and never
+    updates them (nor the batch counter)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                            False, 0.0, self.eps)
+
+
+class FrozenBatchNorm1d(_Frozen, nn.BatchNorm1d):
+    pass
+
+
+class FrozenBatchNorm2d(_Frozen, nn.BatchNorm2d):
+    pass
+
+
+class FrozenBatchNorm3d(_Frozen, nn.BatchNorm3d):
+    pass
+
+
+class FrozenBatchNorm2dFP32(FrozenBatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return super().forward(x.float())
 
@@ -105,9 +141,14 @@ def get_normalization_layer(opts, num_features: int,
     momentum = getattr(opts, "model.normalization.momentum", 0.1)
     momentum = 0.1 if momentum is None else momentum
     # on one device sync-BN is plain BN, as under GSPMD in the JAX package
-    batch_norm = {**dict.fromkeys(BATCH_NORMS, nn.BatchNorm2d),
-                  "batch_norm_1d": nn.BatchNorm1d, "batch_norm_3d": nn.BatchNorm3d,
-                  "sync_batch_norm_fp32": BatchNorm2dFP32}.get(norm_type)
+    if getattr(opts, "model.normalization.frozen", False):
+        batch_norm = {**dict.fromkeys(BATCH_NORMS, FrozenBatchNorm2d),
+                      "batch_norm_1d": FrozenBatchNorm1d, "batch_norm_3d": FrozenBatchNorm3d,
+                      "sync_batch_norm_fp32": FrozenBatchNorm2dFP32}.get(norm_type)
+    else:
+        batch_norm = {**dict.fromkeys(BATCH_NORMS, nn.BatchNorm2d),
+                      "batch_norm_1d": nn.BatchNorm1d, "batch_norm_3d": nn.BatchNorm3d,
+                      "sync_batch_norm_fp32": BatchNorm2dFP32}.get(norm_type)
     if batch_norm is not None:
         return batch_norm(num_features, eps=eps, momentum=momentum)
     if norm_type == "layer_norm":

@@ -1,4 +1,4 @@
-"""Evaluation entry point of the port (counterpart of main_eval.py):
+"""Evaluation entry points of the port (counterpart of main_eval.py):
 
     python -m cvnets_tpu_torch.main_eval --common.config-file <yaml> \
         --model.classification.pretrained <checkpoint.pt>
@@ -6,7 +6,9 @@
 the ``stats.val`` metrics of the model over the test loader (the dataset's
 ``root_test``, else ``root_val``, at ``--dataset.eval-batch-size0``), its
 weights from ``--model.classification.pretrained`` or ``--common.resume``, on
-``device``, the CUDA card unless the caller asks for the CPU.
+``device``, the CUDA card unless the caller asks for the CPU; and
+``main_worker_segmentation``, the offline segmentation evaluation
+(``engine/eval_segmentation.py``, which is its command line).
 """
 
 from __future__ import annotations
@@ -38,6 +40,15 @@ def main(opts, device: Union[str, torch.device, None] = None, **kwargs) -> Dict[
 def main_worker(args: Optional[List[str]] = None,
                 device: Union[str, torch.device, None] = None, **kwargs) -> Dict[str, float]:
     return main(get_eval_arguments(args=args), device=device, **kwargs)
+
+
+def main_worker_segmentation(args: Optional[List[str]] = None,
+                             device: Union[str, torch.device, None] = None, **kwargs):
+    """The offline segmentation evaluation: an mIoU, or the directory of the
+    saved predictions."""
+    from cvnets_tpu_torch.engine.eval_segmentation import main_segmentation_evaluation
+
+    return main_segmentation_evaluation(get_eval_arguments(args=args), device=device)
 
 
 if __name__ == "__main__":

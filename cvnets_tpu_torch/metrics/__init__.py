@@ -32,4 +32,8 @@ def build_metrics(opts, names: Iterable[str]) -> Dict[str, BaseMetric]:
 
 
 # registers the ported metrics (after METRICS_REGISTRY exists)
-from cvnets_tpu_torch.metrics import misc, topk_accuracy  # noqa: E402,F401
+from cvnets_tpu_torch.metrics import (  # noqa: E402,F401
+    intersection_over_union,
+    misc,
+    topk_accuracy,
+)

@@ -1,6 +1,7 @@
 """Statistics over an epoch (counterpart of cvnets_tpu/metrics/stats.py:13-85).
 
-The steps return each metric's (sum, count) pairs with the sums on the device.
+The steps return each metric's (sum, count) pairs with the sums on the device
+(a scalar, or a vector such as the IoU's per-class int64 counts).
 ``add_pairs`` adds a step's pairs to a running total there, and ``pairs_to_host``
 reads a total back in one transfer; the Trainer calls it only at its log points
 and at the end of an epoch. ``Statistics.update`` takes what it returns.
@@ -29,13 +30,21 @@ def add_pairs(total: Optional[Pairs], pairs: Pairs) -> Pairs:
             for metric, values in pairs.items()}
 
 
-def pairs_to_host(pairs: Pairs) -> Dict[str, Dict[str, Tuple[float, float]]]:
-    """The same pairs with every sum a Python float, read back in one copy."""
+def pairs_to_host(pairs: Pairs) -> Dict[str, Dict[str, Tuple[object, float]]]:
+    """The same pairs with every sum on the host, read back in one copy: a
+    scalar sum as a Python float, a vector sum (the IoU's per-class counts) as
+    a float64 numpy array. The sums travel as float64, exact for int64 counts
+    up to 2^53."""
     keys = [(metric, name) for metric, values in pairs.items() for name in values]
-    sums = torch.stack([torch.as_tensor(pairs[m][n][0]).float() for m, n in keys]).tolist()
-    out: Dict[str, Dict[str, Tuple[float, float]]] = {metric: {} for metric in pairs}
-    for (metric, name), value in zip(keys, sums):
-        out[metric][name] = (value, float(pairs[metric][name][1]))
+    sums = [torch.as_tensor(pairs[m][n][0]) for m, n in keys]
+    flat = torch.cat([s.reshape(-1).double() for s in sums]).cpu().numpy()
+    out: Dict[str, Dict[str, Tuple[object, float]]] = {metric: {} for metric in pairs}
+    start = 0
+    for (metric, name), s in zip(keys, sums):
+        value = flat[start:start + s.numel()]
+        start += s.numel()
+        out[metric][name] = (float(value[0]) if s.dim() == 0 else value.reshape(s.shape),
+                             float(pairs[metric][name][1]))
     return out
 
 

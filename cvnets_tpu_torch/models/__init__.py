@@ -34,6 +34,11 @@ def get_model(opts, category: Optional[str] = None, model_name: Optional[str] = 
         model_name = getattr(opts, f"model.{category}.name")
     if model_name == "__base__":
         logger.error(f"For {category} task, model name can't be __base__.")
+    if getattr(opts, f"model.{category}.freeze_batch_norm", False):
+        # the norm factory builds frozen batch norms and the optimizer leaves the
+        # norms' parameters out (models/__init__.py:34-40)
+        setattr(opts, "model.normalization.frozen", True)
+        logger.info(f"Normalization layers are frozen ({category})")
     model = MODEL_REGISTRY[model_name, category].build_model(opts)
     if generator is None:
         generator = torch.Generator().manual_seed(getattr(opts, "common.seed", 0) or 0)

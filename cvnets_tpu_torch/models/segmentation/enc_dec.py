@@ -26,15 +26,17 @@ from cvnets_tpu_torch.ops.seg_ce import resize_bilinear
 class SegEncoderDecoder(BaseSegmentation):
     def __init__(self, opts) -> None:
         super().__init__(opts)
-        if getattr(opts, "model.segmentation.freeze_batch_norm", False):
-            raise NotImplementedError("--model.segmentation.freeze-batch-norm is not "
-                                      "ported yet")
         output_stride = getattr(opts, "model.segmentation.output_stride", None)
         kwargs = {"output_stride": output_stride} if output_stride in (8, 16) else {}
         name = getattr(opts, "model.classification.name")
         self.encoder = MODEL_REGISTRY[name, "classification"].build_model(opts, **kwargs)
-        # the encoder's classifier is never called here, so the flax tree has none
+        self.use_l5_exp = getattr(opts, "model.segmentation.use_level5_exp", False)
+        # the encoder's classifier is never called here, nor its conv_1x1_exp
+        # (MobileNetV2/V3, EfficientNet) without use-level5-exp, so the flax tree
+        # has neither
         self.encoder.classifier = None
+        if not self.use_l5_exp and getattr(self.encoder, "conv_1x1_exp", None) is not None:
+            self.encoder.conv_1x1_exp = None
 
         head_opts = opts  # --model.segmentation.norm-layer: the head's norm only
         seg_norm = getattr(opts, "model.segmentation.norm_layer", None)
@@ -44,7 +46,6 @@ class SegEncoderDecoder(BaseSegmentation):
         head = getattr(opts, "model.segmentation.seg_head", "deeplabv3")
         self.seg_head = MODEL_REGISTRY[head, "segmentation_head"].build_model(
             head_opts, self.encoder.model_conf_dict)
-        self.use_l5_exp = getattr(opts, "model.segmentation.use_level5_exp", False)
         self.upsample_train_logits = getattr(
             opts, "model.segmentation.upsample_train_logits", False)
 

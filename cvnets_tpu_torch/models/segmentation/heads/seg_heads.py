@@ -1,5 +1,6 @@
-"""Segmentation heads (counterpart of cvnets_tpu/models/segmentation/heads/seg_heads.py).
-Only DeepLabv3 is ported; PSPNet and the simple head are not registered yet.
+"""Segmentation heads (counterpart of cvnets_tpu/models/segmentation/heads/seg_heads.py):
+DeepLabv3 (ASPP), PSPNet (pyramid pooling) and the simple head (a 3×3 conv),
+each on ``out_l5`` (or ``out_l5_exp``) and followed by the 1×1 classifier.
 
 A head takes the encoder's tap points and returns head-resolution NCHW logits;
 in training with ``--model.segmentation.use-aux-head`` it returns
@@ -17,6 +18,7 @@ import torch.nn as nn
 from cvnets_tpu_torch.layers.conv_layer import ConvLayer2d
 from cvnets_tpu_torch.models import MODEL_REGISTRY
 from cvnets_tpu_torch.modules.aspp_block import ASPP
+from cvnets_tpu_torch.modules.pspnet_module import PSP
 
 
 class BaseSegHead(nn.Module):
@@ -33,6 +35,19 @@ class BaseSegHead(nn.Module):
             self.aux_dropout = nn.Dropout(getattr(opts, "model.segmentation.aux_dropout", 0.1))
             self.aux_classifier = ConvLayer2d(opts, aux_ch, self.n_seg_classes, kernel_size=1,
                                               use_norm=False, use_act=False, bias=True)
+
+    @classmethod
+    def build_model(cls, opts, enc_conf: Dict[str, Dict[str, int]]) -> "BaseSegHead":
+        return cls(opts, enc_conf)
+
+    @staticmethod
+    def _in_channels(opts, enc_conf: Dict[str, Dict[str, int]]) -> int:
+        use_l5_exp = getattr(opts, "model.segmentation.use_level5_exp", False)
+        return enc_conf["exp_before_cls" if use_l5_exp else "layer5"]["out"]
+
+    @staticmethod
+    def _features(end_points: Dict[str, torch.Tensor]) -> torch.Tensor:
+        return end_points.get("out_l5_exp", end_points["out_l5"])
 
     def _make_classifier(self, opts, in_channels: int) -> None:
         self.classifier_dropout = nn.Dropout(
@@ -72,17 +87,11 @@ class DeeplabV3(BaseSegHead):
                            type=float, default=0.1)
         return parser
 
-    @classmethod
-    def build_model(cls, opts, enc_conf: Dict[str, Dict[str, int]]) -> "DeeplabV3":
-        return cls(opts, enc_conf)
-
     def __init__(self, opts, enc_conf: Dict[str, Dict[str, int]]) -> None:
         super().__init__(opts, enc_conf)
-        use_l5_exp = getattr(opts, "model.segmentation.use_level5_exp", False)
-        in_ch = enc_conf["exp_before_cls" if use_l5_exp else "layer5"]["out"]
         out_ch = getattr(opts, "model.segmentation.deeplabv3.aspp_out_channels", 256)
         self.aspp = ASPP(
-            opts, in_ch, out_ch,
+            opts, self._in_channels(opts, enc_conf), out_ch,
             atrous_rates=tuple(getattr(opts, "model.segmentation.deeplabv3.aspp_rates",
                                        [6, 12, 18])),
             is_sep_conv=getattr(opts, "model.segmentation.deeplabv3.aspp_sep_conv", False),
@@ -91,5 +100,54 @@ class DeeplabV3(BaseSegHead):
 
     def forward(self, end_points: Dict[str, torch.Tensor]
                 ) -> Union[torch.Tensor, Dict[str, torch.Tensor]]:
-        x = self.aspp(end_points.get("out_l5_exp", end_points["out_l5"]))
-        return self._package(self._classify(x), end_points)
+        return self._package(self._classify(self.aspp(self._features(end_points))),
+                             end_points)
+
+
+@MODEL_REGISTRY.register(name="pspnet", type="segmentation_head")
+class PSPNet(BaseSegHead):
+    """The pyramid pooling module on ``out_l5`` (or ``out_l5_exp``), then the
+    classifier."""
+
+    @classmethod
+    def add_arguments(cls, parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
+        group = parser.add_argument_group(title=cls.__name__)
+        group.add_argument("--model.segmentation.pspnet.psp-pool-sizes", type=int,
+                           nargs="+", default=[1, 2, 3, 6])
+        group.add_argument("--model.segmentation.pspnet.psp-out-channels", type=int,
+                           default=512)
+        group.add_argument("--model.segmentation.pspnet.psp-dropout", type=float,
+                           default=0.1)
+        return parser
+
+    def __init__(self, opts, enc_conf: Dict[str, Dict[str, int]]) -> None:
+        super().__init__(opts, enc_conf)
+        out_ch = getattr(opts, "model.segmentation.pspnet.psp_out_channels", 512)
+        self.psp = PSP(
+            opts, self._in_channels(opts, enc_conf), out_ch,
+            pool_sizes=tuple(getattr(opts, "model.segmentation.pspnet.psp_pool_sizes",
+                                     [1, 2, 3, 6])),
+            dropout=getattr(opts, "model.segmentation.pspnet.psp_dropout", 0.1))
+        self._make_classifier(opts, out_ch)
+
+    def forward(self, end_points: Dict[str, torch.Tensor]
+                ) -> Union[torch.Tensor, Dict[str, torch.Tensor]]:
+        return self._package(self._classify(self.psp(self._features(end_points))),
+                             end_points)
+
+
+@MODEL_REGISTRY.register(name="simple_seg_head", type="segmentation_head")
+class SimpleSegHead(BaseSegHead):
+    """A 3×3 conv + norm + act that keeps the width (``conv``), then the
+    classifier."""
+
+    def __init__(self, opts, enc_conf: Dict[str, Dict[str, int]]) -> None:
+        super().__init__(opts, enc_conf)
+        in_ch = self._in_channels(opts, enc_conf)
+        self.conv = ConvLayer2d(opts, in_ch, in_ch, kernel_size=3)
+        self._make_classifier(opts, in_ch)
+
+    def forward(self, end_points: Dict[str, torch.Tensor]
+                ) -> Union[torch.Tensor, Dict[str, torch.Tensor]]:
+        return self._package(self._classify(self.conv(self._features(end_points))),
+                             end_points)

@@ -22,6 +22,7 @@ from cvnets_tpu_torch.ops.seg_ce_kernel import (
     interp_taps,
     pixel_ce,
     resize_matrix_weights,
+    upload,
 )
 
 
@@ -30,7 +31,7 @@ def resize_matrix(out_size: int, in_size: int,
                   device: torch.device = torch.device("cpu")) -> torch.Tensor:
     """``resize_matrix_weights`` on ``device``, built once per (shape, device);
     callers share the tensor and must not modify it."""
-    return resize_matrix_weights(out_size, in_size).to(device)
+    return upload(resize_matrix_weights(out_size, in_size), device)
 
 
 @functools.lru_cache(maxsize=32)

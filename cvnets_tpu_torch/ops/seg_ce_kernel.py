@@ -66,6 +66,16 @@ def resize_matrix_weights(out_size: int, in_size: int) -> torch.Tensor:
     return torch.where(inside[None, :], weights, torch.zeros_like(weights)).t().contiguous()
 
 
+def upload(t: torch.Tensor, device) -> torch.Tensor:
+    """A host table on ``device``. To a CUDA card it goes from pinned memory
+    without a host sync: the tables are built at a run's first step, inside
+    train steps that must not wait for the card."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
+
+
 @dataclass(frozen=True)
 class BandPlan:
     """How ``warps`` warps of a backward block split a row, as one int32
@@ -85,7 +95,7 @@ class BandPlan:
     n_slots: int
 
     def to(self, device) -> "BandPlan":
-        return BandPlan(self.table.to(device), self.warps, self.n_slot_map, self.n_shared,
+        return BandPlan(upload(self.table, device), self.warps, self.n_slot_map, self.n_shared,
                         self.n_slots)
 
 
@@ -137,8 +147,8 @@ class InterpTaps:
     plans: Tuple[BandPlan, ...]
 
     def to(self, device) -> "InterpTaps":
-        return InterpTaps(self.idx.to(device), self.wt.to(device), self.taps,
-                          self.k0.to(device), self.band.to(device), self.n_in,
+        return InterpTaps(upload(self.idx, device), upload(self.wt, device), self.taps,
+                          upload(self.k0, device), upload(self.band, device), self.n_in,
                           tuple(p.to(device) for p in self.plans))
 
 

@@ -11,6 +11,12 @@ param group per (decay, multiplier) pair; each carries its ``lr_mult``, and the
 train step writes ``lr · lr_mult`` into it every iteration, as the JAX step
 writes the LR into ``inject_hyperparams`` state.
 
+Frozen norms (``model.normalization.frozen``, ``--model.<category>.freeze-batch-norm``)
+keep their scales and biases: those parameters join no param group, so they get
+no update and no weight decay, as the JAX package zeroes their updates
+(optim/__init__.py:218-225); their grads are still computed and enter the
+clip's global norm there too.
+
 torch's SGD and optax's ``add_decayed_weights`` → ``sgd`` agree: the coupled
 decay ``g + wd·p`` enters the momentum buffer, which starts at ``g`` on the
 first step in both. torch's AdamW and optax's adamw agree too:
@@ -26,6 +32,7 @@ from typing import Dict, List, Optional
 import torch
 import torch.nn as nn
 
+from cvnets_tpu_torch.layers.normalization import NORM_PARAM_FREEZE_REGEX
 from cvnets_tpu_torch.utils import logger
 from cvnets_tpu_torch.utils.registry import Registry
 
@@ -43,11 +50,13 @@ def arguments_optimizer(parser: argparse.ArgumentParser) -> argparse.ArgumentPar
 
 
 def param_groups(model: nn.Module, weight_decay: float, no_decay_bn_filter_bias: bool,
-                 lr_multipliers: Optional[Dict[str, float]] = None) -> List[dict]:
+                 lr_multipliers: Optional[Dict[str, float]] = None,
+                 frozen_norms: bool = False) -> List[dict]:
     patterns = [(re.compile(p), m) for p, m in (lr_multipliers or {}).items() if m != 1.0]
+    frozen = re.compile(NORM_PARAM_FREEZE_REGEX)
     groups: Dict[tuple, dict] = {}
     for name, p in model.named_parameters():
-        if not p.requires_grad:
+        if not p.requires_grad or (frozen_norms and frozen.search(name)):
             continue
         decay = weight_decay if (p.dim() > 1 or not no_decay_bn_filter_bias) else 0.0
         mult = 1.0
@@ -106,5 +115,5 @@ def build_optimizer(opts, model: nn.Module,
                      f"supported: {list(OPTIM_REGISTRY.keys())}")
     groups = param_groups(model, getattr(opts, "optim.weight_decay", 0.0) or 0.0,
                           getattr(opts, "optim.no_decay_bn_filter_bias", False),
-                          lr_multipliers)
+                          lr_multipliers, getattr(opts, "model.normalization.frozen", False))
     return OPTIM_REGISTRY[optim_name].make(opts, groups)

@@ -6,7 +6,10 @@ Port module attributes are named after the flax scopes, so a flax path maps to a
 ``kernel``/``scale`` → ``weight`` and ``mean``/``var`` → ``running_mean``/
 ``running_var``; ViT's ``pos_embed`` table and top-level ``cls_token`` and
 Swin's ``relative_position_bias_table`` and PReLU's ``alpha`` keep their names.
-Only leaves named ``kernel`` change layout, by rank: a conv HWIO → OIHW (a
+The segmentation heads' scopes (PSPNet's ``psp/psp_branch_<i>`` and
+``psp/fusion``, the separable ASPP's ``aspp/aspp_sep_<i>/{dw_conv,pw_conv}``,
+the simple head's ``conv``) follow the same rule. Only leaves named ``kernel``
+change layout, by rank: a conv HWIO → OIHW (a
 depthwise (kh, kw, 1, O) becomes (O, 1, kh, kw)) and a Dense (in, out) → Linear
 (out, in). Every other leaf, a 2-D positional table included, keeps its layout.
 """

@@ -204,14 +204,25 @@ def test_seg_flags_and_yaml_parse_to_the_same_values():
         assert getattr(torch_opts, dest) == value, dest
 
 
-def test_unported_options_raise_and_name_themselves():
+def test_unported_options_raise_and_name_themselves(tmp_path):
+    """The separable ASPP, PSPNet and frozen BN are ported (test_torch_seg_heads.py);
+    what stays unported on this path raises naming itself: each segmentation
+    transform that no yaml of config/segmentation/ turns on, when a training
+    set is built, and a seg head that is not registered."""
+    from cvnets_tpu_torch.data.datasets import build_dataset_from_registry
+    from cvnets_tpu_torch.data.transforms.image import UNPORTED_SEGMENTATION_TRANSFORMS
     from cvnets_tpu_torch.models import get_model
     from cvnets_tpu_torch.utils.logger import LoggerError
 
-    args = DEEPLAB_MICRO_ARGS + ["--model.segmentation.output-stride", "16"]
-    _, opts = both_opts(args + ["--model.segmentation.deeplabv3.aspp-sep-conv"])
-    with pytest.raises(NotImplementedError, match="aspp-sep-conv"):
-        get_model(opts, device="cpu")
-    _, opts = both_opts(args + ["--model.segmentation.seg-head", "pspnet"])
-    with pytest.raises(LoggerError, match="pspnet"):
+    args = DEEPLAB_MICRO_ARGS + ["--model.segmentation.output-stride", "16",
+                                 "--dataset.name", "ade20k", "--dataset.root-train",
+                                 str(tmp_path)]
+    for dest in UNPORTED_SEGMENTATION_TRANSFORMS:
+        flag = "--" + dest.replace("_", "-")
+        _, opts = both_opts(args + [flag])
+        with pytest.raises(NotImplementedError, match=flag.replace(".", r"\.")):
+            build_dataset_from_registry(opts, is_training=True)
+        build_dataset_from_registry(opts, is_training=False)  # validation has none
+    _, opts = both_opts(args + ["--model.segmentation.seg-head", "fcn"])
+    with pytest.raises(LoggerError, match="fcn"):
         get_model(opts, device="cpu")

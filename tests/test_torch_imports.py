@@ -1,12 +1,16 @@
 """The PyTorch port stands without JAX, and keeps the JAX package's flags.
 
 * ``cvnets_tpu_torch`` imports and runs CPU train steps of MobileViTv2, ViT,
-  DeepLabv3, Swin, SE-ResNet-18 and MobileOne-s0 (then folded), one epoch of a micro MobileViTv2 ``Trainer`` (its
-  ``config.yaml`` dump and checkpoints), and ``main_train`` for 2 epochs on
-  chip_smoke.py's flagship flags at 64 px on the port's dummy dataset with
-  every augmentation, then ``main_eval``, with ``jax``, ``flax``, ``optax``,
-  ``orbax``, ``yaml``, ``PIL`` and the JAX package ``cvnets_tpu`` blocked (a
-  subprocess: tests/conftest.py has imported jax into this one).
+  DeepLabv3, PSPNet with frozen BN, Swin, SE-ResNet-18 and MobileOne-s0 (then
+  folded), one epoch of a micro MobileViTv2 ``Trainer`` (its ``config.yaml``
+  dump and checkpoints), ``main_train`` for 2 epochs on chip_smoke.py's
+  flagship flags at 64 px on the port's dummy dataset with every augmentation,
+  then ``main_eval``, and ``main_train`` for an epoch on its DeepLabv3 flags
+  (the segmentation transforms, masks, iou) at 64 px on the port's dummy
+  segmentation dataset, then ``main_worker_segmentation``, with ``jax``,
+  ``flax``, ``optax``, ``orbax``, ``yaml``, ``PIL`` and the JAX package
+  ``cvnets_tpu`` blocked (a subprocess: tests/conftest.py has imported jax
+  into this one).
 * No module of the port, and not ``chip_smoke.py``, imports ``cvnets_tpu``, not
   even a module of it that imports no JAX (checked on the source's syntax tree).
 * Every flag of the port's parser exists in the JAX parser with the same dest and
@@ -96,6 +100,30 @@ _BLOCKED_RUN = textwrap.dedent("""
         stats = main_eval(args=small + ["--model.classification.pretrained", os.path.join(
             trainer.save_dir, "checkpoint_ema_last.pt")], device="cpu")
         assert set(stats) == {"loss", "top1", "top5"}
+    from chip_smoke import SEG_MAIN_TRAIN_ARGS
+    from torch_port_helpers import register_port_dummy_segmentation_dataset
+    from cvnets_tpu_torch.main_eval import main_worker_segmentation
+    register_port_dummy_segmentation_dataset()
+    with tempfile.TemporaryDirectory() as results:  # the DeepLabv3 flags at 64 px
+        small = SEG_MAIN_TRAIN_ARGS + [
+            "--dataset.name", "dummy_segmentation", "--dataset.workers", "2",
+            "--dataset.train-batch-size0", "2", "--dataset.val-batch-size0", "2",
+            "--dataset.eval-batch-size0", "2", "--sampler.bs.crop-size-width", "64",
+            "--sampler.bs.crop-size-height", "64",
+            "--image-augmentation.random-short-size-resize.short-side-min", "48",
+            "--image-augmentation.random-short-size-resize.short-side-max", "96",
+            "--image-augmentation.random-short-size-resize.max-img-dim", "128",
+            "--model.classification.mitv2.width-multiplier", "0.5",
+            "--model.segmentation.deeplabv3.aspp-out-channels", "32",
+            "--scheduler.max-epochs", "1", "--common.results-loc", results]
+        trainer = main_train(args=small, device="cpu")
+        assert trainer.train_iterations == 4
+        miou = main_worker_segmentation(args=small + [
+            "--model.segmentation.pretrained",
+            os.path.join(trainer.save_dir, "checkpoint_ema_last.pt"),
+            "--evaluation.segmentation.resize-input-images-fixed-size", "64", "64"],
+            device="cpu")
+        assert 0.0 <= miou <= 100.0
     vit_opts = get_training_arguments(args=[
         "--model.classification.name", "vit", "--model.classification.vit.mode", "micro",
         "--model.classification.n-classes", "10", "--model.activation.name", "gelu",
@@ -122,6 +150,19 @@ _BLOCKED_RUN = textwrap.dedent("""
     state, metrics = make_train_step(seg, build_loss_fn(seg_opts), seg_opts, metric_objs)(
         state, {"samples": x, "targets": y}, 1e-3)
     assert {"loss.seg_loss", "loss.aux_loss", "loss"} <= set(metrics["loss"])
+    assert bool(torch.isfinite(metrics["loss"]["loss"][0]))
+    psp_opts = get_training_arguments(args=[
+        "--dataset.category", "segmentation", "--model.segmentation.name", "encoder_decoder",
+        "--model.segmentation.n-classes", "5", "--model.segmentation.output-stride", "8",
+        "--model.segmentation.seg-head", "pspnet", "--model.segmentation.freeze-batch-norm",
+        "--model.segmentation.pspnet.psp-out-channels", "16",
+        "--model.classification.name", "mobilevit_v2",
+        "--model.classification.mitv2.width-multiplier", "0.5",
+        "--loss.category", "segmentation", "--optim.name", "sgd"])
+    psp = get_model(psp_opts, device="cpu")
+    state = create_train_state(psp, build_optimizer(psp_opts, psp))
+    state, metrics = make_train_step(psp, build_loss_fn(psp_opts), psp_opts, metric_objs)(
+        state, {"samples": x, "targets": y.to(torch.uint8)}, 1e-3)
     assert bool(torch.isfinite(metrics["loss"]["loss"][0]))
     from cvnets_tpu_torch.models.classification import swin_transformer
     swin_transformer._MODES["micro"] = (48, [2, 2, 2, 2], [3, 6, 12, 24])  # D = 16: fused route

@@ -225,6 +225,50 @@ def register_port_dummy_dataset() -> None:
             return rng.integers(0, 256, (*self.image_size(idx), 3), dtype=np.uint8)
 
 
+def blob_mask(rng: np.random.Generator, h: int, w: int, n_labels: int,
+              grid: tuple = (4, 5)) -> np.ndarray:
+    """A uint8 (h, w) mask of a coarse grid of random labels scaled up by
+    nearest neighbour: regions, so that resizing and crop retries act as on
+    real masks (per-pixel noise would leave them nothing to keep)."""
+    coarse = rng.integers(0, n_labels, grid).astype(np.uint8)
+    yy, xx = np.mgrid[0:h, 0:w]
+    return coarse[yy * grid[0] // h, xx * grid[1] // w]
+
+
+def register_port_dummy_segmentation_dataset() -> None:
+    """Register ``dummy_segmentation`` in the port's dataset registry (once): the
+    port's counterpart of tests/dummy_datasets/segmentation.py. It reads no
+    files: sample i is a seeded uint8 HWC image of one of a few sizes around
+    64 px and a blob mask of raw labels 0..n_classes (0 the ADE20k-style
+    "other", read as the ignore label, the rest shifted down by one), so the
+    real segmentation transforms run on it. 8 training samples, 4 validation
+    ones; the number of classes is the options' (5 without one)."""
+    from cvnets_tpu_torch.data.datasets import DATASET_REGISTRY
+    from cvnets_tpu_torch.data.datasets.segmentation.ade20k import ADE20KDataset
+
+    if ("dummy_segmentation", "segmentation") in DATASET_REGISTRY:
+        return
+
+    @DATASET_REGISTRY.register(name="dummy_segmentation", type="segmentation")
+    class PortDummySegmentationDataset(ADE20KDataset):
+        def __init__(self, opts, *args, **kwargs) -> None:
+            super().__init__(opts, *args, **kwargs)
+            self.n_seg_classes = getattr(opts, "model.segmentation.n_classes", None) or 5
+            n = 8 if self.is_training else 4
+            self.images, self.masks = [None] * n, [None] * n
+
+        def image_size(self, idx):
+            return 56 + 13 * (idx % 3), 70 + 9 * (idx % 2)
+
+        def read_image(self, idx):
+            rng = np.random.default_rng([idx, int(self.is_training)])
+            return rng.integers(0, 256, (*self.image_size(idx), 3), dtype=np.uint8)
+
+        def read_mask(self, idx):
+            rng = np.random.default_rng([idx, int(self.is_training), 1])
+            return blob_mask(rng, *self.image_size(idx), self.n_seg_classes + 1)
+
+
 # the flagship yaml on the port's dummy dataset at a CPU test's scale: 64 px crops
 # (72 then 64 for validation), batch 4, 2 epochs, 2 loader threads
 FLAGSHIP_DUMMY_OVERRIDES = [
