@@ -15,8 +15,8 @@ Phases, one line each or more (any failure exits non-zero):
 
 1. device: the card's name and ``nvidia-smi`` name and power limit;
 2. build: compiles csrc/separable_attention.cu, csrc/mha_attention.cu,
-   csrc/seg_ce.cu and csrc/window_attention.cu for sm_90a, one nvcc each,
-   started together;
+   csrc/seg_ce.cu, csrc/window_attention.cu and csrc/jpeg_decode.cu (linked
+   with nvJPEG) for sm_90a, one nvcc each, started together;
 3. kernel: the separable-attention forward and backward kernels against their
    plain torch versions at the flagship's shapes (BP = 128·4, (N, C) of each
    MobileViTv2 stage) and at DeepLabv3's (BP = 8·4 at 512² and output stride
@@ -184,13 +184,40 @@ Phases, one line each or more (any failure exits non-zero):
    ResNet-50 is, and MobileOne-s1's f32 eval forward folded
    by ``reparameterize_model`` against its branches (1e-4 of max(1,
    |logit|)).
+17. native: the native JPEG path (``--dataset.decoder native``). A seeded
+   ImageFolder of JPEG files written through Pillow at run time
+   (``write_jpeg_corpus``: 8 classes, 2048 train and 200 val files of about
+   500 × 375, quality 90, 4:2:0 with every 8th 4:4:4 and every 16th
+   grayscale; one train file cut at half its bytes, one inside its header).
+   (a) the crop → resize → flip kernel against its plain version on the same
+   nvJPEG rasters, bit for bit, at every crop class (prescale 1, 2, 4 and 8,
+   area and bilinear; ``NATIVE_CLASS_CASES``), with and without the flip, on
+   whole images and on random resized crops at 128 × 224² and 128 × 256²,
+   its time at both (and the plain version's, and its bound: the crops'
+   bytes of the rasters and the batch over the HBM rate); (b) nvJPEG's
+   rasters against Pillow's decode of the same files, mean and max |diff| by
+   kind (``NVJPEG_PILLOW_MEAN``), and nvJPEG's decode time a batch of 128 on
+   1 and 8 decoding threads; (c) the damaged files' status and their slots
+   replaced in place by valid ones (``fetch_batch_native``); (d) the
+   flagship's train loader alone over two epochs (32 batches), ``native``
+   against ``pil``, in img/s after the first batch. Then ``main_train`` for
+   2 epochs (16 steps each at batch 128) with the native
+   decoder on the corpus on each of the flagship's, vit.yaml's and
+   swin.yaml's flags (``NATIVE_MAIN_TRAIN``; ViT-B/16 and Swin-T at full
+   width, the ViT's variable batch sampler drawing its crop and batch every
+   batch): one kernel launch a train batch, each model's attention kernels
+   a step, finite statistics, no host sync through the port's code between
+   log points, img/s over epoch 2.
 
 The second-to-last line is the kernels' JSON record, one entry for each TPU
 kernel's counterpart: ``ms``/``plain_ms`` are a kernel's and its plain
 version's time for one train step's launches (the separable attention's 9
 forward and 9 backward at the flagship from the per-shape bf16 medians, each
 MHA kernel's 12 at ViT-B and at ViT-B 512², each seg-CE kernel's 2 at
-DeepLabv3, each window kernel's 12 at Swin-T from the per-stage medians), ``bound_ms`` the least time the card could
+DeepLabv3, each window kernel's 12 at Swin-T from the per-stage medians; the
+native decode's crop → resize → flip kernel's one launch a batch at 128 ×
+256², its launches those of the flagship's native ``main_train`` run, and
+nvJPEG's decode times beside it), ``bound_ms`` the least time the card could
 take for the same work (bytes over the HBM rate or operations over their unit's
 peak, whichever is larger; the MHA backward's counts the function's work, 5
 products of 2·S²·D a head and one exponential a logit, whatever the design
@@ -643,6 +670,7 @@ def phase_device() -> str:
 def phase_build() -> None:
     from concurrent.futures import ThreadPoolExecutor
 
+    from cvnets_tpu_torch import native
     from cvnets_tpu_torch.ops.cuda_build import BUILD_DIR, build_library
     from cvnets_tpu_torch.ops.mha_attention import mha_bwd_kernel, mha_fwd_kernel
     from cvnets_tpu_torch.ops.seg_ce_kernel import seg_ce_bwd_kernel, seg_ce_fwd_kernel
@@ -661,7 +689,7 @@ def phase_build() -> None:
                 f"{' (library found from an earlier build)' if before else ''}")
 
     sources = ("separable_attention.cu", "mha_attention.cu", "seg_ce.cu",
-               "window_attention.cu")
+               "window_attention.cu", "jpeg_decode.cu")
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(sources)) as pool:  # one nvcc per source, together
         done = list(pool.map(build, sources))
@@ -669,8 +697,9 @@ def phase_build() -> None:
     for kernel in (separable_attention_kernel, separable_attention_bwd_kernel,
                    mha_fwd_kernel, mha_bwd_kernel,
                    seg_ce_fwd_kernel, seg_ce_bwd_kernel, window_fwd_kernel,
-                   window_bwd_kernel):
+                   window_bwd_kernel, native.crop_resize_flip_kernel):
         kernel.load()
+    native.load_library()
 
 
 def check_qkv_grads(got, ref, c: int, dtype, what: str) -> list:
@@ -1968,15 +1997,36 @@ class SyncWatch:
         torch.cuda.set_sync_debug_mode("default")
 
 
+class _CountedLoader:
+    """A loader that counts the batches it yields (its other attributes are
+    the loader's)."""
+
+    def __init__(self, loader) -> None:
+        self.loader, self.yielded = loader, 0
+
+    def __getattr__(self, name):
+        return getattr(self.loader, name)
+
+    def __len__(self) -> int:
+        return len(self.loader)
+
+    def __iter__(self):
+        for batch in self.loader:
+            self.yielded += 1
+            yield batch
+
+
 def _watch_trainer(trainer, kernels: dict, watch: SyncWatch, per_step: int, log: dict):
     """Wrap the trainer's epochs, read-backs and interval saves: the train steps
     run under the sync debug mode, the read-backs and saves outside it; each
-    epoch's launches are checked (``per_step`` forward and backward a train
+    epoch's launches are checked against the batches its train loader yielded
+    (one train step each, ``per_step`` forward and backward launches a train
     step, ``per_step`` forward an eval forward, none backward; ``kernels``
     empty and ``per_step`` 0 for a path without one) and its time,
     statistics and interval-save time kept in ``log``."""
     import torch
 
+    trainer.train_loader = loader = _CountedLoader(trainer.train_loader)
     train_epoch, val_epoch = trainer.train_epoch, trainer.val_epoch
     read_back, save_interval = trainer.read_back, trainer.ckpt_manager.save_interval
 
@@ -1985,6 +2035,7 @@ def _watch_trainer(trainer, kernels: dict, watch: SyncWatch, per_step: int, log:
 
     def train(epoch):
         before, saves = counts(), log["save_s"]
+        steps, yielded = trainer.train_iterations, loader.yielded
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         watch.on()
@@ -1993,7 +2044,10 @@ def _watch_trainer(trainer, kernels: dict, watch: SyncWatch, per_step: int, log:
         torch.cuda.synchronize()
         log["train"].append((epoch, time.perf_counter() - t0, log["save_s"] - saves, stats))
         fwd, bwd = (a - b for a, b in zip(counts(), before))
-        n = len(trainer.train_loader)
+        n = loader.yielded - yielded
+        check(trainer.train_iterations - steps == n > 0,
+              f"trainer epoch {epoch}: {trainer.train_iterations - steps} train steps of "
+              f"{n} batches the loader yielded")
         check((fwd, bwd) == (per_step * n, per_step * n),
               f"trainer epoch {epoch}: {fwd} forward and {bwd} backward separable launches "
               f"in {n} steps, want {per_step} and {per_step} a step")
@@ -2256,13 +2310,16 @@ def register_smoke_ade20k() -> None:
             return coarse[np.arange(h) * 6 // h][:, np.arange(w) * 8 // w]
 
 
-def loader_alone(opts, check_batch) -> tuple:
-    """Two epochs of the train loader of ``opts`` with pinned batches and no
-    step on the card; ``check_batch`` checks each batch. Returns the images,
-    the seconds, the seconds to the first batch and the loader's threads."""
+def loader_alone(opts, check_batch, device="cuda") -> tuple:
+    """Two epochs of the train loader of ``opts`` with pinned batches (a native
+    route's on ``device``) and no step on the card; ``check_batch`` checks
+    each batch. Returns the images, the seconds, the seconds to the first
+    batch and the loader's threads."""
+    import torch
+
     from cvnets_tpu_torch.data.data_loaders import create_train_val_loader
 
-    loader, _, sampler = create_train_val_loader(opts, pin_memory=True)
+    loader, _, sampler = create_train_val_loader(opts, pin_memory=True, device=device)
     n_img, t0, first = 0, time.perf_counter(), None
     for epoch in range(2):
         sampler.set_epoch(epoch)
@@ -2270,6 +2327,7 @@ def loader_alone(opts, check_batch) -> tuple:
             first = first or time.perf_counter() - t0
             check_batch(batch)
             n_img += batch["samples"].shape[0]
+    torch.cuda.synchronize()  # a native route's last batch is done
     return n_img, time.perf_counter() - t0, first, loader.num_workers
 
 
@@ -2704,6 +2762,515 @@ def phase_conv(card: str) -> None:
         release()
 
 
+# ---- the native JPEG path: nvJPEG and the crop -> resize -> flip kernel ----
+# a seeded ImageFolder of JPEG files written through Pillow at run time (the
+# card machine has no image files): classes of train and val files of about
+# ImageNet's 500 × 375 (either way round, ±20%), quality 90, 4:2:0 but every
+# 8th 4:4:4 and every 16th grayscale; two damaged train files replace two of
+# class 0's: one cut at half its bytes, inside the entropy-coded data
+# ("truncated"), and one cut inside its header, before the frame
+# ("cut_header")
+NATIVE_CLASSES, NATIVE_TRAIN_PER_CLASS, NATIVE_VAL_PER_CLASS = 8, 256, 25
+NATIVE_TRAIN = NATIVE_CLASSES * NATIVE_TRAIN_PER_CLASS  # 2048: 16 batches of 128
+# the kernel's crop classes: (denom, area, out side, crop w, crop h); each
+# gives the prescale and the rule named (decode.cpp:151-155, 201)
+NATIVE_CLASS_CASES = [(1, True, 128, 200, 210), (1, False, 224, 250, 240),
+                      (2, True, 100, 320, 330), (2, False, 100, 210, 300),
+                      (4, True, 45, 320, 330), (4, False, 45, 185, 320),
+                      (8, True, 20, 320, 340), (8, False, 20, 165, 320)]
+NATIVE_BATCH = 128
+# nvJPEG's rasters against Pillow's decode of the same file: the mean |diff| a
+# kind of file may reach, in levels. nvJPEG's IDCT is not libjpeg's (4:4:4
+# 0.51, gray 0.02 levels measured on an NVIDIA H100 80GB HBM3, 700.00 W), and
+# its 4:2:0 chroma upsampling is not libjpeg's fancy upsampling (2.88 there)
+NVJPEG_PILLOW_MEAN = {"420": 4.0, "444": 1.0, "gray": 0.5}
+NATIVE_OUT = ((224, 224), (256, 256))  # the ImageNet recipes' train crops
+
+
+def _corpus_image(rng, h: int, w: int):
+    """Smooth colour fields and grain, so that a file weighs about what an
+    ImageNet photo does at quality 90."""
+    import numpy as np
+    from PIL import Image
+
+    low = rng.integers(0, 256, (h // 24 + 2, w // 24 + 2, 3)).astype(np.uint8)
+    field = np.asarray(Image.fromarray(low).resize((w, h), Image.BICUBIC), np.int16)
+    return np.clip(field + rng.integers(-24, 25, (h, w, 3)), 0, 255).astype(np.uint8)
+
+
+def write_jpeg_corpus(root: str, seed: int = 0) -> dict:
+    """The corpus above under ``root``: {"train": dir, "val": dir, "truncated":
+    path, "cut_header": path, "kinds": {path: "420" | "444" | "gray"}}. File
+    ``k`` draws from ``default_rng([seed, k])``; the files are encoded on a
+    thread each core (Pillow's encoder leaves the GIL)."""
+    import io
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from PIL import Image
+
+    out = {"train": os.path.join(root, "train"), "val": os.path.join(root, "val"), "kinds": {}}
+    jobs = []
+    for split, per_class in (("train", NATIVE_TRAIN_PER_CLASS), ("val", NATIVE_VAL_PER_CLASS)):
+        for c in range(NATIVE_CLASSES):
+            folder = os.path.join(out[split], f"n{c:08d}")
+            os.makedirs(folder)
+            for i in range(per_class):
+                k = len(jobs)
+                name = f"img_{k:05d}.jpg"
+                if split == "train" and c == 0 and i < 2:  # the two damaged files
+                    key = ("truncated", "cut_header")[i]
+                    name = f"{key}.jpg"
+                    out[key] = os.path.join(folder, name)
+                kind = "gray" if k % 16 == 5 else "444" if k % 8 == 3 else "420"
+                out["kinds"][os.path.join(folder, name)] = kind
+                jobs.append((k, os.path.join(folder, name), kind))
+
+    def write(job) -> None:
+        k, path, kind = job
+        rng = np.random.default_rng([seed, k])
+        h, w = int(rng.integers(300, 451)), int(rng.integers(400, 601))
+        if k % 3 == 0:
+            h, w = w, h
+        img = Image.fromarray(_corpus_image(rng, h, w))
+        if kind == "gray":
+            img = img.convert("L")
+        buf = io.BytesIO()
+        img.save(buf, "JPEG", quality=90, subsampling=0 if kind == "444" else 2)
+        data = buf.getvalue()
+        if path == out["truncated"]:
+            data = data[:len(data) // 2]
+        elif path == out["cut_header"]:
+            data = data[:100]
+        with open(path, "wb") as f:
+            f.write(data)
+
+    with ThreadPoolExecutor(os.cpu_count() or 1) as pool:
+        list(pool.map(write, jobs))
+    return out
+
+
+def native_batch(corpus: dict, n: int = NATIVE_BATCH) -> tuple:
+    """The first ``n`` intact train files by name (paths, blobs)."""
+    bad = {corpus["truncated"], corpus["cut_header"]}
+    paths = sorted(p for p in corpus["kinds"] if p.startswith(corpus["train"]) and p not in bad)
+    paths = sorted(paths, key=os.path.basename)[:n]
+    blobs = []
+    for p in paths:
+        with open(p, "rb") as f:
+            blobs.append(f.read())
+    return paths, blobs
+
+
+def native_rasters(decoder, blobs) -> tuple:
+    """nvJPEG's rasters of ``blobs`` in one card buffer: (raster, info,
+    offsets, status, [(H, W, 3) uint8 view of each on the card])."""
+    from cvnets_tpu_torch.native import raster_layout
+
+    info = decoder.info(blobs)
+    offsets, total = raster_layout(info)
+    raster, status = decoder.decode(blobs, info, offsets, total)
+    views = []
+    for (w, h, comps), off in zip(info, offsets):
+        ch = 1 if comps == 1 else 3
+        v = raster[off:off + w * h * ch].view(int(h), int(w), ch)
+        views.append(v.expand(-1, -1, 3) if ch == 1 else v)
+    return raster, info, offsets, status, views
+
+
+def native_bound(info, crops, out_hw) -> tuple:
+    """(ms, "bytes" or "operations") of one kernel launch: each raster byte its
+    crop's prescale boxes cover read once, the uint8 batch and the params
+    written and read once, over the HBM rate (a few integer operations a
+    byte: bytes bound it)."""
+    from cvnets_tpu_torch.native import N_PARAMS
+    from cvnets_tpu_torch.native.plain import crop_plan
+
+    n_bytes = len(crops) * (3 * out_hw[0] * out_hw[1] + 8 * N_PARAMS)
+    for (w, h, comps), crop in zip(info, crops):
+        d, x, y, cw, ch, _ = crop_plan(int(w), int(h), crop, out_hw)
+        rows = min((y + ch) * d, int(h)) - y * d
+        cols = min((x + cw) * d, int(w)) - x * d
+        n_bytes += rows * cols * (1 if comps == 1 else 3)
+    return bound(n_bytes)
+
+
+def rrc_crops(info, out_hw, seed: int) -> tuple:
+    """Random resized crops (scale 0.08-1, aspect 3/4-4/3) and flips of the
+    images of ``info``, as the train chain draws them."""
+    import random
+
+    from cvnets_tpu_torch.data.transforms.image import RandomResizedCrop
+    from cvnets_tpu_torch.options.opts import get_training_arguments
+
+    rrc = RandomResizedCrop(get_training_arguments(args=[]), size=out_hw)
+    rng = random.Random(seed)
+    crops, flips = [], []
+    for w, h, _ in info:
+        top, left, ch, cw = rrc.get_params(int(h), int(w), rng)
+        crops.append((left, top, cw, ch))
+        flips.append(rng.random() < 0.5)
+    return crops, flips
+
+
+def phase_native_kernel(card: str, corpus: dict) -> dict:
+    """The native decode phase's kernel checks: (a) the crop → resize → flip
+    kernel against its plain version on the same nvJPEG rasters, exactly, at
+    every crop class (prescale 1, 2, 4 and 8, each side of the 1.5× rule,
+    with and without the flip), the whole image, and random resized crops at
+    128 × 224² and 128 × 256²; (b) nvJPEG's rasters against Pillow's decode
+    of the same files, by kind; the kernel's and nvJPEG's times a batch.
+    Returns the kernel's record for the JSON line."""
+    import random
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from cvnets_tpu_torch import native
+    from cvnets_tpu_torch.native.plain import crop_plan, crop_resize_flip
+
+    device = torch.device("cuda:0")
+    paths, blobs = native_batch(corpus)
+    decoder = native.JpegDecoder(device)
+    raster, info, offsets, status, views = native_rasters(decoder, blobs)
+    torch.cuda.synchronize()
+    check(status.all(), f"native: nvJPEG failed {np.flatnonzero(status == 0).tolist()}")
+    kinds = [corpus["kinds"][p] for p in paths]
+    check({"420", "444", "gray"} <= set(kinds), f"native: kinds {set(kinds)}")
+
+    # (b) nvJPEG against Pillow, levels
+    diffs = {}
+    for p, kind, view in zip(paths, kinds, views):
+        with Image.open(p) as img:
+            want = torch.from_numpy(np.array(img.convert("RGB"))).to(device)
+        d = (view.int() - want.int()).abs()
+        diffs.setdefault(kind, []).append((d.float().mean().item(), d.max().item()))
+    for kind, ds in sorted(diffs.items()):
+        mean = sum(m for m, _ in ds) / len(ds)
+        print(f"native: nvJPEG vs Pillow {kind} ({len(ds)} files): mean |diff| "
+              f"{mean:.4f} levels, max {max(x for _, x in ds)} | {card}", flush=True)
+        check(mean < NVJPEG_PILLOW_MEAN[kind],
+              f"native: nvJPEG {kind} off Pillow's decode by {mean} levels")
+
+    # (a) the kernel against its plain version on the same rasters
+    rng = random.Random(0)
+    worst, n_cases, seen = 0, 0, set()
+
+    def compare(crops, flips, out_hw, label):
+        nonlocal worst, n_cases
+        params = torch.from_numpy(native.kernel_params(info, offsets, crops, flips, status))
+        got = native.crop_resize_flip(raster, params, out_hw)
+        for i, (crop, flip) in enumerate(zip(crops, flips)):
+            want = crop_resize_flip(views[i], crop, flip, out_hw)
+            err = (got[i].int() - want.int()).abs().max().item()
+            worst = max(worst, err)
+            check(err == 0, f"native kernel {label} image {i} crop {crop} flip {flip}: "
+                            f"{err} levels off its plain version")
+            n_cases += 1
+
+    for denom, area, side, cw, ch in NATIVE_CLASS_CASES:
+        crops, flips = [], []
+        for k, (w, h, _) in enumerate(info):
+            if k >= 16 or w < cw or h < ch:
+                crops.append((0, 0, -1, -1))
+            else:
+                crops.append((rng.randint(0, int(w) - cw), rng.randint(0, int(h) - ch), cw, ch))
+                plan = crop_plan(int(w), int(h), crops[-1], (side, side))
+                check((plan[0], plan[5]) == (denom, area), f"native case {denom, area}: {plan}")
+                seen.add((denom, area))
+            flips.append(k % 2 == 1)
+        compare(crops, flips, (side, side), f"prescale {denom} {'area' if area else 'bilinear'}")
+    check(len(seen) == len(NATIVE_CLASS_CASES), f"native: crop classes seen {sorted(seen)}")
+    compare([(0, 0, -1, -1)] * len(blobs), [k % 2 == 0 for k in range(len(blobs))],
+            (224, 224), "whole image")
+    record = {"max_abs_err": float(worst)}
+    times = {}
+    for out_hw in NATIVE_OUT:
+        crops, flips = rrc_crops(info, out_hw, seed=out_hw[0])
+        compare(crops, flips, out_hw, f"rrc {out_hw[0]}")
+        params = torch.from_numpy(native.kernel_params(info, offsets, crops, flips, status)).to(device)
+        out = torch.empty((len(blobs), 3, *out_hw), dtype=torch.uint8, device=device)
+        kernel = native.crop_resize_flip_kernel
+        t_kernel = time_ms(lambda: kernel.launch(device, raster.data_ptr(), params.data_ptr(),
+                                                 len(blobs), out_hw[0], out_hw[1],
+                                                 out.data_ptr()))
+        t_plain = time_ms(lambda: [crop_resize_flip(v, c, f, out_hw)
+                                   for v, c, f in zip(views, crops, flips)],
+                          launches=1, samples=3, warmup=1)
+        b_ms, b_by = native_bound(info, crops, out_hw)
+        times[out_hw[0]] = (t_kernel, t_plain, b_ms)
+        print(f"native kernel: batch {len(blobs)} x {out_hw[0]}^2 (random resized crops of "
+              f"~500x375) kernel_ms={t_kernel:.4f} plain_ms={t_plain:.4f} bound_ms={b_ms:.4f} "
+              f"({b_by}; kernel/bound {t_kernel / b_ms:.2f}) | {card}", flush=True)
+        if out_hw == NATIVE_OUT[1]:  # the flagship's 256² batches
+            record.update(ms=t_kernel, plain_ms=t_plain, bound_ms=b_ms, bound_by=b_by,
+                          library_ms=None)
+    n_bytes = sum(len(b) for b in blobs)
+    for threads in (1, 8):  # nvJPEG handles decoding chunks of the batch at once
+        with ThreadPoolExecutor(threads) as pool:
+            timed = native.JpegDecoder(device, threads=threads, pool=pool)
+            decode_ms = []
+            for _ in range(6):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                native_rasters(timed, blobs)
+                torch.cuda.synchronize()
+                decode_ms.append(1e3 * (time.perf_counter() - t0))
+            timed.close()
+        record[f"decode_ms_{threads}_threads"] = statistics.median(decode_ms[1:])
+        print(f"native: nvJPEG decode of {len(blobs)} files ({n_bytes / len(blobs) / 1e3:.1f} "
+              f"kB each, ~500x375), {threads} decoding threads: median "
+              f"{statistics.median(decode_ms[1:]):.3f} ms a batch (host clock to a sync; "
+              f"{[round(t, 3) for t in decode_ms]}, the first one's set-up excluded) | {card}",
+              flush=True)
+    print(f"native kernel: {n_cases} image cases equal to the plain version bit for bit "
+          f"(max |diff| {worst} levels) over prescale 1/2/4/8 x area/bilinear, flips, whole "
+          f"images and random resized crops at 224^2 and 256^2 | {card}", flush=True)
+    decoder.close()
+    return record
+
+
+# the rest of config/classification/imagenet/vit.yaml and swin.yaml, as flags: their
+# loaders, samplers, host transforms and augmentation (dataset.name and its roots
+# are the yamls' ImageNet on disk; the native phases name the JPEG corpus)
+VIT_DATA_ARGS = [
+    "--dataset.category", "classification",
+    "--dataset.workers", "8",
+    "--sampler.name", "variable_batch_sampler",
+    "--sampler.vbs.crop-size-width", "224",
+    "--sampler.vbs.crop-size-height", "224",
+    "--sampler.vbs.max-n-scales", "5",
+    "--sampler.vbs.min-crop-size-width", "128",
+    "--sampler.vbs.max-crop-size-width", "320",
+    "--sampler.vbs.min-crop-size-height", "128",
+    "--sampler.vbs.max-crop-size-height", "320",
+    "--sampler.vbs.check-scale", "32",
+    "--image-augmentation.random-resized-crop.enable",
+    "--image-augmentation.random-resized-crop.interpolation", "bilinear",
+    "--image-augmentation.random-horizontal-flip.enable",
+    "--image-augmentation.rand-augment.enable",
+    "--image-augmentation.random-erase.enable",
+    "--image-augmentation.random-erase.p", "0.25",
+    "--image-augmentation.mixup.enable",
+    "--image-augmentation.mixup.alpha", "0.2",
+    "--image-augmentation.cutmix.enable",
+    "--image-augmentation.cutmix.alpha", "1.0",
+    "--image-augmentation.resize.enable",
+    "--image-augmentation.resize.size", "232",
+    "--image-augmentation.center-crop.enable",
+    "--image-augmentation.center-crop.size", "224",
+]
+SWIN_DATA_ARGS = [
+    "--dataset.category", "classification",
+    "--dataset.workers", "8",
+    "--sampler.name", "batch_sampler",
+    "--image-augmentation.random-resized-crop.enable",
+    "--image-augmentation.random-resized-crop.interpolation", "bicubic",
+    "--image-augmentation.random-horizontal-flip.enable",
+    "--image-augmentation.rand-augment.enable",
+    "--image-augmentation.random-erase.enable",
+    "--image-augmentation.random-erase.p", "0.25",
+    "--image-augmentation.mixup.enable",
+    "--image-augmentation.mixup.alpha", "0.8",
+    "--image-augmentation.cutmix.enable",
+    "--image-augmentation.cutmix.alpha", "1.0",
+    "--image-augmentation.resize.enable",
+    "--image-augmentation.resize.size", "232",
+    "--image-augmentation.center-crop.enable",
+    "--image-augmentation.center-crop.size", "224",
+]
+# main_train on each yaml's flags with the native decoder, on the JPEG corpus:
+# 2 epochs (the ViT's variable batch sampler draws a crop of 128-320 and its
+# batch every batch)
+NATIVE_MAIN_TRAIN = {
+    "MobileViTv2-1.0": FLAGSHIP_ARGS + IMAGENET_RUN_ARGS + FLAGSHIP_DATA_ARGS,
+    "ViT-B/16": VIT_ARGS + VIT_DATA_ARGS,
+    "Swin-T": SWIN_ARGS + SWIN_DATA_ARGS,
+}
+
+
+def corpus_args(corpus: dict, decoder: str = "native") -> list:
+    return ["--dataset.name", "imagenet", "--dataset.root-train", corpus["train"],
+            "--dataset.root-val", corpus["val"], "--dataset.decoder", decoder,
+            "--scheduler.max-epochs", "2"]
+
+
+def phase_native_loader(card: str, corpus: dict) -> dict:
+    """The native decode phase's loader checks: (c) the two damaged files'
+    status from nvJPEG and their slots replaced by valid ones in place
+    (``fetch_batch_native``), and (d) the flagship's train loader alone over
+    two epochs of the corpus, ``--dataset.decoder native`` (nvJPEG, 8 decoding
+    threads, the kernel; batches on the card) against ``pil`` (8 threads of
+    Pillow and the port's resampling; pinned host batches). Returns the
+    loaders' img/s by decoder."""
+    import random
+
+    import numpy as np
+    import torch
+
+    from cvnets_tpu_torch import native
+    from cvnets_tpu_torch.data.datasets import get_train_val_datasets
+    from cvnets_tpu_torch.options.opts import get_training_arguments
+
+    device = torch.device("cuda:0")
+    base = NATIVE_MAIN_TRAIN["MobileViTv2-1.0"]
+    opts = get_training_arguments(args=base + corpus_args(corpus))
+    dataset, _ = get_train_val_datasets(opts)
+    paths = [p for p, _ in dataset.samples]
+    bad = [paths.index(corpus["truncated"]), paths.index(corpus["cut_header"])]
+    good = [i for i in range(len(paths)) if i not in bad][:6]
+    idxs = good[:3] + bad + good[3:]
+    blobs = [dataset._read_bytes(i) for i in idxs]
+    _, status = native.decode_rrc_batch(blobs, [(0, 0, -1, -1)] * len(blobs), None,
+                                        (256, 256), device)
+    batch = dataset.fetch_batch_native([(256, 256, i) for i in idxs], random.Random(0),
+                                       device)
+    torch.cuda.synchronize()
+    failed = [k for k, ok in enumerate(status) if not ok]
+    truncated, cut_header = 3, 4  # their slots in idxs
+    check(cut_header in failed, f"native: the file cut inside its header decoded: {status}")
+    for k in failed:
+        rep = batch["sample_id"][k].item()
+        check(rep != idxs[k] and rep in good and batch["targets"][k].item()
+              == dataset.samples[rep][1] and torch.equal(batch["samples"][k],
+                                                         batch["samples"][idxs.index(rep)]),
+              f"native: failed slot {k} not replaced by a valid one: id {rep}")
+    print(f"native: damaged files: truncated at half its bytes status "
+          f"{int(status[truncated])}, cut inside its header status {int(status[cut_header])}; "
+          f"failed slots "
+          f"{failed} replaced in place by valid ones (ids "
+          f"{[batch['sample_id'][k].item() for k in failed]}) | {card}", flush=True)
+
+    rates = {}
+    for decoder in ("native", "pil"):
+        opts = get_training_arguments(args=base + corpus_args(corpus, decoder))
+
+        def check_batch(batch, decoder=decoder):
+            x = batch["samples"]
+            where = x.is_cuda if decoder == "native" else x.is_pinned()
+            check(x.dtype == torch.uint8 and where and tuple(x.shape) == (128, 3, 256, 256),
+                  f"native loader ({decoder}): batch {x.shape} {x.dtype} on {x.device}")
+
+        n_img, secs, first, threads = loader_alone(opts, check_batch, device=device)
+        rates[decoder] = (n_img - NATIVE_BATCH) / (secs - first)
+        print(f"native: loader alone --dataset.decoder {decoder} img_s={rates[decoder]:.1f} "
+              f"after the first batch ({n_img} images of ~500x375 JPEG files in {secs:.3f} "
+              f"s, first batch after {first:.3f} s, {n_img / secs:.1f} img/s with it; "
+              f"{threads} threads, {os.cpu_count()} cores; RRC bicubic + flip to 128 x "
+              f"256^2) | {card}", flush=True)
+    return rates
+
+
+def phase_native_main_train(card: str, label: str, corpus: dict, kernels: dict,
+                            per_step: int) -> dict:
+    """``main_worker`` on the yaml's flags of ``label`` (``NATIVE_MAIN_TRAIN``)
+    with ``--dataset.decoder native`` on the JPEG corpus, 2 epochs and their
+    validations (Pillow); every train batch goes through nvJPEG and one launch
+    of the crop → resize → flip kernel. Checks that launch a batch, the
+    model's ``kernels`` (``per_step`` forward and backward a train step and
+    forward an eval forward), finite statistics and no host sync through the
+    port's data, ops, loss, engine, metrics or checkpoint code between log
+    points. Returns the kernel's launches and img/s over epoch 2."""
+    import shutil
+
+    import torch
+
+    import cvnets_tpu_torch.main_train as main_train
+    from cvnets_tpu_torch.native import crop_resize_flip_kernel
+
+    results = os.path.join("results", "native_" + label.replace("/", "_"))
+    shutil.rmtree(results, ignore_errors=True)
+    args = NATIVE_MAIN_TRAIN[label] + corpus_args(corpus) + ["--common.results-loc", results]
+    log = {"train": [], "val": [], "ema": [], "save_s": 0.0}
+    watch, built, images = SyncWatch(), [], []
+
+    class WatchedTrainer(main_train.Trainer):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            _watch_trainer(self, kernels, watch, per_step, log)
+            step, epoch_fn = self._train_step, self.train_epoch
+
+            def counted(state, batch, *rest):
+                images[-1] += batch["samples"].shape[0]
+                check(batch["samples"].is_cuda and batch["samples"].dtype == torch.uint8,
+                      f"{label} native: a batch {batch['samples'].dtype} on "
+                      f"{batch['samples'].device}")
+                return step(state, batch, *rest)
+
+            def epoch(e):
+                images.append(0)
+                return epoch_fn(e)
+
+            self._train_step, self._train_step_noaccum = counted, None
+            self.train_epoch = epoch
+            built.append(self)
+
+    with watch:
+        main_train.Trainer = WatchedTrainer
+        try:
+            crop_resize_flip_kernel.launches = 0
+            main_train.main_worker(args=args)
+            launches = crop_resize_flip_kernel.launches
+        finally:
+            main_train.Trainer = WatchedTrainer.__bases__[0]
+    trainer = built[0]
+    n_steps = trainer.train_iterations
+    bad = watch.through(MAIN_TRAIN_FILES)
+    check(not bad, f"{label} native main_train: a host sync between log points: {bad[:3]}")
+    check(launches == n_steps > 0, f"{label} native main_train: {launches} crop_resize_flip "
+                                   f"launches in {n_steps} train steps")
+    for stage in ("train", "val", "ema"):
+        values = [v for entry in log[stage] for v in
+                  (entry[3] if stage == "train" else entry).values()]
+        check(values and all(math.isfinite(v) for v in values),
+              f"{label} native main_train: {stage} statistics not finite: {log[stage]}")
+    epoch_s = log["train"][-1][1]
+    img_s = images[-1] / epoch_s
+    print(f"native main_train: {label} --dataset.decoder native epochs=2 steps={n_steps} "
+          f"crop_resize_flip launches={launches} img_s={img_s:.1f} over epoch 2 "
+          f"({images[-1]} images in {epoch_s:.3f} s, the loader's first batch included) "
+          f"train={[{k: round(v, 4) for k, v in e[3].items()} for e in log['train']]} "
+          f"val={[{k: round(v, 4) for k, v in s.items()} for s in log['val']]} | {card}",
+          flush=True)
+    return {"launches": launches, "img_s": img_s}
+
+
+def phase_native(card: str) -> dict:
+    """The native JPEG path, phases 17a-17c: the corpus, the kernel and decode
+    checks, the loaders, then main_train on the three yamls. Returns the
+    kernel's JSON record."""
+    import tempfile
+
+    from cvnets_tpu_torch.ops.mha_attention import mha_bwd_kernel, mha_fwd_kernel
+    from cvnets_tpu_torch.ops.separable_attention import (
+        separable_attention_bwd_kernel,
+        separable_attention_kernel,
+    )
+    from cvnets_tpu_torch.ops.window_attention import window_bwd_kernel, window_fwd_kernel
+
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        corpus = write_jpeg_corpus(root)
+        print(f"native: corpus of {len(corpus['kinds'])} JPEG files written in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        record = phase_native_kernel(card, corpus)
+        phase_native_loader(card, corpus)
+        runs = {}
+        for label, kernels, per_step in (
+                ("MobileViTv2-1.0", {"fwd": separable_attention_kernel,
+                                     "bwd": separable_attention_bwd_kernel},
+                 sum(SEP_FLAGSHIP[1].values())),
+                ("ViT-B/16", {"fwd": mha_fwd_kernel, "bwd": mha_bwd_kernel}, VIT_BLOCKS),
+                ("Swin-T", {"fwd": window_fwd_kernel, "bwd": window_bwd_kernel},
+                 SWIN_BLOCKS)):
+            runs[label] = phase_native_main_train(card, label, corpus, kernels, per_step)
+            gc.collect()
+    record["launches"] = runs["MobileViTv2-1.0"]["launches"]
+    return record
+
+
 def phase_deeplab(card: str) -> tuple:
     """DeepLabv3's train, a/b and profile phases; returns the launch counts and
     the kernel path's a/b (img/s, peak GiB)."""
@@ -2818,6 +3385,8 @@ def main(argv) -> int:
     release()
     phase_conv(card)
     release()
+    native_record = phase_native(card)
+    release()
 
     def entry(name, source, replaces, launches, record):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -2857,6 +3426,9 @@ def main(argv) -> int:
         entry("window_attention_bwd", "cvnets_tpu_torch/csrc/window_attention.cu",
               "cvnets_tpu/ops/pallas/window_attn.py:300",
               swin_launches["window_attention_bwd"], win_records["bwd"]),
+        entry("jpeg_crop_resize_flip", "cvnets_tpu_torch/csrc/jpeg_decode.cu",
+              "cvnets_tpu/native/decode.cpp:118", native_record.pop("launches"),
+              native_record),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -12,16 +12,29 @@ image's size (its header) and draws the transforms' parameters from ``rng``;
 ``get_item(t, params)`` reads the image and transforms it. ``dataset[t]`` does
 both with the dataset's own ``random.Random``.
 
-Not ported: the native decoder's fast paths (``_native_fast_path``,
-``fetch_batch_native``) and the host AutoAugment and timm RandAugment, which
-run on Pillow (ROADMAP.md queue 1 item 13).
+The whole-batch native route (the JAX dataset's ``fetch_batch_native``,
+:180-266): under ``--dataset.decoder native`` a training batch of JPEG files
+with random resized crop on and no host policy (``_native_batch_eligible``,
+the JAX eligibility of :169-178) is read as bytes, each header's size probed
+once an index (``_dims_cache``, nvJPEG's parser on a card, Pillow's on the
+CPU), the crop box and flip drawn by the chain's own ``draw`` from the
+loader's generator in sample order (so ``native`` and ``pil`` draw the same
+boxes and flips for one seed), and decoded, cropped, resized and mirrored in
+one call of ``cvnets_tpu_torch.native`` into the collated uint8 batch, on the
+card or on the CPU. A failed file's slot takes a repeat of a valid one in
+place, its target and id too; with none valid the targets are -1 (the JAX
+protocol, :255-265). The per-sample ``_native_fast_path`` is not ported: the
+port's loader always takes the whole batch, and nothing else calls it.
+
+Not ported: the host AutoAugment and timm RandAugment, which run on Pillow
+(ROADMAP.md queue 1 item 13).
 """
 
 from __future__ import annotations
 
 import os
 import random
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -62,6 +75,7 @@ class BaseImageClassificationDataset(BaseImageDataset):
         self.n_classes = len(self.classes)
         self._rng = random.Random(getattr(opts, "common.seed", 0) or 0)
         self._chains: Dict[Tuple[int, int], Compose] = {}
+        self._dims_cache: Dict[int, Tuple[int, int]] = {}  # index -> JPEG (width, height)
 
     def _find_samples(self) -> List[Tuple[str, int]]:
         root = self.root
@@ -167,3 +181,71 @@ class BaseImageClassificationDataset(BaseImageDataset):
     def __getitem__(self, sample_size_and_index) -> Dict:
         return self.get_item(sample_size_and_index,
                              self.draw_params(sample_size_and_index, self._rng))
+
+    def _native_batch_eligible(self, batch_tuples=None) -> bool:
+        """Training, ``--dataset.decoder native``, random resized crop, no host
+        policy and, for ``batch_tuples``, JPEG files only."""
+        opts = self.opts
+        if not (self.is_training and getattr(opts, "dataset.decoder", "pil") == "native"
+                and getattr(opts, "image_augmentation.random_resized_crop.enable", False)
+                and not any(getattr(opts, d, False) for d in _UNPORTED_HOST_AUGMENTATION)):
+            return False
+        return batch_tuples is None or all(
+            str(self.samples[self._crop_size(t)[2]][0]).lower().endswith((".jpg", ".jpeg"))
+            for t in batch_tuples)
+
+    def _read_bytes(self, idx: int) -> bytes:
+        """The file's bytes; an unreadable file reads as none (and fails its decode)."""
+        try:
+            with open(self.samples[idx][0], "rb") as f:
+                return f.read()
+        except OSError:
+            return b""
+
+    def fetch_batch_native(self, batch_tuples, rng: random.Random,
+                           device: Union[str, torch.device] = "cuda", decoder=None) -> Dict:
+        """The collated batch of ``batch_tuples`` through the native decoder on
+        ``device`` (work on a card is enqueued on its current stream; ``decoder``
+        a ``native.JpegDecoder`` there, or None for one made for the call): ``samples``
+        uint8 (B, 3, H, W) on ``device``, ``targets`` and ``sample_id`` int64
+        on the host."""
+        from cvnets_tpu_torch import native
+
+        crop_h, crop_w, _ = self._crop_size(batch_tuples[0])
+        idxs = [self._crop_size(t)[2] for t in batch_tuples]
+        blobs = [self._read_bytes(i) for i in idxs]
+        missing = [k for k, i in enumerate(idxs) if i not in self._dims_cache]
+        if missing:
+            dims = native.jpeg_dimensions_batch([blobs[k] for k in missing], device, decoder)
+            for k, (w, h) in zip(missing, dims):
+                self._dims_cache[idxs[k]] = (int(w), int(h))
+        chain = self._chain((crop_h, crop_w))
+        crops, flips = [], []
+        for idx in idxs:
+            w, h = self._dims_cache[idx]
+            crop, flip = (0, 0, -1, -1), False
+            if w > 0 and h > 0:  # an unreadable header draws nothing, as on the pil route
+                for t, p in zip(chain.img_transforms, chain.draw(rng, (h, w))[0]):
+                    if isinstance(t, RandomResizedCrop):
+                        top, left, ch, cw = p
+                        crop = (left, top, cw, ch)
+                    elif isinstance(t, RandomHorizontalFlip):
+                        flip = bool(p)
+            crops.append(crop)
+            flips.append(flip)
+        samples, ok = native.decode_rrc_batch(blobs, crops, flips, (crop_h, crop_w),
+                                              device, decoder)
+        targets = np.asarray([self.samples[i][1] for i in idxs], np.int64)
+        sample_ids = np.asarray(idxs, np.int64)
+        if not ok.all():  # the JAX protocol: failed slots take valid ones in place
+            valid = np.nonzero(ok)[0]
+            if valid.size == 0:
+                targets[:] = -1
+            else:
+                bad = np.nonzero(~ok)[0]
+                repl = valid[np.arange(bad.size) % valid.size]
+                for b, r in zip(bad.tolist(), repl.tolist()):  # copies on the device
+                    samples[b].copy_(samples[r])
+                targets[bad], sample_ids[bad] = targets[repl], sample_ids[repl]
+        return {"samples": samples, "targets": torch.from_numpy(targets),
+                "sample_id": torch.from_numpy(sample_ids)}

@@ -4,10 +4,12 @@ A dataset is a host-side object: its items are asked for with the sampler's
 ``(crop_h, crop_w, index)`` tuples and are dicts of tensors and ints. Moving
 them to the card is the Trainer's work.
 
-Images and masks are read through Pillow, imported inside the reader (a
-module of the port imports it nowhere else); the JAX package's native JPEG
-decoder (``cvnets_tpu/native/decode.cpp``) is not ported yet (ROADMAP.md queue
-1 item 13).
+Images and masks are read through Pillow, imported inside the reader (and
+inside ``native/plain.py`` and the offline segmentation eval's file I/O). A
+training batch of JPEG files under ``--dataset.decoder native`` (the default)
+is decoded whole by ``cvnets_tpu_torch.native`` instead: nvJPEG and a
+hand-written kernel on a card, its plain version (Pillow) on the CPU (the
+classification dataset's ``fetch_batch_native``).
 """
 
 from __future__ import annotations
@@ -17,10 +19,10 @@ from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 
-from cvnets_tpu_torch.utils import logger
 
-NO_PILLOW = ("reading image files needs Pillow, which is not installed; the native "
-             "JPEG decoder is not ported yet (ROADMAP.md queue 1 item 13)")
+NO_PILLOW = ("reading image files needs Pillow, which is not installed; only a "
+             "training batch of JPEG files under --dataset.decoder native on a CUDA card "
+             "is read without it")
 
 
 class BaseDataset:
@@ -50,8 +52,9 @@ class BaseDataset:
         group.add_argument("--dataset.name", type=str, default=None)
         group.add_argument("--dataset.decoder", type=str, default="native",
                            choices=["pil", "native"],
-                           help="image decoder; until the native decoder is ported "
-                                "both read through Pillow")
+                           help="native: a training batch of JPEG files is decoded, "
+                                "cropped, resized and flipped whole (nvJPEG and a CUDA "
+                                "kernel on a card); pil: each sample through Pillow")
         group.add_argument("--dataset.category", type=str, default="classification")
         group.add_argument("--dataset.train-batch-size0", type=int, default=128)
         group.add_argument("--dataset.val-batch-size0", type=int, default=1)
@@ -65,6 +68,9 @@ class BaseDataset:
         group.add_argument("--dataset.collate-fn-name-test", type=str,
                            default="default_collate_fn")
         group.add_argument("--dataset.percentage-of-samples", type=float, default=100.0)
+        group.add_argument("--dataset.imagenet-shift.wnid-file", type=str, default=None,
+                           help="ImageNet's 1000 wnids in order, one a line, for a shift "
+                                "set's logit projection")
         group.add_argument("--dataset.sample-efficient-training.enable",
                            action="store_true", default=False)
         group.add_argument("--dataset.disable-val", action="store_true", default=False,
@@ -103,16 +109,6 @@ class BaseDataset:
 class BaseImageDataset(BaseDataset):
     """Image files (and segmentation masks) through Pillow: an unreadable file
     reads as None."""
-
-    _warned_decoder = False
-
-    def __init__(self, opts, *args, **kwargs) -> None:
-        super().__init__(opts, *args, **kwargs)
-        if (getattr(opts, "dataset.decoder", "pil") == "native"
-                and not BaseImageDataset._warned_decoder):
-            BaseImageDataset._warned_decoder = True
-            logger.log("--dataset.decoder native: the native JPEG decoder is not ported "
-                       "yet (ROADMAP.md queue 1 item 13); images are read through Pillow")
 
     @staticmethod
     def _pil():

@@ -392,9 +392,20 @@ def arguments_unported_transforms(parser: argparse.ArgumentParser) -> argparse.A
 
 @TRANSFORMATIONS_REGISTRY.register(name="to_tensor", type="image_pil")
 class ToFloatTensor(BaseTransformation):
-    """Three channels of uint8 pixels: the [0, 1] division runs on the card in
-    the train step (the JAX package's native-loader path; its Pillow path divides
-    here)."""
+    """Three channels of uint8 pixels: the [0, 1] division and, under
+    ``--image-augmentation.to-tensor.mean-std-normalization.enable``, the
+    per-channel mean/std normalization run on the card in the train and eval
+    steps (``engine.train_state.UnitNormalizer``; the JAX package's Pillow path
+    does both here, its native-loader path divides on the device)."""
+
+    @classmethod
+    def add_arguments(cls, parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
+        group = parser.add_argument_group(cls.__name__)
+        prefix = "--image-augmentation.to-tensor.mean-std-normalization."
+        group.add_argument(prefix + "enable", action="store_true", default=False)
+        group.add_argument(prefix + "mean", type=float, nargs="+", default=None)
+        group.add_argument(prefix + "std", type=float, nargs="+", default=None)
+        return parser
 
     def apply(self, data: Dict, params) -> Dict:
         img = data["image"]

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
+from cvnets_tpu_torch.engine.train_state import UnitNormalizer
 from cvnets_tpu_torch.layers.dtype_utils import autocast
 from cvnets_tpu_torch.metrics.intersection_over_union import (
     confusion_matrix,
@@ -44,9 +45,12 @@ IGNORE_INDEX = 255
 IMAGE_EXTENSIONS = (".jpg", ".jpeg", ".png", ".bmp")
 
 
-def _predict(opts, model: nn.Module, samples: torch.Tensor) -> torch.Tensor:
-    """(B, H, W) labels of an eval forward of uint8 or [0, 1] samples."""
-    x = samples.float() / 255.0 if samples.dtype == torch.uint8 else samples
+def _predict(opts, model: nn.Module, samples: torch.Tensor,
+             to_unit: Optional[UnitNormalizer] = None) -> torch.Tensor:
+    """(B, H, W) labels of an eval forward of uint8 samples, taken to the
+    model's input as the train and eval steps take them (``UnitNormalizer``:
+    [0, 1], and the options' mean/std normalization), or of float samples."""
+    x = (to_unit or UnitNormalizer(opts))(samples)
     with torch.no_grad(), autocast(opts, x.device):
         logits = model.eval()(x)
     if isinstance(logits, dict):
@@ -86,9 +90,9 @@ def predict_labeled_dataset(opts, model: nn.Module, loader,
                             device: Union[str, torch.device]) -> float:
     """The confusion-matrix mIoU of ``model`` over ``loader``'s batches."""
     n_classes = getattr(opts, "model.segmentation.n_classes", 21)
-    conf = None
+    conf, to_unit = None, UnitNormalizer(opts)
     for batch in loader:
-        pred = _predict(opts, model, batch["samples"].to(device, non_blocking=True))
+        pred = _predict(opts, model, batch["samples"].to(device, non_blocking=True), to_unit)
         c = confusion_matrix(pred, batch["targets"].to(device, non_blocking=True),
                              n_classes, IGNORE_INDEX)
         conf = c if conf is None else conf + c

@@ -1,7 +1,9 @@
 """Evaluator (counterpart of cvnets_tpu/engine/evaluation_engine.py:18-70): the
 ``stats.val`` metrics of a model over a loader, the model given or filled from
-a ``checkpoint_*.pt`` (a model state dict). Video and zero-shot evaluation are
-not ported yet (they wait for their model families)."""
+a ``checkpoint_*.pt`` (a model state dict). A shift set's
+``stats.logit_subset_indices`` (its dataset shares them) keep the logits of its
+classes. Video and zero-shot evaluation are not ported yet (they wait for
+their model families)."""
 
 from __future__ import annotations
 
@@ -33,7 +35,10 @@ class Evaluator:
 
             criteria = build_loss_fn(opts)
         self.stats = Statistics(opts, getattr(opts, "stats.val", ["loss"]))
-        self._eval_step = make_eval_step(model, criteria, self.stats.metrics, opts=opts)
+        subset = getattr(opts, "stats.logit_subset_indices", None)
+        self._eval_step = make_eval_step(
+            model, criteria, self.stats.metrics, opts=opts,
+            logit_subset=torch.tensor(subset, device=self.device) if subset else None)
 
     def eval_fn_image(self) -> Dict[str, float]:
         start = time.time()

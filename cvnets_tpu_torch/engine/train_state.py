@@ -3,7 +3,8 @@ cvnets_tpu/engine/train_state.py:82-310).
 
 The JAX step is one pure compiled program; this one runs eagerly and updates the
 model, optimizer and EMA in place (no second copy of the state is made). Each step:
-uint8 → [0, 1] on the device (uint8 masks → int64 labels), autocast forward,
+uint8 → [0, 1] on the device, with ``ToFloatTensor``'s mean/std when the
+options ask for it (uint8 masks → int64 labels), autocast forward,
 backward of the loss (of its ``total_loss`` when the loss is a dict), global-norm clip
 ``min(1, clip / (norm + 1e-6))``, the optimizer at the scheduler's LR times each
 param group's ``lr_mult``, EMA of params and BN statistics, ``step += 1``. It
@@ -76,10 +77,40 @@ def _labels(targets: torch.Tensor) -> torch.Tensor:
     return targets.long() if targets.dtype == torch.uint8 else targets
 
 
-def _to_unit(samples: torch.Tensor) -> torch.Tensor:
-    """uint8 pixels to [0, 1] floats on their device (the JAX step's
-    normalization of the native loader's batches)."""
-    return samples.float() / 255.0 if samples.dtype == torch.uint8 else samples
+class UnitNormalizer:
+    """uint8 pixels to [0, 1] floats on their device (the JAX step's division
+    of the native loader's batches) and, under
+    ``--image-augmentation.to-tensor.mean-std-normalization.enable``, per
+    channel ``(x - mean) / std``: the JAX ``ToFloatTensor``'s normalization
+    (cvnets_tpu/data/transforms/image.py:517-574), which runs on the host
+    there. The port's ``ToFloatTensor`` keeps uint8 pixels, so batches of
+    either decoder are normalized here, on the device: in the train and eval
+    steps and in the offline segmentation eval, the port's one place that
+    turns uint8 pixels into the model's input. A float batch is taken as it
+    is."""
+
+    def __init__(self, opts=None) -> None:
+        prefix = "image_augmentation.to_tensor.mean_std_normalization."
+        self.mean_std = None
+        if opts is not None and getattr(opts, prefix + "enable", False):
+            mean = getattr(opts, prefix + "mean", None) or [0.485, 0.456, 0.406]
+            std = getattr(opts, prefix + "std", None) or [0.229, 0.224, 0.225]
+            self.mean_std = tuple(torch.tensor(v, dtype=torch.float32).view(-1, 1, 1)
+                                  for v in (mean, std))
+        self._on_device: Dict[torch.device, Tuple[torch.Tensor, torch.Tensor]] = {}
+
+    def __call__(self, samples: torch.Tensor) -> torch.Tensor:
+        if samples.dtype != torch.uint8:
+            return samples
+        x = samples.float() / 255.0
+        if self.mean_std is None:
+            return x
+        if x.device not in self._on_device:  # sent up once, from pinned memory on a card
+            self._on_device[x.device] = tuple(
+                (t.pin_memory() if x.is_cuda else t).to(x.device, non_blocking=True)
+                for t in self.mean_std)
+        mean, std = self._on_device[x.device]
+        return (x - mean) / std
 
 
 MIXING_STREAM, AUGMENT_STREAM = 0, 1
@@ -113,10 +144,11 @@ def make_train_step(model: nn.Module, criteria: Callable, opts, metric_objs: Dic
     base_momentum = [m.momentum for m in batch_norms]
     seed = getattr(opts, "common.seed", 0) or 0
     n_classes = getattr(opts, "model.classification.n_classes", None)
+    to_unit = UnitNormalizer(opts)
 
     def train_step(state: TrainState, batch: Dict, lr: float, epoch: int = 0,
                    bn_momentum: Optional[float] = None) -> Tuple[TrainState, Pairs]:
-        samples, targets = _to_unit(batch["samples"]), _labels(batch["targets"])
+        samples, targets = to_unit(batch["samples"]), _labels(batch["targets"])
         if augment_fn is not None:
             samples = augment_fn(samples, step_rng(seed, state.step, AUGMENT_STREAM))
         if mixing_fn is not None:
@@ -157,18 +189,28 @@ def make_train_step(model: nn.Module, criteria: Callable, opts, metric_objs: Dic
 
 
 def make_eval_step(model: nn.Module, criteria: Callable, metric_objs: Dict[str, Any],
-                   use_ema: bool = False, opts=None) -> Callable[[TrainState, Dict], Pairs]:
+                   use_ema: bool = False, opts=None,
+                   logit_subset: Optional[torch.Tensor] = None
+                   ) -> Callable[[TrainState, Dict], Pairs]:
     """Eval-mode forward of the model, or of its EMA copy when ``use_ema`` and
     the state has one, under ``opts``' autocast (float32 without opts), and
-    the metrics' (sum, count) pairs on the device."""
+    the metrics' (sum, count) pairs on the device. ``logit_subset``: indices
+    (on the model's device) of the logits a shift set's classes keep
+    (train_state.py:280-302)."""
+    to_unit = UnitNormalizer(opts)
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Dict) -> Pairs:
         net = state.ema.model if use_ema and state.ema is not None else model
         net.eval()
-        samples, targets = _to_unit(batch["samples"]), _labels(batch["targets"])
+        samples, targets = to_unit(batch["samples"]), _labels(batch["targets"])
         with autocast(opts, samples.device):
             prediction = net(samples)
+            if logit_subset is not None:
+                if isinstance(prediction, dict):
+                    prediction = dict(prediction, logits=prediction["logits"][:, logit_subset])
+                else:
+                    prediction = prediction[:, logit_subset]
             loss = criteria(samples, prediction, targets, training=False)
         return _batch_values(metric_objs, prediction, targets, {"loss": loss})
 

@@ -15,9 +15,12 @@ the copy with the step. Each epoch starts with the train sampler's
 augmentation and mixup / cutmix the options enable. The resolved options go to
 ``save_dir/config.yaml`` as JSON, which YAML reads.
 
-Not ported yet, and refused when asked for: sample-efficient training,
-``--common.finetune`` and the profiler trace (each error names its ROADMAP.md
-item). Also refused: an ``iou`` in ``stats.train`` of a segmentation model that
+``--common.finetune`` (and ``--common.finetune-ema``) load a checkpoint of
+the port into the fresh model with the JAX package's scope surgery
+(``utils/checkpoint_utils.load_finetune``), before any resume.
+
+Not ported yet, and refused when asked for: sample-efficient training and
+the profiler trace (each error names its ROADMAP.md item). Also refused: an ``iou`` in ``stats.train`` of a segmentation model that
 returns head-resolution logits in training (the default, for the fused
 resize + CE); they would be compared with full-size masks (in the JAX package
 that crashes). ``--model.segmentation.upsample-train-logits`` makes it train.
@@ -46,7 +49,11 @@ from cvnets_tpu_torch.ops.mixing import build_mixing_fn
 from cvnets_tpu_torch.optim import build_optimizer
 from cvnets_tpu_torch.optim.scheduler import build_scheduler
 from cvnets_tpu_torch.utils import logger
-from cvnets_tpu_torch.utils.checkpoint_utils import CheckpointManager, load_checkpoint
+from cvnets_tpu_torch.utils.checkpoint_utils import (
+    CheckpointManager,
+    load_checkpoint,
+    load_finetune,
+)
 
 DEFAULT_LOG_FREQ = 100
 
@@ -54,7 +61,6 @@ DEFAULT_LOG_FREQ = 100
 _UNPORTED = (
     ("dataset.sample_efficient_training.enable",
      "sample-efficient training (ROADMAP.md queue 1 item 13)"),
-    ("common.finetune", "--common.finetune (ROADMAP.md queue 1 item 13)"),
     ("common.profile_trace_dir",
      "the profiler trace waits for the port bench (ROADMAP.md queue 1 item 1)"),
 )
@@ -113,6 +119,7 @@ class Trainer:
         self.state = create_train_state(
             model, build_optimizer(opts, model, model.get_lr_multipliers(opts)),
             ema_enabled=self.ema_enabled)
+        load_finetune(opts, self.state)
         n_params = sum(p.numel() for p in model.parameters())
         logger.info(f"Model: {model.__class__.__name__} | params: {n_params / 1e6:.2f}M | "
                     f"device: {self.device}")

@@ -39,7 +39,7 @@ def device_setup(opts, device: Union[str, torch.device, None]) -> torch.device:
 def main(opts, device: Union[str, torch.device, None] = None, **kwargs) -> Trainer:
     device = device_setup(opts, device)
     train_loader, val_loader, train_sampler = create_train_val_loader(
-        opts, pin_memory=device.type == "cuda")
+        opts, pin_memory=device.type == "cuda", device=device)
     model = get_model(opts, device=device)
     trainer = Trainer(opts, model, build_loss_fn(opts), train_loader, val_loader,
                       device=device, train_sampler=train_sampler)

@@ -46,10 +46,26 @@ def get_model(opts, category: Optional[str] = None, model_name: Optional[str] = 
     return model.to(device)
 
 
+def arguments_finetune_scopes(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """The scope surgery of ``--common.finetune`` (cvnets_tpu/models/base_model.py:32-44;
+    ``utils/checkpoint_utils.finetune_weights`` applies it)."""
+    group = parser.add_argument_group(title="Model arguments (common)")
+    group.add_argument("--model.resume-exclude-scopes", type=str, default="",
+                       help="Comma-separated regexes of the tensors that keep their fresh "
+                            "values when a finetune checkpoint is loaded")
+    group.add_argument("--model.ignore-missing-scopes", type=str, default="",
+                       help="Comma-separated regexes of the tensors a finetune checkpoint "
+                            "may lack without a warning")
+    group.add_argument("--model.rename-scopes-map", type=str, nargs="*", default=None,
+                       help="from:to regex renames applied to a finetune checkpoint's keys")
+    return parser
+
+
 def modeling_arguments(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     from cvnets_tpu_torch.layers import layer_specific_arguments
     from cvnets_tpu_torch.misc.averaging_utils import arguments_ema
 
+    parser = arguments_finetune_scopes(parser)
     parser = MODEL_REGISTRY.all_arguments(parser)
     parser = layer_specific_arguments(parser)
     parser = arguments_ema(parser)

@@ -134,8 +134,10 @@ class SwinTransformerBlock(nn.Module):
     def _shift_mask(self, hp: int, wp: int, shift: int, device: torch.device) -> torch.Tensor:
         key = (hp, wp, shift, device)
         if key not in self._masks:  # built once a map size, as at trace time in JAX
-            self._masks[key] = torch.from_numpy(
-                shifted_window_mask(hp, wp, self.window_size, shift)).to(device)
+            mask = torch.from_numpy(shifted_window_mask(hp, wp, self.window_size, shift))
+            if device.type == "cuda":  # from pinned memory: the copy does not block
+                mask = mask.pin_memory()
+            self._masks[key] = mask.to(device, non_blocking=True)
         return self._masks[key]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -3,7 +3,8 @@ plain C interface and load it with ``ctypes``.
 
 ``nvcc`` compiles for ``sm_90a`` (Hopper) at first use, into
 ``<repo>/build/cvnets_tpu_torch/``; a library newer than its source and the
-shared headers (``csrc/*.cuh``) is reused.
+shared headers (``csrc/*.cuh``) is reused. A source that calls a CUDA library
+names it in ``LINK_FLAGS`` (nvJPEG for ``jpeg_decode.cu``).
 Nothing here runs at import time, so the package imports on machines without
 CUDA. ``KernelEntry`` binds one C entry point of such a library; every kernel
 wrapper of the port launches through one.
@@ -24,6 +25,9 @@ CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "cvnets_tpu_torch")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC"]
+# the libraries a source links beyond the CUDA runtime, found at run time
+# through the toolkit's library directory
+LINK_FLAGS = {"jpeg_decode.cu": ["-lnvjpeg"]}
 
 
 def _nvcc() -> str:
@@ -49,6 +53,9 @@ def build_library(source: str) -> str:
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{lib}.{os.getpid()}.tmp"
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, src]
+    if source in LINK_FLAGS:
+        lib_dir = os.path.join(os.path.dirname(os.path.dirname(cmd[0])), "lib64")
+        cmd += [*LINK_FLAGS[source], f"-L{lib_dir}", f"-Xlinker=-rpath={lib_dir}"]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"

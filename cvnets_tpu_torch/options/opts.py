@@ -24,6 +24,7 @@ def arguments_common(parser: argparse.ArgumentParser) -> argparse.ArgumentParser
     group.add_argument("--common.run-label", type=str, default="run_1")
     group.add_argument("--common.resume", type=str, default=None)
     group.add_argument("--common.finetune", type=str, default=None)
+    group.add_argument("--common.finetune-ema", type=str, default=None)
     group.add_argument("--common.mixed-precision", action="store_true")
     group.add_argument(
         "--common.mixed-precision-dtype", type=str, default="bfloat16",

@@ -20,11 +20,16 @@ Files hold tensors, ints, floats, None and dicts only, so ``torch.load``'s
 renamed, so a run stopped during a save keeps the previous file whole. The
 k-best list lives in the manager: a resumed run starts it empty, as the JAX
 package does.
+
+``--common.finetune`` (and ``--common.finetune-ema``) start a run from the
+model weights of such a file with the JAX package's scope surgery
+(``finetune_weights``, cvnets_tpu/utils/checkpoint_utils.py:226-307).
 """
 
 from __future__ import annotations
 
 import os
+import re
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -176,3 +181,89 @@ def load_checkpoint(opts, state, save_dir: str,
     epoch = blob["epoch"] + 1
     logger.info(f"Resumed from {path}: epoch {epoch}, iteration {blob['iterations']}")
     return epoch, blob["iterations"], blob["best_metric"]
+
+
+# a finetune file whose tensors mostly name none of the model's is not one the
+# port wrote (a reference CVNets checkpoint names its modules otherwise)
+UNPORTED_CHECKPOINT = ("converting a reference CVNets checkpoint (the JAX package's "
+                       "utils/torch_checkpoint_converter.py) is not ported yet (ROADMAP.md "
+                       "queue 1 item 13)")
+
+
+def _renames(opts) -> List[Tuple[str, str]]:
+    """``--model.rename-scopes-map``: "from:to" strings, or pairs from a yaml."""
+    renames = []
+    for item in getattr(opts, "model.rename_scopes_map", None) or []:
+        if isinstance(item, (list, tuple)) and len(item) == 2:
+            renames.append((item[0], item[1]))
+        elif isinstance(item, str) and ":" in item:
+            renames.append(tuple(item.split(":", 1)))
+    return renames
+
+
+def _patterns(opts, dest: str) -> List["re.Pattern"]:
+    return [re.compile(p.strip()) for p in (getattr(opts, dest, "") or "").split(",")
+            if p.strip()]
+
+
+def finetune_weights(opts, path: str, current: Dict[str, torch.Tensor]
+                     ) -> Dict[str, torch.Tensor]:
+    """``current`` (a model's state dict) with the tensors of ``path`` (a
+    ``checkpoint_*.pt`` of the port, or the model part of a
+    ``training_checkpoint_*.pt``) laid over it under the JAX package's scope
+    surgery: ``--model.rename-scopes-map`` rewrites the file's keys (each
+    from:to regex in order), a key matching ``--model.resume-exclude-scopes``
+    keeps its fresh value, a key the file lacks keeps its fresh value and is
+    reported unless it matches ``--model.ignore-missing-scopes``, and a tensor
+    of another shape keeps its fresh value with a warning. A file most of
+    whose tensors name none of the model's raises (``UNPORTED_CHECKPOINT``)."""
+    blob = load_file(path)
+    if not isinstance(blob, dict) or "model_state_dict" in blob:
+        raise NotImplementedError(f"--common.finetune {path}: {UNPORTED_CHECKPOINT}")
+    src = blob["model"] if isinstance(blob.get("model"), dict) else blob
+    src = {k: v for k, v in src.items() if isinstance(v, torch.Tensor)}
+    for pat, rep in _renames(opts):
+        src = {re.sub(pat, rep, k): v for k, v in src.items()}
+    foreign = [k for k in src if k not in current]
+    if not src or len(foreign) * 2 > len(src):
+        raise NotImplementedError(
+            f"--common.finetune {path}: {len(foreign)} of its {len(src)} tensors name none "
+            f"of the model's (e.g. {foreign[:3]}); {UNPORTED_CHECKPOINT}")
+    exclude = _patterns(opts, "model.resume_exclude_scopes")
+    ignore = _patterns(opts, "model.ignore_missing_scopes")
+    out, missing = dict(current), []
+    for key, fresh in current.items():
+        if any(r.search(key) for r in exclude):
+            continue
+        if key not in src:
+            if not any(r.search(key) for r in ignore):
+                missing.append(key)
+        elif tuple(src[key].shape) != tuple(fresh.shape):
+            logger.warning(f"Shape mismatch for '{key}': checkpoint "
+                           f"{tuple(src[key].shape)} vs model {tuple(fresh.shape)}; "
+                           "keeping the fresh values")
+        else:
+            out[key] = src[key].to(fresh.dtype)
+    if missing:
+        logger.warning(f"Finetune checkpoint missing {len(missing)} tensor(s); keeping the "
+                       f"fresh values of e.g. {missing[:3]} (silence with "
+                       "--model.ignore-missing-scopes)")
+    return out
+
+
+def load_finetune(opts, state) -> None:
+    """``--common.finetune`` into ``state``'s model in place, and into its EMA
+    copy ``--common.finetune-ema`` or, without one, the finetuned model's
+    weights (the EMA starts where the model does)."""
+    path = getattr(opts, "common.finetune", None)
+    if not path:
+        return
+    state.model.load_state_dict(finetune_weights(opts, path, state.model.state_dict()))
+    logger.info(f"Loaded finetune weights from {path}")
+    if state.ema is not None:
+        ema_path = getattr(opts, "common.finetune_ema", None)
+        state.ema.model.load_state_dict(
+            finetune_weights(opts, ema_path, state.ema.model.state_dict()) if ema_path
+            else state.model.state_dict())
+        if ema_path:
+            logger.info(f"Loaded finetune EMA weights from {ema_path}")

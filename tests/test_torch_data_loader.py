@@ -15,7 +15,7 @@ that is not an image):
   ``random.Random``; the JAX dataset reads through Pillow
   (``--dataset.decoder pil``), as the port does;
 * an error in a worker reaches the consumer; without Pillow, reading an image
-  raises and names the ROADMAP item of the native decoder.
+  on the per-sample route raises and says that Pillow is needed.
 """
 
 from __future__ import annotations
@@ -193,5 +193,5 @@ def test_without_pillow_reading_an_image_raises_and_names_the_roadmap_item(folde
 
     _, port = _datasets(folder)  # the folder walk needs no Pillow
     monkeypatch.setitem(sys.modules, "PIL", None)
-    with pytest.raises(RuntimeError, match=r"Pillow.*ROADMAP\.md queue 1 item 13"):
+    with pytest.raises(RuntimeError, match=r"needs Pillow, which is not installed"):
         port[(32, 32, 0)]

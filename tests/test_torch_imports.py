@@ -192,6 +192,13 @@ _BLOCKED_RUN = textwrap.dedent("""
     with torch.no_grad():  # the trained MobileOne-s0, folded
         before = conv.eval()(x)
         assert torch.allclose(reparameterize_model(conv)(x), before, atol=1e-4)
+    from cvnets_tpu_torch import native
+    from cvnets_tpu_torch.native.plain import crop_resize_flip
+    raster = torch.randint(0, 256, (75, 100, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(2))
+    out = crop_resize_flip(raster, (5, 4, 60, 50), True, (24, 32))
+    assert out.shape == (3, 24, 32) and out.dtype == torch.uint8
+    assert native.crop_resize_flip_kernel.launches == 0
     leaked = sorted(m for m in sys.modules if sys.modules[m] is not None
                     and m.split(".")[0] in ("jax", "flax", "optax", "orbax", "yaml",
                                             "PIL", "cvnets_tpu"))

@@ -143,3 +143,28 @@ def test_prediction_files_match_jax(setup, mode, tmp_path):
         if name.endswith(".png"):  # labels, raw and in the palette
             np.testing.assert_array_equal(np.asarray(got), np.asarray(want), err_msg=name)
             assert got.getpalette() == want.getpalette()
+
+
+def test_validation_set_miou_normalizes_as_the_evaluator_and_jax(setup):
+    """Under ``--image-augmentation.to-tensor.mean-std-normalization.enable``
+    the offline mIoU scores the inputs the Evaluator scores (the JAX
+    ``ToFloatTensor`` normalizes every loader's samples), not [0, 1] ones."""
+    from cvnets_tpu.data.data_loaders import create_test_loader as jax_loader
+    from cvnets_tpu.engine.eval_segmentation import predict_labeled_dataset as jax_miou
+    from cvnets_tpu_torch.data.data_loaders import create_test_loader
+    from cvnets_tpu_torch.engine import Evaluator
+    from cvnets_tpu_torch.engine.eval_segmentation import predict_labeled_dataset
+
+    flag = ["--image-augmentation.to-tensor.mean-std-normalization.enable",
+            "--stats.val", "iou"]
+    jax_opts, opts = both_opts(setup["args"] + flag)
+    loader = jax_loader(jax_opts)
+    want = jax_miou(jax_opts, setup["jmodel"], setup["variables"], loader)
+    setattr(opts, "dataset.eval_batch_size0", len(next(iter(loader.batch_sampler))))
+    got = predict_labeled_dataset(opts, setup["model"], create_test_loader(opts), "cpu")
+    stats = Evaluator(opts, setup["model"], create_test_loader(opts), device="cpu").eval_fn_image()
+    unnormalized = predict_labeled_dataset(setup["opts"], setup["model"],
+                                           create_test_loader(setup["opts"]), "cpu")
+    assert got == pytest.approx(want, rel=1e-12)
+    assert got == pytest.approx(stats["iou"], rel=1e-9)
+    assert got != unnormalized  # the flag changes what the model sees

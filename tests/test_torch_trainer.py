@@ -395,7 +395,6 @@ def test_ema_copy_at_epoch_puts_the_ema_weights_into_the_model(tmp_path):
 
 @pytest.mark.parametrize("flag", [
     "--dataset.sample-efficient-training.enable",
-    "--common.finetune=checkpoint_best.pt",
     "--common.profile-trace-dir=trace",
 ])
 def test_trainer_refuses_what_is_not_ported_and_names_its_roadmap_item(flag):
