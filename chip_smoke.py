@@ -9,7 +9,9 @@ checkouts in one call (parent, change, change, parent, ...), it compares their
 DeepLabv3 steps on one card, as the whole script does with five recipes.
 ``--segmentation`` runs only phases 1, 2, 11b and 11c (the build, segmentation
 through ``main_train`` and ``main_worker_segmentation``, PSPNet; about a
-minute of command time) and prints neither JSON line.
+minute of command time) and prints neither JSON line. ``--families`` runs
+only phases 1, 2 and 18 (MobileViT v1, FastViT and SSDLite) and prints
+neither JSON line.
 
 Phases, one line each or more (any failure exits non-zero):
 
@@ -207,7 +209,33 @@ Phases, one line each or more (any failure exits non-zero):
    width, the ViT's variable batch sampler drawing its crop and batch every
    batch): one kernel launch a train batch, each model's attention kernels
    a step, finite statistics, no host sync through the port's code between
-   log points, img/s over epoch 2.
+   log points, img/s over epoch 2; then the same on mobilevit.yaml's flags
+   (MobileViT-S, the variable batch sampler at 160-320 px) and on
+   fastvit.yaml's (FastViT-T8, 128-320 px), whose paths run no attention
+   kernel.
+18. families: MobileViT-S at batch 128 × 256² with mobilevit.yaml's settings
+   (``MOBILEVIT_ARGS``: number-heads 4, so heads of D = 36, 48 and 60, which
+   take the einsum route): train steps held against its copy on the CPU, 24
+   steady steps, a profile by kernel family (results/mobilevit_s_profile.txt)
+   and, from the same profile, the einsum attention's device time a step (the
+   kernels inside the MHA layer's ``EINSUM_ROUTE`` range and those of the
+   backward nodes of its ops) and its share;
+   MobileViT-XXS at the same settings, whose layer 3 (D = 16, S = 256) runs
+   the MHA kernels: 2 forward and 2 backward launches a step, its logits and
+   float32 grads through the kernels against the einsum path, a/b; FastViT-T8
+   at batch 128 × 224² with fastvit.yaml's settings: train steps against the
+   CPU copy, steady steps; SSDLite-MobileViT-S at the detection yaml's batch
+   32 × 320² (``SSD_ARGS``; targets matched on the host to its 3,234
+   anchors): train steps, its scores and box offsets against the CPU copy,
+   steady steps, a profile (results/ssd_profile.txt), ``predict`` (decode and
+   padded NMS on the card) with no host sync, timed, and its postprocess
+   against the CPU's on the same outputs; then ``main_train`` for 2 epochs on
+   a seeded COCO folder (``SSD_CORPUS``: 20 steps an epoch) and its train
+   loader alone: finite statistics, no host sync through the port's code
+   between log points, img/s over epoch 2 after its first batch beside the
+   loader's; then ``main_worker_detection`` on its val split with the run's
+   checkpoint (the mAPs), and the eval path's ``predict`` on the card
+   against a CPU copy of the checkpoint on 3 val images at their own sizes.
 
 The second-to-last line is the kernels' JSON record, one entry for each TPU
 kernel's counterpart: ``ms``/``plain_ms`` are a kernel's and its plain
@@ -562,6 +590,192 @@ CONV_FAMILY_ARGS = {
         "--model.activation.name", "relu", "--optim.weight-decay", "5e-5"],
 }
 CONV_FAMILY_STEPS = (2, 3)  # warm-up and timed steps of each family's phase
+
+MOBILEVIT_ARGS = [  # config/classification/imagenet/mobilevit.yaml, as flags
+    "--model.classification.name", "mobilevit",
+    "--model.classification.n-classes", "1000",
+    "--model.classification.mit.mode", "small",
+    "--model.classification.mit.ffn-dropout", "0.0",
+    "--model.classification.mit.attn-dropout", "0.0",
+    "--model.classification.mit.number-heads", "4",
+    "--model.classification.activation.name", "swish",
+    "--model.normalization.name", "batch_norm",
+    "--model.normalization.momentum", "0.1",
+    "--model.activation.name", "swish",
+    "--model.layer.global-pool", "mean",
+    "--model.layer.conv-init", "kaiming_normal",
+    "--model.layer.linear-init", "trunc_normal",
+    "--model.layer.linear-init-std-dev", "0.02",
+    "--loss.category", "classification",
+    "--loss.classification.name", "cross_entropy",
+    "--loss.classification.cross-entropy.label-smoothing", "0.1",
+    "--optim.name", "adamw",
+    "--optim.weight-decay", "0.01",
+    "--optim.no-decay-bn-filter-bias",
+    "--optim.adamw.beta1", "0.9",
+    "--optim.adamw.beta2", "0.999",
+    "--scheduler.name", "cosine",
+    "--scheduler.max-epochs", "300",
+    "--scheduler.warmup-iterations", "3000",
+    "--scheduler.warmup-init-lr", "0.0002",
+    "--scheduler.cosine.max-lr", "0.002",
+    "--scheduler.cosine.min-lr", "0.0002",
+    "--ema.enable",
+    "--ema.momentum", "0.0005",
+    "--common.mixed-precision",
+    "--dataset.train-batch-size0", "128",
+    "--sampler.bs.crop-size-width", "256",
+    "--sampler.bs.crop-size-height", "256",
+    "--common.seed", "0",
+] + IMAGENET_RUN_ARGS
+MOBILEVIT_DATA_ARGS = [  # the rest of mobilevit.yaml: loader, sampler, transforms
+    "--dataset.category", "classification",
+    "--dataset.workers", "8",
+    "--sampler.name", "variable_batch_sampler",
+    "--sampler.vbs.crop-size-width", "256",
+    "--sampler.vbs.crop-size-height", "256",
+    "--sampler.vbs.max-n-scales", "5",
+    "--sampler.vbs.min-crop-size-width", "160",
+    "--sampler.vbs.max-crop-size-width", "320",
+    "--sampler.vbs.min-crop-size-height", "160",
+    "--sampler.vbs.max-crop-size-height", "320",
+    "--sampler.vbs.check-scale", "32",
+    "--image-augmentation.random-resized-crop.enable",
+    "--image-augmentation.random-resized-crop.interpolation", "bilinear",
+    "--image-augmentation.random-horizontal-flip.enable",
+    "--image-augmentation.resize.enable",
+    "--image-augmentation.resize.size", "288",
+    "--image-augmentation.center-crop.enable",
+    "--image-augmentation.center-crop.size", "256",
+]
+# MobileViT-XXS with the yaml's settings: layer 3's heads have D = 64 / 4 = 16,
+# a head dim of the MHA kernels (S = 256 tokens at 256²); layers 4 and 5 (D =
+# 20 and 24) take the einsum route
+MOBILEVIT_XXS_ARGS = MOBILEVIT_ARGS + ["--model.classification.mit.mode", "xx_small"]
+XXS_MHA_BLOCKS = 2
+FASTVIT_ARGS = [  # config/classification/imagenet/fastvit.yaml, as flags
+    "--model.classification.name", "fastvit",
+    "--model.classification.n-classes", "1000",
+    "--model.classification.fastvit.variant", "T8",
+    "--model.normalization.name", "batch_norm",
+    "--model.normalization.momentum", "0.1",
+    "--model.activation.name", "gelu",
+    "--model.layer.global-pool", "mean",
+    "--model.layer.conv-init", "kaiming_normal",
+    "--model.layer.linear-init", "trunc_normal",
+    "--model.layer.linear-init-std-dev", "0.02",
+    "--loss.category", "classification",
+    "--loss.classification.name", "cross_entropy",
+    "--loss.classification.cross-entropy.label-smoothing", "0.1",
+    "--optim.name", "adamw",
+    "--optim.weight-decay", "0.05",
+    "--optim.no-decay-bn-filter-bias",
+    "--optim.adamw.beta1", "0.9",
+    "--optim.adamw.beta2", "0.999",
+    "--scheduler.name", "cosine",
+    "--scheduler.max-epochs", "300",
+    "--scheduler.warmup-iterations", "7500",
+    "--scheduler.warmup-init-lr", "1e-6",
+    "--scheduler.cosine.max-lr", "0.002",
+    "--scheduler.cosine.min-lr", "2e-5",
+    "--ema.enable",
+    "--ema.momentum", "0.0005",
+    "--common.mixed-precision",
+    "--dataset.train-batch-size0", "128",
+    "--sampler.bs.crop-size-width", "224",
+    "--sampler.bs.crop-size-height", "224",
+    "--common.seed", "0",
+] + IMAGENET_RUN_ARGS
+FASTVIT_DATA_ARGS = [  # the rest of fastvit.yaml: loader, sampler, transforms
+    "--dataset.category", "classification",
+    "--dataset.workers", "8",
+    "--sampler.name", "variable_batch_sampler",
+    "--sampler.vbs.crop-size-width", "224",
+    "--sampler.vbs.crop-size-height", "224",
+    "--sampler.vbs.max-n-scales", "5",
+    "--sampler.vbs.min-crop-size-width", "128",
+    "--sampler.vbs.max-crop-size-width", "320",
+    "--sampler.vbs.min-crop-size-height", "128",
+    "--sampler.vbs.max-crop-size-height", "320",
+    "--sampler.vbs.check-scale", "32",
+    "--image-augmentation.random-resized-crop.enable",
+    "--image-augmentation.random-resized-crop.interpolation", "bilinear",
+    "--image-augmentation.random-horizontal-flip.enable",
+    "--image-augmentation.resize.enable",
+    "--image-augmentation.resize.size", "232",
+    "--image-augmentation.center-crop.enable",
+    "--image-augmentation.center-crop.size", "224",
+]
+SSD_ARGS = [  # config/detection/ssd_coco/mobilevit.yaml, as flags
+    "--dataset.category", "detection",
+    "--model.detection.name", "ssd",
+    "--model.detection.n-classes", "81",
+    "--model.detection.ssd.proj-channels", "512", "256", "256", "128", "128", "64",
+    "--model.detection.ssd.nms-iou-threshold", "0.5",
+    "--model.classification.name", "mobilevit",
+    "--model.classification.mit.mode", "small",
+    "--model.normalization.name", "batch_norm",
+    "--model.normalization.momentum", "0.1",
+    "--model.activation.name", "swish",
+    "--model.layer.global-pool", "mean",
+    "--model.layer.conv-init", "kaiming_normal",
+    "--model.layer.linear-init", "trunc_normal",
+    "--model.layer.linear-init-std-dev", "0.02",
+    "--anchor-generator.name", "ssd",
+    "--anchor-generator.ssd.output-strides", "16", "32", "64", "128", "256", "-1",
+    *sum((["--anchor-generator.ssd.aspect-ratios", "2", "3"] for _ in range(5)), []),
+    "--anchor-generator.ssd.aspect-ratios", "2",
+    "--anchor-generator.ssd.min-scale-ratio", "0.1",
+    "--anchor-generator.ssd.max-scale-ratio", "1.05",
+    "--matcher.name", "ssd",
+    "--matcher.ssd.center-variance", "0.1",
+    "--matcher.ssd.size-variance", "0.2",
+    "--matcher.ssd.iou-threshold", "0.5",
+    "--loss.category", "detection",
+    "--loss.detection.name", "ssd_multibox_loss",
+    "--loss.detection.ssd-multibox-loss.neg-pos-ratio", "3",
+    "--optim.name", "adamw",
+    "--optim.weight-decay", "0.01",
+    "--optim.no-decay-bn-filter-bias",
+    "--optim.adamw.beta1", "0.9",
+    "--optim.adamw.beta2", "0.999",
+    "--scheduler.name", "cosine",
+    "--scheduler.max-epochs", "200",
+    "--scheduler.warmup-iterations", "500",
+    "--scheduler.warmup-init-lr", "9e-5",
+    "--scheduler.cosine.max-lr", "0.0009",
+    "--scheduler.cosine.min-lr", "1.6e-5",
+    "--ema.enable",
+    "--ema.momentum", "0.0005",
+    "--common.mixed-precision",
+    "--common.grad-clip", "10.0",
+    "--common.run-label", "train",
+    "--common.log-freq", "500",
+    "--common.auto-resume",
+    "--dataset.train-batch-size0", "32",
+    "--dataset.val-batch-size0", "32",
+    "--sampler.name", "batch_sampler",
+    "--sampler.bs.crop-size-width", "320",
+    "--sampler.bs.crop-size-height", "320",
+    "--stats.val", "loss",
+    "--stats.train", "loss",
+    "--stats.checkpoint-metric", "loss",
+    "--common.seed", "0",
+]
+SSD_DATA_ARGS = [  # the rest of the detection yaml: loader, collate, transforms
+    "--dataset.name", "coco_ssd",
+    "--dataset.workers", "8",
+    "--dataset.collate-fn-name-train", "coco_ssd_collate_fn",
+    "--dataset.collate-fn-name-val", "coco_ssd_collate_fn",
+    "--dataset.collate-fn-name-test", "coco_ssd_collate_fn",
+    "--image-augmentation.ssd-crop.enable",
+    "--image-augmentation.photo-metric-distort.enable",
+    "--image-augmentation.random-horizontal-flip.enable",
+    "--image-augmentation.resize.enable",
+]
+# the seeded COCO folder of the SSD main_train phase (tools/coco_corpus.py):
+# train images (20 steps of 32 an epoch), val images, the longer side's limit
+SSD_CORPUS = (640, 16, 640)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1484,11 +1698,20 @@ def phase_mha_long_kernel(card: str) -> dict:
     return records
 
 
+def _logits(out):
+    """A classifier's logits, or a detector's scores and box offsets side by side."""
+    import torch
+
+    if isinstance(out, dict):
+        return torch.cat([out["scores"], out["boxes"]], dim=-1)
+    return out
+
+
 def cpu_reference(label: str, model, x, shape: tuple) -> None:
     """The trained model's float32 eval logits on the card (TF32 off) against a
     copy of it on the CPU, on the same small batch: finite, of ``shape``, and
     within 1e-3 of max(1, the largest logit) (cuDNN's and the CPU's convs sum
-    in other orders)."""
+    in other orders). A detector's scores and box offsets count as its logits."""
     import copy
 
     import torch
@@ -1496,8 +1719,8 @@ def cpu_reference(label: str, model, x, shape: tuple) -> None:
     model.eval()
     on_cpu = copy.deepcopy(model).cpu()
     with no_tf32(), torch.no_grad():
-        got = model(x).cpu()
-        ref = on_cpu(x.cpu())
+        got = _logits(model(x)).cpu()
+        ref = _logits(on_cpu(x.cpu()))
     diff, scale = (got - ref).abs().max().item(), ref.abs().max().item()
     check(tuple(got.shape) == shape and bool(torch.isfinite(got).all()),
           f"{label}: logits shape {tuple(got.shape)} or finiteness")
@@ -1545,6 +1768,8 @@ def phase_train(card: str, label: str, args, kernels: dict, per_step: dict,
     def targets():
         if category == "classification":
             return torch.randint(0, n_classes, (batch,), generator=g, device=device)
+        if category == "detection":
+            return detection_targets(opts, batch, hw, device)
         # per-pixel labels with 5% ignored, as bench_tasks.py:128-130 makes them
         t = torch.randint(0, n_classes, (batch, *hw), generator=g, device=device)
         t[torch.rand(t.shape, generator=g, device=device) < 0.05] = 255
@@ -1595,7 +1820,11 @@ def phase_train(card: str, label: str, args, kernels: dict, per_step: dict,
 
     x = batches[0]["samples"][:8 if category == "classification" else 2].float() / 255.0
     if not kernels:
-        cpu_reference(label, model, x[:4], (4, n_classes))
+        if category == "detection":  # scores and box offsets of every anchor
+            n_anchors = model.anchors(*hw, device).shape[0]
+            cpu_reference(label, model, x[:2], (2, n_anchors, n_classes + 4))
+        else:
+            cpu_reference(label, model, x[:4], (4, n_classes))
         return launches, (state, train_step, scheduler, batches, criteria)
     # reference: the trained model's logits through the kernels and through the
     # plain attention path (float32, eval mode, TF32 off), on a small batch
@@ -1732,8 +1961,47 @@ def kernel_family(name: str) -> str:
     return "other"
 
 
-def phase_profile(card: str, label: str, run, path: str) -> None:
-    """torch.profiler over 3 steps: device time by kernel into ``path``."""
+def route_device_us(events, name: str) -> float:
+    """Device µs of the kernels launched inside every ``record_function(name)``
+    range of a profile's ``events`` and of those launched by the backward
+    nodes of the range's ops, which share an op's autograd sequence number
+    and forward thread (each backward node counted once, with the kernels of
+    its ``evaluate_function`` wrapper)."""
+    import torch
+
+    cpu = torch.autograd.DeviceType.CPU
+    seqs, total = set(), 0.0
+    for e in events:
+        if e.name == name and e.device_type == cpu:
+            total += e.device_time_total
+            stack = list(e.cpu_children)
+            while stack:
+                c = stack.pop()
+                if c.sequence_nr >= 0:
+                    seqs.add((c.sequence_nr, c.thread))
+                stack.extend(c.cpu_children)
+    backward = [e for e in events if e.device_type == cpu
+                and (e.scope == 1 or e.name.startswith("autograd::engine::evaluate_function"))
+                and (e.sequence_nr, e.fwd_thread) in seqs]
+    picked = set(map(id, backward))
+
+    def outermost(e) -> bool:
+        p = e.cpu_parent
+        while p is not None:
+            if id(p) in picked:
+                return False
+            p = p.cpu_parent
+        return True
+
+    check(bool(seqs) and bool(backward), f"profile: no op or backward node in the {name} ranges")
+    return total + sum(e.device_time_total for e in backward if outermost(e))
+
+
+def phase_profile(card: str, label: str, run, path: str, route: str = None) -> float:
+    """torch.profiler over 3 steps: device time by kernel into ``path``;
+    returns the device ms a step. With ``route``, also prints the device ms
+    a step of that ``record_function`` range, forward and backward
+    (``route_device_us``), and its share of the step's."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1775,6 +2043,12 @@ def phase_profile(card: str, label: str, run, path: str) -> None:
     print(f"profile: {label} device ms a step by kernel family: " + "; ".join(
         f"{f} {ms:.3f} ({c}x)" for f, (ms, c) in sorted(families.items(),
                                                        key=lambda kv: -kv[1][0])), flush=True)
+    if route:
+        route_ms = route_device_us(prof.events(), route) / 1e3 / n
+        print(f"profile: {label} {route} forward + backward device {route_ms:.3f} ms a step "
+              f"of the step's {device_s * 1e3:.3f}: share {route_ms / (device_s * 1e3):.3f} "
+              f"| {card}", flush=True)
+    return device_s * 1e3
 
 
 # the Trainer on the flagship: the yaml's stats, checkpoint metric and val
@@ -3088,6 +3362,8 @@ NATIVE_MAIN_TRAIN = {
     "MobileViTv2-1.0": FLAGSHIP_ARGS + IMAGENET_RUN_ARGS + FLAGSHIP_DATA_ARGS,
     "ViT-B/16": VIT_ARGS + VIT_DATA_ARGS,
     "Swin-T": SWIN_ARGS + SWIN_DATA_ARGS,
+    "MobileViT-S": MOBILEVIT_ARGS + MOBILEVIT_DATA_ARGS,
+    "FastViT-T8": FASTVIT_ARGS + FASTVIT_DATA_ARGS,
 }
 
 
@@ -3264,11 +3540,346 @@ def phase_native(card: str) -> dict:
                  sum(SEP_FLAGSHIP[1].values())),
                 ("ViT-B/16", {"fwd": mha_fwd_kernel, "bwd": mha_bwd_kernel}, VIT_BLOCKS),
                 ("Swin-T", {"fwd": window_fwd_kernel, "bwd": window_bwd_kernel},
-                 SWIN_BLOCKS)):
+                 SWIN_BLOCKS), ("MobileViT-S", {}, 0), ("FastViT-T8", {}, 0)):
             runs[label] = phase_native_main_train(card, label, corpus, kernels, per_step)
             gc.collect()
     record["launches"] = runs["MobileViTv2-1.0"]["launches"]
     return record
+
+
+# ---- MobileViT v1, FastViT and SSDLite (phase 18) ----
+def detection_targets(opts, batch: int, hw: tuple, device) -> dict:
+    """Per-anchor targets of ``batch`` images of ``hw``: 1-6 random boxes an
+    image matched to the options' anchors on the host, as the COCO dataset
+    matches them, then copied to ``device``."""
+    import numpy as np
+    import torch
+
+    from cvnets_tpu_torch.models.detection.ssd import anchor_generator_and_matcher, anchors_for
+
+    gen, matcher = anchor_generator_and_matcher(opts)
+    anchors = anchors_for(gen, *hw)
+    rng = np.random.default_rng(0)
+    n_classes = getattr(opts, "model.detection.n_classes")
+    locs, labels = [], []
+    for _ in range(batch):
+        n = int(rng.integers(1, 7))
+        xy = rng.random((n, 2)) * 0.7
+        boxes = np.concatenate([xy, xy + 0.05 + rng.random((n, 2)) * 0.25], 1)
+        loc, lab = matcher(np.minimum(boxes, 1.0).astype(np.float32),
+                           rng.integers(1, n_classes, n), anchors)
+        locs.append(loc)
+        labels.append(lab)
+    return {"box_labels": torch.from_numpy(np.stack(labels)).to(device),
+            "box_coordinates": torch.from_numpy(np.stack(locs)).to(device)}
+
+
+def phase_xxs_kernel_grads(card: str, run) -> None:
+    """MobileViT-XXS's float32 eval-mode loss grads (TF32 off) on 8 of its
+    images through the MHA kernels (layer 3, D = 16) against the einsum path:
+    every parameter's grad within 5e-4 of the largest grad (the CPU tests'
+    grad bound), and the kernels launched 2 + 2 times in the kernel pass."""
+    import torch
+
+    from cvnets_tpu_torch.ops.mha_attention import mha_bwd_kernel, mha_fwd_kernel
+
+    state, _, _, batches, criteria = run
+    model = state.model.eval()
+    x = batches[0]["samples"][:8].float() / 255.0
+    y = batches[0]["targets"][:8]
+    grads = {}
+    with no_tf32():
+        for on in (True, False):
+            set_use_kernel(model, on)
+            model.zero_grad(set_to_none=True)
+            mha_fwd_kernel.launches = mha_bwd_kernel.launches = 0
+            criteria(x, model(x), y, training=True).backward()
+            launches = (mha_fwd_kernel.launches, mha_bwd_kernel.launches)
+            check(launches == ((XXS_MHA_BLOCKS, XXS_MHA_BLOCKS) if on else (0, 0)),
+                  f"MobileViT-XXS grads (kernel={on}): MHA launches {launches}")
+            grads[on] = {k: p.grad.detach().clone() for k, p in model.named_parameters()}
+    set_use_kernel(model, True)
+    model.zero_grad(set_to_none=True)
+    gmax = max(g.abs().max().item() for g in grads[False].values())
+    err = max((grads[True][k] - g).abs().max().item() for k, g in grads[False].items())
+    check(all(bool(torch.isfinite(g).all()) for g in grads[True].values())
+          and err <= 5e-4 * gmax, f"MobileViT-XXS: kernel vs plain grads differ by {err}")
+    print(f"reference: MobileViT-XXS kernel-path vs plain-path float32 eval-mode param "
+          f"grads max diff {err:.3e} (max |grad| {gmax:.3e}; {len(grads[True])} tensors; "
+          f"layer 3's MHA at D = 16, S = 256 through the kernels) | {card}", flush=True)
+
+
+def phase_ssd_predict(card: str, run) -> None:
+    """SSDLite's ``predict`` on a batch of 32 × 320²: the eval forward under
+    bf16 autocast, then decode, top-k and class-aware padded NMS on the card
+    (``postprocess``), with no host sync (the CUDA sync debug mode catches
+    none); the postprocess alone and the whole predict timed with CUDA events;
+    and the postprocess on the card of the CPU copy's float32 outputs against
+    the CPU's postprocess of them: the same labels, scores within 1e-6, boxes
+    within 1e-5."""
+    import copy
+
+    import torch
+
+    state, _, _, batches, _ = run
+    model = state.model.eval()
+    x = batches[0]["samples"].float() / 255.0
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        pred = model(x)
+    torch.cuda.synchronize()
+    watch = SyncWatch()
+    with watch, torch.no_grad():
+        watch.on()
+        out = model.postprocess(pred)
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            full = model.predict(x)
+        watch.off()
+        torch.cuda.synchronize()
+    check(not watch.caught, f"SSD predict: a host sync: {watch.through(('cvnets_tpu_torch',))}")
+    check(tuple(out.boxes.shape) == (32, 200, 4) and bool(torch.isfinite(out.scores).all())
+          and bool(torch.isfinite(full.boxes).all()), "SSD predict: shapes or finiteness")
+    with torch.no_grad():
+        post_ms = time_ms(lambda: model.postprocess(pred), launches=5, samples=5, warmup=2)
+
+        def whole():
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                model.predict(x)
+
+        predict_ms = time_ms(whole, launches=5, samples=5, warmup=2)
+        # decode and NMS on the card against the CPU, on the same float32 outputs
+        on_cpu = copy.deepcopy(model).cpu()
+        with no_tf32():
+            raw = on_cpu(x[:4].cpu())
+        got = model.postprocess({k: v.cuda() for k, v in raw.items()})
+        want = on_cpu.postprocess(raw)
+    ls = (got.labels.cpu() == want.labels).float().mean().item()
+    ds = (got.scores.cpu() - want.scores).abs().max().item()
+    db = (got.boxes.cpu() - want.boxes).abs().max().item()
+    check(ls == 1.0 and ds <= 1e-6 and db <= 1e-5,
+          f"SSD postprocess card vs CPU: labels {ls}, scores {ds}, boxes {db}")
+    kept = (out.scores > 0).sum(dim=1).float().mean().item()
+    print(f"predict: SSDLite-MobileViT-S batch=32 320x320 postprocess_ms={post_ms:.3f} "
+          f"(softmax, decode, top-400, class-aware NMS to 200 slots, 200 greedy steps) "
+          f"predict_ms={predict_ms:.3f} (bf16 forward + postprocess) kept/image={kept:.1f}; "
+          f"no host sync; card vs CPU postprocess of the same outputs: labels equal, "
+          f"scores {ds:.1e}, boxes {db:.1e} | {card}", flush=True)
+
+
+def ssd_eval_reference(card: str, args: list, ckpt: str, n_images: int = 3) -> None:
+    """The offline eval path's ``eval_detection.predict`` (the checkpoint's
+    weights, ``UnitNormalizer``, each image at its own size with its own
+    anchors, batch 1) on the card against the same call on a CPU copy built
+    from the same checkpoint, on the first ``n_images`` of the val split,
+    float32 with TF32 off: the forward's scores and box offsets within
+    ``cpu_reference``'s bound and the anchors within 1e-6; then the card's
+    postprocess of the CPU's outputs against the CPU's result: the same
+    labels, scores within 1e-6 and boxes within 1e-5 (as ``phase_ssd_predict``)."""
+    import torch
+
+    from cvnets_tpu_torch.data.data_loaders import create_test_loader
+    from cvnets_tpu_torch.engine.eval_detection import predict
+    from cvnets_tpu_torch.models import get_model
+    from cvnets_tpu_torch.options.opts import get_eval_arguments
+    from cvnets_tpu_torch.utils.checkpoint_utils import load_model_weights
+
+    opts = get_eval_arguments(args=args)
+    setattr(opts, "common.mixed_precision", False)
+    loader = create_test_loader(opts, pin_memory=False)
+    weights = load_model_weights(ckpt)
+    models, raw = {}, {}
+    for dev in ("cuda", "cpu"):
+        model = get_model(opts, device=dev)
+        model.load_state_dict(weights)
+        post, raw[dev] = model.postprocess, []
+        # keep each forward's outputs on their way into the postprocess
+        model.postprocess = lambda p, post=post, keep=raw[dev]: (keep.append(p), post(p))[1]
+        models[dev] = (model, post)
+    sizes, worst = [], [0.0, 0.0, 0.0, 0.0]
+    for _, batch in zip(range(n_images), loader):
+        x = batch["samples"]
+        sizes.append(tuple(x.shape[-2:]))
+        with no_tf32():
+            got = predict(opts, models["cuda"][0], x.cuda())
+            want = predict(opts, models["cpu"][0], x)
+        card_raw, cpu_raw = raw["cuda"][-1], raw["cpu"][-1]
+        out, ref = _logits(card_raw).cpu(), _logits(cpu_raw)
+        d_fwd = (out - ref).abs().max().item()
+        d_anchor = (card_raw["anchors"].cpu() - cpu_raw["anchors"]).abs().max().item()
+        check(bool(torch.isfinite(got.scores).all()) and bool(torch.isfinite(got.boxes).all())
+              and d_fwd <= 1e-3 * max(1.0, ref.abs().max().item()) and d_anchor <= 1e-6,
+              f"SSD eval predict at {sizes[-1]}: card vs CPU forward {d_fwd}, anchors {d_anchor}")
+        with torch.no_grad():
+            again = models["cuda"][1]({k: v.cuda() for k, v in cpu_raw.items()})
+        labels = (again.labels.cpu() == want.labels).float().mean().item()
+        d_s = (again.scores.cpu() - want.scores).abs().max().item()
+        d_b = (again.boxes.cpu() - want.boxes).abs().max().item()
+        check(labels == 1.0 and d_s <= 1e-6 and d_b <= 1e-5,
+              f"SSD eval postprocess at {sizes[-1]}: card vs CPU labels {labels}, scores {d_s}, "
+              f"boxes {d_b}")
+        worst = [max(w, v) for w, v in zip(worst, (d_fwd, d_anchor, d_s, d_b))]
+    check(len(set(sizes)) > 1, f"SSD eval: val images all of one size {sizes}")
+    print(f"reference: SSDLite-MobileViT-S eval_detection.predict from checkpoint_last.pt, "
+          f"card vs CPU float32 on {len(sizes)} val images at {sizes}: forward max diff "
+          f"{worst[0]:.3e}, anchors {worst[1]:.1e}; postprocess of the same outputs: labels "
+          f"equal, scores {worst[2]:.1e}, boxes {worst[3]:.1e} | {card}", flush=True)
+
+
+def phase_ssd_main_train(card: str) -> None:
+    """``main_train`` on the detection yaml's flags (``SSD_ARGS`` +
+    ``SSD_DATA_ARGS``: SSD crop, photometric distortion, resize to 320², flip,
+    host matching, AdamW, EMA, clip 10, bf16) over a seeded COCO folder
+    written at run time (``tools/coco_corpus.py``, ``SSD_CORPUS``), 2 epochs
+    and their validations; its train loader alone over 2 epochs; then
+    ``main_worker_detection`` on its val split (each image at its own size)
+    with the run's checkpoint_last.pt, and ``ssd_eval_reference``. Checks
+    finite statistics, no CUDA sync debug warning through the port's code
+    between log points, mAPs in [0, 1]; prints img/s over epoch 2 after its
+    first batch, the loader's alone after its first batch, and the mAPs."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    import cvnets_tpu_torch.main_train as main_train
+    from cvnets_tpu_torch.main_eval import main_worker_detection
+    from cvnets_tpu_torch.options.opts import get_training_arguments
+    from cvnets_tpu_torch.tools.coco_corpus import write_coco_corpus
+
+    results = os.path.join("results", "ssd_main_train_smoke")
+    shutil.rmtree(results, ignore_errors=True)
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        n_train, n_val, side = SSD_CORPUS
+        write_coco_corpus(root, n_train=n_train, n_val=n_val, max_side=side)
+        print(f"ssd: COCO folder of {n_train} + {n_val} JPEG files written in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        args = SSD_ARGS + SSD_DATA_ARGS + [
+            "--dataset.root-train", root, "--dataset.root-val", root,
+            "--scheduler.max-epochs", "2", "--common.results-loc", results]
+        log = {"train": [], "val": [], "ema": [], "save_s": 0.0}
+        # per epoch: [images after the first batch, first batch's arrival, end]
+        watch, built, epochs = SyncWatch(), [], []
+
+        class WatchedTrainer(main_train.Trainer):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                _watch_trainer(self, {}, watch, 0, log)
+                step, epoch_fn = self._train_step, self.train_epoch
+
+                def counted(state, batch, *rest):
+                    if epochs[-1][1] is None:
+                        epochs[-1][1] = time.perf_counter()
+                    else:
+                        epochs[-1][0] += batch["samples"].shape[0]
+                    return step(state, batch, *rest)
+
+                def epoch(e):
+                    epochs.append([0, None, None])
+                    out = epoch_fn(e)  # ends with a device sync, outside the watch
+                    epochs[-1][2] = time.perf_counter()
+                    return out
+
+                self._train_step, self.train_epoch = counted, epoch
+                built.append(self)
+
+        with watch:
+            main_train.Trainer = WatchedTrainer
+            try:
+                main_train.main_worker(args=args)
+            finally:
+                main_train.Trainer = WatchedTrainer.__bases__[0]
+        trainer = built[0]
+        bad = watch.through(MAIN_TRAIN_FILES + (os.path.join("cvnets_tpu_torch", "models")
+                                                + os.sep,))
+        check(not bad, f"SSD main_train: a host sync between log points: {bad[:3]}")
+        for stage in ("train", "val", "ema"):
+            values = [v for entry in log[stage] for v in
+                      (entry[3] if stage == "train" else entry).values()]
+            check(values and all(math.isfinite(v) for v in values),
+                  f"SSD main_train: {stage} statistics not finite: {log[stage]}")
+        n_steps = trainer.train_iterations
+        after_first, first_at, end_at = epochs[-1]
+        check(n_steps >= 2 * 16, f"SSD main_train: {n_steps} steps in 2 epochs, want 16+ each")
+        ckpt = os.path.join(trainer.save_dir, "checkpoint_last.pt")
+        trainer = None
+        built.clear()
+        gc.collect()
+
+        def check_batch(batch):
+            x = batch["samples"]
+            check(x.dtype == torch.uint8 and x.is_pinned() and tuple(x.shape) == (32, 3, 320, 320)
+                  and batch["targets"]["box_labels"].shape[0] == 32,
+                  f"SSD loader: batch {tuple(x.shape)} {x.dtype}")
+
+        opts = get_training_arguments(args=args)
+        n_img, secs, first, threads = loader_alone(opts, check_batch)
+        loader_img_s = (n_img - 32) / (secs - first)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = main_worker_detection(args=args + ["--model.detection.pretrained", ckpt])
+        eval_s = time.perf_counter() - t0
+        ssd_eval_reference(card, args, ckpt)
+    check(all(math.isfinite(v) and 0.0 <= v <= 1.0 for v in res.values()),
+          f"SSD main_worker_detection: {res}")
+    print(f"main_train: SSDLite-MobileViT-S batch=32 320x320 bf16 epochs=2 steps={n_steps} "
+          f"img_s={after_first / (end_at - first_at):.1f} over epoch 2 after its first batch "
+          f"({after_first} images in {end_at - first_at:.3f} s; SSD crop, photometric "
+          f"distortion, resize, flip and matching on {threads} host threads) "
+          f"train={[{k: round(v, 4) for k, v in e[3].items()} for e in log['train']]} "
+          f"val={[{k: round(v, 4) for k, v in s.items()} for s in log['val']]} | {card}",
+          flush=True)
+    print(f"ssd: loader alone img_s={loader_img_s:.1f} after the first batch ({n_img} images "
+          f"of up to {SSD_CORPUS[2]} px JPEG files in {secs:.3f} s over 2 epochs, first "
+          f"batch after {first:.3f} s; {threads} threads, {os.cpu_count()} cores; pinned "
+          f"batches of 32 x 320^2 with matched targets, no step) | {card}", flush=True)
+    print(f"eval: SSDLite-MobileViT-S main_worker_detection on {SSD_CORPUS[1]} val images at "
+          f"their own sizes in {eval_s:.2f} s: " + " ".join(
+              f"{k}={v:.4f}" for k, v in res.items()) + f" | {card}", flush=True)
+
+
+def phase_families(card: str) -> None:
+    """Phase 18: MobileViT-S (train, 24 steady steps, profile, the einsum
+    attention's share of the step), MobileViT-XXS (its layer 3 through the
+    MHA kernels at D = 16: launches, logits and grads against the plain path,
+    a/b), FastViT-T8 (train, steady), SSDLite-MobileViT-S (train, steady,
+    profile, predict, main_train and main_worker_detection). Each model
+    without a kernel is held against its copy on the CPU."""
+    import torch
+
+    from cvnets_tpu_torch.layers.multi_head_attention import EINSUM_ROUTE
+    from cvnets_tpu_torch.ops.mha_attention import mha_bwd_kernel, mha_fwd_kernel
+
+    def release() -> None:
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    _, run = phase_train(card, "MobileViT-S", MOBILEVIT_ARGS, {}, {})
+    phase_steady(card, "MobileViT-S", run)
+    # the einsum attention of layers 3-5 (D = 36, 48, 60; 9 blocks)
+    phase_profile(card, "MobileViT-S", run, os.path.join("results", "mobilevit_s_profile.txt"),
+                  route=EINSUM_ROUTE)
+    run = None
+    release()
+    mha = {"mha_attention_fwd": mha_fwd_kernel, "mha_attention_bwd": mha_bwd_kernel}
+    _, run = phase_train(card, "MobileViT-XXS", MOBILEVIT_XXS_ARGS, mha,
+                         {name: XXS_MHA_BLOCKS for name in mha})
+    phase_xxs_kernel_grads(card, run)
+    phase_ab(card, "MobileViT-XXS", run)
+    run = None
+    release()
+    _, run = phase_train(card, "FastViT-T8", FASTVIT_ARGS, {}, {})
+    phase_steady(card, "FastViT-T8", run)
+    run = None
+    release()
+    _, run = phase_train(card, "SSDLite-MobileViT-S", SSD_ARGS, {}, {})
+    phase_steady(card, "SSDLite-MobileViT-S", run)
+    phase_profile(card, "SSDLite-MobileViT-S", run,
+                  os.path.join("results", "ssd_profile.txt"))
+    phase_ssd_predict(card, run)
+    run = None
+    release()
+    phase_ssd_main_train(card)
+    release()
 
 
 def phase_deeplab(card: str) -> tuple:
@@ -3296,9 +3907,9 @@ def phase_deeplab(card: str) -> tuple:
 def main(argv) -> int:
     import torch
 
-    if argv not in ([], ["--deeplab"], ["--segmentation"]):
+    if argv not in ([], ["--deeplab"], ["--segmentation"], ["--families"]):
         print(f"chip_smoke: unknown arguments {argv}; usage: chip_smoke.py "
-              "[--deeplab | --segmentation]", file=sys.stderr)
+              "[--deeplab | --segmentation | --families]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3318,6 +3929,10 @@ def main(argv) -> int:
     card = phase_device()
     if argv == ["--deeplab"]:
         phase_deeplab(card)
+        return 0
+    if argv == ["--families"]:
+        phase_build()
+        phase_families(card)
         return 0
     if argv == ["--segmentation"]:
         phase_build()
@@ -3386,6 +4001,8 @@ def main(argv) -> int:
     phase_conv(card)
     release()
     native_record = phase_native(card)
+    release()
+    phase_families(card)
     release()
 
     def entry(name, source, replaces, launches, record):

@@ -34,4 +34,5 @@ def get_test_dataset(opts):
 
 # registers the ported datasets (after DATASET_REGISTRY exists)
 from cvnets_tpu_torch.data.datasets.classification import imagenet  # noqa: E402,F401
+from cvnets_tpu_torch.data.datasets.detection import coco_ssd  # noqa: E402,F401
 from cvnets_tpu_torch.data.datasets.segmentation import ade20k  # noqa: E402,F401

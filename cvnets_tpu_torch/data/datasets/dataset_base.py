@@ -73,6 +73,10 @@ class BaseDataset:
                                 "set's logit projection")
         group.add_argument("--dataset.sample-efficient-training.enable",
                            action="store_true", default=False)
+        group.add_argument("--dataset.detection.no-background-id", action="store_true",
+                           default=False,
+                           help="Contiguous detection labels start at 0 (no background "
+                                "slot)")
         group.add_argument("--dataset.disable-val", action="store_true", default=False,
                            help="Skip building the validation dataset/loader")
         group.add_argument("--dataset.num-samples-per-category", type=int, default=-1,

@@ -4,7 +4,9 @@ file pairs; the training chain (random short-side resize, flip, random crop
 at the sampler's size, always, as in the JAX package), the validation resize
 to the crop size, the offline-eval transforms of ``--evaluation.segmentation.*``,
 an unreadable pair read as a black image whose mask is all ignore label, and
-a last resize to the crop's size where a chain leaves another shape.
+a last resize to the crop's size where a chain leaves another shape. Under
+``--image-augmentation.photo-metric-distort.enable`` the training chain
+distorts the crop's colours, after the crop, as the JAX chain does.
 
 An item is ``{"samples": uint8 (3, H, W), "targets": uint8 (H, W), "sample_id"}``:
 labels 0-254 and the ignore label 255 fit a byte, so a batch's masks cross to
@@ -29,6 +31,7 @@ from cvnets_tpu_torch.data.datasets.dataset_base import BaseImageDataset
 from cvnets_tpu_torch.data.transforms.common import Compose
 from cvnets_tpu_torch.data.transforms.image import (
     UNPORTED_SEGMENTATION_TRANSFORMS,
+    PhotometricDistort,
     RandomCrop,
     RandomHorizontalFlip,
     RandomShortSizeResize,
@@ -86,9 +89,11 @@ class BaseImageSegmentationDataset(BaseImageDataset):
 
     def _training_transforms(self, size: Tuple[int, int]) -> Compose:
         opts = self.opts
-        return Compose(opts, [RandomShortSizeResize(opts), RandomHorizontalFlip(opts),
-                              RandomCrop(opts, size=size, ignore_idx=self.ignore_label),
-                              ToFloatTensor(opts)])
+        chain = [RandomShortSizeResize(opts), RandomHorizontalFlip(opts),
+                 RandomCrop(opts, size=size, ignore_idx=self.ignore_label)]
+        if getattr(opts, "image_augmentation.photo_metric_distort.enable", False):
+            chain.append(PhotometricDistort(opts))  # the image only; the mask stays
+        return Compose(opts, chain + [ToFloatTensor(opts)])
 
     def _validation_transforms(self, size: Tuple[int, int]) -> Compose:
         return Compose(self.opts, [Resize(self.opts, img_size=list(size)),

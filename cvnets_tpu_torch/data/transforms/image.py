@@ -14,9 +14,13 @@ on every pixel, upscaling included. Masks resize as Pillow's ``NEAREST`` does,
 bit for bit (``resize_mask``): ``F.interpolate``'s "nearest-exact" picks
 another source pixel for about half of the (in, out) size pairs.
 
-The segmentation transforms that no yaml of ``config/segmentation/`` turns on
-(photometric distortion, Gaussian blur, rotation, random order) are not ported:
-their ``enable`` flags are parsed, and a dataset asked for one raises.
+Detection adds ``SSDCroping`` and ``PhotometricDistort`` (which the
+segmentation chain also runs when its flag is on), and ``Resize`` and
+``RandomHorizontalFlip`` move ``data["box_coordinates"]``, (N, 4) float32
+numpy boxes in pixels, with the image. The segmentation transforms that no
+yaml of ``config/segmentation/`` turns on (Gaussian blur, rotation, random
+order) are not ported: their ``enable`` flags are parsed, and a dataset asked
+for one raises.
 """
 
 from __future__ import annotations
@@ -167,6 +171,10 @@ class RandomHorizontalFlip(BaseTransformation):
             data["image"] = data["image"].flip(-1)
             if data.get("mask") is not None:
                 data["mask"] = data["mask"].flip(-1)
+            if "box_coordinates" in data:
+                boxes = np.array(data["box_coordinates"], dtype=np.float32)
+                boxes[:, [0, 2]] = data["image"].shape[-1] - boxes[:, [2, 0]]
+                data["box_coordinates"] = boxes
         return data
 
 
@@ -209,8 +217,14 @@ class Resize(BaseTransformation):
         return self.size, int(round(width * scale))
 
     def apply(self, data: Dict, params) -> Dict:
-        return _resize(data, self.output_size(tuple(data["image"].shape[-2:])),
-                       self.interpolation)
+        old_h, old_w = data["image"].shape[-2:]
+        new_h, new_w = self.output_size((old_h, old_w))
+        if "box_coordinates" in data:
+            boxes = np.array(data["box_coordinates"], dtype=np.float32)
+            boxes[:, [0, 2]] *= new_w / old_w
+            boxes[:, [1, 3]] *= new_h / old_h
+            data["box_coordinates"] = boxes
+        return _resize(data, (new_h, new_w), self.interpolation)
 
 
 @TRANSFORMATIONS_REGISTRY.register(name="center_crop", type="image_pil")
@@ -368,12 +382,230 @@ class RandomCrop(BaseTransformation):
         return data
 
 
+def _blend(a: torch.Tensor, b: torch.Tensor, alpha: float) -> torch.Tensor:
+    """Pillow's ``Image.blend(a, b, alpha)`` of uint8 images: a + alpha · (b - a)
+    in float32, clipped to [0, 255] and truncated."""
+    a = a.float()
+    out = a + torch.tensor(alpha, dtype=torch.float32) * (b.float() - a)
+    return out.clamp_(0, 255).to(torch.uint8)
+
+
+def _luma(img: torch.Tensor) -> torch.Tensor:
+    """Pillow's RGB → L: (19595 R + 38470 G + 7471 B + 2^15) >> 16, (H, W) uint8."""
+    r, g, b = img.int().unbind(0)
+    return ((r * 19595 + g * 38470 + b * 7471 + 0x8000) >> 16).to(torch.uint8)
+
+
+def _rgb_to_hsv(img: torch.Tensor) -> torch.Tensor:
+    """Pillow's RGB → HSV (libImaging/Convert.c ``rgb2hsv_row``), uint8 (3, H, W)."""
+    rgb = img.int()
+    r, g, b = rgb.unbind(0)
+    maxc, minc = rgb.amax(0), rgb.amin(0)
+    flat = maxc == minc
+    cr = (maxc - minc).float().clamp_(min=1)
+    s = cr / maxc.float().clamp_(min=1)
+    rc, gc, bc = ((maxc - c).float() / cr for c in (r, g, b))
+    rc, gc, bc = rc.double(), gc.double(), bc.double()  # C: double sums, float results
+    h = torch.where(r == maxc, bc - gc, torch.where(g == maxc, 2.0 + rc - bc, 4.0 + gc - rc))
+    h = torch.fmod(h.float().double() / 6.0 + 1.0, 1.0).float()
+    uh = torch.where(flat, 0, (h.double() * 255.0).int().clamp(0, 255))
+    us = torch.where(flat, 0, (s.double() * 255.0).int().clamp(0, 255))
+    return torch.stack([uh, us, maxc]).to(torch.uint8)
+
+
+def _hsv_to_rgb(hsv: torch.Tensor) -> torch.Tensor:
+    """Pillow's HSV → RGB (libImaging/Convert.c ``hsv2rgb``), uint8 (3, H, W)."""
+    h, s, v = hsv.double().unbind(0)
+    i = torch.floor(h.float().double() * 6.0 / 255.0)
+    f = (h * 6.0 / 255.0 - i).float().double()
+    fs = (s / 255.0).float().double()
+
+    def rnd(x):  # C's round: half away from zero (the values are not negative)
+        return torch.floor(x + 0.5).clamp(0, 255)
+
+    p, q, t = rnd(v * (1.0 - fs)), rnd(v * (1.0 - fs * f)), rnd(v * (1.0 - fs * (1.0 - f)))
+    sector = i.long() % 6
+    table = [(v, t, p), (q, v, p), (p, v, t), (p, q, v), (t, p, v), (v, p, q)]
+    out = torch.zeros((3,) + h.shape, dtype=torch.float64)
+    for k, chans in enumerate(table):
+        sel = sector == k
+        for c in range(3):
+            out[c] = torch.where(sel, chans[c], out[c])
+    out = torch.where(s == 0, v.expand(3, *v.shape), out)
+    return out.to(torch.uint8)
+
+
+@TRANSFORMATIONS_REGISTRY.register(name="photo_metric_distort", type="image_pil")
+class PhotometricDistort(BaseTransformation):
+    """Detection's photometric distortion: brightness (a blend with black),
+    contrast (with the mean luma's gray, before or after the colour ops),
+    saturation (with the image's luma), a hue shift by a fraction of the colour
+    wheel in Pillow's 8-bit HSV, and a channel permutation, each with
+    probability p, on uint8 (3, H, W) tensors. The arithmetic is Pillow's
+    ``ImageEnhance`` and HSV conversion's, to within one level. The draws come
+    from the producer thread's generator (``draw``); the JAX transform draws
+    from the global numpy and ``random`` generators."""
+
+    def __init__(self, opts, **kwargs) -> None:
+        super().__init__(opts)
+        prefix = "image_augmentation.photo_metric_distort."
+
+        def bound(k, d):
+            return getattr(opts, prefix + k, d) or d
+
+        self.p = getattr(opts, prefix + "p", 0.5)
+        self.contrast = (bound("alpha_min", 0.5), bound("alpha_max", 1.5))
+        self.brightness = (bound("beta_min", 0.875), bound("beta_max", 1.125))
+        self.saturation = (bound("gamma_min", 0.5), bound("gamma_max", 1.5))
+        self.hue = (bound("delta_min", -0.05), bound("delta_max", 0.05))
+
+    @classmethod
+    def add_arguments(cls, parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
+        group = parser.add_argument_group(cls.__name__)
+        prefix = "--image-augmentation.photo-metric-distort."
+        group.add_argument(prefix + "enable", action="store_true", default=False)
+        group.add_argument(prefix + "p", type=float, default=0.5)
+        for name, default in (("alpha-min", 0.5), ("alpha-max", 1.5),
+                              ("beta-min", 0.875), ("beta-max", 1.125),
+                              ("gamma-min", 0.5), ("gamma-max", 1.5),
+                              ("delta-min", -0.05), ("delta-max", 0.05)):
+            group.add_argument(prefix + name, type=float, default=default)
+        return parser
+
+    def draw(self, rng, size_hw):
+        """{op: factor} of the ops that run, in the JAX transform's order of
+        draws (seven coin flips, then each op's factor)."""
+        r = [rng.random() for _ in range(7)]
+        params = {}
+        if r[0] < self.p:
+            params["brightness"] = rng.uniform(*self.brightness)
+        contrast_before = r[1] < self.p
+        if contrast_before and r[2] < self.p:
+            params["contrast_before"] = rng.uniform(*self.contrast)
+        if r[3] < self.p:
+            params["saturation"] = rng.uniform(*self.saturation)
+        if r[4] < self.p:
+            params["hue"] = rng.uniform(*self.hue)
+        if not contrast_before and r[5] < self.p:
+            params["contrast_after"] = rng.uniform(*self.contrast)
+        if r[6] < self.p:
+            params["permutation"] = rng.sample(range(3), 3)
+        return params, size_hw
+
+    @staticmethod
+    def _contrast(img: torch.Tensor, factor: float) -> torch.Tensor:
+        luma = _luma(img)
+        mean = int(float(luma.double().mean()) + 0.5)
+        return _blend(torch.full_like(img, mean), img, factor)
+
+    def apply(self, data: Dict, params) -> Dict:
+        img = data["image"]
+        if "brightness" in params:
+            img = _blend(torch.zeros_like(img), img, params["brightness"])
+        if "contrast_before" in params:
+            img = self._contrast(img, params["contrast_before"])
+        if "saturation" in params:
+            img = _blend(_luma(img).expand_as(img), img, params["saturation"])
+        if "hue" in params:
+            hsv = _rgb_to_hsv(img)
+            shift = int(round(params["hue"] * 255.0))
+            hsv[0] = ((hsv[0].int() + shift) % 256).to(torch.uint8)
+            img = _hsv_to_rgb(hsv)
+        if "contrast_after" in params:
+            img = self._contrast(img, params["contrast_after"])
+        if "permutation" in params:
+            img = img[params["permutation"]]
+        data["image"] = img.contiguous()
+        return data
+
+
+@TRANSFORMATIONS_REGISTRY.register(name="ssd_cropping", type="image_pil")
+class SSDCroping(BaseTransformation):
+    """The SSD paper's IoU-constrained random crop: draw a minimum IoU (or keep
+    the image), then up to ``n_trials`` crops of 0.3-1 of each side within the
+    aspect bounds whose IoU with every box meets it and that hold a box's
+    center; keep those boxes, clipped and moved into the crop. The draws
+    depend on the boxes, so ``draw_crop`` takes them (the dataset reads them
+    from its annotation index in the producer thread) and returns the crop
+    rectangle and the boxes kept; ``apply_crop`` does the work."""
+
+    def __init__(self, opts, trials: int = None, **kwargs) -> None:
+        super().__init__(opts)
+        prefix = "image_augmentation.ssd_crop."
+        self.trials = trials or getattr(opts, prefix + "n_trials", 40) or 40
+        ious = getattr(opts, prefix + "iou_thresholds", None) or [
+            0.0, 0.1, 0.3, 0.5, 0.7, 0.9, 1.0]
+        self.iou_options = tuple(None if v >= 1.0 else float(v) for v in ious)
+        self.min_aspect = getattr(opts, prefix + "min_aspect_ratio", 0.5) or 0.5
+        self.max_aspect = getattr(opts, prefix + "max_aspect_ratio", 2.0) or 2.0
+
+    @classmethod
+    def add_arguments(cls, parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
+        group = parser.add_argument_group(cls.__name__)
+        prefix = "--image-augmentation.ssd-crop."
+        group.add_argument(prefix + "enable", action="store_true", default=False)
+        group.add_argument(prefix + "iou-thresholds", type=float, nargs="+",
+                           default=[0.0, 0.1, 0.3, 0.5, 0.7, 0.9, 1.0])
+        group.add_argument(prefix + "n-trials", type=int, default=40)
+        group.add_argument(prefix + "min-aspect-ratio", type=float, default=0.5)
+        group.add_argument(prefix + "max-aspect-ratio", type=float, default=2.0)
+        return parser
+
+    @staticmethod
+    def _iou(rect: np.ndarray, boxes: np.ndarray) -> np.ndarray:
+        lt = np.maximum(rect[:2], boxes[:, :2])
+        rb = np.minimum(rect[2:], boxes[:, 2:])
+        inter = np.prod(np.clip(rb - lt, 0, None), axis=1)
+        a_rect = (rect[2] - rect[0]) * (rect[3] - rect[1])
+        a_box = np.prod(np.clip(boxes[:, 2:] - boxes[:, :2], 0, None), axis=1)
+        return inter / np.maximum(a_rect + a_box - inter, 1e-8)
+
+    def draw_crop(self, rng, size_hw: Tuple[int, int], boxes: np.ndarray):
+        """(rect [x1, y1, x2, y2] float32 of integers, keep mask), or None to
+        keep the image as it is (no boxes, or the "keep" option drawn)."""
+        if boxes.shape[0] == 0:
+            return None
+        h, w = size_hw
+        centers = (boxes[:, :2] + boxes[:, 2:]) / 2
+        while True:
+            min_iou = rng.choice(self.iou_options)
+            if min_iou is None:
+                return None
+            for _ in range(self.trials):
+                cw = rng.uniform(0.3, 1.0) * w
+                ch = rng.uniform(0.3, 1.0) * h
+                if not self.min_aspect < cw / ch < self.max_aspect:
+                    continue
+                left = rng.uniform(0, w - cw)
+                top = rng.uniform(0, h - ch)
+                rect = np.array([int(left), int(top), int(left + cw), int(top + ch)],
+                                np.float32)
+                if self._iou(rect, boxes).min() < min_iou:
+                    continue
+                keep = ((centers[:, 0] > rect[0]) & (centers[:, 0] < rect[2])
+                        & (centers[:, 1] > rect[1]) & (centers[:, 1] < rect[3]))
+                if keep.any():
+                    return rect, keep
+
+    @staticmethod
+    def apply_crop(data: Dict, crop) -> Dict:
+        if crop is None:
+            return data
+        rect, keep = crop
+        kept = data["box_coordinates"][keep].copy()
+        kept[:, :2] = np.maximum(kept[:, :2], rect[:2]) - rect[:2]
+        kept[:, 2:] = np.minimum(kept[:, 2:], rect[2:]) - rect[:2]
+        x1, y1, x2, y2 = (int(v) for v in rect)
+        data["image"] = data["image"][:, y1:y2, x1:x2]
+        data["box_coordinates"] = kept
+        data["box_labels"] = data["box_labels"][keep]
+        return data
+
+
 # the segmentation transforms the port has not ported (no yaml of
 # config/segmentation/ turns one on): the dest of each enable flag, and its class
 # in the JAX package; a segmentation dataset asked for one raises
 UNPORTED_SEGMENTATION_TRANSFORMS = {
-    "image_augmentation.photo_metric_distort.enable":
-        "PhotometricDistort (cvnets_tpu/data/transforms/image.py:450)",
     "image_augmentation.random_gaussian_noise.enable":
         "RandomGaussianBlur (cvnets_tpu/data/transforms/image_advanced.py:571)",
     "image_augmentation.random_rotate.enable":

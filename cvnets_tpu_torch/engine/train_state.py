@@ -71,10 +71,13 @@ def clip_grad_norm_(params: List[torch.Tensor], grad_clip: Optional[float]
     return norm
 
 
-def _labels(targets: torch.Tensor) -> torch.Tensor:
+def _labels(targets):
     """Segmentation masks cross to the device as uint8 and are widened there to
-    the int64 labels the loss and the metrics index with."""
-    return targets.long() if targets.dtype == torch.uint8 else targets
+    the int64 labels the loss and the metrics index with; a dict of targets
+    (detection's per-anchor labels and offsets) is taken as it is."""
+    if isinstance(targets, torch.Tensor) and targets.dtype == torch.uint8:
+        return targets.long()
+    return targets
 
 
 class UnitNormalizer:

@@ -5,7 +5,10 @@ layer takes the fused kernel (ops/mha_attention.py) exactly when the JAX layer
 does (:77-101): no ``attn_mask``, as many queries as keys, no attention dropout
 in training, and a shape ``fused_attention_eligible`` accepts; key padding
 then enters as an additive -1e30 mask. Otherwise it runs the einsum route
-(:106-120) with a float32 softmax, where key padding fills ``finfo.min``.
+(:106-120) with a float32 softmax, where key padding fills ``finfo.min``,
+inside a ``torch.profiler`` range named ``EINSUM_ROUTE``, so that a profile
+can sum the route's kernels (its backward's through the autograd sequence
+numbers of the ops in the range).
 
 Not ported: the ring-attention branch of ``--dev.sequence-parallel`` (:87-100)
 and the int8 projections of ``--common.int8-inference``; both raise.
@@ -17,9 +20,12 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+from torch.profiler import record_function
 
 from cvnets_tpu_torch.layers.linear_layer import LinearLayer
 from cvnets_tpu_torch.ops.mha_attention import fused_attention_eligible, fused_mha_attention
+
+EINSUM_ROUTE = "mha_einsum_route"
 
 
 class MultiHeadAttention(nn.Module):
@@ -61,15 +67,16 @@ class MultiHeadAttention(nn.Module):
                 km = torch.where(key_padding_mask, -1e30, 0.0)
             return self.out_proj(fused_mha_attention(q * scale, k, v, h, km))
 
-        q = q.reshape(b, nq, h, hd)
-        k = k.reshape(b, nk, h, hd)
-        v = v.reshape(b, nk, h, hd)
-        logits = torch.einsum("bqhd,bkhd->bhqk", q * scale, k)
-        if attn_mask is not None:
-            logits = logits + attn_mask
-        if key_padding_mask is not None:
-            logits = logits.masked_fill(key_padding_mask[:, None, None, :],
-                                        torch.finfo(logits.dtype).min)
-        attn = self.attn_dropout(torch.softmax(logits.float(), dim=-1).to(logits.dtype))
-        out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(b, nq, d)
+        with record_function(EINSUM_ROUTE):
+            q = q.reshape(b, nq, h, hd)
+            k = k.reshape(b, nk, h, hd)
+            v = v.reshape(b, nk, h, hd)
+            logits = torch.einsum("bqhd,bkhd->bhqk", q * scale, k)
+            if attn_mask is not None:
+                logits = logits + attn_mask
+            if key_padding_mask is not None:
+                logits = logits.masked_fill(key_padding_mask[:, None, None, :],
+                                            torch.finfo(logits.dtype).min)
+            attn = self.attn_dropout(torch.softmax(logits.float(), dim=-1).to(logits.dtype))
+            out = torch.einsum("bhqk,bkhd->bqhd", attn, v).reshape(b, nq, d)
         return self.out_proj(out)

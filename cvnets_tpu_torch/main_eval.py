@@ -7,8 +7,9 @@ the ``stats.val`` metrics of the model over the test loader (the dataset's
 ``root_test``, else ``root_val``, at ``--dataset.eval-batch-size0``), its
 weights from ``--model.classification.pretrained`` or ``--common.resume``, on
 ``device``, the CUDA card unless the caller asks for the CPU; and
-``main_worker_segmentation``, the offline segmentation evaluation
-(``engine/eval_segmentation.py``, which is its command line).
+``main_worker_segmentation`` and ``main_worker_detection``, the offline
+segmentation and detection evaluations (``engine/eval_segmentation.py`` and
+``engine/eval_detection.py``, which are their command lines).
 """
 
 from __future__ import annotations
@@ -49,6 +50,15 @@ def main_worker_segmentation(args: Optional[List[str]] = None,
     from cvnets_tpu_torch.engine.eval_segmentation import main_segmentation_evaluation
 
     return main_segmentation_evaluation(get_eval_arguments(args=args), device=device)
+
+
+def main_worker_detection(args: Optional[List[str]] = None,
+                          device: Union[str, torch.device, None] = None, **kwargs):
+    """The offline detection evaluation: the COCO mAPs, or the directory of
+    the drawn images."""
+    from cvnets_tpu_torch.engine.eval_detection import main_detection_evaluation
+
+    return main_detection_evaluation(get_eval_arguments(args=args), device=device)
 
 
 if __name__ == "__main__":

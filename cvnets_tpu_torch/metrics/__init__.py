@@ -22,6 +22,8 @@ def arguments_stats(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
                        help="Metric (optionally metric.submetric) used to rank checkpoints")
     group.add_argument("--stats.checkpoint-metric-max", action="store_true",
                        default=False)
+    group.add_argument("--stats.coco-map.iou-types", type=str, nargs="+", default=["bbox"],
+                       help="IoU types of the COCO mAP (bbox; segm is not ported)")
     return parser
 
 
@@ -33,6 +35,7 @@ def build_metrics(opts, names: Iterable[str]) -> Dict[str, BaseMetric]:
 
 # registers the ported metrics (after METRICS_REGISTRY exists)
 from cvnets_tpu_torch.metrics import (  # noqa: E402,F401
+    coco_map,
     intersection_over_union,
     misc,
     topk_accuracy,

@@ -64,26 +64,33 @@ def arguments_finetune_scopes(parser: argparse.ArgumentParser) -> argparse.Argum
 def modeling_arguments(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     from cvnets_tpu_torch.layers import layer_specific_arguments
     from cvnets_tpu_torch.misc.averaging_utils import arguments_ema
+    from cvnets_tpu_torch.models.anchor_generator import arguments_anchor_gen
+    from cvnets_tpu_torch.models.matcher_det import arguments_box_matcher
 
     parser = arguments_finetune_scopes(parser)
     parser = MODEL_REGISTRY.all_arguments(parser)
     parser = layer_specific_arguments(parser)
     parser = arguments_ema(parser)
+    parser = arguments_anchor_gen(parser)
+    parser = arguments_box_matcher(parser)
     return parser
 
 
 # registers the ported models (after MODEL_REGISTRY exists)
 from cvnets_tpu_torch.models.classification import (  # noqa: E402,F401
     efficientnet,
+    fastvit,
     mobilenetv1,
     mobilenetv2,
     mobilenetv3,
     mobileone,
+    mobilevit,
     mobilevit_v2,
     regnet,
     resnet,
     swin_transformer,
     vit,
 )
+from cvnets_tpu_torch.models.detection import base_detection, ssd  # noqa: E402,F401
 from cvnets_tpu_torch.models.segmentation import enc_dec  # noqa: E402,F401
 from cvnets_tpu_torch.models.segmentation.heads import seg_heads  # noqa: E402,F401

@@ -1,14 +1,21 @@
-"""MobileViTv2 block (counterpart of cvnets_tpu/modules/mobilevit_block.py:27-158).
+"""MobileViT blocks (counterpart of cvnets_tpu/modules/mobilevit_block.py):
+``MobileViTBlockv2`` (:84-158) and v1's ``MobileViTBlock`` (:161-251).
 
 The convs run NCHW; the attention runs on (B, P, N, C) patches, the JAX package's
 layout. ``unfold_nchw``/``fold_nchw`` produce and consume exactly the patches of the
-JAX ``unfold_nhwc``/``fold_nhwc`` (:27-43), as one reshape and permute each.
+JAX ``unfold_nhwc``/``fold_nhwc`` (:27-43), as one reshape and permute each. v1
+attends along N (across patches, at one pixel offset p), with (B·P, N, C) as the
+transformer's batch: a reshape of the same patches.
+
+The temporal forward of both blocks (``x_prev``, ``return_patches``: the video
+models' cross-frame attention) is not ported; it waits for ROADMAP.md queue 1
+item 11.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Sequence, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -17,7 +24,8 @@ import torch.nn.functional as F
 
 from cvnets_tpu_torch.layers.conv_layer import ConvLayer2d
 from cvnets_tpu_torch.layers.normalization import get_normalization_layer
-from cvnets_tpu_torch.modules.transformer import LinearAttnFFN
+from cvnets_tpu_torch.modules.transformer import LinearAttnFFN, TransformerEncoder
+from cvnets_tpu_torch.ops.seg_ce import resize_bilinear
 
 
 def unfold_nchw(x: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
@@ -96,3 +104,62 @@ class MobileViTBlockv2(nn.Module):
             patches = getattr(self, f"global_rep_{i}")(patches)
         patches = self.global_norm(patches)
         return self.conv_proj(fold_nchw(patches, out_hw, self.patch_h, self.patch_w))
+
+
+class MobileViTBlock(nn.Module):
+    """v1: local rep (k×k conv + 1×1) → unfold → ``TransformerEncoder``×n
+    along N → ``global_norm`` → fold → 1×1 ``conv_proj`` → k×k ``fusion`` over
+    concat(input, global). A map whose H or W is not a multiple of the patch
+    goes up to the next multiple and back down after the fold, both by
+    ``jax.image.resize``'s bilinear weights (``resize_bilinear``: the way down
+    antialiases, as the JAX block's does)."""
+
+    def __init__(self, opts, in_channels: int, transformer_dim: int, ffn_dim: int,
+                 n_transformer_blocks: int = 2, head_dim: int = 32,
+                 attn_dropout: float = 0.0, dropout: float = 0.0, ffn_dropout: float = 0.0,
+                 patch_h: int = 8, patch_w: int = 8, conv_ksize: int = 3,
+                 dilation: int = 1, no_fusion: bool = False,
+                 transformer_norm_layer: str = "layer_norm") -> None:
+        super().__init__()
+        self.patch_h, self.patch_w = patch_h, patch_w
+        self.n_transformer_blocks = n_transformer_blocks
+        self.local_conv = ConvLayer2d(opts, in_channels, in_channels, kernel_size=conv_ksize,
+                                      dilation=dilation)
+        self.local_pw = ConvLayer2d(opts, in_channels, transformer_dim, kernel_size=1,
+                                    use_norm=False, use_act=False)
+        num_heads = max(1, transformer_dim // head_dim)
+        for i in range(n_transformer_blocks):
+            self.add_module(f"global_rep_{i}", TransformerEncoder(
+                opts, transformer_dim, ffn_dim, num_heads=num_heads,
+                attn_dropout=attn_dropout, dropout=dropout, ffn_dropout=ffn_dropout,
+                transformer_norm_layer=transformer_norm_layer))
+        self.global_norm = get_normalization_layer(
+            opts, transformer_dim, transformer_norm_layer) or nn.Identity()
+        self.conv_proj = ConvLayer2d(opts, transformer_dim, in_channels, kernel_size=1)
+        self.fusion = None if no_fusion else ConvLayer2d(
+            opts, 2 * in_channels, in_channels, kernel_size=conv_ksize)
+
+    def forward(self, x: torch.Tensor, x_prev: Optional[torch.Tensor] = None) -> torch.Tensor:
+        if x_prev is not None:
+            raise NotImplementedError(
+                "not ported yet: MobileViTBlock's temporal forward (x_prev) waits for "
+                "ROADMAP.md queue 1 item 11")
+        fm = self.local_pw(self.local_conv(x))
+        orig_hw = tuple(fm.shape[-2:])
+        ph, pw = self.patch_h, self.patch_w
+        padded_hw = (math.ceil(orig_hw[0] / ph) * ph, math.ceil(orig_hw[1] / pw) * pw)
+        if padded_hw != orig_hw:
+            fm = resize_bilinear(fm, padded_hw)
+        patches = unfold_nchw(fm, ph, pw)
+        b, p, n, c = patches.shape
+        tokens = patches.reshape(b * p, n, c)
+        for i in range(self.n_transformer_blocks):
+            tokens = getattr(self, f"global_rep_{i}")(tokens)
+        tokens = self.global_norm(tokens)
+        fm = fold_nchw(tokens.reshape(b, p, n, c), padded_hw, ph, pw)
+        if padded_hw != orig_hw:
+            fm = resize_bilinear(fm, orig_hw)
+        fm = self.conv_proj(fm)
+        if self.fusion is not None:
+            fm = self.fusion(torch.cat([x, fm], dim=1))
+        return fm

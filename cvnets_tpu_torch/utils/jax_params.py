@@ -2,10 +2,13 @@
 
 Port module attributes are named after the flax scopes, so a flax path maps to a
 ``state_dict`` key by rule: ``/`` becomes ``.``, a list stage ``layer_3_0`` is the
-``nn.Sequential`` entry ``layer_3.0``, and the leaf names change as
+``nn.Sequential`` entry ``layer_3.0`` (FastViT's ``conv_1_0`` and
+``conv_1x1_exp_0`` and SSD's ``extra_layers_0`` and ``ssd_heads_0`` too), and
+the leaf names change as
 ``kernel``/``scale`` → ``weight`` and ``mean``/``var`` → ``running_mean``/
 ``running_var``; ViT's ``pos_embed`` table and top-level ``cls_token`` and
-Swin's ``relative_position_bias_table`` and PReLU's ``alpha`` keep their names.
+Swin's ``relative_position_bias_table``, PReLU's ``alpha`` and FastViT's
+``layer_scale``, ``layer_scale_1`` and ``layer_scale_2`` keep their names.
 The segmentation heads' scopes (PSPNet's ``psp/psp_branch_<i>`` and
 ``psp/fusion``, the separable ASPP's ``aspp/aspp_sep_<i>/{dw_conv,pw_conv}``,
 the simple head's ``conv``) follow the same rule. Only leaves named ``kernel``
@@ -27,8 +30,12 @@ _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
          "mean": "running_mean", "var": "running_var",
          "pos_embed": "pos_embed", "cls_token": "cls_token",
          "relative_position_bias_table": "relative_position_bias_table",
-         "alpha": "alpha"}
-_STAGE = re.compile(r"^(layer_\d+)_(\d+)$")
+         "alpha": "alpha", "layer_scale": "layer_scale",
+         "layer_scale_1": "layer_scale_1", "layer_scale_2": "layer_scale_2"}
+# a list of modules in flax (``layer_3_0``, FastViT's ``conv_1_0`` and
+# ``conv_1x1_exp_0``, SSD's ``extra_layers_0`` and ``ssd_heads_0``) is an
+# ``nn.Sequential`` or ``nn.ModuleList`` entry here (``layer_3.0``)
+_STAGE = re.compile(r"^(layer_\d+|conv_1|conv_1x1_exp|extra_layers|ssd_heads)_(\d+)$")
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:

@@ -25,8 +25,16 @@ from torch_port_helpers import (  # noqa: E402
     TRAINER_MICRO_ARGS,
     both_opts,
     port_model_from,
+    torch_threads,
     uint8_batches,
 )
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """torch on two threads: the suite's xdist workers share the cores."""
+    with torch_threads(2):
+        yield
 
 RUN_ARGS = ["--common.log-freq", "2", "--common.save-interval-freq", "3",
             "--common.k-best-checkpoints", "2", "--common.save-all-checkpoints",
@@ -82,9 +90,10 @@ def test_every_checkpoint_role_after_three_epochs(three_epochs):
     assert set(os.listdir(trainer.save_dir)) == want
     d = trainer.save_dir
     last, ema_last = _load(f"{d}/checkpoint_last.pt"), _load(f"{d}/checkpoint_ema_last.pt")
+    epoch_2 = _load(f"{d}/checkpoint_epoch_2.pt")
     for key, value in trainer.model.state_dict().items():
         assert torch.equal(last[key], value), key
-        assert torch.equal(_load(f"{d}/checkpoint_epoch_2.pt")[key], value), key
+        assert torch.equal(epoch_2[key], value), key
     for key, value in trainer.state.ema.model.state_dict().items():
         assert torch.equal(ema_last[key], value), key
     blob = _load(f"{d}/training_checkpoint_last.pt")

@@ -355,22 +355,21 @@ def test_layers_build_with_model_activation_not_the_classification_one():
 
 # keys each yaml sets that the port's parser does not take, all of unported
 # items: RangeAugment's augmentor and composite loss (ROADMAP queue 1 item 12)
-# and MobileViT v1 (item 4)
 RANGE_AUGMENT_KEYS = ["loss.composite_loss", "model.learn_augmentation.brightness",
                       "model.learn_augmentation.contrast", "model.learn_augmentation.noise"]
 UNPORTED_KEYS = {
     "classification/imagenet/efficientnet_rangeaugment.yaml": RANGE_AUGMENT_KEYS,
     "classification/imagenet/regnet_y_16gf_rangeaugment.yaml": RANGE_AUGMENT_KEYS,
-    "segmentation/pascal_voc/deeplabv3_mobilevit.yaml": ["model.classification.mit.mode"],
 }
 YAMLS = [f"classification/imagenet/{name}.yaml" for name in (
     "resnet", "resnet_adv", "mobilenet_v1", "mobilenet_v2", "mobilenet_v3", "mobileone",
     "mobilevit_v2", "vit", "swin", "efficientnet_rangeaugment",
-    "regnet_y_16gf_rangeaugment")] + [f"segmentation/{name}.yaml" for name in (
+    "regnet_y_16gf_rangeaugment", "mobilevit", "fastvit")] + [
+    f"segmentation/{name}.yaml" for name in (
         "ade20k/deeplabv3_mobilevitv2", "ade20k/pspnet_mobilevitv2",
         "ade20k/deeplabv3_mobilenetv2", "ade20k/deeplabv3_resnet50",
         "pascal_voc/deeplabv3_mobilevitv2", "pascal_voc/pspnet_mobilevitv2",
-        "pascal_voc/deeplabv3_mobilevit")]
+        "pascal_voc/deeplabv3_mobilevit")] + ["detection/ssd_coco/mobilevit.yaml"]
 
 
 @pytest.mark.parametrize("yaml", YAMLS)

@@ -55,6 +55,16 @@ from torch_port_helpers import (  # noqa: E402
 
 torch.set_float32_matmul_precision("highest")  # as tests/conftest.py pins JAX
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """torch on two threads: the suite's xdist workers share the cores."""
+    from torch_port_helpers import torch_threads
+
+    with torch_threads(2):
+        yield
+
+
 LOGIT_ATOL = 1e-4  # eval: no batch statistics
 TRAIN_OUT_REL = 2e-4  # train-mode outputs, of the largest
 GRAD_REL = 1e-2  # of the largest grad
@@ -133,7 +143,7 @@ def test_loss_dict_and_param_grads_match(pair):
         losses = jcrit(x, pred, y, training=True)
         return losses["total_loss"], losses
 
-    (_, jlosses), jgrads = jax.value_and_grad(loss_fn, has_aux=True)(
+    (_, jlosses), jgrads = jax.jit(jax.value_and_grad(loss_fn, has_aux=True))(
         pair["variables"]["params"])
 
     model = port_model_from(pair["opts_torch"], pair["variables"]).train()
@@ -208,7 +218,9 @@ def test_unported_options_raise_and_name_themselves(tmp_path):
     """The separable ASPP, PSPNet and frozen BN are ported (test_torch_seg_heads.py);
     what stays unported on this path raises naming itself: each segmentation
     transform that no yaml of config/segmentation/ turns on, when a training
-    set is built, and a seg head that is not registered."""
+    set is built, and a seg head that is not registered. The photometric
+    distortion is ported: its flag puts it after the random crop, as in the
+    JAX chain."""
     from cvnets_tpu_torch.data.datasets import build_dataset_from_registry
     from cvnets_tpu_torch.data.transforms.image import UNPORTED_SEGMENTATION_TRANSFORMS
     from cvnets_tpu_torch.models import get_model
@@ -223,6 +235,13 @@ def test_unported_options_raise_and_name_themselves(tmp_path):
         with pytest.raises(NotImplementedError, match=flag.replace(".", r"\.")):
             build_dataset_from_registry(opts, is_training=True)
         build_dataset_from_registry(opts, is_training=False)  # validation has none
+    assert "image_augmentation.photo_metric_distort.enable" not in \
+        UNPORTED_SEGMENTATION_TRANSFORMS
+    _, opts = both_opts(args + ["--image-augmentation.photo-metric-distort.enable"])
+    chain = build_dataset_from_registry(opts, is_training=True)._training_transforms((64, 64))
+    assert [type(t).__name__ for t in chain.img_transforms] == [
+        "RandomShortSizeResize", "RandomHorizontalFlip", "RandomCrop", "PhotometricDistort",
+        "ToFloatTensor"]
     _, opts = both_opts(args + ["--model.segmentation.seg-head", "fcn"])
     with pytest.raises(LoggerError, match="fcn"):
         get_model(opts, device="cpu")

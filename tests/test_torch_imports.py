@@ -7,7 +7,9 @@
   flagship flags at 64 px on the port's dummy dataset with every augmentation,
   then ``main_eval``, and ``main_train`` for an epoch on its DeepLabv3 flags
   (the segmentation transforms, masks, iou) at 64 px on the port's dummy
-  segmentation dataset, then ``main_worker_segmentation``, with ``jax``,
+  segmentation dataset, then ``main_worker_segmentation``, MobileViT v1 and
+  FastViT forwards, an SSDLite loss, backward and ``predict``, the detection
+  transforms and the COCO mAP, with ``jax``,
   ``flax``, ``optax``, ``orbax``, ``yaml``, ``PIL`` and the JAX package
   ``cvnets_tpu`` blocked (a subprocess: tests/conftest.py has imported jax
   into this one).
@@ -199,6 +201,46 @@ _BLOCKED_RUN = textwrap.dedent("""
     out = crop_resize_flip(raster, (5, 4, 60, 50), True, (24, 32))
     assert out.shape == (3, 24, 32) and out.dtype == torch.uint8
     assert native.crop_resize_flip_kernel.launches == 0
+    # MobileViT v1 (the resize route at 80 px), FastViT, and SSDLite: a train
+    # step's loss and grads, predict, the detection transforms and the COCO mAP
+    import random
+    import numpy as np
+    from cvnets_tpu_torch.data.transforms.image import PhotometricDistort, SSDCroping
+    from cvnets_tpu_torch.metrics.coco_map import compute_coco_map
+    for extra in (["--model.classification.name", "mobilevit",
+                   "--model.classification.mit.mode", "xx_small"],
+                  ["--model.classification.name", "fastvit",
+                   "--model.classification.fastvit.variant", "T8"]):
+        opts = get_training_arguments(args=extra + ["--model.classification.n-classes", "7"])
+        logits = get_model(opts, device="cpu").eval()(torch.rand(1, 3, 80, 80))
+        assert logits.shape == (1, 7) and bool(torch.isfinite(logits).all())
+    strides = ["--anchor-generator.ssd.output-strides", "16", "32", "64", "-1"]
+    opts = get_training_arguments(args=strides + [
+        "--dataset.category", "detection", "--model.detection.name", "ssd",
+        "--model.detection.n-classes", "4", "--model.classification.name", "mobilevit",
+        "--model.classification.mit.mode", "xx_small", "--loss.category", "detection",
+        "--loss.detection.name", "ssd_multibox_loss"])
+    model = get_model(opts, device="cpu")
+    pred = model(torch.rand(2, 3, 96, 96))
+    n = pred["anchors"].shape[0]
+    labels = torch.zeros(2, n, dtype=torch.long)
+    labels[:, :5] = 2
+    loss = build_loss_fn(opts)(None, pred, {"box_labels": labels,
+                                            "box_coordinates": torch.zeros(2, n, 4)})
+    loss.backward()
+    assert bool(torch.isfinite(loss))
+    out = model.predict(torch.rand(2, 3, 96, 96))
+    assert out.boxes.shape == (2, 200, 4)
+    img = torch.randint(0, 256, (3, 40, 50), dtype=torch.uint8)
+    distort = PhotometricDistort(opts)
+    img = distort.apply({"image": img}, distort.draw(random.Random(0), (40, 50))[0])["image"]
+    boxes = np.array([[5, 5, 30, 25]], np.float32)
+    crop = SSDCroping(opts).draw_crop(random.Random(1), (40, 50), boxes)
+    SSDCroping.apply_crop({"image": img, "box_coordinates": boxes,
+                           "box_labels": np.array([1])}, crop)
+    res = compute_coco_map([{"boxes": boxes, "scores": np.ones(1), "labels": [1]}],
+                           [{"boxes": boxes, "labels": [1]}])
+    assert res["bbox"] == 1.0
     leaked = sorted(m for m in sys.modules if sys.modules[m] is not None
                     and m.split(".")[0] in ("jax", "flax", "optax", "orbax", "yaml",
                                             "PIL", "cvnets_tpu"))

@@ -25,6 +25,16 @@ from torch_port_helpers import (  # noqa: E402
 
 torch.set_float32_matmul_precision("highest")  # as tests/conftest.py pins JAX
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """torch on two threads: the suite's xdist workers share the cores."""
+    from torch_port_helpers import torch_threads
+
+    with torch_threads(2):
+        yield
+
+
 # f32 on both sides; the sums run in another order (XLA vs ATen), so logits agree
 # to ~1e-5. test_reference_parity.py uses the same 1e-4.
 LOGIT_ATOL = 1e-4

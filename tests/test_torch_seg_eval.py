@@ -32,6 +32,16 @@ from torch_port_helpers import (  # noqa: E402
 
 torch.set_float32_matmul_precision("highest")  # as tests/conftest.py pins JAX
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """torch on two threads: the suite's xdist workers share the cores."""
+    from torch_port_helpers import torch_threads
+
+    with torch_threads(2):
+        yield
+
+
 EVAL_ARGS = [
     "--dataset.category", "segmentation",
     "--dataset.name", "ade20k",

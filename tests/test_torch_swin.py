@@ -35,6 +35,16 @@ from torch_port_helpers import (  # noqa: E402
 
 torch.set_float32_matmul_precision("highest")  # as tests/conftest.py pins JAX
 
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """torch on two threads: the suite's xdist workers share the cores."""
+    from torch_port_helpers import torch_threads
+
+    with torch_threads(2):
+        yield
+
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SWIN_YAML = os.path.join(REPO, "config/classification/imagenet/swin.yaml")
 SIZES = (224, 112)
