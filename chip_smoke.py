@@ -11,7 +11,7 @@ DeepLabv3 steps on one card, as the whole script does with five recipes.
 through ``main_train`` and ``main_worker_segmentation``, PSPNet; about a
 minute of command time) and prints neither JSON line. ``--families`` runs
 only phases 1, 2 and 18 (MobileViT v1, FastViT and SSDLite) and prints
-neither JSON line.
+neither JSON line; ``--clip`` only phases 1, 2 and 19 (CLIP ViT-B/16).
 
 Phases, one line each or more (any failure exits non-zero):
 
@@ -236,15 +236,35 @@ Phases, one line each or more (any failure exits non-zero):
    loader's; then ``main_worker_detection`` on its val split with the run's
    checkpoint (the mAPs), and the eval path's ``predict`` on the card
    against a CPU copy of the checkpoint on 3 val images at their own sizes.
+19. clip: CLIP ViT-B/16 with clip_vit.yaml's settings as flags (``CLIP_ARGS``:
+   ViT-B/16 image tower with float32 LayerNorms, a 12 × 512 causal text
+   tower of 8 heads, context 77, vocab 49,408, projection 512, AdamW β2
+   0.98 with weight decay 0.2 off rank ≤ 1 tensors, clip 1.0, EMA 0.0005,
+   iteration-based cosine with warmup, bf16) at batch 128 × 224² and seeded
+   captions: 12 forward and 12 backward MHA launches a step (the image
+   tower; the text tower's causal mask takes the einsum route), finite
+   losses, the embeddings through the kernels against the plain path and
+   against a CPU copy; a/b, 24 steady steps, a profile split into the image
+   tower, the text tower, its einsum attention, the loss and the optimizer
+   (clip, AdamW and EMA), with peak memory (results/clip_profile.txt); then
+   ``main_train`` on a flickr corpus written at run time (phase 17's 2,048 +
+   200 JPEG files with a seeded caption each; 2 epochs of 16 steps, each
+   validated with the loss and the retrieval recalls) and its loader alone:
+   no host sync between log points, img/s over epoch 2 after its first
+   batch; ``main_eval`` zero-shot over the val folder's 8 classes with a
+   class-names file, and its logits from checkpoint_last.pt on the card
+   against a CPU copy's on 3 images.
 
 The second-to-last line is the kernels' JSON record, one entry for each TPU
 kernel's counterpart: ``ms``/``plain_ms`` are a kernel's and its plain
 version's time for one train step's launches (the separable attention's 9
 forward and 9 backward at the flagship from the per-shape bf16 medians, each
-MHA kernel's 12 at ViT-B and at ViT-B 512², each seg-CE kernel's 2 at
-DeepLabv3, each window kernel's 12 at Swin-T from the per-stage medians; the
-native decode's crop → resize → flip kernel's one launch a batch at 128 ×
-256², its launches those of the flagship's native ``main_train`` run, and
+MHA kernel's 12 at ViT-B and at ViT-B 512² (the S ≤ 512 rows also give
+their launches by path, ViT-B/16's and CLIP's, in ``launches_by_path``),
+each seg-CE kernel's 2 at DeepLabv3, each window kernel's 12 at Swin-T
+from the per-stage medians; the native decode's crop → resize → flip
+kernel's one launch a batch at 128 × 256², its launches those of the
+flagship's native ``main_train`` run, and
 nvJPEG's decode times beside it), ``bound_ms`` the least time the card could
 take for the same work (bytes over the HBM rate or operations over their unit's
 peak, whichever is larger; the MHA backward's counts the function's work, 5
@@ -776,6 +796,87 @@ SSD_DATA_ARGS = [  # the rest of the detection yaml: loader, collate, transforms
 # the seeded COCO folder of the SSD main_train phase (tools/coco_corpus.py):
 # train images (20 steps of 32 an epoch), val images, the longer side's limit
 SSD_CORPUS = (640, 16, 640)
+
+CLIP_ARGS = [  # config/multi_modal_image_text/clip_vit.yaml, as flags
+    "--dataset.category", "multi_modal_image_text",
+    "--dataset.name", "flickr",
+    "--dataset.train-batch-size0", "128",
+    "--dataset.val-batch-size0", "64",
+    "--dataset.workers", "8",
+    "--dataset.collate-fn-name-train", "multi_modal_img_text_collate_fn",
+    "--dataset.collate-fn-name-val", "multi_modal_img_text_collate_fn",
+    "--dataset.collate-fn-name-test", "multi_modal_img_text_collate_fn",
+    "--text-tokenizer.name", "clip",
+    "--image-augmentation.random-resized-crop.enable",
+    "--image-augmentation.random-resized-crop.interpolation", "bilinear",
+    "--image-augmentation.resize.enable",
+    "--image-augmentation.resize.size", "224",
+    "--sampler.name", "batch_sampler",
+    "--sampler.bs.crop-size-width", "224",
+    "--sampler.bs.crop-size-height", "224",
+    "--loss.category", "multi_modal_image_text",
+    "--loss.multi-modal-image-text.name", "contrastive_loss_clip",
+    "--optim.name", "adamw",
+    "--optim.weight-decay", "0.2",
+    "--optim.no-decay-bn-filter-bias",
+    "--optim.adamw.beta1", "0.9",
+    "--optim.adamw.beta2", "0.98",
+    "--scheduler.name", "cosine",
+    "--scheduler.is-iteration-based",
+    "--scheduler.max-iterations", "200000",
+    "--scheduler.warmup-iterations", "2000",
+    "--scheduler.warmup-init-lr", "1e-6",
+    "--scheduler.cosine.max-lr", "0.0005",
+    "--scheduler.cosine.min-lr", "1e-6",
+    "--model.multi-modal-image-text.name", "clip",
+    "--model.multi-modal-image-text.clip.projection-dim", "512",
+    "--model.classification.name", "vit",
+    "--model.classification.vit.mode", "base",
+    "--model.classification.vit.norm-layer", "layer_norm_fp32",
+    "--model.text.name", "transformer",
+    "--model.text.context-length", "77",
+    "--model.text.vocab-size", "49408",
+    "--model.text.transformer.model-dim", "512",
+    "--model.text.transformer.n-transformer-layers", "12",
+    "--model.text.transformer.n-heads-per-layer", "8",
+    "--model.text.transformer.causal-masking",
+    "--model.normalization.name", "layer_norm",
+    "--model.activation.name", "gelu",
+    "--model.layer.global-pool", "mean",
+    "--model.layer.conv-init", "kaiming_normal",
+    "--model.layer.linear-init", "trunc_normal",
+    "--model.layer.linear-init-std-dev", "0.02",
+    "--ema.enable",
+    "--ema.momentum", "0.0005",
+    "--stats.val", "loss",
+    "--stats.train", "loss",
+    "--stats.checkpoint-metric", "loss",
+    "--common.run-label", "train",
+    "--common.log-freq", "500",
+    "--common.auto-resume",
+    "--common.mixed-precision",
+    "--common.grad-clip", "1.0",
+    "--common.seed", "0",
+]
+# the CLIP train phase's batch (the yaml's): 128 images and captions of 77
+# tokens, SOT and EOT the vocabulary's last two ids
+CLIP_BATCH, CLIP_CONTEXT, CLIP_VOCAB = 128, 77, 49408
+CLIP_SOT, CLIP_EOT = CLIP_VOCAB - 2, CLIP_VOCAB - 1
+# main_train's flickr corpus: the native phase's JPEG corpus (2,048 train and
+# 200 val files, two damaged) with a seeded caption a file; 16 steps an
+# epoch, 2 epochs, a log point every 4 steps; validation with the retrieval
+# recalls; then zero-shot over the val folder's 8 classes with these names
+CLIP_MAIN_TRAIN_ARGS = CLIP_ARGS + [
+    "--scheduler.max-iterations", "32",
+    "--common.log-freq", "4",
+    "--stats.val", "loss", "image_text_retrieval",
+]
+CLIP_WORDS = (("red", "small", "old", "bright", "wet", "striped", "wooden", "shiny"),
+              ("dog", "car", "tree", "boat", "house", "bird", "chair", "cup"),
+              ("on a beach", "in the snow", "at night", "near a river", "in a field",
+               "on a table", "under a bridge", "in the city"))
+CLIP_CLASS_NAMES = ("tench", "goldfish", "great white shark", "tiger shark", "hammerhead",
+                    "electric ray", "stingray", "cock")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -1872,6 +1973,8 @@ def phase_ab(card: str, label: str, run) -> dict:
     median img/s and peak memory."""
     import torch
 
+    from cvnets_tpu_torch.engine.train_state import batch_size
+
     state, train_step, scheduler, batches, criteria = run
     model = state.model
     times = {"plain": [], "kernel": []}
@@ -1892,7 +1995,7 @@ def phase_ab(card: str, label: str, run) -> dict:
             times[mode].append(time.perf_counter() - t0)
         peak[mode] = max(peak[mode], torch.cuda.max_memory_allocated())
     set_use_kernel(model, True, criteria)
-    batch = batches[0]["samples"].shape[0]
+    batch = batch_size(batches[0]["samples"])
     parts = []
     for mode, ts in times.items():
         ms = 1e3 * statistics.median(ts)
@@ -1914,6 +2017,8 @@ def phase_steady(card: str, label: str, run, blocks: int = 3, steps: int = 8) ->
     ``phase_ab`` does."""
     import torch
 
+    from cvnets_tpu_torch.engine.train_state import batch_size
+
     state, train_step, scheduler, batches, _ = run
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1925,7 +2030,7 @@ def phase_steady(card: str, label: str, run, blocks: int = 3, steps: int = 8) ->
         host.append(time.perf_counter() - t0)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    batch = batches[0]["samples"].shape[0]
+    batch = batch_size(batches[0]["samples"])
     ms = 1e3 * statistics.median(times)
     q1, _, q3 = statistics.quantiles(times, n=4)
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1997,11 +2102,25 @@ def route_device_us(events, name: str) -> float:
     return total + sum(e.device_time_total for e in backward if outermost(e))
 
 
-def phase_profile(card: str, label: str, run, path: str, route: str = None) -> float:
+def range_device_us(events, name: str) -> float:
+    """Device µs of the kernels launched inside every ``record_function(name)``
+    range of a profile's ``events`` (a range without backward nodes: the
+    optimizer's)."""
+    import torch
+
+    return sum(e.device_time_total for e in events
+               if e.name == name and e.device_type == torch.autograd.DeviceType.CPU)
+
+
+def phase_profile(card: str, label: str, run, path: str, route: str = None,
+                  split: tuple = (), ranges: tuple = ()) -> float:
     """torch.profiler over 3 steps: device time by kernel into ``path``;
     returns the device ms a step. With ``route``, also prints the device ms
     a step of that ``record_function`` range, forward and backward
-    (``route_device_us``), and its share of the step's."""
+    (``route_device_us``), and its share of the step's. ``split`` (ranges
+    with backward nodes, by ``route_device_us``) and ``ranges`` (without, by
+    ``range_device_us``) print the step's device time split between them,
+    the rest as "other"."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2048,6 +2167,13 @@ def phase_profile(card: str, label: str, run, path: str, route: str = None) -> f
         print(f"profile: {label} {route} forward + backward device {route_ms:.3f} ms a step "
               f"of the step's {device_s * 1e3:.3f}: share {route_ms / (device_s * 1e3):.3f} "
               f"| {card}", flush=True)
+    if split or ranges:
+        parts = {name: route_device_us(prof.events(), name) / 1e3 / n for name in split}
+        parts.update({name: range_device_us(prof.events(), name) / 1e3 / n for name in ranges})
+        parts["other"] = device_s * 1e3 - sum(parts.values())
+        print(f"profile: {label} device ms a step by part: " + "; ".join(
+            f"{name} {ms:.3f} (share {ms / (device_s * 1e3):.3f})" for name, ms in parts.items())
+            + f" | {card}", flush=True)
     return device_s * 1e3
 
 
@@ -2592,6 +2718,7 @@ def loader_alone(opts, check_batch, device="cuda") -> tuple:
     import torch
 
     from cvnets_tpu_torch.data.data_loaders import create_train_val_loader
+    from cvnets_tpu_torch.engine.train_state import batch_size
 
     loader, _, sampler = create_train_val_loader(opts, pin_memory=True, device=device)
     n_img, t0, first = 0, time.perf_counter(), None
@@ -2600,7 +2727,7 @@ def loader_alone(opts, check_batch, device="cuda") -> tuple:
         for batch in loader:
             first = first or time.perf_counter() - t0
             check_batch(batch)
-            n_img += batch["samples"].shape[0]
+            n_img += batch_size(batch["samples"])
     torch.cuda.synchronize()  # a native route's last batch is done
     return n_img, time.perf_counter() - t0, first, loader.num_workers
 
@@ -3837,6 +3964,337 @@ def phase_ssd_main_train(card: str) -> None:
               f"{k}={v:.4f}" for k, v in res.items()) + f" | {card}", flush=True)
 
 
+def clip_text_batch(g, batch: int, device) -> "torch.Tensor":
+    """Seeded token rows on ``device``: SOT, random ids, EOT (the largest id)
+    at a random place, 5 to 77 tokens in all, zeros after."""
+    import torch
+
+    lengths = torch.randint(5, CLIP_CONTEXT + 1, (batch, 1), generator=g, device=device)
+    ids = torch.randint(1, CLIP_SOT, (batch, CLIP_CONTEXT), generator=g, device=device)
+    text = torch.where(torch.arange(CLIP_CONTEXT, device=device) < lengths - 1, ids, 0)
+    text[:, 0] = CLIP_SOT
+    return text.scatter_(1, lengths - 1, CLIP_EOT)
+
+
+def _embedding_diffs(got: dict, ref: dict) -> tuple:
+    return tuple((got[k].float().cpu() - ref[k].float().cpu()).abs().max().item()
+                 for k in ("image", "text"))
+
+
+def phase_clip_train(card: str, kernels: dict) -> tuple:
+    """CLIP ViT-B/16 train steps with clip_vit.yaml's settings (``CLIP_ARGS``)
+    at its batch of 128 × 224² and captions of 77 tokens, seeded on the card:
+    12 forward and 12 backward MHA launches a step (the image tower; the
+    text tower's causal mask takes the einsum route), finite losses, params
+    and EMA moved; then, on the trained model in float32 (TF32 off) on 8
+    images and captions, the embeddings through the kernels against the
+    plain attention path (1e-4: unit vectors) and against a copy of the model
+    on the CPU (1e-3, ``cpu_reference``'s bound). Returns the launches and
+    what the A/B phase needs."""
+    import copy
+
+    import torch
+
+    from cvnets_tpu_torch.engine.train_state import create_train_state, make_train_step
+    from cvnets_tpu_torch.loss import build_loss_fn
+    from cvnets_tpu_torch.metrics import build_metrics
+    from cvnets_tpu_torch.models import get_model
+    from cvnets_tpu_torch.optim import build_optimizer
+    from cvnets_tpu_torch.optim.scheduler import build_scheduler
+    from cvnets_tpu_torch.options.opts import get_training_arguments
+
+    label = "CLIP ViT-B/16"
+    opts = get_training_arguments(args=CLIP_ARGS)
+    device = torch.device("cuda:0")
+    model = get_model(opts)
+    state = create_train_state(
+        model, build_optimizer(opts, model, model.get_lr_multipliers(opts)), ema_enabled=True)
+    criteria = build_loss_fn(opts)
+    train_step = make_train_step(model, criteria, opts, build_metrics(opts, ["loss", "grad_norm"]))
+    scheduler = build_scheduler(opts)
+    g = torch.Generator(device=device).manual_seed(0)
+    batches = [{"samples": {"image": torch.randint(0, 256, (CLIP_BATCH, 3, 224, 224), generator=g,
+                                                   device=device, dtype=torch.uint8),
+                            "text": clip_text_batch(g, CLIP_BATCH, device)},
+                "targets": torch.arange(CLIP_BATCH, device=device)}
+               for _ in range(WARMUP_STEPS + TIMED_STEPS)]
+    params0 = [p.detach().clone() for p in model.parameters()]
+    ema0 = [t.detach().clone() for t in state.ema.model.state_dict().values()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kernel in kernels.values():
+        kernel.launches = 0
+    losses, step_s = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, b, scheduler.retrieve_lr(0, state.step))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append({k: s.item() for m in metrics.values() for k, (s, _) in m.items()})
+    launches = {name: kernel.launches for name, kernel in kernels.items()}
+    n_steps = len(batches)
+    for name, count in launches.items():
+        check(count == VIT_BLOCKS * n_steps,
+              f"{label}: {count} {name} launches in {n_steps} steps, want {VIT_BLOCKS} a step")
+    check(all(math.isfinite(v) for m in losses for v in m.values()),
+          f"{label}: losses not finite: {losses}")
+    check(any(not torch.equal(a, b) for a, b in zip(params0, model.parameters())),
+          f"{label}: params did not change")
+    check(any(not torch.equal(a, b) for a, b in zip(ema0, state.ema.model.state_dict().values())),
+          f"{label}: EMA did not change")
+    del params0, ema0
+    timed = step_s[WARMUP_STEPS:]
+    parts = {k: [round(m[k], 4) for m in losses] for k in losses[0]}
+    print(f"train: {label} batch={CLIP_BATCH} 224x224 + {CLIP_CONTEXT} tokens bf16 "
+          f"steps={n_steps} losses={parts} step_s={[round(x, 4) for x in step_s]} "
+          f"img_s={CLIP_BATCH * len(timed) / sum(timed):.1f} "
+          f"peak_mem_gib={torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"launches={launches} | {card}", flush=True)
+
+    model.eval()
+    x = {"image": batches[0]["samples"]["image"][:8].float() / 255.0,
+         "text": batches[0]["samples"]["text"][:8]}
+    on_cpu = copy.deepcopy(model).cpu()
+    with no_tf32(), torch.no_grad():
+        with_kernel = model(x)
+        set_use_kernel(model, False)
+        plain = model(x)
+        set_use_kernel(model, True)
+        ref = on_cpu({k: v.cpu() for k, v in x.items()})
+    for name, out in (("kernel", with_kernel), ("plain", plain)):
+        check(all(tuple(out[k].shape) == (8, 512) and bool(torch.isfinite(out[k]).all())
+                  for k in ("image", "text")), f"{label}: {name} embeddings' shape or finiteness")
+    d_plain, d_cpu = _embedding_diffs(with_kernel, plain), _embedding_diffs(with_kernel, ref)
+    check(max(d_plain) <= 1e-4, f"{label}: kernel vs plain embeddings differ by {d_plain}")
+    check(max(d_cpu) <= 1e-3, f"{label}: card vs CPU embeddings differ by {d_cpu}")
+    print(f"reference: {label} float32 eval embeddings (unit vectors, 8 images and captions): "
+          f"kernel path vs plain path max diff image {d_plain[0]:.3e} text {d_plain[1]:.3e}; "
+          f"card vs CPU copy image {d_cpu[0]:.3e} text {d_cpu[1]:.3e} | {card}", flush=True)
+    return launches, (state, train_step, scheduler, batches, criteria)
+
+
+def write_clip_corpus(root: str) -> dict:
+    """``write_jpeg_corpus`` under ``root`` with a flickr manifest for each
+    split (``clip_train``, ``clip_val``: a seeded caption a file, its path
+    relative to the manifest) and a class-names file for the val folder's 8
+    classes (``class_names``)."""
+    import numpy as np
+
+    corpus = write_jpeg_corpus(root, seed=1)
+    rng = np.random.default_rng(1)
+    for split in ("train", "val"):
+        folder = os.path.join(root, f"clip_{split}")
+        os.makedirs(folder)
+        files = sorted(p for p in corpus["kinds"] if p.startswith(corpus[split] + os.sep))
+        with open(os.path.join(folder, "captions.tsv"), "w") as f:
+            for path in files:
+                words = [w[int(rng.integers(len(w)))] for w in CLIP_WORDS]
+                f.write(f"{os.path.relpath(path, folder)}\ta photo of a {' '.join(words)}\n")
+        corpus[f"clip_{split}"] = folder
+    corpus["class_names"] = os.path.join(root, "class_names.txt")
+    with open(corpus["class_names"], "w") as f:
+        f.write("\n".join(CLIP_CLASS_NAMES) + "\n")
+    return corpus
+
+
+def clip_eval_reference(card: str, args: list, ckpt: str, n_images: int = 3) -> None:
+    """The zero-shot route's logits (``evaluation_engine.class_embeddings``
+    and the model's ``zero_shot_image_logits``) from the run's checkpoint on
+    the card against the same on a CPU copy built from the same file, on the
+    first ``n_images`` images of the zero-shot set, float32 with TF32 off:
+    the class embeddings within 1e-3 (unit vectors) and the logits within
+    1e-3 of max(1, the largest logit), ``cpu_reference``'s bound."""
+    import torch
+
+    from cvnets_tpu_torch.data.data_loaders import create_test_loader
+    from cvnets_tpu_torch.engine.evaluation_engine import class_embeddings
+    from cvnets_tpu_torch.models import get_model
+    from cvnets_tpu_torch.options.opts import get_eval_arguments
+    from cvnets_tpu_torch.utils.checkpoint_utils import load_model_weights
+
+    opts = get_eval_arguments(args=args)
+    setattr(opts, "common.mixed_precision", False)
+    loader = create_test_loader(opts, pin_memory=False)
+    tokens = loader.dataset.class_caption_tokens()
+    images = next(iter(loader))["samples"][:n_images].float() / 255.0
+    weights = load_model_weights(ckpt)
+    out = {}
+    for dev in ("cuda", "cpu"):
+        model = get_model(opts, device=dev)
+        model.load_state_dict(weights)
+        with no_tf32(), torch.no_grad():
+            emb = class_embeddings(opts, model, tokens, torch.device(dev))
+            logits = model.eval()({"image": images.to(dev), "text": emb})
+        out[dev] = (emb.cpu(), logits["zero_shot_image_logits"].cpu())
+    d_emb = (out["cuda"][0] - out["cpu"][0]).abs().max().item()
+    d_logit = (out["cuda"][1] - out["cpu"][1]).abs().max().item()
+    scale = out["cpu"][1].abs().max().item()
+    check(tuple(out["cuda"][1].shape) == (n_images, len(CLIP_CLASS_NAMES))
+          and bool(torch.isfinite(out["cuda"][1]).all()), "CLIP zero-shot logits shape")
+    check(d_emb <= 1e-3 and d_logit <= 1e-3 * max(1.0, scale),
+          f"CLIP zero-shot card vs CPU: class embeddings {d_emb}, logits {d_logit}")
+    print(f"reference: CLIP ViT-B/16 zero-shot from checkpoint_last.pt, card vs CPU float32 "
+          f"on {n_images} images x {tokens.shape[0]} classes ({tokens.shape[1]} captions a "
+          f"class): class embeddings max diff {d_emb:.3e}, logits {d_logit:.3e} (max |logit| "
+          f"{scale:.3f}) | {card}", flush=True)
+
+
+def phase_clip_main_train(card: str, kernels: dict, bare: dict) -> None:
+    """``main_train`` on clip_vit.yaml's flags (``CLIP_MAIN_TRAIN_ARGS``:
+    flickr manifests over a seeded JPEG corpus written at run time, Pillow
+    and random resized crop bilinear a sample, the CLIP tokenizer's fallback
+    in the producer thread, AdamW, EMA, clip 1.0, bf16), 2 epochs of 16
+    steps, each validated with the loss and the retrieval recalls (EMA too);
+    its train loader alone over 2 epochs; ``main_eval`` zero-shot over the
+    val folder's 8 classes with a class-names file from the run's
+    checkpoint_last.pt, then ``clip_eval_reference``. Checks 12 + 12 MHA
+    launches a train step and 12 an eval forward, finite statistics and
+    recalls in [0, 100], no CUDA sync debug warning through the port's code
+    between log points, a top-1 and top-5 in [0, 100]; prints img/s over
+    epoch 2 after its first batch beside the loader's and the bare step's."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    import cvnets_tpu_torch.main_train as main_train
+    from cvnets_tpu_torch.engine.train_state import batch_size
+    from cvnets_tpu_torch.main_eval import main_worker as main_eval
+    from cvnets_tpu_torch.options.opts import get_training_arguments
+
+    label = "CLIP ViT-B/16"
+    results = os.path.join("results", "clip_main_train_smoke")
+    shutil.rmtree(results, ignore_errors=True)
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        corpus = write_clip_corpus(root)
+        print(f"clip: flickr corpus of {NATIVE_TRAIN} + {NATIVE_CLASSES * NATIVE_VAL_PER_CLASS} "
+              f"JPEG files with seeded captions written in {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        args = CLIP_MAIN_TRAIN_ARGS + ["--dataset.root-train", corpus["clip_train"],
+                                       "--dataset.root-val", corpus["clip_val"],
+                                       "--common.results-loc", results]
+        log = {"train": [], "val": [], "ema": [], "save_s": 0.0}
+        watch, built, epochs = SyncWatch(), [], []
+
+        class WatchedTrainer(main_train.Trainer):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                _watch_trainer(self, kernels, watch, VIT_BLOCKS, log)
+                step, epoch_fn = self._train_step, self.train_epoch
+
+                def counted(state, batch, *rest):
+                    if epochs[-1][1] is None:
+                        epochs[-1][1] = time.perf_counter()
+                    else:
+                        epochs[-1][0] += batch_size(batch["samples"])
+                    return step(state, batch, *rest)
+
+                def epoch(e):
+                    epochs.append([0, None, None])
+                    out = epoch_fn(e)  # ends with a device sync, outside the watch
+                    epochs[-1][2] = time.perf_counter()
+                    return out
+
+                self._train_step, self.train_epoch = counted, epoch
+                built.append(self)
+
+        with watch:
+            main_train.Trainer = WatchedTrainer
+            try:
+                main_train.main_worker(args=args)
+            finally:
+                main_train.Trainer = WatchedTrainer.__bases__[0]
+        trainer = built[0]
+        bad = watch.through(MAIN_TRAIN_FILES + (os.path.join("cvnets_tpu_torch", "models")
+                                                + os.sep,))
+        check(not bad, f"{label} main_train: a host sync between log points: {bad[:3]}")
+        for stage in ("train", "val", "ema"):
+            values = [v for entry in log[stage] for v in
+                      (entry[3] if stage == "train" else entry).values()]
+            check(values and all(math.isfinite(v) for v in values),
+                  f"{label} main_train: {stage} statistics not finite: {log[stage]}")
+        recalls = [v for s in log["val"] + log["ema"] for k, v in s.items()
+                   if k.startswith("image_text_retrieval")]
+        check(len(recalls) == 4 * 6 and all(0.0 <= v <= 100.0 for v in recalls),
+              f"{label} main_train: retrieval recalls {recalls}")
+        n_steps = trainer.train_iterations
+        after_first, first_at, end_at = epochs[-1]
+        check(n_steps == 32, f"{label} main_train: {n_steps} steps, want 2 epochs of 16")
+        ckpt = os.path.join(trainer.save_dir, "checkpoint_last.pt")
+        trainer = None
+        built.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        def check_batch(batch):
+            x, text = batch["samples"]["image"], batch["samples"]["text"]
+            check(x.dtype == torch.uint8 and x.is_pinned() and text.is_pinned()
+                  and tuple(x.shape) == (CLIP_BATCH, 3, 224, 224)
+                  and tuple(text.shape) == (CLIP_BATCH, CLIP_CONTEXT),
+                  f"{label} loader: batch {tuple(x.shape)} {x.dtype}, text {tuple(text.shape)}")
+
+        opts = get_training_arguments(args=args)
+        n_img, secs, first, threads = loader_alone(opts, check_batch)
+        loader_img_s = (n_img - CLIP_BATCH) / (secs - first)
+        eval_args = CLIP_ARGS + [
+            "--dataset.name", "imagenet_zero_shot", "--dataset.root-val", corpus["val"],
+            "--dataset.eval-batch-size0", "100",
+            "--dataset.zero-shot.class-names-file", corpus["class_names"],
+            "--model.multi-modal-image-text.pretrained", ckpt]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = main_eval(args=eval_args)
+        eval_s = time.perf_counter() - t0
+        check(set(res) == {"top1", "top5"} and all(0.0 <= v <= 100.0 for v in res.values()),
+              f"{label} main_eval zero-shot: {res}")
+        clip_eval_reference(card, eval_args, ckpt)
+    print(f"main_train: {label} batch={CLIP_BATCH} 224x224 + {CLIP_CONTEXT} tokens bf16 "
+          f"epochs=2 steps={n_steps} img_s={after_first / (end_at - first_at):.1f} over epoch "
+          f"2 after its first batch ({after_first} images in {end_at - first_at:.3f} s; Pillow, "
+          f"random resized crop and tokenizer on {threads} host threads) bare step "
+          f"{bare['img_s']:.1f} img/s "
+          f"train={[{k: round(v, 4) for k, v in e[3].items()} for e in log['train']]} "
+          f"val={[{k: round(v, 2) for k, v in s.items()} for s in log['val']]} | {card}",
+          flush=True)
+    print(f"clip: loader alone img_s={loader_img_s:.1f} after the first batch ({n_img} images "
+          f"of ~500x375 JPEG files in {secs:.3f} s over 2 epochs, first batch after "
+          f"{first:.3f} s; {threads} threads, {os.cpu_count()} cores; pinned batches of 128 x "
+          f"224^2 and their tokens, no step) | {card}", flush=True)
+    print(f"eval: {label} main_eval zero-shot on {NATIVE_CLASSES * NATIVE_VAL_PER_CLASS} "
+          f"images x {NATIVE_CLASSES} classes (80 captions a class) in {eval_s:.2f} s: "
+          + " ".join(f"{k}={v:.2f}" for k, v in res.items()) + f" | {card}", flush=True)
+
+
+def phase_clip(card: str) -> dict:
+    """Phase 19, CLIP ViT-B/16: train (with the kernel/plain and CPU checks),
+    a/b, steady steps, a profile split into the image tower, the text tower
+    (and its einsum attention), the loss and the optimizer, then main_train,
+    its loader, main_eval zero-shot and its CPU check. Returns the MHA
+    kernels' launches in the train phase."""
+    import torch
+
+    from cvnets_tpu_torch.engine.train_state import OPTIMIZER_RANGE
+    from cvnets_tpu_torch.layers.multi_head_attention import EINSUM_ROUTE
+    from cvnets_tpu_torch.loss.multi_modal import LOSS_RANGE
+    from cvnets_tpu_torch.models.multi_modal.clip import IMAGE_TOWER, TEXT_TOWER
+    from cvnets_tpu_torch.ops.mha_attention import mha_bwd_kernel, mha_fwd_kernel
+
+    label = "CLIP ViT-B/16"
+    kernels = {"mha_attention_fwd": mha_fwd_kernel, "mha_attention_bwd": mha_bwd_kernel}
+    launches, run = phase_clip_train(card, kernels)
+    bare = phase_ab(card, label, run)
+    phase_steady(card, label, run)
+    phase_profile(card, label, run, os.path.join("results", "clip_profile.txt"),
+                  route=EINSUM_ROUTE, split=(IMAGE_TOWER, TEXT_TOWER, LOSS_RANGE),
+                  ranges=(OPTIMIZER_RANGE,))
+    run = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_clip_main_train(card, {"fwd": mha_fwd_kernel, "bwd": mha_bwd_kernel}, bare)
+    return launches
+
+
 def phase_families(card: str) -> None:
     """Phase 18: MobileViT-S (train, 24 steady steps, profile, the einsum
     attention's share of the step), MobileViT-XXS (its layer 3 through the
@@ -3907,9 +4365,9 @@ def phase_deeplab(card: str) -> tuple:
 def main(argv) -> int:
     import torch
 
-    if argv not in ([], ["--deeplab"], ["--segmentation"], ["--families"]):
+    if argv not in ([], ["--deeplab"], ["--segmentation"], ["--families"], ["--clip"]):
         print(f"chip_smoke: unknown arguments {argv}; usage: chip_smoke.py "
-              "[--deeplab | --segmentation | --families]", file=sys.stderr)
+              "[--deeplab | --segmentation | --families | --clip]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3933,6 +4391,10 @@ def main(argv) -> int:
     if argv == ["--families"]:
         phase_build()
         phase_families(card)
+        return 0
+    if argv == ["--clip"]:
+        phase_build()
+        phase_clip(card)
         return 0
     if argv == ["--segmentation"]:
         phase_build()
@@ -4004,10 +4466,18 @@ def main(argv) -> int:
     release()
     phase_families(card)
     release()
+    clip_launches = phase_clip(card)
+    release()
 
     def entry(name, source, replaces, launches, record):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, **record}
+
+    def mha_entry(name, replaces, key, record):  # ViT-B/16's launches and CLIP's
+        return {**entry(name, "cvnets_tpu_torch/csrc/mha_attention.cu", replaces,
+                        vit_launches[key], record),
+                "launches_by_path": {"ViT-B/16": vit_launches[key],
+                                     "CLIP ViT-B/16": clip_launches[key]}}
 
     print(json.dumps({"kernels": [
         entry("separable_attention", "cvnets_tpu_torch/csrc/separable_attention.cu",
@@ -4016,12 +4486,10 @@ def main(argv) -> int:
         entry("separable_attention_bwd", "cvnets_tpu_torch/csrc/separable_attention.cu",
               "cvnets_tpu/ops/pallas/mobilevit_attn.py:120",
               sep_launches["separable_attention_bwd"], sep_records["bwd"]),
-        entry("mha_attention_fwd", "cvnets_tpu_torch/csrc/mha_attention.cu",
-              "cvnets_tpu/ops/pallas/mha_attn.py:134",
-              vit_launches["mha_attention_fwd"], mha_records["fwd"]),
-        entry("mha_attention_bwd", "cvnets_tpu_torch/csrc/mha_attention.cu",
-              "cvnets_tpu/ops/pallas/mha_attn.py:153",
-              vit_launches["mha_attention_bwd"], mha_records["bwd"]),
+        mha_entry("mha_attention_fwd", "cvnets_tpu/ops/pallas/mha_attn.py:134",
+                  "mha_attention_fwd", mha_records["fwd"]),
+        mha_entry("mha_attention_bwd", "cvnets_tpu/ops/pallas/mha_attn.py:153",
+                  "mha_attention_bwd", mha_records["bwd"]),
         entry("seg_ce_fwd", "cvnets_tpu_torch/csrc/seg_ce.cu",
               "cvnets_tpu/ops/pallas/seg_ce_kernel.py:159",
               seg_launches["seg_ce_fwd"], seg_records["fwd"]),

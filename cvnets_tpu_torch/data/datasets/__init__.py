@@ -22,9 +22,23 @@ def build_dataset_from_registry(opts, is_training: bool = True, is_evaluation: b
 
 
 def get_train_val_datasets(opts):
+    """(train, val or None). Under ``--dataset.multi-modal-img-text.zero-shot-eval``
+    an image-text run validates on the zero-shot set (``zero-shot.name``,
+    default ``imagenet_zero_shot``, at ``zero-shot.root-val``), as the JAX
+    package does (data/datasets/__init__.py:31-56)."""
     train_ds = build_dataset_from_registry(opts, is_training=True)
     if getattr(opts, "dataset.disable_val", False):
         return train_ds, None
+    prefix = "dataset.multi_modal_img_text."
+    if (getattr(opts, "dataset.category", None) == "multi_modal_image_text"
+            and getattr(opts, prefix + "zero_shot_eval", False)):
+        zs_opts = argparse.Namespace(**vars(opts))
+        setattr(zs_opts, "dataset.name",
+                getattr(opts, prefix + "zero_shot.name", None) or "imagenet_zero_shot")
+        root = getattr(opts, prefix + "zero_shot.root_val", None)
+        if root:
+            setattr(zs_opts, "dataset.root_val", root)
+        return train_ds, build_dataset_from_registry(zs_opts, is_training=False)
     return train_ds, build_dataset_from_registry(opts, is_training=False)
 
 
@@ -35,4 +49,7 @@ def get_test_dataset(opts):
 # registers the ported datasets (after DATASET_REGISTRY exists)
 from cvnets_tpu_torch.data.datasets.classification import imagenet  # noqa: E402,F401
 from cvnets_tpu_torch.data.datasets.detection import coco_ssd  # noqa: E402,F401
+from cvnets_tpu_torch.data.datasets.multi_modal_img_text import (  # noqa: E402,F401
+    base_multi_modal_img_text,
+)
 from cvnets_tpu_torch.data.datasets.segmentation import ade20k  # noqa: E402,F401

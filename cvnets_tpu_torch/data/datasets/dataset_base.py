@@ -77,6 +77,8 @@ class BaseDataset:
                            default=False,
                            help="Contiguous detection labels start at 0 (no background "
                                 "slot)")
+        group.add_argument("--dataset.padding-index", type=int, default=None,
+                           help="Padding token id of text pipelines: its embedding is zero")
         group.add_argument("--dataset.disable-val", action="store_true", default=False,
                            help="Skip building the validation dataset/loader")
         group.add_argument("--dataset.num-samples-per-category", type=int, default=-1,

@@ -7,7 +7,9 @@ uint8 → [0, 1] on the device, with ``ToFloatTensor``'s mean/std when the
 options ask for it (uint8 masks → int64 labels), autocast forward,
 backward of the loss (of its ``total_loss`` when the loss is a dict), global-norm clip
 ``min(1, clip / (norm + 1e-6))``, the optimizer at the scheduler's LR times each
-param group's ``lr_mult``, EMA of params and BN statistics, ``step += 1``. It
+param group's ``lr_mult``, EMA of params and BN statistics (the clip, the
+update and the EMA inside a ``torch.profiler`` range named
+``OPTIMIZER_RANGE``), ``step += 1``. It
 returns each metric's (sum, count) pairs with the sums on the device; nothing is
 read back to the host.
 
@@ -23,9 +25,14 @@ loss and every metric of the step are the last micro-batch's.
 into every BatchNorm module for the step's last forward; the JAX step re-blends
 the statistics its static momentum produced into the same value (:205-216).
 
-The device-tier augmentation (``ops/image_ops.py``) and mixup / cutmix
-(``ops/mixing.py``) run in the JAX step's order (:165-175): to [0, 1], augment,
-mix, forward. Their host draws come from ``step_rng(seed, step, stream)``, as
+Samples may be a dict of tensors (CLIP's ``{"image", "text"}``): each uint8
+leaf is normalized as a tensor batch is, and accumulation slices every leaf
+of samples and targets, as the JAX step's ``tree_map`` does (:164-169,
+:215-221); ``batch_size`` counts a batch by its first leaf, as the JAX
+Trainer does. The device-tier augmentation (``ops/image_ops.py``) and mixup
+/ cutmix (``ops/mixing.py``) take tensor samples only (classification), as in
+the JAX package, and run in the JAX step's order (:165-175): to [0, 1],
+augment, mix, forward. Their host draws come from ``step_rng(seed, step, stream)``, as
 the JAX step folds the step into its key: a step's augmentation depends on
 (``common.seed``, step) alone, so a resumed run needs no generator state to
 draw what an unbroken run draws.
@@ -39,6 +46,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn as nn
+from torch.profiler import record_function
 
 from cvnets_tpu_torch.layers.dtype_utils import autocast
 from cvnets_tpu_torch.metrics.stats import Pairs
@@ -116,7 +124,33 @@ class UnitNormalizer:
         return (x - mean) / std
 
 
+def tree_map(fn: Callable, tree):
+    """``fn`` on every tensor of a dict tree (or on a tensor); other leaves as they are."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree) if isinstance(tree, torch.Tensor) else tree
+
+
+def first_leaf(samples) -> torch.Tensor:
+    """A batch's samples, or their first tensor leaf when they are a dict."""
+    while isinstance(samples, dict):
+        samples = next(iter(samples.values()))
+    return samples
+
+
+def batch_size(samples) -> int:
+    """Rows of a batch's samples: its first tensor leaf's first dimension."""
+    return first_leaf(samples).shape[0]
+
+
+def to_device(batch, device: torch.device):
+    """A batch (a dict tree of tensors) on ``device``, each tensor copied
+    with ``non_blocking=True``: from pinned memory the copy overlaps the step."""
+    return tree_map(lambda t: t.to(device, non_blocking=True), batch)
+
+
 MIXING_STREAM, AUGMENT_STREAM = 0, 1
+OPTIMIZER_RANGE = "train_step_optimizer"
 
 
 def step_rng(seed: int, step: int, stream: int) -> np.random.Generator:
@@ -151,7 +185,10 @@ def make_train_step(model: nn.Module, criteria: Callable, opts, metric_objs: Dic
 
     def train_step(state: TrainState, batch: Dict, lr: float, epoch: int = 0,
                    bn_momentum: Optional[float] = None) -> Tuple[TrainState, Pairs]:
-        samples, targets = to_unit(batch["samples"]), _labels(batch["targets"])
+        samples, targets = tree_map(to_unit, batch["samples"]), _labels(batch["targets"])
+        if isinstance(samples, dict) and (augment_fn is not None or mixing_fn is not None):
+            raise ValueError("device augmentation and mixup / cutmix take a tensor of "
+                             "images (classification), not a dict of samples")
         if augment_fn is not None:
             samples = augment_fn(samples, step_rng(seed, state.step, AUGMENT_STREAM))
         if mixing_fn is not None:
@@ -159,17 +196,18 @@ def make_train_step(model: nn.Module, criteria: Callable, opts, metric_objs: Dic
                                          step_rng(seed, state.step, MIXING_STREAM))
         model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        rows = samples.shape[0] // accum_freq
+        rows = batch_size(samples) // accum_freq
+        device = first_leaf(samples).device
         for i in range(accum_freq):
             last = i == accum_freq - 1
             for m, m0 in zip(batch_norms, base_momentum):
                 m.momentum = (m0 if bn_momentum is None else bn_momentum) if last else 0.0
             if accum_freq > 1:
-                mb_samples = samples[i * rows:(i + 1) * rows]
-                mb_targets = targets[i * rows:(i + 1) * rows]
+                rows_i = lambda t: t[i * rows:(i + 1) * rows]  # noqa: E731
+                mb_samples, mb_targets = tree_map(rows_i, samples), tree_map(rows_i, targets)
             else:
                 mb_samples, mb_targets = samples, targets
-            with autocast(opts, samples.device):
+            with autocast(opts, device):
                 prediction = model(mb_samples)
                 loss = criteria(mb_samples, prediction, mb_targets, training=True,
                                 epoch=epoch, iterations=state.step)
@@ -178,12 +216,13 @@ def make_train_step(model: nn.Module, criteria: Callable, opts, metric_objs: Dic
         if accum_freq > 1:
             torch._foreach_div_([p.grad for p in params if p.grad is not None],
                                 float(accum_freq))
-        grad_norm = clip_grad_norm_(params, grad_clip)
-        for group in state.optimizer.param_groups:
-            group["lr"] = lr * group.get("lr_mult", 1.0)
-        state.optimizer.step()
-        if state.ema is not None:
-            state.ema.update(model, ema_momentum)
+        with record_function(OPTIMIZER_RANGE):
+            grad_norm = clip_grad_norm_(params, grad_clip)
+            for group in state.optimizer.param_groups:
+                group["lr"] = lr * group.get("lr_mult", 1.0)
+            state.optimizer.step()
+            if state.ema is not None:
+                state.ema.update(model, ema_momentum)
         state.step += 1
         return state, _batch_values(metric_objs, prediction, mb_targets,
                                     {"loss": loss, "grad_norm": grad_norm})
@@ -206,8 +245,8 @@ def make_eval_step(model: nn.Module, criteria: Callable, metric_objs: Dict[str, 
     def eval_step(state: TrainState, batch: Dict) -> Pairs:
         net = state.ema.model if use_ema and state.ema is not None else model
         net.eval()
-        samples, targets = to_unit(batch["samples"]), _labels(batch["targets"])
-        with autocast(opts, samples.device):
+        samples, targets = tree_map(to_unit, batch["samples"]), _labels(batch["targets"])
+        with autocast(opts, first_leaf(samples).device):
             prediction = net(samples)
             if logit_subset is not None:
                 if isinstance(prediction, dict):

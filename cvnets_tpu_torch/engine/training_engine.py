@@ -8,12 +8,17 @@ and at the end of the epoch, interval checkpoints, a validation epoch (and an
 EMA one), ``--ema.copy-at-epoch``, the checkpoint metric with its fallbacks,
 the epoch-end checkpoints, and auto-resume when the Trainer is built.
 
-Batches are dicts of tensors (``samples``, ``targets``), moved to the Trainer's
-device with ``non_blocking=True``: a loader that pins its host memory overlaps
-the copy with the step. Each epoch starts with the train sampler's
-``set_epoch`` and ``update_scales``. The train step runs the device-tier
-augmentation and mixup / cutmix the options enable. The resolved options go to
-``save_dir/config.yaml`` as JSON, which YAML reads.
+Batches are dicts of tensors (``samples``, ``targets``; samples may be a
+dict themselves, CLIP's image and text), moved to the Trainer's device by
+``train_state.to_device`` with ``non_blocking=True``: a loader that pins its
+host memory overlaps the copy with the step. A batch counts its first leaf's
+rows. A validation dataset with ``class_caption_tokens`` (the zero-shot set
+that ``--dataset.multi-modal-img-text.zero-shot-eval`` puts in the val
+split's place) is scored by ``evaluation_engine.zero_shot_eval``. Each
+epoch starts with the train sampler's ``set_epoch`` and ``update_scales``.
+The train step runs the device-tier augmentation and mixup / cutmix the
+options enable. The resolved options go to ``save_dir/config.yaml`` as
+JSON, which YAML reads.
 
 ``--common.finetune`` (and ``--common.finetune-ema``) load a checkpoint of
 the port into the fresh model with the JAX package's scope surgery
@@ -37,9 +42,11 @@ import torch
 import torch.nn as nn
 
 from cvnets_tpu_torch.engine.train_state import (
+    batch_size,
     create_train_state,
     make_eval_step,
     make_train_step,
+    to_device,
 )
 from cvnets_tpu_torch.layers.normalization import AdjustBatchNormMomentum
 from cvnets_tpu_torch.metrics import METRICS_REGISTRY, build_metrics
@@ -64,14 +71,6 @@ _UNPORTED = (
     ("common.profile_trace_dir",
      "the profiler trace waits for the port bench (ROADMAP.md queue 1 item 1)"),
 )
-
-
-def to_device(batch, device: torch.device):
-    if isinstance(batch, dict):
-        return {k: to_device(v, device) for k, v in batch.items()}
-    if isinstance(batch, torch.Tensor):
-        return batch.to(device, non_blocking=True)
-    return batch
 
 
 class Trainer:
@@ -176,7 +175,7 @@ class Trainer:
             batch = to_device(batch, self.device)
             self.state, step_pairs = step_fn(self.state, batch, lr, epoch, bn_momentum)
             pairs = add_pairs(pairs, step_pairs)
-            samples_seen += batch["samples"].shape[0]
+            samples_seen += batch_size(batch["samples"])
             self.train_iterations += 1
             if self.train_iterations % self.log_freq == 0:
                 self.read_back(stats, pairs, load_time)
@@ -192,6 +191,15 @@ class Trainer:
     def val_epoch(self, epoch: int, use_ema: bool = False) -> Dict[str, float]:
         if self.val_loader is None:
             return {}
+        if hasattr(getattr(self.val_loader, "dataset", None), "class_caption_tokens"):
+            from cvnets_tpu_torch.engine.evaluation_engine import zero_shot_eval
+
+            net = self.state.ema.model if use_ema and self.state.ema is not None else self.model
+            stats = zero_shot_eval(self.opts, net, self.val_loader, self.device)
+            stage = "validation (EMA)" if use_ema else "validation"
+            logger.log(f"*** {stage.title()} summary for epoch {epoch}: zero-shot " + " || ".join(
+                f"{k}: {v:.4f}" for k, v in stats.items()))
+            return stats
         stats = Statistics(self.opts, self.val_metric_names)
         step = self._eval_step_ema if use_ema else self._eval_step
         pairs = None

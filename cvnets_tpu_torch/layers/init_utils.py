@@ -8,9 +8,12 @@ linear layer's is its input width, which torch's (out, in, ...) layouts give too
 Learnable positional tables, ViT's ``cls_token`` and Swin's
 ``relative_position_bias_table`` draw from flax ``truncated_normal``
 (positional_embedding.py:66-69, vit.py:105-107, swin_transformer_block.py:90-94),
-which is the ``trunc_normal`` rule here. A conv that the JAX package builds
-without a ``kernel_init`` (Swin's patch embedding) takes flax's default,
-``lecun_normal``: it carries ``weight_init = "lecun_normal"``.
+which is the ``trunc_normal`` rule here. A module with parameters of its own
+that none of these rules covers (CLIP's token table, projections and
+``logit_scale``) draws them in its ``init_own_parameters(generator)``. A
+conv that the JAX package builds without a ``kernel_init`` (Swin's patch
+embedding) takes flax's default, ``lecun_normal``: it carries
+``weight_init = "lecun_normal"``.
 """
 
 from __future__ import annotations
@@ -78,6 +81,8 @@ def init_weights(model: nn.Module, opts, generator: Optional[torch.Generator]) -
             for name in ("cls_token", "relative_position_bias_table"):
                 if isinstance(getattr(m, name, None), nn.Parameter):
                     init_tensor(getattr(m, name), "trunc_normal", 0.02, generator)
+            if hasattr(m, "init_own_parameters"):
+                m.init_own_parameters(generator)
             continue
         if m.bias is not None:
             nn.init.zeros_(m.bias)

@@ -31,4 +31,9 @@ def build_loss_fn(opts, category: str = "") -> BaseCriteria:
 
 
 # registers the ported losses (after LOSS_REGISTRY exists)
-from cvnets_tpu_torch.loss import classification, detection, segmentation  # noqa: E402,F401
+from cvnets_tpu_torch.loss import (  # noqa: E402,F401
+    classification,
+    detection,
+    multi_modal,
+    segmentation,
+)

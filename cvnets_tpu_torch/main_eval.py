@@ -4,8 +4,10 @@
         --model.classification.pretrained <checkpoint.pt>
 
 the ``stats.val`` metrics of the model over the test loader (the dataset's
-``root_test``, else ``root_val``, at ``--dataset.eval-batch-size0``), its
-weights from ``--model.classification.pretrained`` or ``--common.resume``, on
+``root_test``, else ``root_val``, at ``--dataset.eval-batch-size0``), or
+CLIP's zero-shot top-1 / top-5 when the test dataset has class captions
+(``imagenet_zero_shot``), its weights from ``--model.<category>.pretrained``
+(``classification``, ``multi_modal_image_text``) or ``--common.resume``, on
 ``device``, the CUDA card unless the caller asks for the CPU; and
 ``main_worker_segmentation`` and ``main_worker_detection``, the offline
 segmentation and detection evaluations (``engine/eval_segmentation.py`` and
@@ -31,11 +33,12 @@ def main(opts, device: Union[str, torch.device, None] = None, **kwargs) -> Dict[
     device = device_setup(opts, device)
     test_loader = create_test_loader(opts, pin_memory=device.type == "cuda")
     model = get_model(opts, device=device)
-    weights = (getattr(opts, "model.classification.pretrained", None)
+    category = getattr(opts, "dataset.category", "classification")
+    weights = (getattr(opts, f"model.{category}.pretrained", None)
                or getattr(opts, "common.resume", None))
     if weights:
         model.load_state_dict(load_model_weights(weights))
-    return Evaluator(opts, model, test_loader, device=device).eval_fn_image()
+    return Evaluator(opts, model, test_loader, device=device).run()
 
 
 def main_worker(args: Optional[List[str]] = None,

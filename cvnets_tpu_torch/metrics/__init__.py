@@ -38,5 +38,6 @@ from cvnets_tpu_torch.metrics import (  # noqa: E402,F401
     coco_map,
     intersection_over_union,
     misc,
+    retrieval,
     topk_accuracy,
 )

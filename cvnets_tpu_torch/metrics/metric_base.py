@@ -4,8 +4,9 @@ An ``AverageMetric`` turns a step's outputs into ``batch_values``: {name: (sum,
 count)}, the sum a tensor on the step's device and the count a Python float,
 so that the Trainer can add a step's pairs to a running total without reading
 anything back. ``update_values`` takes those pairs once they are on the host
-and ``compute`` gives sum / count. (``EpochMetric`` is not ported: no ported
-metric needs it.)
+and ``compute`` gives sum / count. The JAX ``EpochMetric``'s role (rows
+kept over an epoch) is ``metrics/retrieval.py``'s ``GatherMetric``, whose
+rows stay on the device until the epoch's one read-back.
 """
 
 from __future__ import annotations

@@ -4,7 +4,10 @@ The steps return each metric's (sum, count) pairs with the sums on the device
 (a scalar, or a vector such as the IoU's per-class int64 counts).
 ``add_pairs`` adds a step's pairs to a running total there, and ``pairs_to_host``
 reads a total back in one transfer; the Trainer calls it only at its log points
-and at the end of an epoch. ``Statistics.update`` takes what it returns.
+and at the end of an epoch. ``Statistics.update`` takes what it returns. A
+pair whose count is None holds rows to gather (the retrieval metrics'
+embeddings): ``add_pairs`` lists them on the device and ``pairs_to_host``
+concatenates them into its one copy.
 """
 
 from __future__ import annotations
@@ -17,17 +20,27 @@ import torch
 from cvnets_tpu_torch.metrics import build_metrics
 from cvnets_tpu_torch.utils import logger
 
-# {metric: {name: (sum, count)}}
-Pairs = Dict[str, Dict[str, Tuple[torch.Tensor, float]]]
+# {metric: {name: (sum, count)}}, or (rows, None) for rows to gather
+Pairs = Dict[str, Dict[str, Tuple[torch.Tensor, Optional[float]]]]
+
+
+def _add(prev: Tuple, new: Tuple) -> Tuple:
+    if new[1] is None:  # rows: listed, concatenated in the read-back
+        rows = prev[0] if isinstance(prev[0], list) else [prev[0]]
+        return rows + [new[0]], None
+    return prev[0] + new[0], prev[1] + new[1]
 
 
 def add_pairs(total: Optional[Pairs], pairs: Pairs) -> Pairs:
-    """``total + pairs``, name by name; the sums stay on their device."""
+    """``total + pairs``, name by name; the sums and rows stay on their device."""
     if total is None:
         return pairs
-    return {metric: {name: (total[metric][name][0] + s, total[metric][name][1] + c)
-                     for name, (s, c) in values.items()}
-            for metric, values in pairs.items()}
+    out = {metric: dict(values) for metric, values in total.items()}
+    for metric, values in pairs.items():
+        dst = out.setdefault(metric, {})
+        for name, new in values.items():
+            dst[name] = _add(dst[name], new) if name in dst else new
+    return out
 
 
 def pairs_to_host(pairs: Pairs) -> Dict[str, Dict[str, Tuple[object, float]]]:
@@ -36,15 +49,22 @@ def pairs_to_host(pairs: Pairs) -> Dict[str, Dict[str, Tuple[object, float]]]:
     a float64 numpy array. The sums travel as float64, exact for int64 counts
     up to 2^53."""
     keys = [(metric, name) for metric, values in pairs.items() for name in values]
-    sums = [torch.as_tensor(pairs[m][n][0]) for m, n in keys]
+
+    def tensor(value):
+        return torch.cat(value) if isinstance(value, list) else torch.as_tensor(value)
+
+    sums = [tensor(pairs[m][n][0]) for m, n in keys]
+    if not sums:
+        return {metric: {} for metric in pairs}
     flat = torch.cat([s.reshape(-1).double() for s in sums]).cpu().numpy()
-    out: Dict[str, Dict[str, Tuple[object, float]]] = {metric: {} for metric in pairs}
+    out: Dict[str, Dict[str, Tuple[object, Optional[float]]]] = {metric: {} for metric in pairs}
     start = 0
     for (metric, name), s in zip(keys, sums):
         value = flat[start:start + s.numel()]
         start += s.numel()
+        count = pairs[metric][name][1]
         out[metric][name] = (float(value[0]) if s.dim() == 0 else value.reshape(s.shape),
-                             float(pairs[metric][name][1]))
+                             None if count is None else float(count))
     return out
 
 

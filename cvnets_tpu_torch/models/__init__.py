@@ -66,9 +66,15 @@ def modeling_arguments(parser: argparse.ArgumentParser) -> argparse.ArgumentPars
     from cvnets_tpu_torch.misc.averaging_utils import arguments_ema
     from cvnets_tpu_torch.models.anchor_generator import arguments_anchor_gen
     from cvnets_tpu_torch.models.matcher_det import arguments_box_matcher
+    from cvnets_tpu_torch.models.multi_modal.image_projection import (
+        arguments_image_projection_head,
+    )
+    from cvnets_tpu_torch.models.multi_modal.text_encoders import arguments_text_encoder
 
     parser = arguments_finetune_scopes(parser)
     parser = MODEL_REGISTRY.all_arguments(parser)
+    parser = arguments_text_encoder(parser)
+    parser = arguments_image_projection_head(parser)
     parser = layer_specific_arguments(parser)
     parser = arguments_ema(parser)
     parser = arguments_anchor_gen(parser)
@@ -92,5 +98,6 @@ from cvnets_tpu_torch.models.classification import (  # noqa: E402,F401
     vit,
 )
 from cvnets_tpu_torch.models.detection import base_detection, ssd  # noqa: E402,F401
+from cvnets_tpu_torch.models.multi_modal import base_multi_modal, clip  # noqa: E402,F401
 from cvnets_tpu_torch.models.segmentation import enc_dec  # noqa: E402,F401
 from cvnets_tpu_torch.models.segmentation.heads import seg_heads  # noqa: E402,F401

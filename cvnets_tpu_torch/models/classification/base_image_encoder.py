@@ -3,7 +3,8 @@ cvnets_tpu/models/classification/base_image_encoder.py).
 
 NCHW input; the five-stage skeleton ``conv_1, layer_1..layer_5, conv_1x1_exp,
 classifier`` (a model without ``conv_1x1_exp`` goes from layer_5 to the
-classifier), and the tap points that the segmentation heads read
+classifier), ``extract_features`` (the stages without the classifier: CLIP's
+image features), and the tap points that the segmentation heads read
 (``extract_end_points_all``). Gradient checkpointing is not ported yet, and a
 model whose options ask for the neural augmentor (RangeAugment,
 ``--model.learn-augmentation.mode``) raises: it waits for ROADMAP.md queue 1
@@ -80,11 +81,16 @@ class BaseImageEncoder(nn.Module):
         encoders' only multiplier, is not ported)."""
         return {}
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def extract_features(self, x: torch.Tensor) -> torch.Tensor:
+        """``conv_1`` … ``layer_5``, then ``conv_1x1_exp`` where the model has
+        one (base_image_encoder.py:196-200)."""
         for name in self.STAGES:
             x = getattr(self, name)(x)
         exp = getattr(self, "conv_1x1_exp", None)
-        return self.classifier(x if exp is None else exp(x))
+        return x if exp is None else exp(x)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.classifier(self.extract_features(x))
 
     def extract_end_points_all(self, x: torch.Tensor, use_l5: bool = True,
                                use_l5_exp: bool = False) -> Dict[str, torch.Tensor]:

@@ -115,9 +115,13 @@ class SwinTransformer(BaseImageEncoder):
                 x = getattr(self, f"merge{si}")(x)
         return out
 
+    def extract_features(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, C): the classifier's input (CLIP's image features; the JAX
+        CLIP's stage loop would pass the image through, as for the ViT)."""
+        return self.post_norm(self._forward_stages(x)["out_l5"]).mean(dim=(1, 2))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = self.post_norm(self._forward_stages(x)["out_l5"])
-        return self.classifier(x.mean(dim=(1, 2)))
+        return self.classifier(self.extract_features(x))
 
     def extract_end_points_all(self, x: torch.Tensor, use_l5: bool = True,
                                use_l5_exp: bool = False) -> Dict[str, torch.Tensor]:

@@ -10,14 +10,20 @@ JAX layout. Attributes carry the flax scope names (``patch_emb_0``,
 ``utils.jax_params.load_jax_params`` fills the model from a flax tree.
 
 Stochastic depth grows linearly over the blocks to ``stochastic_dropout``, as
-in JAX. Not ported yet, and raising if asked for: MoE blocks and the simple
-FPN; not ported and without a flag here: image embeddings, gradient
-checkpointing and layer-wise LR decay.
+in JAX. ``extract_features`` returns the classifier's input (the CLS
+embedding after ``post_transformer_norm``, or the token mean): CLIP's image
+features. ``forward(x, return_image_embeddings=True)`` also returns the
+tokens after the CLS one as a (B, E, h, w) map, which
+``extract_end_points_all`` gives as ``out_l5`` (vit.py:182-215, without the
+simple FPN). Not ported yet, and raising if asked for: MoE blocks and the
+simple FPN; not ported and without a flag here: gradient checkpointing and
+layer-wise LR decay.
 """
 
 from __future__ import annotations
 
 import argparse
+from typing import Dict
 
 import torch
 import torch.nn as nn
@@ -104,8 +110,11 @@ class VisionTransformer(BaseImageEncoder):
         self.classifier = LinearLayer(
             embed_dim, getattr(opts, "model.classification.n_classes", 1000))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def _tokens(self, x: torch.Tensor):
+        """Tokens after ``post_transformer_norm`` (CLS first when there is one)
+        and the stem's (h, w)."""
         x = self.patch_emb_2(self.patch_emb_1(self.patch_emb_0(x)))
+        grid = tuple(x.shape[-2:])
         tokens = self.pos_embed(x.flatten(2).transpose(1, 2))  # (B, h·w, E), row-major
         if self.use_cls_token:
             cls = self.cls_token.to(tokens.dtype).expand(tokens.shape[0], -1, -1)
@@ -113,6 +122,24 @@ class VisionTransformer(BaseImageEncoder):
         tokens = self.pos_emb_drop(tokens)
         for i in range(self.n_layers):
             tokens = getattr(self, f"transformer_{i}")(tokens)
-        tokens = self.post_transformer_norm(tokens)
-        emb = tokens[:, 0] if self.use_cls_token else tokens.mean(dim=1)
-        return self.classifier(emb)
+        return self.post_transformer_norm(tokens), grid
+
+    def _embedding(self, tokens: torch.Tensor) -> torch.Tensor:
+        return tokens[:, 0] if self.use_cls_token else tokens.mean(dim=1)
+
+    def extract_features(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, E): the classifier's input."""
+        return self._embedding(self._tokens(x)[0])
+
+    def forward(self, x: torch.Tensor, return_image_embeddings: bool = False):
+        tokens, (h, w) = self._tokens(x)
+        logits = self.classifier(self._embedding(tokens))
+        if not return_image_embeddings:
+            return logits
+        grid = tokens[:, 1:] if self.use_cls_token else tokens
+        return logits, grid.transpose(1, 2).reshape(grid.shape[0], -1, h, w)
+
+    def extract_end_points_all(self, x: torch.Tensor, use_l5: bool = True,
+                               use_l5_exp: bool = False) -> Dict[str, torch.Tensor]:
+        """``{"out_l5": (B, E, h, w)}``, the token map, whatever the flags."""
+        return {"out_l5": self(x, return_image_embeddings=True)[1]}

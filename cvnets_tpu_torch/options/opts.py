@@ -50,6 +50,7 @@ def arguments_common(parser: argparse.ArgumentParser) -> argparse.ArgumentParser
 def get_training_arguments(parse_args: bool = True, args: Optional[List[str]] = None):
     from cvnets_tpu_torch.data.datasets import arguments_dataset
     from cvnets_tpu_torch.data.sampler import add_sampler_arguments
+    from cvnets_tpu_torch.data.text_tokenizer import arguments_tokenizer
     from cvnets_tpu_torch.data.transforms import arguments_augmentation
     from cvnets_tpu_torch.loss import add_loss_fn_arguments
     from cvnets_tpu_torch.metrics import arguments_stats
@@ -60,6 +61,7 @@ def get_training_arguments(parse_args: bool = True, args: Optional[List[str]] = 
     parser = argparse.ArgumentParser(description="Training arguments (PyTorch port)")
     parser = arguments_dataset(parser)
     parser = add_sampler_arguments(parser)
+    parser = arguments_tokenizer(parser)
     parser = arguments_augmentation(parser)
     parser = modeling_arguments(parser)
     parser = add_loss_fn_arguments(parser)

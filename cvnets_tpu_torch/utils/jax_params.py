@@ -7,8 +7,10 @@ Port module attributes are named after the flax scopes, so a flax path maps to a
 the leaf names change as
 ``kernel``/``scale`` → ``weight`` and ``mean``/``var`` → ``running_mean``/
 ``running_var``; ViT's ``pos_embed`` table and top-level ``cls_token`` and
-Swin's ``relative_position_bias_table``, PReLU's ``alpha`` and FastViT's
-``layer_scale``, ``layer_scale_1`` and ``layer_scale_2`` keep their names.
+Swin's ``relative_position_bias_table``, PReLU's ``alpha``, FastViT's
+``layer_scale``, ``layer_scale_1`` and ``layer_scale_2``, and CLIP's
+``token_embedding``, ``projection`` (the text tower's), ``proj`` (the image
+head's) and ``logit_scale`` keep their names.
 The segmentation heads' scopes (PSPNet's ``psp/psp_branch_<i>`` and
 ``psp/fusion``, the separable ASPP's ``aspp/aspp_sep_<i>/{dw_conv,pw_conv}``,
 the simple head's ``conv``) follow the same rule. Only leaves named ``kernel``
@@ -31,7 +33,9 @@ _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
          "pos_embed": "pos_embed", "cls_token": "cls_token",
          "relative_position_bias_table": "relative_position_bias_table",
          "alpha": "alpha", "layer_scale": "layer_scale",
-         "layer_scale_1": "layer_scale_1", "layer_scale_2": "layer_scale_2"}
+         "layer_scale_1": "layer_scale_1", "layer_scale_2": "layer_scale_2",
+         "token_embedding": "token_embedding", "projection": "projection", "proj": "proj",
+         "logit_scale": "logit_scale"}
 # a list of modules in flax (``layer_3_0``, FastViT's ``conv_1_0`` and
 # ``conv_1x1_exp_0``, SSD's ``extra_layers_0`` and ``ssd_heads_0``) is an
 # ``nn.Sequential`` or ``nn.ModuleList`` entry here (``layer_3.0``)

@@ -369,7 +369,8 @@ YAMLS = [f"classification/imagenet/{name}.yaml" for name in (
         "ade20k/deeplabv3_mobilevitv2", "ade20k/pspnet_mobilevitv2",
         "ade20k/deeplabv3_mobilenetv2", "ade20k/deeplabv3_resnet50",
         "pascal_voc/deeplabv3_mobilevitv2", "pascal_voc/pspnet_mobilevitv2",
-        "pascal_voc/deeplabv3_mobilevit")] + ["detection/ssd_coco/mobilevit.yaml"]
+        "pascal_voc/deeplabv3_mobilevit")] + ["detection/ssd_coco/mobilevit.yaml",
+                                              "multi_modal_image_text/clip_vit.yaml"]
 
 
 @pytest.mark.parametrize("yaml", YAMLS)

@@ -9,10 +9,13 @@
   (the segmentation transforms, masks, iou) at 64 px on the port's dummy
   segmentation dataset, then ``main_worker_segmentation``, MobileViT v1 and
   FastViT forwards, an SSDLite loss, backward and ``predict``, the detection
-  transforms and the COCO mAP, with ``jax``,
+  transforms and the COCO mAP, and a CLIP train step (the micro ViT under a
+  causal text tower), with ``jax``,
   ``flax``, ``optax``, ``orbax``, ``yaml``, ``PIL`` and the JAX package
   ``cvnets_tpu`` blocked (a subprocess: tests/conftest.py has imported jax
-  into this one).
+  into this one). A second subprocess, with ``jax``, ``flax``, ``optax``,
+  ``orbax`` and ``cvnets_tpu`` blocked, writes a flickr folder through Pillow
+  and trains CLIP on it through ``main_train`` from clip_vit.yaml.
 * No module of the port, and not ``chip_smoke.py``, imports ``cvnets_tpu``, not
   even a module of it that imports no JAX (checked on the source's syntax tree).
 * Every flag of the port's parser exists in the JAX parser with the same dest and
@@ -241,6 +244,25 @@ _BLOCKED_RUN = textwrap.dedent("""
     res = compute_coco_map([{"boxes": boxes, "scores": np.ones(1), "labels": [1]}],
                            [{"boxes": boxes, "labels": [1]}])
     assert res["bbox"] == 1.0
+    clip_opts = get_training_arguments(args=[
+        "--dataset.category", "multi_modal_image_text", "--loss.category",
+        "multi_modal_image_text", "--model.multi-modal-image-text.name", "clip",
+        "--model.classification.name", "vit", "--model.classification.vit.mode", "micro",
+        "--model.text.vocab-size", "100", "--model.text.context-length", "16",
+        "--model.text.transformer.model-dim", "64",
+        "--model.text.transformer.n-transformer-layers", "2",
+        "--model.text.transformer.n-heads-per-layer", "4",
+        "--model.text.transformer.causal-masking", "--optim.name", "adamw",
+        "--optim.no-decay-bn-filter-bias", "--common.grad-clip", "1", "--ema.enable"])
+    clip = get_model(clip_opts, device="cpu")
+    state = create_train_state(clip, build_optimizer(clip_opts, clip), ema_enabled=True)
+    text = torch.randint(1, 98, (2, 16), generator=torch.Generator().manual_seed(3))
+    text[:, 9], text[:, 10:] = 99, 0
+    state, metrics = make_train_step(clip, build_loss_fn(clip_opts), clip_opts, metric_objs)(
+        state, {"samples": {"image": (x * 255).to(torch.uint8), "text": text},
+                "targets": torch.arange(2)}, 1e-3)
+    assert {"loss", "loss.image_loss", "loss.text_loss"} <= set(metrics["loss"])
+    assert bool(torch.isfinite(metrics["loss"]["loss"][0]))
     leaked = sorted(m for m in sys.modules if sys.modules[m] is not None
                     and m.split(".")[0] in ("jax", "flax", "optax", "orbax", "yaml",
                                             "PIL", "cvnets_tpu"))
@@ -248,9 +270,57 @@ _BLOCKED_RUN = textwrap.dedent("""
     print("ok")
 """)
 
+_CLIP_MAIN_TRAIN = textwrap.dedent("""
+    import sys
+    for name in ("jax", "flax", "optax", "orbax", "cvnets_tpu"):
+        sys.modules[name] = None  # any import of them now raises ImportError
+    import os
+    import tempfile
+    import numpy as np
+    import torch
+    from PIL import Image
+    torch.set_num_threads(2)  # the suite's other workers share the cores
+    from cvnets_tpu_torch.main_train import main_worker
+    with tempfile.TemporaryDirectory() as root:
+        os.mkdir(os.path.join(root, "images"))
+        rng = np.random.default_rng(0)
+        with open(os.path.join(root, "captions.tsv"), "w") as f:
+            for i in range(8):
+                Image.fromarray(rng.integers(0, 256, (40 + i, 50, 3), dtype=np.uint8)).save(
+                    os.path.join(root, "images", f"{i}.jpg"))
+                f.write(f"images/{i}.jpg\\ta photo of thing {i}\\n")
+        trainer = main_worker(args=[
+            "--common.config-file", "config/multi_modal_image_text/clip_vit.yaml",
+            "--common.override-kwargs", f"dataset.root_train={root}",
+            f"dataset.root_val={root}", "dataset.train_batch_size0=4",
+            "dataset.val_batch_size0=4", "dataset.workers=2",
+            "sampler.bs.crop_size_width=32", "sampler.bs.crop_size_height=32",
+            "image_augmentation.resize.size=32", "scheduler.max_iterations=2",
+            "model.classification.vit.mode=micro", "model.text.vocab_size=100",
+            "model.text.context_length=16", "model.text.transformer.model_dim=64",
+            "model.text.transformer.n_transformer_layers=2",
+            "model.text.transformer.n_heads_per_layer=4",
+            "model.multi_modal_image_text.clip.projection_dim=32",
+            f"common.results_loc={os.path.join(root, 'results')}"], device="cpu")
+        assert trainer.train_iterations == 2
+        assert os.path.isfile(os.path.join(trainer.save_dir, "checkpoint_last.pt"))
+    leaked = sorted(m for m in sys.modules if sys.modules[m] is not None
+                    and m.split(".")[0] in ("jax", "flax", "optax", "orbax", "cvnets_tpu"))
+    assert not leaked, leaked
+    print("ok")
+""")
+
 
 def test_port_imports_and_runs_without_jax_yaml_or_pil():
     proc = subprocess.run([sys.executable, "-c", _BLOCKED_RUN], cwd=REPO,
+                          capture_output=True, text=True, timeout=300,
+                          env={**os.environ, "PYTHONPATH": REPO})
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")
+
+
+def test_clip_main_train_runs_without_jax():
+    proc = subprocess.run([sys.executable, "-c", _CLIP_MAIN_TRAIN], cwd=REPO,
                           capture_output=True, text=True, timeout=300,
                           env={**os.environ, "PYTHONPATH": REPO})
     assert proc.returncode == 0, proc.stderr[-3000:]

@@ -112,14 +112,15 @@ def perturbed_variables(model, x_nhwc: np.ndarray, seed: int = 0,
                         init_kwargs=None) -> dict:
     """flax variables as numpy, moved off their init values (zero biases, unit
     scales, (0, 1) BN stats) so that a leaf landing in the wrong place shows.
-    ``init_kwargs`` (default ``training=False``) go to ``model.init``."""
+    ``init_kwargs`` (default ``training=False``) go to ``model.init``;
+    ``x_nhwc`` may be a dict of arrays (CLIP's image and text)."""
     import jax
     import jax.numpy as jnp
 
     kwargs = {"training": False} if init_kwargs is None else init_kwargs
     variables = jax.jit(lambda x: model.init(
         {"params": jax.random.PRNGKey(seed), "dropout": jax.random.PRNGKey(seed)},
-        x, **kwargs))(jnp.asarray(x_nhwc))
+        x, **kwargs))(jax.tree_util.tree_map(jnp.asarray, x_nhwc))
     rng = np.random.default_rng(seed)
 
     def perturb(path, leaf):
