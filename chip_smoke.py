@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (cvnets_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--deeplab | --segmentation]
+    python3 chip_smoke.py [--deeplab | --segmentation | --families | --clip |
+                           --range-augment]
 
 ``--deeplab`` runs only phases 1, 10 and 11 (DeepLabv3's train, a/b and
 profile; about a minute) and prints neither JSON line: run in turns from two
@@ -11,7 +12,9 @@ DeepLabv3 steps on one card, as the whole script does with five recipes.
 through ``main_train`` and ``main_worker_segmentation``, PSPNet; about a
 minute of command time) and prints neither JSON line. ``--families`` runs
 only phases 1, 2 and 18 (MobileViT v1, FastViT and SSDLite) and prints
-neither JSON line; ``--clip`` only phases 1, 2 and 19 (CLIP ViT-B/16).
+neither JSON line; ``--clip`` only phases 1, 2 and 19 (CLIP ViT-B/16);
+``--range-augment`` only phases 1, 2 and 20 (RangeAugment and distillation,
+MobileViTv2-2.0's 384² finetune, the schedulers).
 
 Phases, one line each or more (any failure exits non-zero):
 
@@ -254,11 +257,40 @@ Phases, one line each or more (any failure exits non-zero):
    batch; ``main_eval`` zero-shot over the val folder's 8 classes with a
    class-names file, and its logits from checkpoint_last.pt on the card
    against a CPU copy's on 3 images.
+20. range augment: (a) the RangeAugment distillation recipe
+   (examples/range_augment/distillation/teacher_resnet101_student_mobilenet_v2.yaml
+   as ``RANGE_AUGMENT_ARGS`` and its composite list): MobileNetV2-1.0 with
+   the distribution augmentor (brightness, contrast, noise) and a ResNet-101
+   teacher read from a checkpoint the phase writes from a seeded model, the
+   composite of soft KL (T 1) and neural augmentation, SGD, EMA, bf16, at
+   the variable batch sampler's base size, 256 × 224², standing in for its
+   scales: train steps (finite losses, a nonzero grad on each of the six
+   augmentor scalars, the teacher unchanged, in eval mode, outside the
+   optimizer and the EMA), the student's eval logits and its train forward
+   with the composite's terms against CPU copies, 24 steady steps (step ms,
+   img/s, host enqueue, peak memory) and a profile split into the teacher's
+   forward, the augmentor, the loss terms, the optimizer and the student
+   (results/range_augment_profile.txt); (b) ``main_train.main`` on the same
+   recipe with its variable batch sampler over phase 17's JPEG corpus
+   through the native decoder, 2 epochs with validation (top-1), no host
+   sync between log points, img/s over epoch 2 after its first batch beside
+   the loader alone; (c) MobileViTv2-2.0's 384² finetune
+   (config/classification/finetune_higher_res_in1k/mobilevit_v2.yaml as
+   ``FINETUNE_ARGS``, ``--common.finetune`` from a 256² checkpoint the phase
+   writes): 9 forward and 9 backward separable-attention launches a step, by
+   (BP, N, C) exactly (576, 256) ×2, (144, 384) ×4 and (36, 512) ×3 over BP
+   = 128, the logits through the kernels against the plain path, steady
+   steps, and each shape's kernels against their plain versions, timed
+   beside them and their bounds; (d) the Trainer on those flags with a
+   ``multi_step`` schedule: the LR written into the optimizer at every
+   iteration is the scheduler's.
 
 The second-to-last line is the kernels' JSON record, one entry for each TPU
 kernel's counterpart: ``ms``/``plain_ms`` are a kernel's and its plain
 version's time for one train step's launches (the separable attention's 9
-forward and 9 backward at the flagship from the per-shape bf16 medians, each
+forward and 9 backward at the flagship from the per-shape bf16 medians, with
+their launches by path, the flagship's and MobileViTv2-2.0's 384² finetune's,
+in ``launches_by_path`` and the finetune's own times in ``by_path``, each
 MHA kernel's 12 at ViT-B and at ViT-B 512² (the S ≤ 512 rows also give
 their launches by path, ViT-B/16's and CLIP's, in ``launches_by_path``),
 each seg-CE kernel's 2 at DeepLabv3, each window kernel's 12 at Swin-T
@@ -1847,6 +1879,7 @@ def phase_train(card: str, label: str, args, kernels: dict, per_step: dict,
     from cvnets_tpu_torch.optim import build_optimizer
     from cvnets_tpu_torch.optim.scheduler import build_scheduler
     from cvnets_tpu_torch.options.opts import get_training_arguments
+    from cvnets_tpu_torch.utils.checkpoint_utils import load_finetune
 
     opts = get_training_arguments(args=args)
     n_warmup, n_timed = steps
@@ -1859,6 +1892,7 @@ def phase_train(card: str, label: str, args, kernels: dict, per_step: dict,
     state = create_train_state(
         model, build_optimizer(opts, model, model.get_lr_multipliers(opts)),
         ema_enabled=getattr(opts, "ema.enable"))
+    load_finetune(opts, state)  # --common.finetune, where the args give one
     criteria = build_loss_fn(opts)
     train_step = make_train_step(model, criteria, opts,
                                  build_metrics(opts, ["loss", "grad_norm"]))
@@ -2113,14 +2147,14 @@ def range_device_us(events, name: str) -> float:
 
 
 def phase_profile(card: str, label: str, run, path: str, route: str = None,
-                  split: tuple = (), ranges: tuple = ()) -> float:
+                  split: tuple = (), ranges: tuple = (), rest: str = "other") -> float:
     """torch.profiler over 3 steps: device time by kernel into ``path``;
     returns the device ms a step. With ``route``, also prints the device ms
     a step of that ``record_function`` range, forward and backward
     (``route_device_us``), and its share of the step's. ``split`` (ranges
     with backward nodes, by ``route_device_us``) and ``ranges`` (without, by
     ``range_device_us``) print the step's device time split between them,
-    the rest as "other"."""
+    the rest as ``rest`` ("other" unless the caller names it)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2170,7 +2204,7 @@ def phase_profile(card: str, label: str, run, path: str, route: str = None,
     if split or ranges:
         parts = {name: route_device_us(prof.events(), name) / 1e3 / n for name in split}
         parts.update({name: range_device_us(prof.events(), name) / 1e3 / n for name in ranges})
-        parts["other"] = device_s * 1e3 - sum(parts.values())
+        parts[rest] = device_s * 1e3 - sum(parts.values())
         print(f"profile: {label} device ms a step by part: " + "; ".join(
             f"{name} {ms:.3f} (share {ms / (device_s * 1e3):.3f})" for name, ms in parts.items())
             + f" | {card}", flush=True)
@@ -4362,12 +4396,615 @@ def phase_deeplab(card: str) -> tuple:
     return launches, bare
 
 
+# ---- RangeAugment, distillation and the schedulers (phase 20) ----
+# examples/range_augment/distillation/teacher_resnet101_student_mobilenet_v2.yaml,
+# as flags: MobileNetV2-1.0 with the distribution augmentor (brightness,
+# contrast, noise), a ResNet-101 teacher, SGD, cosine LR, EMA, bf16, at the
+# variable batch sampler's base size (256 × 224²) for the bare steps; the
+# composite loss is the yaml's list, which no flag carries
+# (``RANGE_AUGMENT_COMPOSITE``, set by ``range_augment_opts``)
+RANGE_AUGMENT_ARGS = [
+    "--model.classification.name", "mobilenetv2",
+    "--model.classification.mobilenetv2.width-multiplier", "1.0",
+    "--model.learn-augmentation.mode", "distribution",
+    "--model.learn-augmentation.brightness",
+    "--model.learn-augmentation.contrast",
+    "--model.learn-augmentation.noise",
+    "--model.normalization.name", "batch_norm",
+    "--model.normalization.momentum", "0.1",
+    "--model.activation.name", "relu6",
+    "--model.layer.global-pool", "mean",
+    "--model.layer.conv-init", "kaiming_normal",
+    "--model.layer.linear-init", "normal",
+    "--teacher.model.classification.name", "resnet",
+    "--teacher.model.classification.resnet.depth", "101",
+    "--teacher.model.normalization.name", "batch_norm",
+    "--teacher.model.normalization.momentum", "0.1",
+    "--teacher.model.activation.name", "relu",
+    "--teacher.model.layer.global-pool", "mean",
+    "--teacher.model.layer.conv-init", "kaiming_normal",
+    "--teacher.model.layer.linear-init", "normal",
+    "--loss.category", "composite_loss",
+    "--optim.name", "sgd",
+    "--optim.weight-decay", "4e-5",
+    "--optim.no-decay-bn-filter-bias",
+    "--optim.sgd.momentum", "0.9",
+    "--scheduler.name", "cosine",
+    "--scheduler.max-epochs", "300",
+    "--scheduler.warmup-iterations", "7500",
+    "--scheduler.warmup-init-lr", "0.05",
+    "--scheduler.cosine.max-lr", "0.4",
+    "--scheduler.cosine.min-lr", "2e-4",
+    "--ema.enable",
+    "--ema.momentum", "0.0005",
+    "--common.mixed-precision",
+    "--dataset.category", "classification",
+    "--dataset.train-batch-size0", "256",
+    "--sampler.bs.crop-size-width", "224",
+    "--sampler.bs.crop-size-height", "224",
+    "--common.seed", "0",
+]
+RANGE_AUGMENT_COMPOSITE = [
+    {"loss_category": "distillation", "loss_weight": 1.0,
+     "distillation": {"name": "soft_kl_loss", "soft_kl_loss": {"temperature": 1.0}}},
+    {"loss_category": "neural_augmentation", "loss_weight": 1.0,
+     "neural_augmentation": {"perceptual_metric": "psnr", "target_value": [40, 20],
+                             "curriculum_method": "cosine"}},
+]
+# the rest of the yaml: its loader, variable batch sampler, host transforms and
+# stats, for main_train (dataset.name and its roots are the yaml's ImageNet on
+# disk; the phase names the JPEG corpus instead)
+RANGE_AUGMENT_DATA_ARGS = IMAGENET_RUN_ARGS + [
+    "--dataset.workers", "8",
+    "--sampler.name", "variable_batch_sampler",
+    "--sampler.vbs.crop-size-width", "224",
+    "--sampler.vbs.crop-size-height", "224",
+    "--sampler.vbs.max-n-scales", "5",
+    "--sampler.vbs.min-crop-size-width", "128",
+    "--sampler.vbs.max-crop-size-width", "320",
+    "--sampler.vbs.min-crop-size-height", "128",
+    "--sampler.vbs.max-crop-size-height", "320",
+    "--sampler.vbs.check-scale", "32",
+    "--image-augmentation.random-resized-crop.enable",
+    "--image-augmentation.random-resized-crop.interpolation", "bilinear",
+    "--image-augmentation.random-horizontal-flip.enable",
+    "--image-augmentation.resize.enable",
+    "--image-augmentation.resize.size", "232",
+    "--image-augmentation.center-crop.enable",
+    "--image-augmentation.center-crop.size", "224",
+]
+TEACHER_SEED = 101  # the seed of the teacher whose checkpoint phase 20 writes
+# config/classification/finetune_higher_res_in1k/mobilevit_v2.yaml, as flags:
+# MobileViTv2-2.0 at 384², batch 32, SGD at a fixed LR of 1e-3 after a warmup
+# of 500 iterations from 1e-6, label smoothing 0.1, EMA, bf16;
+# ``--common.finetune`` is the 256² checkpoint the phase writes
+FINETUNE_ARGS = [
+    "--model.classification.name", "mobilevit_v2",
+    "--model.classification.mitv2.width-multiplier", "2.0",
+    "--model.normalization.name", "batch_norm",
+    "--model.normalization.momentum", "0.1",
+    "--model.activation.name", "swish",
+    "--model.layer.global-pool", "mean",
+    "--model.layer.conv-init", "kaiming_normal",
+    "--model.layer.linear-init", "trunc_normal",
+    "--model.layer.linear-init-std-dev", "0.02",
+    "--loss.category", "classification",
+    "--loss.classification.name", "cross_entropy",
+    "--loss.classification.cross-entropy.label-smoothing", "0.1",
+    "--optim.name", "sgd",
+    "--optim.weight-decay", "4e-5",
+    "--optim.no-decay-bn-filter-bias",
+    "--optim.sgd.momentum", "0.9",
+    "--scheduler.name", "fixed",
+    "--scheduler.max-epochs", "10",
+    "--scheduler.warmup-iterations", "500",
+    "--scheduler.warmup-init-lr", "1e-6",
+    "--scheduler.fixed.lr", "1e-3",
+    "--ema.enable",
+    "--ema.momentum", "0.0005",
+    "--common.mixed-precision",
+    "--dataset.category", "classification",
+    "--dataset.train-batch-size0", "32",
+    "--sampler.name", "batch_sampler",
+    "--sampler.bs.crop-size-width", "384",
+    "--sampler.bs.crop-size-height", "384",
+    "--common.seed", "0",
+]
+# separable attention of MobileViTv2-2.0 at 384²: (BP, {(N, C): blocks a step})
+SEP_FINETUNE = (32 * 4, {(576, 256): 2, (144, 384): 4, (36, 512): 3})
+# the Trainer on the finetune flags with a multi_step schedule: 2 epochs of 3
+# pinned batches of 8 × 384² (and 1 val batch), warmup 2, the LR ×0.1 at epoch 1
+SCHEDULER_ARGS = FINETUNE_ARGS + [
+    "--dataset.train-batch-size0", "8",
+    "--dataset.val-batch-size0", "8",
+    "--scheduler.name", "multi_step",
+    "--scheduler.multi-step.lr", "0.01",
+    "--scheduler.multi-step.gamma", "0.1",
+    "--scheduler.multi-step.milestones", "1",
+    "--scheduler.warmup-iterations", "2",
+    "--scheduler.max-epochs", "2",
+    "--common.log-freq", "2",
+]
+
+
+def range_augment_opts(args):
+    """The options of ``args`` with the RangeAugment yaml's composite loss."""
+    import copy
+
+    from cvnets_tpu_torch.options.opts import get_training_arguments
+
+    opts = get_training_arguments(args=args)
+    setattr(opts, "loss.composite_loss", copy.deepcopy(RANGE_AUGMENT_COMPOSITE))
+    return opts
+
+
+def write_teacher_checkpoint(path: str, extra=()) -> None:
+    """A seeded ResNet-101 (the teacher options of ``RANGE_AUGMENT_ARGS`` and
+    ``extra``) as a checkpoint of the port: its model state dict, with its BN
+    statistics set to their averages over 4 seeded batches of 32 images.
+    With the init's statistics (mean 0, variance 1) its eval-mode features
+    grow through the 33 blocks until one class wins on every image, which a
+    student matches in a step (a KL of 0 thereafter)."""
+    import torch
+
+    from cvnets_tpu_torch.models import get_model
+    from cvnets_tpu_torch.options.utils import extract_opts_with_prefix_replacement
+
+    opts = range_augment_opts(RANGE_AUGMENT_ARGS + list(extra))
+    teacher_opts = extract_opts_with_prefix_replacement(opts, "teacher.model.", "model.")
+    teacher = get_model(teacher_opts, category="classification",
+                        generator=torch.Generator().manual_seed(TEACHER_SEED))
+    norms = [m for m in teacher.modules() if isinstance(m, torch.nn.modules.batchnorm._BatchNorm)]
+    for m in norms:
+        m.reset_running_stats()
+        m.momentum = None  # a cumulative average
+    g = torch.Generator(device="cuda").manual_seed(TEACHER_SEED)
+    with torch.no_grad():
+        teacher.train()
+        for _ in range(4):
+            teacher(torch.rand((32, 3, 224, 224), generator=g, device="cuda"))
+    torch.save(teacher.state_dict(), path)
+
+
+def range_augment_reference(card: str, label: str, model, criteria, x) -> None:
+    """The student's float32 train forward (augmentor on the same draws, classifier dropout
+    off) and the composite's terms on the card (TF32 off) against copies of the
+    model and the loss on the CPU, on a small batch: logits and each term within
+    1e-3 of max(1, |reference|) (``cpu_reference``'s bound)."""
+    import copy
+
+    import torch
+
+    on_card, on_cpu = copy.deepcopy(model).train(), copy.deepcopy(model).cpu().train()
+    for m in (*on_card.modules(), *on_cpu.modules()):  # the two would draw other masks
+        if isinstance(m, torch.nn.Dropout):
+            m.p = 0.0
+    cpu_criteria = copy.deepcopy(criteria)
+    for fn in cpu_criteria.loss_fns.values():
+        if hasattr(fn, "teacher"):
+            fn.teacher = fn.teacher.cpu()
+    draws = on_cpu.neural_augmentor.draw(x.cpu(), torch.Generator().manual_seed(1))
+    card_draws = {name: {k: None if t is None else t.cuda() for k, t in d.items()}
+                  for name, d in draws.items()}
+    y = torch.arange(x.shape[0]) * 7
+    kw = {"training": True, "epoch": 0, "iterations": 0}
+    with no_tf32(), torch.no_grad():
+        got = on_card(x, augmentation_draws=card_draws)
+        got_terms = criteria(x, got, y.cuda(), **kw)
+        ref = on_cpu(x.cpu(), augmentation_draws=draws)
+        ref_terms = cpu_criteria(x.cpu(), ref, y, **kw)
+    diff = (got["logits"].cpu() - ref["logits"]).abs().max().item()
+    scale = ref["logits"].abs().max().item()
+    check(bool(torch.isfinite(got["logits"]).all()) and diff <= 1e-3 * max(1.0, scale),
+          f"{label}: card vs CPU train logits differ by {diff}")
+    terms = {k: (got_terms[k].item(), ref_terms[k].item()) for k in ref_terms}
+    for key, (a, b) in terms.items():
+        check(math.isfinite(a) and abs(a - b) <= 1e-3 * max(1.0, abs(b)),
+              f"{label}: {key} card {a} vs CPU {b}")
+    print(f"reference: {label} card vs CPU float32 train forward ({x.shape[0]} images, the "
+          f"same draws): logits max diff {diff:.3e} (max |logit| {scale:.3e}); " + " ".join(
+              f"{k}={a:.6f}/{b:.6f}" for k, (a, b) in terms.items()) + f" | {card}", flush=True)
+
+
+def phase_range_augment_train(card: str, teacher_ckpt: str) -> tuple:
+    """Phase 20a: bare train steps of the RangeAugment distillation recipe
+    (``RANGE_AUGMENT_ARGS``, the teacher from ``teacher_ckpt``) at 256 × 224²
+    on seeded uint8 batches: finite losses (total, soft KL, neural
+    augmentation), a nonzero grad on every augmentor scalar, params and EMA
+    moved, the teacher's tensors unchanged and outside the optimizer and the
+    EMA; the student's eval logits and its train forward with the composite's
+    terms against CPU copies. Returns what ``phase_steady`` and
+    ``phase_profile`` take."""
+    import torch
+
+    from cvnets_tpu_torch.engine.train_state import create_train_state, make_train_step
+    from cvnets_tpu_torch.loss import build_loss_fn
+    from cvnets_tpu_torch.metrics import build_metrics
+    from cvnets_tpu_torch.models import get_model
+    from cvnets_tpu_torch.optim import build_optimizer
+    from cvnets_tpu_torch.optim.scheduler import build_scheduler
+
+    label = "RangeAugment MobileNetV2-1.0 <- ResNet-101"
+    opts = range_augment_opts(RANGE_AUGMENT_ARGS + [
+        "--teacher.model.classification.pretrained", teacher_ckpt])
+    device = torch.device("cuda:0")
+    model = get_model(opts)
+    state = create_train_state(
+        model, build_optimizer(opts, model, model.get_lr_multipliers(opts)), ema_enabled=True)
+    criteria = build_loss_fn(opts)
+    teacher = criteria.loss_fns["distillation"].teacher
+    teacher0 = {k: v.clone() for k, v in teacher.state_dict().items()}
+    train_step = make_train_step(model, criteria, opts, build_metrics(opts, ["loss", "grad_norm"]))
+    scheduler = build_scheduler(opts)
+    batch = getattr(opts, "dataset.train_batch_size0")
+    g = torch.Generator(device=device).manual_seed(0)
+    batches = [{"samples": torch.randint(0, 256, (batch, 3, 224, 224), generator=g,
+                                         device=device, dtype=torch.uint8),
+                "targets": torch.randint(0, 1000, (batch,), generator=g, device=device)}
+               for _ in range(WARMUP_STEPS + TIMED_STEPS)]
+    params0 = [p.detach().clone() for p in model.parameters()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s, host_s = [], [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, b, scheduler.retrieve_lr(0, state.step))
+        host_s.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append({k: s.item() for m in metrics.values() for k, (s, _) in m.items()})
+    parts = {k: [round(m[k], 4) for m in losses] for k in losses[0]}
+    check({"loss", "loss.distillation", "loss.neural_augmentation"} <= set(parts)
+          and all(math.isfinite(v) for m in losses for v in m.values()),
+          f"{label}: losses {parts}")
+    aug_grads = {n: p.grad for n, p in model.named_parameters() if "neural_augmentor" in n}
+    check(len(aug_grads) == 6 and all(
+        g is not None and bool(torch.isfinite(g)) and g.item() != 0.0
+        for g in aug_grads.values()), f"{label}: augmentor grads {aug_grads}")
+    check(any(not torch.equal(a, b) for a, b in zip(params0, model.parameters())),
+          f"{label}: params did not change")
+    del params0
+    changed = [k for k, v in teacher.state_dict().items() if not torch.equal(v, teacher0[k])]
+    check(not changed, f"{label}: the teacher changed: {changed[:3]}")
+    teacher_ptrs = {t.data_ptr() for t in teacher.state_dict().values()}
+    in_state = {p.data_ptr() for grp in state.optimizer.param_groups for p in grp["params"]}
+    in_state |= {t.data_ptr() for t in state.ema.model.state_dict().values()}
+    check(not teacher_ptrs & in_state and not teacher.training
+          and not any(p.requires_grad for p in teacher.parameters()),
+          f"{label}: the teacher is in the optimizer or the EMA, or trains")
+    del teacher0
+    timed, host = step_s[WARMUP_STEPS:], host_s[WARMUP_STEPS:]
+    print(f"train: {label} batch={batch} 224x224 bf16 steps={len(batches)} losses={parts} "
+          f"step_s={[round(x, 4) for x in step_s]} "
+          f"step_ms={1e3 * statistics.median(timed):.3f} "
+          f"img_s={batch * len(timed) / sum(timed):.1f} "
+          f"host_enqueue_ms={1e3 * statistics.median(host):.3f} "
+          f"peak_mem_gib={torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"augmentor_grads={ {n.split('.')[-1]: round(g.item(), 6)
+                               for n, g in aug_grads.items()} } "
+          f"(the variable batch sampler's base size stands in for its 128-320 px scales) "
+          f"| {card}", flush=True)
+    x = batches[0]["samples"][:4].float() / 255.0
+    cpu_reference(label + " student", model, x, (4, 1000))
+    range_augment_reference(card, label, model, criteria, x)
+    return state, train_step, scheduler, batches, criteria
+
+
+def phase_range_augment_main_train(card: str, bare: dict) -> None:
+    """Phase 20b: ``main_train.main`` on the RangeAugment distillation yaml's
+    flags and composite (the teacher from a checkpoint of a seeded ResNet-101
+    with the corpus's 8 classes: the dataset sets the student's count, and
+    the yaml's teacher and ImageNet share theirs), its variable
+    batch sampler, random resized crop and flip through ``--dataset.decoder
+    native`` on phase 17's seeded JPEG corpus, 2 epochs with validation (the
+    composite's loss, top-1, top-5; EMA too); the train loader alone beside
+    it. Checks one crop kernel launch a train batch, finite statistics, a
+    top-1 in [0, 100], no CUDA sync debug warning through the port's code
+    between log points; prints img/s over epoch 2 after its first batch."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    import cvnets_tpu_torch.main_train as main_train
+    from cvnets_tpu_torch.engine.train_state import batch_size
+    from cvnets_tpu_torch.native import crop_resize_flip_kernel
+
+    label = "RangeAugment MobileNetV2-1.0 <- ResNet-101"
+    results = os.path.join("results", "range_augment_main_train")
+    shutil.rmtree(results, ignore_errors=True)
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        corpus = write_jpeg_corpus(root)
+        print(f"range_augment: corpus of {len(corpus['kinds'])} JPEG files written in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+        classes = ["--teacher.model.classification.n-classes", str(NATIVE_CLASSES)]
+        teacher_ckpt = os.path.join(root, "resnet101_teacher_8.pt")
+        write_teacher_checkpoint(teacher_ckpt, classes)
+        args = (RANGE_AUGMENT_ARGS + RANGE_AUGMENT_DATA_ARGS + corpus_args(corpus) + classes
+                + ["--common.results-loc", results,
+                   "--teacher.model.classification.pretrained", teacher_ckpt])
+        log = {"train": [], "val": [], "ema": [], "save_s": 0.0}
+        watch, built, epochs = SyncWatch(), [], []
+
+        class WatchedTrainer(main_train.Trainer):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                _watch_trainer(self, {}, watch, 0, log)
+                step, epoch_fn = self._train_step, self.train_epoch
+
+                def counted(state, batch, *rest):
+                    if epochs[-1][1] is None:
+                        epochs[-1][1] = time.perf_counter()
+                    else:
+                        epochs[-1][0] += batch_size(batch["samples"])
+                    return step(state, batch, *rest)
+
+                def epoch(e):
+                    epochs.append([0, None, None])
+                    out = epoch_fn(e)  # ends with a device sync, outside the watch
+                    epochs[-1][2] = time.perf_counter()
+                    return out
+
+                self._train_step, self.train_epoch = counted, epoch
+                built.append(self)
+
+        with watch:
+            main_train.Trainer = WatchedTrainer
+            try:
+                crop_resize_flip_kernel.launches = 0
+                main_train.main(range_augment_opts(args))
+                launches = crop_resize_flip_kernel.launches
+            finally:
+                main_train.Trainer = WatchedTrainer.__bases__[0]
+        trainer = built[0]
+        n_steps = trainer.train_iterations
+        bad = watch.through(MAIN_TRAIN_FILES + (os.path.join("cvnets_tpu_torch", "models")
+                                                + os.sep,))
+        check(not bad, f"{label} main_train: a host sync between log points: {bad[:3]}")
+        check(launches == n_steps > 0, f"{label} main_train: {launches} crop_resize_flip "
+                                       f"launches in {n_steps} train steps")
+        for stage in ("train", "val", "ema"):
+            values = [v for entry in log[stage] for v in
+                      (entry[3] if stage == "train" else entry).values()]
+            check(values and all(math.isfinite(v) for v in values),
+                  f"{label} main_train: {stage} statistics not finite: {log[stage]}")
+        top1 = [s["top1"] for s in log["val"] + log["ema"]]
+        check(len(top1) == 4 and all(0.0 <= v <= 100.0 for v in top1),
+              f"{label} main_train: val top-1 {top1}")
+        after_first, first_at, end_at = epochs[-1]
+        trainer = None
+        built.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        sizes = []
+
+        def check_batch(batch):
+            x = batch["samples"]
+            check(x.is_cuda and x.dtype == torch.uint8 and x.shape[1] == 3,
+                  f"{label} loader: batch {tuple(x.shape)} {x.dtype} on {x.device}")
+            sizes.append(x.shape[0])
+
+        n_img, secs, first, threads = loader_alone(range_augment_opts(args), check_batch)
+    print(f"main_train: {label} --dataset.decoder native epochs=2 steps={n_steps} "
+          f"img_s={after_first / (end_at - first_at):.1f} over epoch 2 after its first batch "
+          f"({after_first} images in {end_at - first_at:.3f} s; the variable batch sampler's "
+          f"128-320 px scales) bare step {bare['img_s']:.1f} img/s at 256 x 224^2 "
+          f"train={[{k: round(v, 4) for k, v in e[3].items()} for e in log['train']]} "
+          f"val={[{k: round(v, 3) for k, v in s.items()} for s in log['val']]} "
+          f"ema={[{k: round(v, 3) for k, v in s.items()} for s in log['ema']]} | {card}",
+          flush=True)
+    print(f"range_augment: loader alone img_s={(n_img - sizes[0]) / (secs - first):.1f} after "
+          f"the first batch ({n_img} images in {secs:.3f} s over 2 epochs, first batch after "
+          f"{first:.3f} s; native decode, {threads} threads, {os.cpu_count()} cores; no step) "
+          f"| {card}", flush=True)
+
+
+def phase_finetune(card: str) -> tuple:
+    """Phase 20c: MobileViTv2-2.0 384² finetune steps (``FINETUNE_ARGS``,
+    ``--common.finetune`` from a 256² checkpoint of a seeded MobileViTv2-2.0 written
+    here): 9 forward and 9 backward separable-attention launches a step at (N, C) =
+    (576, 256) ×2, (144, 384) ×4 and (36, 512) ×3 over BP = 32·4 (a layer that left
+    the kernel route fails the counts), then steady steps and a profile
+    (results/mobilevit_v2_finetune_profile.txt, with the separable kernels' device
+    time a step); each shape's forward and backward kernel held against its plain
+    version and timed beside it and its bound, as phase 3 does the flagship's.
+    Returns the launches of the train steps and the kernels' records at this path
+    (one step's 9 + 9)."""
+    import collections
+    import tempfile
+
+    import torch
+
+    from cvnets_tpu_torch.models import get_model
+    from cvnets_tpu_torch.options.opts import get_training_arguments
+    from cvnets_tpu_torch.ops.separable_attention import (
+        separable_attention_bwd_kernel,
+        separable_attention_kernel,
+        separable_attention_plain,
+    )
+
+    label = "MobileViTv2-2.0 384^2 finetune"
+    kernels = {"separable_attention": separable_attention_kernel,
+               "separable_attention_bwd": separable_attention_bwd_kernel}
+    bp, blocks = SEP_FINETUNE
+    shapes = {name: collections.Counter() for name in kernels}
+
+    def recording(name, launch):
+        def wrapped(device, *args):  # (ptrs, strides, stats, ctx, BP, N, C, dtype)
+            shapes[name][tuple(args[4:7])] += 1
+            return launch(device, *args)
+        return wrapped
+
+    with tempfile.TemporaryDirectory() as root:
+        ckpt = os.path.join(root, "mobilevit_v2_2.0_256.pt")
+        opts = get_training_arguments(args=FINETUNE_ARGS)
+        torch.save(get_model(opts, generator=torch.Generator().manual_seed(256)).state_dict(),
+                   ckpt)
+        for name, kernel in kernels.items():
+            kernel.launch = recording(name, kernel.launch)
+        try:
+            launches, run = phase_train(card, label, FINETUNE_ARGS + ["--common.finetune", ckpt],
+                                        kernels, {name: sum(blocks.values()) for name in kernels})
+        finally:
+            for kernel in kernels.values():
+                del kernel.launch  # the class's method again
+    n_steps = WARMUP_STEPS + TIMED_STEPS
+    want = {(bp, n, c): count * n_steps for (n, c), count in blocks.items()}
+    for name in kernels:
+        got = {s: k for s, k in shapes[name].items() if s[0] == bp}
+        check(got == want, f"{label}: {name} launches by (BP, N, C) {got}, want {want}")
+    print(f"kernel: {label} launches by (BP, N, C) in {n_steps} train steps: "
+          f"{dict(shapes['separable_attention'])} forward, "
+          f"{dict(shapes['separable_attention_bwd'])} backward | {card}", flush=True)
+    phase_steady(card, label, run)
+    path = os.path.join("results", "mobilevit_v2_finetune_profile.txt")
+    phase_profile(card, label, run, path)
+    device = {"fwd": [0.0, 0], "bwd": [0.0, 0]}  # the separable kernels' ms and launches
+    with open(path) as f:
+        for line in f:
+            for part in device:
+                if f"separable_attention_{part}_kernel" in line:
+                    ms, _, count = line.split()[:3]
+                    device[part][0] += float(ms)
+                    device[part][1] += int(count.rstrip("x"))
+    check(all(n == sum(blocks.values()) for _, n in device.values()),
+          f"{label}: the profile's separable launches a step {device}")
+    print(f"profile: {label} separable kernels' device time a step: " + "; ".join(
+        f"{part} {ms:.3f} ms ({n} launches)" for part, (ms, n) in device.items())
+        + f" | {card}", flush=True)
+    run = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    records = _records("fwd", "bwd")
+    g = torch.Generator(device="cuda").manual_seed(2)
+    for (n, c), count in blocks.items():
+        r = _separable_case(g, bp, n, c, torch.bfloat16, "bf16")
+        q, k, v, qkv, out = r["q"], r["k"], r["v"], r["qkv"], r["out"]
+        k_ms = time_ms(lambda: separable_attention_kernel(q, k, v))
+        p_ms = time_ms(lambda: separable_attention_plain(q, k, v))
+        kb_ms, pb_ms = time_ms(r["bwd_kernel"]), time_ms(r["bwd_plain"])
+        b_ms, b_by = bound(qkv.numel() * qkv.element_size() + out.numel() * out.element_size(),
+                           (4 * bp * n * c, FP32_FLOP_S), (bp * n, SFU_EXP_S))
+        bb_ms, bb_by = bound((5 * c + 2) * bp * n * qkv.element_size(),
+                             (7 * bp * n * c, FP32_FLOP_S), (bp * n, SFU_EXP_S))
+        berr = max(e for _, e, _ in r["errs"])
+        for rec, e, t, pt, bt, by in ((records["fwd"], r["abs_err"], k_ms, p_ms, b_ms, b_by),
+                                      (records["bwd"], berr, kb_ms, pb_ms, bb_ms, bb_by)):
+            rec["max_abs_err"] = max(rec["max_abs_err"], e)
+            rec["ms"] += count * t
+            rec["plain_ms"] += count * pt
+            rec["bound_ms"] += count * bt
+            rec["bound_by"] = by
+        print(f"kernel: {label} bf16 BP={bp} N={n} C={c} max_abs_err={r['abs_err']:.3e} "
+              f"grad_err={r['gerr']:.3e} kernel_ms={k_ms:.4f} plain_ms={p_ms:.4f} "
+              f"bound_ms={b_ms:.4f} ({b_by}) kernel/bound={k_ms / b_ms:.2f} | bwd: "
+              f"{_grad_errs(r['errs'])} bwd_ms={kb_ms:.4f} bwd_plain_ms={pb_ms:.4f} "
+              f"bwd_bound_ms={bb_ms:.4f} ({bb_by}) bwd/bound={kb_ms / bb_ms:.2f} | {card}",
+              flush=True)
+        del r
+    for part, rec in records.items():
+        print(f"kernel: {label} {part} a step ({sum(blocks.values())} launches): "
+              f"ms={rec['ms']:.4f} plain_ms={rec['plain_ms']:.4f} bound_ms={rec['bound_ms']:.4f} "
+              f"kernel/bound={rec['ms'] / rec['bound_ms']:.2f} | {card}", flush=True)
+    return launches, records
+
+
+def phase_schedulers(card: str) -> None:
+    """Phase 20d: the Trainer on the finetune flags with a ``multi_step``
+    schedule (``SCHEDULER_ARGS``: warmup 2, the LR ×0.1 from epoch 1) over 2
+    epochs of pinned batches: at every iteration the LR the train step writes
+    into every param group of the optimizer is the scheduler's host value
+    (``retrieve_lr``), and the last epoch's is the milestone's."""
+    import shutil
+
+    import torch
+
+    from cvnets_tpu_torch.engine import Trainer
+    from cvnets_tpu_torch.loss import build_loss_fn
+    from cvnets_tpu_torch.models import get_model
+    from cvnets_tpu_torch.optim.scheduler import build_scheduler
+    from cvnets_tpu_torch.options.opts import get_training_arguments
+
+    results = os.path.join("results", "schedulers_smoke")
+    shutil.rmtree(results, ignore_errors=True)
+    opts = get_training_arguments(args=SCHEDULER_ARGS + ["--common.results-loc", results])
+    g = torch.Generator().manual_seed(3)
+    train = pinned_batches(g, 3, 8, (384, 384), 1000)
+    trainer = Trainer(opts, get_model(opts), build_loss_fn(opts), train,
+                      pinned_batches(g, 1, 8, (384, 384), 1000))
+    written, step = [], trainer._train_step
+
+    def recorded(state, batch, lr, epoch, *rest):
+        out = step(state, batch, lr, epoch, *rest)
+        written.append((epoch, trainer.train_iterations, lr,
+                        [grp["lr"] / grp.get("lr_mult", 1.0)
+                         for grp in state.optimizer.param_groups]))
+        return out
+
+    trainer._train_step = recorded
+    trainer.run()
+    host = build_scheduler(opts)
+    want = [host.retrieve_lr(e, i) for e, i, _, _ in written]
+    got = [groups for _, _, _, groups in written]
+    check(len(written) == 6 and all(gs == [w] * len(gs) for gs, w in zip(got, want)),
+          f"schedulers: the optimizer's LRs {got}, the scheduler's {want}")
+    check(want[-1] == 0.001 and want[0] == 1e-6, f"schedulers: multi_step LRs {want}")
+    print(f"schedulers: multi_step over {len(written)} Trainer iterations (epoch, iteration, "
+          f"LR): {[(e, i, w) for (e, i, _, _), w in zip(written, want)]}; every param group "
+          f"of the optimizer at the scheduler's LR | {card}", flush=True)
+
+
+def phase_range_augment(card: str) -> dict:
+    """Phase 20: the RangeAugment distillation recipe (train with its checks,
+    steady steps, a profile split into the teacher, the augmentor + loss
+    terms, the optimizer and the rest, the student's forward and backward;
+    then main_train natively), MobileViTv2-2.0's 384² finetune on the
+    separable-attention kernels, and the multi_step scheduler through the
+    Trainer. Returns the finetune path's separable launches and kernel
+    records."""
+    import tempfile
+
+    import torch
+
+    from cvnets_tpu_torch.engine.train_state import OPTIMIZER_RANGE
+    from cvnets_tpu_torch.loss.distillation import DISTILLATION_RANGE, TEACHER_RANGE
+    from cvnets_tpu_torch.loss.neural_augmentation import NA_LOSS_RANGE
+    from cvnets_tpu_torch.models.neural_augmentor.neural_aug import AUGMENTOR_RANGE
+
+    def release() -> None:
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    label = "RangeAugment MobileNetV2-1.0 <- ResNet-101"
+    with tempfile.TemporaryDirectory() as root:
+        teacher_ckpt = os.path.join(root, "resnet101_teacher.pt")
+        write_teacher_checkpoint(teacher_ckpt)
+        run = phase_range_augment_train(card, teacher_ckpt)
+        bare = phase_steady(card, label, run)
+        phase_profile(card, label, run, os.path.join("results", "range_augment_profile.txt"),
+                      split=(AUGMENTOR_RANGE, DISTILLATION_RANGE, NA_LOSS_RANGE),
+                      ranges=(TEACHER_RANGE, OPTIMIZER_RANGE), rest="student")
+        run = None
+    release()
+    phase_range_augment_main_train(card, bare)
+    release()
+    out = phase_finetune(card)
+    release()
+    phase_schedulers(card)
+    release()
+    return out
+
+
 def main(argv) -> int:
     import torch
 
-    if argv not in ([], ["--deeplab"], ["--segmentation"], ["--families"], ["--clip"]):
+    if argv not in ([], ["--deeplab"], ["--segmentation"], ["--families"], ["--clip"],
+                    ["--range-augment"]):
         print(f"chip_smoke: unknown arguments {argv}; usage: chip_smoke.py "
-              "[--deeplab | --segmentation | --families | --clip]", file=sys.stderr)
+              "[--deeplab | --segmentation | --families | --clip | --range-augment]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4395,6 +5032,10 @@ def main(argv) -> int:
     if argv == ["--clip"]:
         phase_build()
         phase_clip(card)
+        return 0
+    if argv == ["--range-augment"]:
+        phase_build()
+        phase_range_augment(card)
         return 0
     if argv == ["--segmentation"]:
         phase_build()
@@ -4468,6 +5109,8 @@ def main(argv) -> int:
     release()
     clip_launches = phase_clip(card)
     release()
+    finetune_launches, finetune_records = phase_range_augment(card)
+    release()
 
     def entry(name, source, replaces, launches, record):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -4479,13 +5122,17 @@ def main(argv) -> int:
                 "launches_by_path": {"ViT-B/16": vit_launches[key],
                                      "CLIP ViT-B/16": clip_launches[key]}}
 
+    def sep_entry(name, replaces, part):  # the flagship's launches and the finetune's
+        return {**entry(name, "cvnets_tpu_torch/csrc/separable_attention.cu", replaces,
+                        sep_launches[name], sep_records[part]),
+                "launches_by_path": {"MobileViTv2-1.0": sep_launches[name],
+                                     "MobileViTv2-2.0 384² finetune": finetune_launches[name]},
+                "by_path": {"MobileViTv2-2.0 384² finetune": finetune_records[part]}}
+
     print(json.dumps({"kernels": [
-        entry("separable_attention", "cvnets_tpu_torch/csrc/separable_attention.cu",
-              "cvnets_tpu/ops/pallas/mobilevit_attn.py:44",
-              sep_launches["separable_attention"], sep_records["fwd"]),
-        entry("separable_attention_bwd", "cvnets_tpu_torch/csrc/separable_attention.cu",
-              "cvnets_tpu/ops/pallas/mobilevit_attn.py:120",
-              sep_launches["separable_attention_bwd"], sep_records["bwd"]),
+        sep_entry("separable_attention", "cvnets_tpu/ops/pallas/mobilevit_attn.py:44", "fwd"),
+        sep_entry("separable_attention_bwd", "cvnets_tpu/ops/pallas/mobilevit_attn.py:120",
+                  "bwd"),
         mha_entry("mha_attention_fwd", "cvnets_tpu/ops/pallas/mha_attn.py:134",
                   "mha_attention_fwd", mha_records["fwd"]),
         mha_entry("mha_attention_bwd", "cvnets_tpu/ops/pallas/mha_attn.py:153",

@@ -5,6 +5,7 @@ from __future__ import annotations
 import argparse
 
 from cvnets_tpu_torch.data.datasets.dataset_base import BaseDataset
+from cvnets_tpu_torch.utils import logger
 from cvnets_tpu_torch.utils.registry import Registry
 
 DATASET_REGISTRY = Registry(registry_name="torch_dataset", base_class=BaseDataset)
@@ -17,7 +18,17 @@ def arguments_dataset(parser: argparse.ArgumentParser) -> argparse.ArgumentParse
 
 def build_dataset_from_registry(opts, is_training: bool = True, is_evaluation: bool = False,
                                 *args, **kwargs):
-    return DATASET_REGISTRY[getattr(opts, "dataset.name"), getattr(opts, "dataset.category")](
+    """The dataset ``dataset.name`` of ``dataset.category``. A name neither
+    package registers (``pascal_voc``, which
+    config/segmentation/pascal_voc/deeplabv3_mobilevit.yaml sets) fails as in
+    the JAX package, with the names registered for the category."""
+    name, category = getattr(opts, "dataset.name"), getattr(opts, "dataset.category")
+    if (name, category) not in DATASET_REGISTRY:
+        registered = sorted(k.split(":", 1)[1] for k in DATASET_REGISTRY.keys()
+                            if k.startswith(f"{category}:") and not k.endswith(":__base__"))
+        logger.error(f"dataset.name {name!r} is not a registered {category} dataset; set "
+                     f"dataset.name in the yaml to one of {registered}")
+    return DATASET_REGISTRY[name, category](
         opts, is_training=is_training, is_evaluation=is_evaluation, *args, **kwargs)
 
 

@@ -88,7 +88,7 @@ class Evaluator:
         if criteria is None:
             from cvnets_tpu_torch.loss import build_loss_fn
 
-            criteria = build_loss_fn(opts)
+            criteria = build_loss_fn(opts, device=self.device)
         self.stats = Statistics(opts, getattr(opts, "stats.val", ["loss"]))
         self._class_emb: Optional[torch.Tensor] = None
         subset = getattr(opts, "stats.logit_subset_indices", None)

@@ -36,6 +36,14 @@ augment, mix, forward. Their host draws come from ``step_rng(seed, step, stream)
 the JAX step folds the step into its key: a step's augmentation depends on
 (``common.seed``, step) alone, so a resumed run needs no generator state to
 draw what an unbroken run draws.
+
+A model with RangeAugment's neural augmentor gets its draws from a generator
+on the batch's device seeded by (``common.seed``, step, ``NEURAL_AUG_STREAM``)
+each step, drawn on the device (one draw a micro-batch, in order), and
+returns ``{"augmented_tensor", "logits"}``; the loss receives the samples
+before the augmentor (after ``to_unit``, augmentation and mixing), as in the
+JAX step (:154, :162). The loss also gets ``epoch`` and ``iterations`` (the
+step), which RangeAugment's curriculum reads.
 """
 
 from __future__ import annotations
@@ -149,13 +157,24 @@ def to_device(batch, device: torch.device):
     return tree_map(lambda t: t.to(device, non_blocking=True), batch)
 
 
-MIXING_STREAM, AUGMENT_STREAM = 0, 1
+MIXING_STREAM, AUGMENT_STREAM, NEURAL_AUG_STREAM = 0, 1, 2
 OPTIMIZER_RANGE = "train_step_optimizer"
 
 
 def step_rng(seed: int, step: int, stream: int) -> np.random.Generator:
     """The host generator of one step's draws of one stream."""
     return np.random.default_rng([seed, step, stream])
+
+
+def step_generator(generators: Dict[torch.device, torch.Generator], device: torch.device,
+                   seed: int, step: int, stream: int) -> torch.Generator:
+    """The torch generator on ``device`` of one step's draws of one stream,
+    kept in ``generators`` and seeded anew each step (setting a seed reads
+    nothing back from the card)."""
+    if device not in generators:
+        generators[device] = torch.Generator(device=device)
+    return generators[device].manual_seed(
+        int(step_rng(seed, step, stream).integers(2 ** 62)))
 
 
 def _batch_values(metric_objs: Dict[str, Any], prediction, targets, extras) -> Pairs:
@@ -182,6 +201,8 @@ def make_train_step(model: nn.Module, criteria: Callable, opts, metric_objs: Dic
     seed = getattr(opts, "common.seed", 0) or 0
     n_classes = getattr(opts, "model.classification.n_classes", None)
     to_unit = UnitNormalizer(opts)
+    augmentor = model._modules.get("neural_augmentor")
+    generators: Dict[torch.device, torch.Generator] = {}
 
     def train_step(state: TrainState, batch: Dict, lr: float, epoch: int = 0,
                    bn_momentum: Optional[float] = None) -> Tuple[TrainState, Pairs]:
@@ -198,6 +219,8 @@ def make_train_step(model: nn.Module, criteria: Callable, opts, metric_objs: Dic
         state.optimizer.zero_grad(set_to_none=True)
         rows = batch_size(samples) // accum_freq
         device = first_leaf(samples).device
+        if augmentor is not None:
+            gen = step_generator(generators, device, seed, state.step, NEURAL_AUG_STREAM)
         for i in range(accum_freq):
             last = i == accum_freq - 1
             for m, m0 in zip(batch_norms, base_momentum):
@@ -208,7 +231,11 @@ def make_train_step(model: nn.Module, criteria: Callable, opts, metric_objs: Dic
             else:
                 mb_samples, mb_targets = samples, targets
             with autocast(opts, device):
-                prediction = model(mb_samples)
+                if augmentor is None:
+                    prediction = model(mb_samples)
+                else:
+                    prediction = model(mb_samples,
+                                       augmentation_draws=augmentor.draw(mb_samples, gen))
                 loss = criteria(mb_samples, prediction, mb_targets, training=True,
                                 epoch=epoch, iterations=state.step)
             total = loss["total_loss"] if isinstance(loss, dict) else loss

@@ -2,7 +2,8 @@
 
 A loss is a callable ``loss(input_sample, prediction, target, training=...)``
 returning a scalar tensor, or a dict of them with the total under
-``total_loss``."""
+``total_loss``. A loss that builds a model (distillation's teacher) sets
+``TAKES_DEVICE`` and is built with the run's ``device``."""
 
 from __future__ import annotations
 
@@ -13,6 +14,8 @@ import torch
 
 
 class BaseCriteria:
+    TAKES_DEVICE = False
+
     def __init__(self, opts) -> None:
         self.opts = opts
 

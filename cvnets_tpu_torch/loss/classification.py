@@ -1,6 +1,8 @@
 """Classification losses (counterpart of cvnets_tpu/loss/classification.py):
-cross-entropy with integer or soft targets (mixup, cutmix). Class weights are
-not ported."""
+cross-entropy with integer or soft targets (mixup, cutmix). A dict prediction
+(a model with RangeAugment's augmentor, in training) gives its ``logits``, as
+in the JAX package (classification.py:78, 100). Class weights are not
+ported."""
 
 from __future__ import annotations
 
@@ -50,6 +52,8 @@ class CrossEntropy(BaseClassificationCriteria):
     def __call__(self, input_sample: Any, prediction: torch.Tensor,
                  target: torch.Tensor, training: bool = True, **kwargs) -> torch.Tensor:
         ls = self.label_smoothing if training else 0.0
+        if isinstance(prediction, dict):
+            prediction = prediction["logits"]
         if target.dim() == prediction.dim():  # soft targets, smoothed to soft·(1 - ls) + ls / C
             return F.cross_entropy(prediction.float(), target.float(), label_smoothing=ls)
         return F.cross_entropy(prediction.float(), target,

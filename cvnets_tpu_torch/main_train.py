@@ -41,7 +41,7 @@ def main(opts, device: Union[str, torch.device, None] = None, **kwargs) -> Train
     train_loader, val_loader, train_sampler = create_train_val_loader(
         opts, pin_memory=device.type == "cuda", device=device)
     model = get_model(opts, device=device)
-    trainer = Trainer(opts, model, build_loss_fn(opts), train_loader, val_loader,
+    trainer = Trainer(opts, model, build_loss_fn(opts, device=device), train_loader, val_loader,
                       device=device, train_sampler=train_sampler)
     trainer.run()
     return trainer

@@ -13,6 +13,13 @@ from cvnets_tpu_torch.utils.registry import Registry
 
 MODEL_REGISTRY = Registry(registry_name="torch_model_registry", base_class=nn.Module)
 
+# model categories the JAX package has and the port does not yet: get_model
+# raises naming the item before it reads their options
+_UNPORTED_CATEGORIES = {
+    "audio_classification": "the audio category (ROADMAP.md queue 1 item 6)",
+    "video_classification": "the video category (ROADMAP.md queue 1 item 11)",
+}
+
 
 def get_model(opts, category: Optional[str] = None, model_name: Optional[str] = None,
               generator: Optional[torch.Generator] = None,
@@ -21,8 +28,14 @@ def get_model(opts, category: Optional[str] = None, model_name: Optional[str] = 
     ``device`` (the CUDA card unless the caller asks for the CPU), initialised
     from ``generator`` (default: a CPU generator seeded with ``common.seed``, so
     one seed gives the same weights on every device). Raises when the device
-    is a CUDA one and no card is present."""
+    is a CUDA one and no card is present.
+
+    A top-level classification model of a family that has one gets the
+    neural augmentor of ``--model.learn-augmentation.*``; any other model
+    asked for one is built without it, with a warning, as the JAX package
+    builds none there."""
     from cvnets_tpu_torch.layers.init_utils import init_weights
+    from cvnets_tpu_torch.models.neural_augmentor.neural_aug import build_neural_augmentor
 
     device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -30,6 +43,8 @@ def get_model(opts, category: Optional[str] = None, model_name: Optional[str] = 
                            "device='cpu' to build the model on the CPU")
     if category is None:
         category = getattr(opts, "dataset.category")
+    if category in _UNPORTED_CATEGORIES:
+        raise NotImplementedError(f"not ported yet: {_UNPORTED_CATEGORIES[category]}")
     if model_name is None:
         model_name = getattr(opts, f"model.{category}.name")
     if model_name == "__base__":
@@ -40,6 +55,15 @@ def get_model(opts, category: Optional[str] = None, model_name: Optional[str] = 
         setattr(opts, "model.normalization.frozen", True)
         logger.info(f"Normalization layers are frozen ({category})")
     model = MODEL_REGISTRY[model_name, category].build_model(opts)
+    mode = getattr(opts, "model.learn_augmentation.mode", None)
+    if category == "classification" and getattr(model, "NEURAL_AUGMENTOR", False):
+        augmentor = build_neural_augmentor(opts)
+        if augmentor is not None:
+            model.neural_augmentor = augmentor
+    elif mode is not None:
+        logger.warning(f"--model.learn-augmentation.mode {mode}: the {category} model "
+                       f"{model_name} builds no neural augmentor, as in the JAX package "
+                       "(which never runs it there); its neural_augmentation loss is 0")
     if generator is None:
         generator = torch.Generator().manual_seed(getattr(opts, "common.seed", 0) or 0)
     init_weights(model, opts, generator)
@@ -70,6 +94,8 @@ def modeling_arguments(parser: argparse.ArgumentParser) -> argparse.ArgumentPars
         arguments_image_projection_head,
     )
     from cvnets_tpu_torch.models.multi_modal.text_encoders import arguments_text_encoder
+    from cvnets_tpu_torch.models.neural_augmentor import arguments_neural_augmentor
+    from cvnets_tpu_torch.options.utils import extend_selected_args_with_prefix
 
     parser = arguments_finetune_scopes(parser)
     parser = MODEL_REGISTRY.all_arguments(parser)
@@ -79,7 +105,10 @@ def modeling_arguments(parser: argparse.ArgumentParser) -> argparse.ArgumentPars
     parser = arguments_ema(parser)
     parser = arguments_anchor_gen(parser)
     parser = arguments_box_matcher(parser)
-    return parser
+    parser = arguments_neural_augmentor(parser)
+    # distillation's teacher: every --model.* flag cloned, last, as in
+    # cvnets_tpu/models/__init__.py:71-73
+    return extend_selected_args_with_prefix(parser, "--model.", "--teacher.model.")
 
 
 # registers the ported models (after MODEL_REGISTRY exists)

@@ -5,10 +5,16 @@ NCHW input; the five-stage skeleton ``conv_1, layer_1..layer_5, conv_1x1_exp,
 classifier`` (a model without ``conv_1x1_exp`` goes from layer_5 to the
 classifier), ``extract_features`` (the stages without the classifier: CLIP's
 image features), and the tap points that the segmentation heads read
-(``extract_end_points_all``). Gradient checkpointing is not ported yet, and a
-model whose options ask for the neural augmentor (RangeAugment,
-``--model.learn-augmentation.mode``) raises: it waits for ROADMAP.md queue 1
-item 12.
+(``extract_end_points_all``). Gradient checkpointing is not ported yet.
+
+RangeAugment's neural augmentor (``--model.learn-augmentation.mode``) is
+built by ``get_model`` into a model of a family whose ``NEURAL_AUGMENTOR`` is
+set (the ten families whose JAX modules build one), only when it is the
+top-level classification model: JAX runs the augmentor in the encoder's
+``__call__`` alone (base_image_encoder.py:206-216), which segmentation,
+detection and CLIP never call, so their encoders have no augmentor
+parameters. In training such a model returns ``{"augmented_tensor",
+"logits"}``, else its logits.
 
 As in the JAX package, ``--model.classification.activation.*`` are parsed and
 never read: the JAX package never calls its
@@ -38,6 +44,7 @@ def dilates(output_stride: Optional[int], stage: int) -> bool:
 @MODEL_REGISTRY.register(name="__base__", type="classification")
 class BaseImageEncoder(nn.Module):
     STAGES = ("conv_1", "layer_1", "layer_2", "layer_3", "layer_4", "layer_5")
+    NEURAL_AUGMENTOR = False  # whether the family's JAX module builds the augmentor
 
     @classmethod
     def add_arguments(cls, parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
@@ -53,18 +60,11 @@ class BaseImageEncoder(nn.Module):
         group.add_argument("--model.classification.activation.inplace", action="store_true")
         group.add_argument("--model.classification.activation.neg-slope", type=float,
                            default=0.1)
-        group = parser.add_argument_group(title="Neural augmentor")
-        group.add_argument("--model.learn-augmentation.mode", type=str, default=None,
-                           help="RangeAugment's augmentor; not ported, a model refuses it")
         return parser
 
     @classmethod
     def build_model(cls, opts, **kwargs) -> "BaseImageEncoder":
         """``kwargs``: e.g. ``output_stride`` for a segmentation encoder."""
-        if getattr(opts, "model.learn_augmentation.mode", None) is not None:
-            raise NotImplementedError(
-                "not ported yet: the neural augmentor (RangeAugment, "
-                "--model.learn-augmentation.*) waits for ROADMAP.md queue 1 item 12")
         return cls(opts, **kwargs)
 
     @staticmethod
@@ -89,8 +89,15 @@ class BaseImageEncoder(nn.Module):
         exp = getattr(self, "conv_1x1_exp", None)
         return x if exp is None else exp(x)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.classifier(self.extract_features(x))
+    def forward(self, x: torch.Tensor, augmentation_draws=None):
+        """Logits; with a neural augmentor, in training, ``{"augmented_tensor",
+        "logits"}`` with the augmentor's ``draws`` (drawn here when None)."""
+        augmentor = self._modules.get("neural_augmentor")
+        if augmentor is None:
+            return self.classifier(self.extract_features(x))
+        x = augmentor(x, augmentation_draws)
+        logits = self.classifier(self.extract_features(x))
+        return {"augmented_tensor": x, "logits": logits} if self.training else logits
 
     def extract_end_points_all(self, x: torch.Tensor, use_l5: bool = True,
                                use_l5_exp: bool = False) -> Dict[str, torch.Tensor]:

@@ -67,6 +67,8 @@ def get_configuration(opts) -> Dict:
 
 @MODEL_REGISTRY.register(name="efficientnet", type="classification")
 class EfficientNet(BaseImageEncoder):
+    NEURAL_AUGMENTOR = True
+
     @classmethod
     def add_arguments(cls, parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
         group = parser.add_argument_group(title=cls.__name__)

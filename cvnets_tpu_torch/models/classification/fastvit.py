@@ -57,6 +57,8 @@ def get_configuration(opts) -> Dict:
 
 @MODEL_REGISTRY.register(name="fastvit", type="classification")
 class FastViT(BaseImageEncoder):
+    NEURAL_AUGMENTOR = True
+
     @classmethod
     def add_arguments(cls, parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
         group = parser.add_argument_group(title=cls.__name__)

@@ -31,6 +31,8 @@ _STAGE_ROWS = {1: ["layer1"], 2: ["layer2"], 3: ["layer3"], 4: ["layer4", "layer
 
 @MODEL_REGISTRY.register(name="mobilenetv2", type="classification")
 class MobileNetV2(BaseImageEncoder):
+    NEURAL_AUGMENTOR = True
+
     @classmethod
     def add_arguments(cls, parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
         group = parser.add_argument_group(title=cls.__name__)

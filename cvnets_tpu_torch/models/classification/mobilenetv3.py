@@ -87,6 +87,8 @@ class MobileNetV3Classifier(nn.Module):
 
 @MODEL_REGISTRY.register(name="mobilenetv3", type="classification")
 class MobileNetV3(BaseImageEncoder):
+    NEURAL_AUGMENTOR = True
+
     @classmethod
     def add_arguments(cls, parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
         group = parser.add_argument_group(title=cls.__name__)

@@ -45,6 +45,8 @@ def get_configuration(opts) -> Dict:
 
 @MODEL_REGISTRY.register(name="mobileone", type="classification")
 class MobileOne(BaseImageEncoder):
+    NEURAL_AUGMENTOR = True
+
     @classmethod
     def add_arguments(cls, parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
         group = parser.add_argument_group(title=cls.__name__)

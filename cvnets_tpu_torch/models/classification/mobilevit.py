@@ -25,6 +25,8 @@ from cvnets_tpu_torch.modules.mobilevit_block import MobileViTBlock
 
 @MODEL_REGISTRY.register(name="mobilevit", type="classification")
 class MobileViT(BaseImageEncoder):
+    NEURAL_AUGMENTOR = True
+
     @classmethod
     def add_arguments(cls, parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
         group = parser.add_argument_group(title=cls.__name__)

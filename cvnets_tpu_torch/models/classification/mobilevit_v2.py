@@ -23,6 +23,8 @@ from cvnets_tpu_torch.modules.mobilevit_block import MobileViTBlockv2
 
 @MODEL_REGISTRY.register(name="mobilevit_v2", type="classification")
 class MobileViTv2(BaseImageEncoder):
+    NEURAL_AUGMENTOR = True
+
     @classmethod
     def add_arguments(cls, parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
         group = parser.add_argument_group(title=cls.__name__)

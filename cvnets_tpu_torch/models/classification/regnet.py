@@ -25,6 +25,8 @@ from cvnets_tpu_torch.modules.regnet_modules import XRegNetBlock
 
 @MODEL_REGISTRY.register(name="regnet", type="classification")
 class RegNet(BaseImageEncoder):
+    NEURAL_AUGMENTOR = True
+
     @classmethod
     def add_arguments(cls, parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
         group = parser.add_argument_group(title=cls.__name__)

@@ -38,6 +38,8 @@ def stochastic_depth_schedule(sd_prob: float, n_blocks: int) -> List[float]:
 
 @MODEL_REGISTRY.register(name="resnet", type="classification")
 class ResNet(BaseImageEncoder):
+    NEURAL_AUGMENTOR = True
+
     @classmethod
     def add_arguments(cls, parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
         group = parser.add_argument_group(title=cls.__name__)

@@ -23,7 +23,7 @@ layer-wise LR decay.
 from __future__ import annotations
 
 import argparse
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
@@ -75,11 +75,15 @@ class VisionTransformer(BaseImageEncoder):
                            default=2)
         return parser
 
-    def __init__(self, opts) -> None:
+    def __init__(self, opts, output_stride: Optional[int] = None) -> None:
         super().__init__()
         for flag, what in _UNPORTED.items():
             if getattr(opts, flag, None):
                 raise NotImplementedError(f"ViT: {what} (--{flag}) is not ported")
+        if output_stride is not None:  # the JAX ViT's stem at output stride 8 (vit.py:84)
+            raise NotImplementedError(
+                f"not ported yet: the ViT as a segmentation encoder (output stride "
+                f"{output_stride}) waits for ROADMAP.md queue 1 item 5")
         cfg = get_configuration(opts)
         embed_dim = cfg["embed_dim"]
         n_layers = cfg["n_transformer_layers"]

@@ -1,6 +1,8 @@
-"""YAML config loading for the port's parser (counterpart of
-cvnets_tpu/options/utils.py:20-79). ``yaml`` is imported inside
-``load_config_file`` so the package imports without PyYAML."""
+"""YAML config loading for the port's parser and the flag clones of
+distillation's teacher (counterpart of cvnets_tpu/options/utils.py:20-184).
+``yaml`` is imported inside ``load_config_file`` so the package imports
+without PyYAML. A yaml list (``loss.composite_loss``) reaches the namespace
+as the list."""
 
 from __future__ import annotations
 
@@ -55,3 +57,36 @@ def load_config_file(opts: argparse.Namespace) -> argparse.Namespace:
         else:
             logger.warning(f"Unrecognized override entry: {k}")
     return opts
+
+
+def extend_selected_args_with_prefix(parser: argparse.ArgumentParser, match_prefix: str,
+                                     additional_prefix: str) -> argparse.ArgumentParser:
+    """Clone every flag of ``parser`` that starts with ``match_prefix`` under
+    ``additional_prefix`` (``--model.*`` as ``--teacher.model.*``, for the
+    distillation teacher; options/utils.py:103-148). A store-true flag's clone
+    takes an optional value (``nargs="?"``, const True)."""
+    regexp = r"--[^_]+\."
+    assert re.match(regexp, match_prefix), match_prefix
+    assert re.match(regexp, additional_prefix), additional_prefix
+    for action in list(parser._actions):
+        for option_string in action.option_strings:
+            if option_string.startswith(match_prefix):
+                parser.add_argument(
+                    option_string.replace(match_prefix, additional_prefix),
+                    nargs="?" if isinstance(action, argparse._StoreTrueAction)
+                    else action.nargs,
+                    const=action.const, default=action.default, type=action.type,
+                    choices=action.choices, help=action.help, metavar=action.metavar)
+    return parser
+
+
+def extract_opts_with_prefix_replacement(opts: argparse.Namespace, match_prefix: str,
+                                         replacement_prefix: str) -> argparse.Namespace:
+    """A namespace of the options of ``opts`` that start with ``match_prefix``,
+    renamed to start with ``replacement_prefix`` (``teacher.model.*`` back to
+    ``model.*``; options/utils.py:151-184)."""
+    regexp = r"[^-]+\."
+    assert re.match(regexp, match_prefix), match_prefix
+    assert re.match(regexp, replacement_prefix), replacement_prefix
+    return argparse.Namespace(**{k.replace(match_prefix, replacement_prefix, 1): v
+                                 for k, v in vars(opts).items() if k.startswith(match_prefix)})

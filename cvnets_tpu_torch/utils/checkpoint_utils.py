@@ -206,8 +206,8 @@ def _patterns(opts, dest: str) -> List["re.Pattern"]:
             if p.strip()]
 
 
-def finetune_weights(opts, path: str, current: Dict[str, torch.Tensor]
-                     ) -> Dict[str, torch.Tensor]:
+def finetune_weights(opts, path: str, current: Dict[str, torch.Tensor],
+                     flag: str = "--common.finetune") -> Dict[str, torch.Tensor]:
     """``current`` (a model's state dict) with the tensors of ``path`` (a
     ``checkpoint_*.pt`` of the port, or the model part of a
     ``training_checkpoint_*.pt``) laid over it under the JAX package's scope
@@ -216,10 +216,11 @@ def finetune_weights(opts, path: str, current: Dict[str, torch.Tensor]
     keeps its fresh value, a key the file lacks keeps its fresh value and is
     reported unless it matches ``--model.ignore-missing-scopes``, and a tensor
     of another shape keeps its fresh value with a warning. A file most of
-    whose tensors name none of the model's raises (``UNPORTED_CHECKPOINT``)."""
+    whose tensors name none of the model's raises (``UNPORTED_CHECKPOINT``),
+    the message naming ``flag``, the option that gave the file."""
     blob = load_file(path)
     if not isinstance(blob, dict) or "model_state_dict" in blob:
-        raise NotImplementedError(f"--common.finetune {path}: {UNPORTED_CHECKPOINT}")
+        raise NotImplementedError(f"{flag} {path}: {UNPORTED_CHECKPOINT}")
     src = blob["model"] if isinstance(blob.get("model"), dict) else blob
     src = {k: v for k, v in src.items() if isinstance(v, torch.Tensor)}
     for pat, rep in _renames(opts):
@@ -227,7 +228,7 @@ def finetune_weights(opts, path: str, current: Dict[str, torch.Tensor]
     foreign = [k for k in src if k not in current]
     if not src or len(foreign) * 2 > len(src):
         raise NotImplementedError(
-            f"--common.finetune {path}: {len(foreign)} of its {len(src)} tensors name none "
+            f"{flag} {path}: {len(foreign)} of its {len(src)} tensors name none "
             f"of the model's (e.g. {foreign[:3]}); {UNPORTED_CHECKPOINT}")
     exclude = _patterns(opts, "model.resume_exclude_scopes")
     ignore = _patterns(opts, "model.ignore_missing_scopes")

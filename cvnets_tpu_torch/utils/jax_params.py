@@ -10,7 +10,10 @@ the leaf names change as
 Swin's ``relative_position_bias_table``, PReLU's ``alpha``, FastViT's
 ``layer_scale``, ``layer_scale_1`` and ``layer_scale_2``, and CLIP's
 ``token_embedding``, ``projection`` (the text tower's), ``proj`` (the image
-head's) and ``logit_scale`` keep their names.
+head's) and ``logit_scale`` keep their names, and so do the neural
+augmentor's scalars (``neural_augmentor/{brightness,contrast,noise}_{mag,min,max}``).
+``load_jax_teacher`` fills a distillation loss's teacher from the JAX loss's
+``teacher_variables``.
 The segmentation heads' scopes (PSPNet's ``psp/psp_branch_<i>`` and
 ``psp/fusion``, the separable ASPP's ``aspp/aspp_sep_<i>/{dw_conv,pw_conv}``,
 the simple head's ``conv``) follow the same rule. Only leaves named ``kernel``
@@ -35,7 +38,9 @@ _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
          "alpha": "alpha", "layer_scale": "layer_scale",
          "layer_scale_1": "layer_scale_1", "layer_scale_2": "layer_scale_2",
          "token_embedding": "token_embedding", "projection": "projection", "proj": "proj",
-         "logit_scale": "logit_scale"}
+         "logit_scale": "logit_scale",
+         **{f"{aug}_{part}": f"{aug}_{part}" for aug in ("brightness", "contrast", "noise")
+            for part in ("mag", "min", "max")}}
 # a list of modules in flax (``layer_3_0``, FastViT's ``conv_1_0`` and
 # ``conv_1x1_exp_0``, SSD's ``extra_layers_0`` and ``ssd_heads_0``) is an
 # ``nn.Sequential`` or ``nn.ModuleList`` entry here (``layer_3.0``)
@@ -100,3 +105,16 @@ def load_jax_params(model: nn.Module, params: Mapping,
     missing = sorted(set(targets) - filled)
     if missing:
         raise KeyError(f"{len(missing)} model tensors have no flax leaf: {missing[:8]}")
+
+
+def load_jax_teacher(criteria, teacher_variables: Mapping) -> None:
+    """Fill the teacher of a distillation loss (or of every distillation entry
+    of a composite loss) from a JAX distillation loss's ``teacher_variables``
+    (its params and batch stats)."""
+    losses = getattr(criteria, "loss_fns", {"": criteria}).values()
+    teachers = [fn.teacher for fn in losses if hasattr(fn, "teacher")]
+    if not teachers:
+        raise ValueError(f"{criteria!r} has no teacher")
+    for teacher in teachers:
+        load_jax_params(teacher, teacher_variables["params"],
+                        teacher_variables.get("batch_stats"))

@@ -14,9 +14,12 @@ JAX package on the same inputs and weights, float32 on the CPU:
   option the families use (1e-5);
 * the parser: ``--model.classification.activation.*`` and
   ``--model.activation.{inplace,neg-slope}`` with the JAX dests and defaults;
-  the conv and recipe yamls parse with no "Yaml entry not supported by the
-  port" warning but for the named keys of unported items; a model whose
-  options ask for the neural augmentor raises and names its ROADMAP item.
+  the conv, recipe, distillation, fixed / multi_step and Mask R-CNN yamls
+  parse with no "Yaml entry not supported by the port" warning but for the
+  named keys of unported items (Mask R-CNN's); a model whose options ask for
+  the neural augmentor builds it with the JAX tree's scalars; the pascal_voc
+  yaml's dataset and the audio and video categories fail naming the cause or
+  the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -354,13 +357,14 @@ def test_layers_build_with_model_activation_not_the_classification_one():
 
 
 # keys each yaml sets that the port's parser does not take, all of unported
-# items: RangeAugment's augmentor and composite loss (ROADMAP queue 1 item 12)
-RANGE_AUGMENT_KEYS = ["loss.composite_loss", "model.learn_augmentation.brightness",
-                      "model.learn_augmentation.contrast", "model.learn_augmentation.noise"]
-UNPORTED_KEYS = {
-    "classification/imagenet/efficientnet_rangeaugment.yaml": RANGE_AUGMENT_KEYS,
-    "classification/imagenet/regnet_y_16gf_rangeaugment.yaml": RANGE_AUGMENT_KEYS,
-}
+# items: Mask R-CNN's loss weights and backbone LR (ROADMAP queue 1 item 10)
+MASK_RCNN_KEYS = ["loss.detection.mask_rcnn_loss.classifier_weight",
+                  "loss.detection.mask_rcnn_loss.box_reg_weight",
+                  "loss.detection.mask_rcnn_loss.mask_weight",
+                  "loss.detection.mask_rcnn_loss.objectness_weight",
+                  "loss.detection.mask_rcnn_loss.rpn_box_reg",
+                  "model.detection.mask_rcnn.backbone_lr_multiplier"]
+UNPORTED_KEYS = {"detection/mask_rcnn_coco/resnet_fpn.yaml": MASK_RCNN_KEYS}
 YAMLS = [f"classification/imagenet/{name}.yaml" for name in (
     "resnet", "resnet_adv", "mobilenet_v1", "mobilenet_v2", "mobilenet_v3", "mobileone",
     "mobilevit_v2", "vit", "swin", "efficientnet_rangeaugment",
@@ -370,7 +374,11 @@ YAMLS = [f"classification/imagenet/{name}.yaml" for name in (
         "ade20k/deeplabv3_mobilenetv2", "ade20k/deeplabv3_resnet50",
         "pascal_voc/deeplabv3_mobilevitv2", "pascal_voc/pspnet_mobilevitv2",
         "pascal_voc/deeplabv3_mobilevit")] + ["detection/ssd_coco/mobilevit.yaml",
-                                              "multi_modal_image_text/clip_vit.yaml"]
+                                              "multi_modal_image_text/clip_vit.yaml"] + [
+    # distillation, the fixed and multi_step schedulers, Mask R-CNN's keys
+    "distillation/teacher_resnet101_student_mobilenet_v1.yaml",
+    "classification/finetune_higher_res_in1k/mobilevit_v2.yaml",
+    "detection/ssd_coco/resnet.yaml", "detection/mask_rcnn_coco/resnet_fpn.yaml"]
 
 
 @pytest.mark.parametrize("yaml", YAMLS)
@@ -393,11 +401,54 @@ def test_yamls_parse_with_no_unsupported_key_but_those_of_unported_items(yaml, m
 
 
 @pytest.mark.parametrize("name", ["efficientnet", "regnet", "resnet", "mobilevit_v2"])
-def test_a_model_asking_for_the_neural_augmentor_raises(name):
+def test_a_model_asking_for_the_neural_augmentor_builds_it(name):
+    """RangeAugment's augmentor sits in the port's model where the JAX tree
+    has it: the scalars of the enabled augmentations under
+    ``neural_augmentor``, of the same shapes (``jax.eval_shape``, no weights)."""
+    from cvnets_tpu.models import get_model as jax_get_model
     from cvnets_tpu_torch.models import get_model
+    from torch_port_helpers import jax_leaf_shapes, port_shapes
 
-    _, opts = both_opts(["--model.classification.name", name,
-                         "--model.learn-augmentation.mode", "distribution",
-                         "--dataset.category", "classification"])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 12"):
+    opts_jax, opts = both_opts(["--model.classification.name", name,
+                                "--model.learn-augmentation.mode", "distribution",
+                                "--model.learn-augmentation.brightness",
+                                "--model.learn-augmentation.noise",
+                                "--dataset.category", "classification"])
+    model = get_model(opts, device="cpu")
+    want = {k: v for k, v in jax_leaf_shapes(jax_get_model(opts_jax)).items()
+            if k.startswith("neural_augmentor.")}
+    got = {k: v for k, v in port_shapes(model).items() if k.startswith("neural_augmentor.")}
+    assert got == want and sorted(got) == [
+        "neural_augmentor.brightness_max", "neural_augmentor.brightness_min",
+        "neural_augmentor.noise_max", "neural_augmentor.noise_min"]
+
+
+def test_the_pascal_voc_yaml_fails_naming_the_registered_dataset_and_its_key():
+    """ROADMAP fault 3: config/segmentation/pascal_voc/deeplabv3_mobilevit.yaml
+    names ``pascal_voc``, which neither package registers; the port keeps the
+    JAX failure, naming the registered ``pascal`` and the yaml key."""
+    from cvnets_tpu_torch.data.datasets import build_dataset_from_registry
+    from cvnets_tpu_torch.options.opts import get_training_arguments
+
+    opts = get_training_arguments(args=["--common.config-file", os.path.join(
+        REPO, "config/segmentation/pascal_voc/deeplabv3_mobilevit.yaml")])
+    with pytest.raises(SystemExit) as err:
+        build_dataset_from_registry(opts)
+    assert "'pascal_voc'" in str(err.value) and "dataset.name" in str(err.value)
+    assert "'pascal'" in str(err.value) and "__base__" not in str(err.value)
+
+
+@pytest.mark.parametrize("yaml,item", [
+    ("config/audio_classification/speech_commands/byteformer_wav.yaml", "item 6"),
+    ("config/video_classification/kinetics/mobilevit_st_small.yaml", "item 11"),
+    ("examples/vit/segmentation/ade20k/deeplabv3_vit_base_clip_os_16.yaml", "item 5")])
+def test_an_unported_category_fails_naming_its_roadmap_item(yaml, item):
+    """ROADMAP faults 4 and 5: the audio and video categories raise naming
+    their ROADMAP item, before any option of theirs is read, and so does a
+    ViT built as a segmentation encoder (an output stride)."""
+    from cvnets_tpu_torch.models import get_model
+    from cvnets_tpu_torch.options.opts import get_training_arguments
+
+    opts = get_training_arguments(args=["--common.config-file", os.path.join(REPO, yaml)])
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
         get_model(opts, device="cpu")
