@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (cvnets_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py [--deeplab | --segmentation | --families | --clip |
-                           --range-augment]
+                           --range-augment | --byteformer]
 
 ``--deeplab`` runs only phases 1, 10 and 11 (DeepLabv3's train, a/b and
 profile; about a minute) and prints neither JSON line: run in turns from two
@@ -14,7 +14,8 @@ minute of command time) and prints neither JSON line. ``--families`` runs
 only phases 1, 2 and 18 (MobileViT v1, FastViT and SSDLite) and prints
 neither JSON line; ``--clip`` only phases 1, 2 and 19 (CLIP ViT-B/16);
 ``--range-augment`` only phases 1, 2 and 20 (RangeAugment and distillation,
-MobileViTv2-2.0's 384² finetune, the schedulers).
+MobileViTv2-2.0's 384² finetune, the schedulers); ``--byteformer`` only
+phases 1, 2 and 21 (ByteFormer and audio).
 
 Phases, one line each or more (any failure exits non-zero):
 
@@ -284,6 +285,39 @@ Phases, one line each or more (any failure exits non-zero):
    beside them and their bounds; (d) the Trainer on those flags with a
    ``multi_step`` schedule: the LR written into the optimizer at every
    iteration is the scheduler's.
+21. byteformer: ByteFormer-Tiny (E 192, 12 layers of 3 heads of 64, conv
+   16 / stride 8, token merging after layers 3, 7 and 11) at batch 48, bf16,
+   with the yamls' settings as flags. (a) byteformer.yaml (``BYTEFORMER_ARGS``:
+   windows of 128, AdamW, cosine LR, label smoothing 0.1, EMA 0.0005) on
+   seeded byte sequences of 7,000-8,192 bytes (what ``pil_save`` at quality
+   60 makes of a 224² crop) padded with -1 to the bucket of 8,192: 12 forward
+   and 12 backward MHA launches a step, by (B·n_windows, window) exactly
+   (384, 128) ×4, (192, 128) ×4 and (96, 128) ×4 (``BYTEFORMER_SHAPES``,
+   read by ``ShapeLog``s standing in for the wrappers), finite losses,
+   params and EMA moved, the float32 eval logits through the kernels against
+   the einsum route and against a CPU copy; 24 steady steps (step ms, img/s,
+   host enqueue, peak memory); a profile with the MHA kernels' share
+   (results/byteformer_jpeg_profile.txt). (b) byteformer_wav.yaml
+   (``BYTEFORMER_WAV_ARGS``: windows of 32, 35 classes) on 32,044-byte
+   sequences (a 1-s 16 kHz int16 wav) in the bucket of 32,768: launches at
+   (6144, 32) ×4, (3072, 32) ×4 and (1536, 32) ×4, then as (a)
+   (results/byteformer_wav_profile.txt). (c) the MHA kernels at (384, 128,
+   3, 64) and (6144, 32, 3, 64), bf16 and f32, with and without a key mask
+   (one window masked whole), against their plain versions as in phase 4;
+   every window shape of a step timed beside its plain versions, its bound
+   and SDPA, and summed to a step's. (d) one step of (a) under
+   ``--model.classification.byteformer.mask-windowed-attn``: 6 forward and
+   6 backward launches (the unshifted layers, with the key-padding mask), 6
+   einsum layers (the shifted ones' additive mask), the logits against the
+   einsum route's. (e) ``main_train`` on (a)'s flags over phase 17's JPEG
+   corpus cut to 48 + 12 files a class (Pillow a sample,
+   ``byteformer_image_collate_fn`` with ``pil_save`` at quality 60) and (f)
+   on (b)'s over a Speech Commands folder written at run time (35 words × 16
+   + 2 one-second clips): 2 epochs with validation and EMA validation, 12 +
+   12 launches a train step and 12 an eval forward, no host sync between
+   log points, img/s over epoch 2 after its first batch beside the loader
+   alone, the buckets padded to, ``main_eval`` on checkpoint_ema_last.pt
+   against the last EMA validation.
 
 The second-to-last line is the kernels' JSON record, one entry for each TPU
 kernel's counterpart: ``ms``/``plain_ms`` are a kernel's and its plain
@@ -292,7 +326,9 @@ forward and 9 backward at the flagship from the per-shape bf16 medians, with
 their launches by path, the flagship's and MobileViTv2-2.0's 384² finetune's,
 in ``launches_by_path`` and the finetune's own times in ``by_path``, each
 MHA kernel's 12 at ViT-B and at ViT-B 512² (the S ≤ 512 rows also give
-their launches by path, ViT-B/16's and CLIP's, in ``launches_by_path``),
+their launches by path, ViT-B/16's, CLIP's and ByteFormer-Tiny's on JPEG and
+on wav bytes, in ``launches_by_path``, and ByteFormer's step of 12 launches
+at its window shapes in ``by_path``),
 each seg-CE kernel's 2 at DeepLabv3, each window kernel's 12 at Swin-T
 from the per-stage medians; the native decode's crop → resize → flip
 kernel's one launch a batch at 128 × 256², its launches those of the
@@ -2147,14 +2183,17 @@ def range_device_us(events, name: str) -> float:
 
 
 def phase_profile(card: str, label: str, run, path: str, route: str = None,
-                  split: tuple = (), ranges: tuple = (), rest: str = "other") -> float:
+                  split: tuple = (), ranges: tuple = (), rest: str = "other",
+                  named: tuple = ()) -> float:
     """torch.profiler over 3 steps: device time by kernel into ``path``;
     returns the device ms a step. With ``route``, also prints the device ms
     a step of that ``record_function`` range, forward and backward
     (``route_device_us``), and its share of the step's. ``split`` (ranges
     with backward nodes, by ``route_device_us``) and ``ranges`` (without, by
     ``range_device_us``) print the step's device time split between them,
-    the rest as ``rest`` ("other" unless the caller names it)."""
+    the rest as ``rest`` ("other" unless the caller names it). ``named``
+    (parts of kernel names) prints the device ms a step of the kernels whose
+    names hold one of them, and their share."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -2196,6 +2235,12 @@ def phase_profile(card: str, label: str, run, path: str, route: str = None,
     print(f"profile: {label} device ms a step by kernel family: " + "; ".join(
         f"{f} {ms:.3f} ({c}x)" for f, (ms, c) in sorted(families.items(),
                                                        key=lambda kv: -kv[1][0])), flush=True)
+    if named:
+        picked = [e for e in events if any(part in e.key for part in named)]
+        named_ms = sum(e.self_device_time_total for e in picked) / 1e3 / n
+        print(f"profile: {label} kernels named *{'*/*'.join(named)}*: {named_ms:.3f} device ms a "
+              f"step in {sum(e.count for e in picked) // n} launches, share "
+              f"{named_ms / (device_s * 1e3):.3f} | {card}", flush=True)
     if route:
         route_ms = route_device_us(prof.events(), route) / 1e3 / n
         print(f"profile: {label} {route} forward + backward device {route_ms:.3f} ms a step "
@@ -3233,8 +3278,10 @@ def _corpus_image(rng, h: int, w: int):
     return np.clip(field + rng.integers(-24, 25, (h, w, 3)), 0, 255).astype(np.uint8)
 
 
-def write_jpeg_corpus(root: str, seed: int = 0) -> dict:
-    """The corpus above under ``root``: {"train": dir, "val": dir, "truncated":
+def write_jpeg_corpus(root: str, seed: int = 0, train_per_class: int = NATIVE_TRAIN_PER_CLASS,
+                      val_per_class: int = NATIVE_VAL_PER_CLASS) -> dict:
+    """The corpus above under ``root`` (``train_per_class`` and
+    ``val_per_class`` files a class): {"train": dir, "val": dir, "truncated":
     path, "cut_header": path, "kinds": {path: "420" | "444" | "gray"}}. File
     ``k`` draws from ``default_rng([seed, k])``; the files are encoded on a
     thread each core (Pillow's encoder leaves the GIL)."""
@@ -3246,7 +3293,7 @@ def write_jpeg_corpus(root: str, seed: int = 0) -> dict:
 
     out = {"train": os.path.join(root, "train"), "val": os.path.join(root, "val"), "kinds": {}}
     jobs = []
-    for split, per_class in (("train", NATIVE_TRAIN_PER_CLASS), ("val", NATIVE_VAL_PER_CLASS)):
+    for split, per_class in (("train", train_per_class), ("val", val_per_class)):
         for c in range(NATIVE_CLASSES):
             folder = os.path.join(out[split], f"n{c:08d}")
             os.makedirs(folder)
@@ -4997,14 +5044,535 @@ def phase_range_augment(card: str) -> dict:
     return out
 
 
+# ---- ByteFormer and audio (phase 21) ----
+BYTEFORMER_MODEL_ARGS = [  # the model, loss and optimizer of both ByteFormer yamls
+    "--model.classification.byteformer.mode", "tiny",
+    "--model.classification.byteformer.conv-kernel-size", "16",
+    "--model.activation.name", "gelu",
+    "--model.layer.global-pool", "mean",
+    "--model.layer.conv-init", "kaiming_normal",
+    "--model.layer.linear-init", "trunc_normal",
+    "--model.layer.linear-init-std-dev", "0.02",
+    "--loss.category", "classification",
+    "--loss.classification.name", "cross_entropy",
+    "--loss.classification.cross-entropy.label-smoothing", "0.1",
+    "--optim.name", "adamw",
+    "--optim.weight-decay", "0.05",
+    "--optim.no-decay-bn-filter-bias",
+    "--optim.adamw.beta1", "0.9",
+    "--optim.adamw.beta2", "0.999",
+    "--scheduler.name", "cosine",
+    "--scheduler.warmup-init-lr", "1e-6",
+    "--scheduler.cosine.max-lr", "0.001",
+    "--ema.enable",
+    "--ema.momentum", "0.0005",
+    "--common.mixed-precision",
+    "--common.run-label", "train",
+    "--common.auto-resume",
+    "--dataset.train-batch-size0", "48",
+    "--dataset.val-batch-size0", "48",
+    "--dataset.workers", "8",
+    "--sampler.name", "batch_sampler",
+    "--stats.train", "loss",
+    "--stats.checkpoint-metric", "top1",
+    "--stats.checkpoint-metric-max",
+    "--common.seed", "0",
+]
+BYTEFORMER_ARGS = BYTEFORMER_MODEL_ARGS + [  # config/classification/imagenet/byteformer.yaml
+    "--model.classification.name", "byteformer",
+    "--model.classification.byteformer.window-sizes", "128",
+    "--model.classification.byteformer.max-num-tokens", "50000",
+    "--model.normalization.name", "layer_norm",
+    "--scheduler.max-epochs", "300",
+    "--scheduler.warmup-iterations", "7500",
+    "--scheduler.cosine.min-lr", "2e-5",
+    "--common.log-freq", "500",
+    "--dataset.category", "classification",
+    "--dataset.collate-fn-name-train", "byteformer_image_collate_fn",
+    "--dataset.collate-fn-name-val", "byteformer_image_collate_fn",
+    "--dataset.collate-fn-name-test", "byteformer_image_collate_fn",
+    "--image-augmentation.random-resized-crop.enable",
+    "--image-augmentation.random-resized-crop.interpolation", "bilinear",
+    "--image-augmentation.random-horizontal-flip.enable",
+    "--image-augmentation.pil-save.enable",
+    "--image-augmentation.pil-save.encoding", "jpeg",
+    "--image-augmentation.pil-save.quality", "60",
+    "--image-augmentation.resize.enable",
+    "--image-augmentation.resize.size", "224",
+    "--sampler.bs.crop-size-width", "224",
+    "--sampler.bs.crop-size-height", "224",
+    "--stats.val", "loss", "top1", "top5",
+]
+BYTEFORMER_WAV_ARGS = BYTEFORMER_MODEL_ARGS + [  # config/.../byteformer_wav.yaml
+    "--model.audio-classification.name", "byteformer",
+    "--model.classification.name", "byteformer",
+    "--model.classification.n-classes", "35",
+    "--model.classification.byteformer.window-sizes", "32",
+    "--model.normalization.name", "batch_norm",
+    "--model.normalization.momentum", "0.1",
+    "--scheduler.max-epochs", "100",
+    "--scheduler.warmup-iterations", "2000",
+    "--scheduler.cosine.min-lr", "1e-5",
+    "--common.log-freq", "200",
+    "--dataset.name", "speech_commands_v2",
+    "--dataset.category", "audio_classification",
+    "--dataset.collate-fn-name-train", "byteformer_audio_collate_fn",
+    "--dataset.collate-fn-name-val", "byteformer_audio_collate_fn",
+    "--audio-augmentation.set-fixed-length.enable",
+    "--audio-augmentation.set-fixed-length.length", "16000",
+    "--sampler.bs.crop-size-width", "1",
+    "--sampler.bs.crop-size-height", "1",
+    "--stats.val", "loss", "top1",
+]
+BYTEFORMER_BATCH, BYTEFORMER_LAYERS = 48, 12
+# (seeded byte counts, bucket): pil_save at quality 60 of a 224² crop of the
+# JPEG corpus's images weighs 7.4-7.7 KB; a 1-s 16 kHz int16 wav is 32,044 bytes
+BYTEFORMER_CELLS = {
+    "ByteFormer-Tiny JPEG": (BYTEFORMER_ARGS, (7000, 8192), 8192),
+    "ByteFormer-Tiny wav": (BYTEFORMER_WAV_ARGS, (32044, 32044), 32768),
+}
+# (B·n_windows, window) of each MHA launch of a step at batch 48, four layers
+# each: tokens (bucket − 16) / 8 + 1, halved by the token merging after layers
+# 3 and 7
+BYTEFORMER_SHAPES = {
+    "ByteFormer-Tiny JPEG": {(384, 128): 4, (192, 128): 4, (96, 128): 4},
+    "ByteFormer-Tiny wav": {(6144, 32): 4, (3072, 32): 4, (1536, 32): 4},
+}
+BYTEFORMER_HEADS, BYTEFORMER_HEAD_DIM = 3, 64
+BYTEFORMER_JPEG_CORPUS = (48, 12)  # train and val files a class of the 8 classes
+BYTEFORMER_WAV_CORPUS = (16, 2)  # train and val clips a word of the 35
+
+
+class ShapeLog:
+    """Stands in for an MHA kernel wrapper in ``ops.mha_attention``: counts the
+    (B, S) of each call and calls the wrapper (whose ``launches`` count)."""
+
+    def __init__(self, kernel) -> None:
+        import collections
+
+        self.kernel, self.shapes = kernel, collections.Counter()
+
+    def __call__(self, q, *args, **kwargs):
+        self.shapes[tuple(q.shape[:2])] += 1
+        return self.kernel(q, *args, **kwargs)
+
+    def __getattr__(self, name):
+        return getattr(self.kernel, name)
+
+
+class shape_logs:
+    """Both MHA wrappers of ``ops.mha_attention`` replaced by ``ShapeLog``s
+    inside the block: ``with shape_logs() as (fwd, bwd)``."""
+
+    def __enter__(self):
+        import cvnets_tpu_torch.ops.mha_attention as mha
+
+        self.saved = mha.mha_fwd_kernel, mha.mha_bwd_kernel
+        mha.mha_fwd_kernel, mha.mha_bwd_kernel = (ShapeLog(k) for k in self.saved)
+        return mha.mha_fwd_kernel, mha.mha_bwd_kernel
+
+    def __exit__(self, *exc):
+        import cvnets_tpu_torch.ops.mha_attention as mha
+
+        mha.mha_fwd_kernel, mha.mha_bwd_kernel = self.saved
+
+
+def byteformer_batches(seed: int, n: int, lengths: tuple, n_classes: int, device) -> list:
+    """``n`` batches of ``BYTEFORMER_BATCH`` seeded byte sequences of
+    ``lengths`` (inclusive) padded with -1 to their bucket by the collate's
+    ``pad_batch``, on ``device``."""
+    import numpy as np
+    import torch
+
+    from cvnets_tpu_torch.data.collate.byteformer_collate_functions import pad_batch
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        seqs = [rng.integers(0, 256, int(rng.integers(lengths[0], lengths[1] + 1)))
+                for _ in range(BYTEFORMER_BATCH)]
+        out.append({"samples": torch.from_numpy(pad_batch(seqs)).to(device),
+                    "targets": torch.from_numpy(rng.integers(0, n_classes, BYTEFORMER_BATCH)
+                                                ).to(device)})
+    return out
+
+
+def _byteformer_state(args, device):
+    from cvnets_tpu_torch.engine.train_state import create_train_state, make_train_step
+    from cvnets_tpu_torch.loss import build_loss_fn
+    from cvnets_tpu_torch.metrics import build_metrics
+    from cvnets_tpu_torch.models import get_model
+    from cvnets_tpu_torch.optim import build_optimizer
+    from cvnets_tpu_torch.optim.scheduler import build_scheduler
+    from cvnets_tpu_torch.options.opts import get_training_arguments
+
+    opts = get_training_arguments(args=args)
+    model = get_model(opts, device=device)
+    state = create_train_state(model, build_optimizer(opts, model, model.get_lr_multipliers(opts)),
+                               ema_enabled=True)
+    criteria = build_loss_fn(opts)
+    step = make_train_step(model, criteria, opts, build_metrics(opts, ["loss", "grad_norm"]))
+    return opts, model, state, criteria, step, build_scheduler(opts)
+
+
+def phase_byteformer_train(card: str, label: str) -> tuple:
+    """Phase 21a/b: ByteFormer-Tiny train steps on the yaml's flags at batch 48
+    of seeded byte sequences padded to their bucket, bf16. Checks 12 forward
+    and 12 backward MHA launches a step, by (B·n_windows, window) exactly
+    ``BYTEFORMER_SHAPES[label]``, finite losses, params and EMA moved; the
+    float32 eval logits through the kernels against the einsum route and
+    against a CPU copy. Returns the launches and the run for the steady
+    steps and the profile."""
+    import torch
+
+    from cvnets_tpu_torch.ops.mha_attention import mha_bwd_kernel, mha_fwd_kernel
+
+    args, lengths, bucket = BYTEFORMER_CELLS[label]
+    device = torch.device("cuda:0")
+    opts, model, state, criteria, train_step, scheduler = _byteformer_state(args, device)
+    n_classes = getattr(opts, "model.classification.n_classes")
+    batches = byteformer_batches(0, WARMUP_STEPS + TIMED_STEPS, lengths, n_classes, device)
+    check(all(b["samples"].shape[1] == bucket for b in batches),
+          f"{label}: buckets {[b['samples'].shape[1] for b in batches]}, want {bucket}")
+    params0 = [p.detach().clone() for p in model.parameters()]
+    ema0 = [t.detach().clone() for t in state.ema.model.state_dict().values()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, step_s = [], []
+    with shape_logs() as (fwd, bwd):
+        mha_fwd_kernel.launches = mha_bwd_kernel.launches = 0
+        for b in batches:
+            t0 = time.perf_counter()
+            state, metrics = train_step(state, b, scheduler.retrieve_lr(0, state.step))
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            losses.append(metrics["loss"]["loss"][0].item())
+        launches = {"mha_attention_fwd": mha_fwd_kernel.launches,
+                    "mha_attention_bwd": mha_bwd_kernel.launches}
+    n = len(batches)
+    want = {shape: count * n for shape, count in BYTEFORMER_SHAPES[label].items()}
+    check(launches == {k: BYTEFORMER_LAYERS * n for k in launches}
+          and dict(fwd.shapes) == want and dict(bwd.shapes) == want,
+          f"{label}: launches {launches}, forward shapes {dict(fwd.shapes)}, backward "
+          f"{dict(bwd.shapes)} in {n} steps; want {BYTEFORMER_LAYERS} a step, {want}")
+    check(all(math.isfinite(v) for v in losses), f"{label}: losses {losses}")
+    check(any(not torch.equal(a, b) for a, b in zip(params0, model.parameters())),
+          f"{label}: params did not change")
+    check(any(not torch.equal(a, b) for a, b in zip(ema0, state.ema.model.state_dict().values())),
+          f"{label}: EMA did not change")
+    del params0, ema0
+    timed = step_s[WARMUP_STEPS:]
+    print(f"train: {label} batch={BYTEFORMER_BATCH} tokens of {bucket} bytes bf16 steps={n} "
+          f"losses={[round(v, 4) for v in losses]} step_s={[round(x, 4) for x in step_s]} "
+          f"img_s={BYTEFORMER_BATCH * len(timed) / sum(timed):.1f} "
+          f"peak_mem_gib={torch.cuda.max_memory_allocated() / 2**30:.2f} launches={launches} "
+          f"shapes (B, S) a step={ {k: v // n for k, v in fwd.shapes.items()} } | {card}",
+          flush=True)
+    x = batches[0]["samples"][:4]
+    model.eval()
+    with no_tf32(), torch.no_grad():
+        with_kernel = model(x)
+        set_use_kernel(model, False)
+        plain = model(x)
+    set_use_kernel(model, True)
+    diff, scale = (with_kernel - plain).abs().max().item(), plain.abs().max().item()
+    check(tuple(with_kernel.shape) == (4, n_classes) and bool(torch.isfinite(with_kernel).all()),
+          f"{label}: logits shape or finiteness")
+    check(diff <= 1e-4 * max(1.0, scale), f"{label}: kernel vs plain logits differ by {diff}")
+    print(f"reference: {label} kernel-path vs plain-path logits max diff {diff:.3e} "
+          f"(max |logit| {scale:.3e})", flush=True)
+    cpu_reference(label, model, x[:2], (2, n_classes))
+    return launches, (state, train_step, scheduler, batches, criteria)
+
+
+def phase_byteformer_masked(card: str) -> None:
+    """Phase 21d: one train step of (a) under
+    ``--model.classification.byteformer.mask-windowed-attn``: the six
+    unshifted layers take the kernels with the key-padding mask (6 forward and
+    6 backward launches), the six shifted ones the einsum route (an additive
+    mask); finite loss; float32 eval logits against the einsum route's."""
+    import torch
+
+    from cvnets_tpu_torch.layers.multi_head_attention import MultiHeadAttention
+    from cvnets_tpu_torch.ops.mha_attention import mha_bwd_kernel, mha_fwd_kernel
+
+    label = "ByteFormer-Tiny JPEG --mask-windowed-attn"
+    args, lengths, _ = BYTEFORMER_CELLS["ByteFormer-Tiny JPEG"]
+    device = torch.device("cuda:0")
+    opts, model, state, _, train_step, scheduler = _byteformer_state(
+        args + ["--model.classification.byteformer.mask-windowed-attn"], device)
+    batch = byteformer_batches(1, 1, lengths, 1000, device)[0]
+    calls = []
+    hooks = [m.register_forward_hook(lambda *a: calls.append(1))
+             for m in model.modules() if isinstance(m, MultiHeadAttention)]
+    mha_fwd_kernel.launches = mha_bwd_kernel.launches = 0
+    state, metrics = train_step(state, batch, scheduler.retrieve_lr(0, state.step))
+    loss = metrics["loss"]["loss"][0].item()
+    fwd, bwd = mha_fwd_kernel.launches, mha_bwd_kernel.launches
+    for h in hooks:
+        h.remove()
+    half = BYTEFORMER_LAYERS // 2
+    check((fwd, bwd, len(calls) - fwd) == (half, half, half) and math.isfinite(loss),
+          f"{label}: {fwd} forward and {bwd} backward launches, {len(calls) - fwd} einsum "
+          f"layers, loss {loss}; want {half} each")
+    x = batch["samples"][:4]
+    model.eval()
+    with no_tf32(), torch.no_grad():
+        with_kernel = model(x)
+        set_use_kernel(model, False)
+        plain = model(x)
+    diff, scale = (with_kernel - plain).abs().max().item(), plain.abs().max().item()
+    check(bool(torch.isfinite(with_kernel).all()) and diff <= 1e-4 * max(1.0, scale),
+          f"{label}: kernel vs plain logits differ by {diff}")
+    print(f"train: {label} one step: forward launches={fwd} backward={bwd} einsum layers="
+          f"{len(calls) - fwd} loss={loss:.4f}; kernel-path vs plain-path logits max diff "
+          f"{diff:.3e} (max |logit| {scale:.3e}) | {card}", flush=True)
+
+
+def phase_byteformer_kernel(card: str) -> dict:
+    """Phase 21c: the MHA kernels at ByteFormer-Tiny's first-stage windows,
+    (384, 128, 3, 64) and (6144, 32, 3, 64), bf16 and f32, with and without a
+    key mask (batch element 0, one window, masked whole), against their plain
+    versions (``_mha_case``: output, statistics, dq, dk, dv, the backward's
+    bits on a second call); then every window shape of a step
+    (``BYTEFORMER_SHAPES``) timed in bf16 without a mask beside its plain
+    versions, its bound and SDPA. Returns {path: {"fwd": record, "bwd":
+    record}}, each a step's four launches of each shape."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    h, d = BYTEFORMER_HEADS, BYTEFORMER_HEAD_DIM
+    out = {}
+    with no_tf32():
+        for label, shapes in BYTEFORMER_SHAPES.items():
+            records = _records("fwd", "bwd")
+            for p in ("fwd", "bwd"):
+                records[p].update(library_ms=0.0, library_ms_by_backend={})
+            first = next(iter(shapes))
+            for (b, s), count in shapes.items():
+                cases = [(dt, m) for dt in (torch.bfloat16, torch.float32) for m in (False, True)
+                         ] if (b, s) == first else [(torch.bfloat16, False)]
+                for dtype, masked in cases:
+                    name = "bf16" if dtype == torch.bfloat16 else "f32"
+                    q, k, v, mask, dout, o, stats, ref, errs = _mha_case(
+                        g, f"{label} {name} B={b} S={s} mask={masked}", b, s, h, d, dtype,
+                        masked)
+                    if dtype == torch.bfloat16:
+                        records["fwd"]["max_abs_err"] = max(records["fwd"]["max_abs_err"],
+                                                            errs["out"])
+                        records["bwd"]["max_abs_err"] = max(
+                            records["bwd"]["max_abs_err"], errs["dq"], errs["dk"], errs["dv"])
+                    times = ""
+                    if dtype == torch.bfloat16 and not masked:
+                        bounds = mha_bounds(b, s, h, d, q.element_size(), BF16_TC_FLOP_S)
+                        t = _mha_times(b, s, h, d, q, k, v, dout, o, stats, ref)
+                        for p in ("fwd", "bwd"):
+                            r = records[p]
+                            r["ms"] += count * t[p]
+                            r["plain_ms"] += count * t[f"{p}_plain"]
+                            r["bound_ms"] += count * bounds[p][0]
+                            r["library_ms"] += count * t[f"lib_{p}"]
+                            for bk, ms in t["sdpa"].items():
+                                r["library_ms_by_backend"][bk] = (
+                                    r["library_ms_by_backend"].get(bk, 0.0) + count * ms[p])
+                            r.setdefault("bound_by_shape", {})[f"{b}x{s}"] = bounds[p][1]
+                        times = (" " + _mha_times_line(t, bounds, 4 * b * s * s * h * d)
+                                 + " fwd/bound=" + f"{t['fwd'] / bounds['fwd'][0]:.2f}"
+                                 + " bwd/bound=" + f"{t['bwd'] / bounds['bwd'][0]:.2f}")
+                    print(f"mha kernel: {label} {name} B={b} S={s} H={h} D={d} mask={masked} "
+                          + " ".join(f"{w}_err={x:.3e}" for w, x in errs.items())
+                          + times + f" | {card}", flush=True)
+                    del q, k, v, mask, dout, o, stats, ref
+            for p in ("fwd", "bwd"):
+                r = records[p]
+                kinds = set(r.pop("bound_by_shape").values())
+                r["bound_by"] = kinds.pop() if len(kinds) == 1 else "operations"
+                r["library_backend"] = min(r["library_ms_by_backend"],
+                                           key=r["library_ms_by_backend"].get)
+                print(f"mha kernel: {label} {p} a step ({BYTEFORMER_LAYERS} launches): "
+                      f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, bound "
+                      f"{r['bound_ms']:.4f} ({r['bound_by']}), kernel/bound "
+                      f"{r['ms'] / r['bound_ms']:.2f}, library {r['library_ms']:.4f} (the "
+                      f"faster SDPA backend a shape; {r['library_ms_by_backend']}) | {card}",
+                      flush=True)
+            out[label] = records
+            torch.cuda.empty_cache()
+    return out
+
+
+def write_byteformer_corpora(root: str) -> dict:
+    """Phase 17's JPEG corpus, cut to ``BYTEFORMER_JPEG_CORPUS`` files a class,
+    and a Speech Commands folder of ``BYTEFORMER_WAV_CORPUS`` clips a word,
+    whose validation clips are also its test list (``main_eval`` reads the
+    test split)."""
+    import shutil
+
+    from cvnets_tpu_torch.tools.speech_commands_corpus import write_speech_commands
+
+    jpeg = write_jpeg_corpus(os.path.join(root, "jpeg"), train_per_class=BYTEFORMER_JPEG_CORPUS[0],
+                             val_per_class=BYTEFORMER_JPEG_CORPUS[1])
+    wav = os.path.join(root, "speech_commands")
+    write_speech_commands(wav, *BYTEFORMER_WAV_CORPUS)
+    shutil.copy(os.path.join(wav, "validation_list.txt"), os.path.join(wav, "testing_list.txt"))
+    return {"jpeg": jpeg, "wav": wav}
+
+
+def phase_byteformer_main_train(card: str, label: str, roots: tuple, bare: dict) -> None:
+    """Phase 21e/f: ``main_worker`` on the yaml's flags of ``label`` over
+    ``roots`` (train, val), 2 epochs, each validated (and its EMA): 12 + 12
+    MHA launches a train step and 12 an eval forward, finite statistics, no
+    host sync through the port's code between log points, the buckets the
+    collate padded to; img/s over epoch 2 after its first batch beside the
+    train loader alone and the bare step; ``main_eval`` on
+    checkpoint_ema_last.pt against the last EMA validation."""
+    import collections
+    import shutil
+
+    import torch
+
+    import cvnets_tpu_torch.main_train as main_train
+    from cvnets_tpu_torch.engine.train_state import batch_size
+    from cvnets_tpu_torch.main_eval import main_worker as main_eval
+    from cvnets_tpu_torch.ops.mha_attention import mha_bwd_kernel, mha_fwd_kernel
+    from cvnets_tpu_torch.options.opts import get_training_arguments
+
+    args0 = BYTEFORMER_CELLS[label][0]
+    results = os.path.join("results", "byteformer_" + label.split()[-1].lower())
+    shutil.rmtree(results, ignore_errors=True)
+    args = args0 + ["--dataset.root-train", roots[0], "--dataset.root-val", roots[1],
+                    "--scheduler.max-epochs", "2", "--common.results-loc", results]
+    if "--dataset.name" not in args0:  # the yaml's decoder (native) and collate: Pillow a sample
+        args += ["--dataset.name", "imagenet"]
+    log = {"train": [], "val": [], "ema": [], "save_s": 0.0}
+    watch, built, epochs, buckets = SyncWatch(), [], [], collections.Counter()
+    kernels = {"fwd": mha_fwd_kernel, "bwd": mha_bwd_kernel}
+
+    class WatchedTrainer(main_train.Trainer):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            _watch_trainer(self, kernels, watch, BYTEFORMER_LAYERS, log)
+            step, epoch_fn = self._train_step, self.train_epoch
+
+            def counted(state, batch, *rest):
+                buckets[batch["samples"].shape[1]] += 1
+                if epochs[-1][1] is None:
+                    epochs[-1][1] = time.perf_counter()
+                else:
+                    epochs[-1][0] += batch_size(batch["samples"])
+                return step(state, batch, *rest)
+
+            def epoch(e):
+                epochs.append([0, None, None])
+                out = epoch_fn(e)
+                epochs[-1][2] = time.perf_counter()
+                return out
+
+            self._train_step, self._train_step_noaccum = counted, None
+            self.train_epoch = epoch
+            built.append(self)
+
+    with watch:
+        main_train.Trainer = WatchedTrainer
+        try:
+            main_train.main_worker(args=args)
+        finally:
+            main_train.Trainer = WatchedTrainer.__bases__[0]
+    trainer = built[0]
+    bad = watch.through(MAIN_TRAIN_FILES + (os.path.join("cvnets_tpu_torch", "models")
+                                            + os.sep,))
+    check(not bad, f"{label} main_train: a host sync between log points: {bad[:3]}")
+    for stage in ("train", "val", "ema"):
+        values = [v for entry in log[stage] for v in
+                  (entry[3] if stage == "train" else entry).values()]
+        check(values and all(math.isfinite(v) for v in values),
+              f"{label} main_train: {stage} statistics not finite: {log[stage]}")
+    n_steps = trainer.train_iterations
+    after_first, first_at, end_at = epochs[-1]
+    ckpt = os.path.join(trainer.save_dir, "checkpoint_ema_last.pt")
+    trainer = None
+    built.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def check_batch(batch):
+        x = batch["samples"]
+        check(x.dtype == torch.int32 and x.is_pinned() and x.dim() == 2
+              and x.shape[1] >= 256 and x.shape[1] & (x.shape[1] - 1) == 0,
+              f"{label} loader: batch {tuple(x.shape)} {x.dtype}")
+
+    opts = get_training_arguments(args=args)
+    n_img, secs, first, threads = loader_alone(opts, check_batch)
+    loader_img_s = (n_img - BYTEFORMER_BATCH) / (secs - first)
+    category = getattr(opts, "dataset.category")
+    before = mha_fwd_kernel.launches
+    # the validation's batches: a batch pads to the bucket of its longest sequence
+    got = main_eval(args=args + [f"--model.{category.replace('_', '-')}.pretrained", ckpt,
+                                 "--dataset.eval-batch-size0", str(BYTEFORMER_BATCH)])
+    want = log["ema"][-1]
+    check(mha_fwd_kernel.launches > before and abs(got["loss"] - want["loss"])
+          <= 1e-4 * max(1.0, abs(want["loss"]))
+          and all(abs(got[k] - want[k]) <= 1e-3 for k in want if k != "loss"),
+          f"{label} main_eval on checkpoint_ema_last.pt: {got} vs the last EMA validation {want}")
+    print(f"main_train: {label} batch={BYTEFORMER_BATCH} bf16 epochs=2 steps={n_steps} "
+          f"img_s={after_first / (end_at - first_at):.1f} over epoch 2 after its first batch "
+          f"({after_first} samples in {end_at - first_at:.3f} s) buckets={dict(buckets)} "
+          f"loader alone img_s={loader_img_s:.1f} ({n_img} samples in {secs:.3f} s over 2 "
+          f"epochs, first batch after {first:.3f} s; {threads} threads, {os.cpu_count()} "
+          f"cores) bare step img_s={bare['img_s']:.1f} "
+          f"train={[{k: round(v, 4) for k, v in e[3].items()} for e in log['train']]} "
+          f"val={[{k: round(v, 4) for k, v in s.items()} for s in log['val']]} "
+          f"ema={[{k: round(v, 4) for k, v in s.items()} for s in log['ema']]} "
+          f"main_eval={ {k: round(v, 6) for k, v in got.items()} } | {card}", flush=True)
+
+
+def phase_byteformer(card: str) -> tuple:
+    """Phase 21: ByteFormer-Tiny on JPEG bytes (a) and on wav bytes (b), each
+    with 24 steady steps and a profile with the MHA kernels' share; the MHA
+    kernels at ByteFormer's windows (c); ``--mask-windowed-attn`` (d);
+    ``main_train`` over a JPEG corpus (e) and a Speech Commands folder (f).
+    Returns ({path: launches}, {path: kernel records})."""
+    import tempfile
+
+    import torch
+
+    def release() -> None:
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    launches, bare = {}, {}
+    for label in BYTEFORMER_CELLS:
+        launches[label], run = phase_byteformer_train(card, label)
+        bare[label] = phase_steady(card, label, run)
+        phase_profile(card, label, run, os.path.join(
+            "results", f"byteformer_{label.split()[-1].lower()}_profile.txt"), named=("::mha_",))
+        run = None
+        release()
+    records = phase_byteformer_kernel(card)
+    release()
+    phase_byteformer_masked(card)
+    release()
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        corpora = write_byteformer_corpora(root)
+        print(f"byteformer: corpora written in {time.perf_counter() - t0:.2f} s", flush=True)
+        phase_byteformer_main_train(card, "ByteFormer-Tiny JPEG",
+                                    (corpora["jpeg"]["train"], corpora["jpeg"]["val"]),
+                                    bare["ByteFormer-Tiny JPEG"])
+        release()
+        phase_byteformer_main_train(card, "ByteFormer-Tiny wav", (corpora["wav"],) * 2,
+                                    bare["ByteFormer-Tiny wav"])
+        release()
+    return launches, records
+
+
 def main(argv) -> int:
     import torch
 
     if argv not in ([], ["--deeplab"], ["--segmentation"], ["--families"], ["--clip"],
-                    ["--range-augment"]):
+                    ["--range-augment"], ["--byteformer"]):
         print(f"chip_smoke: unknown arguments {argv}; usage: chip_smoke.py "
-              "[--deeplab | --segmentation | --families | --clip | --range-augment]",
-              file=sys.stderr)
+              "[--deeplab | --segmentation | --families | --clip | --range-augment | "
+              "--byteformer]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5036,6 +5604,10 @@ def main(argv) -> int:
     if argv == ["--range-augment"]:
         phase_build()
         phase_range_augment(card)
+        return 0
+    if argv == ["--byteformer"]:
+        phase_build()
+        phase_byteformer(card)
         return 0
     if argv == ["--segmentation"]:
         phase_build()
@@ -5111,16 +5683,20 @@ def main(argv) -> int:
     release()
     finetune_launches, finetune_records = phase_range_augment(card)
     release()
+    byteformer_launches, byteformer_records = phase_byteformer(card)
+    release()
 
     def entry(name, source, replaces, launches, record):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, **record}
 
-    def mha_entry(name, replaces, key, record):  # ViT-B/16's launches and CLIP's
+    def mha_entry(name, replaces, key, record, part):  # ViT-B/16's, CLIP's, ByteFormer's
         return {**entry(name, "cvnets_tpu_torch/csrc/mha_attention.cu", replaces,
                         vit_launches[key], record),
                 "launches_by_path": {"ViT-B/16": vit_launches[key],
-                                     "CLIP ViT-B/16": clip_launches[key]}}
+                                     "CLIP ViT-B/16": clip_launches[key],
+                                     **{path: n[key] for path, n in byteformer_launches.items()}},
+                "by_path": {path: r[part] for path, r in byteformer_records.items()}}
 
     def sep_entry(name, replaces, part):  # the flagship's launches and the finetune's
         return {**entry(name, "cvnets_tpu_torch/csrc/separable_attention.cu", replaces,
@@ -5134,9 +5710,9 @@ def main(argv) -> int:
         sep_entry("separable_attention_bwd", "cvnets_tpu/ops/pallas/mobilevit_attn.py:120",
                   "bwd"),
         mha_entry("mha_attention_fwd", "cvnets_tpu/ops/pallas/mha_attn.py:134",
-                  "mha_attention_fwd", mha_records["fwd"]),
+                  "mha_attention_fwd", mha_records["fwd"], "fwd"),
         mha_entry("mha_attention_bwd", "cvnets_tpu/ops/pallas/mha_attn.py:153",
-                  "mha_attention_bwd", mha_records["bwd"]),
+                  "mha_attention_bwd", mha_records["bwd"], "bwd"),
         entry("seg_ce_fwd", "cvnets_tpu_torch/csrc/seg_ce.cu",
               "cvnets_tpu/ops/pallas/seg_ce_kernel.py:159",
               seg_launches["seg_ce_fwd"], seg_records["fwd"]),

@@ -13,4 +13,7 @@ def build_collate_fn(opts, mode: str = "train"):
 
 
 # registers the ported collate functions (after COLLATE_FN_REGISTRY exists)
-from cvnets_tpu_torch.data.collate import collate_functions  # noqa: E402,F401
+from cvnets_tpu_torch.data.collate import (  # noqa: E402,F401
+    byteformer_collate_functions,
+    collate_functions,
+)

@@ -58,6 +58,9 @@ def get_test_dataset(opts):
 
 
 # registers the ported datasets (after DATASET_REGISTRY exists)
+from cvnets_tpu_torch.data.datasets.audio_classification import (  # noqa: E402,F401
+    speech_commands_v2,
+)
 from cvnets_tpu_torch.data.datasets.classification import imagenet  # noqa: E402,F401
 from cvnets_tpu_torch.data.datasets.detection import coco_ssd  # noqa: E402,F401
 from cvnets_tpu_torch.data.datasets.multi_modal_img_text import (  # noqa: E402,F401

@@ -138,7 +138,12 @@ class CVNetsDataLoader:
             work, jobs = self.dataset.__getitem__, batch_tuples
         items = list(self._pool.map(work, jobs)) if self._pool is not None else \
             [work(j) for j in jobs]
-        batch = self.collate_fn(items, self.opts) if self.collate_fn is not None else items
+        if self.collate_fn is None:
+            batch = items
+        elif getattr(self.collate_fn, "takes_rng", False):  # draws in this thread, in order
+            batch = self.collate_fn(items, self.opts, rng=rng)
+        else:
+            batch = self.collate_fn(items, self.opts)
         return _pin(batch) if self.pin_memory else batch
 
     def __iter__(self) -> Iterator[Dict]:

@@ -28,4 +28,9 @@ def arguments_augmentation(parser: argparse.ArgumentParser) -> argparse.Argument
 
 
 # registers the ported transforms (after TRANSFORMATIONS_REGISTRY exists)
-from cvnets_tpu_torch.data.transforms import image  # noqa: E402,F401
+from cvnets_tpu_torch.data.transforms import (  # noqa: E402,F401
+    audio,
+    audio_bytes,
+    image,
+    image_bytes,
+)

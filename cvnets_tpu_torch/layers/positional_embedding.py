@@ -3,9 +3,11 @@ cvnets_tpu/layers/positional_embedding.py).
 
 A learnable (L, D) table (parameter ``pos_embed``, flax ``truncated_normal``
 at std 0.02, drawn by ``init_utils.init_weights``) or a fixed sinusoidal one,
-added to (B, L', D) tokens after resampling to L'. The sinusoidal table is not a
-flax parameter, so here it is a non-persistent buffer, outside ``state_dict``.
-The JAX module's "slice" resize mode (ByteFormer's) is not ported.
+added to (B, L', D) tokens after resampling to L' (``resize_mode``
+"interpolate", ViT's) or, under "slice" (ByteFormer's), its first L' rows
+when L' ≤ L and the resampled table otherwise (:57-60, 73). The sinusoidal
+table is not a flax parameter, so here it is a non-persistent buffer, outside
+``state_dict``.
 """
 
 from __future__ import annotations
@@ -42,11 +44,15 @@ def interpolate_pos_embed(pos: torch.Tensor, target_len: int) -> torch.Tensor:
 
 class PositionalEmbedding(nn.Module):
     """Additive positional embedding over (B, L, D) token tensors; the table is
-    resampled to the sequence length."""
+    resampled to the sequence length, or sliced to it under ``resize_mode``
+    "slice"."""
 
     def __init__(self, num_embeddings: int, embedding_dim: int,
-                 is_learnable: bool = True) -> None:
+                 is_learnable: bool = True, resize_mode: str = "interpolate") -> None:
         super().__init__()
+        if resize_mode not in ("interpolate", "slice"):
+            raise ValueError(f"resize_mode {resize_mode!r}: want 'interpolate' or 'slice'")
+        self.resize_mode = resize_mode
         if is_learnable:
             self.pos_embed = nn.Parameter(torch.empty(num_embeddings, embedding_dim))
         else:
@@ -56,4 +62,9 @@ class PositionalEmbedding(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         table = self.pos_embed if self.pos_embed is not None else self.table
-        return x + interpolate_pos_embed(table, x.shape[1])[None].to(x.dtype)
+        seq_len = x.shape[1]
+        if self.resize_mode == "slice" and seq_len <= table.shape[0]:
+            table = table[:seq_len]
+        else:
+            table = interpolate_pos_embed(table, seq_len)
+        return x + table[None].to(x.dtype)

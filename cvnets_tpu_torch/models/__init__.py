@@ -16,7 +16,6 @@ MODEL_REGISTRY = Registry(registry_name="torch_model_registry", base_class=nn.Mo
 # model categories the JAX package has and the port does not yet: get_model
 # raises naming the item before it reads their options
 _UNPORTED_CATEGORIES = {
-    "audio_classification": "the audio category (ROADMAP.md queue 1 item 6)",
     "video_classification": "the video category (ROADMAP.md queue 1 item 11)",
 }
 
@@ -113,6 +112,7 @@ def modeling_arguments(parser: argparse.ArgumentParser) -> argparse.ArgumentPars
 
 # registers the ported models (after MODEL_REGISTRY exists)
 from cvnets_tpu_torch.models.classification import (  # noqa: E402,F401
+    byteformer,
     efficientnet,
     fastvit,
     mobilenetv1,

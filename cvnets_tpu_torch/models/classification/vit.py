@@ -79,7 +79,8 @@ class VisionTransformer(BaseImageEncoder):
         super().__init__()
         for flag, what in _UNPORTED.items():
             if getattr(opts, flag, None):
-                raise NotImplementedError(f"ViT: {what} (--{flag}) is not ported")
+                raise NotImplementedError(f"ViT: {what} (--{flag}) is not ported yet "
+                                          "(ROADMAP.md queue 1 item 5)")
         if output_stride is not None:  # the JAX ViT's stem at output stride 8 (vit.py:84)
             raise NotImplementedError(
                 f"not ported yet: the ViT as a segmentation encoder (output stride "

@@ -34,6 +34,9 @@ from cvnets_tpu_torch.ops.cuda_build import KernelEntry
 _MAX_SEQ = 512
 _MAX_EMBED = 1024
 _HEAD_DIMS = (16, 32, 64, 128)
+# the kernels' grids put the batch on gridDim.z, at most 65,535; a larger batch
+# (ByteFormer's windows of a long file) runs as launches of at most this many
+MAX_GRID_BATCH = 65535
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
@@ -143,8 +146,6 @@ def _check(tensors, shape, heads: int) -> int:
     if e > _MAX_EMBED or e % heads or e // heads not in _HEAD_DIMS:
         raise ValueError(f"H·D={e} with H={heads}: the kernels take H·D ≤ {_MAX_EMBED} "
                          f"and D in {_HEAD_DIMS}")
-    if b > 65535:
-        raise ValueError(f"batch {b} exceeds the kernels' grid (65535)")
     return e // heads
 
 
@@ -186,6 +187,13 @@ class MHAForwardKernel(_MHAKernel):
         d = _check((("q", q), ("k", k), ("v", v)), q.shape, heads)
         b, s, e = q.shape
         mask = _mask_arg(key_mask, b, s, q.device)
+        if b > MAX_GRID_BATCH:  # one launch a slice of the batch
+            parts = [self(q[i:i + MAX_GRID_BATCH], k[i:i + MAX_GRID_BATCH],
+                          v[i:i + MAX_GRID_BATCH], heads,
+                          None if mask is None else mask[i:i + MAX_GRID_BATCH])
+                     for i in range(0, b, MAX_GRID_BATCH)]
+            return (torch.cat([o for o, _ in parts]),
+                    torch.cat([st for _, st in parts], dim=1))
         out = torch.empty((b, s, e), dtype=q.dtype, device=q.device)
         stats = torch.empty((2, b, heads, s), dtype=torch.float32, device=q.device)
         if out.numel() == 0:
@@ -216,6 +224,13 @@ class MHABackwardKernel(_MHAKernel):
             raise ValueError(f"stats: want contiguous float32 {(2, b, heads, s)} on "
                              f"{q.device}; got {stats.dtype} {tuple(stats.shape)}")
         mask = _mask_arg(key_mask, b, s, q.device)
+        if b > MAX_GRID_BATCH:  # one call a slice of the batch
+            parts = [self(*(t[i:i + MAX_GRID_BATCH] for t in (q, k, v)),
+                          None if mask is None else mask[i:i + MAX_GRID_BATCH],
+                          out[i:i + MAX_GRID_BATCH], dout[i:i + MAX_GRID_BATCH],
+                          stats[:, i:i + MAX_GRID_BATCH].contiguous(), heads)
+                     for i in range(0, b, MAX_GRID_BATCH)]
+            return tuple(torch.cat(g) for g in zip(*parts))
         dq, dk, dv = (torch.empty((b, s, e), dtype=q.dtype, device=q.device)
                       for _ in range(3))
         if dq.numel() == 0:

@@ -18,8 +18,12 @@ The segmentation heads' scopes (PSPNet's ``psp/psp_branch_<i>`` and
 ``psp/fusion``, the separable ASPP's ``aspp/aspp_sep_<i>/{dw_conv,pw_conv}``,
 the simple head's ``conv``) follow the same rule. Only leaves named ``kernel``
 change layout, by rank: a conv HWIO → OIHW (a
-depthwise (kh, kw, 1, O) becomes (O, 1, kh, kw)) and a Dense (in, out) → Linear
-(out, in). Every other leaf, a 2-D positional table included, keeps its layout.
+depthwise (kh, kw, 1, O) becomes (O, 1, kh, kw)), a 1-D conv (k, in, out) →
+(out, in, k) (ByteFormer's ``token_reduction``) and a Dense (in, out) → Linear
+(out, in). Every other leaf, a 2-D positional or byte-embedding table
+included, keeps its layout. ByteFormer's scopes (``token_embedding``,
+``pos_embed/pos_embed``, ``transformer_{i}/block/...``,
+``downsample_{i}/{reduction,norm}``) follow the same rule.
 """
 
 from __future__ import annotations
@@ -72,6 +76,8 @@ def to_torch_layout(flax_path: Tuple[str, ...], value: np.ndarray) -> np.ndarray
         return value
     if value.ndim == 4:  # conv HWIO -> OIHW
         return value.transpose(3, 2, 0, 1)
+    if value.ndim == 3:  # 1-D conv (k, in, out) -> (out, in, k)
+        return value.transpose(2, 1, 0)
     if value.ndim == 2:  # Dense (in, out) -> Linear (out, in)
         return value.T
     return value

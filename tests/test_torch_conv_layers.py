@@ -378,7 +378,18 @@ YAMLS = [f"classification/imagenet/{name}.yaml" for name in (
     # distillation, the fixed and multi_step schedulers, Mask R-CNN's keys
     "distillation/teacher_resnet101_student_mobilenet_v1.yaml",
     "classification/finetune_higher_res_in1k/mobilevit_v2.yaml",
-    "detection/ssd_coco/resnet.yaml", "detection/mask_rcnn_coco/resnet_fpn.yaml"]
+    "detection/ssd_coco/resnet.yaml", "detection/mask_rcnn_coco/resnet_fpn.yaml"] + [
+    # ByteFormer and audio, and one yaml of each examples/byteformer/ folder
+    "classification/imagenet/byteformer.yaml",
+    "audio_classification/speech_commands/byteformer_wav.yaml"] + [
+    f"../examples/byteformer/{name}.yaml" for name in (
+        "imagenet_file_encodings/encoding_png", "imagenet_jpeg_q100/conv_kernel_size_8",
+        "imagenet_jpeg_q60/conv_kernel_size_32_w32",
+        "imagenet_jpeg_shuffle_bytes/mode_window_shuffle",
+        "imagenet_obfuscation/width_range_20",
+        "imagenet_privacy_preserving_camera/keep_frac_0.05",
+        "speech_commands_mp3/conv_kernel_size_8_w128",
+        "speech_commands_wav/encoding_dtype_uint8_k4")]
 
 
 @pytest.mark.parametrize("yaml", YAMLS)
@@ -439,13 +450,14 @@ def test_the_pascal_voc_yaml_fails_naming_the_registered_dataset_and_its_key():
 
 
 @pytest.mark.parametrize("yaml,item", [
-    ("config/audio_classification/speech_commands/byteformer_wav.yaml", "item 6"),
+    ("config/classification/imagenet/vit_moe.yaml", "item 5"),
     ("config/video_classification/kinetics/mobilevit_st_small.yaml", "item 11"),
     ("examples/vit/segmentation/ade20k/deeplabv3_vit_base_clip_os_16.yaml", "item 5")])
 def test_an_unported_category_fails_naming_its_roadmap_item(yaml, item):
-    """ROADMAP faults 4 and 5: the audio and video categories raise naming
-    their ROADMAP item, before any option of theirs is read, and so does a
-    ViT built as a segmentation encoder (an output stride)."""
+    """ROADMAP faults 4 and 5: the video category raises naming its ROADMAP
+    item, before any option of its is read, and so do a ViT built as a
+    segmentation encoder (an output stride) and ViT MoE blocks (the audio
+    category is ported)."""
     from cvnets_tpu_torch.models import get_model
     from cvnets_tpu_torch.options.opts import get_training_arguments
 

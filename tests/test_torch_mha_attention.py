@@ -482,3 +482,63 @@ def test_forward_gives_the_same_bits_on_every_call(b, s, h, d):
     out, stats = mha_fwd_kernel(q, k, v, h, mask)
     again = mha_fwd_kernel(q, k, v, h, mask)
     assert torch.equal(out, again[0]) and torch.equal(stats, again[1])
+
+
+# ByteFormer-Tiny's windows: (B·n_windows, window, 3, 64) at batch 48, the JPEG
+# recipe's first stage (window 128) and the wav recipe's (window 32)
+BYTEFORMER_CUDA_CASES = [(384, 128, 3, 64), (6144, 32, 3, 64)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True], ids=["no_mask", "window_masked"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,s,h,d", BYTEFORMER_CUDA_CASES)
+def test_kernels_match_plain_at_byteformer_windows_on_cuda(b, s, h, d, dtype, masked):
+    """Output, statistics, dq, dk and dv at ByteFormer's shapes; masked, window 0
+    is padding whole (``--model.classification.byteformer.mask-windowed-attn``)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU or interpret mode)")
+    q, k, v, mask, dout = _cuda_inputs(b, s, h, d, dtype, masked)
+    out, stats = mha_fwd_kernel(q, k, v, h, mask)
+    grads = mha_bwd_kernel(q, k, v, mask, out, dout, stats, h)
+    ref = mha_attention_plain(q, k, v, h, mask)
+    torch.testing.assert_close(out.float(), ref.float(), atol=_tol(ref, dtype), rtol=0)
+    ref_stats = mha_attention_stats_plain(q, k, v, h, mask)
+    rel = ((stats - ref_stats).abs() / ref_stats.abs().clamp(min=1.0)).max().item()
+    assert rel <= (1e-5 if dtype == torch.float32 else 1e-2)
+    ref_grads = mha_attention_backward_plain(q, k, v, mask, ref, dout, h)
+    for name, got, want in zip("qkv", grads, ref_grads):
+        # float32: dq sums 32-128 products of a few units in another order, up
+        # to ~9e-6 off at S = 32 (chip_smoke.py's _mha_case holds grads at 1e-4)
+        tol = 1e-4 if dtype == torch.float32 else _tol(want, dtype)
+        torch.testing.assert_close(got.float(), want.float(), atol=tol, rtol=0,
+                                   msg=lambda m: f"d{name}: {m}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("masked", [False, True], ids=["no_mask", "key_mask"])
+def test_a_batch_past_the_grid_limit_runs_in_slices_on_cuda(masked):
+    """B > 65,535 (the grid's z limit): the wrappers launch each kernel once a
+    slice of at most 65,535 and the result is the plain version's."""
+    from cvnets_tpu_torch.ops.mha_attention import MAX_GRID_BATCH
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU or interpret mode)")
+    b, s, h, d = MAX_GRID_BATCH + 37, 32, 1, 16
+    q, k, v, mask, dout = _cuda_inputs(b, s, h, d, torch.float32, masked)
+    if masked:
+        mask[-1] = -1e30  # a fully masked row in the second slice too
+    launches = mha_fwd_kernel.launches, mha_bwd_kernel.launches
+    out, stats = mha_fwd_kernel(q, k, v, h, mask)
+    grads = mha_bwd_kernel(q, k, v, mask, out, dout, stats, h)
+    torch.cuda.synchronize()
+    assert (mha_fwd_kernel.launches - launches[0], mha_bwd_kernel.launches - launches[1]) \
+        == (2, 2)
+    assert tuple(stats.shape) == (2, b, h, s)
+    ref = mha_attention_plain(q, k, v, h, mask)
+    torch.testing.assert_close(out, ref, atol=1e-5, rtol=0)
+    torch.testing.assert_close(stats, mha_attention_stats_plain(q, k, v, h, mask),
+                               atol=1e-5, rtol=1e-5)
+    for name, got, want in zip("qkv", grads,
+                               mha_attention_backward_plain(q, k, v, mask, ref, dout, h)):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=0, msg=lambda m: f"d{name}: {m}")
