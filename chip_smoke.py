@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port (cvnets_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py [--deeplab | --segmentation | --families | --clip |
-                           --range-augment | --byteformer]
+                           --range-augment | --byteformer | --mask-rcnn]
 
 ``--deeplab`` runs only phases 1, 10 and 11 (DeepLabv3's train, a/b and
 profile; about a minute) and prints neither JSON line: run in turns from two
@@ -15,7 +15,8 @@ only phases 1, 2 and 18 (MobileViT v1, FastViT and SSDLite) and prints
 neither JSON line; ``--clip`` only phases 1, 2 and 19 (CLIP ViT-B/16);
 ``--range-augment`` only phases 1, 2 and 20 (RangeAugment and distillation,
 MobileViTv2-2.0's 384² finetune, the schedulers); ``--byteformer`` only
-phases 1, 2 and 21 (ByteFormer and audio).
+phases 1, 2 and 21 (ByteFormer and audio); ``--mask-rcnn`` only phases 1, 2
+and 22 (Mask R-CNN on both yamls).
 
 Phases, one line each or more (any failure exits non-zero):
 
@@ -318,17 +319,47 @@ Phases, one line each or more (any failure exits non-zero):
    log points, img/s over epoch 2 after its first batch beside the loader
    alone, the buckets padded to, ``main_eval`` on checkpoint_ema_last.pt
    against the last EMA validation.
+22. mask rcnn: Mask R-CNN at the yamls' batch of 8, bf16, their settings as
+   flags: path A config/detection/mask_rcnn_coco/vit_fpn.yaml
+   (``MASK_RCNN_A_ARGS``: MobileViTv2-1.0 and the FPN at 512², AdamW with
+   the backbone's LR ×0.7, multi_step, EMA, clip 1.0) and path B
+   vit_fpn_lsj.yaml (``MASK_RCNN_B_ARGS``: ViT-B/16 with the simple FPN at
+   1024², S = 4,097 tokens with the CLS token, which no 128-row block
+   divides: the MHA kernels tile it ragged). (a) the kernels at the slice's
+   shapes against their plain versions, as phases 3 and 4 hold them, and
+   timed: the separable attention at path A's (BP 32: (1024, 128), (256,
+   192), (64, 256)), bf16 and f32; the MHA kernels at (8, 4097, 12, 64)
+   bf16 with SDPA and the bounds, and at batch 1 in f32. (b) per path, bare
+   train steps on seeded images with 1-12 boxes and their elliptic masks:
+   9 + 9 separable (A) or 12 + 12 MHA (B) launches a step, the five losses
+   finite, params and EMA moved; steady steps (step ms, img/s, the host's
+   enqueue, peak memory); a profile split into backbone, FPN, RPN with its
+   NMS, matching and sampling, RoIAlign, the box and mask heads and the
+   optimizer, with the kernels' share (results/mask_rcnn_{a,b}_profile.txt);
+   ``predict`` on a batch of 8 at the crop size (masks pasted there) with no
+   host sync; in float32 the FPN's maps and the five losses through the
+   kernels against the plain path on the same draws (``mask_rcnn_held``),
+   and 3 train steps of each route from the same weights, batches and
+   draws (``mask_rcnn_held_steps``; batch 8 on A, 1 on B); path A's a/b. (c) path B at batch 2, where the einsum route fits too: a/b
+   of the kernels against it, each with its peak memory. (d) a micro Mask
+   R-CNN (MobileViTv2-0.5 at 128²) on the card against its copy on the CPU,
+   float32. (e) path A through ``main_train`` over a seeded COCO folder with
+   polygon masks (160 + 8 files), 2 epochs with validation, the separable
+   launches counted every epoch, no host sync between log points, then
+   ``main_worker_detection`` with the bbox and segm mAPs in [0, 1]; its
+   train loader alone over 2 epochs.
 
 The second-to-last line is the kernels' JSON record, one entry for each TPU
 kernel's counterpart: ``ms``/``plain_ms`` are a kernel's and its plain
 version's time for one train step's launches (the separable attention's 9
 forward and 9 backward at the flagship from the per-shape bf16 medians, with
-their launches by path, the flagship's and MobileViTv2-2.0's 384² finetune's,
-in ``launches_by_path`` and the finetune's own times in ``by_path``, each
-MHA kernel's 12 at ViT-B and at ViT-B 512² (the S ≤ 512 rows also give
-their launches by path, ViT-B/16's, CLIP's and ByteFormer-Tiny's on JPEG and
-on wav bytes, in ``launches_by_path``, and ByteFormer's step of 12 launches
-at its window shapes in ``by_path``),
+their launches by path, the flagship's, MobileViTv2-2.0's 384² finetune's
+and Mask R-CNN path A's, in ``launches_by_path`` and the finetune's own
+times in ``by_path``, each MHA kernel's 12 at ViT-B and at ViT-B 512² (the
+S ≤ 512 rows also give their launches by path, ViT-B/16's, CLIP's and
+ByteFormer-Tiny's on JPEG and on wav bytes, in ``launches_by_path``, and
+ByteFormer's step of 12 launches at its window shapes in ``by_path``; the
+long rows ViT-B 512²'s and Mask R-CNN path B's at S = 4,097),
 each seg-CE kernel's 2 at DeepLabv3, each window kernel's 12 at Swin-T
 from the per-stage medians; the native decode's crop → resize → flip
 kernel's one launch a batch at 128 × 256², its launches those of the
@@ -356,6 +387,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 # separable attention: (BP, {(N, C) of layer_3, layer_4, layer_5: attention blocks})
@@ -5565,14 +5597,644 @@ def phase_byteformer(card: str) -> tuple:
     return launches, records
 
 
+# Mask R-CNN (phase 22): config/detection/mask_rcnn_coco/vit_fpn.yaml (path A:
+# MobileViTv2-1.0 and the FPN at 512²) and vit_fpn_lsj.yaml (path B: ViT-B/16
+# with the simple FPN under Large Scale Jitter at 1024²), as flags
+MASK_RCNN_COMMON_ARGS = [
+    "--dataset.name", "coco_mask_rcnn",
+    "--dataset.category", "detection",
+    "--dataset.train-batch-size0", "8",
+    "--dataset.val-batch-size0", "8",
+    "--dataset.workers", "8",
+    "--dataset.collate-fn-name-train", "coco_mask_rcnn_collate_fn",
+    "--dataset.collate-fn-name-val", "coco_mask_rcnn_collate_fn",
+    "--dataset.collate-fn-name-test", "coco_mask_rcnn_collate_fn",
+    "--image-augmentation.random-horizontal-flip.enable",
+    "--model.detection.name", "mask_rcnn",
+    "--model.detection.n-classes", "81",
+    "--loss.category", "detection",
+    "--loss.detection.name", "mask_rcnn_loss",
+    "--optim.name", "adamw",
+    "--optim.weight-decay", "0.1",
+    "--optim.no-decay-bn-filter-bias",
+    "--scheduler.name", "multi_step",
+    "--scheduler.max-epochs", "100",
+    "--scheduler.warmup-iterations", "250",
+    "--scheduler.multi-step.lr", "0.0001",
+    "--common.run-label", "train",
+    "--common.mixed-precision",
+    "--common.log-freq", "500",
+    "--common.auto-resume",
+    "--common.grad-clip", "1.0",
+]
+MASK_RCNN_A_ARGS = MASK_RCNN_COMMON_ARGS + [
+    "--sampler.bs.crop-size-width", "512",
+    "--sampler.bs.crop-size-height", "512",
+    "--image-augmentation.resize.enable",
+    "--image-augmentation.resize.size", "512", "512",
+    "--model.classification.name", "mobilevit_v2",
+    "--model.classification.activation.name", "swish",
+    "--model.detection.mask-rcnn.backbone-lr-multiplier", "0.7",
+    "--model.normalization.name", "sync_batch_norm",
+    "--ema.enable",
+    "--ema.momentum", "0.0005",
+    "--scheduler.warmup-init-lr", "1e-06",
+    "--scheduler.multi-step.milestones", "70", "90",
+]
+MASK_RCNN_B_ARGS = MASK_RCNN_COMMON_ARGS + [
+    "--dataset.detection.coco-mask-rcnn.use-lsj-aug",
+    "--sampler.bs.crop-size-width", "1024",
+    "--sampler.bs.crop-size-height", "1024",
+    "--image-augmentation.scale-jitter.enable",
+    "--image-augmentation.scale-jitter.target-size", "1024", "1024",
+    "--image-augmentation.scale-jitter.scale-range", "0.1", "2.0",
+    "--image-augmentation.fixed-size-crop.enable",
+    "--image-augmentation.fixed-size-crop.size", "1024", "1024",
+    "--model.classification.name", "vit",
+    "--model.classification.vit.use-simple-fpn",
+    "--model.detection.mask-rcnn.backbone-lr-multiplier", "0.1",
+    "--model.layer.linear-init", "trunc_normal",
+    "--model.layer.linear-init-std-dev", "0.02",
+    "--model.activation.name", "gelu",
+    "--scheduler.warmup-init-lr", "8e-06",
+    "--scheduler.multi-step.milestones", "88", "96",
+]
+MASK_RCNN_A, MASK_RCNN_B = "Mask R-CNN MobileViTv2-1.0 512²", "Mask R-CNN ViT-B/16 1024²"
+# path A's separable attention at 8 × 512² (no dilation): (BP, {(N, C): blocks})
+SEP_MASK_RCNN = (8 * 4, {(1024, 128): 2, (256, 192): 4, (64, 256): 3})
+# path B's MHA: ViT-B/16 at 1024² with its CLS token, S = 64² + 1 = 17 · 241
+MHA_MASK_RCNN = (8, 64 * 64 + 1, 12, 64)
+MASK_RCNN_STEPS = (2, 5)  # warm-up and timed bare steps of each path
+MASK_RCNN_CORPUS = (160, 8, 640)  # path A main_train: train and val files (20 steps an epoch), longest side
+# the micro configuration of the CPU reference (tests/torch_mask_rcnn_helpers.py's sizes)
+MASK_RCNN_MICRO_ARGS = [
+    "--dataset.category", "detection", "--model.detection.name", "mask_rcnn",
+    "--model.detection.n-classes", "5", "--model.classification.name", "mobilevit_v2",
+    "--model.classification.mitv2.width-multiplier", "0.5",
+    "--model.detection.mask-rcnn.pre-nms-top-n", "64",
+    "--model.detection.mask-rcnn.post-nms-top-n", "16",
+    "--model.detection.mask-rcnn.box-batch-per-image", "16",
+    "--model.detection.mask-rcnn.mask-positives", "4",
+    "--model.detection.mask-rcnn.detections-per-image", "8",
+    "--model.detection.mask-rcnn.fpn-out-channels", "32",
+    "--loss.category", "detection", "--loss.detection.name", "mask_rcnn_loss",
+]
+
+
+def mask_rcnn_batches(n: int, batch: int, hw: tuple, n_classes: int, device,
+                      seed: int = 0) -> list:
+    """``n`` train batches as coco_mask_rcnn's collate gives them, on
+    ``device``: ``batch`` seeded uint8 images of ``hw``, 1-12 boxes an image
+    (5-60% of each side) padded to MAX_GT, random labels, and each box's mask
+    the ellipse inside it at a quarter of ``hw`` (bool)."""
+    import numpy as np
+    import torch
+
+    from cvnets_tpu_torch.models.detection.mask_rcnn import MAX_GT
+
+    rng = np.random.default_rng(seed)
+    h, w = hw
+    yy, xx = np.mgrid[0:h // 4, 0:w // 4] + 0.5
+    out = []
+    for _ in range(n):
+        boxes = np.zeros((batch, MAX_GT, 4), np.float32)
+        labels = np.zeros((batch, MAX_GT), np.int64)
+        masks = np.zeros((batch, MAX_GT, h // 4, w // 4), bool)
+        for b in range(batch):
+            for i in range(int(rng.integers(1, 13))):
+                bw, bh = rng.uniform(0.05, 0.6) * w, rng.uniform(0.05, 0.6) * h
+                x1, y1 = rng.uniform(0, w - bw), rng.uniform(0, h - bh)
+                boxes[b, i] = [x1, y1, x1 + bw, y1 + bh]
+                labels[b, i] = rng.integers(1, n_classes)
+                masks[b, i] = (((xx - (x1 + bw / 2) / 4) / (bw / 8)) ** 2
+                               + ((yy - (y1 + bh / 2) / 4) / (bh / 8)) ** 2) <= 1
+        image = rng.integers(0, 256, (batch, 3, h, w), dtype=np.uint8)
+        targets = {"box_coordinates": boxes, "box_labels": labels, "masks": masks}
+        out.append({"samples": {"image": torch.from_numpy(image).to(device),
+                                "targets": {k: torch.from_numpy(v).to(device)
+                                            for k, v in targets.items()}},
+                    "targets": {}})
+    return out
+
+
+def _mask_rcnn_state(args, batch: int = None, device="cuda"):
+    """The model of ``args`` on ``device``, its train state (the backbone's LR
+    multiplier in the optimizer's groups), loss, train step and scheduler."""
+    import torch
+
+    from cvnets_tpu_torch.engine.train_state import create_train_state, make_train_step
+    from cvnets_tpu_torch.loss import build_loss_fn
+    from cvnets_tpu_torch.metrics import build_metrics
+    from cvnets_tpu_torch.models import get_model
+    from cvnets_tpu_torch.optim import build_optimizer
+    from cvnets_tpu_torch.optim.scheduler import build_scheduler
+    from cvnets_tpu_torch.options.opts import get_training_arguments
+
+    opts = get_training_arguments(args=args)
+    if batch is not None:
+        setattr(opts, "dataset.train_batch_size0", batch)
+    model = get_model(opts, device=device)
+    state = create_train_state(
+        model, build_optimizer(opts, model, model.get_lr_multipliers(opts)),
+        ema_enabled=getattr(opts, "ema.enable"))
+    criteria = build_loss_fn(opts, device=torch.device(device))
+    step = make_train_step(model, criteria, opts, build_metrics(opts, ["loss", "grad_norm"]))
+    return opts, state, criteria, step, build_scheduler(opts)
+
+
+def phase_mask_rcnn_train(card: str, label: str, args, kernels: dict, per_step: int,
+                          batch: int = None, steps: tuple = MASK_RCNN_STEPS, device="cuda"):
+    """Bare train steps of the Mask R-CNN of ``args`` at its batch (or
+    ``batch``) and crop: the kernels' counts set to 0 just before the steps
+    and read just after, each ``per_step`` a step; the five losses and the
+    grad norm finite, the params and the EMA moved. Returns the counts and
+    what the a/b, steady and profile phases take."""
+    import torch
+
+    opts, state, criteria, train_step, scheduler = _mask_rcnn_state(args, batch, device)
+    model = state.model
+    batch = getattr(opts, "dataset.train_batch_size0")
+    hw = (getattr(opts, "sampler.bs.crop_size_height"),
+          getattr(opts, "sampler.bs.crop_size_width"))
+    batches = mask_rcnn_batches(sum(steps), batch, hw, getattr(opts, "model.detection.n_classes"),
+                                device, seed=getattr(opts, "common.seed"))
+    params0 = [p.detach().clone() for p in model.parameters()]
+    ema0 = ([t.detach().clone() for t in state.ema.model.state_dict().values()]
+            if state.ema is not None else None)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kernel in kernels.values():
+        kernel.launches = 0
+    losses, step_s = [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, b, scheduler.retrieve_lr(0, state.step))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        losses.append({k: s.item() for m in metrics.values() for k, (s, _) in m.items()})
+    launches = {name: kernel.launches for name, kernel in kernels.items()}
+    for name, count in launches.items():
+        check(count == per_step * len(batches) > 0,
+              f"{label}: {count} {name} launches in {len(batches)} steps, want {per_step} a step")
+    check(len(losses[0]) == 7 and all(math.isfinite(v) for m in losses for v in m.values()),
+          f"{label}: losses not finite or not the five and the total: {losses}")
+    check(any(not torch.equal(a, b) for a, b in zip(params0, model.parameters())),
+          f"{label}: params did not change")
+    check(ema0 is None or any(not torch.equal(a, b) for a, b in zip(
+        ema0, state.ema.model.state_dict().values())), f"{label}: EMA did not change")
+    del params0, ema0
+    timed = step_s[steps[0]:]
+    parts = {k: [round(m[k], 4) for m in losses] for k in losses[0]}
+    print(f"train: {label} batch={batch} {hw[0]}x{hw[1]} bf16 steps={len(batches)} "
+          f"losses={parts} step_s={[round(x, 4) for x in step_s]} "
+          f"img_s={batch * len(timed) / sum(timed):.1f} "
+          f"peak_mem_gib={torch.cuda.max_memory_allocated() / 2**30:.2f} launches={launches} "
+          f"a step={ {k: v // len(batches) for k, v in launches.items()} } | {card}", flush=True)
+    return launches, (state, train_step, scheduler, batches, criteria)
+
+
+def torch_generator(device, seed: int):
+    import torch
+
+    return torch.Generator(device=device).manual_seed(seed)
+
+
+RPN_LOSSES = ("loss_objectness", "loss_rpn_box_reg")
+
+
+def mask_rcnn_losses_close(got: dict, want: dict, rpn_tol: float = 1e-4) -> float:
+    """The largest difference of two sets of the five losses, each over max(1,
+    |loss|); raises where the RPN's exceed ``rpn_tol`` or the heads' 2e-2.
+    On the same weights the RPN's losses read the anchors alone; the heads'
+    read the proposals, which a near tie among 16-261 thousand objectness
+    logits or in an NMS can swap at the edge of the kept set, moving a loss
+    by at most a few of its 16-128 sampled RoIs' share."""
+    worst = 0.0
+    for key, ref in want.items():
+        diff = abs(got[key] - ref) / max(1.0, abs(ref))
+        check(math.isfinite(got[key]) and diff <= (rpn_tol if key in RPN_LOSSES else 2e-2),
+              f"{key}: {got[key]} vs {ref}")
+        worst = max(worst, diff)
+    return worst
+
+
+def mask_rcnn_held(card: str, label: str, model, batch: dict, n: int) -> None:
+    """The model through the kernels against the plain path (float32, TF32
+    off) on ``n`` images of ``batch``: the FPN's maps within 1e-4 of max(1,
+    their largest), and the five training losses on the same draws
+    (``mask_rcnn_losses_close``)."""
+    import torch
+
+    x = batch["samples"]["image"][:n].float() / 255.0
+    targets = {k: v[:n] for k, v in batch["samples"]["targets"].items()}
+    feats, losses = {}, {}
+    with no_tf32(), torch.no_grad():
+        n_anchors = model.anchors([tuple(f.shape[-2:]) for f in model.feature_maps(x)],
+                                  x.device).shape[0]
+        draws = model.draw(n, n_anchors, targets["box_labels"].shape[1],
+                           torch_generator(x.device, 7))
+        for on in (True, False):  # eval first: a train forward moves BN's statistics
+            set_use_kernel(model, on)
+            feats[on] = model.eval().feature_maps(x)
+        for on in (True, False):
+            set_use_kernel(model, on)
+            pred = model.train()({"image": x, "targets": targets}, draws=draws)
+            losses[on] = {k: v.item() for k, v in pred["losses"].items()}
+    set_use_kernel(model, True)
+    fdiff = max((a - b).abs().max().item() / max(1.0, b.abs().max().item())
+                for a, b in zip(feats[True], feats[False]))
+    check(fdiff <= 1e-4, f"{label}: kernel vs plain FPN maps differ by {fdiff}")
+    ldiff = mask_rcnn_losses_close(losses[True], losses[False])
+    print(f"reference: {label} kernel-path vs plain-path float32 on {n} images: FPN maps "
+          f"max diff {fdiff:.3e} of max(1, |map|); losses " + " ".join(
+              f"{k}={losses[True][k]:.6f}/{losses[False][k]:.6f}" for k in losses[False])
+          + f" (max rel diff {ldiff:.2e}) | {card}", flush=True)
+
+
+def mask_rcnn_held_steps(card: str, label: str, args, batch: int, n_steps: int = 3,
+                         device="cuda") -> None:
+    """``n_steps`` float32 train steps (TF32 off, the yaml's optimizer, EMA
+    and clip) through the kernels and through the plain path, each from the
+    same seeded weights, on the same batches and the same (seed, step)
+    draws: the first step's five losses held by ``mask_rcnn_losses_close``;
+    after it the two routes' weights differ (AdamW turns grads that differ
+    at float32's noise into steps of up to ±lr where a grad is near 0), so
+    a later step's RPN losses are held to the heads' 2e-2 too."""
+    import torch
+
+    per_route = {}
+    for on in (True, False):
+        opts, state, _, train_step, scheduler = _mask_rcnn_state(args, batch, device)
+        setattr(opts, "common.mixed_precision", False)  # the step's autocast reads it each call
+        set_use_kernel(state.model, on)
+        hw = (getattr(opts, "sampler.bs.crop_size_height"),
+              getattr(opts, "sampler.bs.crop_size_width"))
+        batches = mask_rcnn_batches(n_steps, batch, hw, getattr(opts, "model.detection.n_classes"),
+                                    device, seed=getattr(opts, "common.seed"))
+        losses = []
+        with no_tf32():
+            for b in batches:
+                state, metrics = train_step(state, b, scheduler.retrieve_lr(0, state.step))
+                losses.append({k[len("loss."):]: v[0].item() for k, v in metrics["loss"].items()
+                               if k.startswith("loss.")})
+        per_route[on] = losses
+        state = train_step = batches = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    worst = max(mask_rcnn_losses_close(got, want, 1e-4 if i == 0 else 2e-2)
+                for i, (got, want) in enumerate(zip(per_route[True], per_route[False])))
+    print(f"reference: {label} {n_steps} float32 train steps at batch {batch}, kernels vs plain "
+          f"path from the same weights and draws: total loss " + " ".join(
+              f"{sum(a.values()):.6f}/{sum(b.values()):.6f}"
+              for a, b in zip(per_route[True], per_route[False]))
+          + f" (max rel diff of a loss {worst:.2e}) | {card}", flush=True)
+
+
+def phase_mask_rcnn_predict(card: str, label: str, run) -> None:
+    """``predict`` on a batch at the crop size (the yamls' validation batch
+    of 8): the eval forward under bf16 autocast, decode, score threshold,
+    class-aware NMS to 100 slots, the mask head on the kept boxes and the
+    masks pasted at the input's size, all on the card with no host sync (the
+    CUDA sync debug mode catches none); timed with CUDA events."""
+    import torch
+
+    state, _, _, batches, _ = run
+    model = state.model.eval()
+    x = batches[0]["samples"]["image"].float() / 255.0
+
+    def whole():
+        with torch.autocast("cuda", dtype=torch.bfloat16):
+            return model.predict(x)
+
+    out = whole()
+    torch.cuda.synchronize()
+    watch = SyncWatch()
+    with watch:
+        watch.on()
+        out = whole()
+        watch.off()
+        torch.cuda.synchronize()
+    check(not watch.caught, f"{label} predict: a host sync: {watch.through(('cvnets_tpu_torch',))}")
+    b, _, h, w = x.shape
+    k = model.detections_per_image
+    check(tuple(out.boxes.shape) == (b, k, 4) and tuple(out.masks.shape) == (b, k, h, w)
+          and bool(torch.isfinite(out.scores).all()) and bool(torch.isfinite(out.boxes).all())
+          and bool(((out.masks >= 0) & (out.masks <= 1)).all()),
+          f"{label} predict: shapes {tuple(out.boxes.shape)} {tuple(out.masks.shape)} or values")
+    with torch.no_grad():
+        ms = time_ms(whole, launches=3, samples=3, warmup=1)
+    kept = (out.scores > 0).sum(dim=1).float().mean().item()
+    print(f"predict: {label} batch={b} {h}x{w} predict_ms={ms:.3f} (bf16 forward, decode, "
+          f"top-400, class-aware NMS to 100 slots, the mask head on them, masks pasted at "
+          f"{h}x{w}) kept/image={kept:.1f}; no host sync | {card}", flush=True)
+    del out
+
+
+def phase_mask_rcnn_kernels(card: str) -> None:
+    """The kernels at this slice's shapes against their plain versions, and
+    timed: the separable attention at path A's three stage shapes (bf16 and
+    f32), the MHA kernels at path B's S = 4,097 (bf16 at its batch of 8, f32
+    at batch 1), each held as the earlier phases hold them."""
+    import torch
+
+    from cvnets_tpu_torch.ops.separable_attention import (
+        separable_attention_kernel,
+        separable_attention_plain,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(23)
+    bp, blocks = SEP_MASK_RCNN
+    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        for n, c in blocks:
+            r = _separable_case(g, bp, n, c, dtype, name)
+            times = ""
+            if dtype == torch.bfloat16:  # the bounds as phase_kernel counts them
+                q, k, v, qkv, out = r["q"], r["k"], r["v"], r["qkv"], r["out"]
+                b_ms, b_by = bound(qkv.numel() * qkv.element_size() + out.numel()
+                                   * out.element_size(), (4 * bp * n * c, FP32_FLOP_S),
+                                   (bp * n, SFU_EXP_S))
+                bb_ms, bb_by = bound((5 * c + 2) * bp * n * qkv.element_size(),
+                                     (7 * bp * n * c, FP32_FLOP_S), (bp * n, SFU_EXP_S))
+                times = (f" kernel_ms={time_ms(lambda: separable_attention_kernel(q, k, v)):.4f}"
+                         f" plain_ms={time_ms(lambda: separable_attention_plain(q, k, v)):.4f}"
+                         f" bound_ms={b_ms:.4f} ({b_by})"
+                         f" bwd_ms={time_ms(r['bwd_kernel']):.4f}"
+                         f" bwd_plain_ms={time_ms(r['bwd_plain']):.4f}"
+                         f" bwd_bound_ms={bb_ms:.4f} ({bb_by}) blocks_a_step={blocks[(n, c)]}")
+            print(f"kernel: {MASK_RCNN_A} {name} BP={bp} N={n} C={c} "
+                  f"max_abs_err={r['abs_err']:.3e} max_rel_err={r['rel_err']:.3e} "
+                  f"grad_err={r['gerr']:.3e} | bwd: {_grad_errs(r['errs'])} same_bits=True"
+                  f"{times} | {card}", flush=True)
+            del r
+    b, s, h, d = MHA_MASK_RCNN
+    with no_tf32():
+        for dtype, name, batch in ((torch.bfloat16, "bf16", b), (torch.float32, "f32", 1)):
+            q, k, v, mask, dout, out, stats, ref, errs = _mha_case(
+                g, f"{MASK_RCNN_B} {name}", batch, s, h, d, dtype, False)
+            times = ""
+            if dtype == torch.bfloat16:
+                t = _mha_times(batch, s, h, d, q, k, v, dout, out, stats, ref)
+                times = " " + _mha_times_line(t, mha_bounds(batch, s, h, d, 2, BF16_TC_FLOP_S),
+                                              4 * batch * s * s * h * d)
+            print(f"mha long kernel: {MASK_RCNN_B} {name} B={batch} S={s} (ragged: no 128-row "
+                  f"block divides it) H={h} D={d} " + " ".join(
+                      f"{w_}_err={x_:.3e}" for w_, x_ in errs.items()) + times + f" | {card}",
+                  flush=True)
+            del q, k, v, dout, out, stats, ref
+            gc.collect()
+            torch.cuda.empty_cache()
+
+
+def phase_mask_rcnn_cpu_reference(card: str) -> None:
+    """A micro Mask R-CNN (MobileViTv2-0.5, 128², the tests' proposal counts)
+    on the card through the separable kernels against the same model on the
+    CPU (its plain path), float32 with TF32 off, on the same draws and
+    targets: the FPN's maps in eval mode within 1e-3 of max(1, their largest)
+    (``cpu_reference``'s bound: cuDNN's and the CPU's convs sum in other
+    orders), and one training forward's five losses
+    (``mask_rcnn_losses_close``)."""
+    import copy
+
+    import torch
+
+    from cvnets_tpu_torch.models import get_model
+    from cvnets_tpu_torch.options.opts import get_training_arguments
+
+    opts = get_training_arguments(args=MASK_RCNN_MICRO_ARGS)
+    on_cpu = get_model(opts, device="cpu")
+    model = copy.deepcopy(on_cpu).cuda()
+    batch = mask_rcnn_batches(1, 2, (128, 128), 5, "cpu", seed=11)[0]["samples"]
+    x = batch["image"].float() / 255.0
+    draws = on_cpu.draw(2, sum((128 // s) ** 2 * 3 for s in (4, 8, 16, 32)), 100,
+                        torch_generator("cpu", 5))
+    launches = separable_launches()
+    feats, losses = {}, {}
+    with no_tf32(), torch.no_grad():
+        for net, dev in ((model, "cuda"), (on_cpu, "cpu")):  # copies: BN moves on each alone
+            feats[dev] = [f.cpu() for f in net.eval().feature_maps(x.to(dev))]
+            pred = net.train()({"image": x.to(dev),
+                                "targets": {k: v.to(dev) for k, v in batch["targets"].items()}},
+                               draws={k: v.to(dev) for k, v in draws.items()})
+            losses[dev] = {k: v.item() for k, v in pred["losses"].items()}
+    launched = separable_launches() - launches
+    check(launched == 2 * 9, f"Mask R-CNN micro on the card: {launched} separable launches, "
+                             "want 9 an eval and 9 a train forward")
+    fdiff = max((a - b).abs().max().item() / max(1.0, b.abs().max().item())
+                for a, b in zip(feats["cuda"], feats["cpu"]))
+    check(fdiff <= 1e-3, f"Mask R-CNN micro card vs CPU FPN maps differ by {fdiff}")
+    ldiff = mask_rcnn_losses_close(losses["cuda"], losses["cpu"])
+    print(f"reference: Mask R-CNN micro (MobileViTv2-0.5, 128²) card vs CPU float32: FPN maps "
+          f"max diff {fdiff:.3e} of max(1, |map|); losses " + " ".join(
+              f"{k}={losses['cuda'][k]:.6f}/{v:.6f}" for k, v in losses["cpu"].items())
+          + f" (max rel diff {ldiff:.2e}) | {card}", flush=True)
+
+
+def separable_launches() -> int:
+    from cvnets_tpu_torch.ops.separable_attention import separable_attention_kernel
+
+    return separable_attention_kernel.launches
+
+
+def phase_mask_rcnn_main_train(card: str) -> None:
+    """Path A's ``main_train`` (``MASK_RCNN_A_ARGS``: resize to 512², flip,
+    AdamW with the backbone's LR ×0.7, multi_step, EMA, clip 1.0, bf16) over
+    a seeded COCO folder with polygon masks written at run time
+    (``tools/coco_corpus.py``, ``MASK_RCNN_CORPUS``), 2 epochs and their
+    validations, the separable kernels' launches checked each epoch (9 + 9 a
+    step, 9 an eval forward) and no host sync between log points; then
+    ``main_worker_detection`` with ``--stats.coco-map.iou-types bbox segm`` on
+    its val split with the run's checkpoint_last.pt: box and mask mAPs in
+    [0, 1]. Prints img/s over epoch 2 after its first batch, beside the
+    train loader alone over 2 epochs."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    import cvnets_tpu_torch.main_train as main_train
+    from cvnets_tpu_torch.main_eval import main_worker_detection
+    from cvnets_tpu_torch.ops.separable_attention import (
+        separable_attention_bwd_kernel,
+        separable_attention_kernel,
+    )
+    from cvnets_tpu_torch.options.opts import get_training_arguments
+    from cvnets_tpu_torch.tools.coco_corpus import write_coco_corpus
+
+    results = os.path.join("results", "mask_rcnn_main_train_smoke")
+    shutil.rmtree(results, ignore_errors=True)
+    kernels = {"fwd": separable_attention_kernel, "bwd": separable_attention_bwd_kernel}
+    per_step = sum(SEP_MASK_RCNN[1].values())
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        n_train, n_val, side = MASK_RCNN_CORPUS
+        write_coco_corpus(root, n_train=n_train, n_val=n_val, max_side=side)
+        print(f"mask_rcnn: COCO folder of {n_train} + {n_val} JPEG files with polygons "
+              f"written in {time.perf_counter() - t0:.2f} s", flush=True)
+        args = MASK_RCNN_A_ARGS + ["--dataset.root-train", root, "--dataset.root-val", root,
+                                   "--scheduler.max-epochs", "2",
+                                   "--common.results-loc", results]
+        log = {"train": [], "val": [], "ema": [], "save_s": 0.0}
+        watch, built, epochs = SyncWatch(), [], []
+
+        class WatchedTrainer(main_train.Trainer):
+            def __init__(self, *a, **k):
+                super().__init__(*a, **k)
+                _watch_trainer(self, kernels, watch, per_step, log)
+                step, epoch_fn = self._train_step, self.train_epoch
+
+                def counted(state, batch, *rest):
+                    if epochs[-1][1] is None:
+                        epochs[-1][1] = time.perf_counter()
+                    else:
+                        epochs[-1][0] += batch["samples"]["image"].shape[0]
+                    return step(state, batch, *rest)
+
+                def epoch(e):
+                    epochs.append([0, None, None])
+                    out = epoch_fn(e)
+                    epochs[-1][2] = time.perf_counter()
+                    return out
+
+                self._train_step, self.train_epoch = counted, epoch
+                built.append(self)
+
+        with watch:
+            main_train.Trainer = WatchedTrainer
+            try:
+                main_train.main_worker(args=args)
+            finally:
+                main_train.Trainer = WatchedTrainer.__bases__[0]
+        trainer = built[0]
+        bad = watch.through(MAIN_TRAIN_FILES + (os.path.join("cvnets_tpu_torch", "models")
+                                                + os.sep,))
+        check(not bad, f"Mask R-CNN main_train: a host sync between log points: {bad[:3]}")
+        train_stats = [entry[3] for entry in log["train"]]
+        check(len(train_stats) == 2 and all(
+            len(s) >= 6 and all(math.isfinite(v) for v in s.values()) for s in train_stats),
+            f"Mask R-CNN main_train: train statistics {train_stats}")
+        check(all(math.isfinite(v) for s in log["val"] + log["ema"] for v in s.values()),
+              f"Mask R-CNN main_train: val statistics {log['val']} {log['ema']}")
+        n_steps = trainer.train_iterations
+        after_first, first_at, end_at = epochs[-1]
+        ckpt = os.path.join(trainer.save_dir, "checkpoint_last.pt")
+        trainer = None
+        built.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        def check_batch(batch):
+            x, t = batch["samples"]["image"], batch["samples"]["targets"]
+            check(x.dtype == torch.uint8 and x.is_pinned() and tuple(x.shape) == (8, 3, 512, 512)
+                  and t["masks"].dtype == torch.bool
+                  and tuple(t["masks"].shape) == (8, 100, 128, 128),
+                  f"Mask R-CNN loader: batch {tuple(x.shape)} {x.dtype}")
+
+        n_img, secs, first, threads = loader_alone(get_training_arguments(args=args),
+                                                   check_batch)
+        loader_img_s = (n_img - 8) / (secs - first)
+        t0 = time.perf_counter()
+        res = main_worker_detection(args=args + ["--model.detection.pretrained", ckpt,
+                                                 "--stats.coco-map.iou-types", "bbox", "segm"])
+        eval_s = time.perf_counter() - t0
+    check({"bbox", "segm"} <= set(res) and all(
+        math.isfinite(v) and 0.0 <= v <= 1.0 for v in res.values()),
+        f"Mask R-CNN main_worker_detection: {res}")
+    print(f"main_train: {MASK_RCNN_A} batch=8 512x512 bf16 epochs=2 steps={n_steps} "
+          f"img_s={after_first / (end_at - first_at):.1f} over epoch 2 after its first batch "
+          f"({after_first} images in {end_at - first_at:.3f} s; resize, flip and the polygon "
+          f"masks rasterized on the loader's threads) train="
+          f"{[{k: round(v, 4) for k, v in s.items()} for s in train_stats]} | {card}",
+          flush=True)
+    print(f"mask_rcnn: loader alone img_s={loader_img_s:.1f} after the first batch ({n_img} "
+          f"images of up to {MASK_RCNN_CORPUS[2]} px JPEG files in {secs:.3f} s over 2 epochs, "
+          f"first batch after {first:.3f} s; {threads} threads, {os.cpu_count()} cores; pinned "
+          f"batches of 8 x 512^2 with their masks, no step) | {card}", flush=True)
+    print(f"eval: {MASK_RCNN_A} main_worker_detection on {MASK_RCNN_CORPUS[1]} val images "
+          f"in {eval_s:.2f} s: " + " ".join(f"{k}={v:.4f}" for k, v in res.items())
+          + f" | {card}", flush=True)
+
+
+def phase_mask_rcnn(card: str) -> dict:
+    """Phase 22, Mask R-CNN through both yamls: the kernels at the slice's
+    shapes; per path the bare train steps at batch 8 (launches a step),
+    steady steps (step ms, img/s, the host's enqueue, peak), a profile split
+    into backbone, FPN, RPN + NMS, RoIAlign, heads and optimizer, with the
+    kernels' share, ``predict``, and the kernel vs plain checks (a float32
+    forward of the trained model; 3 float32 train steps from the same
+    weights, at batch 8 on A and 1 on B); path B's
+    step at batch 2 through the kernels against the einsum route (which does
+    not fit at 8), with each route's peak; the micro CPU reference; path A
+    through ``main_train`` and ``main_worker_detection``. Returns each
+    path's kernel launches in its train phase."""
+    import torch
+
+    from cvnets_tpu_torch.engine.train_state import OPTIMIZER_RANGE
+    from cvnets_tpu_torch.models.detection.mask_rcnn import (
+        BACKBONE_RANGE,
+        FPN_RANGE,
+        HEADS_RANGE,
+        ROI_RANGE,
+        RPN_RANGE,
+    )
+    from cvnets_tpu_torch.ops.mha_attention import mha_bwd_kernel, mha_fwd_kernel
+    from cvnets_tpu_torch.ops.separable_attention import (
+        separable_attention_bwd_kernel,
+        separable_attention_kernel,
+    )
+
+    def release() -> None:
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    split = (BACKBONE_RANGE, FPN_RANGE, RPN_RANGE, ROI_RANGE, HEADS_RANGE)
+    # the host these host-paced steps share: threads left by earlier phases, load
+    print(f"mask_rcnn: {threading.active_count()} Python threads alive, load average "
+          f"{os.getloadavg()[0]:.2f} on {os.cpu_count()} cores | {card}", flush=True)
+    phase_mask_rcnn_kernels(card)
+    release()
+    launches = {}
+    for label, args, kernels, per_step, named, profile in (
+            (MASK_RCNN_A, MASK_RCNN_A_ARGS,
+             {"separable_attention": separable_attention_kernel,
+              "separable_attention_bwd": separable_attention_bwd_kernel},
+             sum(SEP_MASK_RCNN[1].values()), "separable_attention_", "mask_rcnn_a_profile.txt"),
+            (MASK_RCNN_B, MASK_RCNN_B_ARGS,
+             {"mha_attention_fwd": mha_fwd_kernel, "mha_attention_bwd": mha_bwd_kernel},
+             VIT_BLOCKS, "::mha_", "mask_rcnn_b_profile.txt")):
+        launches[label], run = phase_mask_rcnn_train(card, label, args, kernels, per_step)
+        phase_steady(card, label, run, blocks=2, steps=6)
+        phase_profile(card, label, run, os.path.join("results", profile), split=split,
+                      ranges=(OPTIMIZER_RANGE,), named=(named,))
+        phase_mask_rcnn_predict(card, label, run)
+        mask_rcnn_held(card, label, run[0].model, run[3][0], 2 if label == MASK_RCNN_A else 1)
+        if label == MASK_RCNN_A:
+            phase_ab(card, label, run)
+        run = None
+        release()
+        # float32 plain attention at 1024² fits one image a step, not 8
+        mask_rcnn_held_steps(card, label, args, 8 if label == MASK_RCNN_A else 1)
+        release()
+    # path B: the kernels against the einsum route at batch 2, where both fit
+    _, run = phase_mask_rcnn_train(card, MASK_RCNN_B + " batch 2", MASK_RCNN_B_ARGS,
+                                   {"mha_attention_fwd": mha_fwd_kernel}, VIT_BLOCKS, batch=2,
+                                   steps=(1, 1))
+    phase_ab(card, MASK_RCNN_B + " batch 2", run)
+    run = None
+    release()
+    phase_mask_rcnn_cpu_reference(card)
+    release()
+    phase_mask_rcnn_main_train(card)
+    return launches
+
+
 def main(argv) -> int:
     import torch
 
     if argv not in ([], ["--deeplab"], ["--segmentation"], ["--families"], ["--clip"],
-                    ["--range-augment"], ["--byteformer"]):
+                    ["--range-augment"], ["--byteformer"], ["--mask-rcnn"]):
         print(f"chip_smoke: unknown arguments {argv}; usage: chip_smoke.py "
               "[--deeplab | --segmentation | --families | --clip | --range-augment | "
-              "--byteformer]", file=sys.stderr)
+              "--byteformer | --mask-rcnn]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5608,6 +6270,10 @@ def main(argv) -> int:
     if argv == ["--byteformer"]:
         phase_build()
         phase_byteformer(card)
+        return 0
+    if argv == ["--mask-rcnn"]:
+        phase_build()
+        phase_mask_rcnn(card)
         return 0
     if argv == ["--segmentation"]:
         phase_build()
@@ -5685,6 +6351,8 @@ def main(argv) -> int:
     release()
     byteformer_launches, byteformer_records = phase_byteformer(card)
     release()
+    mask_rcnn_launches = phase_mask_rcnn(card)
+    release()
 
     def entry(name, source, replaces, launches, record):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -5698,12 +6366,19 @@ def main(argv) -> int:
                                      **{path: n[key] for path, n in byteformer_launches.items()}},
                 "by_path": {path: r[part] for path, r in byteformer_records.items()}}
 
-    def sep_entry(name, replaces, part):  # the flagship's launches and the finetune's
+    def sep_entry(name, replaces, part):  # the flagship's, the finetune's, Mask R-CNN A's
         return {**entry(name, "cvnets_tpu_torch/csrc/separable_attention.cu", replaces,
                         sep_launches[name], sep_records[part]),
                 "launches_by_path": {"MobileViTv2-1.0": sep_launches[name],
-                                     "MobileViTv2-2.0 384² finetune": finetune_launches[name]},
+                                     "MobileViTv2-2.0 384² finetune": finetune_launches[name],
+                                     MASK_RCNN_A: mask_rcnn_launches[MASK_RCNN_A][name]},
                 "by_path": {"MobileViTv2-2.0 384² finetune": finetune_records[part]}}
+
+    def long_entry(name, replaces, key, record):  # ViT-B 512²'s and Mask R-CNN B's
+        return {**entry(name, "cvnets_tpu_torch/csrc/mha_attention.cu", replaces,
+                        vit_long_launches[key], record),
+                "launches_by_path": {"ViT-B/16 512² no CLS": vit_long_launches[key],
+                                     MASK_RCNN_B: mask_rcnn_launches[MASK_RCNN_B][key]}}
 
     print(json.dumps({"kernels": [
         sep_entry("separable_attention", "cvnets_tpu/ops/pallas/mobilevit_attn.py:44", "fwd"),
@@ -5719,15 +6394,12 @@ def main(argv) -> int:
         entry("seg_ce_bwd", "cvnets_tpu_torch/csrc/seg_ce.cu",
               "cvnets_tpu/ops/pallas/seg_ce_kernel.py:200",
               seg_launches["seg_ce_bwd"], seg_records["bwd"]),
-        entry("mha_attention_fwd_long", "cvnets_tpu_torch/csrc/mha_attention.cu",
-              "cvnets_tpu/ops/pallas/mha_attn_long.py:142",
-              vit_long_launches["mha_attention_fwd"], mha_long_records["fwd"]),
-        entry("mha_attention_bwd_long_dq", "cvnets_tpu_torch/csrc/mha_attention.cu",
-              "cvnets_tpu/ops/pallas/mha_attn_long.py:257",
-              vit_long_launches["mha_attention_bwd"], mha_long_records["dq"]),
-        entry("mha_attention_bwd_long_dkdv", "cvnets_tpu_torch/csrc/mha_attention.cu",
-              "cvnets_tpu/ops/pallas/mha_attn_long.py:279",
-              vit_long_launches["mha_attention_bwd"], mha_long_records["dkdv"]),
+        long_entry("mha_attention_fwd_long", "cvnets_tpu/ops/pallas/mha_attn_long.py:142",
+                   "mha_attention_fwd", mha_long_records["fwd"]),
+        long_entry("mha_attention_bwd_long_dq", "cvnets_tpu/ops/pallas/mha_attn_long.py:257",
+                   "mha_attention_bwd", mha_long_records["dq"]),
+        long_entry("mha_attention_bwd_long_dkdv", "cvnets_tpu/ops/pallas/mha_attn_long.py:279",
+                   "mha_attention_bwd", mha_long_records["dkdv"]),
         entry("window_attention_fwd", "cvnets_tpu_torch/csrc/window_attention.cu",
               "cvnets_tpu/ops/pallas/window_attn.py:279",
               swin_launches["window_attention_fwd"], win_records["fwd"]),

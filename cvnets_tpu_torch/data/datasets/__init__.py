@@ -62,7 +62,7 @@ from cvnets_tpu_torch.data.datasets.audio_classification import (  # noqa: E402,
     speech_commands_v2,
 )
 from cvnets_tpu_torch.data.datasets.classification import imagenet  # noqa: E402,F401
-from cvnets_tpu_torch.data.datasets.detection import coco_ssd  # noqa: E402,F401
+from cvnets_tpu_torch.data.datasets.detection import coco_mask_rcnn, coco_ssd  # noqa: E402,F401
 from cvnets_tpu_torch.data.datasets.multi_modal_img_text import (  # noqa: E402,F401
     base_multi_modal_img_text,
 )

@@ -5,13 +5,13 @@ library's json (no pycocotools), and ``COCODetection``: the images of
 annotation), category ids mapped to contiguous labels with 0 the background
 (unless ``--dataset.detection.no-background-id``), and each image's boxes as
 corner-form pixels, crowd boxes and boxes under a pixel dropped and the rest
-clipped to the image."""
+clipped to the image, with their ``segmentation`` entries when asked for."""
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Dict, List, Tuple
+from typing import Dict, List
 
 import numpy as np
 
@@ -72,12 +72,12 @@ class COCODetection(BaseImageDataset):
     def image_path(self, image_id: int) -> str:
         return os.path.join(self.img_dir, self.coco.load_image_info(image_id)["file_name"])
 
-    def get_boxes_and_labels(self, image_id: int, image_width: int, image_height: int
-                             ) -> Tuple[np.ndarray, np.ndarray]:
-        """(N, 4) float32 corner-form pixels and (N,) int64 labels; the
-        instance masks of the JAX method wait with Mask R-CNN (ROADMAP.md
-        queue 1 item 10)."""
-        boxes, labels = [], []
+    def get_boxes_and_labels(self, image_id: int, image_width: int, image_height: int,
+                             include_masks: bool = False):
+        """(N, 4) float32 corner-form pixels and (N,) int64 labels, and, with
+        ``include_masks``, a third entry: each kept annotation's
+        ``segmentation`` (polygon lists, an RLE dict or None), else None."""
+        boxes, labels, segs = [], [], []
         for ann in self.coco.load_anns(image_id):
             if ann.get("iscrowd", 0):
                 continue
@@ -90,4 +90,9 @@ class COCODetection(BaseImageDataset):
                 continue
             boxes.append([x, y, x2, y2])
             labels.append(self.coco_id_to_contiguous_id[ann["category_id"]])
-        return np.asarray(boxes, np.float32).reshape(-1, 4), np.asarray(labels, np.int64)
+            segs.append(ann.get("segmentation"))
+        boxes = np.asarray(boxes, np.float32).reshape(-1, 4)
+        labels = np.asarray(labels, np.int64)
+        if include_masks:
+            return boxes, labels, segs
+        return boxes, labels

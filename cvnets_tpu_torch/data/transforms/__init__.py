@@ -32,5 +32,6 @@ from cvnets_tpu_torch.data.transforms import (  # noqa: E402,F401
     audio,
     audio_bytes,
     image,
+    image_advanced,
     image_bytes,
 )

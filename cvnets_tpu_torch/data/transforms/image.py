@@ -17,7 +17,11 @@ another source pixel for about half of the (in, out) size pairs.
 Detection adds ``SSDCroping`` and ``PhotometricDistort`` (which the
 segmentation chain also runs when its flag is on), and ``Resize`` and
 ``RandomHorizontalFlip`` move ``data["box_coordinates"]``, (N, 4) float32
-numpy boxes in pixels, with the image. The segmentation transforms that no
+numpy boxes in pixels, with the image, and ``data["instance_geometry"]``
+(an ``InstanceGeometry``: where an instance polygon's original points land)
+where the sample has one: Mask R-CNN's instance masks follow every
+geometric transform (``data/transforms/image_advanced.py`` adds the LSJ
+pair). The segmentation transforms that no
 yaml of ``config/segmentation/`` turns on (Gaussian blur, rotation, random
 order) are not ported: their ``enable`` flags are parsed, and a dataset asked
 for one raises.
@@ -29,6 +33,7 @@ import argparse
 import functools
 import math
 import random
+from fractions import Fraction
 from typing import Dict, Tuple
 
 import numpy as np
@@ -83,6 +88,43 @@ def _resize(data: Dict, size_hw: Tuple[int, int], interpolation: str) -> Dict:
     if data.get("mask") is not None:
         data["mask"] = resize_mask(data["mask"], size_hw)
     return data
+
+
+class InstanceGeometry:
+    """The map x' = ax·x + bx, y' = ay·y + by from an image's original pixels
+    to its transformed ones, in exact rationals: a resize scales it, a flip
+    mirrors it, a crop shifts it. ``points`` applies it, times a last scale,
+    with one float multiply and add an axis, so a map of a resize alone
+    gives ``x · (s_last · a)`` correctly rounded, the product the JAX
+    dataset takes (``x · mw / im_w``)."""
+
+    def __init__(self) -> None:
+        self.ax, self.bx, self.ay, self.by = Fraction(1), Fraction(0), Fraction(1), Fraction(0)
+
+    def scale(self, new_w: int, old_w: int, new_h: int, old_h: int) -> None:
+        sx, sy = Fraction(new_w, max(old_w, 1)), Fraction(new_h, max(old_h, 1))
+        self.ax, self.bx, self.ay, self.by = self.ax * sx, self.bx * sx, self.ay * sy, self.by * sy
+
+    def flip(self, width: int) -> None:
+        self.ax, self.bx = -self.ax, width - self.bx
+
+    def shift(self, dx: int, dy: int) -> None:
+        self.bx, self.by = self.bx + dx, self.by + dy
+
+    def points(self, pts: np.ndarray, sx: Fraction = Fraction(1),
+               sy: Fraction = Fraction(1)) -> np.ndarray:
+        """(K, 2) float64 points mapped, then scaled by (sx, sy)."""
+        out = pts * np.asarray([float(self.ax * sx), float(self.ay * sy)])
+        if self.bx or self.by:
+            out = out + np.asarray([float(self.bx * sx), float(self.by * sy)])
+        return out
+
+
+def move_geometry(data: Dict, method: str, *args) -> None:
+    """Apply one step to the sample's ``InstanceGeometry``, if it has one."""
+    geometry = data.get("instance_geometry")
+    if geometry is not None:
+        getattr(geometry, method)(*args)
 
 
 @TRANSFORMATIONS_REGISTRY.register(name="random_resized_crop", type="image_pil")
@@ -169,6 +211,7 @@ class RandomHorizontalFlip(BaseTransformation):
     def apply(self, data: Dict, params) -> Dict:
         if params:
             data["image"] = data["image"].flip(-1)
+            move_geometry(data, "flip", data["image"].shape[-1])
             if data.get("mask") is not None:
                 data["mask"] = data["mask"].flip(-1)
             if "box_coordinates" in data:
@@ -224,6 +267,7 @@ class Resize(BaseTransformation):
             boxes[:, [0, 2]] *= new_w / old_w
             boxes[:, [1, 3]] *= new_h / old_h
             data["box_coordinates"] = boxes
+        move_geometry(data, "scale", new_w, old_w, new_h, old_h)
         return _resize(data, (new_h, new_w), self.interpolation)
 
 

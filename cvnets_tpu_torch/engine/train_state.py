@@ -44,6 +44,10 @@ returns ``{"augmented_tensor", "logits"}``; the loss receives the samples
 before the augmentor (after ``to_unit``, augmentation and mixing), as in the
 JAX step (:154, :162). The loss also gets ``epoch`` and ``iterations`` (the
 step), which RangeAugment's curriculum reads.
+
+A model that sets ``TAKES_GENERATOR`` (Mask R-CNN, whose samplers draw in its
+forward) gets ``generator=``, a generator on the batch's device seeded by
+(``common.seed``, step, ``DETECTION_STREAM``) each step.
 """
 
 from __future__ import annotations
@@ -157,7 +161,7 @@ def to_device(batch, device: torch.device):
     return tree_map(lambda t: t.to(device, non_blocking=True), batch)
 
 
-MIXING_STREAM, AUGMENT_STREAM, NEURAL_AUG_STREAM = 0, 1, 2
+MIXING_STREAM, AUGMENT_STREAM, NEURAL_AUG_STREAM, DETECTION_STREAM = 0, 1, 2, 3
 OPTIMIZER_RANGE = "train_step_optimizer"
 
 
@@ -202,6 +206,7 @@ def make_train_step(model: nn.Module, criteria: Callable, opts, metric_objs: Dic
     n_classes = getattr(opts, "model.classification.n_classes", None)
     to_unit = UnitNormalizer(opts)
     augmentor = model._modules.get("neural_augmentor")
+    takes_generator = getattr(model, "TAKES_GENERATOR", False)
     generators: Dict[torch.device, torch.Generator] = {}
 
     def train_step(state: TrainState, batch: Dict, lr: float, epoch: int = 0,
@@ -221,6 +226,8 @@ def make_train_step(model: nn.Module, criteria: Callable, opts, metric_objs: Dic
         device = first_leaf(samples).device
         if augmentor is not None:
             gen = step_generator(generators, device, seed, state.step, NEURAL_AUG_STREAM)
+        elif takes_generator:
+            gen = step_generator(generators, device, seed, state.step, DETECTION_STREAM)
         for i in range(accum_freq):
             last = i == accum_freq - 1
             for m, m0 in zip(batch_norms, base_momentum):
@@ -231,7 +238,9 @@ def make_train_step(model: nn.Module, criteria: Callable, opts, metric_objs: Dic
             else:
                 mb_samples, mb_targets = samples, targets
             with autocast(opts, device):
-                if augmentor is None:
+                if takes_generator:
+                    prediction = model(mb_samples, generator=gen)
+                elif augmentor is None:
                     prediction = model(mb_samples)
                 else:
                     prediction = model(mb_samples,

@@ -1,5 +1,5 @@
-"""Conv + Norm + Act, and the depthwise-separable conv (counterpart of
-cvnets_tpu/layers/conv_layer.py:27-176).
+"""Conv + Norm + Act, the depthwise-separable conv and the block transposed
+conv (counterpart of cvnets_tpu/layers/conv_layer.py).
 
 NCHW layout; padding ``((kernel - 1) // 2) * dilation`` on each side, as in the JAX
 package and the reference.
@@ -11,6 +11,7 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from cvnets_tpu_torch.layers.activation import build_act_layer
 from cvnets_tpu_torch.layers.normalization import LayerNorm2d, get_normalization_layer
@@ -71,3 +72,47 @@ class SeparableConv2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.pw_conv(self.dw_conv(x))
+
+
+class BlockConvTranspose(nn.Module):
+    """Transposed conv with ``kernel == stride`` (non-overlapping output blocks;
+    conv_layer.py:178-210 in the JAX package): ``out[·, o, s·i+di, s·j+dj] =
+    Σ_c x[·, c, i, j] · K[di, dj, c, o]`` with K the flax kernel
+    (kh, kw, in, out) read with its taps flipped inside each block
+    (``kernel[::-1, ::-1]``), which is where flax's transposed conv puts them.
+    The weight is held as a conv's (out, in, kh, kw), the layout
+    ``utils.jax_params`` gives every 4-D ``kernel``; the forward flips the taps
+    and runs ``F.conv_transpose2d``, whose weight is (in, out, kh, kw)."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int = 2,
+                 bias: bool = True) -> None:
+        super().__init__()
+        self.stride = kernel_size
+        self.weight = nn.Parameter(torch.empty(out_channels, in_channels, kernel_size,
+                                               kernel_size))
+        self.bias = nn.Parameter(torch.zeros(out_channels)) if bias else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        weight = self.weight.flip(2, 3).transpose(0, 1)
+        return F.conv_transpose2d(x, weight, self.bias, stride=self.stride)
+
+
+class TransposeConvLayer2d(nn.Module):
+    """Transposed conv (+ norm + act) (conv_layer.py:213-256): ``conv`` a
+    ``BlockConvTranspose``, ``norm`` the options' normalization. The JAX layer's
+    other branch, a SAME-padded ``nn.ConvTranspose`` where kernel and stride
+    differ, runs on no shipped configuration and raises here."""
+
+    def __init__(self, opts, in_channels: int, out_channels: int, kernel_size: int = 2,
+                 stride: int = 2, bias: bool = False, use_norm: bool = True,
+                 use_act: bool = True, act_name: Optional[str] = None) -> None:
+        super().__init__()
+        if kernel_size != stride:
+            raise NotImplementedError(
+                f"TransposeConvLayer2d: kernel {kernel_size} ≠ stride {stride} (flax's "
+                "SAME-padded ConvTranspose) is not ported; kernel == stride is")
+        self.conv = BlockConvTranspose(in_channels, out_channels, kernel_size, bias=bias)
+        self.norm = get_normalization_layer(opts, out_channels) if use_norm else None
+        self.act = build_act_layer(opts, act_name) if use_act else None
+
+    forward = ConvLayer2d.forward

@@ -13,7 +13,10 @@ that none of these rules covers (CLIP's token table, projections and
 ``logit_scale``) draws them in its ``init_own_parameters(generator)``. A
 conv that the JAX package builds without a ``kernel_init`` (Swin's patch
 embedding) takes flax's default, ``lecun_normal``: it carries
-``weight_init = "lecun_normal"``.
+``weight_init = "lecun_normal"``. A conv or linear layer whose JAX
+initializer is a fixed normal (Mask R-CNN's RPN and box predictors) carries
+``weight_init = ("normal", std)``. ``BlockConvTranspose`` takes the conv rule:
+its fan-in, kh·kw·in, is flax's for its (kh, kw, in, out) kernel.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ import torch
 import torch.nn as nn
 
 from cvnets_tpu_torch.utils import logger
+from cvnets_tpu_torch.layers.conv_layer import BlockConvTranspose
 from cvnets_tpu_torch.layers.linear_layer import LinearLayer
 from cvnets_tpu_torch.layers.normalization import LayerNorm2d
 from cvnets_tpu_torch.layers.positional_embedding import PositionalEmbedding
@@ -66,8 +70,10 @@ def init_weights(model: nn.Module, opts, generator: Optional[torch.Generator]) -
     linear = (getattr(opts, "model.layer.linear_init", "normal"),
               getattr(opts, "model.layer.linear_init_std_dev", 0.01) or 0.01)
     for m in model.modules():
-        if isinstance(m, nn.Conv2d):
-            own = getattr(m, "weight_init", None)
+        own = getattr(m, "weight_init", None)
+        if isinstance(own, tuple):  # (name, std) of the module's own initializer
+            init_tensor(m.weight, *own, generator)
+        elif isinstance(m, (nn.Conv2d, BlockConvTranspose)):
             init_tensor(m.weight, *((own, None) if own else conv), generator)
         elif isinstance(m, LinearLayer):
             init_tensor(m.weight, *(conv if m.weight_init == "conv" else linear),

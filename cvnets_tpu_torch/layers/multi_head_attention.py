@@ -1,9 +1,11 @@
 """Multi-head attention (counterpart of cvnets_tpu/layers/multi_head_attention.py).
 
 One fused ``qkv_proj`` (E → 3E) and ``out_proj``, on (B, S, E) tokens. The
-layer takes the fused kernel (ops/mha_attention.py) exactly when the JAX layer
-does (:77-101): no ``attn_mask``, as many queries as keys, no attention dropout
-in training, and a shape ``fused_attention_eligible`` accepts; key padding
+layer takes the fused kernel (ops/mha_attention.py) when the JAX layer does
+(:77-101): no ``attn_mask``, as many queries as keys, no attention dropout
+in training, and a shape ``fused_attention_eligible`` accepts (on the card
+also an S > 512 that no TPU kernel blocks, which JAX sends to its einsum
+route: the CUDA kernels tile a ragged S); key padding
 then enters as an additive -1e30 mask. Otherwise it runs the einsum route
 (:106-120) with a float32 softmax, where key padding fills ``finfo.min``,
 inside a ``torch.profiler`` range named ``EINSUM_ROUTE``, so that a profile
@@ -61,7 +63,7 @@ class MultiHeadAttention(nn.Module):
         scale = hd ** -0.5
         if (self.use_kernel and attn_mask is None and nq == nk
                 and (self.attn_dropout.p == 0 or not self.training)
-                and fused_attention_eligible(nq, d, h, q.element_size())):
+                and fused_attention_eligible(nq, d, h, q.element_size(), q.is_cuda)):
             km = None
             if key_padding_mask is not None:
                 km = torch.where(key_padding_mask, -1e30, 0.0)

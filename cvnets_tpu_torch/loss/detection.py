@@ -6,14 +6,18 @@ times as many as an image's positives, over the number of positives. The
 negatives are ranked as the JAX loss ranks them, by a stable descending sort
 of the background loss (positives last), so tied losses pick the same
 anchors; the rank is the sort's inverse permutation, made by a scatter.
-``MaskRCNNLoss`` keeps its registry name and raises: it waits for ROADMAP.md
-queue 1 item 10.
+``MaskRCNNLoss`` weighs and sums the losses the Mask R-CNN model computes
+in its training forward (``prediction["losses"]``) into ``total_loss``. An
+eval-mode forward computes none; its loss is a zero ``total_loss``, as the
+reference's ``MaskRCNNLoss`` returns during validation (the JAX loss raises
+there, so a JAX Mask R-CNN run with ``stats.val`` ``loss`` stops at its first
+validation).
 """
 
 from __future__ import annotations
 
 import argparse
-from typing import Any
+from typing import Any, Dict
 
 import torch
 
@@ -78,6 +82,32 @@ class SSDLoss(BaseDetectionCriteria):
 
 @LOSS_REGISTRY.register(name="mask_rcnn_loss", type="detection")
 class MaskRCNNLoss(BaseDetectionCriteria):
+    WEIGHTS = {"loss_classifier": "classifier_weight", "loss_box_reg": "box_reg_weight",
+               "loss_mask": "mask_weight", "loss_objectness": "objectness_weight",
+               "loss_rpn_box_reg": "rpn_box_reg"}
+
     def __init__(self, opts, *args, **kwargs) -> None:
-        raise NotImplementedError(
-            "not ported yet: the Mask R-CNN loss waits for ROADMAP.md queue 1 item 10")
+        super().__init__(opts)
+        prefix = "loss.detection.mask_rcnn_loss."
+        self.weights = {loss: getattr(opts, prefix + flag, 1.0)
+                        for loss, flag in self.WEIGHTS.items()}
+
+    @classmethod
+    def add_arguments(cls, parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
+        group = parser.add_argument_group(title=cls.__name__)
+        for flag in cls.WEIGHTS.values():
+            group.add_argument("--loss.detection.mask-rcnn-loss." + flag.replace("_", "-"),
+                               type=float, default=1.0)
+        return parser
+
+    def __call__(self, input_sample: Any, prediction: Any, target: Any,
+                 **kwargs) -> Dict[str, torch.Tensor]:
+        if not isinstance(prediction, dict):
+            raise ValueError("MaskRCNNLoss expects the Mask R-CNN model's prediction dict")
+        losses = prediction.get("losses")
+        if losses is None:  # an eval-mode forward
+            device = next(v for v in prediction.values() if isinstance(v, torch.Tensor)).device
+            return {"total_loss": torch.zeros((), device=device)}
+        out = dict(losses)
+        out["total_loss"] = sum(self.weights.get(k, 1.0) * v for k, v in losses.items())
+        return out

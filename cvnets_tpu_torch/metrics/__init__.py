@@ -23,7 +23,7 @@ def arguments_stats(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     group.add_argument("--stats.checkpoint-metric-max", action="store_true",
                        default=False)
     group.add_argument("--stats.coco-map.iou-types", type=str, nargs="+", default=["bbox"],
-                       help="IoU types of the COCO mAP (bbox; segm is not ported)")
+                       help="IoU types of the COCO mAP: bbox, segm")
     return parser
 
 

@@ -4,8 +4,11 @@ which stands in for pycocotools' COCOeval): AP averaged over IoU thresholds
 highest-IoU matching of score-sorted detections preferring non-ignored ground
 truth, crowd boxes as ignore regions (IoU over the detection's area, matched
 any number of times), the area ranges (all/small/medium/large), ``max_dets``
-and the average recall. The ``bbox`` type only: ``segm`` (instance masks) waits
-for ROADMAP.md queue 1 item 10.
+and the average recall, for the ``bbox`` and ``segm`` IoU types. ``segm``
+scores instance masks: a detection's and a ground truth's binary masks
+(``> 0.5``) of the image's size, their IoU and areas counted in pixels (the
+JAX ``_mask_iou_np``, here one matrix product an image and class), and it
+needs ``masks`` in every detection and ground truth it scores.
 
 ``COCOMapMetric`` gathers detections and ground truth on the host and scores
 them at the end (the offline detection evaluation,
@@ -31,7 +34,7 @@ AREA_RANGES = {
     "large": (96.0 ** 2, 1e10),
 }
 MAX_DETS = 100
-SEGM_UNPORTED = "the segm mAP (instance masks) waits for ROADMAP.md queue 1 item 10"
+IOU_TYPES = ("bbox", "segm")
 
 
 def _box_iou_np(a: np.ndarray, b: np.ndarray, b_crowd: np.ndarray) -> np.ndarray:
@@ -44,6 +47,24 @@ def _box_iou_np(a: np.ndarray, b: np.ndarray, b_crowd: np.ndarray) -> np.ndarray
     union = area_a[:, None] + area_b[None, :] - inter
     denom = np.where(b_crowd[None, :], area_a[:, None], union)
     return inter / np.maximum(denom, 1e-9)
+
+
+def _mask_iou_np(a: np.ndarray, b: np.ndarray, b_crowd: np.ndarray) -> np.ndarray:
+    """IoU (A, B) of binary masks (A, P) and (B, P) flattened; a crowd mask's
+    denominator is the detection's area."""
+    a, b = a.astype(np.float64), b.astype(np.float64)
+    inter = a @ b.T
+    area_a, area_b = a.sum(1), b.sum(1)
+    denom = np.where(b_crowd[None, :], area_a[:, None],
+                     area_a[:, None] + area_b[None, :] - inter)
+    return inter / np.maximum(denom, 1e-9)
+
+
+def _binary_masks(masks, n: int) -> np.ndarray:
+    """(N, H·W) bool of a list or array of N masks (``> 0.5``)."""
+    if n == 0:
+        return np.zeros((0, 0), bool)
+    return np.stack([np.asarray(m).reshape(-1) > 0.5 for m in masks])
 
 
 def _evaluate_image(ious: np.ndarray, gt_ignore: np.ndarray, gt_crowd: np.ndarray,
@@ -81,31 +102,43 @@ def _area_of(boxes: np.ndarray) -> np.ndarray:
             * np.clip(boxes[:, 3] - boxes[:, 1], 0, None))
 
 
+def _geometry(entry: Dict, sel: np.ndarray, iou_type: str):
+    """The selected boxes (N, 4), or masks (N, H·W) bool for ``segm``, and their areas."""
+    if iou_type == "segm":
+        masks = _binary_masks([m for m, s in zip(entry["masks"], sel) if s], int(sel.sum()))
+        return masks, masks.sum(1).astype(np.float64)
+    boxes = np.asarray(entry["boxes"], np.float32).reshape(-1, 4)[sel]
+    return boxes, _area_of(boxes)
+
+
 def _class_ap(detections: List[Dict], ground_truths: List[Dict], cls: int, lo: float,
-              hi: float, iou_thresholds: np.ndarray, max_dets: int
+              hi: float, iou_thresholds: np.ndarray, max_dets: int, iou_type: str = "bbox"
               ) -> Optional[Tuple[np.ndarray, np.ndarray]]:
     """(AP, recall) at each threshold of one class in one area range, or None
     where the class has no ground truth there."""
     nt = len(iou_thresholds)
+    iou_fn = _mask_iou_np if iou_type == "segm" else _box_iou_np
     scores_acc, tp_acc, ig_acc, n_gt = [], [], [], 0
     for det, gt in zip(detections, ground_truths):
         g_sel = np.asarray(gt["labels"]).reshape(-1) == cls
-        g_boxes = np.asarray(gt["boxes"], np.float32).reshape(-1, 4)[g_sel]
+        g_geom, g_area = _geometry(gt, g_sel, iou_type)
         g_crowd = np.asarray(gt.get("iscrowd", np.zeros(len(g_sel))), bool)[g_sel]
-        g_area = _area_of(g_boxes)
         g_ignore = g_crowd | (g_area < lo) | (g_area > hi)
         order_g = np.argsort(g_ignore, kind="stable")  # non-ignored first
-        g_boxes, g_crowd, g_ignore = g_boxes[order_g], g_crowd[order_g], g_ignore[order_g]
+        g_geom, g_crowd, g_ignore = g_geom[order_g], g_crowd[order_g], g_ignore[order_g]
         n_gt += int((~g_ignore).sum())
 
         d_sel = np.asarray(det["labels"]).reshape(-1) == cls
-        d_boxes = np.asarray(det["boxes"], np.float32).reshape(-1, 4)[d_sel]
+        d_geom, d_area = _geometry(det, d_sel, iou_type)
         d_scores = np.asarray(det["scores"], np.float32)[d_sel]
         order_d = np.argsort(-d_scores, kind="stable")[:max_dets]
-        d_boxes, d_scores = d_boxes[order_d], d_scores[order_d]
-        d_area = _area_of(d_boxes)
-        tp, dt_ig = _evaluate_image(_box_iou_np(d_boxes, g_boxes, g_crowd), g_ignore,
-                                    g_crowd, (d_area < lo) | (d_area > hi), iou_thresholds)
+        d_geom, d_area, d_scores = d_geom[order_d], d_area[order_d], d_scores[order_d]
+        if len(d_geom) and len(g_geom):
+            ious = iou_fn(d_geom, g_geom, g_crowd)
+        else:
+            ious = np.zeros((len(d_geom), len(g_geom)))
+        tp, dt_ig = _evaluate_image(ious, g_ignore, g_crowd, (d_area < lo) | (d_area > hi),
+                                    iou_thresholds)
         scores_acc.append(d_scores)
         tp_acc.append(tp)
         ig_acc.append(dt_ig)
@@ -139,11 +172,14 @@ def compute_coco_map(detections: List[Dict], ground_truths: List[Dict],
                      area_ranges: Optional[Sequence[str]] = ("all", "small", "medium",
                                                              "large")) -> Dict[str, float]:
     """detections: per image {"boxes" (N, 4) corner-form pixels, "scores" (N,),
-    "labels" (N,)}; ground_truths: per image {"boxes", "labels", optional
-    "iscrowd"}. {"bbox": mAP@[.5:.95], "bbox_50", "bbox_75",
-    "bbox_small/medium/large", "bbox_ar_<max_dets>"}, each in [0, 1]."""
-    if iou_type != "bbox":
-        raise NotImplementedError(f"not ported yet: {SEGM_UNPORTED}")
+    "labels" (N,), and for ``segm`` "masks" (N masks of the image's size)};
+    ground_truths: per image {"boxes", "labels", optional "iscrowd", and for
+    ``segm`` "masks"}. {"<type>": mAP@[.5:.95], "<type>_50", "<type>_75",
+    "<type>_small/medium/large", "<type>_ar_<max_dets>"}, each in [0, 1]."""
+    if iou_type not in IOU_TYPES:
+        raise ValueError(f"iou_type {iou_type!r}: want one of {IOU_TYPES}")
+    if iou_type == "segm" and not all("masks" in e for e in detections + ground_truths):
+        raise ValueError("the segm mAP needs masks in every detection and ground truth")
     assert len(detections) == len(ground_truths)
     key = iou_type
     classes = sorted({int(lab) for gt in ground_truths for lab in gt["labels"]})
@@ -156,7 +192,8 @@ def compute_coco_map(detections: List[Dict], ground_truths: List[Dict],
         ap = np.full((nt, len(classes)), np.nan)
         ar = np.full((nt, len(classes)), np.nan)
         for ci, cls in enumerate(classes):
-            res = _class_ap(detections, ground_truths, cls, lo, hi, iou_thresholds, max_dets)
+            res = _class_ap(detections, ground_truths, cls, lo, hi, iou_thresholds, max_dets,
+                            iou_type)
             if res is not None:
                 ap[:, ci], ar[:, ci] = res
         valid = ~np.isnan(ap[0])
@@ -179,8 +216,9 @@ class COCOMapMetric(BaseMetric):
     def __init__(self, opts=None, **kwargs) -> None:
         self.iou_types = (getattr(opts, "stats.coco_map.iou_types", ["bbox"]) if opts
                           else ["bbox"]) or ["bbox"]
-        if any(t != "bbox" for t in self.iou_types):
-            raise NotImplementedError(f"not ported yet: {SEGM_UNPORTED}")
+        unknown = [t for t in self.iou_types if t not in IOU_TYPES]
+        if unknown:
+            raise ValueError(f"--stats.coco-map.iou-types {unknown}: want {IOU_TYPES}")
         super().__init__(opts, **kwargs)
 
     def reset(self) -> None:
@@ -201,5 +239,9 @@ class COCOMapMetric(BaseMetric):
 
     def compute(self) -> Dict[str, float]:
         if not self._dets:
-            return {"bbox": 0.0}
-        return {k: v * 100.0 for k, v in compute_coco_map(self._dets, self._gts).items()}
+            return {t: 0.0 for t in self.iou_types}
+        out = {}
+        for iou_type in self.iou_types:
+            res = compute_coco_map(self._dets, self._gts, iou_type=iou_type)
+            out.update({k: v * 100.0 for k, v in res.items()})
+        return out

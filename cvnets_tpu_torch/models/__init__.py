@@ -126,7 +126,7 @@ from cvnets_tpu_torch.models.classification import (  # noqa: E402,F401
     swin_transformer,
     vit,
 )
-from cvnets_tpu_torch.models.detection import base_detection, ssd  # noqa: E402,F401
+from cvnets_tpu_torch.models.detection import base_detection, mask_rcnn, ssd  # noqa: E402,F401
 from cvnets_tpu_torch.models.multi_modal import base_multi_modal, clip  # noqa: E402,F401
 from cvnets_tpu_torch.models.segmentation import enc_dec  # noqa: E402,F401
 from cvnets_tpu_torch.models.segmentation.heads import seg_heads  # noqa: E402,F401

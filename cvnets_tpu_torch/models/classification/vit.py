@@ -14,10 +14,14 @@ in JAX. ``extract_features`` returns the classifier's input (the CLS
 embedding after ``post_transformer_norm``, or the token mean): CLIP's image
 features. ``forward(x, return_image_embeddings=True)`` also returns the
 tokens after the CLS one as a (B, E, h, w) map, which
-``extract_end_points_all`` gives as ``out_l5`` (vit.py:182-215, without the
-simple FPN). Not ported yet, and raising if asked for: MoE blocks and the
-simple FPN; not ported and without a flag here: gradient checkpointing and
-layer-wise LR decay.
+``extract_end_points_all`` gives as ``out_l5`` (vit.py:182-215), without
+running the classifier. Under ``--model.classification.vit.use-simple-fpn``
+(ViTDet's simple FPN, vit.py:187-206) the stride-16 map fans out instead to
+``out_l2`` (two 2×2 transposed convs, the first with norm and activation,
+E/4 channels), ``out_l3`` (one, E/2), ``out_l4`` (the map) and ``out_l5``
+(2×2 max pool): the taps Mask R-CNN reads, whose widths ``model_conf_dict``
+gives. Not ported yet, and raising if asked for: MoE blocks; not ported and
+without a flag here: gradient checkpointing and layer-wise LR decay.
 """
 
 from __future__ import annotations
@@ -27,8 +31,9 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
-from cvnets_tpu_torch.layers.conv_layer import ConvLayer2d
+from cvnets_tpu_torch.layers.conv_layer import ConvLayer2d, TransposeConvLayer2d
 from cvnets_tpu_torch.layers.linear_layer import LinearLayer
 from cvnets_tpu_torch.layers.normalization import get_normalization_layer
 from cvnets_tpu_torch.layers.positional_embedding import PositionalEmbedding
@@ -40,7 +45,6 @@ from cvnets_tpu_torch.modules.transformer import TransformerEncoder
 # options of the JAX model that the port does not have yet
 _UNPORTED = {
     "model.classification.vit.moe_num_experts": "MoE transformer blocks",
-    "model.classification.vit.use_simple_fpn": "the simple FPN",
 }
 
 
@@ -114,6 +118,19 @@ class VisionTransformer(BaseImageEncoder):
             opts, embed_dim, cfg["norm_layer"], eps=1e-6) or nn.Identity()
         self.classifier = LinearLayer(
             embed_dim, getattr(opts, "model.classification.n_classes", 1000))
+        self.use_simple_fpn = bool(getattr(opts, "model.classification.vit.use_simple_fpn",
+                                           False))
+        if self.use_simple_fpn:
+            e = embed_dim
+            self.simple_fpn_l2_0 = TransposeConvLayer2d(opts, e, e // 2)
+            self.simple_fpn_l2_1 = TransposeConvLayer2d(opts, e // 2, e // 4, bias=True,
+                                                        use_norm=False, use_act=False)
+            self.simple_fpn_l3 = TransposeConvLayer2d(opts, e, e // 2, bias=True,
+                                                      use_norm=False, use_act=False)
+            self.model_conf_dict = {"layer2": {"out": e // 4}, "layer3": {"out": e // 2},
+                                    "layer4": {"out": e}, "layer5": {"out": e}}
+        else:
+            self.model_conf_dict = {"layer5": {"out": embed_dim}}
 
     def _tokens(self, x: torch.Tensor):
         """Tokens after ``post_transformer_norm`` (CLS first when there is one)
@@ -136,15 +153,28 @@ class VisionTransformer(BaseImageEncoder):
         """(B, E): the classifier's input."""
         return self._embedding(self._tokens(x)[0])
 
+    def _image_embedding(self, tokens: torch.Tensor, grid) -> torch.Tensor:
+        """The tokens after the CLS one as a (B, E, h, w) map."""
+        emb = tokens[:, 1:] if self.use_cls_token else tokens
+        return emb.transpose(1, 2).reshape(emb.shape[0], -1, *grid)
+
+    def _taps(self, emb: torch.Tensor) -> Dict[str, torch.Tensor]:
+        if not self.use_simple_fpn:
+            return {"out_l5": emb}
+        return {"out_l2": self.simple_fpn_l2_1(self.simple_fpn_l2_0(emb)),
+                "out_l3": self.simple_fpn_l3(emb), "out_l4": emb,
+                "out_l5": F.max_pool2d(emb, 2, 2)}
+
     def forward(self, x: torch.Tensor, return_image_embeddings: bool = False):
-        tokens, (h, w) = self._tokens(x)
+        tokens, grid = self._tokens(x)
         logits = self.classifier(self._embedding(tokens))
         if not return_image_embeddings:
             return logits
-        grid = tokens[:, 1:] if self.use_cls_token else tokens
-        return logits, grid.transpose(1, 2).reshape(grid.shape[0], -1, h, w)
+        emb = self._image_embedding(tokens, grid)
+        return logits, (self._taps(emb) if self.use_simple_fpn else emb)
 
     def extract_end_points_all(self, x: torch.Tensor, use_l5: bool = True,
                                use_l5_exp: bool = False) -> Dict[str, torch.Tensor]:
-        """``{"out_l5": (B, E, h, w)}``, the token map, whatever the flags."""
-        return {"out_l5": self(x, return_image_embeddings=True)[1]}
+        """``{"out_l5": (B, E, h, w)}``, the token map, or the simple FPN's four
+        taps, whatever the flags."""
+        return self._taps(self._image_embedding(*self._tokens(x)))

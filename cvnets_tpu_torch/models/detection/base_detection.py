@@ -3,8 +3,7 @@ the ``--model.detection.*`` and ``--evaluation.detection.*`` flags, with the
 JAX package's dests and defaults, and the encoder: the registered
 classification model, dilated for ``--model.detection.output-stride`` 8 or
 16, without its classifier (a detector never calls it, so the flax tree has
-none). Mask R-CNN keeps its registry name and raises: it waits for ROADMAP.md
-queue 1 item 10."""
+none)."""
 
 from __future__ import annotations
 
@@ -61,10 +60,3 @@ class BaseDetection(nn.Module):
     def get_lr_multipliers(opts) -> Dict[str, float]:
         return {}
 
-
-@MODEL_REGISTRY.register(name="mask_rcnn", type="detection")
-class MaskRCNNDetector(BaseDetection):
-    def __init__(self, opts) -> None:
-        raise NotImplementedError(
-            "not ported yet: Mask R-CNN (cvnets_tpu/models/detection/mask_rcnn.py) waits "
-            "for ROADMAP.md queue 1 item 10")

@@ -1,8 +1,8 @@
 """SSD prediction head (counterpart of cvnets_tpu/modules/ssd_heads.py:18-55):
 an optional 1×1 projection (``proj_layer``), then a separable k×k conv, or a
 1×1 conv where k is 1, to ``n_anchors · (4 + n_classes)`` channels, split into
-box offsets and class scores. ``SSDInstanceHead`` waits with Mask R-CNN
-(ROADMAP.md queue 1 item 10)."""
+box offsets and class scores. ``SSDInstanceHead``, a mask-coefficient head
+that the JAX package defines and no model of it builds, is not ported."""
 
 from __future__ import annotations
 

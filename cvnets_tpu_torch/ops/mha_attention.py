@@ -10,9 +10,14 @@ already scaled; ``key_mask`` is an additive (B, S) float32 mask or None.
   row statistics; a backward of a pre-pass for delta, a dQ kernel over key
   tiles and a dK/dV kernel over query tiles) is the long-sequence kernels'
   KV-blocked design already, so one pair serves every S the JAX dispatch
-  sends to a kernel: S ≤ 512, or S > 512 where ``mha_attn_long.choose_block``
-  finds a block, at a head dim of 16, 32, 64 or 128 (the bf16 forward on
-  wgmma at 64 and 128). They take CUDA tensors only and count their launches.
+  sends to a kernel (S ≤ 512, or S > 512 where ``mha_attn_long.choose_block``
+  finds a block), at a head dim of 16, 32, 64 or 128 (the bf16 forward on
+  wgmma at 64 and 128), and on the card any longer S too: their tiles
+  cover a ragged S (the last tile masked), so ViT-B/16 at 1024² with its CLS
+  token (S = 4,097 = 17 · 241, which no 128-block divides) takes them where
+  the einsum route would keep B·H·S² probabilities a layer. On the CPU the
+  dispatch keeps the JAX rule. They take CUDA tensors only and count their
+  launches.
 * ``mha_attention_plain`` / ``mha_attention_backward_plain``: the same
   functions in plain torch ops (the JAX ``_reference`` and its einsum VJP), for
   CPU tensors and as the kernels' references; ``mha_attention_stats_plain``
@@ -62,11 +67,16 @@ def _tiled_by_a_tpu_kernel(seq: int, embed: int, itemsize: int) -> bool:
     return embed <= _MAX_EMBED and _choose_long_block(seq, embed, itemsize) is not None
 
 
-def fused_attention_eligible(seq: int, embed: int, heads: int, itemsize: int = 4) -> bool:
-    """The JAX rule, and a head dim the kernels take: H | H·D and D in
-    {16, 32, 64, 128}. Every other shape takes the einsum route."""
-    return (embed % heads == 0 and embed // heads in _HEAD_DIMS
-            and _tiled_by_a_tpu_kernel(seq, embed, itemsize))
+def fused_attention_eligible(seq: int, embed: int, heads: int, itemsize: int = 4,
+                             on_cuda: bool = False) -> bool:
+    """A head dim the kernels take (H | H·D, D in {16, 32, 64, 128}) and, on
+    the CPU, the JAX rule; on the card (``on_cuda``) H·D ≤ 1024 at any S, the
+    kernels' own limit. Every other shape takes the einsum route."""
+    if embed % heads or embed // heads not in _HEAD_DIMS:
+        return False
+    if on_cuda:
+        return embed <= _MAX_EMBED
+    return _tiled_by_a_tpu_kernel(seq, embed, itemsize)
 
 
 def _split_heads(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -127,11 +137,10 @@ def _check(tensors, shape, heads: int) -> int:
     """Validate what the kernels take; return the head dim."""
     b, s, e = shape
     ref = tensors[0][1]
-    if not _tiled_by_a_tpu_kernel(s, e, ref.element_size()):
+    if e > _MAX_EMBED:
         raise NotImplementedError(
-            f"S={s}, H·D={e}: neither TPU kernel tiles this shape (mha_attn.py takes "
-            f"S ≤ {_MAX_SEQ}, mha_attn_long.py an S divisible by 128, 256 or 512), so "
-            f"no kernel takes it; MultiHeadAttention sends it to the einsum route")
+            f"S={s}, H·D={e}: the kernels take H·D ≤ {_MAX_EMBED}; MultiHeadAttention "
+            f"sends this shape to the einsum route")
     for name, t in tensors:
         if t.device.type != "cuda" or t.device != ref.device:
             raise ValueError(f"{name} must be on q's CUDA device; got {t.device}")

@@ -8,7 +8,12 @@ writes ``<root>/{train2017,val2017}/*.jpg`` and
 rectangle an annotation of one of ``CATEGORY_IDS`` (not contiguous, as
 COCO's), some of them crowd boxes, one image of each split with no
 annotation, and one training file cut short before its frame header, which no
-decoder reads. Needs Pillow and numpy.
+decoder reads. Each annotation also has a polygon ``segmentation`` inside its
+box: one star-shaped polygon, one with a hole (an inner polygon, which the
+even-odd fill leaves out) or two parts side by side, in turn. The polygons
+come from a generator of their own, seeded by (seed, 1), so the images and
+boxes are those the seed gave before polygons were added. Needs Pillow and
+numpy.
 """
 
 from __future__ import annotations
@@ -16,15 +21,37 @@ from __future__ import annotations
 import json
 import os
 import sys
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 
 CATEGORY_IDS = (1, 3, 7, 12, 18)
 
 
+def _star(rng: np.random.Generator, cx: float, cy: float, rx: float, ry: float,
+          n: int = 8) -> List[float]:
+    """A polygon whose ``n`` points sit at sorted angles about (cx, cy), at
+    0.5-1 of the radii: x1, y1, x2, y2, ..."""
+    angles = np.sort(rng.uniform(0.0, 2 * np.pi, n))
+    radius = rng.uniform(0.5, 1.0, n)
+    pts = np.stack([cx + rx * radius * np.cos(angles), cy + ry * radius * np.sin(angles)], -1)
+    return [round(float(v), 2) for v in pts.reshape(-1)]
+
+
+def _segmentation(rng: np.random.Generator, kind: int, x: float, y: float, bw: float,
+                  bh: float) -> List[List[float]]:
+    """Polygons inside the box (x, y, bw, bh): one, one with a hole, or two parts."""
+    cx, cy = x + bw / 2, y + bh / 2
+    if kind == 1:
+        return [_star(rng, cx, cy, bw / 2, bh / 2), _star(rng, cx, cy, bw / 8, bh / 8)]
+    if kind == 2:
+        return [_star(rng, x + bw / 4, cy, bw / 4, bh / 2), _star(rng, x + 3 * bw / 4, cy,
+                                                                 bw / 4, bh / 2)]
+    return [_star(rng, cx, cy, bw / 2, bh / 2)]
+
+
 def _split(root: str, split: str, n: int, max_side: int, rng: np.random.Generator,
-           damaged: bool) -> Dict:
+           damaged: bool, poly_rng: np.random.Generator) -> Dict:
     from PIL import Image
 
     img_dir = os.path.join(root, f"{split}2017")
@@ -44,7 +71,8 @@ def _split(root: str, split: str, n: int, max_side: int, rng: np.random.Generato
                 "id": len(annotations) + 1, "image_id": img_id,
                 "category_id": int(rng.choice(CATEGORY_IDS)),
                 "bbox": [float(x), float(y), float(bw), float(bh)], "area": float(bw * bh),
-                "iscrowd": int(rng.random() < 0.15)})
+                "iscrowd": int(rng.random() < 0.15),
+                "segmentation": _segmentation(poly_rng, len(annotations) % 3, x, y, bw, bh)})
         name = f"{img_id:012d}.jpg"
         path = os.path.join(img_dir, name)
         Image.fromarray(pixels).save(path, quality=90)
@@ -61,10 +89,10 @@ def _split(root: str, split: str, n: int, max_side: int, rng: np.random.Generato
 def write_coco_corpus(root: str, n_train: int = 12, n_val: int = 6, max_side: int = 160,
                       seed: int = 0) -> str:
     """Write the folder (see the module's docstring) and return ``root``."""
-    rng = np.random.default_rng(seed)
+    rng, poly_rng = np.random.default_rng(seed), np.random.default_rng([seed, 1])
     os.makedirs(os.path.join(root, "annotations"), exist_ok=True)
     for split, n, damaged in (("train", n_train, True), ("val", n_val, False)):
-        blob = _split(root, split, n, max_side, rng, damaged)
+        blob = _split(root, split, n, max_side, rng, damaged, poly_rng)
         with open(os.path.join(root, "annotations", f"instances_{split}2017.json"), "w") as f:
             json.dump(blob, f)
     return root

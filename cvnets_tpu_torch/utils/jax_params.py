@@ -16,7 +16,9 @@ augmentor's scalars (``neural_augmentor/{brightness,contrast,noise}_{mag,min,max
 ``teacher_variables``.
 The segmentation heads' scopes (PSPNet's ``psp/psp_branch_<i>`` and
 ``psp/fusion``, the separable ASPP's ``aspp/aspp_sep_<i>/{dw_conv,pw_conv}``,
-the simple head's ``conv``) follow the same rule. Only leaves named ``kernel``
+the simple head's ``conv``) and Mask R-CNN's (``fpn/lateral_{i}``,
+``rpn_head/cls_logits``, ``box_head/fc``, ``mask_head/deconv``, the ViT's
+``simple_fpn_l2_0/conv``, ...) follow the same rule. Only leaves named ``kernel``
 change layout, by rank: a conv HWIO → OIHW (a
 depthwise (kh, kw, 1, O) becomes (O, 1, kh, kw)), a 1-D conv (k, in, out) →
 (out, in, k) (ByteFormer's ``token_reduction``) and a Dense (in, out) → Linear
@@ -46,9 +48,10 @@ _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
          **{f"{aug}_{part}": f"{aug}_{part}" for aug in ("brightness", "contrast", "noise")
             for part in ("mag", "min", "max")}}
 # a list of modules in flax (``layer_3_0``, FastViT's ``conv_1_0`` and
-# ``conv_1x1_exp_0``, SSD's ``extra_layers_0`` and ``ssd_heads_0``) is an
-# ``nn.Sequential`` or ``nn.ModuleList`` entry here (``layer_3.0``)
-_STAGE = re.compile(r"^(layer_\d+|conv_1|conv_1x1_exp|extra_layers|ssd_heads)_(\d+)$")
+# ``conv_1x1_exp_0``, SSD's ``extra_layers_0`` and ``ssd_heads_0``, Mask
+# R-CNN's ``proj_layers_0``) is an ``nn.Sequential`` or ``nn.ModuleList``
+# entry here (``layer_3.0``)
+_STAGE = re.compile(r"^(layer_\d+|conv_1|conv_1x1_exp|extra_layers|ssd_heads|proj_layers)_(\d+)$")
 
 
 def _flatten(tree: Mapping, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...], np.ndarray]]:

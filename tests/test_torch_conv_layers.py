@@ -356,15 +356,9 @@ def test_layers_build_with_model_activation_not_the_classification_one():
     assert model.conv_1.act.__name__ == "relu" and model.layer_2[0].act.__name__ == "relu"
 
 
-# keys each yaml sets that the port's parser does not take, all of unported
-# items: Mask R-CNN's loss weights and backbone LR (ROADMAP queue 1 item 10)
-MASK_RCNN_KEYS = ["loss.detection.mask_rcnn_loss.classifier_weight",
-                  "loss.detection.mask_rcnn_loss.box_reg_weight",
-                  "loss.detection.mask_rcnn_loss.mask_weight",
-                  "loss.detection.mask_rcnn_loss.objectness_weight",
-                  "loss.detection.mask_rcnn_loss.rpn_box_reg",
-                  "model.detection.mask_rcnn.backbone_lr_multiplier"]
-UNPORTED_KEYS = {"detection/mask_rcnn_coco/resnet_fpn.yaml": MASK_RCNN_KEYS}
+# keys a yaml sets that the port's parser does not take: none since Mask
+# R-CNN's loss weights and backbone LR were ported
+UNPORTED_KEYS = {}
 YAMLS = [f"classification/imagenet/{name}.yaml" for name in (
     "resnet", "resnet_adv", "mobilenet_v1", "mobilenet_v2", "mobilenet_v3", "mobileone",
     "mobilevit_v2", "vit", "swin", "efficientnet_rangeaugment",
@@ -378,7 +372,9 @@ YAMLS = [f"classification/imagenet/{name}.yaml" for name in (
     # distillation, the fixed and multi_step schedulers, Mask R-CNN's keys
     "distillation/teacher_resnet101_student_mobilenet_v1.yaml",
     "classification/finetune_higher_res_in1k/mobilevit_v2.yaml",
-    "detection/ssd_coco/resnet.yaml", "detection/mask_rcnn_coco/resnet_fpn.yaml"] + [
+    "detection/ssd_coco/resnet.yaml", "detection/mask_rcnn_coco/resnet_fpn.yaml",
+    # Mask R-CNN on MobileViTv2 and on ViT-B/16 with the simple FPN and LSJ
+    "detection/mask_rcnn_coco/vit_fpn.yaml", "detection/mask_rcnn_coco/vit_fpn_lsj.yaml"] + [
     # ByteFormer and audio, and one yaml of each examples/byteformer/ folder
     "classification/imagenet/byteformer.yaml",
     "audio_classification/speech_commands/byteformer_wav.yaml"] + [

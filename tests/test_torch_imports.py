@@ -9,8 +9,9 @@
   (the segmentation transforms, masks, iou) at 64 px on the port's dummy
   segmentation dataset, then ``main_worker_segmentation``, MobileViT v1 and
   FastViT forwards, an SSDLite loss, backward and ``predict``, the detection
-  transforms and the COCO mAP, and a CLIP train step (the micro ViT under a
-  causal text tower), with ``jax``,
+  transforms and the COCO mAP, a CLIP train step (the micro ViT under a
+  causal text tower), and a Mask R-CNN train step, ``predict`` with masks
+  and the segm mAP, with ``jax``,
   ``flax``, ``optax``, ``orbax``, ``yaml``, ``PIL`` and the JAX package
   ``cvnets_tpu`` blocked (a subprocess: tests/conftest.py has imported jax
   into this one). A second subprocess, with ``jax``, ``flax``, ``optax``,
@@ -263,6 +264,41 @@ _BLOCKED_RUN = textwrap.dedent("""
                 "targets": torch.arange(2)}, 1e-3)
     assert {"loss", "loss.image_loss", "loss.text_loss"} <= set(metrics["loss"])
     assert bool(torch.isfinite(metrics["loss"]["loss"][0]))
+    # Mask R-CNN on MobileViTv2: a train step (its five losses, the backbone's
+    # LR multiplier), predict with the masks pasted, and the segm mAP
+    mr_opts = get_training_arguments(args=[
+        "--dataset.category", "detection", "--model.detection.name", "mask_rcnn",
+        "--model.detection.n-classes", "4", "--model.classification.name", "mobilevit_v2",
+        "--model.classification.mitv2.width-multiplier", "0.5",
+        "--model.detection.mask-rcnn.fpn-out-channels", "16",
+        "--model.detection.mask-rcnn.pre-nms-top-n", "32",
+        "--model.detection.mask-rcnn.post-nms-top-n", "8",
+        "--model.detection.mask-rcnn.box-batch-per-image", "8",
+        "--model.detection.mask-rcnn.mask-positives", "2",
+        "--model.detection.mask-rcnn.detections-per-image", "4",
+        "--model.detection.mask-rcnn.backbone-lr-multiplier", "0.5",
+        "--loss.category", "detection", "--loss.detection.name", "mask_rcnn_loss",
+        "--optim.name", "adamw"])
+    mrcnn = get_model(mr_opts, device="cpu")
+    state = create_train_state(mrcnn, build_optimizer(mr_opts, mrcnn,
+                                                      mrcnn.get_lr_multipliers(mr_opts)))
+    gt_boxes = torch.zeros(2, 100, 4)
+    gt_boxes[:, 0] = torch.tensor([8.0, 8.0, 40.0, 48.0])
+    gt_labels = torch.zeros(2, 100, dtype=torch.long)
+    gt_labels[:, 0] = 2
+    gt_masks = torch.zeros(2, 100, 16, 16, dtype=torch.bool)
+    gt_masks[:, 0, 2:12, 2:10] = True
+    targets = {"box_coordinates": gt_boxes, "box_labels": gt_labels, "masks": gt_masks}
+    state, metrics = make_train_step(mrcnn, build_loss_fn(mr_opts), mr_opts, metric_objs)(
+        state, {"samples": {"image": (x * 255).to(torch.uint8), "targets": targets},
+                "targets": {}}, 1e-3)
+    assert {"loss", "loss.loss_mask", "loss.loss_objectness"} <= set(metrics["loss"])
+    assert bool(torch.isfinite(metrics["loss"]["loss"][0]))
+    out = mrcnn.predict(x)
+    assert out.masks.shape == (2, 4, 64, 64) and bool(torch.isfinite(out.masks).all())
+    one = {"boxes": gt_boxes[0, :1].numpy(), "labels": [2], "masks": [gt_masks[0, 0].numpy()]}
+    res = compute_coco_map([{**one, "scores": np.ones(1)}], [one], iou_type="segm")
+    assert res["segm"] == 1.0
     leaked = sorted(m for m in sys.modules if sys.modules[m] is not None
                     and m.split(".")[0] in ("jax", "flax", "optax", "orbax", "yaml",
                                             "PIL", "cvnets_tpu"))

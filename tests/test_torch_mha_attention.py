@@ -127,6 +127,8 @@ def test_plain_backward_matches_autograd_of_plain():
 @pytest.mark.parametrize("seq,embed", [(197, 768), (512, 1024), (513, 768), (1024, 768),
                                        (1000, 64), (4096, 1024), (8192, 256), (64, 2048)])
 def test_eligibility_is_the_jax_rule(seq, embed):
+    """On the CPU the JAX rule; on the card (``on_cuda``) any S at H·D ≤ 1024,
+    since the CUDA kernels tile a ragged S (S = 1000 and 513 included)."""
     from cvnets_tpu.ops.pallas.mha_attn import fused_attention_eligible as jax_rule
     from cvnets_tpu.ops.pallas.mha_attn_long import long_attention_eligible
 
@@ -136,6 +138,9 @@ def test_eligibility_is_the_jax_rule(seq, embed):
         for itemsize in (2, 4):
             assert (fused_attention_eligible(seq, embed, heads, itemsize)
                     == long_attention_eligible(seq, embed, itemsize))
+    for itemsize in (2, 4):
+        assert fused_attention_eligible(seq, embed, heads, itemsize,
+                                        on_cuda=True) == (embed <= 1024)
 
 
 @pytest.mark.parametrize("seq,embed,heads,ok", [
@@ -318,16 +323,17 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take():
 
 
 def test_long_sequences_off_the_cpu_raise_instead_of_running_plain():
-    """Off the CPU there is no plain version: an S > 512 that the long-sequence
-    rule blocks reaches the kernel wrapper, which asks for a CUDA device (a
-    meta tensor stands in for a card), and an S that neither TPU kernel tiles
-    raises and names both."""
-    q = torch.empty((1, 1024, 64), device="meta")
-    with pytest.raises(ValueError, match="CUDA"):
-        fused_mha_attention(q, q, q, 4)
-    q = torch.empty((1, 4097, 64), device="meta")
-    with pytest.raises(NotImplementedError, match="mha_attn_long.py"):
-        fused_mha_attention(q, q, q, 4)
+    """Off the CPU there is no plain version: an S > 512, blocked by the
+    long-sequence rule or ragged (4,097), reaches the kernel wrapper, which
+    asks for a CUDA device (a meta tensor stands in for a card), and an
+    H·D past the kernels' 1,024 raises and names the limit."""
+    for s in (1024, 4097):
+        q = torch.empty((1, s, 64), device="meta")
+        with pytest.raises(ValueError, match="CUDA"):
+            fused_mha_attention(q, q, q, 4)
+    q = torch.empty((1, 4097, 2048), device="meta")
+    with pytest.raises(NotImplementedError, match="H·D ≤ 1024"):
+        fused_mha_attention(q, q, q, 16)
 
 
 # ---------------------------------------------------------------- on a card
@@ -415,12 +421,33 @@ def test_function_on_cuda_runs_the_kernels_and_never_the_plain_version():
     torch.cuda.synchronize()
     assert (mha_fwd_kernel.launches, mha_bwd_kernel.launches) == (launches[0] + 1,
                                                                   launches[1] + 1)
-    # S = 1024 takes the same kernels; S = 4097 is tiled by neither TPU kernel
+    # S = 1024 takes the same kernels, and so does S = 4097, which neither
+    # TPU kernel tiles (the CUDA tiles cover a ragged S)
     fused_mha_attention(*(torch.zeros((1, 1024, 768), device="cuda"),) * 3, 12)
     torch.cuda.synchronize()
     assert mha_fwd_kernel.launches == launches[0] + 2
-    with pytest.raises(NotImplementedError, match="mha_attn_long.py"):
-        fused_mha_attention(*(torch.zeros((1, 4097, 768), device="cuda"),) * 3, 12)
+    fused_mha_attention(*(torch.zeros((1, 4097, 768), device="cuda"),) * 3, 12)
+    torch.cuda.synchronize()
+    assert mha_fwd_kernel.launches == launches[0] + 3
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_at_vit_b_1024_with_its_cls_token_on_cuda():
+    """ViT-B/16 at 1024² with the CLS token: S = 4,097 = 17 · 241, which no
+    128-row block divides (the last tile holds one row), at batch 2 in bf16:
+    output, statistics, dq, dk and dv against the plain versions."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU or interpret mode)")
+    b, s, h, d = 2, 4097, 12, 64
+    assert fused_attention_eligible(s, h * d, h, 2, on_cuda=True)
+    q, k, v, mask, dout = _cuda_inputs(b, s, h, d, torch.bfloat16, masked=False)
+    out, stats = _check_forward(q, k, v, h, mask)
+    grads = mha_bwd_kernel(q, k, v, mask, out, dout, stats, h)
+    ref = mha_attention_plain(q, k, v, h, mask)
+    for name, got, want in zip("qkv", grads,
+                               mha_attention_backward_plain(q, k, v, mask, ref, dout, h)):
+        torch.testing.assert_close(got.float(), want.float(), atol=_tol(want, torch.bfloat16),
+                                   rtol=0, msg=lambda m: f"d{name}: {m}")
 
 
 # the new forward's shapes: ViT-B/16 at 224² and at 512² without the CLS

@@ -263,7 +263,10 @@ def test_chip_smoke_vit_flags_are_the_yaml_settings():
 
 @pytest.mark.parametrize("flag", [
     ["--model.classification.vit.moe-num-experts", "4"],
-    ["--model.classification.vit.use-simple-fpn"],
+    # the simple FPN is ported (tests/test_torch_mask_rcnn_modules.py): with
+    # it on, MoE blocks still raise
+    ["--model.classification.vit.use-simple-fpn",
+     "--model.classification.vit.moe-num-experts", "2"],
 ])
 def test_unported_options_raise(flag):
     from cvnets_tpu_torch.models import get_model
