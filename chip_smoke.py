@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch port (cvnets_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py [--deeplab | --segmentation | --families | --clip |
-                           --range-augment | --byteformer | --mask-rcnn]
+                           --range-augment | --byteformer | --mask-rcnn |
+                           --vit-segmentation | --moe | --video]
 
 ``--deeplab`` runs only phases 1, 10 and 11 (DeepLabv3's train, a/b and
 profile; about a minute) and prints neither JSON line: run in turns from two
@@ -16,7 +17,10 @@ neither JSON line; ``--clip`` only phases 1, 2 and 19 (CLIP ViT-B/16);
 ``--range-augment`` only phases 1, 2 and 20 (RangeAugment and distillation,
 MobileViTv2-2.0's 384² finetune, the schedulers); ``--byteformer`` only
 phases 1, 2 and 21 (ByteFormer and audio); ``--mask-rcnn`` only phases 1, 2
-and 22 (Mask R-CNN on both yamls).
+and 22 (Mask R-CNN on both yamls); ``--vit-segmentation``, ``--moe`` and
+``--video`` only phases 1, 2 and 23 in full for DeepLabv3-ViT-B/16 (output
+strides 16 and 8), ViT-B/16-MoE, and MobileViT-S spatio-temporal with its
+MobileViTv2-1.0 variant.
 
 Phases, one line each or more (any failure exits non-zero):
 
@@ -349,18 +353,52 @@ Phases, one line each or more (any failure exits non-zero):
    ``main_worker_detection`` with the bbox and segm mAPs in [0, 1]; its
    train loader alone over 2 epochs.
 
+23. the rest of ViT and video, the yamls' settings as flags
+   (``VIT_SEG_ARGS`` / ``VIT_SEG_8_ARGS`` with ``VIT_SEG_COMPOSITE``,
+   ``VIT_MOE_ARGS``, ``VIDEO_ARGS`` and ``VIDEO_V2_ARGS``), bf16: DeepLabv3 on
+   ViT-B/16 at output strides 16 and 8 (4 × 512², 150 classes, S = 1,025 and
+   4,097 with the CLS token, the composite loss), ViT-B/16-MoE (128 × 224², 6
+   MoE blocks of 8 experts, top-2, capacity factor 1.25, the load-balance
+   loss at 0.01), MobileViT-S spatio-temporal (8 videos × 8 frames × 256²,
+   400 classes; its head dims send its attention down the einsum route) and
+   the same over MobileViTv2-1.0 (whose blocks' cross path runs the separable
+   kernels). (a) the kernels at these shapes against their plain versions:
+   the MHA kernels at (4, 1025), (4, 4097) and (128, 197), 12 heads of 64; the
+   seg-CE kernels from 32² and 64² head logits to 512²; the separable kernels
+   at BP 32 and the layer's cross path against its plain branch. (b) per path,
+   5 train steps on one repeated batch at ``REST_LR``: the launches of each
+   kernel a step (12 + 12 MHA, 1 + 1 seg CE, 72 + 72 separable: 9 a frame),
+   the loss finite and falling, params and EMA moved; then the float32 eval
+   logits through the kernels against the plain path (MobileViT-S: against a
+   CPU copy) and the segmentation paths' composite loss through the seg-CE
+   kernels against the unfused CE, its neural-augmentation term 0. With its
+   flag, a path also: (a) timed by events and by the profiler, beside the
+   plain versions, the bounds, SDPA and the concatenation before the cross
+   kernel; (b) on the yaml's device augmentation and mixing (MoE), steady
+   steps (step ms with its quartiles, img/s, host enqueue, peak memory) and a
+   profile (results/<path>_profile.txt: the kernels' share, MoE's routing,
+   expert products and combine); (c) ``main_train`` for one epoch on a corpus
+   written at run time (ADE20k JPEG images with PNG masks, a JPEG corpus for
+   ImageNet through the native decoder, Kinetics JPEG frame folders), the
+   kernels' launches counted every epoch and no host sync between log points,
+   then its evaluation (``main_segmentation_evaluation``, ``main_eval``; video
+   with one clip a video and with two voted by sum) of the EMA checkpoint.
+
 The second-to-last line is the kernels' JSON record, one entry for each TPU
 kernel's counterpart: ``ms``/``plain_ms`` are a kernel's and its plain
 version's time for one train step's launches (the separable attention's 9
 forward and 9 backward at the flagship from the per-shape bf16 medians, with
 their launches by path, the flagship's, MobileViTv2-2.0's 384² finetune's
-and Mask R-CNN path A's, in ``launches_by_path`` and the finetune's own
+Mask R-CNN path A's and MobileViTv2-1.0 spatio-temporal's, in
+``launches_by_path`` and the finetune's own
 times in ``by_path``, each MHA kernel's 12 at ViT-B and at ViT-B 512² (the
 S ≤ 512 rows also give their launches by path, ViT-B/16's, CLIP's and
-ByteFormer-Tiny's on JPEG and on wav bytes, in ``launches_by_path``, and
+ByteFormer-Tiny's on JPEG and on wav bytes and ViT-B/16-MoE's, in
+``launches_by_path``, and
 ByteFormer's step of 12 launches at its window shapes in ``by_path``; the
-long rows ViT-B 512²'s and Mask R-CNN path B's at S = 4,097),
-each seg-CE kernel's 2 at DeepLabv3, each window kernel's 12 at Swin-T
+long rows ViT-B 512²'s, Mask R-CNN path B's at S = 4,097 and
+DeepLabv3-ViT-B/16's at output strides 16 and 8), each seg-CE kernel's 2 at
+DeepLabv3 (its launches by path beside DeepLabv3-ViT-B/16's), each window kernel's 12 at Swin-T
 from the per-stage medians; the native decode's crop → resize → flip
 kernel's one launch a batch at 128 × 256², its launches those of the
 flagship's native ``main_train`` run, and
@@ -1022,13 +1060,15 @@ class no_tf32:
 
 
 def set_use_kernel(model, on: bool, criteria=None) -> None:
-    """Route every attention layer of ``model`` (and the loss, if it has a
-    switch) through the kernels or through the plain versions."""
+    """Route every attention layer of ``model`` (and the loss, or each entry
+    of a composite loss, where it has a switch) through the kernels or
+    through the plain versions."""
     for m in model.modules():
         if hasattr(m, "use_kernel"):
             m.use_kernel = on
-    if hasattr(criteria, "use_kernel"):
-        criteria.use_kernel = on
+    for fn in (criteria, *getattr(criteria, "loss_fns", {}).values()):
+        if hasattr(fn, "use_kernel"):
+            fn.use_kernel = on
 
 
 def bound(n_bytes: float, *ops) -> tuple:
@@ -6227,14 +6267,916 @@ def phase_mask_rcnn(card: str) -> dict:
     return launches
 
 
+VIT_SEG_ARGS = [  # examples/vit/segmentation/ade20k/deeplabv3_vit_base_clip_os_16.yaml, as
+    # flags: its finetune (/mnt, not in the repo) and data roots left out; its
+    # composite loss list is ``VIT_SEG_COMPOSITE`` (``path_opts`` sets it)
+    "--common.run-label", "train",
+    "--common.log-freq", "200",
+    "--common.auto-resume",
+    "--common.mixed-precision",
+    "--common.grad-clip", "10.0",
+    "--dataset.name", "ade20k",
+    "--dataset.category", "segmentation",
+    "--dataset.train-batch-size0", "4",
+    "--dataset.val-batch-size0", "4",
+    "--dataset.workers", "8",
+    "--image-augmentation.random-short-size-resize.enable",
+    "--image-augmentation.random-short-size-resize.interpolation", "bilinear",
+    "--image-augmentation.random-short-size-resize.short-side-min", "256",
+    "--image-augmentation.random-short-size-resize.short-side-max", "768",
+    "--image-augmentation.random-short-size-resize.max-img-dim", "1024",
+    "--image-augmentation.random-crop.enable",
+    "--image-augmentation.random-crop.seg-class-max-ratio", "0.75",
+    "--image-augmentation.random-crop.pad-if-needed",
+    "--image-augmentation.random-crop.mask-fill", "255",
+    "--image-augmentation.random-horizontal-flip.enable",
+    "--image-augmentation.resize.enable",
+    "--image-augmentation.resize.size", "512", "512",
+    "--sampler.name", "batch_sampler",
+    "--sampler.bs.crop-size-width", "512",
+    "--sampler.bs.crop-size-height", "512",
+    "--loss.category", "composite_loss",
+    "--optim.name", "adamw",
+    "--optim.weight-decay", "0.1",
+    "--optim.no-decay-bn-filter-bias",
+    "--optim.adamw.beta1", "0.9",
+    "--optim.adamw.beta2", "0.999",
+    "--scheduler.name", "cosine",
+    "--scheduler.max-epochs", "50",
+    "--scheduler.warmup-iterations", "500",
+    "--scheduler.warmup-init-lr", "1e-06",
+    "--scheduler.cosine.max-lr", "3e-05",
+    "--scheduler.cosine.min-lr", "3e-06",
+    "--model.segmentation.name", "encoder_decoder",
+    "--model.segmentation.seg-head", "deeplabv3",
+    "--model.segmentation.n-classes", "150",
+    "--model.segmentation.output-stride", "16",
+    "--model.segmentation.activation.name", "relu",
+    "--model.segmentation.deeplabv3.aspp-dropout", "0.1",
+    "--model.segmentation.deeplabv3.aspp-out-channels", "512",
+    "--model.segmentation.deeplabv3.aspp-rates", "12", "24", "36",
+    "--model.classification.name", "vit",
+    "--model.classification.vit.mode", "base",
+    "--model.classification.vit.norm-layer", "layer_norm",
+    "--model.learn-augmentation.mode", "distribution",
+    "--model.learn-augmentation.brightness",
+    "--model.learn-augmentation.contrast",
+    "--model.learn-augmentation.noise",
+    "--model.normalization.name", "layer_norm",
+    "--model.activation.name", "gelu",
+    "--model.layer.global-pool", "mean",
+    "--model.layer.conv-init", "kaiming_normal",
+    "--model.layer.linear-init", "trunc_normal",
+    "--model.layer.linear-init-std-dev", "0.02",
+    "--ema.enable",
+    "--ema.momentum", "0.0005",
+    "--stats.val", "loss", "iou",
+    "--stats.train", "loss",
+    "--stats.checkpoint-metric", "iou",
+    "--stats.checkpoint-metric-max",
+]
+VIT_SEG_8_ARGS = VIT_SEG_ARGS + ["--model.segmentation.output-stride", "8"]  # the _os_8 yaml
+VIT_SEG_COMPOSITE = [
+    {"loss_category": "segmentation", "loss_weight": 1.0,
+     "segmentation": {"name": "cross_entropy", "cross_entropy": {"ignore_index": 255}}},
+    {"loss_category": "neural_augmentation", "loss_weight": 1.0,
+     "neural_augmentation": {"perceptual_metric": "psnr", "target_value": [40, 20],
+                             "curriculum_method": "cosine"}},
+]
+VIT_MOE_ARGS = [  # config/classification/imagenet/vit_moe.yaml, as flags (no data roots)
+    "--common.run-label", "train",
+    "--common.log-freq", "500",
+    "--common.auto-resume",
+    "--common.mixed-precision",
+    "--common.grad-clip", "1.0",
+    "--dataset.name", "imagenet",
+    "--dataset.category", "classification",
+    "--dataset.train-batch-size0", "128",
+    "--dataset.val-batch-size0", "100",
+    "--dataset.workers", "8",
+    "--image-augmentation.random-resized-crop.enable",
+    "--image-augmentation.random-resized-crop.interpolation", "bilinear",
+    "--image-augmentation.random-horizontal-flip.enable",
+    "--image-augmentation.rand-augment.enable",
+    "--image-augmentation.random-erase.enable",
+    "--image-augmentation.random-erase.p", "0.25",
+    "--image-augmentation.mixup.enable",
+    "--image-augmentation.mixup.alpha", "0.2",
+    "--image-augmentation.cutmix.enable",
+    "--image-augmentation.cutmix.alpha", "1.0",
+    "--image-augmentation.resize.enable",
+    "--image-augmentation.resize.size", "232",
+    "--image-augmentation.center-crop.enable",
+    "--image-augmentation.center-crop.size", "224",
+    "--sampler.name", "batch_sampler",
+    "--sampler.bs.crop-size-width", "224",
+    "--sampler.bs.crop-size-height", "224",
+    "--loss.category", "classification",
+    "--loss.classification.name", "cross_entropy",
+    "--loss.classification.cross-entropy.label-smoothing", "0.1",
+    "--optim.name", "adamw",
+    "--optim.weight-decay", "0.2",
+    "--optim.no-decay-bn-filter-bias",
+    "--optim.adamw.beta1", "0.9",
+    "--optim.adamw.beta2", "0.999",
+    "--scheduler.name", "cosine",
+    "--scheduler.max-epochs", "300",
+    "--scheduler.warmup-iterations", "7500",
+    "--scheduler.warmup-init-lr", "1e-06",
+    "--scheduler.cosine.max-lr", "0.002",
+    "--scheduler.cosine.min-lr", "2e-05",
+    "--model.moe.aux-loss-weight", "0.01",
+    "--model.classification.name", "vit",
+    "--model.classification.vit.mode", "base",
+    "--model.classification.vit.norm-layer", "layer_norm",
+    "--model.classification.vit.moe-num-experts", "8",
+    "--model.classification.vit.moe-top-k", "2",
+    "--model.classification.vit.moe-capacity-factor", "1.25",
+    "--model.classification.vit.moe-layer-period", "2",
+    "--model.normalization.name", "batch_norm",
+    "--model.normalization.momentum", "0.1",
+    "--model.activation.name", "gelu",
+    "--model.layer.global-pool", "mean",
+    "--model.layer.conv-init", "kaiming_normal",
+    "--model.layer.linear-init", "trunc_normal",
+    "--model.layer.linear-init-std-dev", "0.02",
+    "--ema.enable",
+    "--ema.momentum", "0.0005",
+    "--stats.val", "loss", "top1", "top5",
+    "--stats.train", "loss",
+    "--stats.checkpoint-metric", "top1",
+    "--stats.checkpoint-metric-max",
+]
+VIDEO_ARGS = [  # config/video_classification/kinetics/mobilevit_st_small.yaml, as flags
+    "--common.run-label", "train",
+    "--common.log-freq", "200",
+    "--common.auto-resume",
+    "--common.mixed-precision",
+    "--dataset.name", "kinetics",
+    "--dataset.category", "video_classification",
+    "--dataset.train-batch-size0", "8",
+    "--dataset.val-batch-size0", "8",
+    "--dataset.workers", "8",
+    "--dataset.persistent-workers",
+    "--dataset.pin-memory",
+    "--video-reader.name", "frame_folder",
+    "--video-reader.frames-per-clip", "8",
+    "--video-reader.frame-stack-format", "sequence_first",
+    "--video-augmentation.random-resized-crop.enable",
+    "--video-augmentation.random-horizontal-flip.enable",
+    "--video-augmentation.to-tensor.enable",
+    "--sampler.name", "batch_sampler",
+    "--sampler.bs.crop-size-width", "256",
+    "--sampler.bs.crop-size-height", "256",
+    "--model.video-classification.name", "spatio_temporal",
+    "--model.video-classification.n-classes", "400",
+    "--model.classification.name", "mobilevit",
+    "--model.classification.mit.mode", "small",
+    "--model.classification.mit.ffn-dropout", "0.0",
+    "--model.classification.mit.attn-dropout", "0.0",
+    "--model.classification.mit.dropout", "0.1",
+    "--model.classification.mit.number-heads", "4",
+    "--model.classification.mit.conv-kernel-size", "3",
+    "--model.activation.name", "swish",
+    "--model.normalization.name", "batch_norm",
+    "--model.normalization.momentum", "0.1",
+    "--model.layer.global-pool", "mean",
+    "--model.layer.conv-init", "kaiming_normal",
+    "--model.layer.linear-init", "trunc_normal",
+    "--model.layer.linear-init-std-dev", "0.02",
+    "--loss.category", "classification",
+    "--loss.classification.name", "cross_entropy",
+    "--loss.classification.cross-entropy.label-smoothing", "0.1",
+    "--optim.name", "sgd",
+    "--optim.weight-decay", "4e-05",
+    "--optim.no-decay-bn-filter-bias",
+    "--optim.sgd.momentum", "0.9",
+    "--scheduler.name", "cosine",
+    "--scheduler.max-epochs", "100",
+    "--scheduler.warmup-iterations", "3000",
+    "--scheduler.warmup-init-lr", "0.05",
+    "--scheduler.cosine.max-lr", "0.5",
+    "--scheduler.cosine.min-lr", "0.0002",
+    "--ema.enable",
+    "--ema.momentum", "0.0005",
+    "--stats.val", "loss", "top1", "top5",
+    "--stats.train", "loss",
+    "--stats.checkpoint-metric", "top1",
+    "--stats.checkpoint-metric-max",
+]
+# the same model, shapes and recipe over MobileViTv2-1.0, whose blocks' cross
+# path runs the separable kernels (MobileViT-S's head dims 36, 48 and 60 send
+# its attention down the einsum route)
+VIDEO_V2_ARGS = VIDEO_ARGS + ["--model.classification.name", "mobilevit_v2",
+                              "--model.classification.mitv2.width-multiplier", "1.0"]
+VIT_SEG_16, VIT_SEG_8 = "DeepLabv3-ViT-B/16 os16", "DeepLabv3-ViT-B/16 os8"
+VIT_MOE = "ViT-B/16-MoE"
+VIDEO_V1, VIDEO_V2 = "MobileViT-S spatio-temporal", "MobileViTv2-1.0 spatio-temporal"
+REST_PATHS = {VIT_SEG_16: VIT_SEG_ARGS, VIT_SEG_8: VIT_SEG_8_ARGS, VIT_MOE: VIT_MOE_ARGS,
+              VIDEO_V1: VIDEO_ARGS, VIDEO_V2: VIDEO_V2_ARGS}
+VIDEO_FRAMES = 8
+# (B, S) of the MHA calls of each path, 12 heads of 64 (with the CLS token)
+MHA_REST = {VIT_SEG_16: (4, 32 * 32 + 1), VIT_SEG_8: (4, 64 * 64 + 1), VIT_MOE: (128, 197)}
+SEG_VIT_HEADS = {VIT_SEG_16: 32, VIT_SEG_8: 64}  # the head's logits, to 512², C 150
+# (BP, {(N, C): calls a frame}) of the separable cross calls at 8 clips × 256²
+SEP_VIDEO = (8 * 4, {(256, 128): 2, (64, 192): 4, (16, 256): 3})
+# the learning rate of the loss-falls check: each yaml's peak (past its warmup),
+# the video yaml's warmup start (its peak of 0.5 on a fresh model overshoots)
+REST_LR = {VIT_SEG_16: 3e-5, VIT_SEG_8: 3e-5, VIT_MOE: 2e-3, VIDEO_V1: 0.05, VIDEO_V2: 0.05}
+REST_STEPS = 5  # steps on one repeated batch
+MHA_ROW_ERRS = {"fwd": ("out",), "bwd": ("dq", "dk", "dv"), "dq": ("dq",), "dkdv": ("dk", "dv")}
+
+
+def path_opts(args):
+    """The options of ``args``, with the ViT segmentation yamls' composite
+    loss where they name one."""
+    import copy
+
+    from cvnets_tpu_torch.options.opts import get_training_arguments
+
+    opts = get_training_arguments(args=args)
+    if getattr(opts, "loss.category") == "composite_loss":
+        setattr(opts, "loss.composite_loss", copy.deepcopy(VIT_SEG_COMPOSITE))
+    return opts
+
+
+def path_kernels(label: str) -> dict:
+    """{name: (wrapper, launches a train step)} of a path's kernels."""
+    from cvnets_tpu_torch.ops.mha_attention import mha_bwd_kernel, mha_fwd_kernel
+    from cvnets_tpu_torch.ops.seg_ce_kernel import seg_ce_bwd_kernel, seg_ce_fwd_kernel
+    from cvnets_tpu_torch.ops.separable_attention import (
+        separable_attention_bwd_kernel,
+        separable_attention_kernel,
+    )
+
+    if label == VIDEO_V1:  # head dims 36, 48, 60: the einsum route
+        return {}
+    if label == VIDEO_V2:
+        n = sum(SEP_VIDEO[1].values()) * VIDEO_FRAMES
+        return {"separable_attention": (separable_attention_kernel, n),
+                "separable_attention_bwd": (separable_attention_bwd_kernel, n)}
+    out = {"mha_attention_fwd": (mha_fwd_kernel, VIT_BLOCKS),
+           "mha_attention_bwd": (mha_bwd_kernel, VIT_BLOCKS)}
+    if label in SEG_VIT_HEADS:  # one head, no aux head
+        out.update(seg_ce_fwd=(seg_ce_fwd_kernel, 1), seg_ce_bwd=(seg_ce_bwd_kernel, 1))
+    return out
+
+
+def path_corpus_args(label: str, corpora: dict, tmp: str) -> list:
+    """The data roots of a path's corpus, written under ``tmp`` at its first
+    use (``corpora`` keeps them): ADE20k JPEG images with PNG masks (8 + 4),
+    a JPEG ImageNet corpus of 8 classes × 16 + 4 files, Kinetics frame
+    folders (4 classes × 4 videos × 12 frames)."""
+    if label in SEG_VIT_HEADS:
+        if "ade20k" not in corpora:
+            corpora["ade20k"] = write_ade20k_corpus(os.path.join(tmp, "ade20k"))
+        return ["--dataset.root-train", corpora["ade20k"],
+                "--dataset.root-val", corpora["ade20k"]]
+    if label == VIT_MOE:
+        if "imagenet" not in corpora:
+            corpora["imagenet"] = write_jpeg_corpus(os.path.join(tmp, "imagenet"),
+                                                    train_per_class=16, val_per_class=4)
+        return ["--dataset.root-train", corpora["imagenet"]["train"],
+                "--dataset.root-val", corpora["imagenet"]["val"]]
+    if "kinetics" not in corpora:
+        corpora["kinetics"] = write_kinetics_corpus(os.path.join(tmp, "kinetics"))
+    return ["--dataset.root-train", corpora["kinetics"], "--dataset.root-val",
+            corpora["kinetics"]]
+
+
+def loader_batch(opts) -> dict:
+    """The first training batch of ``opts``' train loader (the yaml's
+    dataset, transforms, sampler and collate on its corpus; ImageNet's
+    through the native decoder on the card), on the card. The loader gets a
+    copy of the options: its dataset writes its own class count into them."""
+    import copy
+
+    from cvnets_tpu_torch.data.data_loaders import create_train_val_loader
+    from cvnets_tpu_torch.engine.train_state import to_device
+
+    loader_opts = copy.deepcopy(opts)
+    setattr(loader_opts, "dataset.disable_val", True)
+    train_loader, _, _ = create_train_val_loader(loader_opts, pin_memory=True, device="cuda")
+    for batch in train_loader:
+        return to_device(batch, "cuda")
+    raise RuntimeError("check failed: the corpus's train loader yielded no batch")
+
+
+def phase_rest_train(card: str, label: str, data_args: list, augment: bool = False):
+    """``REST_STEPS`` train steps of a path, its model from the yaml's flags at
+    full width, on one repeated batch (the first of its train loader over
+    ``data_args``' corpus) at its ``REST_LR``: the launches of each of its kernels a step, the loss finite
+    and falling, params and EMA moved. ``augment``: the yaml's device tier
+    and mixing too (ViT-B/16-MoE's RandAugment, erasing, mixup and cutmix),
+    for the steps phase_steady times afterwards. Returns the launches in
+    those steps and (state, step, scheduler, batches, criteria)."""
+    import torch
+
+    from cvnets_tpu_torch.engine.train_state import create_train_state, make_train_step
+    from cvnets_tpu_torch.loss import build_loss_fn
+    from cvnets_tpu_torch.metrics import build_metrics
+    from cvnets_tpu_torch.models import get_model
+    from cvnets_tpu_torch.ops.image_ops import build_device_augmenter
+    from cvnets_tpu_torch.ops.mixing import build_mixing_fn
+    from cvnets_tpu_torch.optim import build_optimizer
+    from cvnets_tpu_torch.optim.scheduler import build_scheduler
+
+    opts = path_opts(REST_PATHS[label] + data_args)
+    model = get_model(opts)
+    state = create_train_state(model, build_optimizer(opts, model, model.get_lr_multipliers(opts)),
+                               ema_enabled=True)
+    criteria = build_loss_fn(opts)
+    metrics = build_metrics(opts, ["loss", "grad_norm"])
+    step = make_train_step(model, criteria, opts, metrics)
+    batch = loader_batch(opts)
+    kernels = path_kernels(label)
+    params0 = [p.detach().clone() for p in model.parameters()]
+    ema0 = [t.detach().clone() for t in state.ema.model.state_dict().values()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for kernel, _ in kernels.values():
+        kernel.launches = 0
+    losses, step_s = [], []
+    for _ in range(REST_STEPS):
+        t0 = time.perf_counter()
+        state, out = step(state, batch, REST_LR[label])
+        losses.append(out["loss"]["loss"][0].item())  # a read-back: the step ends here
+        step_s.append(time.perf_counter() - t0)
+    launches = {name: kernel.launches for name, (kernel, _) in kernels.items()}
+    for name, (kernel, per_step) in kernels.items():
+        check(kernel.launches == per_step * REST_STEPS,
+              f"{label}: {kernel.launches} {name} launches in {REST_STEPS} steps, want "
+              f"{per_step} a step")
+    check(all(math.isfinite(v) for v in losses) and losses[-1] < losses[0],
+          f"{label}: the loss on one repeated batch is not finite and falling: {losses}")
+    check(any(not torch.equal(a, b) for a, b in zip(params0, model.parameters())),
+          f"{label}: params did not change")
+    check(any(not torch.equal(a, b) for a, b in zip(ema0, state.ema.model.state_dict().values())),
+          f"{label}: EMA did not change")
+    del params0, ema0
+    print(f"rest train: {label} batch={tuple(batch['samples'].shape)} bf16 lr={REST_LR[label]} "
+          f"losses={[round(v, 4) for v in losses]} step_s={[round(s, 4) for s in step_s]} "
+          f"peak_mem_gib={torch.cuda.max_memory_allocated() / 2**30:.2f} launches={launches} "
+          f"a step={ {k: v // REST_STEPS for k, v in launches.items()} } | {card}", flush=True)
+    if augment:
+        step = make_train_step(model, criteria, opts, metrics,
+                               augment_fn=build_device_augmenter(opts),
+                               mixing_fn=build_mixing_fn(opts))
+    return launches, (state, step, build_scheduler(opts), [batch] * 3, criteria)
+
+
+def phase_rest_held(card: str, label: str, run) -> None:
+    """The trained model's float32 eval logits (TF32 off) through the kernels
+    against the plain path on two samples (MobileViT-S's, with no kernel,
+    against a CPU copy), and for the segmentation paths the composite loss
+    of the batch's train-mode outputs through the seg-CE kernels against the
+    unfused CE (1e-5 relative)."""
+    import torch
+
+    from cvnets_tpu_torch.engine.train_state import VIDEO_BATCH_DIMS
+
+    state, _, _, batches, criteria = run
+    model = state.model
+    x = batches[0]["samples"][:2].float() / 255.0
+    if x.dim() == VIDEO_BATCH_DIMS:  # a video's first clip: (B, T, 3, H, W)
+        x = x[:, 0]
+    if label == VIDEO_V1:
+        cpu_reference(label, model, x, (2, getattr(path_opts(VIDEO_ARGS),
+                                                    "model.video_classification.n_classes")))
+        return
+    model.eval()
+    with no_tf32(), torch.no_grad():
+        with_kernel = model(x)
+        set_use_kernel(model, False)
+        plain = model(x)
+    set_use_kernel(model, True)
+    diff, scale = (with_kernel - plain).abs().max().item(), plain.abs().max().item()
+    check(bool(torch.isfinite(with_kernel).all()) and diff <= 1e-4 * max(1.0, scale),
+          f"{label}: kernel vs plain logits differ by {diff} (max {scale})")
+    line = (f"reference: {label} kernel-path vs plain-path float32 logits "
+            f"{tuple(with_kernel.shape)} max diff {diff:.3e} (max |logit| {scale:.3e})")
+    if label in SEG_VIT_HEADS:
+        model.train()
+        b = batches[0]
+        with no_tf32(), torch.no_grad():
+            out = model(b["samples"].float() / 255.0)
+            both = []
+            for on in (True, False):
+                set_use_kernel(model, on, criteria)
+                both.append(criteria(b["samples"].float() / 255.0, out, b["targets"].long(),
+                                     training=True, epoch=0, iterations=0))
+        set_use_kernel(model, True, criteria)
+        for key in both[0]:
+            got, ref = float(both[0][key]), float(both[1][key])
+            check(abs(got - ref) <= 1e-5 * max(abs(ref), 1e-6),
+                  f"{label}: {key} kernel {got} vs plain {ref}")
+        check(float(both[0]["neural_augmentation"]) == 0.0,
+              f"{label}: a segmentation encoder's neural-augmentation term is 0")
+        line += "; composite loss kernel/plain " + " ".join(
+            f"{k}={float(both[0][k]):.7f}/{float(both[1][k]):.7f}" for k in both[0])
+    print(line + f" | {card}", flush=True)
+
+
+def profile_kernel_ms(fn, parts: tuple) -> dict:
+    """Device ms a call of ``fn`` of the kernels whose names hold each of
+    ``parts``, by ``torch.profiler`` over 5 calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+    out = {p: 0.0 for p in parts}
+    for ev in prof.key_averages():
+        for p in parts:
+            if p in ev.key:
+                out[p] += ev.self_device_time_total / 1e3 / 5
+    return out
+
+
+def phase_rest_kernels(card: str, timed: bool, labels=tuple(REST_PATHS)) -> dict:
+    """The kernels at the new paths' shapes against their plain versions:
+    the MHA kernels at DeepLabv3-ViT-B/16's S = 1,025 and 4,097 (batch 4,
+    bf16; f32 at batch 1) and ViT-B/16-MoE's (128, 197); the seg-CE kernels
+    from (4, 32², 150) and (4, 64², 150) head logits to 512² labels (f32 and
+    bf16 logits: loss and dlogits; the forward's (loss_sum, n_valid) and the
+    backward's dhm against their plain versions, the same bits on a rerun);
+    the separable kernels at MobileViTv2-1.0's video shapes (BP 32), and its
+    layer's cross path (q, k from the previous frame, v from this one,
+    concatenated into one qkv) against the layer's plain branch, output and
+    the gradients of both frames and the projections. ``timed``: each also
+    timed by events and by the profiler, beside its plain version, its bound
+    and the library call (SDPA at the MHA shapes), and the concatenation
+    before the cross kernel. Returns {path: {row: record}} for the JSON line."""
+    import torch
+
+    from cvnets_tpu_torch.layers.linear_attention import LinearSelfAttention
+    from cvnets_tpu_torch.ops.mha_attention import mha_bwd_kernel, mha_fwd_kernel
+    from cvnets_tpu_torch.ops.seg_ce import fused_resize_ce, resize_ce_plain, resize_matrix
+    from cvnets_tpu_torch.ops.seg_ce import resize_taps
+    from cvnets_tpu_torch.ops.seg_ce_kernel import (
+        h_interp,
+        seg_ce_bwd_kernel,
+        seg_ce_bwd_plain,
+        seg_ce_fwd_kernel,
+        seg_ce_fwd_plain,
+    )
+    from cvnets_tpu_torch.ops.separable_attention import (
+        separable_attention_kernel,
+        separable_attention_plain,
+    )
+    from cvnets_tpu_torch.options.opts import get_training_arguments
+
+    g = torch.Generator(device="cuda").manual_seed(24)
+    records = {}
+    h, d = 12, 64
+    with no_tf32():
+        for label, (b, s) in MHA_REST.items():
+            if label not in labels:
+                continue
+            rows = ("fwd", "dq", "dkdv") if s > 512 else ("fwd", "bwd")
+            rec = records[label] = _records(*rows)
+            for dtype, name, batch in ((torch.bfloat16, "bf16", b), (torch.float32, "f32", 1)):
+                if label == VIT_MOE and dtype == torch.float32:
+                    continue  # phase 4 holds (128, 197) in f32
+                q, k, v, mask, dout, out, stats, ref, errs = _mha_case(
+                    g, f"{label} {name}", batch, s, h, d, dtype, False)
+                times = ""
+                if dtype == torch.bfloat16:
+                    for r in rows:
+                        rec[r]["max_abs_err"] = max(errs[w] for w in MHA_ROW_ERRS[r])
+                if timed and dtype == torch.bfloat16:
+                    t = _mha_times(batch, s, h, d, q, k, v, dout, out, stats, ref)
+                    dev = profile_kernel_ms(lambda: mha_bwd_kernel(q, k, v, None, out, dout,
+                                                                   stats, h),
+                                            ("mha_bwd_prep", "mha_bwd_dq", "mha_bwd_dkdv"))
+                    dev_fwd = profile_kernel_ms(lambda: mha_fwd_kernel(q, k, v, h, None),
+                                                ("mha_fwd",))["mha_fwd"]
+                    bounds = mha_bounds(batch, s, h, d, 2, BF16_TC_FLOP_S)
+                    bwd_dev = sum(dev.values())
+                    share = {"dq": (dev["mha_bwd_prep"] + dev["mha_bwd_dq"]) / bwd_dev,
+                             "dkdv": dev["mha_bwd_dkdv"] / bwd_dev, "bwd": 1.0}
+                    for r in rows:
+                        src = "fwd" if r == "fwd" else "bwd"
+                        split = 1.0 if r in ("fwd", "bwd") else BWD_ROW_SHARE[r]
+                        rec[r].update(
+                            ms=VIT_BLOCKS * (t["fwd"] if r == "fwd" else share[r] * t["bwd"]),
+                            device_ms=VIT_BLOCKS * (dev_fwd if r == "fwd"
+                                                    else share[r] * bwd_dev),
+                            plain_ms=VIT_BLOCKS * split * t[f"{src}_plain"],
+                            bound_ms=VIT_BLOCKS * split * bounds[src][0],
+                            bound_by=bounds[src][1])
+                        _mha_library(rec[r], t, src, VIT_BLOCKS * split)
+                    times = (" " + _mha_times_line(t, bounds, 4 * batch * s * s * h * d)
+                             + f" | profiler: fwd_ms={dev_fwd:.4f} " + " ".join(
+                                 f"{p}={ms:.4f}" for p, ms in dev.items()))
+                print(f"rest mha kernel: {label} {name} B={batch} S={s} H={h} D={d} "
+                      + " ".join(f"{w}_err={x:.3e}" for w, x in errs.items()) + times
+                      + f" | {card}", flush=True)
+                del q, k, v, dout, out, stats, ref
+                gc.collect()
+                torch.cuda.empty_cache()
+
+        c, big = 150, 512
+        for label, head in SEG_VIT_HEADS.items():
+            if label not in labels:
+                continue
+            logits = 2.0 * torch.randn((4, c, head, head), generator=g,
+                                       device="cuda").permute(0, 2, 3, 1)
+            target = torch.randint(0, c, (4, big, big), generator=g, device="cuda")
+            target[torch.rand(target.shape, generator=g, device="cuda") < 0.05] = 255
+            errs = {}
+            for dtype in (torch.float32, torch.bfloat16):
+                losses, grads = [], []
+                for fn in (fused_resize_ce, resize_ce_plain):
+                    x = logits.to(dtype, copy=True).requires_grad_()
+                    loss = fn(x, target)
+                    loss.backward()
+                    losses.append(loss.detach().float())
+                    grads.append(x.grad.float())
+                gmax = grads[1].abs().max().item()
+                lerr = (losses[0] - losses[1]).abs().item()
+                gerr = (grads[0] - grads[1]).abs().max().item()
+                gtol = (1e-4 if dtype == torch.float32 else 2 ** -7) * gmax
+                check(lerr <= 1e-5 * losses[1].abs().item() and gerr <= gtol,
+                      f"{label} seg ce {dtype}: loss err {lerr}, dlogits err {gerr} > {gtol}")
+                errs[f"{str(dtype)[6:]}_loss"], errs[f"{str(dtype)[6:]}_dlogits"] = lerr, gerr
+            a = resize_matrix(big, head, logits.device)
+            taps = resize_taps(big, head, logits.device)
+            fwd_err = _seg_fwd_check(f"{label} C={c}", logits, target, a, taps, None, 0.0)
+            hmid = h_interp(logits, a)
+            dhm_err = _seg_dhm_check(f"{label} C={c}", hmid, target, a, taps, None, 0.0)
+            rec = records[label]
+            rec.update(_records("seg_fwd", "seg_bwd"))
+            rec["seg_fwd"]["max_abs_err"], rec["seg_bwd"]["max_abs_err"] = fwd_err, max(
+                errs["bfloat16_dlogits"], errs["float32_dlogits"])
+            times = ""
+            if timed:
+                scale = torch.full((1,), 1e-6, device=logits.device)
+                fwd = lambda: seg_ce_fwd_kernel(logits, target, taps, taps, None, 255, 0.0)  # noqa
+                bwd = lambda: seg_ce_bwd_kernel(hmid, target, taps, None, scale, 255, 0.0)  # noqa
+                t = {"fwd": time_ms(fwd),
+                     "fwd_plain": time_ms(lambda: seg_ce_fwd_plain(h_interp(logits, a), a,
+                                                                   target, None, 255, 0.0)),
+                     "bwd": time_ms(bwd),
+                     "bwd_plain": time_ms(lambda: seg_ce_bwd_plain(hmid, a, target, None,
+                                                                   scale, 255, 0.0))}
+                dev = {"fwd": sum(profile_kernel_ms(fwd, ("seg_ce_fwd",)).values()),
+                       "bwd": sum(profile_kernel_ms(bwd, ("seg_ce_bwd",)).values())}
+                bounds = seg_ce_bounds(logits, target)
+                for p in ("fwd", "bwd"):
+                    rec[f"seg_{p}"].update(ms=t[p], device_ms=dev[p], plain_ms=t[f"{p}_plain"],
+                                           bound_ms=bounds[p][0], bound_by=bounds[p][1])
+                times = " " + " ".join(f"{k_}_ms={v_:.4f}" for k_, v_ in t.items()) + " " + \
+                    " ".join(f"{p}_device_ms={dev[p]:.4f} {p}_bound_ms={bounds[p][0]:.4f} "
+                             f"({bounds[p][1]})" for p in ("fwd", "bwd"))
+            print(f"rest seg ce kernel: {label} B=4 h=w={head} H=W={big} C={c} " + " ".join(
+                f"{k_}_err={v_:.3e}" for k_, v_ in errs.items())
+                + f" fwd_mean_err={fwd_err:.3e} dhm_err={dhm_err:.3e}{times} | {card}",
+                flush=True)
+            del logits, target, hmid
+            torch.cuda.empty_cache()
+
+    if VIDEO_V2 not in labels:
+        return records
+    rec = records[VIDEO_V2] = _records("fwd", "bwd")
+    bp, blocks = SEP_VIDEO
+    opts = get_training_arguments(args=[])
+    for (n, c), calls in blocks.items():
+        for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            r = _separable_case(g, bp, n, c, dtype, name)
+            if dtype == torch.bfloat16:
+                rec["fwd"]["max_abs_err"] = max(rec["fwd"]["max_abs_err"], r["abs_err"])
+                rec["bwd"]["max_abs_err"] = max(rec["bwd"]["max_abs_err"], r["gerr"])
+            # the layer's cross path against its plain branch
+            torch.manual_seed(0)
+            layer = LinearSelfAttention(opts, c).cuda().to(dtype)
+            x, x_prev, w = (torch.randn((bp // 4, 4, n, c), generator=g, device="cuda")
+                            .to(dtype) for _ in range(3))
+            results = []
+            for on in (True, False):
+                layer.use_kernel = on
+                layer.zero_grad()
+                a_, b_ = (t_.detach().clone().requires_grad_() for t_ in (x, x_prev))
+                out = layer(a_, b_)
+                out.backward(w)
+                results.append([out.detach(), a_.grad, b_.grad]
+                               + [p.grad.clone() for p in layer.parameters()])
+            torch.cuda.synchronize()
+            cross_err = 0.0
+            for i, (got, want) in enumerate(zip(*results)):
+                scale = max(want.float().abs().max().item(), 1.0)
+                err = (got.float() - want.float()).abs().max().item()
+                tol = (1e-4 if dtype == torch.float32 else 2e-2) * scale
+                check(bool(torch.isfinite(got).all()) and err <= tol,
+                      f"{VIDEO_V2} cross path ({bp},{n},{c}) {name} tensor {i}: err {err} > {tol}")
+                cross_err = max(cross_err, err / scale)
+            times = ""
+            if timed and dtype == torch.bfloat16:
+                q, k, v = r["q"], r["k"], r["v"]
+                qk = torch.randn((bp, n, 1 + c), generator=g, device="cuda").to(dtype)
+                vv = torch.randn((bp, n, c), generator=g, device="cuda").to(dtype)
+                t = {"fwd": time_ms(lambda: separable_attention_kernel(q, k, v)),
+                     "fwd_plain": time_ms(lambda: separable_attention_plain(q, k, v)),
+                     "bwd": time_ms(r["bwd_kernel"]), "bwd_plain": time_ms(r["bwd_plain"]),
+                     "cat": time_ms(lambda: torch.cat([qk, vv], dim=-1))}
+                dev = {"fwd": profile_kernel_ms(lambda: separable_attention_kernel(q, k, v),
+                                                ("",))[""],
+                       "bwd": profile_kernel_ms(r["bwd_kernel"], ("",))[""],
+                       "cat": profile_kernel_ms(lambda: torch.cat([qk, vv], dim=-1), ("",))[""]}
+                check(all(ms > 0 for ms in dev.values()), f"the profiler saw no kernel: {dev}")
+                qkv = r["qkv"]
+                bounds = {"fwd": bound(qkv.numel() * 2 + bp * n * c * 2,
+                                       (4 * bp * n * c, FP32_FLOP_S), (bp * n, SFU_EXP_S)),
+                          "bwd": bound((5 * c + 2) * bp * n * 2, (7 * bp * n * c, FP32_FLOP_S),
+                                       (bp * n, SFU_EXP_S))}
+                per_step = calls * VIDEO_FRAMES
+                for p in ("fwd", "bwd"):
+                    rec[p]["ms"] += per_step * t[p]
+                    rec[p]["device_ms"] = rec[p].get("device_ms", 0.0) + per_step * dev[p]
+                    rec[p]["plain_ms"] += per_step * t[f"{p}_plain"]
+                    rec[p]["bound_ms"] += per_step * bounds[p][0]
+                    rec[p]["bound_by"] = bounds[p][1]
+                rec["fwd"]["cat_ms"] = rec["fwd"].get("cat_ms", 0.0) + per_step * t["cat"]
+                times = (" " + " ".join(f"{k_}_ms={v_:.4f}" for k_, v_ in t.items())
+                         + " " + " ".join(f"{k_}_device_ms={v_:.4f}" for k_, v_ in dev.items())
+                         + f" fwd_bound_ms={bounds['fwd'][0]:.4f} ({bounds['fwd'][1]})"
+                         f" bwd_bound_ms={bounds['bwd'][0]:.4f} ({bounds['bwd'][1]})"
+                         f" cat/fwd={t['cat'] / t['fwd']:.3f} calls_a_step={per_step}")
+            print(f"rest kernel: {VIDEO_V2} {name} BP={bp} N={n} C={c} max_abs_err="
+                  f"{r['abs_err']:.3e} grad_err={r['gerr']:.3e} | cross path vs plain branch "
+                  f"max err {cross_err:.3e} of max(1, |ref|){times} | {card}", flush=True)
+            del r, layer
+    return records
+
+
+def write_ade20k_corpus(root: str, n_train: int = 8, n_val: int = 4, seed: int = 0) -> str:
+    """ADEChallengeData2016's layout under ``root``: seeded JPEG images of
+    about ADE20k's 683 × 512 (either way round) and PNG masks of raw labels
+    0-150 in blobs (a 6 × 8 grid scaled up by nearest neighbour)."""
+    import numpy as np
+    from PIL import Image
+
+    for split, n in (("training", n_train), ("validation", n_val)):
+        os.makedirs(os.path.join(root, "images", split))
+        os.makedirs(os.path.join(root, "annotations", split))
+        for i in range(n):
+            rng = np.random.default_rng([seed, i, int(split == "training")])
+            h, w = int(rng.integers(410, 615)), int(rng.integers(546, 820))
+            if i % 3 == 0:
+                h, w = w, h
+            Image.fromarray(_corpus_image(rng, h, w)).save(
+                os.path.join(root, "images", split, f"ADE_{i:05d}.jpg"), quality=90)
+            coarse = rng.integers(0, 151, (6, 8)).astype(np.uint8)
+            Image.fromarray(coarse[np.arange(h) * 6 // h][:, np.arange(w) * 8 // w]).save(
+                os.path.join(root, "annotations", split, f"ADE_{i:05d}.png"))
+    return root
+
+
+def write_kinetics_corpus(root: str, n_classes: int = 4, per_class: int = 4,
+                          n_frames: int = 12, hw: tuple = (240, 320), seed: int = 0) -> str:
+    """Kinetics' layout under ``root``: ``<class>/<video>/frame_*.jpg``,
+    seeded frames that drift from one to the next."""
+    import numpy as np
+    from PIL import Image
+
+    for c in range(n_classes):
+        for v in range(per_class):
+            folder = os.path.join(root, f"class_{c:03d}", f"video_{v:03d}")
+            os.makedirs(folder)
+            rng = np.random.default_rng([seed, c, v])
+            base = _corpus_image(rng, hw[0] + n_frames * 4, hw[1])
+            for t in range(n_frames):
+                Image.fromarray(np.ascontiguousarray(base[4 * t:4 * t + hw[0]])).save(
+                    os.path.join(folder, f"frame_{t:04d}.jpg"), quality=90)
+    return root
+
+
+def rest_main_train(card: str, label: str, args: list, kernels: dict, per_step: int):
+    """``main_train.main`` on ``args`` (the yaml's flags and a corpus), one
+    epoch and its validations, the kernels' launches counted every epoch,
+    finite statistics, no host sync through the port's data, ops, loss,
+    engine, metrics or checkpoint code between log points. Returns the
+    options, the Trainer's save dir and its log."""
+    import cvnets_tpu_torch.main_train as main_train
+
+    opts = path_opts(args)
+    log = {"train": [], "val": [], "ema": [], "save_s": 0.0}
+    watch, built = SyncWatch(), []
+
+    class WatchedTrainer(main_train.Trainer):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            _watch_trainer(self, kernels, watch, per_step, log)
+            built.append(self)
+
+    with watch:
+        main_train.Trainer = WatchedTrainer
+        try:
+            main_train.main(opts)
+        finally:
+            main_train.Trainer = WatchedTrainer.__bases__[0]
+    trainer = built[0]
+    bad = watch.through(MAIN_TRAIN_FILES)
+    check(not bad, f"{label} main_train: a host sync between log points: {bad[:3]}")
+    for stage in ("train", "val", "ema"):
+        values = [v for entry in log[stage] for v in
+                  (entry[3] if stage == "train" else entry).values()]
+        check(values and all(math.isfinite(v) for v in values),
+              f"{label} main_train: {stage} statistics not finite: {log[stage]}")
+    rounded = lambda stats: [{k: round(v, 4) for k, v in s.items()} for s in stats]  # noqa: E731
+    n_img = trainer.train_iterations * getattr(opts, "dataset.train_batch_size0")
+    print(f"rest main_train: {label} steps={trainer.train_iterations} epoch_s="
+          f"{log['train'][-1][1]:.3f} ({n_img / log['train'][-1][1]:.1f} samples/s, the "
+          f"loader's first batch included) train={rounded([e[3] for e in log['train']])} "
+          f"val={rounded(log['val'])} ema={rounded(log['ema'])} | {card}", flush=True)
+    save_dir = trainer.save_dir
+    built.clear()
+    gc.collect()
+    return opts, save_dir, log
+
+
+def phase_vit_segmentation_main_train(card: str, tmp: str) -> None:
+    """DeepLabv3-ViT-B/16 os16 through ``main_train`` on an ADE20k folder
+    written here (8 + 4 files), then ``main_segmentation_evaluation`` of its
+    ``checkpoint_ema_last.pt`` over the same validation files at the same
+    batch, whose mIoU is the last EMA validation's."""
+    import copy
+
+    from cvnets_tpu_torch.engine.eval_segmentation import main_segmentation_evaluation
+    from cvnets_tpu_torch.ops.mha_attention import mha_bwd_kernel, mha_fwd_kernel
+
+    root = write_ade20k_corpus(os.path.join(tmp, "ade20k"))
+    args = VIT_SEG_ARGS + ["--dataset.root-train", root, "--dataset.root-val", root,
+                           "--scheduler.max-epochs", "1", "--dataset.workers", "4",
+                           "--common.results-loc", os.path.join(tmp, "vit_seg_results")]
+    opts, save_dir, log = rest_main_train(card, VIT_SEG_16, args, {
+        "fwd": mha_fwd_kernel, "bwd": mha_bwd_kernel}, VIT_BLOCKS)
+    eval_opts = copy.deepcopy(opts)
+    setattr(eval_opts, "model.segmentation.pretrained",
+            os.path.join(save_dir, "checkpoint_ema_last.pt"))
+    setattr(eval_opts, "dataset.eval_batch_size0", getattr(opts, "dataset.val_batch_size0"))
+    miou = main_segmentation_evaluation(eval_opts, device="cuda")
+    want = log["ema"][-1]["iou"]
+    check(abs(miou - want) <= 1e-2, f"{VIT_SEG_16}: main_segmentation_evaluation mIoU {miou} "
+                                    f"vs the last EMA validation's iou {want}")
+    print(f"rest main_eval: {VIT_SEG_16} main_segmentation_evaluation miou={miou!r} (last EMA "
+          f"validation {want!r}) | {card}", flush=True)
+
+
+def phase_moe_main_train(card: str, tmp: str) -> None:
+    """ViT-B/16-MoE through ``main_train`` with the yaml's native-decoder
+    loader, RandAugment, erasing, mixup and cutmix over a JPEG corpus (8
+    classes × 32 + 8 files), then ``main_eval`` of its
+    ``checkpoint_ema_last.pt``, whose top-1 is the last EMA validation's."""
+    from cvnets_tpu_torch.main_eval import main_worker as main_eval
+    from cvnets_tpu_torch.ops.mha_attention import mha_bwd_kernel, mha_fwd_kernel
+
+    corpus = write_jpeg_corpus(os.path.join(tmp, "moe_corpus"), train_per_class=32,
+                               val_per_class=8)
+    args = VIT_MOE_ARGS + corpus_args(corpus) + [
+        "--scheduler.max-epochs", "1", "--dataset.val-batch-size0", "32",
+        "--common.results-loc", os.path.join(tmp, "moe_results")]
+    _, save_dir, log = rest_main_train(card, VIT_MOE, args, {
+        "fwd": mha_fwd_kernel, "bwd": mha_bwd_kernel}, VIT_BLOCKS)
+    stats = main_eval(args=args + ["--model.classification.pretrained",
+                                   os.path.join(save_dir, "checkpoint_ema_last.pt"),
+                                   "--dataset.eval-batch-size0", "32"])
+    want = log["ema"][-1]["top1"]
+    check(abs(stats["top1"] - want) <= 1e-3,
+          f"{VIT_MOE}: main_eval top1 {stats['top1']} vs the last EMA validation's {want}")
+    print(f"rest main_eval: {VIT_MOE} main_eval {stats} (last EMA validation top1 {want!r}) "
+          f"| {card}", flush=True)
+
+
+def phase_video_main_train(card: str, tmp: str) -> None:
+    """MobileViT-S spatio-temporal through ``main_train`` on a Kinetics tree
+    of JPEG frame folders written here (4 classes × 4 videos × 12 frames),
+    then ``main_eval`` of its ``checkpoint_ema_last.pt``: with one clip a
+    video its top-1 is the last EMA validation's; with two, it votes over
+    them."""
+    from cvnets_tpu_torch.main_eval import main_worker as main_eval
+
+    root = write_kinetics_corpus(os.path.join(tmp, "kinetics"))
+    args = VIDEO_ARGS + ["--dataset.root-train", root, "--dataset.root-val", root,
+                         "--scheduler.max-epochs", "1", "--dataset.workers", "4",
+                         "--common.results-loc", os.path.join(tmp, "video_results")]
+    _, save_dir, log = rest_main_train(card, VIDEO_V1, args, {}, 0)
+    ckpt = ["--model.video-classification.pretrained",
+            os.path.join(save_dir, "checkpoint_ema_last.pt"), "--dataset.eval-batch-size0", "8"]
+    one = main_eval(args=args + ckpt)
+    two = main_eval(args=args + ckpt + ["--video-reader.clips-per-video", "2",
+                                        "--common.inference-modality", "video"])
+    want = log["ema"][-1]["top1"]
+    check(abs(one["top1"] - want) <= 1e-3 and all(0.0 <= s["top1"] <= 100.0 for s in (one, two)),
+          f"{VIDEO_V1}: main_eval top1 {one['top1']} vs the last EMA validation's {want}")
+    print(f"rest main_eval: {VIDEO_V1} main_eval one clip {one} (last EMA validation top1 "
+          f"{want!r}); two clips voted by sum {two} | {card}", flush=True)
+
+
+def phase_aspp_conv(card: str) -> None:
+    """The ViT yamls' ASPP 3×3 convs (768 → 512 channels, dilation 12, 24 and
+    36, padding = dilation) at batch 4 on the 32² (os16) and 64² (os8) maps,
+    bf16 forward + backward, timed by events under cuDNN's default choice
+    and under ``torch.backends.cudnn.benchmark``, NCHW and channels-last:
+    what the step's profile shows as cuDNN's direct dilated conv. Measured,
+    not changed."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(5)
+    saved = torch.backends.cudnn.benchmark
+    try:
+        for side in (32, 64):
+            x0 = torch.randn((4, 768, side, side), generator=g, device="cuda").to(torch.bfloat16)
+            parts = []
+            for rate in (12, 24, 36):
+                conv = torch.nn.Conv2d(768, 512, 3, padding=rate, dilation=rate,
+                                       bias=False).cuda().to(torch.bfloat16)
+                for layout in ("nchw", "channels_last"):
+                    fmt = torch.channels_last if layout == "channels_last" else \
+                        torch.contiguous_format
+                    c, x = conv.to(memory_format=fmt), x0.to(memory_format=fmt)
+                    x.requires_grad_(True)
+                    for bench in (False, True):
+                        torch.backends.cudnn.benchmark = bench
+
+                        def fwd_bwd():
+                            c(x).sum().backward()
+
+                        parts.append(f"rate {rate} {layout} benchmark={bench}: "
+                                     f"{time_ms(fwd_bwd, launches=3, samples=5, warmup=2):.3f}")
+            print(f"aspp conv: 4 x 768 x {side}² -> 512, 3x3 dilated, bf16 fwd+bwd ms: "
+                  + "; ".join(parts) + f" | {card}", flush=True)
+    finally:
+        torch.backends.cudnn.benchmark = saved
+
+
+REST_FLAGS = {"--vit-segmentation": ((VIT_SEG_16, VIT_SEG_8), phase_vit_segmentation_main_train),
+              "--moe": ((VIT_MOE,), phase_moe_main_train),
+              "--video": ((VIDEO_V1, VIDEO_V2), phase_video_main_train)}
+
+
+def phase_rest_profile(card: str, label: str, run) -> None:
+    """A profile of 3 steps (results/<path>_profile.txt): the step's device
+    time, its kernels' share, MoE's routing, expert products and combine."""
+    from cvnets_tpu_torch.engine.train_state import OPTIMIZER_RANGE
+    from cvnets_tpu_torch.layers.multi_head_attention import EINSUM_ROUTE
+    from cvnets_tpu_torch.modules.moe import MOE_COMBINE, MOE_EXPERTS, MOE_ROUTE
+
+    name = label.replace("/", "_").replace(" ", "_").lower()
+    kwargs = {"ranges": (OPTIMIZER_RANGE,)}
+    if label == VIT_MOE:
+        kwargs.update(split=(MOE_ROUTE, MOE_EXPERTS, MOE_COMBINE), named=("::mha_",))
+    elif label in SEG_VIT_HEADS:
+        kwargs.update(named=("::mha_", "seg_ce"))
+    elif label == VIDEO_V2:
+        kwargs.update(named=("separable",))
+    else:
+        kwargs.update(route=EINSUM_ROUTE)
+    phase_profile(card, label, run, os.path.join("results", f"{name}_profile.txt"), **kwargs)
+
+
+def phase_rest(card: str, labels=tuple(REST_PATHS), full: bool = False) -> tuple:
+    """Phase 23: the paths of ``labels`` (all five in the whole run, briefly):
+    the kernels at their shapes (``phase_rest_kernels``), then for each path
+    ``phase_rest_train`` on its corpus (``path_corpus_args``) and
+    ``phase_rest_held``; ``full``: the kernels timed,
+    and each path's steady steps and profile. Returns the launches of each
+    path's train steps by path and the kernels' records by path."""
+    import tempfile
+
+    import torch
+
+    records = phase_rest_kernels(card, timed=full, labels=labels)
+    launches, corpora = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label in labels:
+            data_args = path_corpus_args(label, corpora, tmp)
+            launches[label], run = phase_rest_train(card, label, data_args,
+                                                    augment=full and label == VIT_MOE)
+            phase_rest_held(card, label, run)
+            if full:
+                phase_steady(card, label, run, blocks=2, steps=6)
+                phase_rest_profile(card, label, run)
+            run = None
+            gc.collect()
+            torch.cuda.empty_cache()
+    return launches, records
+
+
 def main(argv) -> int:
     import torch
 
     if argv not in ([], ["--deeplab"], ["--segmentation"], ["--families"], ["--clip"],
-                    ["--range-augment"], ["--byteformer"], ["--mask-rcnn"]):
+                    ["--range-augment"], ["--byteformer"], ["--mask-rcnn"],
+                    *([flag] for flag in REST_FLAGS)):
         print(f"chip_smoke: unknown arguments {argv}; usage: chip_smoke.py "
               "[--deeplab | --segmentation | --families | --clip | --range-augment | "
-              "--byteformer | --mask-rcnn]", file=sys.stderr)
+              "--byteformer | --mask-rcnn | --vit-segmentation | --moe | --video]",
+              file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6274,6 +7216,19 @@ def main(argv) -> int:
     if argv == ["--mask-rcnn"]:
         phase_build()
         phase_mask_rcnn(card)
+        return 0
+    if argv and argv[0] in REST_FLAGS:
+        import tempfile
+
+        labels, main_train_phase = REST_FLAGS[argv[0]]
+        phase_build()
+        phase_rest(card, labels, full=True)
+        release()
+        if argv[0] == "--vit-segmentation":
+            phase_aspp_conv(card)
+            release()
+        with tempfile.TemporaryDirectory() as tmp:
+            main_train_phase(card, tmp)
         return 0
     if argv == ["--segmentation"]:
         phase_build()
@@ -6353,6 +7308,8 @@ def main(argv) -> int:
     release()
     mask_rcnn_launches = phase_mask_rcnn(card)
     release()
+    rest_launches, _ = phase_rest(card)
+    release()
 
     def entry(name, source, replaces, launches, record):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -6363,6 +7320,7 @@ def main(argv) -> int:
                         vit_launches[key], record),
                 "launches_by_path": {"ViT-B/16": vit_launches[key],
                                      "CLIP ViT-B/16": clip_launches[key],
+                                     VIT_MOE: rest_launches[VIT_MOE][key],
                                      **{path: n[key] for path, n in byteformer_launches.items()}},
                 "by_path": {path: r[part] for path, r in byteformer_records.items()}}
 
@@ -6371,14 +7329,22 @@ def main(argv) -> int:
                         sep_launches[name], sep_records[part]),
                 "launches_by_path": {"MobileViTv2-1.0": sep_launches[name],
                                      "MobileViTv2-2.0 384² finetune": finetune_launches[name],
-                                     MASK_RCNN_A: mask_rcnn_launches[MASK_RCNN_A][name]},
+                                     MASK_RCNN_A: mask_rcnn_launches[MASK_RCNN_A][name],
+                                     VIDEO_V2: rest_launches[VIDEO_V2][name]},
                 "by_path": {"MobileViTv2-2.0 384² finetune": finetune_records[part]}}
 
     def long_entry(name, replaces, key, record):  # ViT-B 512²'s and Mask R-CNN B's
         return {**entry(name, "cvnets_tpu_torch/csrc/mha_attention.cu", replaces,
                         vit_long_launches[key], record),
                 "launches_by_path": {"ViT-B/16 512² no CLS": vit_long_launches[key],
-                                     MASK_RCNN_B: mask_rcnn_launches[MASK_RCNN_B][key]}}
+                                     MASK_RCNN_B: mask_rcnn_launches[MASK_RCNN_B][key],
+                                     **{p: rest_launches[p][key] for p in SEG_VIT_HEADS}}}
+
+    def seg_entry(name, replaces, record):  # DeepLabv3-MobileViTv2's and the ViT's
+        return {**entry(name, "cvnets_tpu_torch/csrc/seg_ce.cu", replaces, seg_launches[name],
+                        record),
+                "launches_by_path": {"DeepLabv3-MobileViTv2-1.0": seg_launches[name],
+                                     **{p: rest_launches[p][name] for p in SEG_VIT_HEADS}}}
 
     print(json.dumps({"kernels": [
         sep_entry("separable_attention", "cvnets_tpu/ops/pallas/mobilevit_attn.py:44", "fwd"),
@@ -6388,12 +7354,8 @@ def main(argv) -> int:
                   "mha_attention_fwd", mha_records["fwd"], "fwd"),
         mha_entry("mha_attention_bwd", "cvnets_tpu/ops/pallas/mha_attn.py:153",
                   "mha_attention_bwd", mha_records["bwd"], "bwd"),
-        entry("seg_ce_fwd", "cvnets_tpu_torch/csrc/seg_ce.cu",
-              "cvnets_tpu/ops/pallas/seg_ce_kernel.py:159",
-              seg_launches["seg_ce_fwd"], seg_records["fwd"]),
-        entry("seg_ce_bwd", "cvnets_tpu_torch/csrc/seg_ce.cu",
-              "cvnets_tpu/ops/pallas/seg_ce_kernel.py:200",
-              seg_launches["seg_ce_bwd"], seg_records["bwd"]),
+        seg_entry("seg_ce_fwd", "cvnets_tpu/ops/pallas/seg_ce_kernel.py:159", seg_records["fwd"]),
+        seg_entry("seg_ce_bwd", "cvnets_tpu/ops/pallas/seg_ce_kernel.py:200", seg_records["bwd"]),
         long_entry("mha_attention_fwd_long", "cvnets_tpu/ops/pallas/mha_attn_long.py:142",
                    "mha_attention_fwd", mha_long_records["fwd"]),
         long_entry("mha_attention_bwd_long_dq", "cvnets_tpu/ops/pallas/mha_attn_long.py:257",

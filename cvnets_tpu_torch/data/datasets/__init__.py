@@ -67,3 +67,4 @@ from cvnets_tpu_torch.data.datasets.multi_modal_img_text import (  # noqa: E402,
     base_multi_modal_img_text,
 )
 from cvnets_tpu_torch.data.datasets.segmentation import ade20k  # noqa: E402,F401
+from cvnets_tpu_torch.data.datasets.video_classification import kinetics  # noqa: E402,F401

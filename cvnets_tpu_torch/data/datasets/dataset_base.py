@@ -61,6 +61,13 @@ class BaseDataset:
         group.add_argument("--dataset.eval-batch-size0", type=int, default=1)
         group.add_argument("--dataset.workers", type=int, default=-1)
         group.add_argument("--dataset.prefetch-factor", type=int, default=2)
+        group.add_argument("--dataset.pin-memory", action="store_true", default=False,
+                           help="Config-compat: batches bound for a card are pinned "
+                                "whatever it says")
+        group.add_argument("--dataset.persistent-workers", action="store_true",
+                           default=False,
+                           help="Config-compat: the loader's worker threads live as long "
+                                "as the loader")
         group.add_argument("--dataset.collate-fn-name-train", type=str,
                            default="default_collate_fn")
         group.add_argument("--dataset.collate-fn-name-val", type=str,

@@ -34,4 +34,5 @@ from cvnets_tpu_torch.data.transforms import (  # noqa: E402,F401
     image,
     image_advanced,
     image_bytes,
+    video,
 )

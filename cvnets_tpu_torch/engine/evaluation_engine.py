@@ -7,8 +7,10 @@ classes. ``run`` takes CLIP's zero-shot route when the test dataset has
 embeddings in chunks of 100 classes, computed once and kept on the device,
 then 100·image·textᵀ logits (the model's ``zero_shot_image_logits``) and
 their top-1 / top-5 over the test loader, the counts summed on the device and
-read back once. Video evaluation is not ported yet (it waits for its model
-family)."""
+read back once. Under ``--common.inference-modality video`` (and for the
+video category) ``run`` takes ``eval_fn_video`` (evaluation_engine.py:72-107):
+each video's clips fold into the batch and their logits are summed or maxed
+(``train_state.make_video_eval_step``)."""
 
 from __future__ import annotations
 
@@ -23,8 +25,10 @@ from cvnets_tpu_torch.engine.train_state import (
     UnitNormalizer,
     batch_size,
     make_eval_step,
+    make_video_eval_step,
     to_device,
     tree_map,
+    votes_over_clips,
 )
 from cvnets_tpu_torch.layers.dtype_utils import autocast
 from cvnets_tpu_torch.metrics.stats import Statistics, add_pairs, pairs_to_host
@@ -96,16 +100,23 @@ class Evaluator:
             model, criteria, self.stats.metrics, opts=opts,
             logit_subset=torch.tensor(subset, device=self.device) if subset else None)
 
-    def eval_fn_image(self) -> Dict[str, float]:
+    def _eval(self, step, stage: str) -> Dict[str, float]:
         start = time.time()
         pairs = None
         for batch in self.test_loader:
-            pairs = add_pairs(pairs, self._eval_step(self.state, to_device(batch, self.device)))
+            pairs = add_pairs(pairs, step(self.state, to_device(batch, self.device)))
         if pairs is not None:
             self.stats.update(pairs_to_host(pairs))
-        self.stats.epoch_summary(0, stage="evaluation")
+        self.stats.epoch_summary(0, stage=stage)
         logger.info(f"Evaluation took {time.time() - start:.2f} seconds")
         return self.stats.avg_statistics_all()
+
+    def eval_fn_image(self) -> Dict[str, float]:
+        return self._eval(self._eval_step, "evaluation")
+
+    def eval_fn_video(self) -> Dict[str, float]:
+        return self._eval(make_video_eval_step(self.state.model, self.stats.metrics,
+                                               opts=self.opts), "evaluation (video)")
 
     def eval_fn_zero_shot(self) -> Dict[str, float]:
         start = time.time()
@@ -118,6 +129,8 @@ class Evaluator:
         return out
 
     def run(self) -> Dict[str, float]:
+        if votes_over_clips(self.opts):
+            return self.eval_fn_video()
         if hasattr(getattr(self.test_loader, "dataset", None), "class_caption_tokens"):
             return self.eval_fn_zero_shot()
         return self.eval_fn_image()

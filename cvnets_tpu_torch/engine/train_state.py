@@ -45,6 +45,21 @@ before the augmentor (after ``to_unit``, augmentation and mixing), as in the
 JAX step (:154, :162). The loss also gets ``epoch`` and ``iterations`` (the
 step), which RangeAugment's curriculum reads.
 
+A model with MoE layers (``modules/moe.py``) adds
+``--model.moe.aux-loss-weight`` times the sum of their load-balance losses
+to each training forward's loss (``total_loss`` of a dict loss), as the
+JAX step adds its ``moe_loss`` collection (:151-158, :190, :211): once a
+micro-batch, each micro-batch's capacity its own. Eval steps add nothing.
+
+A video batch, (B, clips, T, C, H, W) (``kinetics``), trains each clip as
+a sample: the clips fold into the batch and each target repeats for them.
+(The JAX step hands the model the clips as its frames, which a MobileViT
+encoder cannot take.) ``make_video_eval_step`` is JAX's ``eval_fn_video``
+(evaluation_engine.py:72-107): the clips fold into the batch, and the logits
+of a video's clips are summed or maxed by
+``--model.video-classification.clip-out-voting-fn``; its loss metric is 0,
+as JAX passes ``{"loss": 0.0}``.
+
 A model that sets ``TAKES_GENERATOR`` (Mask R-CNN, whose samplers draw in its
 forward) gets ``generator=``, a generator on the batch's device seeded by
 (``common.seed``, step, ``DETECTION_STREAM``) each step.
@@ -63,6 +78,7 @@ from torch.profiler import record_function
 from cvnets_tpu_torch.layers.dtype_utils import autocast
 from cvnets_tpu_torch.metrics.stats import Pairs
 from cvnets_tpu_torch.misc.averaging_utils import EMA
+from cvnets_tpu_torch.modules.moe import MoEFFN, moe_aux_loss
 
 
 @dataclass
@@ -181,6 +197,14 @@ def step_generator(generators: Dict[torch.device, torch.Generator], device: torc
         int(step_rng(seed, step, stream).integers(2 ** 62)))
 
 
+VIDEO_BATCH_DIMS = 6  # (B, clips, T, C, H, W)
+
+
+def fold_clips(samples: torch.Tensor, targets: torch.Tensor):
+    """A video batch's clips as samples, each with its video's target."""
+    return samples.flatten(0, 1), targets.repeat_interleave(samples.shape[1])
+
+
 def _batch_values(metric_objs: Dict[str, Any], prediction, targets, extras) -> Pairs:
     return {name: metric.batch_values(prediction, targets, extras)
             for name, metric in metric_objs.items()}
@@ -208,10 +232,14 @@ def make_train_step(model: nn.Module, criteria: Callable, opts, metric_objs: Dic
     augmentor = model._modules.get("neural_augmentor")
     takes_generator = getattr(model, "TAKES_GENERATOR", False)
     generators: Dict[torch.device, torch.Generator] = {}
+    has_moe = any(isinstance(m, MoEFFN) for m in model.modules())
+    moe_weight = getattr(opts, "model.moe.aux_loss_weight", 0.01) or 0.0
 
     def train_step(state: TrainState, batch: Dict, lr: float, epoch: int = 0,
                    bn_momentum: Optional[float] = None) -> Tuple[TrainState, Pairs]:
         samples, targets = tree_map(to_unit, batch["samples"]), _labels(batch["targets"])
+        if isinstance(samples, torch.Tensor) and samples.dim() == VIDEO_BATCH_DIMS:
+            samples, targets = fold_clips(samples, targets)
         if isinstance(samples, dict) and (augment_fn is not None or mixing_fn is not None):
             raise ValueError("device augmentation and mixup / cutmix take a tensor of "
                              "images (classification), not a dict of samples")
@@ -248,6 +276,9 @@ def make_train_step(model: nn.Module, criteria: Callable, opts, metric_objs: Dic
                 loss = criteria(mb_samples, prediction, mb_targets, training=True,
                                 epoch=epoch, iterations=state.step)
             total = loss["total_loss"] if isinstance(loss, dict) else loss
+            if has_moe and moe_weight:
+                total = total.float() + moe_weight * moe_aux_loss(model)
+                loss = {**loss, "total_loss": total} if isinstance(loss, dict) else total
             total.backward()
         if accum_freq > 1:
             torch._foreach_div_([p.grad for p in params if p.grad is not None],
@@ -291,5 +322,34 @@ def make_eval_step(model: nn.Module, criteria: Callable, metric_objs: Dict[str, 
                     prediction = prediction[:, logit_subset]
             loss = criteria(samples, prediction, targets, training=False)
         return _batch_values(metric_objs, prediction, targets, {"loss": loss})
+
+    return eval_step
+
+
+def votes_over_clips(opts) -> bool:
+    """Whether evaluation votes over each video's clips: under
+    ``--common.inference-modality video``, as in JAX, and for the video
+    category, whose (B, clips, ...) batches no other evaluation takes."""
+    return (getattr(opts, "common.inference_modality", "image") == "video"
+            or getattr(opts, "dataset.category", None) == "video_classification")
+
+
+def make_video_eval_step(model: nn.Module, metric_objs: Dict[str, Any], use_ema: bool = False,
+                         opts=None) -> Callable[[TrainState, Dict], Pairs]:
+    """The metrics of clip-voted logits over (B, clips, T, C, H, W) batches."""
+    to_unit = UnitNormalizer(opts)
+    voting = getattr(opts, "model.video_classification.clip_out_voting_fn", "sum") or "sum"
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch: Dict) -> Pairs:
+        net = state.ema.model if use_ema and state.ema is not None else model
+        net.eval()
+        samples, targets = to_unit(batch["samples"]), _labels(batch["targets"])
+        b, n_clips = samples.shape[:2]
+        with autocast(opts, samples.device):
+            logits = net(samples.flatten(0, 1)).reshape(b, n_clips, -1)
+        logits = logits.amax(dim=1) if voting == "max" else logits.sum(dim=1)
+        return _batch_values(metric_objs, logits, targets,
+                             {"loss": torch.zeros((), device=samples.device)})
 
     return eval_step

@@ -46,7 +46,9 @@ from cvnets_tpu_torch.engine.train_state import (
     create_train_state,
     make_eval_step,
     make_train_step,
+    make_video_eval_step,
     to_device,
+    votes_over_clips,
 )
 from cvnets_tpu_torch.layers.normalization import AdjustBatchNormMomentum
 from cvnets_tpu_torch.metrics import METRICS_REGISTRY, build_metrics
@@ -145,9 +147,14 @@ class Trainer:
         if self.accum_after_epoch > 0 and (getattr(opts, "common.accum_freq", 1) or 1) > 1:
             self._train_step_noaccum = make_train_step(model, criteria, opts, train_metrics,
                                                        accum_freq=1, **augment)
-        self._eval_step = make_eval_step(model, criteria, val_metrics, opts=opts)
-        self._eval_step_ema = make_eval_step(model, criteria, val_metrics, use_ema=True,
-                                             opts=opts)
+        if votes_over_clips(opts):
+            self._eval_step = make_video_eval_step(model, val_metrics, opts=opts)
+            self._eval_step_ema = make_video_eval_step(model, val_metrics, use_ema=True,
+                                                       opts=opts)
+        else:
+            self._eval_step = make_eval_step(model, criteria, val_metrics, opts=opts)
+            self._eval_step_ema = make_eval_step(model, criteria, val_metrics, use_ema=True,
+                                                 opts=opts)
 
     def read_back(self, stats: Statistics, pairs, load_time: float) -> None:
         """The host's only wait on the device inside an epoch: one copy of the

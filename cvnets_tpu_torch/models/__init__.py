@@ -13,12 +13,6 @@ from cvnets_tpu_torch.utils.registry import Registry
 
 MODEL_REGISTRY = Registry(registry_name="torch_model_registry", base_class=nn.Module)
 
-# model categories the JAX package has and the port does not yet: get_model
-# raises naming the item before it reads their options
-_UNPORTED_CATEGORIES = {
-    "video_classification": "the video category (ROADMAP.md queue 1 item 11)",
-}
-
 
 def get_model(opts, category: Optional[str] = None, model_name: Optional[str] = None,
               generator: Optional[torch.Generator] = None,
@@ -42,8 +36,6 @@ def get_model(opts, category: Optional[str] = None, model_name: Optional[str] = 
                            "device='cpu' to build the model on the CPU")
     if category is None:
         category = getattr(opts, "dataset.category")
-    if category in _UNPORTED_CATEGORIES:
-        raise NotImplementedError(f"not ported yet: {_UNPORTED_CATEGORIES[category]}")
     if model_name is None:
         model_name = getattr(opts, f"model.{category}.name")
     if model_name == "__base__":
@@ -130,3 +122,4 @@ from cvnets_tpu_torch.models.detection import base_detection, mask_rcnn, ssd  # 
 from cvnets_tpu_torch.models.multi_modal import base_multi_modal, clip  # noqa: E402,F401
 from cvnets_tpu_torch.models.segmentation import enc_dec  # noqa: E402,F401
 from cvnets_tpu_torch.models.segmentation.heads import seg_heads  # noqa: E402,F401
+from cvnets_tpu_torch.models.video_classification import spatio_temporal  # noqa: E402,F401

@@ -5,7 +5,14 @@ NCHW input; the five-stage skeleton ``conv_1, layer_1..layer_5, conv_1x1_exp,
 classifier`` (a model without ``conv_1x1_exp`` goes from layer_5 to the
 classifier), ``extract_features`` (the stages without the classifier: CLIP's
 image features), and the tap points that the segmentation heads read
-(``extract_end_points_all``). Gradient checkpointing is not ported yet.
+(``extract_end_points_all``).
+
+Under ``--model.classification.gradient-checkpointing`` every stage runs
+under ``layers.remat`` in training (base_image_encoder.py:123-127):
+recomputed in the backward, with the loss, gradients and BN statistics of a
+run without it. ``extract_features_temporal`` (:131-164) is the video
+models' frame-by-frame forward: each MobileViT block cross-attends to its
+own post-norm patches of the previous frame.
 
 RangeAugment's neural augmentor (``--model.learn-augmentation.mode``) is
 built by ``get_model`` into a model of a family whose ``NEURAL_AUGMENTOR`` is
@@ -25,13 +32,14 @@ so the layers build with ``--model.activation.*``.
 from __future__ import annotations
 
 import argparse
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
 
 from cvnets_tpu_torch.layers.linear_layer import LinearLayer
 from cvnets_tpu_torch.layers.pool import global_pool
+from cvnets_tpu_torch.layers.remat import remat
 from cvnets_tpu_torch.models import MODEL_REGISTRY
 
 
@@ -45,6 +53,7 @@ def dilates(output_stride: Optional[int], stage: int) -> bool:
 class BaseImageEncoder(nn.Module):
     STAGES = ("conv_1", "layer_1", "layer_2", "layer_3", "layer_4", "layer_5")
     NEURAL_AUGMENTOR = False  # whether the family's JAX module builds the augmentor
+    gradient_checkpointing = False  # --model.classification.gradient-checkpointing
 
     @classmethod
     def add_arguments(cls, parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
@@ -60,12 +69,19 @@ class BaseImageEncoder(nn.Module):
         group.add_argument("--model.classification.activation.inplace", action="store_true")
         group.add_argument("--model.classification.activation.neg-slope", type=float,
                            default=0.1)
+        group.add_argument("--model.classification.gradient-checkpointing",
+                           action="store_true",
+                           help="Recompute each stage (ViT, Swin: each block) in the "
+                                "backward instead of keeping its activations")
         return parser
 
     @classmethod
     def build_model(cls, opts, **kwargs) -> "BaseImageEncoder":
         """``kwargs``: e.g. ``output_stride`` for a segmentation encoder."""
-        return cls(opts, **kwargs)
+        model = cls(opts, **kwargs)
+        model.gradient_checkpointing = bool(
+            getattr(opts, "model.classification.gradient_checkpointing", False))
+        return model
 
     @staticmethod
     def n_classes(opts) -> int:
@@ -81,13 +97,49 @@ class BaseImageEncoder(nn.Module):
         encoders' only multiplier, is not ported)."""
         return {}
 
+    def run_stage(self, stage: Optional[nn.Module], x: torch.Tensor) -> torch.Tensor:
+        """``stage(x)``, under ``remat`` when checkpointing in training; a
+        missing stage passes ``x`` through."""
+        if stage is None:
+            return x
+        if self.gradient_checkpointing and self.training:
+            return remat(stage, x)
+        return stage(x)
+
     def extract_features(self, x: torch.Tensor) -> torch.Tensor:
         """``conv_1`` … ``layer_5``, then ``conv_1x1_exp`` where the model has
         one (base_image_encoder.py:196-200)."""
-        for name in self.STAGES:
-            x = getattr(self, name)(x)
-        exp = getattr(self, "conv_1x1_exp", None)
-        return x if exp is None else exp(x)
+        for name in self.STAGES + ("conv_1x1_exp",):
+            x = self.run_stage(getattr(self, name, None), x)
+        return x
+
+    def extract_features_temporal(self, x: torch.Tensor,
+                                  prev_patches: Optional[Dict[str, torch.Tensor]] = None
+                                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """One frame: the stages as ``extract_features``, each MobileViT block
+        given the previous frame's patches under its key (``layer_4.1``: the
+        stage and the block's place in it; None on the first frame), and
+        returning its own. Returns (features, {key: patches})."""
+        from cvnets_tpu_torch.modules.mobilevit_block import MobileViTBlock, MobileViTBlockv2
+
+        prev = prev_patches or {}
+        patches: Dict[str, torch.Tensor] = {}
+
+        def run(module: Optional[nn.Module], h: torch.Tensor, key: str) -> torch.Tensor:
+            if module is None:
+                return h
+            if isinstance(module, nn.Sequential):
+                for i, m in enumerate(module):
+                    h = run(m, h, f"{key}.{i}")
+                return h
+            if isinstance(module, (MobileViTBlock, MobileViTBlockv2)):
+                h, patches[key] = module(h, x_prev=prev.get(key), return_patches=True)
+                return h
+            return module(h)
+
+        for name in self.STAGES + ("conv_1x1_exp",):
+            x = run(getattr(self, name, None), x, name)
+        return x, patches
 
     def forward(self, x: torch.Tensor, augmentation_draws=None):
         """Logits; with a neural augmentor, in training, ``{"augmented_tensor",
@@ -105,13 +157,12 @@ class BaseImageEncoder(nn.Module):
         (base_image_encoder.py:167-191); ``out_l5_exp`` after ``conv_1x1_exp``,
         which a model without one passes through."""
         out: Dict[str, torch.Tensor] = {}
-        x = self.conv_1(x)
+        x = self.run_stage(self.conv_1, x)
         for i in range(1, 6 if use_l5 else 5):
-            x = getattr(self, f"layer_{i}")(x)
+            x = self.run_stage(getattr(self, f"layer_{i}"), x)
             out[f"out_l{i}"] = x
         if use_l5 and use_l5_exp:
-            exp = getattr(self, "conv_1x1_exp", None)
-            out["out_l5_exp"] = x if exp is None else exp(x)
+            out["out_l5_exp"] = self.run_stage(getattr(self, "conv_1x1_exp", None), x)
         return out
 
     def extract_end_points_l4(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:

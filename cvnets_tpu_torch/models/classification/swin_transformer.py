@@ -6,7 +6,9 @@ NCHW and permuted once to NHWC → ``patch_norm`` → four stages of
 growing linearly to ``stochastic_depth_prob`` over all blocks) with a
 ``PatchMerging`` between stages → ``post_norm`` → mean over the map → linear
 classifier. Attribute names are the flax scopes (``patch_embed``,
-``stage{i}_block{j}``, ``merge{i}``, ``post_norm``, ``classifier``).
+``stage{i}_block{j}``, ``merge{i}``, ``post_norm``, ``classifier``). Under
+``--model.classification.gradient-checkpointing`` each block runs under
+``layers.remat`` in training.
 
 Not ported, and raising if asked for: ``--common.int8-inference`` (the JAX
 ``quant_dense``) and any norm layer but ``layer_norm`` (as in JAX).
@@ -21,6 +23,7 @@ import torch
 import torch.nn as nn
 
 from cvnets_tpu_torch.layers.linear_layer import LinearLayer
+from cvnets_tpu_torch.layers.remat import remat
 from cvnets_tpu_torch.models import MODEL_REGISTRY
 from cvnets_tpu_torch.models.classification.base_image_encoder import BaseImageEncoder
 from cvnets_tpu_torch.modules.swin_transformer_block import PatchMerging, SwinTransformerBlock
@@ -107,9 +110,11 @@ class SwinTransformer(BaseImageEncoder):
     def _forward_stages(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         x = self.patch_norm(self.patch_embed(x).permute(0, 2, 3, 1))  # NHWC from here on
         out = {"out_l1": x}
+        checkpointed = self.gradient_checkpointing and self.training  # swin :116-117
         for si, depth in enumerate(self.depths):
             for bi in range(depth):
-                x = getattr(self, f"stage{si}_block{bi}")(x)
+                block = getattr(self, f"stage{si}_block{bi}")
+                x = remat(block, x) if checkpointed else block(x)
             out[f"out_l{si + 2}"] = x
             if si < len(self.depths) - 1:
                 x = getattr(self, f"merge{si}")(x)

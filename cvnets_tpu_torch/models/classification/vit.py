@@ -20,8 +20,20 @@ running the classifier. Under ``--model.classification.vit.use-simple-fpn``
 ``out_l2`` (two 2×2 transposed convs, the first with norm and activation,
 E/4 channels), ``out_l3`` (one, E/2), ``out_l4`` (the map) and ``out_l5``
 (2×2 max pool): the taps Mask R-CNN reads, whose widths ``model_conf_dict``
-gives. Not ported yet, and raising if asked for: MoE blocks; not ported and
-without a flag here: gradient checkpointing and layer-wise LR decay.
+gives.
+
+As a segmentation encoder (``output_stride`` 8 or 16) the stem's strides are
+JAX's: (4, 2, 2) at 16, (2, 2, 2) at 8, each conv's kernel its stride
+(vit.py:82-85), and the positional table is resampled to the finer grid.
+
+Under ``--model.classification.vit.moe-num-experts`` E > 0 every
+``moe-layer-period``-th block (the 2nd, 4th, ...) is a
+``modules.moe.MoETransformerEncoder`` (top-``moe-top-k`` routing at
+``moe-capacity-factor``), whose load-balance loss the train step adds.
+Under ``--model.classification.gradient-checkpointing`` (with
+``checkpoint-segments`` ≥ 1, the only way JAX reads it) each block, dense or
+MoE, runs under ``layers.remat`` in training (vit.py:132-136). Not ported:
+layer-wise LR decay.
 """
 
 from __future__ import annotations
@@ -37,15 +49,12 @@ from cvnets_tpu_torch.layers.conv_layer import ConvLayer2d, TransposeConvLayer2d
 from cvnets_tpu_torch.layers.linear_layer import LinearLayer
 from cvnets_tpu_torch.layers.normalization import get_normalization_layer
 from cvnets_tpu_torch.layers.positional_embedding import PositionalEmbedding
+from cvnets_tpu_torch.layers.remat import remat
 from cvnets_tpu_torch.models import MODEL_REGISTRY
 from cvnets_tpu_torch.models.classification.base_image_encoder import BaseImageEncoder
 from cvnets_tpu_torch.models.classification.config.vit import get_configuration
+from cvnets_tpu_torch.modules.moe import MoETransformerEncoder
 from cvnets_tpu_torch.modules.transformer import TransformerEncoder
-
-# options of the JAX model that the port does not have yet
-_UNPORTED = {
-    "model.classification.vit.moe_num_experts": "MoE transformer blocks",
-}
 
 
 @MODEL_REGISTRY.register(name="vit", type="classification")
@@ -71,7 +80,8 @@ class VisionTransformer(BaseImageEncoder):
         group.add_argument("--model.classification.vit.checkpoint-segments",
                            type=int, default=4)
         group.add_argument("--model.classification.vit.moe-num-experts", type=int,
-                           default=0, help="Not ported: must be 0 (dense FFN)")
+                           default=0, help="0: dense FFN; E > 0: every "
+                           "moe-layer-period-th block's FFN is an E-expert MoE")
         group.add_argument("--model.classification.vit.moe-top-k", type=int, default=2)
         group.add_argument("--model.classification.vit.moe-capacity-factor",
                            type=float, default=1.25)
@@ -81,14 +91,6 @@ class VisionTransformer(BaseImageEncoder):
 
     def __init__(self, opts, output_stride: Optional[int] = None) -> None:
         super().__init__()
-        for flag, what in _UNPORTED.items():
-            if getattr(opts, flag, None):
-                raise NotImplementedError(f"ViT: {what} (--{flag}) is not ported yet "
-                                          "(ROADMAP.md queue 1 item 5)")
-        if output_stride is not None:  # the JAX ViT's stem at output stride 8 (vit.py:84)
-            raise NotImplementedError(
-                f"not ported yet: the ViT as a segmentation encoder (output stride "
-                f"{output_stride}) waits for ROADMAP.md queue 1 item 5")
         cfg = get_configuration(opts)
         embed_dim = cfg["embed_dim"]
         n_layers = cfg["n_transformer_layers"]
@@ -96,7 +98,8 @@ class VisionTransformer(BaseImageEncoder):
         self.use_cls_token = not getattr(opts, "model.classification.vit.no_cls_token", False)
 
         stem_dim = max(32, embed_dim // 4)
-        self.patch_emb_0 = ConvLayer2d(opts, 3, stem_dim, kernel_size=4, stride=4)
+        first = 2 if output_stride == 8 else 4
+        self.patch_emb_0 = ConvLayer2d(opts, 3, stem_dim, kernel_size=first, stride=first)
         self.patch_emb_1 = ConvLayer2d(opts, stem_dim, stem_dim, kernel_size=2, stride=2)
         self.patch_emb_2 = ConvLayer2d(opts, stem_dim, embed_dim, kernel_size=2, stride=2,
                                        bias=True, use_norm=False, use_act=False)
@@ -108,12 +111,27 @@ class VisionTransformer(BaseImageEncoder):
             self.cls_token = nn.Parameter(torch.empty(1, 1, embed_dim))
         self.pos_emb_drop = nn.Dropout(cfg["pos_emb_drop_p"])
         self.n_layers = n_layers
+        prefix = "model.classification.vit."
+        n_experts = getattr(opts, prefix + "moe_num_experts", 0) or 0
+        period = max(getattr(opts, prefix + "moe_layer_period", 2) or 2, 1)
+        # JAX reads checkpoint-segments only as "on when >= 1"
+        self.remat_blocks = bool(getattr(opts, prefix + "checkpoint_segments", 4))
         for i in range(n_layers):
-            self.add_module(f"transformer_{i}", TransformerEncoder(
-                opts, embed_dim, cfg["ffn_dim"], num_heads=cfg["n_attn_heads"],
-                attn_dropout=cfg["attn_dropout"], dropout=cfg["dropout"],
-                ffn_dropout=cfg["ffn_dropout"], transformer_norm_layer=cfg["norm_layer"],
-                stochastic_dropout=sd_prob * i / max(n_layers - 1, 1), norm_eps=1e-6))
+            if n_experts > 0 and (i + 1) % period == 0:
+                block = MoETransformerEncoder(
+                    opts, embed_dim, cfg["ffn_dim"], num_heads=cfg["n_attn_heads"],
+                    num_experts=n_experts,
+                    top_k=getattr(opts, prefix + "moe_top_k", 2) or 2,
+                    capacity_factor=getattr(opts, prefix + "moe_capacity_factor", 1.25)
+                    or 1.25, attn_dropout=cfg["attn_dropout"], dropout=cfg["dropout"],
+                    transformer_norm_layer=cfg["norm_layer"], norm_eps=1e-6)
+            else:
+                block = TransformerEncoder(
+                    opts, embed_dim, cfg["ffn_dim"], num_heads=cfg["n_attn_heads"],
+                    attn_dropout=cfg["attn_dropout"], dropout=cfg["dropout"],
+                    ffn_dropout=cfg["ffn_dropout"], transformer_norm_layer=cfg["norm_layer"],
+                    stochastic_dropout=sd_prob * i / max(n_layers - 1, 1), norm_eps=1e-6)
+            self.add_module(f"transformer_{i}", block)
         self.post_transformer_norm = get_normalization_layer(
             opts, embed_dim, cfg["norm_layer"], eps=1e-6) or nn.Identity()
         self.classifier = LinearLayer(
@@ -142,8 +160,10 @@ class VisionTransformer(BaseImageEncoder):
             cls = self.cls_token.to(tokens.dtype).expand(tokens.shape[0], -1, -1)
             tokens = torch.cat([cls, tokens], dim=1)
         tokens = self.pos_emb_drop(tokens)
+        checkpointed = self.gradient_checkpointing and self.remat_blocks and self.training
         for i in range(self.n_layers):
-            tokens = getattr(self, f"transformer_{i}")(tokens)
+            block = getattr(self, f"transformer_{i}")
+            tokens = remat(block, tokens) if checkpointed else block(tokens)
         return self.post_transformer_norm(tokens), grid
 
     def _embedding(self, tokens: torch.Tensor) -> torch.Tensor:
@@ -154,9 +174,12 @@ class VisionTransformer(BaseImageEncoder):
         return self._embedding(self._tokens(x)[0])
 
     def _image_embedding(self, tokens: torch.Tensor, grid) -> torch.Tensor:
-        """The tokens after the CLS one as a (B, E, h, w) map."""
+        """The tokens after the CLS one as a contiguous (B, E, h, w) map. The
+        transposed view would have channels-last strides, which send cuDNN's
+        dilated 3×3 convs (DeepLabv3's ASPP) to a direct kernel 7-20× slower
+        than the NCHW one."""
         emb = tokens[:, 1:] if self.use_cls_token else tokens
-        return emb.transpose(1, 2).reshape(emb.shape[0], -1, *grid)
+        return emb.transpose(1, 2).reshape(emb.shape[0], -1, *grid).contiguous()
 
     def _taps(self, emb: torch.Tensor) -> Dict[str, torch.Tensor]:
         if not self.use_simple_fpn:

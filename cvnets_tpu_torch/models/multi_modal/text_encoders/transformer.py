@@ -16,7 +16,9 @@ batch, and the projected features are mean-pooled over the captions and
 L2-normalized. Parameter names are the flax ones (``token_embedding``,
 ``pos_embed``, ``transformer_{i}``, ``final_norm``, ``projection``), so
 ``utils.jax_params.load_jax_params`` fills the encoder from a flax tree.
-Gradient checkpointing is not ported: the flag raises.
+Under ``--model.text.transformer.gradient-checkpoint`` each block runs under
+``layers.remat`` in training (transformer.py:145-147: one block a segment,
+whatever ``num-checkpoint-segments`` says).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch.nn.functional as F
 
 from cvnets_tpu_torch.layers.init_utils import init_tensor
 from cvnets_tpu_torch.layers.positional_embedding import PositionalEmbedding
+from cvnets_tpu_torch.layers.remat import remat
 from cvnets_tpu_torch.models.multi_modal.text_encoders import TEXT_ENCODER_REGISTRY
 from cvnets_tpu_torch.modules.transformer import TransformerEncoder
 
@@ -63,7 +66,7 @@ class TextTransformer(nn.Module):
                            default="layer_norm")
         group.add_argument("--model.text.transformer.sinusoidal-pos-emb", action="store_true")
         group.add_argument("--model.text.transformer.gradient-checkpoint", action="store_true",
-                           help="Not ported: raises")
+                           help="Recompute each block in the backward")
         group.add_argument("--model.text.transformer.num-checkpoint-segments", type=int,
                            default=1)
         group.add_argument("--model.text.transformer.causal-masking", action="store_true",
@@ -75,11 +78,7 @@ class TextTransformer(nn.Module):
     def __init__(self, opts, projection_dim: int = 256) -> None:
         super().__init__()
         prefix = "model.text.transformer."
-        if getattr(opts, prefix + "gradient_checkpoint", False):
-            raise NotImplementedError(
-                "not ported yet: gradient checkpointing of the text transformer "
-                "(--model.text.transformer.gradient-checkpoint) waits for ROADMAP.md "
-                "queue 1 item 5")
+        self.gradient_checkpoint = bool(getattr(opts, prefix + "gradient_checkpoint", False))
         dim = getattr(opts, prefix + "model_dim", 512)
         n_layers = getattr(opts, prefix + "n_transformer_layers", 12)
         heads = _per_layer(getattr(opts, prefix + "n_heads_per_layer", [8]), n_layers)
@@ -135,8 +134,11 @@ class TextTransformer(nn.Module):
             x = self.pos_embed(x)
         x = self.embed_dropout(x)
         attn_mask = self.causal_mask(x.shape[1], x.device) if self.causal else None
+        checkpointed = self.gradient_checkpoint and self.training
         for i in range(self.n_layers):
-            x = getattr(self, f"transformer_{i}")(x, None, key_padding_mask, attn_mask)
+            block = getattr(self, f"transformer_{i}")
+            x = (remat(block, x, None, key_padding_mask, attn_mask) if checkpointed
+                 else block(x, None, key_padding_mask, attn_mask))
         x = self.final_norm(x)
         feats = x[torch.arange(x.shape[0], device=x.device), text.argmax(dim=-1)]
         feats = feats @ self.projection

@@ -7,9 +7,11 @@ JAX ``unfold_nhwc``/``fold_nhwc`` (:27-43), as one reshape and permute each. v1
 attends along N (across patches, at one pixel offset p), with (B·P, N, C) as the
 transformer's batch: a reshape of the same patches.
 
-The temporal forward of both blocks (``x_prev``, ``return_patches``: the video
-models' cross-frame attention) is not ported; it waits for ROADMAP.md queue 1
-item 11.
+Both blocks have the temporal forward of the video models (v2 :114-158, v1
+:182-235): with ``x_prev``, the previous frame's post-norm patches (v2:
+(B, P, M, C); v1: (B·P, M, C)), every attention layer of the block takes
+its keys (v1) or its q and k (v2) from them; ``return_patches`` also
+returns this frame's post-norm patches, for the next frame.
 """
 
 from __future__ import annotations
@@ -95,15 +97,17 @@ class MobileViTBlockv2(nn.Module):
         self.conv_proj = ConvLayer2d(opts, attn_unit_dim, in_channels, kernel_size=1,
                                      use_act=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, x_prev: Optional[torch.Tensor] = None,
+                return_patches: bool = False):
         x = resize_to_patch_multiple(x, self.patch_h, self.patch_w)
         fm = self.local_pw(self.local_dw(x))
         out_hw = fm.shape[-2:]
         patches = unfold_nchw(fm, self.patch_h, self.patch_w)
         for i in range(self.n_attn_blocks):
-            patches = getattr(self, f"global_rep_{i}")(patches)
+            patches = getattr(self, f"global_rep_{i}")(patches, x_prev)
         patches = self.global_norm(patches)
-        return self.conv_proj(fold_nchw(patches, out_hw, self.patch_h, self.patch_w))
+        fm = self.conv_proj(fold_nchw(patches, out_hw, self.patch_h, self.patch_w))
+        return (fm, patches) if return_patches else fm
 
 
 class MobileViTBlock(nn.Module):
@@ -139,11 +143,8 @@ class MobileViTBlock(nn.Module):
         self.fusion = None if no_fusion else ConvLayer2d(
             opts, 2 * in_channels, in_channels, kernel_size=conv_ksize)
 
-    def forward(self, x: torch.Tensor, x_prev: Optional[torch.Tensor] = None) -> torch.Tensor:
-        if x_prev is not None:
-            raise NotImplementedError(
-                "not ported yet: MobileViTBlock's temporal forward (x_prev) waits for "
-                "ROADMAP.md queue 1 item 11")
+    def forward(self, x: torch.Tensor, x_prev: Optional[torch.Tensor] = None,
+                return_patches: bool = False):
         fm = self.local_pw(self.local_conv(x))
         orig_hw = tuple(fm.shape[-2:])
         ph, pw = self.patch_h, self.patch_w
@@ -154,7 +155,7 @@ class MobileViTBlock(nn.Module):
         b, p, n, c = patches.shape
         tokens = patches.reshape(b * p, n, c)
         for i in range(self.n_transformer_blocks):
-            tokens = getattr(self, f"global_rep_{i}")(tokens)
+            tokens = getattr(self, f"global_rep_{i}")(tokens, x_prev)
         tokens = self.global_norm(tokens)
         fm = fold_nchw(tokens.reshape(b, p, n, c), padded_hw, ph, pw)
         if padded_hw != orig_hw:
@@ -162,4 +163,4 @@ class MobileViTBlock(nn.Module):
         fm = self.conv_proj(fm)
         if self.fusion is not None:
             fm = self.fusion(torch.cat([x, fm], dim=1))
-        return fm
+        return (fm, tokens) if return_patches else fm

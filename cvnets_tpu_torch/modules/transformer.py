@@ -68,7 +68,9 @@ class LinearAttnFFN(nn.Module):
         self.dropout = nn.Dropout(dropout)
         self.ffn_dropout = nn.Dropout(ffn_dropout)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.dropout(self.attn(self.pre_norm_attn(x)))
+    def forward(self, x: torch.Tensor, x_prev: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """``x_prev``: the previous frame's patches, which q and k come from
+        (not normalized here, as in JAX, :101-108)."""
+        x = x + self.dropout(self.attn(self.pre_norm_attn(x), x_prev))
         y = self.ffn_dropout(self.act(self.ffn_fc1(self.pre_norm_ffn(x))))
         return x + self.dropout(self.ffn_fc2(y))

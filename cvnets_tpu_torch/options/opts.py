@@ -40,6 +40,9 @@ def arguments_common(parser: argparse.ArgumentParser) -> argparse.ArgumentParser
     group.add_argument("--common.k-best-checkpoints", type=int, default=5)
     group.add_argument("--common.save-all-checkpoints", action="store_true", default=False)
     group.add_argument("--common.save-interval-freq", type=int, default=0)
+    group.add_argument("--common.inference-modality", type=str, default="image",
+                       choices=["image", "video"],
+                       help="video: the evaluation votes over each video's clips")
     group.add_argument(
         "--common.override-kwargs", nargs="*", action=ParseKwargs,
         help="Override config entries, e.g. sampler.bs.crop_size_width=512",
@@ -52,18 +55,28 @@ def get_training_arguments(parse_args: bool = True, args: Optional[List[str]] = 
     from cvnets_tpu_torch.data.sampler import add_sampler_arguments
     from cvnets_tpu_torch.data.text_tokenizer import arguments_tokenizer
     from cvnets_tpu_torch.data.transforms import arguments_augmentation
+    from cvnets_tpu_torch.data.video_reader import arguments_video_reader
     from cvnets_tpu_torch.loss import add_loss_fn_arguments
     from cvnets_tpu_torch.metrics import arguments_stats
     from cvnets_tpu_torch.models import modeling_arguments
+    from cvnets_tpu_torch.modules.moe import arguments_moe
     from cvnets_tpu_torch.optim import arguments_optimizer
     from cvnets_tpu_torch.optim.scheduler import arguments_scheduler
+    from cvnets_tpu_torch.options.utils import extend_selected_args_with_prefix
 
     parser = argparse.ArgumentParser(description="Training arguments (PyTorch port)")
     parser = arguments_dataset(parser)
     parser = add_sampler_arguments(parser)
     parser = arguments_tokenizer(parser)
     parser = arguments_augmentation(parser)
+    # every --image-augmentation.* flag again as --frame-augmentation.*, the video
+    # readers' per-frame augmentations (cvnets_tpu/options/opts.py:176-185)
+    parser = extend_selected_args_with_prefix(parser, "--image-augmentation.",
+                                              "--frame-augmentation.")
+    parser = arguments_video_reader(parser)
     parser = modeling_arguments(parser)
+    # outside the --model.* flags the teacher clones, as cvnets_tpu/options/opts.py:125
+    parser = arguments_moe(parser)
     parser = add_loss_fn_arguments(parser)
     parser = arguments_optimizer(parser)
     parser = arguments_scheduler(parser)

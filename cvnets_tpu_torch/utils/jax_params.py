@@ -10,7 +10,9 @@ the leaf names change as
 Swin's ``relative_position_bias_table``, PReLU's ``alpha``, FastViT's
 ``layer_scale``, ``layer_scale_1`` and ``layer_scale_2``, and CLIP's
 ``token_embedding``, ``projection`` (the text tower's), ``proj`` (the image
-head's) and ``logit_scale`` keep their names, and so do the neural
+head's) and ``logit_scale`` and the MoE FFN's stacked ``experts_fc{1,2}`` and
+``experts_fc{1,2}_bias`` keep their names (and their (E, ·, ·) layout: the
+router's ``kernel`` is an ordinary Dense), and so do the neural
 augmentor's scalars (``neural_augmentor/{brightness,contrast,noise}_{mag,min,max}``).
 ``load_jax_teacher`` fills a distillation loss's teacher from the JAX loss's
 ``teacher_variables``.
@@ -45,6 +47,7 @@ _LEAF = {"kernel": "weight", "scale": "weight", "bias": "bias",
          "layer_scale_1": "layer_scale_1", "layer_scale_2": "layer_scale_2",
          "token_embedding": "token_embedding", "projection": "projection", "proj": "proj",
          "logit_scale": "logit_scale",
+         **{f"experts_fc{i}{b}": f"experts_fc{i}{b}" for i in (1, 2) for b in ("", "_bias")},
          **{f"{aug}_{part}": f"{aug}_{part}" for aug in ("brightness", "contrast", "noise")
             for part in ("mag", "min", "max")}}
 # a list of modules in flax (``layer_3_0``, FastViT's ``conv_1_0`` and

@@ -437,11 +437,23 @@ def test_vit_image_embedding_taps_match_jax(vit):
 
 
 def test_text_gradient_checkpointing_raises_and_names_its_roadmap_item():
-    from cvnets_tpu_torch.models import get_model
+    """The text tower's ``--model.text.transformer.gradient-checkpoint``
+    (ported: it raised naming ROADMAP queue 1 item 5 before) recomputes each
+    text block in the backward and changes nothing of two AdamW steps of the
+    micro CLIP: losses, grads, parameters and EMA bit for bit
+    (``layers/remat.py``)."""
+    from torch_port_helpers import assert_checkpointing_changes_nothing, checkpointing_runs
 
-    _, opts = both_opts(CLIP_VIT_ARGS + ["--model.text.transformer.gradient-checkpoint"])
-    with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-        get_model(opts, device="cpu")
+    batches = []
+    for seed in (12, 13):
+        inputs = clip_inputs(seed)
+        pixels = np.round(inputs["image"] * 255).astype(np.uint8)
+        batches.append({"samples": {"image": nchw(pixels),
+                                    "text": torch.from_numpy(inputs["text"])},
+                        "targets": torch.arange(4)})
+    runs = checkpointing_runs(CLIP_VIT_ARGS + ["--model.text.transformer.dropout", "0.1"],
+                              batches, flag="--model.text.transformer.gradient-checkpoint")
+    assert_checkpointing_changes_nothing(runs)
 
 
 def test_accumulation_slices_every_leaf_of_dict_samples():

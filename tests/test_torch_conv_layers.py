@@ -450,13 +450,25 @@ def test_the_pascal_voc_yaml_fails_naming_the_registered_dataset_and_its_key():
     ("config/video_classification/kinetics/mobilevit_st_small.yaml", "item 11"),
     ("examples/vit/segmentation/ade20k/deeplabv3_vit_base_clip_os_16.yaml", "item 5")])
 def test_an_unported_category_fails_naming_its_roadmap_item(yaml, item):
-    """ROADMAP faults 4 and 5: the video category raises naming its ROADMAP
-    item, before any option of its is read, and so do a ViT built as a
-    segmentation encoder (an output stride) and ViT MoE blocks (the audio
-    category is ported)."""
+    """ROADMAP faults 4 and 5, closed: the three yamls that raised naming
+    their ROADMAP item (ViT MoE blocks and a ViT segmentation encoder, item
+    5; the video category, item 11) now build through ``get_model`` on the
+    ``meta`` device, with the parts each waited for."""
+    import torch
+
     from cvnets_tpu_torch.models import get_model
+    from cvnets_tpu_torch.modules.moe import MoETransformerEncoder
     from cvnets_tpu_torch.options.opts import get_training_arguments
 
     opts = get_training_arguments(args=["--common.config-file", os.path.join(REPO, yaml)])
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
-        get_model(opts, device="cpu")
+    setattr(opts, "common.finetune", None)  # a /mnt checkpoint, data not a part
+    with torch.device("meta"):
+        model = get_model(opts, device="meta")
+    if "moe" in yaml:
+        blocks = [getattr(model, f"transformer_{i}") for i in range(model.n_layers)]
+        assert [isinstance(b, MoETransformerEncoder) for b in blocks] == [i % 2 == 1
+                                                                        for i in range(12)]
+    elif "video" in yaml:
+        assert model.temporal and model.classifier.out_features == 400
+    else:
+        assert model.encoder.patch_emb_0.conv.stride == (4, 4) and item == "item 5"

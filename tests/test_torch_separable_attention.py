@@ -268,6 +268,53 @@ def test_layer_param_grads_on_the_kernel_route_match_jax():
                                    atol=GRAD_ATOL, rtol=0, err_msg=name)
 
 
+def test_layer_cross_path_matches_jax():
+    """The temporal (cross) path of the video models: q and k from the
+    previous frame ``x_prev``, v from ``x``, through slices of the one fused
+    projection (JAX linear_attention.py:46-57). The layer's output and the
+    gradients of x, x_prev and every parameter against ``jax.grad`` of the
+    JAX layer with ``x_prev``, on the kernel route (its plain twins here) and
+    on the plain branch; a previous frame with another token count takes the
+    plain branch. float32, GRAD_ATOL."""
+    import jax
+    import jax.numpy as jnp
+
+    from cvnets_tpu_torch.layers.linear_attention import LinearSelfAttention
+    from cvnets_tpu_torch.options.opts import get_training_arguments
+    from cvnets_tpu_torch.utils.jax_params import load_jax_params
+
+    embed = 16
+    rng = np.random.default_rng(9)
+    x, x_prev, w = (rng.standard_normal((2, 4, 32, embed)).astype(np.float32)
+                    for _ in range(3))
+    jlayer, variables, layer = _layer_pair(embed, x)
+
+    def loss(params, a, b):
+        return jnp.sum(jlayer.apply({**variables, "params": params}, jnp.asarray(a),
+                                    x_prev=jnp.asarray(b)) * w)
+
+    jgrads, gx, gprev = jax.grad(loss, argnums=(0, 1, 2))(variables["params"], x, x_prev)
+    want = LinearSelfAttention(get_training_arguments(args=[]), embed)
+    load_jax_params(want, jax.tree_util.tree_map(np.asarray, jgrads))
+    for use_kernel in (True, False):
+        layer.use_kernel = use_kernel
+        layer.zero_grad()
+        a, b = (torch.from_numpy(t).requires_grad_() for t in (x, x_prev))
+        (layer(a, b) * torch.from_numpy(w)).sum().backward()
+        np.testing.assert_allclose(a.grad.numpy(), np.asarray(gx), atol=GRAD_ATOL, rtol=0)
+        np.testing.assert_allclose(b.grad.numpy(), np.asarray(gprev), atol=GRAD_ATOL, rtol=0)
+        got = dict(layer.named_parameters())
+        for name, p in want.named_parameters():
+            np.testing.assert_allclose(got[name].grad.numpy(), p.detach().numpy(),
+                                       atol=GRAD_ATOL, rtol=0, err_msg=name)
+    setattr(jlayer.opts, "model.enable_pallas_kernels", False)  # its kernel takes M = N
+    short = np.asarray(jlayer.apply(variables, jnp.asarray(x),
+                                    x_prev=jnp.asarray(x_prev[:, :, :8])))
+    with torch.no_grad():
+        got_short = layer(torch.from_numpy(x), torch.from_numpy(x_prev[:, :, :8]))
+    np.testing.assert_allclose(got_short.numpy(), short, atol=FWD_ATOL, rtol=0)
+
+
 def _need_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU or interpret mode)")
@@ -487,3 +534,48 @@ def test_kernels_take_separate_contiguous_tensors_as_well_as_qkv_views(dtype):
     channels_strided = torch.empty((32, c, 256), dtype=dtype, device="cuda").transpose(1, 2)
     with pytest.raises(ValueError, match="contiguous"):
         separable_attention_kernel(apart[0], channels_strided, apart[2])
+
+
+# (BP, N, C) of MobileViTv2-1.0's spatio-temporal cross calls at 8 clips × 256²
+# (batch 8 × patch area 4)
+CROSS_SHAPES = [(32, 256, 128), (32, 64, 192), (32, 16, 256)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("bp,n,c", CROSS_SHAPES)
+def test_cross_path_kernels_match_plain_on_cuda(bp, n, c, dtype):
+    """The layer's cross path on the card: q, k from ``x_prev`` and v from
+    ``x`` concatenated into one qkv for the kernels, against the layer's plain
+    branch (``use_kernel`` off) on the same weights and inputs: the output,
+    and the gradients of x, x_prev and the projections (the qkv gradient
+    split back through the concatenation). The kernels launch once each."""
+    _need_card()
+    from cvnets_tpu_torch.layers.linear_attention import LinearSelfAttention
+    from cvnets_tpu_torch.options.opts import get_training_arguments
+
+    torch.manual_seed(0)
+    layer = LinearSelfAttention(get_training_arguments(args=[]), c).cuda().to(dtype)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x, x_prev, w = (torch.randn((bp // 4, 4, n, c), generator=gen, device="cuda").to(dtype)
+                    for _ in range(3))
+    results = []
+    for use_kernel in (True, False):
+        layer.use_kernel = use_kernel
+        layer.zero_grad()
+        a, b = (t.detach().clone().requires_grad_() for t in (x, x_prev))
+        before = (separable_attention_kernel.launches, separable_attention_bwd_kernel.launches)
+        out = layer(a, b)
+        out.backward(w)
+        torch.cuda.synchronize()
+        launched = (separable_attention_kernel.launches - before[0],
+                    separable_attention_bwd_kernel.launches - before[1])
+        assert launched == ((1, 1) if use_kernel else (0, 0))
+        results.append([out.detach(), a.grad, b.grad] +
+                       [p.grad.clone() for p in layer.parameters()])
+    for i, (got, ref) in enumerate(zip(*results)):
+        assert bool(torch.isfinite(got).all()), i
+        scale = max(ref.float().abs().max().item(), 1.0)
+        tol = 1e-4 * scale if dtype == torch.float32 else 2e-2 * scale
+        err = (got.float() - ref.float()).abs().max().item()
+        assert err <= tol, f"tensor {i}: max abs err {err} > {tol}"

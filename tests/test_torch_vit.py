@@ -263,17 +263,22 @@ def test_chip_smoke_vit_flags_are_the_yaml_settings():
 
 @pytest.mark.parametrize("flag", [
     ["--model.classification.vit.moe-num-experts", "4"],
-    # the simple FPN is ported (tests/test_torch_mask_rcnn_modules.py): with
-    # it on, MoE blocks still raise
     ["--model.classification.vit.use-simple-fpn",
      "--model.classification.vit.moe-num-experts", "2"],
 ])
 def test_unported_options_raise(flag):
+    """MoE blocks raised here until they were ported
+    (``modules/moe.py``, tests/test_torch_moe.py); now the flag builds them,
+    with and without the simple FPN: every second block is an MoE block of
+    that many experts."""
     from cvnets_tpu_torch.models import get_model
+    from cvnets_tpu_torch.modules.moe import MoETransformerEncoder
     from cvnets_tpu_torch.options.opts import get_training_arguments
 
-    with pytest.raises(NotImplementedError):
-        get_model(get_training_arguments(args=VIT_MICRO_ARGS + flag), device="cpu")
+    model = get_model(get_training_arguments(args=VIT_MICRO_ARGS + flag), device="cpu")
+    blocks = [getattr(model, f"transformer_{i}") for i in range(model.n_layers)]
+    assert [isinstance(b, MoETransformerEncoder) for b in blocks] == [False, True]
+    assert blocks[1].moe_ffn.num_experts == int(flag[-1])
 
 
 def test_stochastic_depth_matches_jax_in_eval_and_drops_rows_in_train():

@@ -132,8 +132,9 @@ def perturbed_variables(model, x_nhwc: np.ndarray, seed: int = 0,
             return leaf + 0.05 * rng.standard_normal(leaf.shape).astype(np.float32)
         return leaf
 
+    # "moe_loss" holds what MoE layers sowed during init, not variables
     return {col: jax.tree_util.tree_map_with_path(perturb, tree)
-            for col, tree in variables.items()}
+            for col, tree in variables.items() if col != "moe_loss"}
 
 
 def port_model_from(opts_torch, variables: dict):
@@ -516,3 +517,68 @@ def assert_end_points_match(args, model_name: str, output_stride: int, size: int
                                    atol=1e-4 * max(1.0, float(np.abs(ref).max())),
                                    err_msg=name)
     return model, got
+
+
+def checkpointing_runs(args, batches, flag: str = "--model.classification.gradient-checkpointing",
+                       extra_on=()):
+    """Two train steps of the port's model (AdamW, clip 10, EMA) on
+    ``batches`` (a list of {"samples", "targets"}) with ``flag`` off and on,
+    from one seed: {"off"|"on": (losses, the last step's grads, the state
+    dict, the EMA's state dict)}."""
+    import torch
+
+    from cvnets_tpu_torch.engine.train_state import create_train_state, make_train_step
+    from cvnets_tpu_torch.loss import build_loss_fn
+    from cvnets_tpu_torch.metrics import build_metrics
+    from cvnets_tpu_torch.models import get_model
+    from cvnets_tpu_torch.optim import build_optimizer
+    from cvnets_tpu_torch.options.opts import get_training_arguments
+
+    step_args = ["--optim.name", "adamw", "--optim.weight-decay", "0.05",
+                 "--optim.no-decay-bn-filter-bias", "--common.grad-clip", "10",
+                 "--ema.enable", "--ema.momentum", "0.1"]
+    out = {}
+    for mode, more in (("off", []), ("on", [flag, *extra_on])):
+        opts = get_training_arguments(args=list(args) + step_args + more)
+        torch.manual_seed(0)  # dropout and stochastic depth draw from torch's generator
+        model = get_model(opts, device="cpu")
+        state = create_train_state(model, build_optimizer(opts, model), ema_enabled=True)
+        step = make_train_step(model, build_loss_fn(opts, device="cpu"), opts,
+                               build_metrics(opts, ["loss"]))
+        losses = []
+        for batch in batches:
+            state, metrics = step(state, batch, 1e-3)
+            losses.append(metrics["loss"]["loss"][0].item())
+        out[mode] = (losses, {k: p.grad.clone() for k, p in model.named_parameters()},
+                     {k: v.clone() for k, v in model.state_dict().items()},
+                     {k: v.clone() for k, v in state.ema.model.state_dict().items()})
+    return out
+
+
+def assert_checkpointing_changes_nothing(runs) -> None:
+    """The losses, the grads, the parameters, the BN statistics (and their
+    step counters) and the EMA of the run with checkpointing are those of
+    the run without it, bit for bit."""
+    import torch
+
+    (losses, grads, state, ema), (losses_on, grads_on, state_on, ema_on) = (
+        runs["off"], runs["on"])
+    assert losses == losses_on
+    for want, got in ((grads, grads_on), (state, state_on), (ema, ema_on)):
+        assert sorted(want) == sorted(got)
+        for key in want:
+            assert torch.equal(want[key], got[key]), key
+
+
+def flags_differ_from_yaml(flag_opts, yaml_path: str) -> list:
+    """The option dests where ``flag_opts`` (chip_smoke.py's flags for a yaml;
+    the card machine has no PyYAML) and the yaml, parsed by the port, differ
+    (a one-entry list from a ``nargs="+"`` flag counts as the yaml's scalar)."""
+    from cvnets_tpu_torch.options.opts import get_training_arguments
+
+    def scalar(v):
+        return v[0] if isinstance(v, list) and len(v) == 1 else v
+
+    flags = vars(flag_opts)
+    yaml = vars(get_training_arguments(args=["--common.config-file", yaml_path]))
+    return sorted(k for k in yaml if scalar(yaml[k]) != scalar(flags[k]))
