@@ -24,11 +24,17 @@ class ConvLayer2d(nn.Module):
                  use_act: bool = True, act_name: Optional[str] = None,
                  norm_name: Optional[str] = None) -> None:
         super().__init__()
-        self.conv = nn.Conv2d(
+        from cvnets_tpu_torch.quantization import Int8Conv, int8_mode_of
+
+        # --common.int8-inference swaps a dense conv only (conv_layer.py:73-76 in
+        # the JAX package): a depthwise conv's bytes and products are too few
+        mode = int8_mode_of(opts) if groups == 1 else None
+        conv_cls, extra = (nn.Conv2d, {}) if mode is None else (Int8Conv, {"mode": mode})
+        self.conv = conv_cls(
             in_channels, out_channels, kernel_size, stride=stride,
             padding=((kernel_size - 1) // 2) * dilation, dilation=dilation,
             groups=groups,
-            bias=self._effective_bias(opts, bias, use_norm, norm_name))
+            bias=self._effective_bias(opts, bias, use_norm, norm_name), **extra)
         self.norm = (get_normalization_layer(opts, out_channels, norm_name)
                      if use_norm else None)
         self.act = build_act_layer(opts, act_name) if use_act else None

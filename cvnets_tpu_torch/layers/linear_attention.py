@@ -23,11 +23,11 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from cvnets_tpu_torch.layers.linear_layer import LinearLayer
 from cvnets_tpu_torch.ops.separable_attention import (
     separable_attention_eligible,
     separable_attention_qkv,
 )
+from cvnets_tpu_torch.quantization import Int8Dense, quant_linear
 
 
 class LinearSelfAttention(nn.Module):
@@ -35,9 +35,9 @@ class LinearSelfAttention(nn.Module):
                  bias: bool = True) -> None:
         super().__init__()
         self.embed_dim = embed_dim
-        self.qkv_proj = LinearLayer(embed_dim, 1 + 2 * embed_dim, bias=bias,
+        self.qkv_proj = quant_linear(opts, embed_dim, 1 + 2 * embed_dim, bias=bias,
                                     weight_init="conv")
-        self.out_proj = LinearLayer(embed_dim, embed_dim, bias=bias,
+        self.out_proj = quant_linear(opts, embed_dim, embed_dim, bias=bias,
                                     weight_init="conv")
         self.attn_dropout = nn.Dropout(attn_dropout)
         # linear_attention.py:60-62: the fused kernel runs unless switched off or
@@ -50,8 +50,13 @@ class LinearSelfAttention(nn.Module):
         slices: one (.., 1 + 2C) tensor where the token counts agree, else
         the (q, k) and v parts."""
         d, w, b = self.embed_dim, self.qkv_proj.weight, self.qkv_proj.bias
-        qk = F.linear(x_prev, w[:1 + d], None if b is None else b[:1 + d])
-        v = F.linear(x, w[1 + d:], None if b is None else b[1 + d:])
+        if isinstance(self.qkv_proj, Int8Dense) and not self.training:
+            # the int8 forward takes no slice of its weight: each input through
+            # the whole projection, then sliced, as the JAX layer does (:52-57)
+            qk, v = self.qkv_proj(x_prev)[..., :1 + d], self.qkv_proj(x)[..., 1 + d:]
+        else:
+            qk = F.linear(x_prev, w[:1 + d], None if b is None else b[:1 + d])
+            v = F.linear(x, w[1 + d:], None if b is None else b[1 + d:])
         if qk.shape[:-1] == v.shape[:-1]:
             return torch.cat([qk, v], dim=-1), None
         return qk, v

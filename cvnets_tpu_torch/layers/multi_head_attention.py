@@ -12,8 +12,9 @@ inside a ``torch.profiler`` range named ``EINSUM_ROUTE``, so that a profile
 can sum the route's kernels (its backward's through the autograd sequence
 numbers of the ops in the range).
 
-Not ported: the ring-attention branch of ``--dev.sequence-parallel`` (:87-100)
-and the int8 projections of ``--common.int8-inference``; both raise.
+Under ``--common.int8-inference`` both projections take the int8 forward
+(``quantization.quant_linear``, the JAX ``quant_dense``). Not ported: the
+ring-attention branch of ``--dev.sequence-parallel`` (:87-100), which raises.
 """
 
 from __future__ import annotations
@@ -24,8 +25,8 @@ import torch
 import torch.nn as nn
 from torch.profiler import record_function
 
-from cvnets_tpu_torch.layers.linear_layer import LinearLayer
 from cvnets_tpu_torch.ops.mha_attention import fused_attention_eligible, fused_mha_attention
+from cvnets_tpu_torch.quantization import quant_linear
 
 EINSUM_ROUTE = "mha_einsum_route"
 
@@ -36,12 +37,11 @@ class MultiHeadAttention(nn.Module):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} must be divisible by num_heads {num_heads}")
-        for flag in ("dev.sequence_parallel", "common.int8_inference"):
-            if getattr(opts, flag, False):
-                raise NotImplementedError(f"--{flag} is not ported to the PyTorch MHA")
+        if getattr(opts, "dev.sequence_parallel", False):
+            raise NotImplementedError("--dev.sequence_parallel is not ported to the PyTorch MHA")
         self.embed_dim, self.num_heads = embed_dim, num_heads
-        self.qkv_proj = LinearLayer(embed_dim, 3 * embed_dim, bias=bias)
-        self.out_proj = LinearLayer(embed_dim, embed_dim, bias=bias)
+        self.qkv_proj = quant_linear(opts, embed_dim, 3 * embed_dim, bias=bias)
+        self.out_proj = quant_linear(opts, embed_dim, embed_dim, bias=bias)
         self.attn_dropout = nn.Dropout(attn_dropout)
         # False sends every call down the einsum route (a kernel/plain A/B)
         self.use_kernel = True

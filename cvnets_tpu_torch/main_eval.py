@@ -8,7 +8,10 @@ the ``stats.val`` metrics of the model over the test loader (the dataset's
 CLIP's zero-shot top-1 / top-5 when the test dataset has class captions
 (``imagenet_zero_shot``), its weights from ``--model.<category>.pretrained``
 (``classification``, ``multi_modal_image_text``) or ``--common.resume``, on
-``device``, the CUDA card unless the caller asks for the CPU; and
+``device``, the CUDA card unless the caller asks for the CPU (a reference
+CVNets checkpoint goes through ``utils/torch_checkpoint_converter.py``; under
+``--common.int8-inference`` the loaded weights are stored in int8 once,
+``quantization.prequantize``, and the eval forward is the int8 one); and
 ``main_worker_segmentation`` and ``main_worker_detection``, the offline
 segmentation and detection evaluations (``engine/eval_segmentation.py`` and
 ``engine/eval_detection.py``, which are their command lines).
@@ -26,7 +29,8 @@ from cvnets_tpu_torch.engine import Evaluator
 from cvnets_tpu_torch.main_train import device_setup
 from cvnets_tpu_torch.models import get_model
 from cvnets_tpu_torch.options.opts import get_eval_arguments
-from cvnets_tpu_torch.utils.checkpoint_utils import load_model_weights
+from cvnets_tpu_torch.quantization import int8_inference_enabled, prequantize
+from cvnets_tpu_torch.utils.checkpoint_utils import pretrained_weights
 
 
 def main(opts, device: Union[str, torch.device, None] = None, **kwargs) -> Dict[str, float]:
@@ -37,7 +41,9 @@ def main(opts, device: Union[str, torch.device, None] = None, **kwargs) -> Dict[
     weights = (getattr(opts, f"model.{category}.pretrained", None)
                or getattr(opts, "common.resume", None))
     if weights:
-        model.load_state_dict(load_model_weights(weights))
+        model.load_state_dict(pretrained_weights(opts, weights, model.state_dict()))
+    if int8_inference_enabled(opts):
+        prequantize(model)  # int8 weights once; the float ones are freed
     return Evaluator(opts, model, test_loader, device=device).run()
 
 

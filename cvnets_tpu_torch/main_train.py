@@ -21,6 +21,7 @@ from cvnets_tpu_torch.engine import Trainer
 from cvnets_tpu_torch.loss import build_loss_fn
 from cvnets_tpu_torch.models import get_model
 from cvnets_tpu_torch.options.opts import get_training_arguments
+from cvnets_tpu_torch.utils import logger
 
 
 def device_setup(opts, device: Union[str, torch.device, None]) -> torch.device:
@@ -37,6 +38,11 @@ def device_setup(opts, device: Union[str, torch.device, None]) -> torch.device:
 
 
 def main(opts, device: Union[str, torch.device, None] = None, **kwargs) -> Trainer:
+    if getattr(opts, "common.int8_inference", False):
+        logger.error(
+            "--common.int8-inference is an inference-only flag (rounding has "
+            "zero gradient); unset it for training and pass it to main_eval/"
+            "main_benchmark instead.")
     device = device_setup(opts, device)
     train_loader, val_loader, train_sampler = create_train_val_loader(
         opts, pin_memory=device.type == "cuda", device=device)

@@ -37,10 +37,10 @@ from typing import Dict, Optional, Tuple
 import torch
 import torch.nn as nn
 
-from cvnets_tpu_torch.layers.linear_layer import LinearLayer
 from cvnets_tpu_torch.layers.pool import global_pool
 from cvnets_tpu_torch.layers.remat import remat
 from cvnets_tpu_torch.models import MODEL_REGISTRY
+from cvnets_tpu_torch.quantization import quant_linear
 
 
 def dilates(output_stride: Optional[int], stage: int) -> bool:
@@ -177,7 +177,7 @@ class Classifier(nn.Module):
         super().__init__()
         self.pool_type = getattr(opts, "model.layer.global_pool", "mean")
         self.dropout = nn.Dropout(dropout)
-        self.fc = LinearLayer(in_features, n_classes)
+        self.fc = quant_linear(opts, in_features, n_classes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.fc(self.dropout(global_pool(x, self.pool_type)))

@@ -35,12 +35,12 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from cvnets_tpu_torch.layers.init_utils import init_tensor
-from cvnets_tpu_torch.layers.linear_layer import LinearLayer
 from cvnets_tpu_torch.layers.positional_embedding import PositionalEmbedding
 from cvnets_tpu_torch.layers.token_merging import TokenMerging
 from cvnets_tpu_torch.models import MODEL_REGISTRY
 from cvnets_tpu_torch.models.classification.config.vit import _MODES as _VIT_MODES
 from cvnets_tpu_torch.modules.windowed_transformer import WindowedTransformerEncoder
+from cvnets_tpu_torch.quantization import quant_linear
 
 _PREFIX = "model.classification.byteformer."
 
@@ -159,8 +159,8 @@ class ByteFormer(nn.Module):
             if downsample[i]:
                 self.add_module(f"downsample_{i}", ByteFormerTokenMerging(embed_dim))
         self.post_transformer_norm = nn.LayerNorm(embed_dim, eps=1e-5)
-        self.classifier = LinearLayer(
-            embed_dim, getattr(opts, "model.classification.n_classes", 1000))
+        self.classifier = quant_linear(
+            opts, embed_dim, getattr(opts, "model.classification.n_classes", 1000))
 
     def init_own_parameters(self, generator) -> None:
         """flax's initializers of the table (a normal truncated at two standard

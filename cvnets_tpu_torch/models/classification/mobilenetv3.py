@@ -17,7 +17,6 @@ import torch.nn as nn
 
 from cvnets_tpu_torch.layers.activation import build_act_layer
 from cvnets_tpu_torch.layers.conv_layer import ConvLayer2d
-from cvnets_tpu_torch.layers.linear_layer import LinearLayer
 from cvnets_tpu_torch.layers.pool import global_pool
 from cvnets_tpu_torch.models import MODEL_REGISTRY
 from cvnets_tpu_torch.models.classification.base_image_encoder import (
@@ -25,6 +24,7 @@ from cvnets_tpu_torch.models.classification.base_image_encoder import (
     dilates,
 )
 from cvnets_tpu_torch.modules.inverted_residual import InvertedResidualSE
+from cvnets_tpu_torch.quantization import quant_linear
 from cvnets_tpu_torch.utils import logger
 from cvnets_tpu_torch.utils.math_utils import make_divisible
 
@@ -75,10 +75,10 @@ class MobileNetV3Classifier(nn.Module):
                  dropout: float = 0.0) -> None:
         super().__init__()
         self.pool_type = getattr(opts, "model.layer.global_pool", "mean")
-        self.fc1 = LinearLayer(in_features, hidden_dim)
+        self.fc1 = quant_linear(opts, in_features, hidden_dim)
         self.act = build_act_layer(opts, "hard_swish")
         self.dropout = nn.Dropout(dropout)
-        self.fc2 = LinearLayer(hidden_dim, n_classes)
+        self.fc2 = quant_linear(opts, hidden_dim, n_classes)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.act(self.fc1(global_pool(x, self.pool_type)))

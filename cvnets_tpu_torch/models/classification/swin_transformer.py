@@ -10,8 +10,9 @@ classifier. Attribute names are the flax scopes (``patch_embed``,
 ``--model.classification.gradient-checkpointing`` each block runs under
 ``layers.remat`` in training.
 
-Not ported, and raising if asked for: ``--common.int8-inference`` (the JAX
-``quant_dense``) and any norm layer but ``layer_norm`` (as in JAX).
+Under ``--common.int8-inference`` the blocks' qkv, projection and MLP layers
+and the classifier take the int8 forward (``quantization.quant_linear``, the
+JAX ``quant_dense``). Any norm layer but ``layer_norm`` is an error, as in JAX.
 """
 
 from __future__ import annotations
@@ -22,11 +23,11 @@ from typing import Dict
 import torch
 import torch.nn as nn
 
-from cvnets_tpu_torch.layers.linear_layer import LinearLayer
 from cvnets_tpu_torch.layers.remat import remat
 from cvnets_tpu_torch.models import MODEL_REGISTRY
 from cvnets_tpu_torch.models.classification.base_image_encoder import BaseImageEncoder
 from cvnets_tpu_torch.modules.swin_transformer_block import PatchMerging, SwinTransformerBlock
+from cvnets_tpu_torch.quantization import quant_linear
 from cvnets_tpu_torch.utils import logger
 
 # embed_dim, depths, num_heads
@@ -76,9 +77,6 @@ class SwinTransformer(BaseImageEncoder):
 
     def __init__(self, opts) -> None:
         super().__init__()
-        if getattr(opts, "common.int8_inference", False):
-            raise NotImplementedError("Swin: --common.int8-inference (the int8 Dense "
-                                      "layers) is not ported")
         norm_name = getattr(opts, "model.classification.swin.norm_layer", "layer_norm")
         if norm_name not in (None, "layer_norm"):
             logger.error(f"swin: only layer_norm is supported, got {norm_name}")
@@ -104,7 +102,7 @@ class SwinTransformer(BaseImageEncoder):
                 self.add_module(f"merge{si}", PatchMerging(opts, dim))
                 dim *= 2
         self.post_norm = nn.LayerNorm(dim, eps=1e-5)
-        self.classifier = LinearLayer(dim, getattr(opts, "model.classification.n_classes",
+        self.classifier = quant_linear(opts, dim, getattr(opts, "model.classification.n_classes",
                                                    1000))
 
     def _forward_stages(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:

@@ -46,7 +46,6 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from cvnets_tpu_torch.layers.conv_layer import ConvLayer2d, TransposeConvLayer2d
-from cvnets_tpu_torch.layers.linear_layer import LinearLayer
 from cvnets_tpu_torch.layers.normalization import get_normalization_layer
 from cvnets_tpu_torch.layers.positional_embedding import PositionalEmbedding
 from cvnets_tpu_torch.layers.remat import remat
@@ -55,6 +54,7 @@ from cvnets_tpu_torch.models.classification.base_image_encoder import BaseImageE
 from cvnets_tpu_torch.models.classification.config.vit import get_configuration
 from cvnets_tpu_torch.modules.moe import MoETransformerEncoder
 from cvnets_tpu_torch.modules.transformer import TransformerEncoder
+from cvnets_tpu_torch.quantization import quant_linear
 
 
 @MODEL_REGISTRY.register(name="vit", type="classification")
@@ -134,8 +134,8 @@ class VisionTransformer(BaseImageEncoder):
             self.add_module(f"transformer_{i}", block)
         self.post_transformer_norm = get_normalization_layer(
             opts, embed_dim, cfg["norm_layer"], eps=1e-6) or nn.Identity()
-        self.classifier = LinearLayer(
-            embed_dim, getattr(opts, "model.classification.n_classes", 1000))
+        self.classifier = quant_linear(
+            opts, embed_dim, getattr(opts, "model.classification.n_classes", 1000))
         self.use_simple_fpn = bool(getattr(opts, "model.classification.vit.use_simple_fpn",
                                            False))
         if self.use_simple_fpn:

@@ -19,13 +19,13 @@ import torch.nn as nn
 
 from cvnets_tpu_torch.layers.activation import build_act_layer
 from cvnets_tpu_torch.layers.conv_layer import ConvLayer2d
-from cvnets_tpu_torch.layers.linear_layer import LinearLayer
 from cvnets_tpu_torch.layers.random_layers import StochasticDepth
 from cvnets_tpu_torch.modules.mobileone_block import (
     BiasedVarBatchNorm2d,
     MobileOneBlock,
     RepLKBlock,
 )
+from cvnets_tpu_torch.quantization import quant_linear
 
 
 def layer_scale(dim: int, init_value: float) -> nn.Parameter:
@@ -113,8 +113,8 @@ class AttentionBlock(nn.Module):
             self.layer_scale_1 = layer_scale(dim, layer_scale_init_value)
             self.layer_scale_2 = layer_scale(dim, layer_scale_init_value)
         self.norm = BiasedVarBatchNorm2d(dim, eps=1e-5, momentum=0.1)
-        self.qkv = LinearLayer(dim, 3 * dim)
-        self.proj = LinearLayer(dim, dim)
+        self.qkv = quant_linear(opts, dim, 3 * dim)
+        self.proj = quant_linear(opts, dim, dim)
         self.ffn = ConvFFN(opts, dim, int(dim * mlp_ratio), dropout=dropout)
         self.stochastic_depth = StochasticDepth(stochastic_depth_prob)
 

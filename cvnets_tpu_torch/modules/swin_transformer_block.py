@@ -25,6 +25,7 @@ from cvnets_tpu_torch.layers.activation import build_act_layer
 from cvnets_tpu_torch.layers.linear_layer import LinearLayer
 from cvnets_tpu_torch.layers.random_layers import StochasticDepth
 from cvnets_tpu_torch.ops.window_attention import fused_window_attention, window_attention_eligible
+from cvnets_tpu_torch.quantization import quant_linear
 
 
 def window_partition(x: torch.Tensor, ws: int) -> torch.Tensor:
@@ -74,13 +75,13 @@ class WindowAttention(nn.Module):
                  attn_dropout: float = 0.0, proj_dropout: float = 0.0) -> None:
         super().__init__()
         self.num_heads = num_heads
-        self.qkv = LinearLayer(dim, 3 * dim)
+        self.qkv = quant_linear(opts, dim, 3 * dim)
         self.relative_position_bias_table = nn.Parameter(
             torch.empty((2 * window_size - 1) ** 2, num_heads))
         self.register_buffer("relative_position_index",
                              torch.from_numpy(relative_position_index(window_size).reshape(-1)),
                              persistent=False)
-        self.proj = LinearLayer(dim, dim)
+        self.proj = quant_linear(opts, dim, dim)
         self.attn_dropout = nn.Dropout(attn_dropout)
         self.proj_dropout = nn.Dropout(proj_dropout)
         # False sends every call down the einsum route (a kernel/plain A/B)
@@ -124,9 +125,9 @@ class SwinTransformerBlock(nn.Module):
         self.attn = WindowAttention(opts, dim, num_heads, window_size,
                                     attn_dropout=attn_dropout, proj_dropout=dropout)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.mlp_fc1 = LinearLayer(dim, int(dim * mlp_ratio))
+        self.mlp_fc1 = quant_linear(opts, dim, int(dim * mlp_ratio))
         self.act = build_act_layer(opts)
-        self.mlp_fc2 = LinearLayer(int(dim * mlp_ratio), dim)
+        self.mlp_fc2 = quant_linear(opts, int(dim * mlp_ratio), dim)
         self.dropout = nn.Dropout(dropout)
         self.stochastic_depth = StochasticDepth(stochastic_depth_prob)
         self._masks: Dict[Tuple[int, int, int, torch.device], torch.Tensor] = {}

@@ -11,10 +11,10 @@ import torch.nn as nn
 
 from cvnets_tpu_torch.layers.activation import build_act_layer
 from cvnets_tpu_torch.layers.linear_attention import LinearSelfAttention
-from cvnets_tpu_torch.layers.linear_layer import LinearLayer
 from cvnets_tpu_torch.layers.multi_head_attention import MultiHeadAttention
 from cvnets_tpu_torch.layers.normalization import get_normalization_layer
 from cvnets_tpu_torch.layers.random_layers import StochasticDepth
+from cvnets_tpu_torch.quantization import quant_linear
 
 
 class TransformerEncoder(nn.Module):
@@ -33,9 +33,9 @@ class TransformerEncoder(nn.Module):
         self.mha = MultiHeadAttention(opts, embed_dim, num_heads, attn_dropout=attn_dropout)
         self.pre_norm_ffn = get_normalization_layer(
             opts, embed_dim, transformer_norm_layer, eps=norm_eps) or nn.Identity()
-        self.ffn_fc1 = LinearLayer(embed_dim, ffn_latent_dim)
+        self.ffn_fc1 = quant_linear(opts, embed_dim, ffn_latent_dim)
         self.act = build_act_layer(opts, act_name)
-        self.ffn_fc2 = LinearLayer(ffn_latent_dim, embed_dim)
+        self.ffn_fc2 = quant_linear(opts, ffn_latent_dim, embed_dim)
         self.dropout = nn.Dropout(dropout)
         self.ffn_dropout = nn.Dropout(ffn_dropout)
         self.stochastic_depth = StochasticDepth(stochastic_dropout)
@@ -62,9 +62,9 @@ class LinearAttnFFN(nn.Module):
         self.attn = LinearSelfAttention(opts, embed_dim, attn_dropout=attn_dropout)
         self.pre_norm_ffn = get_normalization_layer(opts, embed_dim, norm_layer) \
             or nn.Identity()
-        self.ffn_fc1 = LinearLayer(embed_dim, ffn_latent_dim)
+        self.ffn_fc1 = quant_linear(opts, embed_dim, ffn_latent_dim)
         self.act = build_act_layer(opts)
-        self.ffn_fc2 = LinearLayer(ffn_latent_dim, embed_dim)
+        self.ffn_fc2 = quant_linear(opts, ffn_latent_dim, embed_dim)
         self.dropout = nn.Dropout(dropout)
         self.ffn_dropout = nn.Dropout(ffn_dropout)
 

@@ -22,13 +22,20 @@ already scaled; ``key_mask`` is an additive (B, S) float32 mask or None.
   functions in plain torch ops (the JAX ``_reference`` and its einsum VJP), for
   CPU tensors and as the kernels' references; ``mha_attention_stats_plain``
   the forward kernel's saved row statistics, as its reference.
-* ``MHAAttention``: the autograd Function, ``fused_mha_attention`` its entry.
+* ``mha_attention_fwd`` (``torch.ops.cvnets_tpu_torch.mha_attention_fwd``): the
+  forward as a custom op, so that ``torch.export`` records it as one node:
+  the forward kernel on a CUDA tensor, the plain version and its statistics
+  on a CPU tensor, and a fake that gives the shapes (a meta tensor outside
+  fake mode goes to the wrapper, which raises as on any device but a card).
+  A program exported through it loads where ``cvnets_tpu_torch`` is imported.
+* ``MHAAttention``: the autograd Function (its forward the op),
+  ``fused_mha_attention`` its entry.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -258,6 +265,29 @@ mha_fwd_kernel = MHAForwardKernel()
 mha_bwd_kernel = MHABackwardKernel()
 
 
+@torch.library.custom_op("cvnets_tpu_torch::mha_attention_fwd", mutates_args=(),
+                         device_types="cuda")
+def mha_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
+                      key_mask: Optional[torch.Tensor]) -> List[torch.Tensor]:
+    """The forward kernel: [out (B, S, H·D) in q's dtype, the row statistics
+    (2, B, H, S) float32]."""
+    return list(mha_fwd_kernel(q, k, v, heads, key_mask))
+
+
+@mha_attention_fwd.register_kernel("cpu")
+def _mha_attention_fwd_cpu(q, k, v, heads: int, key_mask) -> List[torch.Tensor]:
+    return [mha_attention_plain(q, k, v, heads, key_mask),
+            mha_attention_stats_plain(q, k, v, heads, key_mask)]
+
+
+@mha_attention_fwd.register_fake
+def _mha_attention_fwd_fake(q, k, v, heads: int, key_mask) -> List[torch.Tensor]:
+    if q.device.type == "meta":  # a real meta tensor, not a fake one: no kernel runs there
+        return list(mha_fwd_kernel(q, k, v, heads, key_mask))
+    b, s, _ = q.shape
+    return [q.new_empty(q.shape), q.new_empty((2, b, heads, s), dtype=torch.float32)]
+
+
 class MHAAttention(torch.autograd.Function):
     """Forward and backward are the CUDA kernels on CUDA tensors and the plain
     versions on CPU tensors. ``custom_fwd`` without a cast keeps autocast from
@@ -266,10 +296,7 @@ class MHAAttention(torch.autograd.Function):
     @staticmethod
     @torch.amp.custom_fwd(device_type="cuda")
     def forward(ctx, q, k, v, heads, key_mask):
-        if q.device.type == "cpu":
-            out, stats = mha_attention_plain(q, k, v, heads, key_mask), None
-        else:
-            out, stats = mha_fwd_kernel(q, k, v, heads, key_mask)
+        out, stats = mha_attention_fwd(q, k, v, heads, key_mask)
         ctx.heads = heads
         ctx.save_for_backward(q, k, v, key_mask, out, stats)
         return out

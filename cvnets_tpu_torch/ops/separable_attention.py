@@ -15,14 +15,22 @@ main path all three are column views of one qkv tensor (BP, N, 1 + 2C).
   same functions in plain torch ops, for CPU tensors and as the kernels'
   references.
 * ``separable_attention_eligible``: the widths the kernels take.
-* ``SeparableAttention``: the autograd Function on qkv: the kernels on a CUDA
-  tensor, the plain versions on a CPU tensor.
+* ``separable_attention_fwd`` (``torch.ops.cvnets_tpu_torch.separable_attention_fwd``):
+  the inference forward as a custom op, so that ``torch.export`` records it
+  as one node: the forward kernel on a CUDA tensor, the plain version (with
+  the same saved statistics) on a CPU tensor, and a fake that gives the
+  shapes (a meta tensor outside fake mode goes to the wrapper, which raises
+  as on any device but a card). A program exported through it loads where
+  ``cvnets_tpu_torch`` is imported.
+* ``SeparableAttention``: the autograd Function on qkv, its forward the op,
+  its backward the backward kernel on a CUDA tensor and the plain version on
+  a CPU tensor.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -146,6 +154,33 @@ separable_attention_kernel = SeparableAttentionKernel()
 separable_attention_bwd_kernel = SeparableAttentionBackwardKernel()
 
 
+@torch.library.custom_op("cvnets_tpu_torch::separable_attention_fwd", mutates_args=(),
+                         device_types="cuda")
+def separable_attention_fwd(qkv: torch.Tensor, c: int) -> List[torch.Tensor]:
+    """The forward kernel on qkv (BP, N, 1 + 2C): [out (BP, N, C), the
+    softmax's (max, sum) (BP, 2) and ctx (BP, C) in float32]."""
+    return list(separable_attention_kernel(*qkv.split([1, c, c], dim=-1)))
+
+
+@separable_attention_fwd.register_kernel("cpu")
+def _separable_attention_fwd_cpu(qkv: torch.Tensor, c: int) -> List[torch.Tensor]:
+    q, k, v = qkv.split([1, c, c], dim=-1)
+    qf = q.float()
+    m = qf.amax(dim=1)                                             # (BP, 1)
+    total = torch.exp(qf - m[:, None]).sum(dim=1)                  # (BP, 1)
+    ctx = (k.float() * torch.softmax(qf, dim=1)).sum(dim=1)        # (BP, C)
+    return [separable_attention_plain(q, k, v), torch.cat([m, total], dim=1), ctx]
+
+
+@separable_attention_fwd.register_fake
+def _separable_attention_fwd_fake(qkv: torch.Tensor, c: int) -> List[torch.Tensor]:
+    if qkv.device.type == "meta":  # a real meta tensor, not a fake one: no kernel runs there
+        return list(separable_attention_kernel(*qkv.split([1, c, c], dim=-1)))
+    bp, n = qkv.shape[:2]
+    return [qkv.new_empty((bp, n, c)), qkv.new_empty((bp, 2), dtype=torch.float32),
+            qkv.new_empty((bp, c), dtype=torch.float32)]
+
+
 class SeparableAttention(torch.autograd.Function):
     """The core on one qkv tensor (BP, N, 1 + 2C), as the qkv projection makes
     it; q, k and v are its column views, and the backward writes one dqkv, so
@@ -155,11 +190,7 @@ class SeparableAttention(torch.autograd.Function):
     @torch.amp.custom_fwd(device_type="cuda")
     def forward(ctx, qkv, c):
         ctx.c = c
-        q, k, v = qkv.split([1, c, c], dim=-1)
-        if qkv.device.type == "cpu":
-            ctx.save_for_backward(qkv)
-            return separable_attention_plain(q, k, v)
-        out, stats, context = separable_attention_kernel(q, k, v)
+        out, stats, context = separable_attention_fwd(qkv, c)
         ctx.save_for_backward(qkv, stats, context)
         return out
 

@@ -13,8 +13,14 @@ shift mask (nW, S, S), whose row for window w is ``mask[w % nW]``.
 * ``window_attention_plain`` / ``window_attention_backward_plain``: the einsum
   math of the JAX ``_win_gold`` and ``swin_transformer_block.py:108-121`` in
   float32, and its VJP, for CPU tensors and as the kernels' references.
-* ``WindowAttentionFunction``: the autograd Function, ``fused_window_attention``
-  its entry.
+* ``window_attention_fwd`` (``torch.ops.cvnets_tpu_torch.window_attention_fwd``):
+  the forward as a custom op, so that ``torch.export`` records it as one
+  node: the forward kernel on a CUDA tensor, the plain version on a CPU
+  tensor, and a fake that gives the shape (a meta tensor outside fake mode
+  goes to the wrapper, which raises as on any device but a card). A program
+  exported through it loads where ``cvnets_tpu_torch`` is imported.
+* ``WindowAttentionFunction``: the autograd Function (its forward the op),
+  ``fused_window_attention`` its entry.
 """
 
 from __future__ import annotations
@@ -229,6 +235,26 @@ window_fwd_kernel = WindowForwardKernel()
 window_bwd_kernel = WindowBackwardKernel()
 
 
+@torch.library.custom_op("cvnets_tpu_torch::window_attention_fwd", mutates_args=(),
+                         device_types="cuda")
+def window_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, heads: int,
+                         bias: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """The forward kernel: the (B·nW, S, H·D) context in q's dtype."""
+    return window_fwd_kernel(q, k, v, heads, bias, mask)
+
+
+@window_attention_fwd.register_kernel("cpu")
+def _window_attention_fwd_cpu(q, k, v, heads: int, bias, mask) -> torch.Tensor:
+    return window_attention_plain(q, k, v, heads, bias, mask)
+
+
+@window_attention_fwd.register_fake
+def _window_attention_fwd_fake(q, k, v, heads: int, bias, mask) -> torch.Tensor:
+    if q.device.type == "meta":  # a real meta tensor, not a fake one: no kernel runs there
+        return window_fwd_kernel(q, k, v, heads, bias, mask)
+    return q.new_empty(q.shape)
+
+
 class WindowAttentionFunction(torch.autograd.Function):
     """Forward and backward are the CUDA kernels on CUDA tensors and the plain
     versions on CPU tensors. ``custom_fwd`` without a cast keeps autocast from
@@ -238,10 +264,7 @@ class WindowAttentionFunction(torch.autograd.Function):
     @staticmethod
     @torch.amp.custom_fwd(device_type="cuda")
     def forward(ctx, q, k, v, heads, bias, mask):
-        if q.device.type == "cpu":
-            out = window_attention_plain(q, k, v, heads, bias, mask)
-        else:
-            out = window_fwd_kernel(q, k, v, heads, bias, mask)
+        out = window_attention_fwd(q, k, v, heads, bias, mask)
         ctx.heads = heads
         ctx.save_for_backward(q, k, v, bias, mask, out)
         return out

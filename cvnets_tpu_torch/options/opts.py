@@ -27,6 +27,18 @@ def arguments_common(parser: argparse.ArgumentParser) -> argparse.ArgumentParser
     group.add_argument("--common.finetune-ema", type=str, default=None)
     group.add_argument("--common.mixed-precision", action="store_true")
     group.add_argument(
+        "--common.int8-inference", action="store_true",
+        help="Int8 conv/linear forward of an eval model (quantization/); float "
+             "checkpoints load unchanged, and prequantize() stores the weights in int8",
+    )
+    group.add_argument(
+        "--common.int8-mode", type=str, default="weight-only",
+        choices=("dynamic", "weight-only"),
+        help="'weight-only': int8 weights dequantized into the compute dtype's "
+             "products; 'dynamic': s8 x s8 -> s32 products with per-row (linear) "
+             "and per-sample (conv) activation scales",
+    )
+    group.add_argument(
         "--common.mixed-precision-dtype", type=str, default="bfloat16",
         choices=["float16", "bfloat16", "float32"],
         help="Autocast dtype under mixed precision; parameters stay float32",
@@ -90,3 +102,53 @@ def get_training_arguments(parse_args: bool = True, args: Optional[List[str]] = 
 def get_eval_arguments(parse_args: bool = True, args: Optional[List[str]] = None):
     """The evaluation flags are the training flags, as in the JAX package."""
     return get_training_arguments(parse_args=parse_args, args=args)
+
+
+def _with_group(title: str, flags, args: Optional[List[str]]):
+    parser = get_training_arguments(parse_args=False)
+    group = parser.add_argument_group(title)
+    for flag, kwargs in flags:
+        group.add_argument(flag, **kwargs)
+    return load_config_file(parser.parse_args(args))
+
+
+def get_conversion_arguments(args: Optional[List[str]] = None):
+    """``main_conversion``'s flags (cvnets_tpu/options/opts.py:208-224; the
+    coreml, bucket and viewer flags are kept for the configs' sake)."""
+    return _with_group("Conversion arguments", [
+        ("--conversion.coreml-extn", dict(type=str, default="mlmodel")),
+        ("--conversion.input-image-path", dict(type=str, default=None)),
+        ("--conversion.bucket-name", dict(type=str)),
+        ("--conversion.task-id", dict(type=str)),
+        ("--conversion.viewers", dict(type=str, nargs="+", default=None)),
+        ("--conversion.reparameterize", dict(
+            action="store_true", default=False,
+            help="Fold re-parameterizable branches (MobileOne, FastViT) into deploy "
+                 "form before export")),
+    ], args)
+
+
+def get_benchmarking_arguments(args: Optional[List[str]] = None):
+    """``main_benchmark``'s flags (cvnets_tpu/options/opts.py:226-240)."""
+    return _with_group("Benchmarking arguments", [
+        ("--benchmark.batch-size", dict(type=int, default=1)),
+        ("--benchmark.warmup-iter", dict(type=int, default=10)),
+        ("--benchmark.n-iter", dict(type=int, default=100)),
+        ("--benchmark.use-jit-model", dict(action="store_true")),
+        ("--benchmark.data-pipeline", dict(
+            action="store_true", default=False,
+            help="Time the host's JPEG decode, train transforms and collate instead "
+                 "of the model's inference")),
+        ("--benchmark.data-pipeline-samples", dict(type=int, default=512)),
+    ], args)
+
+
+def get_loss_landscape_args(args: Optional[List[str]] = None):
+    """``main_loss_landscape``'s flags (cvnets_tpu/options/opts.py:242-)."""
+    return _with_group("Loss landscape related arguments", [
+        ("--loss-landscape.n-points", dict(type=int, default=11)),
+        ("--loss-landscape.min-x", dict(type=float, default=-1.0)),
+        ("--loss-landscape.max-x", dict(type=float, default=1.0)),
+        ("--loss-landscape.min-y", dict(type=float, default=-1.0)),
+        ("--loss-landscape.max-y", dict(type=float, default=1.0)),
+    ], args)

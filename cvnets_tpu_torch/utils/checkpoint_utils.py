@@ -23,7 +23,8 @@ package does.
 
 ``--common.finetune`` (and ``--common.finetune-ema``) start a run from the
 model weights of such a file with the JAX package's scope surgery
-(``finetune_weights``, cvnets_tpu/utils/checkpoint_utils.py:226-307).
+(``finetune_weights``, cvnets_tpu/utils/checkpoint_utils.py:226-307), or from
+a reference CVNets checkpoint through ``utils/torch_checkpoint_converter.py``.
 """
 
 from __future__ import annotations
@@ -183,13 +184,6 @@ def load_checkpoint(opts, state, save_dir: str,
     return epoch, blob["iterations"], blob["best_metric"]
 
 
-# a finetune file whose tensors mostly name none of the model's is not one the
-# port wrote (a reference CVNets checkpoint names its modules otherwise)
-UNPORTED_CHECKPOINT = ("converting a reference CVNets checkpoint (the JAX package's "
-                       "utils/torch_checkpoint_converter.py) is not ported yet (ROADMAP.md "
-                       "queue 1 item 13)")
-
-
 def _renames(opts) -> List[Tuple[str, str]]:
     """``--model.rename-scopes-map``: "from:to" strings, or pairs from a yaml."""
     renames = []
@@ -206,30 +200,64 @@ def _patterns(opts, dest: str) -> List["re.Pattern"]:
             if p.strip()]
 
 
+def is_reference_checkpoint(blob: dict, tensors: Dict[str, torch.Tensor],
+                            current: Dict[str, torch.Tensor]) -> bool:
+    """A file the port did not write: a state dict under ``model_state_dict``
+    or ``state_dict``, or ``tensors`` (the file's, renamed) most of which name
+    none of the model's (``current``)."""
+    if any(isinstance(blob.get(k), dict) for k in ("model_state_dict", "state_dict")):
+        return True
+    return not tensors or 2 * sum(k not in current for k in tensors) > len(tensors)
+
+
+def _converted(opts, path: str, current: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """A reference checkpoint walked onto ``current`` under
+    ``--model.rename-scopes-map`` and ``--model.resume-exclude-scopes``."""
+    from cvnets_tpu_torch.utils.torch_checkpoint_converter import load_reference_checkpoint
+
+    return load_reference_checkpoint(
+        path, current, rename_map=_renames(opts),
+        exclude_scopes=getattr(opts, "model.resume_exclude_scopes", "") or "")
+
+
+def pretrained_weights(opts, path: str, current: Dict[str, torch.Tensor]
+                       ) -> Dict[str, torch.Tensor]:
+    """The model weights of ``path`` for an evaluation or an export: a port
+    file's model state dict as it is (``load_model_weights``), a reference
+    checkpoint converted onto ``current``."""
+    blob = load_file(path)
+    weights = blob["model"] if isinstance(blob.get("model"), dict) else blob
+    if is_reference_checkpoint(blob, weights, current):
+        return _converted(opts, path, current)
+    return weights
+
+
 def finetune_weights(opts, path: str, current: Dict[str, torch.Tensor],
                      flag: str = "--common.finetune") -> Dict[str, torch.Tensor]:
-    """``current`` (a model's state dict) with the tensors of ``path`` (a
-    ``checkpoint_*.pt`` of the port, or the model part of a
-    ``training_checkpoint_*.pt``) laid over it under the JAX package's scope
-    surgery: ``--model.rename-scopes-map`` rewrites the file's keys (each
-    from:to regex in order), a key matching ``--model.resume-exclude-scopes``
-    keeps its fresh value, a key the file lacks keeps its fresh value and is
-    reported unless it matches ``--model.ignore-missing-scopes``, and a tensor
-    of another shape keeps its fresh value with a warning. A file most of
-    whose tensors name none of the model's raises (``UNPORTED_CHECKPOINT``),
-    the message naming ``flag``, the option that gave the file."""
+    """``current`` (a model's state dict) with the tensors of ``path`` laid over
+    it, ``flag`` naming the option that gave the file.
+
+    A ``checkpoint_*.pt`` of the port, or the model part of a
+    ``training_checkpoint_*.pt``, goes under the JAX package's scope surgery:
+    ``--model.rename-scopes-map`` rewrites the file's keys (each from:to regex
+    in order), a key matching ``--model.resume-exclude-scopes`` keeps its
+    fresh value, a key the file lacks keeps its fresh value and is reported
+    unless it matches ``--model.ignore-missing-scopes``, and a tensor of
+    another shape keeps its fresh value with a warning. A reference CVNets
+    checkpoint (a state dict under ``model_state_dict`` or ``state_dict``, or
+    one most of whose tensors name none of the model's) goes through the
+    structural walk of ``utils/torch_checkpoint_converter.py``, as the JAX
+    package sends every ``.pt`` file (engine/training_engine.py:167-200)."""
     blob = load_file(path)
-    if not isinstance(blob, dict) or "model_state_dict" in blob:
-        raise NotImplementedError(f"{flag} {path}: {UNPORTED_CHECKPOINT}")
+    if not isinstance(blob, dict):
+        raise ValueError(f"{flag} {path}: not a state dict")
     src = blob["model"] if isinstance(blob.get("model"), dict) else blob
     src = {k: v for k, v in src.items() if isinstance(v, torch.Tensor)}
     for pat, rep in _renames(opts):
         src = {re.sub(pat, rep, k): v for k, v in src.items()}
-    foreign = [k for k in src if k not in current]
-    if not src or len(foreign) * 2 > len(src):
-        raise NotImplementedError(
-            f"{flag} {path}: {len(foreign)} of its {len(src)} tensors name none "
-            f"of the model's (e.g. {foreign[:3]}); {UNPORTED_CHECKPOINT}")
+    if is_reference_checkpoint(blob, src, current):
+        logger.info(f"{flag} {path}: a reference checkpoint, converted by its structure")
+        return _converted(opts, path, current)
     exclude = _patterns(opts, "model.resume_exclude_scopes")
     ignore = _patterns(opts, "model.ignore_missing_scopes")
     out, missing = dict(current), []

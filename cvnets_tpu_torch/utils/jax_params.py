@@ -15,7 +15,11 @@ head's) and ``logit_scale`` and the MoE FFN's stacked ``experts_fc{1,2}`` and
 router's ``kernel`` is an ordinary Dense), and so do the neural
 augmentor's scalars (``neural_augmentor/{brightness,contrast,noise}_{mag,min,max}``).
 ``load_jax_teacher`` fills a distillation loss's teacher from the JAX loss's
-``teacher_variables``.
+``teacher_variables``. A tree from the JAX ``prequantize_variables`` (int8
+``kernel`` leaves and the ``qscales`` collection) fills a model that
+``quantization.prequantize`` has stored in int8: each int8 kernel lands on
+its layer's int8 ``weight`` and its scale on ``weight_scale``, in the
+weight's layout.
 The segmentation heads' scopes (PSPNet's ``psp/psp_branch_<i>`` and
 ``psp/fusion``, the separable ASPP's ``aspp/aspp_sep_<i>/{dw_conv,pw_conv}``,
 the simple head's ``conv``) and Mask R-CNN's (``fpn/lateral_{i}``,
@@ -91,17 +95,20 @@ def to_torch_layout(flax_path: Tuple[str, ...], value: np.ndarray) -> np.ndarray
 
 @torch.no_grad()
 def load_jax_params(model: nn.Module, params: Mapping,
-                    batch_stats: Optional[Mapping] = None) -> None:
+                    batch_stats: Optional[Mapping] = None,
+                    qscales: Optional[Mapping] = None) -> None:
     """Copy every flax leaf into ``model``. Raises unless each flax leaf is used
     exactly once and every parameter and buffer of ``model`` is filled (BN's
-    ``num_batches_tracked`` counter has no flax leaf and is left as it is)."""
+    ``num_batches_tracked`` counter has no flax leaf and is left as it is).
+    ``qscales`` is the JAX ``prequantize_variables``' collection of scales,
+    whose int8 kernels are in ``params``."""
     targets: Dict[str, torch.Tensor] = {
         k: v for k, v in model.state_dict().items()
         if not k.endswith("num_batches_tracked")}
     filled = set()
-    for tree in (params, batch_stats or {}):
+    for tree, suffix in ((params, ""), (batch_stats or {}, ""), (qscales or {}, "_scale")):
         for path, value in _flatten(tree):
-            key = torch_key(path)
+            key = torch_key(path) + suffix
             if key not in targets:
                 raise KeyError(f"flax leaf {'/'.join(path)} -> {key}: no such "
                                "parameter or buffer in the model")
@@ -109,6 +116,9 @@ def load_jax_params(model: nn.Module, params: Mapping,
                 raise KeyError(f"two flax leaves map to {key}")
             value = to_torch_layout(path, value)
             dst = targets[key]
+            if (value.dtype == np.int8) != (dst.dtype == torch.int8):
+                raise TypeError(f"{'/'.join(path)} is {value.dtype} but {key} is {dst.dtype}: "
+                                "an int8 tree fills a model after quantization.prequantize")
             if tuple(value.shape) != tuple(dst.shape):
                 raise ValueError(f"{'/'.join(path)}: shape {value.shape} vs "
                                  f"{key} {tuple(dst.shape)}")

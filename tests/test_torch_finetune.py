@@ -13,7 +13,9 @@ config/classification/finetune_in21k_to_1k/mobilevit_v2.yaml:59 sets it):
   ``--model.ignore-missing-scopes`` silences a missing tensor;
 * the model part of a ``training_checkpoint_last.pt`` is read as well;
 * a file whose tensors name none of the model's (a reference CVNets
-  checkpoint names its modules otherwise) raises and names its ROADMAP item;
+  checkpoint names its modules otherwise), bare or under
+  ``model_state_dict``, goes through the structural converter and gives
+  the source's tensors;
 * ``finetune_weights`` lays a file over a model as the JAX package's
   ``_merge_with_scopes`` lays a flat dict over a tree, key for key, on the
   same names.
@@ -126,6 +128,11 @@ def test_renames_and_ignored_missing_scopes(source, tmp_path):
 
 
 def test_a_foreign_checkpoint_raises_and_names_its_roadmap_item(source, tmp_path):
+    """(Named for the refusal it checked before the converter was ported.) A
+    file in the reference's names, in the source's order, bare or under
+    ``model_state_dict``, now loads through the converter: every tensor is
+    the source's (BN's step counters, which the JAX package has no leaf for,
+    keep the model's)."""
     from cvnets_tpu_torch.utils.checkpoint_utils import finetune_weights, save_file
 
     _, model_sd, _ = source
@@ -136,8 +143,10 @@ def test_a_foreign_checkpoint_raises_and_names_its_roadmap_item(source, tmp_path
     for blob in (reference, {"model_state_dict": model_sd}):
         path = str(tmp_path / "reference.pt")
         save_file(blob, path)
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1 item 13\)"):
-            finetune_weights(_opts(tmp_path), path, current)
+        got = finetune_weights(_opts(tmp_path), path, current)
+        for key, value in model_sd.items():
+            want = current[key] if key.endswith("num_batches_tracked") else value
+            assert torch.equal(got[key], want), key
 
 
 def test_scope_surgery_matches_the_jax_merge(tmp_path):

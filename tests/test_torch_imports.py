@@ -414,6 +414,34 @@ def test_port_flags_have_the_jax_dests_and_defaults():
     assert checked >= 40
 
 
+@pytest.mark.parametrize("getter, prefix", [
+    ("get_conversion_arguments", "conversion."),
+    ("get_benchmarking_arguments", "benchmark."),
+    ("get_loss_landscape_args", "loss_landscape."),
+])
+def test_serving_entry_point_flags_have_the_jax_dests_and_defaults(getter, prefix):
+    """The flags main_conversion, main_benchmark and main_loss_landscape add
+    to the training flags: the same dests, and the same values when parsed
+    from nothing and from explicit values."""
+    from cvnets_tpu.options import opts as jax_opts
+    from cvnets_tpu_torch.options import opts as port_opts
+
+    parse_jax, parse_port = getattr(jax_opts, getter), getattr(port_opts, getter)
+    jax_ns, port_ns = vars(parse_jax(args=[])), vars(parse_port(args=[]))
+    jax_own = {k: v for k, v in jax_ns.items() if k.startswith(prefix)}
+    assert jax_own and jax_own == {k: v for k, v in port_ns.items() if k.startswith(prefix)}
+    flags = {"conversion.": ["--conversion.reparameterize", "--conversion.input-image-path",
+                             "x.jpg", "--conversion.viewers", "a", "b"],
+             "benchmark.": ["--benchmark.batch-size", "128", "--benchmark.n-iter", "7",
+                            "--benchmark.data-pipeline"],
+             "loss_landscape.": ["--loss-landscape.n-points", "5",
+                                 "--loss-landscape.min-x", "-0.5"]}[prefix]
+    args = flags + ["--common.int8-inference", "--common.int8-mode", "dynamic"]
+    jax_ns, port_ns = vars(parse_jax(args=args)), vars(parse_port(args=args))
+    for dest in [*jax_own, "common.int8_inference", "common.int8_mode"]:
+        assert port_ns[dest] == jax_ns[dest], dest
+
+
 def test_flagship_yaml_parses_to_the_same_values():
     from cvnets_tpu.options.opts import get_training_arguments as jax_args
     from cvnets_tpu_torch.options.opts import get_training_arguments as torch_args

@@ -7,7 +7,8 @@ window-attention route (its plain version on the CPU). Logits in eval and train
 mode and every parameter gradient of the label-smoothed CE loss; the static
 relative-position index and shift mask; PatchMerging's channel order; the
 window-attention layer through the fused route and the einsum route against the
-JAX layer; StochasticDepth; the flags that raise; ``get_model``'s device; and
+JAX layer; StochasticDepth; the flag that raises and the int8 Swin;
+``get_model``'s device; and
 chip_smoke.py's Swin flags against swin.yaml."""
 
 from __future__ import annotations
@@ -291,22 +292,35 @@ def test_swin_stochastic_depth_schedule_and_train_mode_drops():
 
 @pytest.mark.parametrize("option", ["norm_layer", "int8_inference"])
 def test_unported_options_raise(option):
-    """A norm layer other than layer_norm is an error in JAX too; int8 Dense
-    layers are not ported (the port's parser has no such flag, so the option
-    is set on the namespace as the JAX parser would set it)."""
+    """A norm layer other than layer_norm is an error in JAX too. (The
+    ``int8_inference`` case is named for the refusal it checked before int8
+    inference was ported.) The int8 Swin, weight-only, now builds with int8
+    qkv, projection, MLP and classifier layers and gives JAX's int8 logits on
+    the same weights at 112 px."""
+    from cvnets_tpu.models import get_model as jax_get_model
     from cvnets_tpu_torch.models import get_model
     from cvnets_tpu_torch.options.opts import get_training_arguments
+    from cvnets_tpu_torch.quantization import int8_layers
     from cvnets_tpu_torch.utils.logger import LoggerError
 
-    opts = get_training_arguments(args=SWIN_MICRO_ARGS)
     if option == "norm_layer":
+        opts = get_training_arguments(args=SWIN_MICRO_ARGS)
         setattr(opts, "model.classification.swin.norm_layer", "batch_norm")
-        error = LoggerError
-    else:
-        setattr(opts, "common.int8_inference", True)
-        error = NotImplementedError
-    with pytest.raises(error):
-        get_model(opts, device="cpu")
+        with pytest.raises(LoggerError):
+            get_model(opts, device="cpu")
+        return
+    opts_jax, opts_torch = both_opts(SWIN_MICRO_ARGS + ["--common.int8-inference"])
+    x = np.random.default_rng(5).standard_normal((2, 112, 112, 3)).astype(np.float32)
+    jmodel = jax_get_model(opts_jax)
+    variables = perturbed_variables(jmodel, x)
+    want = np.asarray(jax.jit(lambda v: jmodel.apply(v, jnp.asarray(x), training=False))(
+        variables))
+    model = port_model_from(opts_torch, variables).eval()
+    assert {name.rsplit(".", 1)[-1] for name in int8_layers(model)} == {
+        "qkv", "proj", "mlp_fc1", "mlp_fc2", "classifier"}
+    with torch.no_grad():
+        got = model(nchw(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=LOGIT_ATOL)
 
 
 def test_get_model_builds_on_the_card_unless_asked_for_the_cpu(monkeypatch):

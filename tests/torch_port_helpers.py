@@ -146,6 +146,17 @@ def port_model_from(opts_torch, variables: dict):
     return model
 
 
+def reference_names(state_dict: dict) -> dict:
+    """The same tensors in the same order under another naming scheme, as a
+    published CVNets checkpoint names its modules otherwise: one
+    ``module.blocks.<i>`` a module, the leaf name kept."""
+    modules, out = {}, {}
+    for key, value in state_dict.items():
+        prefix, leaf = key.rsplit(".", 1)
+        out[f"module.blocks.{modules.setdefault(prefix, len(modules))}.{leaf}"] = value.clone()
+    return out
+
+
 def nchw(x_nhwc: np.ndarray):
     import torch
 
