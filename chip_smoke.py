@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--deeplab | --segmentation | --families | --clip |
                            --range-augment | --byteformer | --mask-rcnn |
-                           --vit-segmentation | --moe | --video | --serving]
+                           --vit-segmentation | --moe | --video | --serving |
+                           --ddp]
 
 ``--deeplab`` runs only phases 1, 10 and 11 (DeepLabv3's train, a/b and
 profile; about a minute) and prints neither JSON line: run in turns from two
@@ -21,7 +22,8 @@ and 22 (Mask R-CNN on both yamls); ``--vit-segmentation``, ``--moe`` and
 ``--video`` only phases 1, 2 and 23 in full for DeepLabv3-ViT-B/16 (output
 strides 16 and 8), ViT-B/16-MoE, and MobileViT-S spatio-temporal with its
 MobileViTv2-1.0 variant. ``--serving`` runs only phases 1, 2 and 24 in full
-and prints the last JSON line only.
+and prints the last JSON line only. ``--ddp`` runs only phases 1, 2 and 25
+(data parallelism) in full and prints neither JSON line.
 
 Phases, one line each or more (any failure exits non-zero):
 
@@ -404,9 +406,39 @@ Phases, one line each or more (any failure exits non-zero):
    saved in a reference layout and ``main_train --common.finetune`` from it
    for one step, whose model gives the source's eval logits bit for bit
    before that step; (f) ``main_loss_landscape`` at 5 × 5 points.
+25. data parallelism (``phase_ddp``; ``--ddp`` alone): (a) the flagship's
+   ``main_train`` on ``MAIN_TRAIN_ARGS`` under ``torchrun --standalone
+   --nproc-per-node <cards>`` (this script's ``--ddp-worker nccl`` mode, the
+   group over NCCL): its epoch-2 img/s beside the one-process route's (phase
+   6c's in the whole run; a ``--ddp-worker single`` process under
+   ``--ddp``), its separable launches (9 + 9 a step), and its rank-0
+   checkpoint loaded into a one-card model; (c) in that group,
+   ``ddp_checks`` over NCCL at world = the cards (the flagship alone at one
+   card, where nothing crosses ranks; it prints the world); (b) two gloo
+   ranks on card 0 (NCCL refuses two ranks on one card; gloo takes the CUDA
+   tensors of every collective the slice uses) run ``ddp_checks`` for the
+   flagship at 64 a rank, CLIP ViT-B/16 at 16 (12 + 12 MHA launches a step
+   and the contrastive loss's all-gather) and DeepLabv3-MobileViTv2-1.0 at 4
+   × 512² (9 + 9 separable and 2 + 2 seg-CE launches a step, the loss divided
+   by the global valid-pixel count; its ranks' labels differ in ignored
+   share and classes): 2 float32 steps (TF32, dropout and augmentation off;
+   the second at the LR after warmup) on each rank's rows of seeded global
+   batches, the ranks' parameters the same, each rank's launches printed;
+   then rank 0 leaves the group, runs the same steps in one process on the
+   whole batches and holds the first step's loss (1e-4) and BN statistics
+   (1e-4 of max(1, a tensor's largest value)), every gradient (1e-3 of the
+   largest), and the parameters' and the EMA's moves over the steps (1e-3 of
+   their L2) against them, the last two or 3 times one process's own noise
+   floor where larger (the most it moves from itself with the rows reversed,
+   halves swapped or shuffled, or with its BN through the synced BN's
+   arithmetic); for DeepLabv3 it also checks that the ranks' own valid
+   counts would have failed the loss bound.
 
 The second-to-last line is the kernels' JSON record, one entry for each TPU
-kernel's counterpart: ``ms``/``plain_ms`` are a kernel's and its plain
+kernel's counterpart (the ``launches_by_path`` of the separable, S ≤ 512 MHA
+and seg-CE rows also hold phase 25's paths: the flagship's ``main_train``
+under ``torchrun`` and each gloo rank's launches of the flagship, CLIP
+ViT-B/16 and DeepLabv3 checks): ``ms``/``plain_ms`` are a kernel's and its plain
 version's time for one train step's launches (the separable attention's 9
 forward and 9 backward at the flagship from the per-shape bf16 medians, with
 their launches by path, the flagship's, MobileViTv2-2.0's 384² finetune's
@@ -440,6 +472,7 @@ result.
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -2954,12 +2987,12 @@ def _augment_device_ms(opts, card: str) -> float:
     return device_ms
 
 
-def phase_main_train(card: str, bare: dict) -> None:
+def phase_main_train(card: str, bare: dict) -> float:
     """6c: ``cvnets_tpu_torch.main_train.main_worker`` on the flagship's flags and
     the script's dataset: the loader alone, the device augmentation's time, then
     2 epochs of 4 batches of 128 and their validations through the entry point,
     and ``main_eval`` on its ``checkpoint_ema_last.pt``. ``bare`` is phase 6's
-    kernel-path a/b (img/s, peak GiB)."""
+    kernel-path a/b (img/s, peak GiB). Returns epoch 2's img/s."""
     import shutil
 
     import torch
@@ -3067,6 +3100,7 @@ def phase_main_train(card: str, bare: dict) -> None:
           f"included); loader alone img_s={n_img / loader_s:.1f}; augmentation + mixing "
           f"{aug_ms:.3f} device ms a step; bare step (phase 6 a/b, kernel path) "
           f"img_s={bare['img_s']:.1f} | {card}", flush=True)
+    return SMOKE_TRAIN_SAMPLES / epoch_s
 
 
 def phase_resnet_main_train(card: str, bare: dict) -> None:
@@ -6574,13 +6608,13 @@ def loader_batch(opts) -> dict:
     import copy
 
     from cvnets_tpu_torch.data.data_loaders import create_train_val_loader
-    from cvnets_tpu_torch.engine.train_state import to_device
+    from cvnets_tpu_torch.engine.train_state import tree_map
 
     loader_opts = copy.deepcopy(opts)
     setattr(loader_opts, "dataset.disable_val", True)
     train_loader, _, _ = create_train_val_loader(loader_opts, pin_memory=True, device="cuda")
     for batch in train_loader:
-        return to_device(batch, "cuda")
+        return tree_map(lambda t: t.to("cuda", non_blocking=True), batch)
     raise RuntimeError("check failed: the corpus's train loader yielded no batch")
 
 
@@ -7573,20 +7607,518 @@ def phase_serving(card: str, full: bool = False) -> dict:
     return paths
 
 
+# ---- data parallelism (phase 25) ----
+# the paths of the two-rank check: (flags, per-rank batch, kernels' launches a step)
+DDP_PATHS = {
+    "MobileViTv2-1.0": (FLAGSHIP_ARGS, 64, {"separable_attention": 9,
+                                            "separable_attention_bwd": 9}),
+    "CLIP ViT-B/16": (CLIP_ARGS, 16, {"mha_attention_fwd": VIT_BLOCKS,
+                                      "mha_attention_bwd": VIT_BLOCKS}),
+    "DeepLabv3-MobileViTv2-1.0": (DEEPLAB_ARGS, 4, {
+        "separable_attention": 9, "separable_attention_bwd": 9,
+        "seg_ce_fwd": SEG_CALLS, "seg_ce_bwd": SEG_CALLS}),
+}
+DDP_F32 = ["--common.mixed-precision-dtype", "float32"]  # autocast off
+# two steps, at the schedule's LR at the start and at the end of its warmup:
+# the first builds the optimizer's state and barely moves the weights, the
+# second moves them a whole step
+DDP_STEPS = 2
+# the check's bounds, float32 with TF32 off on both sides: the loss to 1e-4 of
+# max(1, itself); BN statistics to 1e-4 of max(1, a tensor's largest value);
+# the first step's gradients (the worst element over the largest one) and the
+# parameters' and the EMA's moves over the steps (the L2 norm of the
+# difference over the norm of the one process's move) to 1e-3, or to 3 times
+# their noise floor where that is larger: the most that one process moves
+# from itself when the batch's rows are reordered or when its BN runs the
+# synced BN's arithmetic (``DDP_FLOORS``). Batch-statistic BN amplifies
+# float32's order-of-sums noise (a gradient element up to 2.2e-3 of the
+# largest, on the flagship at 128 rows, rows reversed), and Adam turns a
+# gradient at the noise's level into a whole step.
+DDP_LOSS_REL, DDP_REL, DDP_NOISE_TIMES, DDP_STAT_REL = 1e-4, 1e-3, 3.0, 1e-4
+DDP_FLOORS = ("reversed", "halves swapped", "shuffled", "synced BN alone")
+# DeepLabv3's labels: the even ranks' rows have 5% of their pixels ignored,
+# the odd ranks' 50%, and labels of the first tenth of the classes only (a
+# rank of crops of a few large objects), so that a rank's own valid-pixel
+# count in place of the global one moves the loss past its bound
+DDP_SEG_IGNORED = (0.05, 0.5)
+DDP_TIMEOUT_S = 600
+
+
+def ddp_kernels() -> dict:
+    from cvnets_tpu_torch.ops.mha_attention import mha_bwd_kernel, mha_fwd_kernel
+    from cvnets_tpu_torch.ops.seg_ce_kernel import seg_ce_bwd_kernel, seg_ce_fwd_kernel
+    from cvnets_tpu_torch.ops.separable_attention import (
+        separable_attention_bwd_kernel,
+        separable_attention_kernel,
+    )
+
+    return {"separable_attention": separable_attention_kernel,
+            "separable_attention_bwd": separable_attention_bwd_kernel,
+            "mha_attention_fwd": mha_fwd_kernel, "mha_attention_bwd": mha_bwd_kernel,
+            "seg_ce_fwd": seg_ce_fwd_kernel, "seg_ce_bwd": seg_ce_bwd_kernel}
+
+
+def ddp_batches(label: str, opts, n: int, device) -> list:
+    """``DDP_STEPS`` seeded global batches of ``n`` rows of the path, the same
+    in every process; DeepLabv3's rows are ranked by ``DDP_PATHS``' per-rank
+    batch for their labels (``DDP_SEG_IGNORED``)."""
+    import torch
+
+    g = torch.Generator().manual_seed(25)
+    hw = (getattr(opts, "sampler.bs.crop_size_height"),
+          getattr(opts, "sampler.bs.crop_size_width"))
+    out = []
+    for _ in range(DDP_STEPS):
+        images = torch.randint(0, 256, (n, 3, *hw), generator=g, dtype=torch.uint8)
+        if label == "CLIP ViT-B/16":
+            samples = {"image": images, "text": clip_text_batch(g, n, "cpu")}
+            targets = torch.arange(n)
+        elif label.startswith("DeepLabv3"):
+            samples = images
+            n_classes = getattr(opts, "model.segmentation.n_classes")
+            targets = torch.randint(0, n_classes, (n, *hw), generator=g)
+            odd = (torch.arange(n) // DDP_PATHS[label][1]) % 2 == 1
+            targets[odd] %= n_classes // 10
+            share = torch.tensor(DDP_SEG_IGNORED)[odd.long()].view(n, 1, 1)
+            targets[torch.rand(targets.shape, generator=g) < share] = 255
+        else:
+            samples = images
+            targets = torch.randint(0, getattr(opts, "model.classification.n_classes"), (n,),
+                                    generator=g)
+        out.append({"samples": samples, "targets": targets})
+    return [{k: (v.to(device) if hasattr(v, "to") else {kk: vv.to(device)
+                                                       for kk, vv in v.items()})
+             for k, v in b.items()} for b in out]
+
+
+def ddp_order(name: str, n: int, per_rank: int):
+    """A reordering of a global batch's ``n`` rows for the noise floor (None:
+    the rows as they are)."""
+    import torch
+
+    if name == "synced BN alone":
+        return None
+    if name == "reversed":
+        return torch.arange(n - 1, -1, -1)
+    if name == "halves swapped":  # the last rank's rows first
+        return torch.arange(n).roll(per_rank)
+    return torch.randperm(n, generator=torch.Generator().manual_seed(26))
+
+
+class synced_bn_alone:
+    """In its ``with`` block every train-mode BN of this process, outside a
+    group, runs the synced BN's arithmetic (a group of one: its all-gather and
+    all-reduce return their input)."""
+
+    def __enter__(self):
+        import types
+
+        from cvnets_tpu_torch.layers import normalization
+
+        self.module, self.real = normalization, normalization.parallel
+        normalization.parallel = types.SimpleNamespace(
+            world_size=lambda: 2, all_gather=lambda t: [t], all_reduce_=lambda t: t)
+
+    def __exit__(self, *exc):
+        self.module.parallel = self.real
+
+
+def ddp_steps(label: str, world: int, rank: int, device, order=None,
+              synced_bn: bool = False) -> dict:
+    """``DDP_STEPS`` float32 train steps of the path (TF32, dropout and
+    augmentation off) at the schedule's LR at the start and at the end of its
+    warmup, on this rank's rows of the global batches of ``world`` ranks; at
+    ``rank`` -1, in one process (no group) on the whole batches, their rows in
+    ``order`` (a permutation) where one is given and its BN through
+    ``synced_bn_alone`` under ``synced_bn``: the same steps in exact
+    arithmetic, other float32 sums (the noise floor). Returns the first step's loss,
+    gradients (after their average over the ranks) and BN statistics, the
+    parameters before the steps (one process only) and the parameters and
+    EMA after them, the kernels' launches, and a float64 sum of each
+    parameter."""
+    import torch
+
+    from cvnets_tpu_torch.engine.train_state import create_train_state, make_train_step
+    from cvnets_tpu_torch.layers.random_layers import StochasticDepth
+    from cvnets_tpu_torch.loss import build_loss_fn
+    from cvnets_tpu_torch.metrics import build_metrics
+    from cvnets_tpu_torch.models import get_model
+    from cvnets_tpu_torch.optim import build_optimizer
+    from cvnets_tpu_torch.optim.scheduler import build_scheduler
+    from cvnets_tpu_torch.options.opts import get_training_arguments
+
+    args, per_rank, per_step = DDP_PATHS[label]
+    opts = get_training_arguments(args=args + DDP_F32)
+    model = get_model(opts, device=device)
+    for m in model.modules():
+        if isinstance(m, (torch.nn.modules.dropout._DropoutNd, StochasticDepth)):
+            m.p = 0.0
+    state = create_train_state(model, build_optimizer(opts, model,
+                                                      model.get_lr_multipliers(opts)),
+                               ema_enabled=getattr(opts, "ema.enable"))
+    step = make_train_step(model, build_loss_fn(opts, device=device), opts,
+                           build_metrics(opts, ["loss", "grad_norm"]))
+    scheduler = build_scheduler(opts)
+    lrs = [scheduler.retrieve_lr(0, i)
+           for i in (0, getattr(opts, "scheduler.warmup_iterations"))]
+    rows = slice(rank * per_rank, (rank + 1) * per_rank)
+
+    def mine(t):
+        return {k: v[rows] for k, v in t.items()} if isinstance(t, dict) else t[rows]
+
+    def reorder(t):
+        if isinstance(t, dict):
+            return {k: reorder(v) for k, v in t.items()}
+        return t.index_select(0, order.to(t.device))
+
+    kernels = {name: ddp_kernels()[name] for name in per_step}
+    for kernel in kernels.values():
+        kernel.launches = 0
+    out = {}
+    if rank < 0:
+        out["init"] = {n: p.detach().clone() for n, p in model.named_parameters()}
+    with no_tf32(), (synced_bn_alone() if synced_bn else contextlib.nullcontext()):
+        for i, batch in enumerate(ddp_batches(label, opts, per_rank * world, device)):
+            if rank >= 0:
+                batch = {k: mine(v) for k, v in batch.items()}
+            elif order is not None:
+                batch = reorder(batch)
+            state, metrics = step(state, batch, lrs[i])
+            if i == 0:
+                out["loss"] = metrics["loss"]["loss"][0].item()
+                out["grads"] = {n: p.grad.detach().clone()
+                                for n, p in model.named_parameters() if p.grad is not None}
+                out["stats"] = {n: b.detach().clone() for n, b in model.named_buffers()
+                                if n.endswith(("running_mean", "running_var"))}
+    out["params"] = {n: p.detach().clone() for n, p in model.named_parameters()}
+    out["ema"] = ({k: v.detach().clone() for k, v in state.ema.model.state_dict().items()
+                   if k in out["params"]} if state.ema is not None else {})
+    out["launches"] = {name: k.launches for name, k in kernels.items()}
+    out["sums"] = [p.detach().double().sum().item() for p in model.parameters()]
+    return out
+
+
+def ddp_local_count_loss(label: str, world: int, losses: list) -> float:
+    """The first step's loss that DeepLabv3's ranks would average if each
+    divided its pixel sum by its own valid count: a rank's loss is its sum
+    over the global count ÷ ``world``, so its own mean is that × the global
+    count ÷ (``world`` × its count)."""
+    import torch
+
+    from cvnets_tpu_torch.options.opts import get_training_arguments
+
+    args, per_rank, _ = DDP_PATHS[label]
+    targets = ddp_batches(label, get_training_arguments(args=args + DDP_F32),
+                          per_rank * world, "cpu")[0]["targets"]
+    counts = (targets != 255).reshape(world, -1).sum(1).double()
+    return sum(loss * counts.sum().item() / (world * counts[r].item())
+               for r, loss in enumerate(losses)) / world
+
+
+def _worst(got: dict, want: dict, scale) -> float:
+    """The largest |got − want| over the tensors, over ``scale(want tensor)``."""
+    worst = 0.0
+    for name, w in want.items():
+        err = (got[name].float() - w.float()).abs().max().item()
+        worst = max(worst, err / scale(w))
+    return worst
+
+
+def _l2(got: dict, want: dict, start: dict = None) -> float:
+    """The L2 norm of ``got − want`` over every tensor of ``want``, over
+    ``want``'s (over ``want − start``'s, its move, where ``start`` is given)."""
+    diff = sum((got[n].double() - w.double()).pow(2).sum().item() for n, w in want.items())
+    norm = sum((w.double() - (start[n].double() if start else 0)).pow(2).sum().item()
+               for n, w in want.items())
+    return math.sqrt(diff / max(norm, 1e-300))
+
+
+def ddp_errors(got: dict, ref: dict, init: dict) -> dict:
+    """``got``'s errors against one process's ``ref`` (both ``ddp_steps``)."""
+    gmax = max(g.abs().max().item() for g in ref["grads"].values())
+    return {"grad": _worst(got["grads"], ref["grads"], lambda w: gmax),
+            "grad_l2": _l2(got["grads"], ref["grads"]),
+            "params": _l2(got["params"], ref["params"], init),
+            "ema": _l2(got["ema"], ref["ema"], init)}
+
+
+def ddp_checks(labels, card: str, out_path: str, device=None) -> None:
+    """Each path's steps in the current process group (every rank), the ranks'
+    losses, parameter sums and launches gathered; then the group is left and
+    rank 0 runs the same steps in one process on the whole batches, and on
+    them reordered or through the synced BN's arithmetic (``DDP_FLOORS``: the
+    noise floor), and holds the group's
+    first-step loss, gradients and BN statistics and its parameters and EMA
+    after the last step against them (``DDP_*``). For DeepLabv3 in a group it
+    also checks that a rank's own valid count in place of the global one would
+    have failed the loss bound. Rank 0 writes the record to ``out_path``; any
+    failure raises."""
+    import torch
+
+    from cvnets_tpu_torch import parallel
+    from cvnets_tpu_torch.parallel import mesh
+
+    world, rank = parallel.world_size(), parallel.rank()
+    device = device or torch.device("cuda", torch.cuda.current_device())
+    backend = torch.distributed.get_backend() if parallel.is_initialized() else "none"
+    ran, record = {}, {"world": world, "backend": backend, "paths": {}}
+    for label in labels:
+        ran[label] = ddp_steps(label, world, rank, device)
+        gathered = parallel.all_gather_objects(
+            (ran[label]["loss"], ran[label]["sums"], ran[label]["launches"]))
+        check(all(g[1] == gathered[0][1] for g in gathered),
+              f"ddp {backend} {label}: the ranks' parameters differ after {DDP_STEPS} steps")
+        record["paths"][label] = {"loss": sum(g[0] for g in gathered) / world,
+                                  "loss_by_rank": [g[0] for g in gathered],
+                                  "launches_by_rank": [g[2] for g in gathered]}
+        for r, g in enumerate(gathered):
+            want = {k: DDP_PATHS[label][2][k] * DDP_STEPS for k in g[2]}
+            check(g[2] == want, f"ddp {backend} {label} rank {r}: launches {g[2]}, want {want}")
+        if rank != 0:
+            ran.pop(label)
+        gc.collect()
+        torch.cuda.empty_cache()
+    parallel.barrier()
+    mesh.destroy_group()
+    if rank != 0:
+        return
+    failed = []
+    for label in labels:
+        got, rec = ran.pop(label), record["paths"][label]
+        ref = ddp_steps(label, world, -1, device)  # one process, the whole batches
+        init = ref.pop("init")
+        rec.update({"loss_ref": ref["loss"], **ddp_errors(got, ref, init),
+                    "stat": _worst(got["stats"], ref["stats"],
+                                   lambda w: max(1.0, w.abs().max().item())),
+                    "n_grads": len(ref["grads"]), "n_stats": len(ref["stats"]),
+                    "n_ema": len(ref["ema"]), "floor": {}})
+        check(sorted(got["grads"]) == sorted(ref["grads"]),
+              f"ddp {backend} {label}: other parameters have gradients")
+        check(len(ref["ema"]) == len(ref["params"]),
+              f"ddp {backend} {label}: the EMA lacks parameters")
+        for name in DDP_FLOORS:
+            n = world * DDP_PATHS[label][1]
+            other = ddp_steps(label, world, -1, device,
+                              order=ddp_order(name, n, DDP_PATHS[label][1]),
+                              synced_bn=name == "synced BN alone")
+            other.pop("init")
+            rec["floor"][name] = ddp_errors(other, ref, init)
+            del other
+            gc.collect()
+            torch.cuda.empty_cache()
+        floor = {k: max(f[k] for f in rec["floor"].values()) for k in ("grad", "params", "ema")}
+        bound = {k: max(DDP_REL, DDP_NOISE_TIMES * v) for k, v in floor.items()}
+        loss_bound = DDP_LOSS_REL * max(1.0, abs(ref["loss"]))
+        ok = (abs(rec["loss"] - ref["loss"]) <= loss_bound and rec["stat"] <= DDP_STAT_REL
+              and all(rec[k] <= bound[k] for k in bound))
+        if not ok:
+            failed.append(f"ddp {backend} {label} at world {world} vs one process: {rec}")
+        local = ""
+        if label.startswith("DeepLabv3") and world > 1:
+            rec["loss_local_count"] = ddp_local_count_loss(label, world, rec["loss_by_rank"])
+            moved = abs(rec["loss_local_count"] - ref["loss"])
+            if moved <= loss_bound:
+                failed.append(f"ddp {backend} {label}: a rank's own valid count moves the "
+                              f"loss {moved:.3e}, within its bound {loss_bound:.3e}")
+            local = (f"; the ranks' own valid counts would give loss "
+                     f"{rec['loss_local_count']:.6f}, {moved / loss_bound:.0f}x the bound")
+        floors = "; ".join(f"{name} {f['grad']:.2e} / {f['params']:.2e} / {f['ema']:.2e}"
+                           for name, f in rec["floor"].items())
+        print(f"ddp: {label} {backend} world={world} float32 {DDP_STEPS} steps at "
+              f"{DDP_PATHS[label][1]} a rank: loss {rec['loss']:.6f} vs one process "
+              f"{ref['loss']:.6f} (ranks {rec['loss_by_rank']}){local}; worst gradient "
+              f"element {rec['grad']:.2e} of the largest ({rec['n_grads']} tensors; bound "
+              f"{bound['grad']:.2e}), all gradients' L2 {rec['grad_l2']:.2e} of their norm; "
+              f"parameters' move over {DDP_STEPS} steps (the second at the LR after warmup) "
+              f"{rec['params']:.2e} of its L2 (bound {bound['params']:.2e}), the EMA's "
+              f"{rec['ema']:.2e} ({rec['n_ema']} tensors; bound {bound['ema']:.2e}); one "
+              f"process against itself, gradient / parameters / EMA: {floors}; BN "
+              f"statistics {rec['stat']:.2e}; launches by rank {rec['launches_by_rank']} | "
+              f"{card}", flush=True)
+        del got, ref, init
+        gc.collect()
+        torch.cuda.empty_cache()
+    check(not failed, "; ".join(failed))
+    with open(out_path, "w") as f:
+        json.dump(record, f)
+
+
+def _ddp_gloo_rank(index: int, store: str, out_dir: str, card: str) -> None:
+    """One of two gloo ranks sharing card 0."""
+    import torch
+
+    from cvnets_tpu_torch.parallel import mesh
+
+    torch.cuda.set_device(0)
+    mesh.init_group("gloo", index, 2, f"file://{store}", DDP_TIMEOUT_S)
+    ddp_checks(list(DDP_PATHS), card, os.path.join(out_dir, "gloo.json"))
+
+
+def ddp_worker(mode: str, out_dir: str, card: str) -> int:
+    """``--ddp-worker``: the flagship's ``main_train`` on ``MAIN_TRAIN_ARGS``
+    (2 epochs of 4 batches of 128 a rank on the script's dataset), its epoch-2
+    img/s and separable launches; ``nccl`` under ``torchrun`` over every card
+    (then ``ddp_checks`` over NCCL in the same group: the flagship at one rank,
+    every path at more), ``single`` in one process without a group."""
+    import torch
+
+    import cvnets_tpu_torch.main_train as main_train
+    from cvnets_tpu_torch import parallel
+    from cvnets_tpu_torch.options.opts import get_training_arguments
+
+    register_smoke_dataset()
+    args = MAIN_TRAIN_ARGS + ["--common.results-loc", os.path.join(out_dir, mode),
+                              "--dev.num-devices", "1" if mode == "single" else "-1"]
+    kernels = ddp_kernels()
+    times = []
+
+    class Timed(main_train.Trainer):
+        def train_epoch(self, epoch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = super().train_epoch(epoch)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            return out
+
+    def run(opts, device=None):
+        main_train.Trainer = Timed
+        for kernel in kernels.values():
+            kernel.launches = 0
+        trainer = main_train.main(opts, device=device)
+        world = parallel.world_size()
+        record = {"world": world, "steps": trainer.train_iterations,
+                  "img_s": SMOKE_TRAIN_SAMPLES * world / times[-1],
+                  "launches": {n: kernels[n].launches for n in ("separable_attention",
+                                                                "separable_attention_bwd")},
+                  "checkpoint": os.path.join(trainer.save_dir, "checkpoint_last.pt"),
+                  "backend": torch.distributed.get_backend() if world > 1 or
+                  parallel.is_initialized() else "none"}
+        trainer = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        if parallel.is_master():
+            with open(os.path.join(out_dir, f"{mode}.json"), "w") as f:
+                json.dump(record, f)
+        if mode == "nccl":
+            labels = list(DDP_PATHS) if world > 1 else ["MobileViTv2-1.0"]
+            ddp_checks(labels, card, os.path.join(out_dir, "nccl_checks.json"))
+
+    parallel.launch(run, get_training_arguments(args=args), None)
+    return 0
+
+
+def phase_ddp(card: str, one_process_img_s: float = None) -> dict:
+    """Phase 25, data parallelism: (a) the flagship's ``main_train`` under
+    ``torchrun`` over every card (NCCL), its img/s beside the one-process
+    route's (``one_process_img_s``, phase 6c's in the whole run; a process of
+    its own under ``--ddp``), its launches, and its rank-0 checkpoint loaded
+    into a one-card model; (c) in that group, ``ddp_checks`` over NCCL (at
+    one card the flagship alone, where nothing crosses ranks); (b) two gloo
+    ranks on card 0 (NCCL refuses two ranks on one card), ``ddp_checks`` for
+    the flagship at 64 a rank, CLIP ViT-B/16 at 16 (the MHA kernels and the
+    contrastive all-gather) and DeepLabv3 at 4 × 512² (the seg-CE kernels and
+    the global valid-pixel count). Returns the launches by path."""
+    import tempfile
+
+    import torch
+
+    from cvnets_tpu_torch import parallel
+    from cvnets_tpu_torch.models import get_model
+    from cvnets_tpu_torch.options.opts import get_training_arguments
+
+    n_cards = torch.cuda.device_count()
+    paths = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        env = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
+        script = os.path.abspath(__file__)
+        if one_process_img_s is None:
+            subprocess.run([sys.executable, script, "--ddp-worker", "single", tmp, card],
+                           env=env, check=True, timeout=DDP_TIMEOUT_S)
+            with open(os.path.join(tmp, "single.json")) as f:
+                one_process_img_s = json.load(f)["img_s"]
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                        f"--nproc-per-node={n_cards}", script, "--ddp-worker", "nccl", tmp,
+                        card],
+                       env=env, check=True, timeout=DDP_TIMEOUT_S)
+        torchrun_s = time.perf_counter() - t0
+        with open(os.path.join(tmp, "nccl.json")) as f:
+            rec = json.load(f)
+        per_step = sum(SEP_FLAGSHIP[1].values())
+        check(rec["world"] == n_cards and rec["backend"] == "nccl",
+              f"ddp: torchrun ran world {rec['world']} over {rec['backend']}")
+        check(rec["launches"]["separable_attention_bwd"] == per_step * rec["steps"]
+              and rec["launches"]["separable_attention"] >= per_step * rec["steps"],
+              f"ddp: torchrun main_train launches {rec['launches']} in {rec['steps']} steps")
+        opts = get_training_arguments(args=MAIN_TRAIN_ARGS)
+        model = get_model(opts)
+        model.load_state_dict(torch.load(rec["checkpoint"], map_location="cpu",
+                                         weights_only=True))
+        with torch.no_grad():
+            logits = model.eval()(torch.rand(2, 3, 256, 256, device="cuda"))
+        check(tuple(logits.shape) == (2, 1000) and bool(torch.isfinite(logits).all()),
+              "ddp: the torchrun checkpoint in a one-card model")
+        del model, logits
+        print(f"ddp: (a) MobileViTv2-1.0 main_train under torchrun over NCCL at world "
+              f"{rec['world']}, 128 x 256^2 bf16 a card: img_s={rec['img_s']:.1f} over epoch 2 "
+              f"beside the one-process route's {one_process_img_s:.1f} (ratio "
+              f"{rec['img_s'] / one_process_img_s:.3f}); {rec['steps']} steps, separable "
+              f"launches {rec['launches']} ({per_step} + {per_step} a step, and the eval "
+              f"forwards'); rank 0's checkpoint loads into a one-card model; the command "
+              f"took {torchrun_s:.1f} s | {card}", flush=True)
+        with open(os.path.join(tmp, "nccl_checks.json")) as f:
+            nccl = json.load(f)
+        print(f"ddp: (c) NCCL checks ran at world {nccl['world']} ({n_cards} card(s)): "
+              f"{sorted(nccl['paths'])} | {card}", flush=True)
+        paths["separable_attention"] = {
+            f"MobileViTv2-1.0 main_train torchrun NCCL world {rec['world']}":
+                rec["launches"]["separable_attention"]}
+        paths["separable_attention_bwd"] = {
+            f"MobileViTv2-1.0 main_train torchrun NCCL world {rec['world']}":
+                rec["launches"]["separable_attention_bwd"]}
+
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        parallel.spawn(_ddp_gloo_rank, 2, (os.path.join(tmp, "store"), tmp, card),
+                       timeout_s=DDP_TIMEOUT_S)
+        gloo_s = time.perf_counter() - t0
+        with open(os.path.join(tmp, "gloo.json")) as f:
+            gloo = json.load(f)
+        check(gloo["world"] == 2 and gloo["backend"] == "gloo" and
+              sorted(gloo["paths"]) == sorted(DDP_PATHS), f"ddp: gloo record {gloo}")
+        for label, path in gloo["paths"].items():
+            for r, launches in enumerate(path["launches_by_rank"]):
+                print(f"ddp: (b) gloo world 2 on card 0, rank {r}: {label} launches "
+                      f"{launches} in {DDP_STEPS} steps | {card}", flush=True)
+                for name, n in launches.items():
+                    paths.setdefault(name, {})[f"{label} gloo world 2 rank {r}"] = n
+        print(f"ddp: (b) the two gloo ranks and rank 0's one-process references took "
+              f"{gloo_s:.1f} s | {card}", flush=True)
+    return paths
+
+
 def main(argv) -> int:
     import torch
 
-    if argv not in ([], ["--deeplab"], ["--segmentation"], ["--families"], ["--clip"],
-                    ["--range-augment"], ["--byteformer"], ["--mask-rcnn"], ["--serving"],
-                    *([flag] for flag in REST_FLAGS)):
+    worker = len(argv) == 4 and argv[0] == "--ddp-worker" and argv[1] in ("nccl", "single")
+    if not worker and argv not in (
+            [], ["--deeplab"], ["--segmentation"], ["--families"], ["--clip"],
+            ["--range-augment"], ["--byteformer"], ["--mask-rcnn"], ["--serving"], ["--ddp"],
+            *([flag] for flag in REST_FLAGS)):
         print(f"chip_smoke: unknown arguments {argv}; usage: chip_smoke.py "
               "[--deeplab | --segmentation | --families | --clip | --range-augment | "
               "--byteformer | --mask-rcnn | --vit-segmentation | --moe | --video | "
-              "--serving]", file=sys.stderr)
+              "--serving | --ddp]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if worker:  # phase 25's own processes
+        import cvnets_tpu_torch  # noqa: F401
+
+        return ddp_worker(argv[1], argv[2], argv[3])
     import cvnets_tpu_torch  # noqa: F401  (fails here, before any output, outside the repo)
     from cvnets_tpu_torch.ops.mha_attention import mha_bwd_kernel, mha_fwd_kernel
     from cvnets_tpu_torch.ops.separable_attention import (
@@ -7649,6 +8181,10 @@ def main(argv) -> int:
         release()
         phase_pspnet(card)
         return 0
+    if argv == ["--ddp"]:
+        phase_build()
+        phase_ddp(card)
+        return 0
     phase_build()
     sep_records = phase_kernel(card)
     mha_records = phase_mha_kernel(card)
@@ -7668,7 +8204,7 @@ def main(argv) -> int:
     release()
     phase_trainer(card, bare)
     release()
-    phase_main_train(card, bare)
+    one_process_img_s = phase_main_train(card, bare)
     release()
     vit_launches, run = phase_train(
         card, "ViT-B/16", VIT_ARGS,
@@ -7725,6 +8261,8 @@ def main(argv) -> int:
     release()
     serving = phase_serving(card)
     release()
+    ddp = phase_ddp(card, one_process_img_s)
+    release()
 
     def entry(name, source, replaces, launches, record):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -7737,7 +8275,7 @@ def main(argv) -> int:
                                      "CLIP ViT-B/16": clip_launches[key],
                                      VIT_MOE: rest_launches[VIT_MOE][key],
                                      **{path: n[key] for path, n in byteformer_launches.items()},
-                                     **serving.get(key, {})},
+                                     **serving.get(key, {}), **ddp.get(key, {})},
                 "by_path": {path: r[part] for path, r in byteformer_records.items()}}
 
     def sep_entry(name, replaces, part):  # the flagship's, the finetune's, Mask R-CNN A's
@@ -7747,7 +8285,7 @@ def main(argv) -> int:
                                      "MobileViTv2-2.0 384² finetune": finetune_launches[name],
                                      MASK_RCNN_A: mask_rcnn_launches[MASK_RCNN_A][name],
                                      VIDEO_V2: rest_launches[VIDEO_V2][name],
-                                     **serving.get(name, {})},
+                                     **serving.get(name, {}), **ddp.get(name, {})},
                 "by_path": {"MobileViTv2-2.0 384² finetune": finetune_records[part]}}
 
     def long_entry(name, replaces, key, record):  # ViT-B 512²'s and Mask R-CNN B's
@@ -7761,7 +8299,8 @@ def main(argv) -> int:
         return {**entry(name, "cvnets_tpu_torch/csrc/seg_ce.cu", replaces, seg_launches[name],
                         record),
                 "launches_by_path": {"DeepLabv3-MobileViTv2-1.0": seg_launches[name],
-                                     **{p: rest_launches[p][name] for p in SEG_VIT_HEADS}}}
+                                     **{p: rest_launches[p][name] for p in SEG_VIT_HEADS},
+                                     **ddp.get(name, {})}}
 
     print(json.dumps({"kernels": [
         sep_entry("separable_attention", "cvnets_tpu/ops/pallas/mobilevit_attn.py:44", "fwd"),

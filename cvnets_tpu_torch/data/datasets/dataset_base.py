@@ -80,6 +80,14 @@ class BaseDataset:
                                 "set's logit projection")
         group.add_argument("--dataset.sample-efficient-training.enable",
                            action="store_true", default=False)
+        # the Trainer's defaults where unset: 0.5, every 5 epochs, from epoch 5
+        group.add_argument("--dataset.sample-efficient-training.sample-confidence",
+                           type=float, default=None)
+        group.add_argument(
+            "--dataset.sample-efficient-training.find-easy-samples-every-k-epochs",
+            type=int, default=None)
+        group.add_argument("--dataset.sample-efficient-training.min-sample-frequency",
+                           type=int, default=None)
         group.add_argument("--dataset.detection.no-background-id", action="store_true",
                            default=False,
                            help="Contiguous detection labels start at 0 (no background "

@@ -12,7 +12,13 @@ the producer or a worker is raised in the consumer.
 
 The epoch's generator is ``random.Random(f"transforms:{seed}:{epoch}")``, the
 epoch being the sampler's: an epoch's batches are the same in an unbroken run
-and in one resumed at that epoch.
+and in one resumed at that epoch. A rank other than 0 of a process group adds
+its rank to that string, so that ranks draw different crops and flips.
+
+A batch whose sampler rows end in padding (``SampledBatch.n_valid``, the rows
+that even out the ranks and fill the trailing batch) carries ``n_valid``, the
+number of its leading rows that are samples; evaluation counts only those.
+``update_indices`` hands sample-efficient training's list to the sampler.
 
 A batch the dataset can take whole through the native decoder (its
 ``_native_batch_eligible``, with a collate of ``NATIVE_BATCH_COLLATES``, those
@@ -66,6 +72,15 @@ class _OnStream:
             if isinstance(v, torch.Tensor) and v.device.type == "cuda":
                 v.record_stream(stream)
         return self.batch
+
+
+def _with_valid_rows(item, batch_tuples):
+    """``item`` with ``n_valid`` set where its sampler rows end in padding."""
+    n_valid = getattr(batch_tuples, "n_valid", None)
+    batch = item.batch if isinstance(item, _OnStream) else item
+    if n_valid is not None and n_valid < len(batch_tuples) and isinstance(batch, dict):
+        batch["n_valid"] = n_valid
+    return item
 
 
 def _one_intra_op_thread() -> None:
@@ -126,6 +141,9 @@ class CVNetsDataLoader:
     def __len__(self) -> int:
         return len(self.batch_sampler)
 
+    def update_indices(self, new_indices) -> None:
+        self.batch_sampler.update_indices(new_indices)
+
     def _fetch_batch(self, batch_tuples, rng: random.Random) -> Dict:
         if self._native(batch_tuples):
             return self._fetch_native(batch_tuples, rng)
@@ -148,7 +166,9 @@ class CVNetsDataLoader:
 
     def __iter__(self) -> Iterator[Dict]:
         out_q: "queue.Queue" = queue.Queue(maxsize=self.prefetch_factor)
-        rng = random.Random(f"transforms:{self.seed}:{getattr(self.batch_sampler, 'epoch', 0)}")
+        epoch = getattr(self.batch_sampler, "epoch", 0)
+        rank = getattr(self.batch_sampler, "rank", 0)
+        rng = random.Random(f"transforms:{self.seed}:{epoch}" + (f":{rank}" if rank else ""))
         stop = threading.Event()
 
         def producer():
@@ -156,7 +176,8 @@ class CVNetsDataLoader:
                 for batch_tuples in self.batch_sampler:
                     if stop.is_set():
                         return
-                    out_q.put(self._fetch_batch(batch_tuples, rng))
+                    out_q.put(_with_valid_rows(self._fetch_batch(batch_tuples, rng),
+                                               batch_tuples))
             except BaseException as e:  # raised again in the consumer
                 out_q.put(e)
                 return

@@ -33,4 +33,8 @@ def build_sampler(opts, n_data_samples: int, is_training: bool = False,
 
 
 # registers the ported samplers (after SAMPLER_REGISTRY exists)
-from cvnets_tpu_torch.data.sampler import batch_sampler, variable_batch_sampler  # noqa: E402,F401
+from cvnets_tpu_torch.data.sampler import (  # noqa: E402,F401
+    batch_sampler,
+    chain_sampler,
+    variable_batch_sampler,
+)

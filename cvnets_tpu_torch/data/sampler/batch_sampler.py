@@ -32,11 +32,12 @@ class BatchSampler(BaseSampler):
         return parser
 
     def __iter__(self) -> Iterator[List[Tuple[int, int, int]]]:
-        indices = self.get_indices_rank_i()
+        indices, n_valid = self.get_indices_rank_i(), self.n_valid_rank_i()
         bsz = max(1, int(self.batch_size))
         for start in range(0, len(indices), bsz):
             batch = self._pad_cyclic(indices[start: start + bsz], indices, bsz)
-            yield [(self.crop_size_h, self.crop_size_w, idx) for idx in batch]
+            yield self.batch_of([(self.crop_size_h, self.crop_size_w, idx) for idx in batch],
+                                start, n_valid)
 
     def __len__(self) -> int:
         return -(-len(self.get_indices_rank_i()) // max(1, int(self.batch_size)))

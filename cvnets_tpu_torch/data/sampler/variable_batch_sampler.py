@@ -87,15 +87,15 @@ class VariableBatchSampler(BaseSampler):
             logger.log(f"New scales: {self.img_batch_tuples}")
 
     def __iter__(self) -> Iterator[List[Tuple[int, int, int]]]:
-        indices = self.get_indices_rank_i()
+        indices, n_valid = self.get_indices_rank_i(), self.n_valid_rank_i()
         rng = random.Random(self.seed + self.epoch)
         start = 0
         while start < len(indices):
             crop_h, crop_w, bsz = rng.choice(self.img_batch_tuples)
             bsz = max(1, int(bsz))
             batch = self._pad_cyclic(indices[start: start + bsz], indices, bsz)
+            yield self.batch_of([(crop_h, crop_w, idx) for idx in batch], start, n_valid)
             start += bsz
-            yield [(crop_h, crop_w, idx) for idx in batch]
 
     def __len__(self) -> int:
         # an estimate, as in the JAX package: the batch sizes are drawn

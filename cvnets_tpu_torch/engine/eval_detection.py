@@ -151,9 +151,9 @@ def render_detections(image: np.ndarray, out: DetectionPredTuple,
 def main_detection_evaluation(opts, device: Union[str, torch.device, None] = None):
     """The mode's result: the mAPs, or the directory of the drawn images."""
     from cvnets_tpu_torch.data.data_loaders import create_test_loader
-    from cvnets_tpu_torch.main_train import device_setup
     from cvnets_tpu_torch.models import get_model
     from cvnets_tpu_torch.utils.checkpoint_utils import load_model_weights
+    from cvnets_tpu_torch.utils.common_utils import device_setup
 
     device = device_setup(opts, device)
     mode = getattr(opts, "evaluation.detection.mode", "validation_set")

@@ -136,9 +136,9 @@ def image_paths(opts, mode: str):
 def main_segmentation_evaluation(opts, device: Union[str, torch.device, None] = None):
     """The mode's result: the mIoU, or the directory of the saved predictions."""
     from cvnets_tpu_torch.data.data_loaders import create_test_loader
-    from cvnets_tpu_torch.main_train import device_setup
     from cvnets_tpu_torch.models import get_model
     from cvnets_tpu_torch.utils.checkpoint_utils import load_model_weights
+    from cvnets_tpu_torch.utils.common_utils import device_setup
 
     device = device_setup(opts, device)
     mode = getattr(opts, "evaluation.segmentation.mode", "validation_set")

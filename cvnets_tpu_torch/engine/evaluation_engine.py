@@ -10,7 +10,12 @@ their top-1 / top-5 over the test loader, the counts summed on the device and
 read back once. Under ``--common.inference-modality video`` (and for the
 video category) ``run`` takes ``eval_fn_video`` (evaluation_engine.py:72-107):
 each video's clips fold into the batch and their logits are summed or maxed
-(``train_state.make_video_eval_step``)."""
+(``train_state.make_video_eval_step``).
+
+In a process group each rank evaluates its shard of the test set (its
+sampler's), counts only the samples of each batch (``n_valid``), and the
+ranks' sums, counts and rows are gathered before the metrics are computed
+(``metrics.stats.gathered_pairs``): every sample counts once."""
 
 from __future__ import annotations
 
@@ -20,18 +25,20 @@ from typing import Dict, Optional, Union
 import torch
 import torch.nn as nn
 
+from cvnets_tpu_torch import parallel
 from cvnets_tpu_torch.engine.train_state import (
     TrainState,
     UnitNormalizer,
     batch_size,
     make_eval_step,
     make_video_eval_step,
-    to_device,
     tree_map,
+    valid_rows,
     votes_over_clips,
 )
 from cvnets_tpu_torch.layers.dtype_utils import autocast
-from cvnets_tpu_torch.metrics.stats import Statistics, add_pairs, pairs_to_host
+from cvnets_tpu_torch.metrics.stats import Statistics, add_pairs, gathered_pairs
+from cvnets_tpu_torch.parallel import device_prefetch
 from cvnets_tpu_torch.metrics.topk_accuracy import top_k_correct
 from cvnets_tpu_torch.utils import logger
 from cvnets_tpu_torch.utils.checkpoint_utils import load_file
@@ -67,15 +74,18 @@ def zero_shot_eval(opts, model: nn.Module, loader, device: torch.device,
     model.eval()
     to_unit = UnitNormalizer(opts)
     correct, n = None, 0
-    for batch in loader:
-        batch = to_device(batch, device)
+    for batch in device_prefetch(loader, device):
+        batch = valid_rows(batch)
+        if batch is None:
+            continue
         images = tree_map(to_unit, batch["samples"])
         with autocast(opts, device):
             logits = model({"image": images, "text": text_emb})["zero_shot_image_logits"]
         step = torch.stack([top_k_correct(logits, batch["targets"], k) for k in (1, 5)])
         correct = step if correct is None else correct + step
         n += batch_size(images)
-    top1, top5 = correct.tolist() if correct is not None else (0.0, 0.0)
+    local = (correct.tolist() if correct is not None else [0.0, 0.0]) + [n]
+    top1, top5, n = (sum(col) for col in zip(*parallel.all_gather_objects(local)))
     return {"top1": 100.0 * top1 / max(n, 1), "top5": 100.0 * top5 / max(n, 1)}
 
 
@@ -103,10 +113,9 @@ class Evaluator:
     def _eval(self, step, stage: str) -> Dict[str, float]:
         start = time.time()
         pairs = None
-        for batch in self.test_loader:
-            pairs = add_pairs(pairs, step(self.state, to_device(batch, self.device)))
-        if pairs is not None:
-            self.stats.update(pairs_to_host(pairs))
+        for batch in device_prefetch(self.test_loader, self.device):
+            pairs = add_pairs(pairs, step(self.state, batch))
+        self.stats.update(gathered_pairs(pairs))
         self.stats.epoch_summary(0, stage=stage)
         logger.info(f"Evaluation took {time.time() - start:.2f} seconds")
         return self.stats.avg_statistics_all()

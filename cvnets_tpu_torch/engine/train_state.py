@@ -63,6 +63,23 @@ as JAX passes ``{"loss": 0.0}``.
 A model that sets ``TAKES_GENERATOR`` (Mask R-CNN, whose samplers draw in its
 forward) gets ``generator=``, a generator on the batch's device seeded by
 (``common.seed``, step, ``DETECTION_STREAM``) each step.
+
+In a process group (``parallel``) each rank steps on its shard of the global
+batch. The gradients are averaged over the ranks once a step, after the last
+micro-batch's backward (the micro-batches before it accumulate locally, as
+DDP's ``no_sync``), so the clip, the optimizer and the EMA see the same
+gradients, and the parameters stay the same bits, on every rank. The
+BatchNorms normalize with the global batch's statistics
+(``layers/normalization.py``) and the losses that divide by a count over the
+batch divide by the global one, so the step is the JAX package's on the
+global batch. Every host and device draw of a step (augmentation, mixing,
+the augmentor, detection's samplers) is seeded by (``common.seed``, step,
+stream, rank) on a rank other than 0: ranks draw differently, where JAX
+draws once over the global batch.
+
+An eval step takes only a batch's ``n_valid`` leading rows where the batch
+carries it (the rest pad the trailing batch, ``data/sampler``): each sample
+counts once.
 """
 
 from __future__ import annotations
@@ -75,6 +92,7 @@ import torch
 import torch.nn as nn
 from torch.profiler import record_function
 
+from cvnets_tpu_torch import parallel
 from cvnets_tpu_torch.layers.dtype_utils import autocast
 from cvnets_tpu_torch.metrics.stats import Pairs
 from cvnets_tpu_torch.misc.averaging_utils import EMA
@@ -171,19 +189,15 @@ def batch_size(samples) -> int:
     return first_leaf(samples).shape[0]
 
 
-def to_device(batch, device: torch.device):
-    """A batch (a dict tree of tensors) on ``device``, each tensor copied
-    with ``non_blocking=True``: from pinned memory the copy overlaps the step."""
-    return tree_map(lambda t: t.to(device, non_blocking=True), batch)
-
-
 MIXING_STREAM, AUGMENT_STREAM, NEURAL_AUG_STREAM, DETECTION_STREAM = 0, 1, 2, 3
 OPTIMIZER_RANGE = "train_step_optimizer"
 
 
 def step_rng(seed: int, step: int, stream: int) -> np.random.Generator:
-    """The host generator of one step's draws of one stream."""
-    return np.random.default_rng([seed, step, stream])
+    """The host generator of one step's draws of one stream (and of this
+    rank, on a rank other than 0 of a process group)."""
+    rank = parallel.rank()
+    return np.random.default_rng([seed, step, stream] + ([rank] if rank else []))
 
 
 def step_generator(generators: Dict[torch.device, torch.Generator], device: torch.device,
@@ -203,6 +217,18 @@ VIDEO_BATCH_DIMS = 6  # (B, clips, T, C, H, W)
 def fold_clips(samples: torch.Tensor, targets: torch.Tensor):
     """A video batch's clips as samples, each with its video's target."""
     return samples.flatten(0, 1), targets.repeat_interleave(samples.shape[1])
+
+
+def valid_rows(batch: Dict) -> Optional[Dict]:
+    """``batch`` without the padding rows past its ``n_valid`` (each tensor of
+    its samples and targets cut to them), or None where it has none."""
+    n = batch.get("n_valid")
+    if n is None:
+        return batch
+    if n == 0:
+        return None
+    rows = lambda t: t[:n] if t.dim() else t  # noqa: E731
+    return {k: tree_map(rows, v) for k, v in batch.items() if k != "n_valid"}
 
 
 def _batch_values(metric_objs: Dict[str, Any], prediction, targets, extras) -> Pairs:
@@ -283,6 +309,7 @@ def make_train_step(model: nn.Module, criteria: Callable, opts, metric_objs: Dic
         if accum_freq > 1:
             torch._foreach_div_([p.grad for p in params if p.grad is not None],
                                 float(accum_freq))
+        parallel.sync_gradients(params)
         with record_function(OPTIMIZER_RANGE):
             grad_norm = clip_grad_norm_(params, grad_clip)
             for group in state.optimizer.param_groups:
@@ -312,6 +339,9 @@ def make_eval_step(model: nn.Module, criteria: Callable, metric_objs: Dict[str, 
     def eval_step(state: TrainState, batch: Dict) -> Pairs:
         net = state.ema.model if use_ema and state.ema is not None else model
         net.eval()
+        batch = valid_rows(batch)
+        if batch is None:
+            return {}
         samples, targets = tree_map(to_unit, batch["samples"]), _labels(batch["targets"])
         with autocast(opts, first_leaf(samples).device):
             prediction = net(samples)
@@ -344,6 +374,9 @@ def make_video_eval_step(model: nn.Module, metric_objs: Dict[str, Any], use_ema:
     def eval_step(state: TrainState, batch: Dict) -> Pairs:
         net = state.ema.model if use_ema and state.ema is not None else model
         net.eval()
+        batch = valid_rows(batch)
+        if batch is None:
+            return {}
         samples, targets = to_unit(batch["samples"]), _labels(batch["targets"])
         b, n_clips = samples.shape[:2]
         with autocast(opts, samples.device):

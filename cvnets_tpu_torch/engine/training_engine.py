@@ -10,8 +10,8 @@ the epoch-end checkpoints, and auto-resume when the Trainer is built.
 
 Batches are dicts of tensors (``samples``, ``targets``; samples may be a
 dict themselves, CLIP's image and text), moved to the Trainer's device by
-``train_state.to_device`` with ``non_blocking=True``: a loader that pins its
-host memory overlaps the copy with the step. A batch counts its first leaf's
+``parallel.device_prefetch`` ahead of their step: from a loader that pins its
+host memory the copy overlaps the step. A batch counts its first leaf's
 rows. A validation dataset with ``class_caption_tokens`` (the zero-shot set
 that ``--dataset.multi-modal-img-text.zero-shot-eval`` puts in the val
 split's place) is scored by ``evaluation_engine.zero_shot_eval``. Each
@@ -24,8 +24,27 @@ JSON, which YAML reads.
 the port into the fresh model with the JAX package's scope surgery
 (``utils/checkpoint_utils.load_finetune``), before any resume.
 
-Not ported yet, and refused when asked for: sample-efficient training and
-the profiler trace (each error names its ROADMAP.md item). Also refused: an ``iou`` in ``stats.train`` of a segmentation model that
+Sample-efficient training (``--dataset.sample-efficient-training.*``,
+training_engine.py:79-94, 375-421): every ``find-easy-samples-every-k-epochs``
+epochs from ``min-sample-frequency`` on, an eval-mode pass over the train
+loader finds the samples whose class the model predicts with a true-class
+probability of at least ``sample-confidence``; a sample found so twice leaves
+the sampler's list, unless that would leave fewer than max(16, a tenth).
+
+In a process group (``parallel``) each rank trains on its shard of every
+batch; the Trainer's summaries, log writers and checkpoints are the master's
+(rank 0) alone, every rank keeps the same best metric, the others wait at a
+barrier before a resume reads, and after the resume every rank takes rank
+0's model and EMA. The metrics' pairs are added over the ranks at each read
+(``metrics.stats.gathered_pairs``). Sample-efficient training scores each
+rank's shard and takes the union of the ranks' easy samples, so every
+rank's sampler drops the same ones.
+
+``--common.tensorboard-logging`` writes each epoch's summaries through
+``engine/utils.get_log_writers`` on the master.
+
+Not ported yet, and refused when asked for: the profiler trace (its error
+names its ROADMAP.md item). Also refused: an ``iou`` in ``stats.train`` of a segmentation model that
 returns head-resolution logits in training (the default, for the fused
 resize + CE); they would be compared with full-size masks (in the JAX package
 that crashes). ``--model.segmentation.upsample-train-logits`` makes it train.
@@ -41,18 +60,22 @@ from typing import Dict, Optional, Union
 import torch
 import torch.nn as nn
 
+from cvnets_tpu_torch import parallel
 from cvnets_tpu_torch.engine.train_state import (
+    UnitNormalizer,
     batch_size,
     create_train_state,
     make_eval_step,
     make_train_step,
     make_video_eval_step,
-    to_device,
+    valid_rows,
     votes_over_clips,
 )
+from cvnets_tpu_torch.engine.utils import get_log_writers, log_metrics
+from cvnets_tpu_torch.layers.dtype_utils import autocast
 from cvnets_tpu_torch.layers.normalization import AdjustBatchNormMomentum
 from cvnets_tpu_torch.metrics import METRICS_REGISTRY, build_metrics
-from cvnets_tpu_torch.metrics.stats import Statistics, add_pairs, pairs_to_host
+from cvnets_tpu_torch.metrics.stats import Statistics, add_pairs, gathered_pairs
 from cvnets_tpu_torch.ops.image_ops import build_device_augmenter
 from cvnets_tpu_torch.ops.mixing import build_mixing_fn
 from cvnets_tpu_torch.optim import build_optimizer
@@ -63,13 +86,12 @@ from cvnets_tpu_torch.utils.checkpoint_utils import (
     load_checkpoint,
     load_finetune,
 )
+from cvnets_tpu_torch.utils.common_utils import create_directories
 
 DEFAULT_LOG_FREQ = 100
 
 # (flag dest, what it needs) of the features the Trainer refuses
 _UNPORTED = (
-    ("dataset.sample_efficient_training.enable",
-     "sample-efficient training (ROADMAP.md queue 1 item 13)"),
     ("common.profile_trace_dir",
      "the profiler trace waits for the port bench (ROADMAP.md queue 1 item 1)"),
 )
@@ -112,6 +134,18 @@ class Trainer:
         self.ckpt_metric_name = getattr(opts, "stats.checkpoint_metric", "loss")
         self.generator = torch.Generator(self.device).manual_seed(
             getattr(opts, "common.seed", 0) or 0)
+        self.is_master_node = parallel.is_master()
+
+        def _set_cfg(key: str, default):
+            value = getattr(opts, f"dataset.sample_efficient_training.{key}", None)
+            return default if value is None else value
+
+        self.set_enabled = bool(getattr(opts, "dataset.sample_efficient_training.enable",
+                                        False))
+        self.set_confidence = _set_cfg("sample_confidence", 0.5)
+        self.set_every_k = _set_cfg("find_easy_samples_every_k_epochs", 5)
+        self.set_min_epochs = _set_cfg("min_sample_frequency", 5)
+        self._easy_counts: Dict[int, int] = {}
 
         self.scheduler = build_scheduler(opts)
         self.adjust_norm_mom = None
@@ -127,15 +161,22 @@ class Trainer:
 
         self.save_dir = os.path.join(getattr(opts, "common.results_loc", "results"),
                                      getattr(opts, "common.run_label", "run_1"))
-        self.ckpt_manager = CheckpointManager(opts, self.save_dir)
-        with open(os.path.join(self.save_dir, "config.yaml"), "w") as f:
-            json.dump({k: v for k, v in sorted(vars(opts).items())
-                       if isinstance(v, (str, int, float, bool, list, type(None)))},
-                      f, indent=1)
+        create_directories(self.save_dir, self.is_master_node)  # the others wait for it
+        self.ckpt_manager = CheckpointManager(opts, self.save_dir, self.is_master_node)
+        if self.is_master_node:
+            with open(os.path.join(self.save_dir, "config.yaml"), "w") as f:
+                json.dump({k: v for k, v in sorted(vars(opts).items())
+                           if isinstance(v, (str, int, float, bool, list, type(None)))},
+                          f, indent=1)
         self.start_epoch, self.train_iterations, best = load_checkpoint(
             opts, self.state, self.save_dir, self.generator)
         if best is not None:
             self.ckpt_manager.best_metric = best
+        parallel.broadcast_module_(model)
+        if self.state.ema is not None:
+            parallel.broadcast_module_(self.state.ema.model)
+        self.log_writers = (get_log_writers(opts, self.save_dir) if self.is_master_node
+                            else [])
 
         train_metrics = build_metrics(opts, self.train_metric_names)
         val_metrics = build_metrics(opts, self.val_metric_names)
@@ -158,8 +199,8 @@ class Trainer:
 
     def read_back(self, stats: Statistics, pairs, load_time: float) -> None:
         """The host's only wait on the device inside an epoch: one copy of the
-        summed (sum, count) pairs."""
-        stats.update(pairs_to_host(pairs), batch_load_time=load_time)
+        summed (sum, count) pairs, added over the ranks."""
+        stats.update(gathered_pairs(pairs), batch_load_time=load_time)
 
     def train_epoch(self, epoch: int) -> Dict[str, float]:
         stats = Statistics(self.opts, self.train_metric_names)
@@ -171,7 +212,7 @@ class Trainer:
         sampler = getattr(self.train_loader, "batch_sampler", None)
         total_samples = getattr(sampler, "n_samples_per_replica", None) \
             or getattr(sampler, "n_samples", None) or 0
-        for batch in self.train_loader:
+        for batch in parallel.device_prefetch(self.train_loader, self.device):
             load_time += time.time() - batch_start
             if self.train_iterations >= self.max_iterations:
                 break
@@ -179,7 +220,6 @@ class Trainer:
             bn_momentum = None
             if self.adjust_norm_mom is not None:
                 bn_momentum = self.adjust_norm_mom.get_momentum(epoch, self.train_iterations)
-            batch = to_device(batch, self.device)
             self.state, step_pairs = step_fn(self.state, batch, lr, epoch, bn_momentum)
             pairs = add_pairs(pairs, step_pairs)
             samples_seen += batch_size(batch["samples"])
@@ -210,25 +250,76 @@ class Trainer:
         stats = Statistics(self.opts, self.val_metric_names)
         step = self._eval_step_ema if use_ema else self._eval_step
         pairs = None
-        for batch in self.val_loader:
-            pairs = add_pairs(pairs, step(self.state, to_device(batch, self.device)))
-        if pairs is not None:
-            stats.update(pairs_to_host(pairs))
+        for batch in parallel.device_prefetch(self.val_loader, self.device):
+            pairs = add_pairs(pairs, step(self.state, batch))
+        stats.update(gathered_pairs(pairs))
         stats.epoch_summary(epoch, stage="validation (EMA)" if use_ema else "validation")
         return stats.avg_statistics_all()
+
+    @torch.no_grad()
+    def easy_sample_ids(self) -> set:
+        """The ids of the samples of this epoch's train batches whose class the
+        model predicts with a true-class probability of at least
+        ``sample_confidence`` (eval mode, each batch's valid rows, its samples
+        normalized as an eval step's where JAX's pass feeds them raw), as a
+        union over the ranks."""
+        model, to_unit = self.model, UnitNormalizer(self.opts)
+        model.eval()
+        easy = set()
+        for batch in parallel.device_prefetch(self.train_loader, self.device):
+            batch = valid_rows(batch)
+            if batch is None or "sample_id" not in batch:
+                continue
+            targets = batch["targets"]
+            with autocast(self.opts, self.device):
+                logits = model(to_unit(batch["samples"]))
+            if isinstance(logits, dict):
+                logits = logits.get("logits", next(iter(logits.values())))
+            probs = torch.softmax(logits.float(), dim=-1)
+            p_true = probs.gather(1, targets.clamp(min=0)[:, None])[:, 0]
+            hit = (logits.argmax(dim=-1) == targets) & (p_true >= self.set_confidence)
+            easy.update(batch["sample_id"][hit].tolist())
+        return set().union(*parallel.all_gather_objects(sorted(easy)))
+
+    def find_easy_samples(self, epoch: int) -> None:
+        """Drop the samples found easy twice from the sampler's list
+        (training_engine.py:375-421), the same on every rank."""
+        easy = self.easy_sample_ids()
+        for sid in easy:
+            self._easy_counts[sid] = self._easy_counts.get(sid, 0) + 1
+        skip = {s for s, n in self._easy_counts.items() if n >= 2}
+        logger.info(f"Sample-efficient training: {len(easy)} easy samples at epoch {epoch}, "
+                    f"{len(skip)} of them easy twice")
+        if not skip:
+            return
+        sampler = self.train_loader.batch_sampler
+        current = getattr(sampler, "img_indices", None)
+        all_ids = set(current) if current is not None else set(range(sampler.n_data_samples))
+        keep = sorted(all_ids - skip)
+        if len(keep) < max(16, len(all_ids) // 10):
+            return  # never drop (almost) everything
+        self.train_loader.update_indices(keep)
+        logger.info(f"Sample-efficient training: skipping {len(skip)} easy samples from "
+                    f"epoch {epoch + 1} ({len(keep)} remain)")
 
     def run(self) -> None:
         for epoch in range(self.start_epoch, self.max_epochs):
             if self.train_sampler is not None:
                 self.train_sampler.set_epoch(epoch)
-                self.train_sampler.update_scales(epoch, is_master_node=True)
+                self.train_sampler.update_scales(epoch, is_master_node=self.is_master_node)
             train_stats = self.train_epoch(epoch)
+            if (self.set_enabled and epoch >= self.set_min_epochs
+                    and (epoch + 1) % self.set_every_k == 0):
+                self.find_easy_samples(epoch)
             if train_stats:
                 summary = " || ".join(f"{k}: {v:.4f}" for k, v in train_stats.items())
                 logger.log(f"*** Training summary for epoch {epoch}: {summary}")
+                log_metrics(self.log_writers, train_stats, epoch, prefix="train/")
             val_stats = self.val_epoch(epoch)
+            log_metrics(self.log_writers, val_stats, epoch, prefix="val/")
             if self.ema_enabled:
-                self.val_epoch(epoch, use_ema=True)
+                log_metrics(self.log_writers, self.val_epoch(epoch, use_ema=True), epoch,
+                            prefix="val_ema/")
                 if epoch == self.ema_copy_at_epoch:
                     self.model.load_state_dict(self.state.ema.model.state_dict())
                     logger.info(f"Copied EMA weights into model at epoch {epoch}")
@@ -240,4 +331,6 @@ class Trainer:
             if self.train_iterations >= self.max_iterations:
                 logger.info("Max iterations reached; stopping.")
                 break
+        for writer in self.log_writers:
+            writer.close()
         logger.info("Training completed.")

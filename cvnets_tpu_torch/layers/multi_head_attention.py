@@ -26,6 +26,7 @@ import torch.nn as nn
 from torch.profiler import record_function
 
 from cvnets_tpu_torch.ops.mha_attention import fused_attention_eligible, fused_mha_attention
+from cvnets_tpu_torch.parallel.mesh import MODEL_PARALLEL_ITEM
 from cvnets_tpu_torch.quantization import quant_linear
 
 EINSUM_ROUTE = "mha_einsum_route"
@@ -38,7 +39,9 @@ class MultiHeadAttention(nn.Module):
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} must be divisible by num_heads {num_heads}")
         if getattr(opts, "dev.sequence_parallel", False):
-            raise NotImplementedError("--dev.sequence_parallel is not ported to the PyTorch MHA")
+            raise NotImplementedError(
+                f"--dev.sequence-parallel (ring attention) is not ported: it waits for "
+                f"{MODEL_PARALLEL_ITEM}")
         self.embed_dim, self.num_heads = embed_dim, num_heads
         self.qkv_proj = quant_linear(opts, embed_dim, 3 * embed_dim, bias=bias)
         self.out_proj = quant_linear(opts, embed_dim, embed_dim, bias=bias)

@@ -24,6 +24,21 @@
   mode too and never updates them; ``build_optimizer`` leaves the norms'
   scales and biases out (``NORM_PARAM_FREEZE_REGEX``).
 
+In a process group of more than one rank (``parallel``) every BatchNorm in
+train mode, ``batch_norm`` as well as ``sync_batch_norm``, normalizes with the
+global batch's statistics, as the JAX package's jit over a data-sharded batch
+computes them (the reference syncs ``sync_batch_norm`` only):
+``_SyncedBatchNorm`` gathers each rank's (count, mean, Σ(x − mean)²) a
+channel in its forward and combines them (Chan's formula: the global mean
+and biased variance, as flax's BatchNorm takes them, without the
+cancellation of E[x²] − E[x]² in float32, which left the logits of a micro
+MobileViTv2 1.2e-4 from JAX's where one process's BN stays within 1e-4),
+all-reduces (Σ dy, Σ dy·x̂) in its backward, and updates the running
+statistics from the global ones. Frozen BN, eval mode and one process do
+not sync.
+(``torch.nn.SyncBatchNorm`` takes CUDA tensors only, so the CPU tests could
+not hold it against JAX.)
+
 Both compute in float32 and return the compute dtype, as JAX's do with
 ``dtype=compute_dtype(opts)``: the autocast dtype under autocast, else the
 input's dtype. Swin builds plain ``nn.LayerNorm``s, which stay float32 as its
@@ -40,6 +55,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from cvnets_tpu_torch import parallel
 from cvnets_tpu_torch.utils import logger
 
 BATCH_NORMS = ("batch_norm", "batch_norm_2d", "sync_batch_norm")
@@ -75,11 +91,120 @@ class LayerNormFP32(LayerNorm):
         return F.layer_norm(x.float(), self.normalized_shape, self.weight, self.bias, self.eps)
 
 
-class BatchNorm2dFP32(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` on a float32 copy of its input: float32 out."""
+class _SyncedBatchNorm(torch.autograd.Function):
+    """Train-mode batch norm over the global batch of a process group."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, running_mean, running_var, num_batches_tracked,
+                momentum, eps: float, bessel: bool):
+        c = x.shape[1]
+        dims = [0] + list(range(2, x.dim()))
+        shape = [1, c] + [1] * (x.dim() - 2)
+        xf = x.float()
+        var_r, mean_r = torch.var_mean(xf, dims, correction=0)
+        n_r = x.numel() // c
+        parts = torch.stack(parallel.all_gather(
+            torch.cat([mean_r, var_r * n_r, xf.new_full((1,), n_r)])))  # (ranks, 2C + 1)
+        counts = parts[:, 2 * c:]
+        n = counts.sum()
+        mean = (parts[:, :c] * counts).sum(0) / n
+        # Chan's combination of the ranks' (count, mean, Σ(x - mean)²)
+        var = (parts[:, c:2 * c].sum(0) + (counts * (parts[:, :c] - mean) ** 2).sum(0)) / n
+        invstd = torch.rsqrt(var + eps)
+        if running_mean is not None:
+            num_batches_tracked.add_(1)
+            m = 1.0 / float(num_batches_tracked) if momentum is None else momentum
+            unbiased = var * n / (n - 1).clamp(min=1.0) if bessel else var
+            running_mean.mul_(1 - m).add_(mean, alpha=m)
+            running_var.mul_(1 - m).add_(unbiased, alpha=m)
+        y = (xf - mean.view(shape)) * invstd.view(shape)
+        if weight is not None:
+            y = y * weight.float().view(shape) + bias.float().view(shape)
+        ctx.save_for_backward(x, weight, mean, invstd, n)
+        return y.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, weight, mean, invstd, n = ctx.saved_tensors
+        c = x.shape[1]
+        dims = [0] + list(range(2, x.dim()))
+        shape = [1, c] + [1] * (x.dim() - 2)
+        dy = g.float()
+        xhat = (x.float() - mean.view(shape)) * invstd.view(shape)
+        sum_dy, sum_dy_xhat = dy.sum(dims), (dy * xhat).sum(dims)
+        red = parallel.all_reduce_(torch.cat([sum_dy, sum_dy_xhat]))
+        scale = invstd if weight is None else invstd * weight.float()
+        dx = (dy - (red[:c] / n).view(shape) - xhat * (red[c:] / n).view(shape)) \
+            * scale.view(shape)
+        dw = db = None
+        if weight is not None:
+            dw, db = sum_dy_xhat.to(weight.dtype), sum_dy.to(weight.dtype)
+        return dx.to(x.dtype), dw, db, None, None, None, None, None, None
+
+
+def _sync_batch_norm(bn: nn.modules.batchnorm._BatchNorm, x: torch.Tensor,
+                     bessel: bool = True) -> torch.Tensor:
+    tracking = bn.track_running_stats and bn.running_mean is not None
+    return _SyncedBatchNorm.apply(
+        x, bn.weight, bn.bias, bn.running_mean if tracking else None,
+        bn.running_var if tracking else None, bn.num_batches_tracked if tracking else None,
+        bn.momentum, bn.eps, bessel)
+
+
+class _GlobalBatchStats:
+    """A BatchNorm that takes the global batch's statistics in train mode in a
+    process group of more than one rank."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.training and parallel.world_size() > 1:
+            self._check_input_dim(x)
+            return _sync_batch_norm(self, x)
+        return super().forward(x)
+
+
+class BatchNorm1d(_GlobalBatchStats, nn.BatchNorm1d):
+    pass
+
+
+class BatchNorm2d(_GlobalBatchStats, nn.BatchNorm2d):
+    pass
+
+
+class BatchNorm3d(_GlobalBatchStats, nn.BatchNorm3d):
+    pass
+
+
+class BatchNorm2dFP32(BatchNorm2d):
+    """``BatchNorm2d`` on a float32 copy of its input: float32 out."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return super().forward(x.float())
+
+
+class BiasedVarBatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` whose running variance tracks the biased batch
+    variance: a stock flax ``nn.BatchNorm`` in the JAX package (MobileOne's
+    skip branch, mobileone_block.py:43-46, and FastViT's), not its
+    torch-convention BN. The forward and its gradient are BatchNorm's own, in
+    one pass over the batch; in a process group, the synced one's."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        if parallel.world_size() > 1:
+            return _sync_batch_norm(self, x, bessel=False)
+        m = self.momentum
+        # the backward keeps the running variance it was given: a copy, C floats
+        running_var = self.running_var.clone()
+        out, _, invstd = torch.native_batch_norm(x, self.weight, self.bias, self.running_mean,
+                                                 running_var, True, m, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            # the update took m · var · n / (n - 1): take m · var / (n - 1) back
+            var = invstd.pow(-2).sub_(self.eps)
+            self.running_var.copy_(running_var.sub(var, alpha=m / max(n - 1, 1)))
+            self.num_batches_tracked.add_(1)
+        return out
 
 
 class _Frozen:
@@ -140,14 +265,14 @@ def get_normalization_layer(opts, num_features: int,
     norm_type = (norm_type or "batch_norm").lower()
     momentum = getattr(opts, "model.normalization.momentum", 0.1)
     momentum = 0.1 if momentum is None else momentum
-    # on one device sync-BN is plain BN, as under GSPMD in the JAX package
+    # every BN syncs in a process group (see the docstring), sync_batch_norm too
     if getattr(opts, "model.normalization.frozen", False):
         batch_norm = {**dict.fromkeys(BATCH_NORMS, FrozenBatchNorm2d),
                       "batch_norm_1d": FrozenBatchNorm1d, "batch_norm_3d": FrozenBatchNorm3d,
                       "sync_batch_norm_fp32": FrozenBatchNorm2dFP32}.get(norm_type)
     else:
-        batch_norm = {**dict.fromkeys(BATCH_NORMS, nn.BatchNorm2d),
-                      "batch_norm_1d": nn.BatchNorm1d, "batch_norm_3d": nn.BatchNorm3d,
+        batch_norm = {**dict.fromkeys(BATCH_NORMS, BatchNorm2d),
+                      "batch_norm_1d": BatchNorm1d, "batch_norm_3d": BatchNorm3d,
                       "sync_batch_norm_fp32": BatchNorm2dFP32}.get(norm_type)
     if batch_norm is not None:
         return batch_norm(num_features, eps=eps, momentum=momentum)

@@ -12,6 +12,12 @@ eval-mode forward computes none; its loss is a zero ``total_loss``, as the
 reference's ``MaskRCNNLoss`` returns during validation (the JAX loss raises
 there, so a JAX Mask R-CNN run with ``stats.val`` ``loss`` stops at its first
 validation).
+
+In training in a process group SSD's sum is divided by
+``parallel.mean_divisor`` of its positives, the global batch's count over the
+world size, so the step is JAX's on the global batch (the hard negatives are
+counted an image at a time, exact on a shard). Mask R-CNN's RoI losses do the
+same in the model.
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ import torch
 
 from cvnets_tpu_torch.loss import LOSS_REGISTRY
 from cvnets_tpu_torch.loss.base_criteria import BaseCriteria
+from cvnets_tpu_torch.parallel import mean_divisor
 
 
 @LOSS_REGISTRY.register(name="__base__", type="detection")
@@ -57,7 +64,7 @@ class SSDLoss(BaseDetectionCriteria):
         return parser
 
     def __call__(self, input_sample: Any, prediction: Any, target: Any,
-                 **kwargs) -> torch.Tensor:
+                 training: bool = False, **kwargs) -> torch.Tensor:
         scores = prediction["scores"].float()  # (B, P, C)
         pred_locations = prediction["boxes"].float()  # (B, P, 4)
         gt_labels = target["box_labels"]  # (B, P)
@@ -77,7 +84,7 @@ class SSDLoss(BaseDetectionCriteria):
         cls_loss = (ce * mask).sum()
         reg = smooth_l1(pred_locations, gt_locations.float()).sum(dim=-1)
         reg_loss = (reg * pos_mask).sum()
-        return (cls_loss + reg_loss) / num_pos.sum().clamp(min=1)
+        return (cls_loss + reg_loss) / mean_divisor(num_pos.sum(), training)
 
 
 @LOSS_REGISTRY.register(name="mask_rcnn_loss", type="detection")

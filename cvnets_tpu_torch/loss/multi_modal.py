@@ -7,8 +7,15 @@ entropies over images and over texts; a dict with ``total_loss``,
 embeddings, the loss is 0, as the JAX package and the reference return it,
 so a checkpoint ranked by the validation loss sees a constant, and the
 checkpoint manager's tie rule (``<=``: the later epoch wins) makes every
-epoch the best. One card holds the whole batch, so no gather across ranks
-is needed. The loss runs inside a ``torch.profiler`` range named ``LOSS_RANGE``.
+epoch the best. The loss runs inside a ``torch.profiler`` range named
+``LOSS_RANGE``.
+
+In a process group each rank gathers every rank's image and text embeddings
+with a differentiable all-gather and scores its own rows against all of
+them, its labels offset by rank · B (the reference's
+``ddp_functional_utils`` scheme). Averaged over the ranks, the loss and its
+gradient are the in-batch InfoNCE of the global batch that the JAX
+package's one program computes (multi_modal.py:4-9).
 """
 
 from __future__ import annotations
@@ -20,8 +27,10 @@ import torch
 import torch.nn.functional as F
 from torch.profiler import record_function
 
+from cvnets_tpu_torch import parallel
 from cvnets_tpu_torch.loss import LOSS_REGISTRY
 from cvnets_tpu_torch.loss.base_criteria import BaseCriteria
+from cvnets_tpu_torch.parallel import all_gather_with_grad
 
 LOSS_RANGE = "clip_contrastive_loss"
 
@@ -46,9 +55,16 @@ class ContrastiveLossClip(BaseMultiModalLoss):
             return torch.zeros((), device=image.device)
         scale = prediction.get("logit_scale", 100.0)
         with record_function(LOSS_RANGE), torch.autocast(image.device.type, enabled=False):
-            logits = (scale * image.float()) @ text.float().t()
-            labels = torch.arange(image.shape[0], device=image.device)
+            image, text = image.float(), text.float()
+            all_image, all_text = all_gather_with_grad(image), all_gather_with_grad(text)
+            labels = torch.arange(image.shape[0], device=image.device) \
+                + parallel.rank() * image.shape[0]
+            logits = (scale * image) @ all_text.t()  # this rank's images against every text
+            if parallel.world_size() > 1:  # this rank's texts against every image
+                logits_t = ((scale * all_image) @ text.t()).t()
+            else:
+                logits_t = logits.t()
             loss_i = F.cross_entropy(logits, labels)
-            loss_t = F.cross_entropy(logits.t(), labels)
+            loss_t = F.cross_entropy(logits_t, labels)
         return {"total_loss": 0.5 * (loss_i + loss_t), "image_loss": loss_i,
                 "text_loss": loss_t}

@@ -10,6 +10,13 @@ fused resize + CE (``ops/seg_ce.py``) where its kernels take the shape
 package falls back to its scan path; logits already at the labels' size take
 the plain CE (segmentation.py:76-91). ``use_kernel = False`` sends every resize
 through the unfused plain version (the kernel/plain A/B).
+
+In training in a process group both the valid-pixel count and the class
+weights' histogram are those of the global batch: each rank divides its
+pixel sum by ``parallel.mean_divisor`` of its count (the all-reduced count
+over the world size), and the class weights come from the all-reduced
+histogram, so the step is JAX's on the global batch. Evaluation divides by
+the rank's own count.
 """
 
 from __future__ import annotations
@@ -21,8 +28,9 @@ import torch
 
 from cvnets_tpu_torch.loss import LOSS_REGISTRY
 from cvnets_tpu_torch.loss.base_criteria import BaseCriteria
-from cvnets_tpu_torch.ops.seg_ce import fused_resize_ce, resize_ce_plain
+from cvnets_tpu_torch.ops.seg_ce import fused_resize_ce_sum, resize_ce_plain_sum
 from cvnets_tpu_torch.ops.seg_ce_kernel import pixel_ce, seg_ce_eligible
+from cvnets_tpu_torch.parallel import mean_divisor
 
 
 @LOSS_REGISTRY.register(name="__base__", type="segmentation")
@@ -61,27 +69,34 @@ class SegCrossEntropy(BaseSegmentationCriteria):
                            type=float, default=0.0)
         return parser
 
-    def _ce(self, logits: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-        """logits (B, C, h, w), target (B, H, W)."""
+    def _ce(self, logits: torch.Tensor, target: torch.Tensor,
+            global_batch: bool = False) -> torch.Tensor:
+        """logits (B, C, h, w), target (B, H, W); ``global_batch``: divide by
+        the global batch's count (training in a process group)."""
         _, n_classes, h, w = logits.shape
         safe = torch.where(target == self.ignore_idx, 0, target)
-        wts = self._class_weights(safe, n_classes) if self.use_class_wts else None
+        wts = (self._class_weights(safe, n_classes, global_batch=global_batch)
+               if self.use_class_wts else None)
         if tuple(logits.shape[2:]) != tuple(target.shape[1:]):
             fused = self.use_kernel and seg_ce_eligible(h, w, *target.shape[1:], n_classes)
-            fn = fused_resize_ce if fused else resize_ce_plain
-            return fn(logits.permute(0, 2, 3, 1), target, ignore_idx=self.ignore_idx,
-                      label_smoothing=self.label_smoothing, class_wts=wts)
-        loss, valid = pixel_ce(logits.permute(0, 2, 3, 1), target, wts, self.ignore_idx,
-                               self.label_smoothing)
-        return loss.sum() / valid.sum(dtype=torch.float32).clamp(min=1.0)
+            fn = fused_resize_ce_sum if fused else resize_ce_plain_sum
+            loss_sum, n_valid = fn(logits.permute(0, 2, 3, 1), target,
+                                   ignore_idx=self.ignore_idx,
+                                   label_smoothing=self.label_smoothing, class_wts=wts)
+        else:
+            loss, valid = pixel_ce(logits.permute(0, 2, 3, 1), target, wts, self.ignore_idx,
+                                   self.label_smoothing)
+            loss_sum, n_valid = loss.sum(), valid.sum(dtype=torch.float32)
+        return loss_sum / mean_divisor(n_valid, global_batch)
 
     def __call__(self, input_sample: Any, prediction: Any, target: torch.Tensor,
-                 **kwargs) -> Union[torch.Tensor, Dict[str, torch.Tensor]]:
+                 training: bool = False, **kwargs
+                 ) -> Union[torch.Tensor, Dict[str, torch.Tensor]]:
         if isinstance(prediction, dict) and "segmentation_output" in prediction:
-            main = self._ce(prediction["segmentation_output"], target)
+            main = self._ce(prediction["segmentation_output"], target, training)
             if "aux_output" in prediction:
-                aux = self._ce(prediction["aux_output"], target)
+                aux = self._ce(prediction["aux_output"], target, training)
                 return {"total_loss": main + self.aux_wt * aux, "seg_loss": main,
                         "aux_loss": aux}
             return main
-        return self._ce(prediction, target)
+        return self._ce(prediction, target, training)

@@ -28,9 +28,9 @@ from typing import List, Optional, Union
 import numpy as np
 import torch
 
-from cvnets_tpu_torch.main_train import device_setup
 from cvnets_tpu_torch.options.opts import get_benchmarking_arguments
 from cvnets_tpu_torch.utils import logger
+from cvnets_tpu_torch.utils.common_utils import device_setup
 
 
 def _sync(device: torch.device) -> None:

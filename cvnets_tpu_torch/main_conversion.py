@@ -35,10 +35,10 @@ import numpy as np
 import torch
 
 from cvnets_tpu_torch.constants import DEFAULT_IMAGE_WIDTH
-from cvnets_tpu_torch.main_train import device_setup
 from cvnets_tpu_torch.models import get_model
 from cvnets_tpu_torch.options.opts import get_conversion_arguments
 from cvnets_tpu_torch.utils import logger
+from cvnets_tpu_torch.utils.common_utils import device_setup
 
 OPS_NAMESPACE = "cvnets_tpu_torch"
 

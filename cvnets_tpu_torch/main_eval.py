@@ -15,6 +15,11 @@ CVNets checkpoint goes through ``utils/torch_checkpoint_converter.py``; under
 ``main_worker_segmentation`` and ``main_worker_detection``, the offline
 segmentation and detection evaluations (``engine/eval_segmentation.py`` and
 ``engine/eval_detection.py``, which are their command lines).
+
+``main_worker`` runs over several cards as ``main_train`` does
+(``parallel.launch``): each rank evaluates its shard of the test set and the
+metrics gather every sample once. The offline evaluations run in one
+process.
 """
 
 from __future__ import annotations
@@ -26,11 +31,12 @@ import torch
 
 from cvnets_tpu_torch.data.data_loaders import create_test_loader
 from cvnets_tpu_torch.engine import Evaluator
-from cvnets_tpu_torch.main_train import device_setup
 from cvnets_tpu_torch.models import get_model
 from cvnets_tpu_torch.options.opts import get_eval_arguments
+from cvnets_tpu_torch.parallel import launch
 from cvnets_tpu_torch.quantization import int8_inference_enabled, prequantize
 from cvnets_tpu_torch.utils.checkpoint_utils import pretrained_weights
+from cvnets_tpu_torch.utils.common_utils import device_setup
 
 
 def main(opts, device: Union[str, torch.device, None] = None, **kwargs) -> Dict[str, float]:
@@ -48,8 +54,10 @@ def main(opts, device: Union[str, torch.device, None] = None, **kwargs) -> Dict[
 
 
 def main_worker(args: Optional[List[str]] = None,
-                device: Union[str, torch.device, None] = None, **kwargs) -> Dict[str, float]:
-    return main(get_eval_arguments(args=args), device=device, **kwargs)
+                device: Union[str, torch.device, None] = None, **kwargs
+                ) -> Optional[Dict[str, float]]:
+    """The metrics, or None where the evaluation took spawned processes."""
+    return launch(main, get_eval_arguments(args=args), device)
 
 
 def main_worker_segmentation(args: Optional[List[str]] = None,

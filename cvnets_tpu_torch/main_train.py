@@ -5,15 +5,20 @@
 builds the train and val loaders (pinned batches on a CUDA device), the model,
 the loss and the ``Trainer``, and runs it on ``device``, the CUDA card unless
 the caller asks for the CPU.
+
+Over several cards it runs one process a card (``parallel.launch``):
+``--dev.num-devices N`` spawns N processes, and
+under ``torchrun --nproc-per-node N -m cvnets_tpu_torch.main_train ...`` the
+launcher's ranks are used. Each process draws the yaml's per-card batch, so
+the global batch is the recipe's. A rank that fails ends the run with a
+nonzero exit.
 """
 
 from __future__ import annotations
 
-import random
 import sys
 from typing import List, Optional, Union
 
-import numpy as np
 import torch
 
 from cvnets_tpu_torch.data.data_loaders import create_train_val_loader
@@ -21,20 +26,9 @@ from cvnets_tpu_torch.engine import Trainer
 from cvnets_tpu_torch.loss import build_loss_fn
 from cvnets_tpu_torch.models import get_model
 from cvnets_tpu_torch.options.opts import get_training_arguments
+from cvnets_tpu_torch.parallel import launch
 from cvnets_tpu_torch.utils import logger
-
-
-def device_setup(opts, device: Union[str, torch.device, None]) -> torch.device:
-    """Seed Python's, numpy's and torch's generators with ``common.seed`` and
-    return the device, which must exist."""
-    device = torch.device(device if device is not None else "cuda")
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device is available; pass device='cpu' to run on the CPU")
-    seed = getattr(opts, "common.seed", 0) or 0
-    random.seed(seed)
-    np.random.seed(seed)
-    torch.manual_seed(seed)
-    return device
+from cvnets_tpu_torch.utils.common_utils import device_setup
 
 
 def main(opts, device: Union[str, torch.device, None] = None, **kwargs) -> Trainer:
@@ -54,8 +48,9 @@ def main(opts, device: Union[str, torch.device, None] = None, **kwargs) -> Train
 
 
 def main_worker(args: Optional[List[str]] = None,
-                device: Union[str, torch.device, None] = None, **kwargs) -> Trainer:
-    return main(get_training_arguments(args=args), device=device, **kwargs)
+                device: Union[str, torch.device, None] = None, **kwargs) -> Optional[Trainer]:
+    """The Trainer after its run, or None where the run took spawned processes."""
+    return launch(main, get_training_arguments(args=args), device)
 
 
 if __name__ == "__main__":

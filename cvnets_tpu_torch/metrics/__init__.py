@@ -36,6 +36,7 @@ def build_metrics(opts, names: Iterable[str]) -> Dict[str, BaseMetric]:
 # registers the ported metrics (after METRICS_REGISTRY exists)
 from cvnets_tpu_torch.metrics import (  # noqa: E402,F401
     coco_map,
+    extra_metrics,
     intersection_over_union,
     misc,
     retrieval,

@@ -8,6 +8,12 @@ and at the end of an epoch. ``Statistics.update`` takes what it returns. A
 pair whose count is None holds rows to gather (the retrieval metrics'
 embeddings): ``add_pairs`` lists them on the device and ``pairs_to_host``
 concatenates them into its one copy.
+
+In a process group ``gathered_pairs`` reads a rank's total back and adds the
+ranks' totals on the host (the rows concatenated in rank order), so that
+every rank's ``Statistics`` see the global batch's, as the JAX package's
+one program does. Every rank calls it at the same points (the Trainer's log
+points and the ends of its epochs), with or without pairs of its own.
 """
 
 from __future__ import annotations
@@ -15,8 +21,10 @@ from __future__ import annotations
 import time
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
+from cvnets_tpu_torch import parallel
 from cvnets_tpu_torch.metrics import build_metrics
 from cvnets_tpu_torch.utils import logger
 
@@ -66,6 +74,35 @@ def pairs_to_host(pairs: Pairs) -> Dict[str, Dict[str, Tuple[object, float]]]:
         out[metric][name] = (float(value[0]) if s.dim() == 0 else value.reshape(s.shape),
                              None if count is None else float(count))
     return out
+
+
+HostPairs = Dict[str, Dict[str, Tuple[object, Optional[float]]]]
+
+
+def merge_host_pairs(parts) -> HostPairs:
+    """Host pairs added name by name: sums and counts summed, rows (count
+    None) concatenated in order."""
+    out: HostPairs = {}
+    for part in parts:
+        for metric, values in part.items():
+            dst = out.setdefault(metric, {})
+            for name, (value, count) in values.items():
+                if name not in dst:
+                    dst[name] = (value, count)
+                elif count is None:
+                    dst[name] = (np.concatenate([dst[name][0], value]), None)
+                else:
+                    dst[name] = (dst[name][0] + value, dst[name][1] + count)
+    return out
+
+
+def gathered_pairs(pairs: Optional[Pairs]) -> HostPairs:
+    """``pairs`` (None: none) read back, and added over the ranks of a
+    process group."""
+    host = pairs_to_host(pairs) if pairs is not None else {}
+    if parallel.world_size() == 1:
+        return host
+    return merge_host_pairs(parallel.all_gather_objects(host))
 
 
 class Statistics:

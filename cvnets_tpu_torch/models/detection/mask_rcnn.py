@@ -38,6 +38,7 @@ import torch.nn.functional as F
 
 from cvnets_tpu_torch.layers.conv_layer import ConvLayer2d
 from cvnets_tpu_torch.models import MODEL_REGISTRY
+from cvnets_tpu_torch.parallel import mean_divisor
 from cvnets_tpu_torch.models.detection import DetectionPredTuple
 from cvnets_tpu_torch.models.detection.base_detection import BaseDetection
 from cvnets_tpu_torch.models.detection.utils.rcnn_utils import (
@@ -104,6 +105,34 @@ def _encoder_taps(encoder: nn.Module, strides: Sequence[int]) -> List[Tuple[str,
     return [(_TAPS[s], conf[f"layer{_TAPS[s][-1]}"]["out"]) for s in strides
             if s in _TAPS and f"layer{_TAPS[s][-1]}" in conf]
 
+
+
+def roi_box_losses(scores: torch.Tensor, deltas: torch.Tensor, labels: torch.Tensor,
+                   reg_targets: torch.Tensor, pos: torch.Tensor, valid: torch.Tensor
+                   ) -> Dict[str, torch.Tensor]:
+    """The box head's classifier CE over the valid sampled RoIs and its
+    smooth-L1 over the positive ones, of (B, N, C) scores and (B, N, C, 4)
+    deltas (mask_rcnn.py:310-321). Each sum is divided by the batch's count,
+    the global batch's in training in a process group
+    (``parallel.mean_divisor``), as the JAX model sees the whole batch."""
+    valid, pos = valid.float(), pos.float()
+    ce = F.cross_entropy(scores.float().flatten(0, 1), labels.flatten(),
+                         reduction="none").reshape(labels.shape)
+    sel = deltas.gather(2, labels.clamp(min=0)[..., None, None].expand(-1, -1, 1, 4))[:, :, 0]
+    reg = _smooth_l1(sel.float(), reg_targets).sum(-1)
+    return {"loss_classifier": (ce * valid).sum() / mean_divisor(valid.sum()),
+            "loss_box_reg": (reg * pos).sum() / mean_divisor(pos.sum())}
+
+
+def roi_mask_loss(logits: torch.Tensor, targets: torch.Tensor, valid: torch.Tensor
+                  ) -> torch.Tensor:
+    """The mean binary CE of each positive RoI's (28, 28) mask logits against
+    its target mask (> 0.5), over the positive RoIs (mask_rcnn.py:364-372),
+    divided by the global batch's count as ``roi_box_losses``."""
+    ls = F.binary_cross_entropy_with_logits(logits.float(), (targets > 0.5).float(),
+                                            reduction="none")
+    return ((ls.mean(dim=(-1, -2)) * valid).sum()
+            / mean_divisor(valid.sum()))
 
 @MODEL_REGISTRY.register(name="mask_rcnn", type="detection")
 class MaskRCNNDetector(BaseDetection):
@@ -220,6 +249,8 @@ class MaskRCNNDetector(BaseDetection):
                                                     reduction="none")
         reg_t = encode_boxes(anchors, gather_rows(gt_boxes, midx))
         reg_ls = _smooth_l1(deltas, reg_t).sum(-1)
+        # per-image means, then the mean over the images: exact on a rank's
+        # shard under equal per-rank batches, so no count crosses the ranks
         return {"loss_objectness": ((obj_ls * sel).sum(-1) / n_sel).mean(),
                 "loss_rpn_box_reg": ((reg_ls * pos).sum(-1) / n_sel).mean()}
 
@@ -271,13 +302,7 @@ class MaskRCNNDetector(BaseDetection):
     def _head_losses(self, fms, sampled, gt_masks, img_h) -> Dict:
         s_boxes, s_labels, s_regt, s_pos, s_valid, s_midx = sampled
         scores, deltas = self._box_head(fms, s_boxes)
-        valid, pos = s_valid.float(), s_pos.float()
-        ce = F.cross_entropy(scores.float().flatten(0, 1), s_labels.flatten(),
-                             reduction="none").reshape(s_labels.shape)
-        sel = deltas.gather(2, s_labels.clamp(min=0)[..., None, None].expand(-1, -1, 1, 4))[:, :, 0]
-        reg = _smooth_l1(sel.float(), s_regt).sum(-1)
-        losses = {"loss_classifier": (ce * valid).sum() / valid.sum().clamp(min=1.0),
-                  "loss_box_reg": (reg * pos).sum() / pos.sum().clamp(min=1.0)}
+        losses = roi_box_losses(scores, deltas, s_labels, s_regt, s_pos, s_valid)
         if self.use_mask and gt_masks is not None:
             n = s_pos.shape[1]
             score = (torch.where(s_pos, 1.0, -1.0)
@@ -287,10 +312,7 @@ class MaskRCNNDetector(BaseDetection):
             m_boxes, m_labels = gather_rows(s_boxes, take), s_labels.gather(1, take)
             logits = self._mask_logits(fms, m_boxes, m_labels)
             target = self._mask_targets(gt_masks, m_boxes, s_midx.gather(1, take), img_h)
-            ls = F.binary_cross_entropy_with_logits(logits.float(), (target > 0.5).float(),
-                                                    reduction="none")
-            losses["loss_mask"] = ((ls.mean(dim=(-1, -2)) * m_valid).sum()
-                                   / m_valid.sum().clamp(min=1.0))
+            losses["loss_mask"] = roi_mask_loss(logits, target, m_valid)
         return scores, deltas, losses
 
     # --------------------------------------------------------- detection core

@@ -19,30 +19,8 @@ import torch.nn as nn
 
 from cvnets_tpu_torch.layers.activation import build_act_layer, identity
 from cvnets_tpu_torch.layers.conv_layer import ConvLayer2d
+from cvnets_tpu_torch.layers.normalization import BiasedVarBatchNorm2d
 from cvnets_tpu_torch.modules.squeeze_excitation import SqueezeExcitation
-
-
-class BiasedVarBatchNorm2d(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` whose running variance tracks the biased batch
-    variance: the skip branch is a stock flax ``nn.BatchNorm`` in the JAX
-    package (mobileone_block.py:43-46), not its torch-convention BN. The
-    forward and its gradient are BatchNorm's own, in one pass over the batch."""
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
-            return super().forward(x)
-        m = self.momentum
-        # the backward keeps the running variance it was given: a copy, C floats
-        running_var = self.running_var.clone()
-        out, _, invstd = torch.native_batch_norm(x, self.weight, self.bias, self.running_mean,
-                                                 running_var, True, m, self.eps)
-        n = x.numel() // x.shape[1]
-        with torch.no_grad():
-            # the update took m · var · n / (n - 1): take m · var / (n - 1) back
-            var = invstd.pow(-2).sub_(self.eps)
-            self.running_var.copy_(running_var.sub(var, alpha=m / max(n - 1, 1)))
-            self.num_batches_tracked.add_(1)
-        return out
 
 
 def reparam_conv_layer(in_channels: int, out_channels: int, kernel_size: int,

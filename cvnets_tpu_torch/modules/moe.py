@@ -45,6 +45,7 @@ import torch
 import torch.nn as nn
 from torch.profiler import record_function
 
+from cvnets_tpu_torch import parallel
 from cvnets_tpu_torch.layers.activation import build_act_layer
 from cvnets_tpu_torch.layers.init_utils import init_tensor
 from cvnets_tpu_torch.layers.linear_layer import LinearLayer
@@ -130,6 +131,12 @@ class MoEFFN(nn.Module):
             nn.init.zeros_(b)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if parallel.world_size() > 1:
+            # capacity and places would come from this rank's tokens, where JAX
+            # routes the global batch: different tokens would be dropped
+            raise NotImplementedError(
+                "MoE routes the global batch; in a process group it waits for expert "
+                f"parallelism, part of {parallel.MODEL_PARALLEL_ITEM}")
         b, s, d = x.shape
         e, k = self.num_experts, self.top_k
         tokens = x.reshape(b * s, d)

@@ -49,15 +49,17 @@ def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
     return torch.einsum("Hh,bchw,Ww->bcHW", ah, x, aw)
 
 
-def fused_resize_ce(logits: torch.Tensor, target: torch.Tensor, *, ignore_idx: int = 255,
-                    label_smoothing: float = 0.0,
-                    class_wts: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Mean pixel CE of ``bilinear_resize(logits, target's (H, W))`` against
-    ``target`` (seg_ce.py:55): logits (B, h, w, C) (the JAX package's NHWC; a
-    permuted view of NCHW logits is fine), target (B, H, W) int with
-    ``ignore_idx`` holes, ``class_wts`` (C,) or None. The weighted sum is divided
-    by the *unweighted* count of valid pixels. On a CUDA tensor this runs the
-    kernels or raises; on a CPU tensor, their plain versions."""
+def fused_resize_ce_sum(logits: torch.Tensor, target: torch.Tensor, *, ignore_idx: int = 255,
+                        label_smoothing: float = 0.0,
+                        class_wts: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The pixel CE of ``bilinear_resize(logits, target's (H, W))`` against
+    ``target`` (seg_ce.py:55) as (weighted loss sum, unweighted count of valid
+    pixels), the pair the kernels produce: logits (B, h, w, C) (the JAX
+    package's NHWC; a permuted view of NCHW logits is fine), target (B, H, W)
+    int with ``ignore_idx`` holes, ``class_wts`` (C,) or None. On a CUDA
+    tensor this runs the kernels or raises; on a CPU tensor, their plain
+    versions."""
     b, h, w, c = logits.shape
     big_h, big_w = int(target.shape[1]), int(target.shape[2])
     ah = resize_matrix(big_h, h, logits.device)
@@ -72,10 +74,11 @@ def fused_resize_ce(logits: torch.Tensor, target: torch.Tensor, *, ignore_idx: i
                           float(label_smoothing))
 
 
-def resize_ce_plain(logits: torch.Tensor, target: torch.Tensor, *, ignore_idx: int = 255,
-                    label_smoothing: float = 0.0,
-                    class_wts: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The same loss unfused: the full-resolution logits are built and the CE
+def resize_ce_plain_sum(logits: torch.Tensor, target: torch.Tensor, *, ignore_idx: int = 255,
+                        label_smoothing: float = 0.0,
+                        class_wts: Optional[torch.Tensor] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The same pair unfused: the full-resolution logits are built and the CE
     runs over them, differentiable by autograd (the reference's upsample-then-CE
     path; the plain side of the kernel/plain A/B)."""
     b, h, w, c = logits.shape
@@ -84,4 +87,17 @@ def resize_ce_plain(logits: torch.Tensor, target: torch.Tensor, *, ignore_idx: i
     with torch.autocast(logits.device.type, enabled=False):
         up = torch.einsum("Hh,bhwc,Ww->bHWc", ah, logits.float(), aw)
         loss, valid = pixel_ce(up, target, class_wts, ignore_idx, float(label_smoothing))
-        return loss.sum() / valid.sum(dtype=torch.float32).clamp(min=1.0)
+        return loss.sum(), valid.sum(dtype=torch.float32)
+
+
+def fused_resize_ce(logits: torch.Tensor, target: torch.Tensor, **kwargs) -> torch.Tensor:
+    """Mean pixel CE through the kernels (``fused_resize_ce_sum``'s keywords):
+    the weighted sum over the *unweighted* count of valid pixels."""
+    loss_sum, n_valid = fused_resize_ce_sum(logits, target, **kwargs)
+    return loss_sum / n_valid.clamp(min=1.0)
+
+
+def resize_ce_plain(logits: torch.Tensor, target: torch.Tensor, **kwargs) -> torch.Tensor:
+    """The same mean unfused (``resize_ce_plain_sum``)."""
+    loss_sum, n_valid = resize_ce_plain_sum(logits, target, **kwargs)
+    return loss_sum / n_valid.clamp(min=1.0)

@@ -454,13 +454,14 @@ def seg_ce_eligible(h: int, w: int, big_h: int, big_w: int, c: int) -> bool:
 
 
 class ResizeCE(torch.autograd.Function):
-    """Mean pixel CE of the bilinear resize of ``logits`` (B, h, w, C) to the
-    labels' (H, W), given ``ah`` (H, h) and ``aw`` (W, w) (and ``ah_taps``,
+    """The pixel CE's (loss_sum, n_valid) of the bilinear resize of ``logits``
+    (B, h, w, C) to the labels' (H, W), given ``ah`` (H, h) and ``aw`` (W, w) (and ``ah_taps``,
     ``aw_taps``, the kernels' forms of them, on a CUDA tensor). Forward and
     backward are the kernels on CUDA tensors and the plain versions on CPU
     tensors. Autocast is off inside and the logits come in as float32, so
     ``A_h @ logits`` runs in float32 as the JAX package's does; the logits'
-    grad is in their dtype."""
+    grad is in their dtype. The caller divides the sum by the count it
+    chooses; ``n_valid`` has no gradient."""
 
     @staticmethod
     @torch.amp.custom_fwd(device_type="cuda", cast_inputs=torch.float32)
@@ -472,16 +473,16 @@ class ResizeCE(torch.autograd.Function):
             # float32 as it lies (autocast's cast, or this one, keeps the strides)
             loss_sum, n_valid = seg_ce_fwd_kernel(logits.float(), target, ah_taps, aw_taps,
                                                   class_wts, ignore_idx, ls)
-        n_valid = n_valid.clamp(min=1.0)
-        ctx.save_for_backward(logits, target, ah, aw, class_wts, n_valid)
+        ctx.save_for_backward(logits, target, ah, aw, class_wts)
         ctx.aw_taps, ctx.ignore_idx, ctx.ls = aw_taps, ignore_idx, ls
-        return loss_sum / n_valid
+        ctx.mark_non_differentiable(n_valid)
+        return loss_sum, n_valid
 
     @staticmethod
     @torch.amp.custom_bwd(device_type="cuda")
-    def backward(ctx, g):
-        logits, target, ah, aw, class_wts, n_valid = ctx.saved_tensors
-        scale = (g.float() / n_valid).reshape(1)
+    def backward(ctx, g, _):
+        logits, target, ah, aw, class_wts = ctx.saved_tensors
+        scale = g.float().reshape(1)
         hmid = h_interp(logits, ah)  # recomputed: cheaper than keeping it
         if logits.device.type == "cpu":
             dhm = seg_ce_bwd_plain(hmid, aw, target, class_wts, scale, ctx.ignore_idx, ctx.ls)

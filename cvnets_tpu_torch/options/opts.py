@@ -52,6 +52,9 @@ def arguments_common(parser: argparse.ArgumentParser) -> argparse.ArgumentParser
     group.add_argument("--common.k-best-checkpoints", type=int, default=5)
     group.add_argument("--common.save-all-checkpoints", action="store_true", default=False)
     group.add_argument("--common.save-interval-freq", type=int, default=0)
+    group.add_argument("--common.tensorboard-logging", action="store_true",
+                       help="Write the epoch summaries through TensorBoard's writer "
+                            "(engine/utils.py; JSONL where tensorboard is missing)")
     group.add_argument("--common.inference-modality", type=str, default="image",
                        choices=["image", "video"],
                        help="video: the evaluation votes over each video's clips")
@@ -59,6 +62,54 @@ def arguments_common(parser: argparse.ArgumentParser) -> argparse.ArgumentParser
         "--common.override-kwargs", nargs="*", action=ParseKwargs,
         help="Override config entries, e.g. sampler.bs.crop_size_width=512",
     )
+    return parser
+
+
+def arguments_dev(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """The device flags (cvnets_tpu/options/opts.py:89-131): the port runs one
+    process a card over ``--dev.num-devices`` cards (parallel/mesh.py). The
+    model-parallel flags parse and are refused (``parallel.check_options``)."""
+    group = parser.add_argument_group(title="Device arguments")
+    group.add_argument("--dev.device", type=str, default=None,
+                       help="Parsed and not read: the entry points take their device")
+    group.add_argument("--dev.num-devices", type=int, default=-1,
+                       help="Cards to train on, one process a card; -1 = every visible card")
+    group.add_argument("--dev.mesh-shape", type=int, nargs="*", default=None,
+                       help="N (data parallel over N cards); a second, model axis > 1 "
+                            "is refused (model parallelism is not ported)")
+    group.add_argument("--dev.mesh-axis-names", type=str, nargs="*", default=None)
+    group.add_argument("--dev.fsdp", action="store_true", default=False,
+                       help="Refused: FSDP waits for the model-parallel slice")
+    group.add_argument("--dev.sequence-parallel", action="store_true", default=False,
+                       help="Refused: ring attention waits for the model-parallel slice")
+    return parser
+
+
+def arguments_ddp(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
+    """The process-group flags (cvnets_tpu/options/opts.py:134-145, inert
+    there). The ``--dev.num-devices`` processes join ``--ddp.dist-url``
+    (default ``tcp://localhost:<--ddp.dist-port>``) over ``--ddp.backend``;
+    its default keeps the JAX package's value, ``xla``, which here means the
+    device's own backend, NCCL on a card and gloo on the CPU (``gloo`` is
+    taken on a card as well). Under ``torchrun`` its environment gives the
+    ranks. ``--ddp.rank``, ``--ddp.world-size``, ``--ddp.device-id``,
+    ``--ddp.find-unused-params`` and ``--ddp.use-deprecated-data-parallel``
+    parse and are not read: ``torchrun`` ranks the hosts, ``--dev.num-devices``
+    sets the process count, a rank's card is its local rank, and the
+    gradients' all-reduce (``parallel.sync_gradients``) skips parameters
+    without a gradient on every rank alike."""
+    group = parser.add_argument_group(title="DDP arguments")
+    group.add_argument("--ddp.rank", type=int, default=0)
+    group.add_argument("--ddp.world-size", type=int, default=-1)
+    group.add_argument("--ddp.dist-url", type=str, default=None)
+    group.add_argument("--ddp.dist-port", type=int, default=30786)
+    group.add_argument("--ddp.device-id", type=int, default=None)
+    group.add_argument("--ddp.backend", type=str, default="xla",
+                       help="nccl or gloo; xla (the default): nccl on a card, gloo on "
+                            "the CPU")
+    group.add_argument("--ddp.find-unused-params", action="store_true", default=False)
+    group.add_argument("--ddp.use-deprecated-data-parallel", action="store_true",
+                       default=False)
     return parser
 
 
@@ -93,6 +144,8 @@ def get_training_arguments(parse_args: bool = True, args: Optional[List[str]] = 
     parser = arguments_optimizer(parser)
     parser = arguments_scheduler(parser)
     parser = arguments_common(parser)
+    parser = arguments_dev(parser)
+    parser = arguments_ddp(parser)
     parser = arguments_stats(parser)
     if parse_args:
         return load_config_file(parser.parse_args(args))

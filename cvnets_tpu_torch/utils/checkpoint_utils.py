@@ -19,7 +19,9 @@ Files hold tensors, ints, floats, None and dicts only, so ``torch.load``'s
 ``weights_only`` reads them. Each is written under a temporary name and
 renamed, so a run stopped during a save keeps the previous file whole. The
 k-best list lives in the manager: a resumed run starts it empty, as the JAX
-package does.
+package does. In a process group only the master writes; a resume on every
+rank reads the master's file (rank 0 takes its device generator, the others
+reseed theirs from (seed, iterations, rank)).
 
 ``--common.finetune`` (and ``--common.finetune-ema``) start a run from the
 model weights of such a file with the JAX package's scope surgery
@@ -33,8 +35,10 @@ import os
 import re
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
+from cvnets_tpu_torch import parallel
 from cvnets_tpu_torch.utils import logger
 
 CHECKPOINT_EXTN = "pt"
@@ -86,14 +90,19 @@ def _set_rng_state(device: torch.device, state: torch.Tensor) -> None:
 
 
 class CheckpointManager:
-    def __init__(self, opts, save_dir: str) -> None:
+    """Writes the checkpoints on the master alone (``is_master``); every rank
+    keeps the best metric, so that all of them agree on it."""
+
+    def __init__(self, opts, save_dir: str, is_master: bool = True) -> None:
         self.save_dir = save_dir
+        self.is_master = is_master
         self.k_best = getattr(opts, "common.k_best_checkpoints", 5) or 0
         self.save_all = getattr(opts, "common.save_all_checkpoints", False)
         self.max_metric = getattr(opts, "stats.checkpoint_metric_max", False)
         self.best_metric: float = -float("inf") if self.max_metric else float("inf")
         self.k_best_scores: List[Tuple[float, str]] = []
-        os.makedirs(save_dir, exist_ok=True)
+        if is_master:
+            os.makedirs(save_dir, exist_ok=True)
 
     def path(self, name: str) -> str:
         return os.path.join(self.save_dir, f"{name}.{CHECKPOINT_EXTN}")
@@ -109,6 +118,8 @@ class CheckpointManager:
         new_best = self.is_best(ckpt_metric)
         if new_best:
             self.best_metric = ckpt_metric
+        if not self.is_master:
+            return
         model_sd = state.model.state_dict()
         ema_sd = state.ema.model.state_dict() if state.ema is not None else None
         device = next(state.model.parameters()).device
@@ -154,7 +165,9 @@ class CheckpointManager:
 
     def save_interval(self, state, iterations: int) -> None:
         """The every-N-iterations checkpoint (checkpoint_utils.py:160-166)."""
-        save_file(state.model.state_dict(), self.path(f"checkpoint_iter_{iterations}"))
+        if self.is_master:
+            save_file(state.model.state_dict(),
+                      self.path(f"checkpoint_iter_{iterations}"))
 
 
 def load_checkpoint(opts, state, save_dir: str,
@@ -178,7 +191,14 @@ def load_checkpoint(opts, state, save_dir: str,
     state.step = blob["iterations"]
     if generator is not None and blob["generator"] is not None:
         generator.set_state(blob["generator"])
-    _set_rng_state(next(state.model.parameters()).device, blob["rng"])
+    device = next(state.model.parameters()).device
+    rank = parallel.rank()
+    if rank == 0:
+        _set_rng_state(device, blob["rng"])
+    else:  # the file holds rank 0's generator: the others draw from (seed, step, rank)
+        torch.manual_seed(int(np.random.SeedSequence(
+            [getattr(opts, "common.seed", 0) or 0, blob["iterations"], rank]
+        ).generate_state(1)[0]))
     epoch = blob["epoch"] + 1
     logger.info(f"Resumed from {path}: epoch {epoch}, iteration {blob['iterations']}")
     return epoch, blob["iterations"], blob["best_metric"]

@@ -13,6 +13,16 @@ _COLORS = {"reset": "\033[0m", "red": "\033[31m", "green": "\033[32m",
            "yellow": "\033[33m", "cyan": "\033[36m"}
 
 
+_QUIET = False
+
+
+def set_quiet(quiet: bool) -> None:
+    """Silence ``log`` and ``info`` (a data-parallel rank other than the
+    master's); warnings and errors still print."""
+    global _QUIET
+    _QUIET = quiet
+
+
 def _emit(tag: str, color: str, message: Any, stream=None) -> None:
     prefix = f"{_COLORS[color]}{tag}{_COLORS['reset']}"
     print(f"{time.strftime('%Y-%m-%d %H:%M:%S')} - {prefix} - {message}",
@@ -20,11 +30,13 @@ def _emit(tag: str, color: str, message: Any, stream=None) -> None:
 
 
 def log(message: Any) -> None:
-    _emit("LOGS   ", "cyan", message)
+    if not _QUIET:
+        _emit("LOGS   ", "cyan", message)
 
 
 def info(message: Any) -> None:
-    _emit("INFO   ", "green", message)
+    if not _QUIET:
+        _emit("INFO   ", "green", message)
 
 
 def warning(message: Any) -> None:

@@ -1,6 +1,7 @@
 """The PyTorch port stands without JAX, and keeps the JAX package's flags.
 
-* ``cvnets_tpu_torch`` imports and runs CPU train steps of MobileViTv2, ViT,
+* ``cvnets_tpu_torch`` (its process-group, log-writer, chain-sampler and
+  extra-metric modules too) imports and runs CPU train steps of MobileViTv2, ViT,
   DeepLabv3, PSPNet with frozen BN, Swin, SE-ResNet-18 and MobileOne-s0 (then
   folded), one epoch of a micro MobileViTv2 ``Trainer`` (its ``config.yaml``
   dump and checkpoints), ``main_train`` for 2 epochs on chip_smoke.py's
@@ -45,6 +46,11 @@ _BLOCKED_RUN = textwrap.dedent("""
     import torch
     torch.set_num_threads(2)  # the suite's other workers share the cores
     from cvnets_tpu_torch.engine import Evaluator, Trainer
+    from cvnets_tpu_torch.engine import utils as log_writers  # noqa: F401
+    from cvnets_tpu_torch.data.sampler import chain_sampler  # noqa: F401
+    from cvnets_tpu_torch.metrics import extra_metrics  # noqa: F401
+    from cvnets_tpu_torch import parallel  # noqa: F401
+    from cvnets_tpu_torch.utils import common_utils  # noqa: F401
     from cvnets_tpu_torch.engine.train_state import create_train_state, make_train_step
     from cvnets_tpu_torch.loss import build_loss_fn
     from cvnets_tpu_torch.metrics import build_metrics

@@ -106,3 +106,38 @@ def test_image_batch_pairs_match_jax():
 
     for args in [(256, 256, 128), (224, 160, 64, 5, 32, 128, 384, 96, 256), (320, 320, 7, 3)]:
         assert port(*args) == ref(*args), args
+
+
+CHAIN = [{"task_name": "fixed", "sampler_name": "batch_sampler_ddp",
+          "bs": {"crop_size_width": 96, "crop_size_height": 80}},
+         {"task_name": "scales", "sampler_name": "variable_batch_sampler",
+          "vbs": {"crop_size_width": 128, "crop_size_height": 128, "max_n_scales": 3}}]
+
+
+@pytest.mark.parametrize("is_training", [True, False])
+@pytest.mark.parametrize("mode", ["sequential", "interleave"])
+def test_chain_sampler_gives_the_jax_lists(mode, is_training):
+    """The chain of a fixed-size and a variable-batch child, a ``_ddp`` name
+    among them, in both modes: the JAX chain's batches over epochs (its
+    children's device factor set to 1)."""
+    args = ["--dataset.train-batch-size0", "8", "--dataset.val-batch-size0", "6",
+            "--sampler.chain-sampler-mode", mode, "--common.seed", "2"]
+    opts_jax = jax_args(args=["--sampler.name", "chain_sampler"] + args)
+    opts_port = torch_args(args=["--sampler.name", "chain_sampler"] + args)
+    for opts in (opts_jax, opts_port):
+        setattr(opts, "sampler.chain_sampler", CHAIN)
+    from cvnets_tpu.data.sampler import build_sampler as jax_build
+    from cvnets_tpu_torch.data.sampler import build_sampler as port_build
+
+    ref = jax_build(opts_jax, n_data_samples=70, is_training=is_training, rank=0,
+                    num_replicas=1)
+    for child in ref.child_samplers.values():
+        child.n_device_mult = 1
+    port = port_build(opts_port, n_data_samples=70, is_training=is_training)
+    assert [type(c).__name__ for c in port.child_samplers.values()] == [
+        "BatchSampler", "VariableBatchSampler"]
+    lists = list(_epochs(ref, port, range(2)))
+    shapes = [{t[:2] for t in b} for b in lists[0]]
+    assert {(80, 96)} in shapes and len({s for shape in shapes for s in shape}) > 1
+    if mode == "interleave":  # the children take turns while both have batches
+        assert shapes[0] == {(80, 96)} and shapes[1] != {(80, 96)}

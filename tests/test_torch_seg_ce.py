@@ -590,7 +590,7 @@ PAST_LIMIT = {"taps17": (2, 5, 6, 33, 12, 4), "row_past_smem": (1, 1817, 2, 64, 
 
 @pytest.mark.parametrize("case", list(PAST_LIMIT))
 def test_seg_loss_past_a_kernel_limit_takes_the_plain_route_and_matches_jax(case, monkeypatch):
-    """With ``fused_resize_ce`` patched to fail (the dispatch is the same on the
+    """With ``fused_resize_ce_sum`` patched to fail (the dispatch is the same on the
     CPU), ``SegCrossEntropy`` computes such a shape through the unfused plain
     version: loss and d/dlogits against the JAX loss (its scan path), at the
     float32 tolerances above. An eligible shape reaches the patched entry."""
@@ -615,9 +615,9 @@ def test_seg_loss_past_a_kernel_limit_takes_the_plain_route_and_matches_jax(case
                                       "0.1"])
 
     def refuse(*args, **kwargs):
-        raise AssertionError("fused_resize_ce was called")
+        raise AssertionError("fused_resize_ce_sum was called")
 
-    monkeypatch.setattr(segmentation, "fused_resize_ce", refuse)
+    monkeypatch.setattr(segmentation, "fused_resize_ce_sum", refuse)
     criterion = segmentation.SegCrossEntropy(opts_torch)
     x = torch.from_numpy(np.ascontiguousarray(logits.transpose(0, 3, 1, 2))).requires_grad_()
     loss = criterion(None, x, torch.from_numpy(target))

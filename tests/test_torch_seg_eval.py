@@ -158,7 +158,10 @@ def test_prediction_files_match_jax(setup, mode, tmp_path):
 def test_validation_set_miou_normalizes_as_the_evaluator_and_jax(setup):
     """Under ``--image-augmentation.to-tensor.mean-std-normalization.enable``
     the offline mIoU scores the inputs the Evaluator scores (the JAX
-    ``ToFloatTensor`` normalizes every loader's samples), not [0, 1] ones."""
+    ``ToFloatTensor`` normalizes every loader's samples), not [0, 1] ones.
+    The offline mIoU counts the repeats that fill JAX's batch of 16 as JAX
+    does; the Evaluator counts each of the 5 samples once, as the offline
+    mIoU does over one batch of the 5."""
     from cvnets_tpu.data.data_loaders import create_test_loader as jax_loader
     from cvnets_tpu.engine.eval_segmentation import predict_labeled_dataset as jax_miou
     from cvnets_tpu_torch.data.data_loaders import create_test_loader
@@ -173,8 +176,10 @@ def test_validation_set_miou_normalizes_as_the_evaluator_and_jax(setup):
     setattr(opts, "dataset.eval_batch_size0", len(next(iter(loader.batch_sampler))))
     got = predict_labeled_dataset(opts, setup["model"], create_test_loader(opts), "cpu")
     stats = Evaluator(opts, setup["model"], create_test_loader(opts), device="cpu").eval_fn_image()
+    setattr(opts, "dataset.eval_batch_size0", 5)  # the set in one batch: no repeat
+    once = predict_labeled_dataset(opts, setup["model"], create_test_loader(opts), "cpu")
     unnormalized = predict_labeled_dataset(setup["opts"], setup["model"],
                                            create_test_loader(setup["opts"]), "cpu")
     assert got == pytest.approx(want, rel=1e-12)
-    assert got == pytest.approx(stats["iou"], rel=1e-9)
+    assert once == pytest.approx(stats["iou"], rel=1e-9)
     assert got != unnormalized  # the flag changes what the model sees

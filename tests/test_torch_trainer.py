@@ -394,7 +394,6 @@ def test_ema_copy_at_epoch_puts_the_ema_weights_into_the_model(tmp_path):
 
 
 @pytest.mark.parametrize("flag", [
-    "--dataset.sample-efficient-training.enable",
     "--common.profile-trace-dir=trace",
 ])
 def test_trainer_refuses_what_is_not_ported_and_names_its_roadmap_item(flag):
@@ -402,7 +401,7 @@ def test_trainer_refuses_what_is_not_ported_and_names_its_roadmap_item(flag):
     from cvnets_tpu_torch.options.opts import get_training_arguments
 
     opts = get_training_arguments(args=[flag])
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1 item (1|13)\)"):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1 item 1\)"):
         Trainer(opts, None, None, [], device="cpu")
 
 
