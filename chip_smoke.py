@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--deeplab | --segmentation | --families | --clip |
                            --range-augment | --byteformer | --mask-rcnn |
                            --vit-segmentation | --moe | --video | --serving |
-                           --ddp]
+                           --ddp | --model-parallel]
 
 ``--deeplab`` runs only phases 1, 10 and 11 (DeepLabv3's train, a/b and
 profile; about a minute) and prints neither JSON line: run in turns from two
@@ -23,7 +23,8 @@ and 22 (Mask R-CNN on both yamls); ``--vit-segmentation``, ``--moe`` and
 strides 16 and 8), ViT-B/16-MoE, and MobileViT-S spatio-temporal with its
 MobileViTv2-1.0 variant. ``--serving`` runs only phases 1, 2 and 24 in full
 and prints the last JSON line only. ``--ddp`` runs only phases 1, 2 and 25
-(data parallelism) in full and prints neither JSON line.
+(data parallelism) in full and prints neither JSON line; ``--model-parallel``
+only phases 1, 2 and 26 (model parallelism), and neither JSON line.
 
 Phases, one line each or more (any failure exits non-zero):
 
@@ -100,7 +101,7 @@ Phases, one line each or more (any failure exits non-zero):
    the card machine has no image files): 2 epochs of 4 batches of 128
    × 256² and 2 val batches of 100, through the real sampler, host transforms,
    8 loader threads, collate, pinning, device augmentation, mixing and soft-
-   target CE. First the train loader alone for two epochs (img/s on the host)
+   target CE. First the train loader alone for an epoch (img/s on the host)
    and the augmentation and mixing of a step alone (device ms by
    ``torch.profiler``). Checks finite statistics, soft targets whose rows sum
    to 1 in every train step, 9 + 9 separable launches a step and 9 an eval
@@ -132,7 +133,7 @@ Phases, one line each or more (any failure exits non-zero):
    fill 255, validation resized to 512², stats loss and iou, checkpoints ranked
    by iou, highest best) on the script's own dataset (``smoke_ade20k``: seeded
    uint8 images of about 683 × 512 and masks of raw labels 0-150 in blobs):
-   the loader alone for two epochs (img/s on the host; uint8 pinned images and
+   the loader alone for an epoch (img/s on the host; uint8 pinned images and
    masks), then 2 epochs of 3 batches of 8 × 512² and 2 val batches of 8
    (validation and EMA validation) through the real sampler, transforms, 8
    loader threads, collate, pinning and the segmentation step. Checks 2 + 2
@@ -213,7 +214,7 @@ Phases, one line each or more (any failure exits non-zero):
    kind (``NVJPEG_PILLOW_MEAN``), and nvJPEG's decode time a batch of 128 on
    1 and 8 decoding threads; (c) the damaged files' status and their slots
    replaced in place by valid ones (``fetch_batch_native``); (d) the
-   flagship's train loader alone over two epochs (32 batches), ``native``
+   flagship's train loader alone over an epoch (16 batches), ``native``
    against ``pil``, in img/s after the first batch. Then ``main_train`` for
    2 epochs (16 steps each at batch 128) with the native
    decoder on the corpus on each of the flagship's, vit.yaml's and
@@ -354,7 +355,7 @@ Phases, one line each or more (any failure exits non-zero):
    polygon masks (160 + 8 files), 2 epochs with validation, the separable
    launches counted every epoch, no host sync between log points, then
    ``main_worker_detection`` with the bbox and segm mAPs in [0, 1]; its
-   train loader alone over 2 epochs.
+   train loader alone over an epoch.
 
 23. the rest of ViT and video, the yamls' settings as flags
    (``VIT_SEG_ARGS`` / ``VIT_SEG_8_ARGS`` with ``VIT_SEG_COMPOSITE``,
@@ -429,16 +430,46 @@ Phases, one line each or more (any failure exits non-zero):
    (1e-4 of max(1, a tensor's largest value)), every gradient (1e-3 of the
    largest), and the parameters' and the EMA's moves over the steps (1e-3 of
    their L2) against them, the last two or 3 times one process's own noise
-   floor where larger (the most it moves from itself with the rows reversed,
-   halves swapped or shuffled, or with its BN through the synced BN's
-   arithmetic); for DeepLabv3 it also checks that the ranks' own valid
+   floor where larger (the most it moves from itself with the rows reversed
+   or with its BN through the synced BN's arithmetic); for DeepLabv3 it also checks that the ranks' own valid
    counts would have failed the loss bound.
+26. model parallelism (``phase_model_parallel``; ``--model-parallel``
+   alone): (a) the ring in one process (``ring_check``): ViT-B/16 512²'s
+   attention (B 8, S 1,024, H 12, D 64, float32) split into M = 2 and 4
+   q slices and kv blocks (the ring's own steps, its M ranks in lockstep in
+   one process), each pair one forward and one backward kernel launch (M² +
+   M²), merged in log-sum-exp form, against the fused kernels
+   on the whole sequence, with and without a key mask that masks every key
+   of one sample: the output to 1e-5 of max(1, |out|), dq, dk and dv to 1e-4
+   of the largest; the ring's forward + backward ms beside the whole
+   kernels'. (b) Two gloo ranks on card 0 run ``ddp_checks`` for
+   ``MP_PATHS``, each model built with 4 transformer blocks (``MP_DEPTH``;
+   the widths whole): ViT-B/16 224² at 8 a data rank under
+   ``--dev.mesh-shape 2
+   --dev.fsdp`` and under ``1 2`` (tensor parallelism), ViT-B/16 512²
+   without CLS at 4 under ``1 2 --dev.sequence-parallel`` (the ring, its
+   blocks through pinned host memory over gloo), ViT-B/16-MoE at 8 under
+   ``2`` and ``1 2`` (4 of 8 experts a rank): phase 25's float32 steps
+   against one process on the global batches, the loss and BN statistics to
+   phase 25's bounds, the worst gradient element over its own tensor's
+   largest and the moves' L2 errors to 10 times their noise floor, at least
+   1e-5 (``MP_REL``; the floor: the rows reversed; an MoE path's the
+   synced BN's arithmetic, a rerun, since its routing depends on the rows'
+   order), with each rank's state bytes (parameters, AdamW
+   moments, EMA) beside one process's, its MHA launches a step (4 + 4; 8 + 8
+   under the ring) and MoE's dropped
+   (token, round) pairs beside one process's. (c) With two cards or more,
+   the same over NCCL, a card a rank.
 
 The second-to-last line is the kernels' JSON record, one entry for each TPU
 kernel's counterpart (the ``launches_by_path`` of the separable, S ≤ 512 MHA
 and seg-CE rows also hold phase 25's paths: the flagship's ``main_train``
 under ``torchrun`` and each gloo rank's launches of the flagship, CLIP
-ViT-B/16 and DeepLabv3 checks): ``ms``/``plain_ms`` are a kernel's and its plain
+ViT-B/16 and DeepLabv3 checks; the S ≤ 512 MHA rows phase 26's: each rank's
+launches of each ``MP_PATHS`` check, the one-process references at S = 197
+and the ring's blocks in one process; the long rows its S = 1,024 ones: the
+whole kernels of (a) and the sequence-parallel path's one-process
+reference): ``ms``/``plain_ms`` are a kernel's and its plain
 version's time for one train step's launches (the separable attention's 9
 forward and 9 backward at the flagship from the per-shape bf16 medians, with
 their launches by path, the flagship's, MobileViTv2-2.0's 384² finetune's
@@ -2917,8 +2948,9 @@ def register_smoke_ade20k() -> None:
 
 
 def loader_alone(opts, check_batch, device="cuda") -> tuple:
-    """Two epochs of the train loader of ``opts`` with pinned batches (a native
-    route's on ``device``) and no step on the card; ``check_batch`` checks
+    """An epoch of the train loader of ``opts`` with pinned batches (a native
+    route's on ``device``) and no step on the card (the default run's time
+    limit: its loaders are the host's, and a second epoch adds only time); ``check_batch`` checks
     each batch. Returns the images, the seconds, the seconds to the first
     batch and the loader's threads."""
     import torch
@@ -2928,12 +2960,11 @@ def loader_alone(opts, check_batch, device="cuda") -> tuple:
 
     loader, _, sampler = create_train_val_loader(opts, pin_memory=True, device=device)
     n_img, t0, first = 0, time.perf_counter(), None
-    for epoch in range(2):
-        sampler.set_epoch(epoch)
-        for batch in loader:
-            first = first or time.perf_counter() - t0
-            check_batch(batch)
-            n_img += batch_size(batch["samples"])
+    sampler.set_epoch(0)
+    for batch in loader:
+        first = first or time.perf_counter() - t0
+        check_batch(batch)
+        n_img += batch_size(batch["samples"])
     torch.cuda.synchronize()  # a native route's last batch is done
     return n_img, time.perf_counter() - t0, first, loader.num_workers
 
@@ -3713,7 +3744,7 @@ def phase_native_loader(card: str, corpus: dict) -> dict:
     """The native decode phase's loader checks: (c) the two damaged files'
     status from nvJPEG and their slots replaced by valid ones in place
     (``fetch_batch_native``), and (d) the flagship's train loader alone over
-    two epochs of the corpus, ``--dataset.decoder native`` (nvJPEG, 8 decoding
+    an epoch of the corpus, ``--dataset.decoder native`` (nvJPEG, 8 decoding
     threads, the kernel; batches on the card) against ``pil`` (8 threads of
     Pillow and the port's resampling; pinned host batches). Returns the
     loaders' img/s by decoder."""
@@ -4065,7 +4096,7 @@ def phase_ssd_main_train(card: str) -> None:
     ``SSD_DATA_ARGS``: SSD crop, photometric distortion, resize to 320², flip,
     host matching, AdamW, EMA, clip 10, bf16) over a seeded COCO folder
     written at run time (``tools/coco_corpus.py``, ``SSD_CORPUS``), 2 epochs
-    and their validations; its train loader alone over 2 epochs; then
+    and their validations; its train loader alone over an epoch; then
     ``main_worker_detection`` on its val split (each image at its own size)
     with the run's checkpoint_last.pt, and ``ssd_eval_reference``. Checks
     finite statistics, no CUDA sync debug warning through the port's code
@@ -4165,7 +4196,7 @@ def phase_ssd_main_train(card: str) -> None:
           f"val={[{k: round(v, 4) for k, v in s.items()} for s in log['val']]} | {card}",
           flush=True)
     print(f"ssd: loader alone img_s={loader_img_s:.1f} after the first batch ({n_img} images "
-          f"of up to {SSD_CORPUS[2]} px JPEG files in {secs:.3f} s over 2 epochs, first "
+          f"of up to {SSD_CORPUS[2]} px JPEG files in {secs:.3f} s over an epoch, first "
           f"batch after {first:.3f} s; {threads} threads, {os.cpu_count()} cores; pinned "
           f"batches of 32 x 320^2 with matched targets, no step) | {card}", flush=True)
     print(f"eval: SSDLite-MobileViT-S main_worker_detection on {SSD_CORPUS[1]} val images at "
@@ -4354,7 +4385,7 @@ def phase_clip_main_train(card: str, kernels: dict, bare: dict) -> None:
     and random resized crop bilinear a sample, the CLIP tokenizer's fallback
     in the producer thread, AdamW, EMA, clip 1.0, bf16), 2 epochs of 16
     steps, each validated with the loss and the retrieval recalls (EMA too);
-    its train loader alone over 2 epochs; ``main_eval`` zero-shot over the
+    its train loader alone over an epoch; ``main_eval`` zero-shot over the
     val folder's 8 classes with a class-names file from the run's
     checkpoint_last.pt, then ``clip_eval_reference``. Checks 12 + 12 MHA
     launches a train step and 12 an eval forward, finite statistics and
@@ -4467,7 +4498,7 @@ def phase_clip_main_train(card: str, kernels: dict, bare: dict) -> None:
           f"val={[{k: round(v, 2) for k, v in s.items()} for s in log['val']]} | {card}",
           flush=True)
     print(f"clip: loader alone img_s={loader_img_s:.1f} after the first batch ({n_img} images "
-          f"of ~500x375 JPEG files in {secs:.3f} s over 2 epochs, first batch after "
+          f"of ~500x375 JPEG files in {secs:.3f} s over an epoch, first batch after "
           f"{first:.3f} s; {threads} threads, {os.cpu_count()} cores; pinned batches of 128 x "
           f"224^2 and their tokens, no step) | {card}", flush=True)
     print(f"eval: {label} main_eval zero-shot on {NATIVE_CLASSES * NATIVE_VAL_PER_CLASS} "
@@ -4971,7 +5002,7 @@ def phase_range_augment_main_train(card: str, bare: dict) -> None:
           f"ema={[{k: round(v, 3) for k, v in s.items()} for s in log['ema']]} | {card}",
           flush=True)
     print(f"range_augment: loader alone img_s={(n_img - sizes[0]) / (secs - first):.1f} after "
-          f"the first batch ({n_img} images in {secs:.3f} s over 2 epochs, first batch after "
+          f"the first batch ({n_img} images in {secs:.3f} s over an epoch, first batch after "
           f"{first:.3f} s; native decode, {threads} threads, {os.cpu_count()} cores; no step) "
           f"| {card}", flush=True)
 
@@ -6141,7 +6172,7 @@ def phase_mask_rcnn_main_train(card: str) -> None:
     ``main_worker_detection`` with ``--stats.coco-map.iou-types bbox segm`` on
     its val split with the run's checkpoint_last.pt: box and mask mAPs in
     [0, 1]. Prints img/s over epoch 2 after its first batch, beside the
-    train loader alone over 2 epochs."""
+    train loader alone over an epoch."""
     import shutil
     import tempfile
 
@@ -6242,7 +6273,7 @@ def phase_mask_rcnn_main_train(card: str) -> None:
           f"{[{k: round(v, 4) for k, v in s.items()} for s in train_stats]} | {card}",
           flush=True)
     print(f"mask_rcnn: loader alone img_s={loader_img_s:.1f} after the first batch ({n_img} "
-          f"images of up to {MASK_RCNN_CORPUS[2]} px JPEG files in {secs:.3f} s over 2 epochs, "
+          f"images of up to {MASK_RCNN_CORPUS[2]} px JPEG files in {secs:.3f} s over an epoch, "
           f"first batch after {first:.3f} s; {threads} threads, {os.cpu_count()} cores; pinned "
           f"batches of 8 x 512^2 with their masks, no step) | {card}", flush=True)
     print(f"eval: {MASK_RCNN_A} main_worker_detection on {MASK_RCNN_CORPUS[1]} val images "
@@ -7629,13 +7660,16 @@ DDP_STEPS = 2
 # parameters' and the EMA's moves over the steps (the L2 norm of the
 # difference over the norm of the one process's move) to 1e-3, or to 3 times
 # their noise floor where that is larger: the most that one process moves
-# from itself when the batch's rows are reordered or when its BN runs the
-# synced BN's arithmetic (``DDP_FLOORS``). Batch-statistic BN amplifies
+# from itself when the batch's rows are reversed or when its BN runs the
+# synced BN's arithmetic (``DDP_FLOORS``; with the rows' halves swapped or
+# shuffled too, the largest of the four was within 1.15x of the larger of
+# these two in two runs of the whole script on an H100: the default run's time
+# limit keeps two). Batch-statistic BN amplifies
 # float32's order-of-sums noise (a gradient element up to 2.2e-3 of the
 # largest, on the flagship at 128 rows, rows reversed), and Adam turns a
 # gradient at the noise's level into a whole step.
 DDP_LOSS_REL, DDP_REL, DDP_NOISE_TIMES, DDP_STAT_REL = 1e-4, 1e-3, 3.0, 1e-4
-DDP_FLOORS = ("reversed", "halves swapped", "shuffled", "synced BN alone")
+DDP_FLOORS = ("reversed", "synced BN alone")
 # DeepLabv3's labels: the even ranks' rows have 5% of their pixels ignored,
 # the odd ranks' 50%, and labels of the first tenth of the classes only (a
 # rank of crops of a few large objects), so that a rank's own valid-pixel
@@ -7677,7 +7711,7 @@ def ddp_batches(label: str, opts, n: int, device) -> list:
             samples = images
             n_classes = getattr(opts, "model.segmentation.n_classes")
             targets = torch.randint(0, n_classes, (n, *hw), generator=g)
-            odd = (torch.arange(n) // DDP_PATHS[label][1]) % 2 == 1
+            odd = (torch.arange(n) // path_of(label)[1]) % 2 == 1
             targets[odd] %= n_classes // 10
             share = torch.tensor(DDP_SEG_IGNORED)[odd.long()].view(n, 1, 1)
             targets[torch.rand(targets.shape, generator=g) < share] = 255
@@ -7691,18 +7725,12 @@ def ddp_batches(label: str, opts, n: int, device) -> list:
              for k, v in b.items()} for b in out]
 
 
-def ddp_order(name: str, n: int, per_rank: int):
+def ddp_order(name: str, n: int):
     """A reordering of a global batch's ``n`` rows for the noise floor (None:
     the rows as they are)."""
     import torch
 
-    if name == "synced BN alone":
-        return None
-    if name == "reversed":
-        return torch.arange(n - 1, -1, -1)
-    if name == "halves swapped":  # the last rank's rows first
-        return torch.arange(n).roll(per_rank)
-    return torch.randperm(n, generator=torch.Generator().manual_seed(26))
+    return torch.arange(n - 1, -1, -1) if name == "reversed" else None
 
 
 class synced_bn_alone:
@@ -7717,7 +7745,7 @@ class synced_bn_alone:
 
         self.module, self.real = normalization, normalization.parallel
         normalization.parallel = types.SimpleNamespace(
-            world_size=lambda: 2, all_gather=lambda t: [t], all_reduce_=lambda t: t)
+            data_size=lambda: 2, all_gather=lambda t: [t], all_reduce_=lambda t: t)
 
     def __exit__(self, *exc):
         self.module.parallel = self.real
@@ -7747,21 +7775,33 @@ def ddp_steps(label: str, world: int, rank: int, device, order=None,
     from cvnets_tpu_torch.optim.scheduler import build_scheduler
     from cvnets_tpu_torch.options.opts import get_training_arguments
 
-    args, per_rank, per_step = DDP_PATHS[label]
-    opts = get_training_arguments(args=args + DDP_F32)
-    model = get_model(opts, device=device)
+    from cvnets_tpu_torch import parallel
+    from cvnets_tpu_torch.modules.moe import MoEFFN
+    from cvnets_tpu_torch.parallel.fsdp import shard_train_state, wants_sharding
+
+    args, per_rank, per_step, grid = path_of(label)
+    opts = get_training_arguments(args=args + DDP_F32 + (grid if rank >= 0 else []))
+    if rank >= 0:  # this path's (data, model) grid of the group
+        parallel.form_grid(opts)
+        world, rank = parallel.data_size(), parallel.data_index()
+    with vit_depth(MP_DEPTH) if label in MP_PATHS else contextlib.nullcontext():
+        model = get_model(opts, device=device)
     for m in model.modules():
         if isinstance(m, (torch.nn.modules.dropout._DropoutNd, StochasticDepth)):
             m.p = 0.0
     state = create_train_state(model, build_optimizer(opts, model,
                                                       model.get_lr_multipliers(opts)),
                                ema_enabled=getattr(opts, "ema.enable"))
+    shards = None
+    if rank >= 0 and wants_sharding(opts):
+        shards = shard_train_state(opts, state).shards
     step = make_train_step(model, build_loss_fn(opts, device=device), opts,
                            build_metrics(opts, ["loss", "grad_norm"]))
     scheduler = build_scheduler(opts)
     lrs = [scheduler.retrieve_lr(0, i)
            for i in (0, getattr(opts, "scheduler.warmup_iterations"))]
     rows = slice(rank * per_rank, (rank + 1) * per_rank)
+    moe_layers = [m for m in model.modules() if isinstance(m, MoEFFN)]
 
     def mine(t):
         return {k: v[rows] for k, v in t.items()} if isinstance(t, dict) else t[rows]
@@ -7786,16 +7826,48 @@ def ddp_steps(label: str, world: int, rank: int, device, order=None,
             state, metrics = step(state, batch, lrs[i])
             if i == 0:
                 out["loss"] = metrics["loss"]["loss"][0].item()
-                out["grads"] = {n: p.grad.detach().clone()
-                                for n, p in model.named_parameters() if p.grad is not None}
+                if shards is not None:  # the blocks' gradients, gathered whole
+                    out["grads"] = {leaf.name: leaf.whole(leaf.storage.grad).clone()
+                                    for leaf in shards.leaves if leaf.storage.grad is not None}
+                else:
+                    out["grads"] = {n: p.grad.detach().clone()
+                                    for n, p in model.named_parameters() if p.grad is not None}
                 out["stats"] = {n: b.detach().clone() for n, b in model.named_buffers()
                                 if n.endswith(("running_mean", "running_var"))}
-    out["params"] = {n: p.detach().clone() for n, p in model.named_parameters()}
-    out["ema"] = ({k: v.detach().clone() for k, v in state.ema.model.state_dict().items()
-                   if k in out["params"]} if state.ema is not None else {})
+                out["dropped"] = sum(int(m.dropped) for m in moe_layers)
+    names = [n for n, _ in model.named_parameters()]
+    if shards is not None:
+        whole = shards.full_state_dict()
+        ema = shards.full_state_dict(use_ema=True) if state.ema is not None else {}
+        out["bytes"] = shards.state_bytes(state.optimizer)
+    else:
+        whole = dict(model.named_parameters())
+        ema = state.ema.model.state_dict() if state.ema is not None else {}
+        out["bytes"] = state_bytes(model, state)
+    out["params"] = {n: whole[n].detach().clone() for n in names}
+    out["ema"] = {k: v.detach().clone() for k, v in ema.items() if k in out["params"]}
     out["launches"] = {name: k.launches for name, k in kernels.items()}
-    out["sums"] = [p.detach().double().sum().item() for p in model.parameters()]
+    out["sums"] = [p.double().sum().item() for p in out["params"].values()]
+    out["data"] = world
     return out
+
+
+def state_bytes(model, state) -> int:
+    """One process's parameters, optimizer moments and EMA, in bytes."""
+    tensors = list(model.parameters())
+    if state.ema is not None:
+        tensors += list(state.ema.model.parameters())
+    for st in state.optimizer.state.values():
+        tensors += [v for k, v in st.items() if hasattr(v, "numel") and k != "step"]
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def path_of(label: str) -> tuple:
+    """(flags, rows a data rank, launches a step, grid flags) of a phase-25 or
+    phase-26 path."""
+    if label in DDP_PATHS:
+        return (*DDP_PATHS[label], [])
+    return MP_PATHS[label]
 
 
 def ddp_local_count_loss(label: str, world: int, losses: list) -> float:
@@ -7807,7 +7879,7 @@ def ddp_local_count_loss(label: str, world: int, losses: list) -> float:
 
     from cvnets_tpu_torch.options.opts import get_training_arguments
 
-    args, per_rank, _ = DDP_PATHS[label]
+    args, per_rank, _, _ = path_of(label)
     targets = ddp_batches(label, get_training_arguments(args=args + DDP_F32),
                           per_rank * world, "cpu")[0]["targets"]
     counts = (targets != 255).reshape(world, -1).sum(1).double()
@@ -7834,12 +7906,53 @@ def _l2(got: dict, want: dict, start: dict = None) -> float:
 
 
 def ddp_errors(got: dict, ref: dict, init: dict) -> dict:
-    """``got``'s errors against one process's ``ref`` (both ``ddp_steps``)."""
+    """``got``'s errors against one process's ``ref`` (both ``ddp_steps``):
+    the worst gradient element over the largest gradient (``grad``) and over
+    its own tensor's largest (``grad_own``; the largest gradient where a
+    tensor's is 0), the L2 errors of the gradients and of the moves."""
     gmax = max(g.abs().max().item() for g in ref["grads"].values())
     return {"grad": _worst(got["grads"], ref["grads"], lambda w: gmax),
+            "grad_own": _worst(got["grads"], ref["grads"],
+                               lambda w: w.abs().max().item() or gmax),
             "grad_l2": _l2(got["grads"], ref["grads"]),
             "params": _l2(got["params"], ref["params"], init),
             "ema": _l2(got["ema"], ref["ema"], init)}
+
+
+# phase 26's bounds: the worst gradient element over its own tensor's largest
+# (a fault in a leaf of small gradients, a LayerNorm scale's slice or the
+# router, shows there), the moves' L2 errors as phase 25's, each to 10 times
+# its noise floor and at least 1e-5 (about 100 float32 roundings; the floors
+# were 1.78e-07-1.37e-06 of the largest gradient on an H100, so
+# phase 25's 1e-3, set for BN's amplification, would hide such a fault)
+MP_REL, MP_NOISE_TIMES = 1e-5, 10.0
+# phase 26's ViT paths: the rows reversed (with the synced BN's arithmetic
+# too, a pure rerun on a model without BN, the two floors sat within 1.3x of
+# each other on an H100; each floor is two more one-process steps)
+MP_FLOORS = ("reversed",)
+
+
+def floors_of(label: str) -> tuple:
+    """The noise floors of a path: ``DDP_FLOORS`` for phase 25's,
+    ``MP_FLOORS`` for phase 26's. An MoE path's routing depends on the rows' order (the earlier
+    tokens win an expert's capacity), so a reordering is another function
+    there, not noise: its floor is the synced BN's alone."""
+    if label in DDP_PATHS:
+        return DDP_FLOORS
+    return ("synced BN alone",) if "MoE" in label else MP_FLOORS
+
+
+def gather_every_rank(obj) -> list:
+    """Every rank's ``obj`` in rank order, over the whole group."""
+    import torch
+
+    from cvnets_tpu_torch import parallel
+
+    if parallel.world_size() == 1:
+        return [obj]
+    out = [None] * parallel.world_size()
+    torch.distributed.all_gather_object(out, obj)
+    return out
 
 
 def ddp_checks(labels, card: str, out_path: str, device=None) -> None:
@@ -7864,15 +7977,20 @@ def ddp_checks(labels, card: str, out_path: str, device=None) -> None:
     ran, record = {}, {"world": world, "backend": backend, "paths": {}}
     for label in labels:
         ran[label] = ddp_steps(label, world, rank, device)
-        gathered = parallel.all_gather_objects(
-            (ran[label]["loss"], ran[label]["sums"], ran[label]["launches"]))
+        # every rank of the whole group: the ranks of a model group hold one data shard
+        gathered = gather_every_rank((ran[label]["loss"], ran[label]["sums"],
+                                      ran[label]["launches"], ran[label]["bytes"],
+                                      ran[label]["dropped"]))
         check(all(g[1] == gathered[0][1] for g in gathered),
               f"ddp {backend} {label}: the ranks' parameters differ after {DDP_STEPS} steps")
         record["paths"][label] = {"loss": sum(g[0] for g in gathered) / world,
                                   "loss_by_rank": [g[0] for g in gathered],
-                                  "launches_by_rank": [g[2] for g in gathered]}
+                                  "launches_by_rank": [g[2] for g in gathered],
+                                  "bytes_by_rank": [g[3] for g in gathered],
+                                  "dropped_by_rank": [g[4] for g in gathered],
+                                  "data": ran[label]["data"], "grid": path_of(label)[3]}
         for r, g in enumerate(gathered):
-            want = {k: DDP_PATHS[label][2][k] * DDP_STEPS for k in g[2]}
+            want = {k: path_of(label)[2][k] * DDP_STEPS for k in g[2]}
             check(g[2] == want, f"ddp {backend} {label} rank {r}: launches {g[2]}, want {want}")
         if rank != 0:
             ran.pop(label)
@@ -7885,8 +8003,11 @@ def ddp_checks(labels, card: str, out_path: str, device=None) -> None:
     failed = []
     for label in labels:
         got, rec = ran.pop(label), record["paths"][label]
-        ref = ddp_steps(label, world, -1, device)  # one process, the whole batches
+        data = rec["data"]
+        ref = ddp_steps(label, data, -1, device)  # one process, the whole batches
         init = ref.pop("init")
+        rec.update({"bytes_ref": ref["bytes"], "dropped_ref": ref["dropped"],
+                    "launches_ref": ref["launches"]})
         rec.update({"loss_ref": ref["loss"], **ddp_errors(got, ref, init),
                     "stat": _worst(got["stats"], ref["stats"],
                                    lambda w: max(1.0, w.abs().max().item())),
@@ -7896,25 +8017,31 @@ def ddp_checks(labels, card: str, out_path: str, device=None) -> None:
               f"ddp {backend} {label}: other parameters have gradients")
         check(len(ref["ema"]) == len(ref["params"]),
               f"ddp {backend} {label}: the EMA lacks parameters")
-        for name in DDP_FLOORS:
-            n = world * DDP_PATHS[label][1]
-            other = ddp_steps(label, world, -1, device,
-                              order=ddp_order(name, n, DDP_PATHS[label][1]),
+        for name in floors_of(label):
+            n = data * path_of(label)[1]
+            other = ddp_steps(label, data, -1, device,
+                              order=ddp_order(name, n),
                               synced_bn=name == "synced BN alone")
             other.pop("init")
             rec["floor"][name] = ddp_errors(other, ref, init)
             del other
             gc.collect()
             torch.cuda.empty_cache()
-        floor = {k: max(f[k] for f in rec["floor"].values()) for k in ("grad", "params", "ema")}
-        bound = {k: max(DDP_REL, DDP_NOISE_TIMES * v) for k, v in floor.items()}
+        if label in DDP_PATHS:
+            floor = {k: max(f[k] for f in rec["floor"].values())
+                     for k in ("grad", "params", "ema")}
+            bound = {k: max(DDP_REL, DDP_NOISE_TIMES * v) for k, v in floor.items()}
+        else:
+            floor = {k: max(f[k] for f in rec["floor"].values())
+                     for k in ("grad_own", "params", "ema")}
+            bound = {k: max(MP_REL, MP_NOISE_TIMES * v) for k, v in floor.items()}
         loss_bound = DDP_LOSS_REL * max(1.0, abs(ref["loss"]))
         ok = (abs(rec["loss"] - ref["loss"]) <= loss_bound and rec["stat"] <= DDP_STAT_REL
               and all(rec[k] <= bound[k] for k in bound))
         if not ok:
             failed.append(f"ddp {backend} {label} at world {world} vs one process: {rec}")
         local = ""
-        if label.startswith("DeepLabv3") and world > 1:
+        if label.startswith("DeepLabv3") and data > 1:
             rec["loss_local_count"] = ddp_local_count_loss(label, world, rec["loss_by_rank"])
             moved = abs(rec["loss_local_count"] - ref["loss"])
             if moved <= loss_bound:
@@ -7922,13 +8049,28 @@ def ddp_checks(labels, card: str, out_path: str, device=None) -> None:
                               f"loss {moved:.3e}, within its bound {loss_bound:.3e}")
             local = (f"; the ranks' own valid counts would give loss "
                      f"{rec['loss_local_count']:.6f}, {moved / loss_bound:.0f}x the bound")
-        floors = "; ".join(f"{name} {f['grad']:.2e} / {f['params']:.2e} / {f['ema']:.2e}"
+        grad = "grad" if label in DDP_PATHS else "grad_own"
+        floors = "; ".join(f"{name} {f[grad]:.2e} / {f['params']:.2e} / {f['ema']:.2e}"
                            for name, f in rec["floor"].items())
-        print(f"ddp: {label} {backend} world={world} float32 {DDP_STEPS} steps at "
-              f"{DDP_PATHS[label][1]} a rank: loss {rec['loss']:.6f} vs one process "
+        grid = ""
+        if rec["grid"]:
+            per_step = [{k: v // DDP_STEPS for k, v in g.items()}
+                        for g in rec["launches_by_rank"]]
+            grid = (f" grid {' '.join(rec['grid'])}: state bytes by rank "
+                    f"{rec['bytes_by_rank']} vs one process's {rec['bytes_ref']} (ratio "
+                    f"{max(rec['bytes_by_rank']) / rec['bytes_ref']:.3f}); MHA launches a "
+                    f"step by rank {per_step}"
+                    f" (one process {rec['launches_ref']} in {DDP_STEPS} steps)")
+            if any(rec["dropped_by_rank"]) or rec["dropped_ref"]:
+                grid += (f"; MoE dropped (token, round) pairs of the first step by rank "
+                         f"{rec['dropped_by_rank']} vs one process's {rec['dropped_ref']}")
+            grid += ";"
+        print(f"ddp: {label} {backend} world={world}{grid} float32 {DDP_STEPS} steps at "
+              f"{path_of(label)[1]} a data rank: loss {rec['loss']:.6f} vs one process "
               f"{ref['loss']:.6f} (ranks {rec['loss_by_rank']}){local}; worst gradient "
-              f"element {rec['grad']:.2e} of the largest ({rec['n_grads']} tensors; bound "
-              f"{bound['grad']:.2e}), all gradients' L2 {rec['grad_l2']:.2e} of their norm; "
+              f"element {rec[grad]:.2e} of the largest{' of its tensor' * (grad != 'grad')} "
+              f"({rec['n_grads']} tensors; bound {bound[grad]:.2e}), all gradients' L2 "
+              f"{rec['grad_l2']:.2e} of their norm; "
               f"parameters' move over {DDP_STEPS} steps (the second at the LR after warmup) "
               f"{rec['params']:.2e} of its L2 (bound {bound['params']:.2e}), the EMA's "
               f"{rec['ema']:.2e} ({rec['n_ema']} tensors; bound {bound['ema']:.2e}); one "
@@ -8099,6 +8241,180 @@ def phase_ddp(card: str, one_process_img_s: float = None) -> dict:
     return paths
 
 
+# ---- model parallelism (phase 26) ----
+# the two-rank grid paths: (flags, rows a data rank, MHA launches a step, grid
+# flags), each model built with MP_DEPTH transformer blocks (the widths whole;
+# the default run's time limit): MP_DEPTH + MP_DEPTH MHA launches a step,
+# twice that under the ring (each q slice against 2 kv blocks)
+MP_DEPTH = 4  # blocks 2 and 4 are ViT-B/16-MoE's MoE blocks
+MP_LAUNCHES = {"mha_attention_fwd": MP_DEPTH, "mha_attention_bwd": MP_DEPTH}
+MP_PATHS = {
+    "ViT-B/16 FSDP mesh 2": (VIT_ARGS, 8, MP_LAUNCHES, ["--dev.mesh-shape", "2", "--dev.fsdp"]),
+    "ViT-B/16 TP mesh 1 2": (VIT_ARGS, 8, MP_LAUNCHES, ["--dev.mesh-shape", "1", "2"]),
+    "ViT-B/16 512² no CLS SP mesh 1 2": (
+        VIT_LONG_ARGS, 4, {k: 2 * v for k, v in MP_LAUNCHES.items()},
+        ["--dev.mesh-shape", "1", "2", "--dev.sequence-parallel"]),
+    "ViT-B/16-MoE mesh 2": (VIT_MOE_ARGS, 8, MP_LAUNCHES, ["--dev.mesh-shape", "2"]),
+    "ViT-B/16-MoE mesh 1 2": (VIT_MOE_ARGS, 8, MP_LAUNCHES, ["--dev.mesh-shape", "1", "2"]),
+}
+
+
+@contextlib.contextmanager
+def vit_depth(depth: int):
+    """In its ``with`` block every ViT mode has at most ``depth`` transformer
+    blocks, its widths whole: a model is built at that depth, and its
+    weights are drawn for those blocks alone."""
+    from cvnets_tpu_torch.models.classification.config import vit as vit_config
+
+    modes = dict(vit_config._MODES)
+    vit_config._MODES.update({name: (width, min(n, depth), *rest)
+                              for name, (width, n, *rest) in modes.items()})
+    try:
+        yield
+    finally:
+        vit_config._MODES.update(modes)
+
+
+# (a): ViT-B/16 512²'s attention, (B, S, H, D), float32, split into M blocks
+MP_RING_SHAPE = (8, 1024, 12, 64)
+MP_RING_BLOCKS = (2, 4)
+MP_RING_OUT_REL, MP_RING_GRAD_REL = 1e-5, 1e-4
+
+
+def ring_check(card: str, device="cuda", shape=MP_RING_SHAPE) -> dict:
+    """Phase 26(a): the ring's blocks, merge and block backward over M = 2 and
+    4 in-process slices (``ring_attention_in_process``: the group's ring steps,
+    M ranks run in lockstep in this process) against the fused kernels on the whole sequence, with and
+    without a key mask that masks every key of one sample: the output to
+    ``MP_RING_OUT_REL`` of max(1, its largest value), dq, dk, dv to
+    ``MP_RING_GRAD_REL`` of the largest; the launches, and on a card the
+    ring's time beside the whole kernels'. Returns the launches by path."""
+    import torch
+
+    from cvnets_tpu_torch.ops.mha_attention import (
+        mha_attention_backward_plain,
+        mha_attention_plain,
+        mha_bwd_kernel,
+        mha_fwd_kernel,
+    )
+    from cvnets_tpu_torch.parallel.ring_attention import ring_attention_in_process
+
+    b, s, h, d = shape
+    gen = torch.Generator().manual_seed(26)
+    q, k, v, g = ((torch.randn(b, s, h * d, generator=gen) * (d ** -0.5 if i == 0 else 1.0))
+                  .to(device) for i in range(4))
+    mask = torch.where(torch.rand(b, s, generator=gen) < 0.2, -1e30, 0.0)
+    mask[1] = -1e30  # every key of the second sample
+    on_card = torch.device(device).type == "cuda"
+
+    def whole(km):
+        if on_card:
+            out, stats = mha_fwd_kernel(q, k, v, h, km)
+            return (out, *mha_bwd_kernel(q, k, v, km, out, g, stats, h))
+        out = mha_attention_plain(q, k, v, h, km)
+        return (out, *mha_attention_backward_plain(q, k, v, km, out, g, h))
+
+    paths = {"mha_attention_fwd": {}, "mha_attention_bwd": {}, "long": {}}
+    with no_tf32():
+        for mask_name, km in (("no mask", None), ("key mask", mask.to(device))):
+            for kernel in (mha_fwd_kernel, mha_bwd_kernel):
+                kernel.launches = 0
+            want = whole(km)
+            paths["long"][f"ring check whole S={s} {mask_name}"] = mha_fwd_kernel.launches
+            whole_ms = time_ms(lambda: whole(km), launches=2, samples=3, warmup=1) \
+                if on_card else float("nan")
+            for n in MP_RING_BLOCKS:
+                for kernel in (mha_fwd_kernel, mha_bwd_kernel):
+                    kernel.launches = 0
+                got = ring_attention_in_process(q, k, v, h, n, km, g=g)
+                launches = (mha_fwd_kernel.launches, mha_bwd_kernel.launches)
+                out_err = (got[0] - want[0]).abs().max().item() / max(
+                    1.0, want[0].abs().max().item())
+                grad_err = max((a - w).abs().max().item() / w.abs().max().item()
+                               for a, w in zip(got[1:], want[1:]))
+                check(out_err <= MP_RING_OUT_REL and grad_err <= MP_RING_GRAD_REL,
+                      f"ring M={n} {mask_name}: output {out_err:.2e}, gradients {grad_err:.2e}")
+                if on_card:
+                    check(launches == (n * n, n * n),
+                          f"ring M={n}: launches {launches}, want {(n * n, n * n)}")
+                ring_ms = time_ms(lambda: ring_attention_in_process(q, k, v, h, n, km, g=g),
+                                  launches=2, samples=3, warmup=1) if on_card else float("nan")
+                label = f"ring check M={n} blocks of S={s // n} {mask_name}"
+                paths["mha_attention_fwd"][label] = launches[0]
+                paths["mha_attention_bwd"][label] = launches[1]
+                print(f"model parallel: (a) ring in one process, B={b} S={s} H={h} D={d} "
+                      f"float32 {mask_name}, M={n} blocks of {s // n}: output "
+                      f"{out_err:.2e} of max(1, |out|) (bound {MP_RING_OUT_REL:.0e}), dq/dk/dv "
+                      f"{grad_err:.2e} of the largest (bound {MP_RING_GRAD_REL:.0e}); launches "
+                      f"fwd {launches[0]} + bwd {launches[1]}; forward + backward "
+                      f"ring_ms={ring_ms:.3f} vs the whole kernels' whole_ms={whole_ms:.3f} "
+                      f"(ratio {ring_ms / whole_ms:.2f}) | {card}", flush=True)
+    return paths
+
+
+def _mp_rank(index: int, store: str, out_dir: str, card: str, backend: str) -> None:
+    """One of two ranks: gloo ranks share card 0, NCCL ranks take a card each."""
+    import torch
+
+    from cvnets_tpu_torch.parallel import mesh
+    from cvnets_tpu_torch.parallel.ring_attention import ring_transport
+
+    device = torch.device("cuda", 0 if backend == "gloo" else index)
+    torch.cuda.set_device(device)
+    mesh.init_group(backend, index, 2, f"file://{store}", DDP_TIMEOUT_S)
+    if index == 0:
+        print(f"model parallel: ({'b' if backend == 'gloo' else 'c'}) the ring's blocks travel "
+              f"{ring_transport(torch.zeros(1, device=device))} | {card}", flush=True)
+    ddp_checks(list(MP_PATHS), card, os.path.join(out_dir, f"mp_{backend}.json"), device)
+
+
+def phase_model_parallel(card: str) -> dict:
+    """Phase 26, model parallelism: (a) ``ring_check`` on the card; (b) two
+    gloo ranks on card 0 run ``ddp_checks`` for ``MP_PATHS`` (FSDP, tensor
+    parallelism, the ring, MoE's global routing and its experts split), with
+    each rank's state bytes, MHA launches a step and MoE drops beside one
+    process's; (c) the same over NCCL on two cards, where there are two.
+    Returns the launches by path: rows 2-3's (``mha_attention_fwd``/``_bwd``,
+    S ≤ 512) and the long rows' (S = 1,024)."""
+    import tempfile
+
+    import torch
+
+    from cvnets_tpu_torch import parallel
+
+    paths = ring_check(card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    backends = ["gloo"] + (["nccl"] if torch.cuda.device_count() >= 2 else [])
+    with tempfile.TemporaryDirectory() as tmp:
+        for backend in backends:
+            t0 = time.perf_counter()
+            parallel.spawn(_mp_rank, 2, (os.path.join(tmp, f"store_{backend}"), tmp, card,
+                                         backend), timeout_s=DDP_TIMEOUT_S)
+            with open(os.path.join(tmp, f"mp_{backend}.json")) as f:
+                rec = json.load(f)
+            check(rec["world"] == 2 and rec["backend"] == backend
+                  and sorted(rec["paths"]) == sorted(MP_PATHS), f"model parallel: record {rec}")
+            part = "b" if backend == "gloo" else "c"
+            for label, path in rec["paths"].items():
+                for r, launches in enumerate(path["launches_by_rank"]):
+                    for name, n in launches.items():
+                        paths[name][f"{label} {backend} rank {r}"] = n
+                ref = path["launches_ref"]
+                if "SP" in label:  # the whole sequence, S = 1,024: the long rows
+                    paths["long"][f"{label} one-process reference"] = ref["mha_attention_fwd"]
+                else:
+                    for name, n in ref.items():
+                        paths[name][f"{label} one-process reference"] = n
+            print(f"model parallel: ({part}) {backend} world 2, the ranks' checks and rank 0's "
+                  f"one-process references took {time.perf_counter() - t0:.1f} s | {card}",
+                  flush=True)
+    if len(backends) == 1:
+        print(f"model parallel: (c) NCCL not run: {torch.cuda.device_count()} card | {card}",
+              flush=True)
+    return paths
+
+
 def main(argv) -> int:
     import torch
 
@@ -8106,11 +8422,11 @@ def main(argv) -> int:
     if not worker and argv not in (
             [], ["--deeplab"], ["--segmentation"], ["--families"], ["--clip"],
             ["--range-augment"], ["--byteformer"], ["--mask-rcnn"], ["--serving"], ["--ddp"],
-            *([flag] for flag in REST_FLAGS)):
+            ["--model-parallel"], *([flag] for flag in REST_FLAGS)):
         print(f"chip_smoke: unknown arguments {argv}; usage: chip_smoke.py "
               "[--deeplab | --segmentation | --families | --clip | --range-augment | "
               "--byteformer | --mask-rcnn | --vit-segmentation | --moe | --video | "
-              "--serving | --ddp]", file=sys.stderr)
+              "--serving | --ddp | --model-parallel]", file=sys.stderr)
         return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -8127,9 +8443,12 @@ def main(argv) -> int:
     )
     from cvnets_tpu_torch.ops.window_attention import window_bwd_kernel, window_fwd_kernel
 
+    start = time.perf_counter()
+
     def release() -> None:  # each phase's peak memory is its own
         gc.collect()
         torch.cuda.empty_cache()
+        print(f"elapsed: {time.perf_counter() - start:.1f} s since the start", flush=True)
 
     card = phase_device()
     if argv == ["--deeplab"]:
@@ -8184,6 +8503,10 @@ def main(argv) -> int:
     if argv == ["--ddp"]:
         phase_build()
         phase_ddp(card)
+        return 0
+    if argv == ["--model-parallel"]:
+        phase_build()
+        phase_model_parallel(card)
         return 0
     phase_build()
     sep_records = phase_kernel(card)
@@ -8263,6 +8586,8 @@ def main(argv) -> int:
     release()
     ddp = phase_ddp(card, one_process_img_s)
     release()
+    mp = phase_model_parallel(card)
+    release()
 
     def entry(name, source, replaces, launches, record):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -8275,7 +8600,8 @@ def main(argv) -> int:
                                      "CLIP ViT-B/16": clip_launches[key],
                                      VIT_MOE: rest_launches[VIT_MOE][key],
                                      **{path: n[key] for path, n in byteformer_launches.items()},
-                                     **serving.get(key, {}), **ddp.get(key, {})},
+                                     **serving.get(key, {}), **ddp.get(key, {}),
+                                     **mp[key]},
                 "by_path": {path: r[part] for path, r in byteformer_records.items()}}
 
     def sep_entry(name, replaces, part):  # the flagship's, the finetune's, Mask R-CNN A's
@@ -8293,7 +8619,8 @@ def main(argv) -> int:
                         vit_long_launches[key], record),
                 "launches_by_path": {"ViT-B/16 512² no CLS": vit_long_launches[key],
                                      MASK_RCNN_B: mask_rcnn_launches[MASK_RCNN_B][key],
-                                     **{p: rest_launches[p][key] for p in SEG_VIT_HEADS}}}
+                                     **{p: rest_launches[p][key] for p in SEG_VIT_HEADS},
+                                     **mp["long"]}}
 
     def seg_entry(name, replaces, record):  # DeepLabv3-MobileViTv2's and the ViT's
         return {**entry(name, "cvnets_tpu_torch/csrc/seg_ce.cu", replaces, seg_launches[name],

@@ -50,8 +50,9 @@ class BaseSampler:
         self.is_training = is_training
         self.shuffle = bool(is_training)
         self.epoch = 0
-        self.num_replicas = parallel.world_size() if num_replicas is None else num_replicas
-        self.rank = parallel.rank() if rank is None else rank
+        # the data axis: the ranks of a model group read the same rows
+        self.num_replicas = parallel.data_size() if num_replicas is None else num_replicas
+        self.rank = parallel.data_index() if rank is None else rank
         self.img_indices: Optional[List[int]] = None  # set by update_indices
 
         num_repeats = getattr(opts, "sampler.num_repeats", 1) if is_training else 1

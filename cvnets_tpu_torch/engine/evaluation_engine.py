@@ -15,7 +15,11 @@ each video's clips fold into the batch and their logits are summed or maxed
 In a process group each rank evaluates its shard of the test set (its
 sampler's), counts only the samples of each batch (``n_valid``), and the
 ranks' sums, counts and rows are gathered before the metrics are computed
-(``metrics.stats.gathered_pairs``): every sample counts once."""
+(``metrics.stats.gathered_pairs``): every sample counts once. Under a model
+axis larger than 1 (or ``--dev.fsdp``) the model is laid out over the grid
+first (``parallel.fsdp.shard_eval_model``): tensor-parallel where the rules
+split it, its weights whole for use, and the ranks of a model group evaluate
+the same rows."""
 
 from __future__ import annotations
 
@@ -33,12 +37,13 @@ from cvnets_tpu_torch.engine.train_state import (
     make_eval_step,
     make_video_eval_step,
     tree_map,
-    valid_rows,
+    valid_forward,
     votes_over_clips,
 )
 from cvnets_tpu_torch.layers.dtype_utils import autocast
 from cvnets_tpu_torch.metrics.stats import Statistics, add_pairs, gathered_pairs
 from cvnets_tpu_torch.parallel import device_prefetch
+from cvnets_tpu_torch.parallel.fsdp import shard_eval_model, wants_sharding
 from cvnets_tpu_torch.metrics.topk_accuracy import top_k_correct
 from cvnets_tpu_torch.utils import logger
 from cvnets_tpu_torch.utils.checkpoint_utils import load_file
@@ -75,12 +80,14 @@ def zero_shot_eval(opts, model: nn.Module, loader, device: torch.device,
     to_unit = UnitNormalizer(opts)
     correct, n = None, 0
     for batch in device_prefetch(loader, device):
-        batch = valid_rows(batch)
-        if batch is None:
-            continue
-        images = tree_map(to_unit, batch["samples"])
+        batch = dict(batch, samples=tree_map(to_unit, batch["samples"]))
         with autocast(opts, device):
-            logits = model({"image": images, "text": text_emb})["zero_shot_image_logits"]
+            got = valid_forward(model, batch, lambda images: model(
+                {"image": images, "text": text_emb})["zero_shot_image_logits"])
+        if got is None:
+            continue
+        batch, logits = got
+        images = batch["samples"]
         step = torch.stack([top_k_correct(logits, batch["targets"], k) for k in (1, 5)])
         correct = step if correct is None else correct + step
         n += batch_size(images)
@@ -98,7 +105,10 @@ class Evaluator:
         self.device = torch.device(device if device is not None else "cuda")
         if checkpoint is not None:
             model.load_state_dict(load_file(checkpoint))
-        self.state = TrainState(model=model.to(self.device), optimizer=None)
+        model.to(self.device)
+        if wants_sharding(opts):
+            model = shard_eval_model(opts, model)
+        self.state = TrainState(model=model, optimizer=None)
         if criteria is None:
             from cvnets_tpu_torch.loss import build_loss_fn
 

@@ -64,22 +64,33 @@ A model that sets ``TAKES_GENERATOR`` (Mask R-CNN, whose samplers draw in its
 forward) gets ``generator=``, a generator on the batch's device seeded by
 (``common.seed``, step, ``DETECTION_STREAM``) each step.
 
-In a process group (``parallel``) each rank steps on its shard of the global
-batch. The gradients are averaged over the ranks once a step, after the last
-micro-batch's backward (the micro-batches before it accumulate locally, as
-DDP's ``no_sync``), so the clip, the optimizer and the EMA see the same
-gradients, and the parameters stay the same bits, on every rank. The
-BatchNorms normalize with the global batch's statistics
-(``layers/normalization.py``) and the losses that divide by a count over the
-batch divide by the global one, so the step is the JAX package's on the
-global batch. Every host and device draw of a step (augmentation, mixing,
-the augmentor, detection's samplers) is seeded by (``common.seed``, step,
-stream, rank) on a rank other than 0: ranks draw differently, where JAX
-draws once over the global batch.
+In a process group (``parallel``) each data rank steps on its shard of the
+global batch (the ranks of a model group on the same rows). The gradients
+are averaged over the data group once a step, after the last micro-batch's
+backward (the micro-batches before it accumulate locally, as DDP's
+``no_sync``), so the clip, the optimizer and the EMA see the same gradients,
+and the parameters stay the same bits, on every data rank. The BatchNorms
+normalize with the global batch's statistics (``layers/normalization.py``)
+and the losses that divide by a count over the batch divide by the global
+one, so the step is the JAX package's on the global batch. Every host and
+device draw of a step (augmentation, mixing, the augmentor, detection's
+samplers) is seeded by (``common.seed``, step, stream, data index) at a data
+index other than 0: data ranks draw differently, where JAX draws once over
+the global batch, and the ranks of a model group draw alike.
+
+A sharded state (``state.shards``, ``parallel.fsdp``: ``--dev.fsdp`` or a
+model axis larger than 1) gathers the weights before the step's first
+forward, turns the gradients into its shards' after the last backward
+(reduce-scattered over the data group), clips by the global norm over every
+shard, steps the optimizer and the EMA on the shards and frees the gathered
+weights; an eval step gathers them (or the EMA's) first.
 
 An eval step takes only a batch's ``n_valid`` leading rows where the batch
 carries it (the rest pad the trailing batch, ``data/sampler``): each sample
-counts once.
+counts once. A model with MoE layers runs the whole padded batch on every
+rank and its prediction is cut after (``valid_forward``): JAX routes the
+padded global batch, and the router's all-gather over the data group needs
+every rank's rows, also on a rank whose batch is all padding.
 """
 
 from __future__ import annotations
@@ -105,6 +116,7 @@ class TrainState:
     optimizer: Optional[torch.optim.Optimizer]  # None when only evaluating
     ema: Optional[EMA] = None  # None when EMA is disabled
     step: int = 0
+    shards: Optional[Any] = None  # a parallel.fsdp.ShardedState when the state is sharded
 
 
 def create_train_state(model: nn.Module, optimizer: torch.optim.Optimizer,
@@ -195,9 +207,10 @@ OPTIMIZER_RANGE = "train_step_optimizer"
 
 def step_rng(seed: int, step: int, stream: int) -> np.random.Generator:
     """The host generator of one step's draws of one stream (and of this
-    rank, on a rank other than 0 of a process group)."""
-    rank = parallel.rank()
-    return np.random.default_rng([seed, step, stream] + ([rank] if rank else []))
+    rank's data index, where it is not 0: the ranks of a model group hold
+    the same rows and draw alike)."""
+    index = parallel.data_index()
+    return np.random.default_rng([seed, step, stream] + ([index] if index else []))
 
 
 def step_generator(generators: Dict[torch.device, torch.Generator], device: torch.device,
@@ -229,6 +242,32 @@ def valid_rows(batch: Dict) -> Optional[Dict]:
         return None
     rows = lambda t: t[:n] if t.dim() else t  # noqa: E731
     return {k: tree_map(rows, v) for k, v in batch.items() if k != "n_valid"}
+
+
+def routes_whole_batches(model: nn.Module) -> bool:
+    """Whether the model's forward mixes a batch's rows: MoE's routing, whose
+    capacity and buffer places count every row of the global batch."""
+    return any(isinstance(m, MoEFFN) for m in model.modules())
+
+
+def valid_forward(net: nn.Module, batch: Dict, forward: Optional[Callable] = None
+                  ) -> Optional[Tuple[Dict, Any]]:
+    """``batch`` cut to its valid rows and ``forward``'s (``net``'s) prediction
+    of their samples, or None where it has none. A net that routes whole
+    batches runs the padded batch, on every rank, and its prediction is cut
+    after: JAX routes the padded global batch, and MoE's all-gather over the
+    data group needs every rank's rows."""
+    forward = forward or net
+    n = batch.get("n_valid")
+    if n is None or not routes_whole_batches(net):
+        batch = valid_rows(batch)
+        return None if batch is None else (batch, forward(batch["samples"]))
+    b = batch_size(batch["samples"])
+    prediction = forward(batch["samples"])
+    batch = valid_rows(batch)
+    if batch is None:
+        return None
+    return batch, tree_map(lambda t: t[:n] if t.dim() and t.shape[0] == b else t, prediction)
 
 
 def _batch_values(metric_objs: Dict[str, Any], prediction, targets, extras) -> Pairs:
@@ -275,6 +314,8 @@ def make_train_step(model: nn.Module, criteria: Callable, opts, metric_objs: Dic
             samples, targets = mixing_fn(samples, targets, n_classes,
                                          step_rng(seed, state.step, MIXING_STREAM))
         model.train()
+        if state.shards is not None:
+            state.shards.gather()
         state.optimizer.zero_grad(set_to_none=True)
         rows = batch_size(samples) // accum_freq
         device = first_leaf(samples).device
@@ -309,12 +350,20 @@ def make_train_step(model: nn.Module, criteria: Callable, opts, metric_objs: Dic
         if accum_freq > 1:
             torch._foreach_div_([p.grad for p in params if p.grad is not None],
                                 float(accum_freq))
-        parallel.sync_gradients(params)
+        if state.shards is not None:
+            state.shards.reduce_grads()
+        else:
+            parallel.sync_gradients(params)
         with record_function(OPTIMIZER_RANGE):
-            grad_norm = clip_grad_norm_(params, grad_clip)
+            if state.shards is not None:
+                grad_norm = state.shards.clip_(grad_clip)
+            else:
+                grad_norm = clip_grad_norm_(params, grad_clip)
             for group in state.optimizer.param_groups:
                 group["lr"] = lr * group.get("lr_mult", 1.0)
             state.optimizer.step()
+            if state.shards is not None:
+                state.shards.after_step()
             if state.ema is not None:
                 state.ema.update(model, ema_momentum)
         state.step += 1
@@ -322,6 +371,19 @@ def make_train_step(model: nn.Module, criteria: Callable, opts, metric_objs: Dic
                                     {"loss": loss, "grad_norm": grad_norm})
 
     return train_step
+
+
+def eval_net(state: Optional[TrainState], model: nn.Module, use_ema: bool = False
+             ) -> nn.Module:
+    """The module an evaluation runs: the EMA's copy when asked for and kept,
+    else ``model`` (also without a state); a sharded state's with its weights
+    gathered (every rank calls this, before it drops a batch's padding)."""
+    if state is None:
+        return model
+    use_ema = use_ema and state.ema is not None
+    if getattr(state, "shards", None) is not None:
+        return state.shards.gather(use_ema)
+    return state.ema.model if use_ema else model
 
 
 def make_eval_step(model: nn.Module, criteria: Callable, metric_objs: Dict[str, Any],
@@ -337,14 +399,15 @@ def make_eval_step(model: nn.Module, criteria: Callable, metric_objs: Dict[str, 
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Dict) -> Pairs:
-        net = state.ema.model if use_ema and state.ema is not None else model
+        net = eval_net(state, model, use_ema)
         net.eval()
-        batch = valid_rows(batch)
-        if batch is None:
-            return {}
-        samples, targets = tree_map(to_unit, batch["samples"]), _labels(batch["targets"])
-        with autocast(opts, first_leaf(samples).device):
-            prediction = net(samples)
+        batch = dict(batch, samples=tree_map(to_unit, batch["samples"]))
+        with autocast(opts, first_leaf(batch["samples"]).device):
+            got = valid_forward(net, batch)
+            if got is None:
+                return {}
+            batch, prediction = got
+            samples, targets = batch["samples"], _labels(batch["targets"])
             if logit_subset is not None:
                 if isinstance(prediction, dict):
                     prediction = dict(prediction, logits=prediction["logits"][:, logit_subset])
@@ -372,15 +435,16 @@ def make_video_eval_step(model: nn.Module, metric_objs: Dict[str, Any], use_ema:
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: Dict) -> Pairs:
-        net = state.ema.model if use_ema and state.ema is not None else model
+        net = eval_net(state, model, use_ema)
         net.eval()
-        batch = valid_rows(batch)
-        if batch is None:
+        batch = dict(batch, samples=to_unit(batch["samples"]))
+        with autocast(opts, batch["samples"].device):
+            got = valid_forward(net, batch, lambda x: net(x.flatten(0, 1)).reshape(
+                *x.shape[:2], -1))
+        if got is None:
             return {}
-        samples, targets = to_unit(batch["samples"]), _labels(batch["targets"])
-        b, n_clips = samples.shape[:2]
-        with autocast(opts, samples.device):
-            logits = net(samples.flatten(0, 1)).reshape(b, n_clips, -1)
+        batch, logits = got
+        samples, targets = batch["samples"], _labels(batch["targets"])
         logits = logits.amax(dim=1) if voting == "max" else logits.sum(dim=1)
         return _batch_values(metric_objs, logits, targets,
                              {"loss": torch.zeros((), device=samples.device)})

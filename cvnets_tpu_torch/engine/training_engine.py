@@ -31,11 +31,16 @@ loader finds the samples whose class the model predicts with a true-class
 probability of at least ``sample-confidence``; a sample found so twice leaves
 the sampler's list, unless that would leave fewer than max(16, a tenth).
 
-In a process group (``parallel``) each rank trains on its shard of every
-batch; the Trainer's summaries, log writers and checkpoints are the master's
-(rank 0) alone, every rank keeps the same best metric, the others wait at a
-barrier before a resume reads, and after the resume every rank takes rank
-0's model and EMA. The metrics' pairs are added over the ranks at each read
+In a process group (``parallel``) each data rank trains on its shard of
+every batch; the Trainer's summaries, log writers and checkpoints are the
+master's (rank 0) alone, every rank keeps the same best metric, the others
+wait at a barrier before a resume reads, and after the resume every rank
+takes rank 0's model and EMA. Under ``--dev.fsdp`` or a model axis larger
+than 1 the state is placed as JAX's ``_place_state`` places it
+(training_engine.py:121-123, 250-262): every rank takes rank 0's model and
+EMA, then keeps its shards (``parallel.fsdp.shard_train_state``); a
+checkpoint holds whole tensors and a resume cuts them to each rank's
+shards. The metrics' pairs are added over the ranks at each read
 (``metrics.stats.gathered_pairs``). Sample-efficient training scores each
 rank's shard and takes the union of the ranks' easy samples, so every
 rank's sampler drops the same ones.
@@ -65,10 +70,11 @@ from cvnets_tpu_torch.engine.train_state import (
     UnitNormalizer,
     batch_size,
     create_train_state,
+    eval_net,
     make_eval_step,
     make_train_step,
     make_video_eval_step,
-    valid_rows,
+    valid_forward,
     votes_over_clips,
 )
 from cvnets_tpu_torch.engine.utils import get_log_writers, log_metrics
@@ -79,6 +85,7 @@ from cvnets_tpu_torch.metrics.stats import Statistics, add_pairs, gathered_pairs
 from cvnets_tpu_torch.ops.image_ops import build_device_augmenter
 from cvnets_tpu_torch.ops.mixing import build_mixing_fn
 from cvnets_tpu_torch.optim import build_optimizer
+from cvnets_tpu_torch.parallel.fsdp import shard_train_state, wants_sharding
 from cvnets_tpu_torch.optim.scheduler import build_scheduler
 from cvnets_tpu_torch.utils import logger
 from cvnets_tpu_torch.utils.checkpoint_utils import (
@@ -168,13 +175,19 @@ class Trainer:
                 json.dump({k: v for k, v in sorted(vars(opts).items())
                            if isinstance(v, (str, int, float, bool, list, type(None)))},
                           f, indent=1)
+        if wants_sharding(opts):
+            parallel.broadcast_module_(model)
+            if self.state.ema is not None:
+                parallel.broadcast_module_(self.state.ema.model)
+            shard_train_state(opts, self.state)
         self.start_epoch, self.train_iterations, best = load_checkpoint(
             opts, self.state, self.save_dir, self.generator)
         if best is not None:
             self.ckpt_manager.best_metric = best
-        parallel.broadcast_module_(model)
-        if self.state.ema is not None:
-            parallel.broadcast_module_(self.state.ema.model)
+        if self.state.shards is None:
+            parallel.broadcast_module_(model)
+            if self.state.ema is not None:
+                parallel.broadcast_module_(self.state.ema.model)
         self.log_writers = (get_log_writers(opts, self.save_dir) if self.is_master_node
                             else [])
 
@@ -241,7 +254,7 @@ class Trainer:
         if hasattr(getattr(self.val_loader, "dataset", None), "class_caption_tokens"):
             from cvnets_tpu_torch.engine.evaluation_engine import zero_shot_eval
 
-            net = self.state.ema.model if use_ema and self.state.ema is not None else self.model
+            net = eval_net(self.state, self.model, use_ema)
             stats = zero_shot_eval(self.opts, net, self.val_loader, self.device)
             stage = "validation (EMA)" if use_ema else "validation"
             logger.log(f"*** {stage.title()} summary for epoch {epoch}: zero-shot " + " || ".join(
@@ -263,16 +276,20 @@ class Trainer:
         ``sample_confidence`` (eval mode, each batch's valid rows, its samples
         normalized as an eval step's where JAX's pass feeds them raw), as a
         union over the ranks."""
-        model, to_unit = self.model, UnitNormalizer(self.opts)
+        # a sharded state's weights gathered first (a stand-in Trainer may have no state)
+        model = eval_net(getattr(self, "state", None), self.model)
+        to_unit = UnitNormalizer(self.opts)
         model.eval()
         easy = set()
         for batch in parallel.device_prefetch(self.train_loader, self.device):
-            batch = valid_rows(batch)
-            if batch is None or "sample_id" not in batch:
+            if "sample_id" not in batch:
                 continue
-            targets = batch["targets"]
             with autocast(self.opts, self.device):
-                logits = model(to_unit(batch["samples"]))
+                got = valid_forward(model, batch, lambda x: model(to_unit(x)))
+            if got is None:
+                continue
+            batch, logits = got
+            targets = batch["targets"]
             if isinstance(logits, dict):
                 logits = logits.get("logits", next(iter(logits.values())))
             probs = torch.softmax(logits.float(), dim=-1)
@@ -321,7 +338,11 @@ class Trainer:
                 log_metrics(self.log_writers, self.val_epoch(epoch, use_ema=True), epoch,
                             prefix="val_ema/")
                 if epoch == self.ema_copy_at_epoch:
-                    self.model.load_state_dict(self.state.ema.model.state_dict())
+                    if self.state.shards is not None:
+                        self.state.shards.load_full_state_dict(
+                            self.state.shards.full_state_dict(use_ema=True))
+                    else:
+                        self.model.load_state_dict(self.state.ema.model.state_dict())
                     logger.info(f"Copied EMA weights into model at epoch {epoch}")
             ckpt_metric = val_stats.get(
                 self.ckpt_metric_name, val_stats.get("loss", train_stats.get("loss", 0.0))

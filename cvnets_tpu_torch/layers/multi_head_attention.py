@@ -12,9 +12,15 @@ inside a ``torch.profiler`` range named ``EINSUM_ROUTE``, so that a profile
 can sum the route's kernels (its backward's through the autograd sequence
 numbers of the ops in the range).
 
+Under ``--dev.sequence-parallel`` the layer takes ring attention
+(``parallel/ring_attention.py``, the JAX layer's :87-100) in the fused
+route's place when the model axis M > 1 divides S (``ring_attention_eligible``),
+with the same conditions: no ``attn_mask``, as many queries as keys, no
+attention dropout in training. Otherwise, M = 1 among them, it keeps its
+local route, as JAX's does.
+
 Under ``--common.int8-inference`` both projections take the int8 forward
-(``quantization.quant_linear``, the JAX ``quant_dense``). Not ported: the
-ring-attention branch of ``--dev.sequence-parallel`` (:87-100), which raises.
+(``quantization.quant_linear``, the JAX ``quant_dense``).
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ import torch.nn as nn
 from torch.profiler import record_function
 
 from cvnets_tpu_torch.ops.mha_attention import fused_attention_eligible, fused_mha_attention
-from cvnets_tpu_torch.parallel.mesh import MODEL_PARALLEL_ITEM
+from cvnets_tpu_torch.parallel.ring_attention import ring_attention, ring_attention_eligible
 from cvnets_tpu_torch.quantization import quant_linear
 
 EINSUM_ROUTE = "mha_einsum_route"
@@ -38,10 +44,7 @@ class MultiHeadAttention(nn.Module):
         super().__init__()
         if embed_dim % num_heads:
             raise ValueError(f"embed_dim {embed_dim} must be divisible by num_heads {num_heads}")
-        if getattr(opts, "dev.sequence_parallel", False):
-            raise NotImplementedError(
-                f"--dev.sequence-parallel (ring attention) is not ported: it waits for "
-                f"{MODEL_PARALLEL_ITEM}")
+        self.sequence_parallel = bool(getattr(opts, "dev.sequence_parallel", False))
         self.embed_dim, self.num_heads = embed_dim, num_heads
         self.qkv_proj = quant_linear(opts, embed_dim, 3 * embed_dim, bias=bias)
         self.out_proj = quant_linear(opts, embed_dim, embed_dim, bias=bias)
@@ -64,12 +67,15 @@ class MultiHeadAttention(nn.Module):
         b, nq, _ = q.shape
         nk = k.shape[1]
         scale = hd ** -0.5
-        if (self.use_kernel and attn_mask is None and nq == nk
-                and (self.attn_dropout.p == 0 or not self.training)
+        fused = (attn_mask is None and nq == nk
+                 and (self.attn_dropout.p == 0 or not self.training))
+        km = None
+        if fused and key_padding_mask is not None:
+            km = torch.where(key_padding_mask, -1e30, 0.0)
+        if fused and self.sequence_parallel and ring_attention_eligible(nq):
+            return self.out_proj(ring_attention(q * scale, k, v, h, km))
+        if (fused and self.use_kernel
                 and fused_attention_eligible(nq, d, h, q.element_size(), q.is_cuda)):
-            km = None
-            if key_padding_mask is not None:
-                km = torch.where(key_padding_mask, -1e30, 0.0)
             return self.out_proj(fused_mha_attention(q * scale, k, v, h, km))
 
         with record_function(EINSUM_ROUTE):

@@ -156,7 +156,7 @@ class _GlobalBatchStats:
     process group of more than one rank."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training and parallel.world_size() > 1:
+        if self.training and parallel.data_size() > 1:
             self._check_input_dim(x)
             return _sync_batch_norm(self, x)
         return super().forward(x)
@@ -191,7 +191,7 @@ class BiasedVarBatchNorm2d(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
-        if parallel.world_size() > 1:
+        if parallel.data_size() > 1:
             return _sync_batch_norm(self, x, bessel=False)
         m = self.momentum
         # the backward keeps the running variance it was given: a copy, C floats

@@ -58,9 +58,9 @@ class ContrastiveLossClip(BaseMultiModalLoss):
             image, text = image.float(), text.float()
             all_image, all_text = all_gather_with_grad(image), all_gather_with_grad(text)
             labels = torch.arange(image.shape[0], device=image.device) \
-                + parallel.rank() * image.shape[0]
+                + parallel.data_index() * image.shape[0]
             logits = (scale * image) @ all_text.t()  # this rank's images against every text
-            if parallel.world_size() > 1:  # this rank's texts against every image
+            if parallel.data_size() > 1:  # this rank's texts against every image
                 logits_t = ((scale * all_image) @ text.t()).t()
             else:
                 logits_t = logits.t()

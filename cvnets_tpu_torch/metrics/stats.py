@@ -100,7 +100,7 @@ def gathered_pairs(pairs: Optional[Pairs]) -> HostPairs:
     """``pairs`` (None: none) read back, and added over the ranks of a
     process group."""
     host = pairs_to_host(pairs) if pairs is not None else {}
-    if parallel.world_size() == 1:
+    if parallel.data_size() == 1:
         return host
     return merge_host_pairs(parallel.all_gather_objects(host))
 

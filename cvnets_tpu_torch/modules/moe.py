@@ -21,8 +21,23 @@ token gathers its k rows back, weighted by its renormalised gates. The
 expert leaves keep JAX's layout and rank (``experts_fc1`` (E, D, F),
 ``experts_fc1_bias`` (E, 1, F), ``experts_fc2`` (E, F, D),
 ``experts_fc2_bias`` (E, 1, D)), so the optimizer's rank > 1 decay mask
-decays the 3-D biases, as JAX's does. Expert parallelism
-(``_expert_sharding_constraint``) has nothing to do on one device.
+decays the 3-D biases, as JAX's does.
+
+In a process group JAX routes the global batch (:39-53, :117). Each rank
+all-gathers the router probabilities, (T, E), over the data group
+(``all_gather_with_grad``) and routes the global tokens with ``route``,
+capacity from the global T: every rank makes JAX's decisions token for token,
+drops included, and keeps its own tokens' rows. At one model rank it runs
+its tokens through every expert. Under a model axis M > 1 that divides E
+(``parallel.tensor_parallel`` cuts the stacks), the rank at model index m
+holds experts [m·E/M, (m+1)·E/M) (``expert_offset``): it runs its data
+shard's tokens through those, and the partial combined outputs are summed
+over the model group (the tokens and the gates enter through
+``copy_to_model``, so their gradients sum the experts' shares). The
+load-balance loss is the global one on every rank; under the gradients'
+average over the data group its gradient comes out right, as the
+contrastive loss's does. ``dropped`` counts the global batch's (token,
+round) pairs past capacity.
 
 The forward reads nothing back to the host (no boolean indexing: a round
 that is not dispatched writes a spare last row of the buffer), and runs in
@@ -51,6 +66,7 @@ from cvnets_tpu_torch.layers.init_utils import init_tensor
 from cvnets_tpu_torch.layers.linear_layer import LinearLayer
 from cvnets_tpu_torch.layers.multi_head_attention import MultiHeadAttention
 from cvnets_tpu_torch.layers.normalization import get_normalization_layer
+from cvnets_tpu_torch.parallel.tensor_parallel import copy_to_model, reduce_from_model
 
 
 MOE_ROUTE, MOE_EXPERTS, MOE_COMBINE = "moe_route", "moe_experts", "moe_combine"
@@ -122,6 +138,8 @@ class MoEFFN(nn.Module):
         self.experts_fc2_bias = nn.Parameter(torch.zeros(e, 1, d))
         self.act = build_act_layer(opts, act_name)
         self.aux_loss: Optional[torch.Tensor] = None
+        self.dropped: Optional[torch.Tensor] = None
+        self.expert_offset = 0  # the first expert this rank holds (expert parallelism)
 
     def init_own_parameters(self, generator: Optional[torch.Generator]) -> None:
         """The stacked experts: normals at std 0.02, zero biases (:117-121)."""
@@ -131,42 +149,52 @@ class MoEFFN(nn.Module):
             nn.init.zeros_(b)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if parallel.world_size() > 1:
-            # capacity and places would come from this rank's tokens, where JAX
-            # routes the global batch: different tokens would be dropped
-            raise NotImplementedError(
-                "MoE routes the global batch; in a process group it waits for expert "
-                f"parallelism, part of {parallel.MODEL_PARALLEL_ITEM}")
         b, s, d = x.shape
         e, k = self.num_experts, self.top_k
         tokens = x.reshape(b * s, d)
         t = b * s
-        cap = capacity(t, e, k, self.capacity_factor)
+        e_local = self.experts_fc1.shape[0]
+        split = e_local < e  # this model rank holds a share of the experts
         with record_function(MOE_ROUTE):
             with torch.autocast(device_type=x.device.type, enabled=False):
                 probs = torch.softmax(self.router(tokens.float()), dim=-1)  # (T, E)
+            probs = parallel.all_gather_with_grad(probs)  # the global batch's rows
+            cap = capacity(probs.shape[0], e, k, self.capacity_factor)
             expert, place, kept, weight, importance = route(probs, k, cap)
+            self.dropped = (~kept).sum()
             self.aux_loss = (e * (probs.mean(0) * importance / k).sum()) if self.training \
                 else None
+            if probs.shape[0] > t:  # this rank's rows of the global routing
+                rows_of = slice(parallel.data_index() * t, (parallel.data_index() + 1) * t)
+                expert, place, kept, weight = (v[rows_of] for v in (expert, place, kept,
+                                                                      weight))
+            if split:
+                tokens, weight = copy_to_model(tokens), copy_to_model(weight)
+            expert = expert - self.expert_offset
+            mine = (expert >= 0) & (expert < e_local)
             # each (token, round) to its row expert·C + place of the buffer; a
-            # round that is not dispatched (JAX's dispatch = combine > 0) to the
-            # spare row e·C, dropped after
+            # round that is not dispatched here (JAX's dispatch = combine > 0,
+            # and an expert of this rank) to the spare row e·C, dropped after
             slot = expert * cap + place
-            dispatched = kept & (weight > 0)
-            rows = torch.where(dispatched, slot, e * cap).reshape(-1)
-            xin = tokens.new_zeros(e * cap + 1, d).index_copy(
-                0, rows, tokens[:, None].expand(t, k, d).reshape(t * k, d))[:e * cap]
+            dispatched = kept & (weight > 0) & mine
+            rows = torch.where(dispatched, slot, e_local * cap).reshape(-1)
+            xin = tokens.new_zeros(e_local * cap + 1, d).index_copy(
+                0, rows, tokens[:, None].expand(t, k, d).reshape(t * k, d))[:e_local * cap]
         with record_function(MOE_EXPERTS):
-            h = torch.bmm(xin.view(e, cap, d), self.experts_fc1)
+            h = torch.bmm(xin.view(e_local, cap, d), self.experts_fc1)
             h = self.act(h + self.experts_fc1_bias.to(h.dtype))  # the bias in the compute dtype
             out = torch.bmm(h, self.experts_fc2)
-            out = (out + self.experts_fc2_bias.to(out.dtype)).reshape(e * cap, d)
+            out = (out + self.experts_fc2_bias.to(out.dtype)).reshape(e_local * cap, d)
         with record_function(MOE_COMBINE):
             # index_select, whose backward is one scatter-add: each row of the
             # buffer is read by at most one dispatched round (the others read
             # row 0 at weight 0 and add zeros to it)
             gathered = out.index_select(0, torch.where(dispatched, slot, 0).reshape(-1))
-            y = (gathered.view(t, k, d).float() * weight[..., None]).sum(1).to(out.dtype)
+            w = weight * mine if split else weight
+            y = (gathered.view(t, k, d).float() * w[..., None]).sum(1)
+            if split:
+                y = reduce_from_model(y)
+            y = y.to(out.dtype)
         return y.reshape(b, s, d)
 
 

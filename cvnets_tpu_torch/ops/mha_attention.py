@@ -21,7 +21,9 @@ already scaled; ``key_mask`` is an additive (B, S) float32 mask or None.
 * ``mha_attention_plain`` / ``mha_attention_backward_plain``: the same
   functions in plain torch ops (the JAX ``_reference`` and its einsum VJP), for
   CPU tensors and as the kernels' references; ``mha_attention_stats_plain``
-  the forward kernel's saved row statistics, as its reference.
+  the forward kernel's saved row statistics, as its reference;
+  ``mha_attention_block_backward_plain`` the backward of one block of a
+  longer row from the whole row's output and statistics (ring attention).
 * ``mha_attention_fwd`` (``torch.ops.cvnets_tpu_torch.mha_attention_fwd``): the
   forward as a custom op, so that ``torch.export`` records it as one node:
   the forward kernel on a CUDA tensor, the plain version and its statistics
@@ -130,6 +132,29 @@ def mha_attention_backward_plain(q, k, v, key_mask, out, g, heads: int
     """mha_attn.py:260-273, the einsum VJP in float32; grads in input dtypes."""
     qh, kh, vh, gh, oh = (_split_heads(t, heads) for t in (q, k, v, g, out))
     p = _softmax_probs(qh, kh, key_mask)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, gh)
+    dp = torch.einsum("bqhd,bkhd->bhqk", gh, vh)
+    delta = (gh * oh).sum(dim=-1)                       # (B, S, H)
+    ds = p * (dp - delta.permute(0, 2, 1)[..., None])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, kh)
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, qh)
+    return (dq.reshape(q.shape).to(q.dtype), dk.reshape(k.shape).to(k.dtype),
+            dv.reshape(v.shape).to(v.dtype))
+
+
+def mha_attention_block_backward_plain(q, k, v, key_mask, out, g, stats, heads: int
+                                       ) -> Tuple[torch.Tensor, ...]:
+    """The backward kernel's math for one block of a longer row (ring
+    attention, ``parallel/ring_attention.py``): p = exp(logit + mask - m -
+    log-sum) from the given (2, B, H, S) statistics and delta = rowsum(g·out)
+    from the given output, both the whole row's, where
+    ``mha_attention_backward_plain`` renormalises over its own keys. Float32;
+    grads in input dtypes."""
+    qh, kh, vh, gh, oh = (_split_heads(t, heads) for t in (q, k, v, g, out))
+    logits = _logits(qh, kh, key_mask)                  # (B, H, Sq, Sk)
+    # m and the log-sum apart: on a fully masked row m = -1e30 and their sum
+    # would round log(S) away
+    p = torch.exp(logits - stats[0][..., None] - stats[1][..., None])
     dv = torch.einsum("bhqk,bqhd->bkhd", p, gh)
     dp = torch.einsum("bqhd,bkhd->bhqk", gh, vh)
     delta = (gh * oh).sum(dim=-1)                       # (B, S, H)

@@ -67,21 +67,27 @@ def arguments_common(parser: argparse.ArgumentParser) -> argparse.ArgumentParser
 
 def arguments_dev(parser: argparse.ArgumentParser) -> argparse.ArgumentParser:
     """The device flags (cvnets_tpu/options/opts.py:89-131): the port runs one
-    process a card over ``--dev.num-devices`` cards (parallel/mesh.py). The
-    model-parallel flags parse and are refused (``parallel.check_options``)."""
+    process a card over ``--dev.num-devices`` cards (parallel/mesh.py), laid
+    out as the (data, model) grid of ``--dev.mesh-shape``; ``--dev.fsdp``
+    shards the state over the data axis (parallel/fsdp.py) and
+    ``--dev.sequence-parallel`` runs attention as a ring over the model axis
+    (parallel/ring_attention.py)."""
     group = parser.add_argument_group(title="Device arguments")
     group.add_argument("--dev.device", type=str, default=None,
                        help="Parsed and not read: the entry points take their device")
     group.add_argument("--dev.num-devices", type=int, default=-1,
                        help="Cards to train on, one process a card; -1 = every visible card")
     group.add_argument("--dev.mesh-shape", type=int, nargs="*", default=None,
-                       help="N (data parallel over N cards); a second, model axis > 1 "
-                            "is refused (model parallelism is not ported)")
-    group.add_argument("--dev.mesh-axis-names", type=str, nargs="*", default=None)
+                       help="The process grid, e.g. 8 (data parallel) or 4 2 (data x "
+                            "model: tensor and expert parallelism over the model axis)")
+    group.add_argument("--dev.mesh-axis-names", type=str, nargs="*", default=None,
+                       help="Names of the mesh axes; default data, or data model")
     group.add_argument("--dev.fsdp", action="store_true", default=False,
-                       help="Refused: FSDP waits for the model-parallel slice")
+                       help="Shard the parameters, optimizer moments and EMA over the "
+                            "data axis (leaves of 8192 elements or more)")
     group.add_argument("--dev.sequence-parallel", action="store_true", default=False,
-                       help="Refused: ring attention waits for the model-parallel slice")
+                       help="Ring attention over the model axis where it divides the "
+                            "token count")
     return parser
 
 

@@ -20,8 +20,11 @@ Files hold tensors, ints, floats, None and dicts only, so ``torch.load``'s
 renamed, so a run stopped during a save keeps the previous file whole. The
 k-best list lives in the manager: a resumed run starts it empty, as the JAX
 package does. In a process group only the master writes; a resume on every
-rank reads the master's file (rank 0 takes its device generator, the others
-reseed theirs from (seed, iterations, rank)).
+rank reads the master's file (data index 0 takes its device generator, the
+others reseed theirs from (seed, iterations, data index)). A sharded state
+(``parallel.fsdp``) writes whole tensors, gathered on every rank before the
+master writes (the files load into one process), and a resume cuts each
+tensor to the rank's shard.
 
 ``--common.finetune`` (and ``--common.finetune-ema``) start a run from the
 model weights of such a file with the JAX package's scope surgery
@@ -118,10 +121,11 @@ class CheckpointManager:
         new_best = self.is_best(ckpt_metric)
         if new_best:
             self.best_metric = ckpt_metric
+        if getattr(state, "shards", None) is None and not self.is_master:
+            return
+        model_sd, ema_sd, optim_sd = _whole_state(state)
         if not self.is_master:
             return
-        model_sd = state.model.state_dict()
-        ema_sd = state.ema.model.state_dict() if state.ema is not None else None
         device = next(state.model.parameters()).device
         save_file({
             "epoch": epoch,
@@ -129,7 +133,7 @@ class CheckpointManager:
             "best_metric": self.best_metric if abs(self.best_metric) != float("inf")
             else ckpt_metric,
             "model": model_sd,
-            "optimizer": state.optimizer.state_dict(),
+            "optimizer": optim_sd,
             "ema": ema_sd,
             "generator": generator.get_state() if generator is not None else None,
             "rng": _rng_state(device),
@@ -165,9 +169,25 @@ class CheckpointManager:
 
     def save_interval(self, state, iterations: int) -> None:
         """The every-N-iterations checkpoint (checkpoint_utils.py:160-166)."""
+        if getattr(state, "shards", None) is not None:
+            model_sd = state.shards.full_state_dict()
+        elif self.is_master:
+            model_sd = state.model.state_dict()
         if self.is_master:
-            save_file(state.model.state_dict(),
-                      self.path(f"checkpoint_iter_{iterations}"))
+            save_file(model_sd, self.path(f"checkpoint_iter_{iterations}"))
+
+
+def _whole_state(state) -> Tuple[dict, Optional[dict], dict]:
+    """The model's, the EMA's and the optimizer's state dicts with whole
+    tensors (a sharded state's gathered: every rank calls this then)."""
+    shards = getattr(state, "shards", None)
+    if shards is None:
+        return (state.model.state_dict(),
+                state.ema.model.state_dict() if state.ema is not None else None,
+                state.optimizer.state_dict())
+    return (shards.full_state_dict(),
+            shards.full_state_dict(use_ema=True) if state.ema is not None else None,
+            shards.full_optimizer_state_dict(state.optimizer))
 
 
 def load_checkpoint(opts, state, save_dir: str,
@@ -184,20 +204,26 @@ def load_checkpoint(opts, state, save_dir: str,
     if not path:
         return 0, 0, None
     blob = load_file(path)
-    state.model.load_state_dict(blob["model"])
-    state.optimizer.load_state_dict(blob["optimizer"])
-    if state.ema is not None and blob["ema"] is not None:
-        state.ema.model.load_state_dict(blob["ema"])
+    if getattr(state, "shards", None) is not None:
+        state.shards.load_full_state_dict(blob["model"])
+        state.shards.load_full_optimizer_state_dict(state.optimizer, blob["optimizer"])
+        if state.ema is not None and blob["ema"] is not None:
+            state.shards.load_full_state_dict(blob["ema"], use_ema=True)
+    else:
+        state.model.load_state_dict(blob["model"])
+        state.optimizer.load_state_dict(blob["optimizer"])
+        if state.ema is not None and blob["ema"] is not None:
+            state.ema.model.load_state_dict(blob["ema"])
     state.step = blob["iterations"]
     if generator is not None and blob["generator"] is not None:
         generator.set_state(blob["generator"])
     device = next(state.model.parameters()).device
-    rank = parallel.rank()
-    if rank == 0:
+    index = parallel.data_index()
+    if index == 0:
         _set_rng_state(device, blob["rng"])
-    else:  # the file holds rank 0's generator: the others draw from (seed, step, rank)
+    else:  # the file holds data index 0's generator: the others draw from (seed, step, index)
         torch.manual_seed(int(np.random.SeedSequence(
-            [getattr(opts, "common.seed", 0) or 0, blob["iterations"], rank]
+            [getattr(opts, "common.seed", 0) or 0, blob["iterations"], index]
         ).generate_state(1)[0]))
     epoch = blob["epoch"] + 1
     logger.info(f"Resumed from {path}: epoch {epoch}, iteration {blob['iterations']}")

@@ -20,9 +20,11 @@ def device_setup(opts, device: Union[str, torch.device, None] = None) -> torch.d
 
     Python's and numpy's generators take ``common.seed`` on every rank (the
     samplers' draws are the same on each); torch's default generators, which
-    dropout and stochastic depth draw from, take it on rank 0 and
-    (``common.seed``, rank) on the others, so ranks drop different units
-    where JAX draws one mask over the global batch. A model's weights come
+    dropout and stochastic depth draw from, take it at data index 0 and
+    (``common.seed``, data index) at the others, so data ranks drop different
+    units where JAX draws one mask over the global batch, and the ranks of a
+    model group, which hold the same rows, drop the same ones (tensor
+    parallelism sums partial products of one mask). A model's weights come
     from a generator of their own seeded with ``common.seed``
     (``models.get_model``), the same on every rank."""
     device = torch.device(device if device is not None else "cuda")
@@ -34,9 +36,9 @@ def device_setup(opts, device: Union[str, torch.device, None] = None) -> torch.d
     seed = getattr(opts, "common.seed", 0) or 0
     random.seed(seed)
     np.random.seed(seed)
-    rank = parallel.rank()
-    torch.manual_seed(seed if rank == 0 else
-                      int(np.random.SeedSequence([seed, rank]).generate_state(1)[0]))
+    index = parallel.data_index()
+    torch.manual_seed(seed if index == 0 else
+                      int(np.random.SeedSequence([seed, index]).generate_state(1)[0]))
     return device
 
 

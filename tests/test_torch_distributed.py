@@ -27,8 +27,9 @@ and writes each rank's results; the tests compare them with JAX's:
   metrics, average precision, the confusion matrix and the probability
   histogram;
 * sample-efficient training: the ids both ranks drop are those JAX's
-  ``find_easy_samples`` drops on the whole set;
-* MoE refuses to run in a group.
+  ``find_easy_samples`` drops on the whole set.
+
+MoE in a group is test_torch_fsdp's and test_torch_model_parallel_grid's.
 """
 
 from __future__ import annotations
@@ -113,7 +114,6 @@ def _suite(rank: int, data: dict) -> dict:
     out["losses"] = _losses(rank, data["losses"])
     out["metrics"] = _metrics(data["metrics"])
     out["easy"] = _easy(data["easy"])
-    out["moe"] = _moe()
     return out
 
 
@@ -261,19 +261,6 @@ def _easy(data: dict) -> dict:
         loader.batch_sampler.set_epoch(epoch)
         Trainer.find_easy_samples(trainer, epoch)
     return {"kept": loader.batch_sampler.img_indices}
-
-
-def _moe():
-    from cvnets_tpu_torch.modules.moe import MoEFFN
-    from cvnets_tpu_torch.options.opts import get_training_arguments
-
-    layer = MoEFFN(get_training_arguments(args=[]), 8, 16, num_experts=4)
-    torch.nn.init.normal_(layer.experts_fc1)
-    try:
-        layer(torch.zeros(2, 3, 8))
-    except NotImplementedError as e:
-        return str(e)
-    return None
 
 
 # -------------------------------------------------------------- the parent
@@ -724,8 +711,3 @@ def test_sample_efficient_training_drops_the_jax_ids_on_every_rank(runs):
     assert want is not None and 16 <= len(want) < EASY_N - 4
     for r in runs["ranks"]:
         assert r["easy"]["kept"] == want
-
-
-def test_moe_refuses_a_process_group_and_names_the_model_parallel_item(runs):
-    for r in runs["ranks"]:
-        assert r["moe"] is not None and "ROADMAP.md queue 1 item 14" in r["moe"]

@@ -13,7 +13,6 @@ that need no process group.
   ``n_device_mult`` set to 2, two devices of one process), for
   ``batch_sampler``, ``variable_batch_sampler`` and ``chain_sampler``; the
   rows past a rank's samples are marked as padding.
-* The model-parallel flags raise and name their ROADMAP item.
 * Two ranks building the kernels never share nvcc's temporary output.
 """
 
@@ -192,25 +191,6 @@ def test_the_ranks_batches_are_the_jax_global_batches(name, mode, is_training):
         if name == "batch_sampler":
             assert valid == list(range(n))
             assert sum(b.n_valid for b in got[0]) == 31 and sum(b.n_valid for b in got[1]) == 30
-
-
-@pytest.mark.parametrize("flag", [["--dev.fsdp"], ["--dev.sequence-parallel"],
-                                  ["--dev.mesh-shape", "1", "2"]])
-def test_model_parallel_flags_raise_naming_their_roadmap_item(flag):
-    from cvnets_tpu_torch import main_eval, main_train
-
-    for entry in (main_train, main_eval):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1 item 14"):
-            entry.main_worker(args=SMALL_MODEL_ARGS + flag, device="cpu")
-
-
-def test_sequence_parallel_attention_raises_naming_the_item():
-    from cvnets_tpu_torch.layers.multi_head_attention import MultiHeadAttention
-    from cvnets_tpu_torch.options.opts import get_training_arguments
-
-    opts = get_training_arguments(args=["--dev.sequence-parallel"])
-    with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue 1 item 14"):
-        MultiHeadAttention(opts, 32, 4)
 
 
 def test_two_ranks_never_share_nvccs_temporary_output(tmp_path, monkeypatch):

@@ -1,7 +1,8 @@
 """The PyTorch port stands without JAX, and keeps the JAX package's flags.
 
-* ``cvnets_tpu_torch`` (its process-group, log-writer, chain-sampler and
-  extra-metric modules too) imports and runs CPU train steps of MobileViTv2, ViT,
+* ``cvnets_tpu_torch`` (its process-group, model-parallel, log-writer,
+  chain-sampler and extra-metric modules and its rehearsal tools too)
+  imports and runs CPU train steps of MobileViTv2, ViT,
   DeepLabv3, PSPNet with frozen BN, Swin, SE-ResNet-18 and MobileOne-s0 (then
   folded), one epoch of a micro MobileViTv2 ``Trainer`` (its ``config.yaml``
   dump and checkpoints), ``main_train`` for 2 epochs on chip_smoke.py's
@@ -50,6 +51,8 @@ _BLOCKED_RUN = textwrap.dedent("""
     from cvnets_tpu_torch.data.sampler import chain_sampler  # noqa: F401
     from cvnets_tpu_torch.metrics import extra_metrics  # noqa: F401
     from cvnets_tpu_torch import parallel  # noqa: F401
+    from cvnets_tpu_torch.parallel import fsdp, ring_attention, sharding_rules  # noqa: F401
+    from cvnets_tpu_torch.parallel import tensor_parallel  # noqa: F401
     from cvnets_tpu_torch.utils import common_utils  # noqa: F401
     from cvnets_tpu_torch.engine.train_state import create_train_state, make_train_step
     from cvnets_tpu_torch.loss import build_loss_fn
@@ -95,6 +98,8 @@ _BLOCKED_RUN = textwrap.dedent("""
                           device="cpu").eval_fn_image()
         assert set(stats) == {"loss", "top1", "top5"}
     sys.path[:0] = ["tests", "."]
+    from cvnets_tpu_torch.tools import rehearse_ddp_checks  # noqa: F401
+    from cvnets_tpu_torch.tools import rehearse_model_parallel_checks  # noqa: F401
     from chip_smoke import MAIN_TRAIN_ARGS
     from torch_port_helpers import register_port_dummy_dataset
     from cvnets_tpu_torch.main_eval import main_worker as main_eval

@@ -593,3 +593,132 @@ def flags_differ_from_yaml(flag_opts, yaml_path: str) -> list:
     flags = vars(flag_opts)
     yaml = vars(get_training_arguments(args=["--common.config-file", yaml_path]))
     return sorted(k for k in yaml if scalar(yaml[k]) != scalar(flags[k]))
+
+
+# ---- model parallelism: train steps on a (data, model) grid of gloo ranks ----
+# micro ViT steps: SGD without momentum (the JAX model-parallel tests' bound of
+# 5e-4 on the parameters after one step, 1e-4 relative on the loss), and AdamW
+# with EMA and accumulation (test_torch_distributed's bounds)
+MP_SGD_ARGS = [
+    "--loss.classification.cross-entropy.label-smoothing", "0.1",
+    "--optim.name", "sgd", "--optim.sgd.momentum", "0", "--optim.weight-decay", "0",
+]
+MP_SGD_LR = 0.05
+MP_SPAWN_TIMEOUT_S = 240
+
+
+def mp_rows(batch: int, accum: int, data: int, index: int) -> np.ndarray:
+    """Data rank ``index``'s rows of a global batch: its share of each of JAX's
+    contiguous micro-batches."""
+    micro = batch // accum
+    per = micro // data
+    return np.concatenate([np.arange(i * micro + index * per, i * micro + (index + 1) * per)
+                           for i in range(accum)])
+
+
+def mp_grid_opts(args, shape, extra=()):
+    """The port's options with ``--dev.mesh-shape``, and the grid formed on them."""
+    from cvnets_tpu_torch.options.opts import get_training_arguments
+    from cvnets_tpu_torch.parallel import mesh
+
+    opts = get_training_arguments(args=list(args) + ["--dev.mesh-shape", *map(str, shape),
+                                                     *extra])
+    mesh.form_grid(opts)
+    return opts
+
+
+def mp_steps(opts, state_dict: dict, xs, ys, lrs, accum: int = 1, shard: bool = True,
+             seed=None) -> dict:
+    """The port's train steps from ``state_dict`` on this rank's rows of each
+    global batch (all of them outside a group): whole parameters and EMA after
+    each step (gathered from the shards), the rank's loss and the global grad
+    norm, and the shards' sizes and state bytes. ``seed``: torch's default
+    generator seeded before the first step (a model with dropout)."""
+    import torch
+
+    from cvnets_tpu_torch.engine import train_state as port
+    from cvnets_tpu_torch.loss import build_loss_fn
+    from cvnets_tpu_torch.metrics import build_metrics
+    from cvnets_tpu_torch.models import get_model
+    from cvnets_tpu_torch.optim import build_optimizer
+    from cvnets_tpu_torch.parallel import mesh
+    from cvnets_tpu_torch.parallel.fsdp import shard_train_state
+
+    model = get_model(opts, device="cpu")
+    model.load_state_dict(state_dict)
+    state = port.create_train_state(model, build_optimizer(opts, model),
+                                    ema_enabled=getattr(opts, "ema.enable", False))
+    if shard:
+        shard_train_state(opts, state)
+    step = port.make_train_step(model, build_loss_fn(opts), opts,
+                                build_metrics(opts, ["loss", "grad_norm"]))
+    g = mesh.grid()
+    rows = mp_rows(len(ys[0]), accum, g.data, g.data_index)
+    if seed is not None:
+        torch.manual_seed(seed)
+    out = {"steps": []}
+    for x, y, lr in zip(xs, ys, lrs):
+        batch = {"samples": nchw(x[rows]), "targets": torch.from_numpy(y[rows])}
+        state, metrics = step(state, batch, lr)
+        if shard:
+            sd, ema = state.shards.full_state_dict(), (
+                state.shards.full_state_dict(use_ema=True) if state.ema is not None else {})
+        else:
+            sd = model.state_dict()
+            ema = state.ema.model.state_dict() if state.ema is not None else {}
+        out["steps"].append(({k: v.clone() for k, v in sd.items()},
+                             {k: v.clone() for k, v in ema.items()},
+                             float(metrics["loss"]["loss"][0]),
+                             float(metrics["grad_norm"]["grad_norm"][0])))
+    if shard:
+        out["shapes"] = {leaf.name: tuple(leaf.storage.shape) for leaf in state.shards.leaves}
+        out["bytes"] = state.shards.state_bytes(state.optimizer)
+        out["moments"] = {leaf.name: tuple(state.optimizer.state[leaf.storage]["exp_avg"].shape)
+                          for leaf in state.shards.leaves
+                          if "exp_avg" in state.optimizer.state.get(leaf.storage, {})}
+    return out
+
+
+def mp_global_loss(ranks: list, step: int, data: int, model: int) -> float:
+    """The global batch's loss of a step: the mean of the data ranks' (each
+    model rank of a data index holds the same)."""
+    return sum(ranks[d * model]["steps"][step][2] for d in range(data)) / data
+
+
+def mp_spawn(fn, world: int, args: tuple):
+    """``fn(index, *args)`` in ``world`` gloo ranks (not joined)."""
+    from cvnets_tpu_torch import parallel
+
+    return parallel.spawn(fn, world, args, timeout_s=MP_SPAWN_TIMEOUT_S, join=False)
+
+
+def mp_init(index: int, world: int, store: str) -> None:
+    import torch
+
+    from cvnets_tpu_torch.parallel import mesh
+
+    torch.set_num_threads(1)
+    mesh.init_group("gloo", index, world, f"file://{store}", timeout_s=MP_SPAWN_TIMEOUT_S)
+
+
+def assert_sgd_step_matches(got_sd: dict, jax_state, loss: float, jloss: float) -> None:
+    """One SGD step against JAX's: the loss to 1e-4 relative, every parameter
+    to 5e-4 (tests/test_tensor_parallel.py's and test_fsdp.py's bounds)."""
+    import pytest
+
+    assert loss == pytest.approx(jloss, rel=1e-4)
+    worst = max(float(np.abs(got - want).max())
+                for _, want, got in mp_pairs(jax_state.params, got_sd))
+    assert worst < 5e-4, worst
+
+
+def mp_pairs(tree, state_dict):
+    """(torch key, flax leaf in torch layout, port tensor) for every leaf."""
+    import jax
+
+    from cvnets_tpu_torch.utils.jax_params import to_torch_layout, torch_key
+
+    for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+        path = tuple(p.key for p in path)
+        key = torch_key(path)
+        yield key, to_torch_layout(path, np.asarray(leaf)), state_dict[key].numpy()
